@@ -1,0 +1,538 @@
+"""Serial tree learner — staged wave growth on one device.
+
+Port of the JAX package's ``learner/serial.py`` (reference
+``SerialTreeLearner``, `serial_tree_learner.cpp:155-622`).  A tree grows
+in *waves*; each wave
+
+  1. applies the previous wave's pending splits to the rows and
+     histograms ONLY the smaller child of every split (the fused
+     route+histogram kernel on waves of <= 32 slots; the route kernel
+     then the leaf-compacted histogram kernel above that),
+  2. derives each sibling by parent-minus-child subtraction from the
+     per-leaf histogram state ``[L, G, B, 3]`` (`feature_histogram.hpp:64-70`),
+  3. re-scans only the changed leaves and caches their best splits,
+  4. splits every positive-gain leaf (up to the wave's slot count),
+     ranked by gain with a stable sort.
+
+The final pass routes the last wave's splits and emits each row's leaf
+value for the score update (the route-values kernel).
+
+The slot counts follow :func:`stage_plan` (8, 8, 16, 32, ... then a
+fixed-width tail), and datasets of at most ``COMPILE_LEAN_ROWS`` rows run
+every wave at the tail width — the reference's plan, which decides how
+many splits a wave may take and so the model.  The reference's
+``lax.while_loop`` tail becomes a Python loop that reads the leaf count
+and the stop flag once per wave.
+
+State arrays carry one extra trailing slot (``[L + 1]`` per leaf,
+``[L]`` per node of ``L - 1``): the reference's "drop" scatters (index
+``L`` / ``L - 1``) write there, and it is sliced off at the end.  State
+is updated in place.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..io.binning import MISSING_NAN, MISSING_ZERO
+from ..io.device import DeviceData
+from ..ops.compact import compact_slot_threshold, hist_active_compact
+from ..ops.histogram import (QUANTIZED_MODES, bin_stride, hist_route,
+                             is_quantized, pack_values_q, unbundle_grid)
+from ..ops.route import route_rows, route_rows_values, unbundle_bin
+from ..ops.split import (SplitParams, SplitResult, find_best_splits,
+                         leaf_output, split_scan_chunk_features)
+
+NEG_INF = -1e30
+
+# datasets at or below this row count run every wave at the tail width
+# (the reference's compile-lean plan; it changes how many splits a wave
+# may take, so the port keeps it to build the same trees)
+COMPILE_LEAN_ROWS = 65536
+
+# the root statistics reduce in chunks of this many rows (the
+# reference's canonical reduction tree)
+STREAM_CHUNK = 8192
+
+# int8 cells accumulate exactly in int32 while n * 127 < 2^31
+_INT8_ROW_LIMIT = ((1 << 31) - 1) // 127
+
+
+class GrowthParams(NamedTuple):
+    """Static tree-growth parameters."""
+    num_leaves: int = 31
+    max_depth: int = -1
+    wave_size: int = 0          # 0 => unlimited (full wave); 1 => leaf-wise
+    split: SplitParams = SplitParams()
+
+
+@dataclass
+class BuiltTree:
+    """A finished tree as device tensors (fixed shapes, dynamic leaf
+    count).  Node layout matches the reference Tree (`tree.h`): internal
+    nodes ``[0, num_leaves-2]``, children ``>=0`` internal, ``~leaf`` for
+    leaves."""
+    feature: torch.Tensor         # [L-1] int32 (used-column index)
+    threshold_bin: torch.Tensor   # [L-1] int32
+    default_left: torch.Tensor    # [L-1] bool
+    is_categorical: torch.Tensor  # [L-1] bool
+    cat_mask: torch.Tensor        # [L-1, B] bool
+    left_child: torch.Tensor      # [L-1] int32
+    right_child: torch.Tensor     # [L-1] int32
+    gain: torch.Tensor            # [L-1] f32
+    internal_value: torch.Tensor  # [L-1] f32
+    internal_count: torch.Tensor  # [L-1] int32
+    leaf_value: torch.Tensor      # [L] f32
+    leaf_count: torch.Tensor      # [L] int32
+    leaf_depth: torch.Tensor      # [L] int32
+    num_leaves: torch.Tensor      # scalar int32
+    row_leaf: torch.Tensor        # [n] int32 final leaf per row
+    row_value: torch.Tensor       # [n] f32 leaf value per row (0 outside)
+
+
+@dataclass
+class _WaveState:
+    leaf2: torch.Tensor           # [2, n_pad] (row_leaf; hist_leaf/-1 bagged)
+    nl: torch.Tensor              # scalar int64 current leaf count
+    done: torch.Tensor            # scalar bool
+    leaf_sum_grad: torch.Tensor   # [L+1] f32
+    leaf_sum_hess: torch.Tensor   # [L+1]
+    leaf_count: torch.Tensor      # [L+1] f32 (in-bag counts)
+    leaf_depth: torch.Tensor      # [L+1] int32
+    leaf_value: torch.Tensor      # [L+1] f32
+    leaf_parent: torch.Tensor     # [L+1] int32 node idx
+    leaf_is_left: torch.Tensor    # [L+1] bool
+    hist_state: torch.Tensor      # [L+1, G, B, 3] per-leaf histograms
+    best: SplitResult             # [L+1] cached best split per leaf
+    pend_sel: torch.Tensor        # [L] bool: splits decided last wave,
+    pend_new: torch.Tensor        # [L] int32  not yet applied to the rows
+    act_small: torch.Tensor       # [A] int32 leaf ids to histogram (-1 pad)
+    act_parent: torch.Tensor      # [A] int32 slot holding the parent hist
+    act_sibling: torch.Tensor     # [A] int32 sibling leaf id (-1: none)
+    tree: dict                    # node arrays [L] (+1 dump slot)
+
+
+def _round8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+def stage_plan(L: int, wave_size: int = 0):
+    """Active-slot counts for the staged waves + the tail width (the
+    reference's plan: slot counts track the doubling leaf count)."""
+    if wave_size == 1:
+        return [], 8
+    A_full = min(_round8(max(1, L // 2)), 128)
+    plan = []
+    leaves = 1
+    while leaves < L and len(plan) < 32:
+        A = min(_round8(leaves), A_full)
+        plan.append(A)
+        leaves += min(A, leaves)
+    return plan, A_full
+
+
+def _pairwise_halve(v: torch.Tensor) -> torch.Tensor:
+    """Reduce the last axis (a power of two) by repeated pairwise adds —
+    a fixed reduction tree."""
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
+
+
+def root_chunk_sums(grad, hess, bag) -> torch.Tensor:
+    """Per-chunk partial sums of the root statistics ``(g, h, count)``:
+    ``-> [3, m]``, ``m = ceil(n / STREAM_CHUNK)``, zero-padded chunks each
+    reduced by pairwise halving (the reference's order, bitwise)."""
+    n = grad.shape[0]
+    m = -(-n // STREAM_CHUNK)
+    pad = m * STREAM_CHUNK - n
+    zero = torch.zeros((), dtype=torch.float32, device=grad.device)
+    g = torch.where(bag, grad.float(), zero)
+    h = torch.where(bag, hess.float(), zero)
+    c = bag.float()
+    stacked = torch.nn.functional.pad(torch.stack([g, h, c]), (0, pad))
+    return _pairwise_halve(stacked.reshape(3, m, STREAM_CHUNK))
+
+
+def reduce_chunk_sums(cs: torch.Tensor):
+    """``[3, m]`` chunk sums -> root ``(sum_g, sum_h, cnt)`` by pairwise
+    halving over the zero-padded power-of-two chunk axis."""
+    m = cs.shape[1]
+    P = 1 << max(0, (m - 1).bit_length())
+    v = _pairwise_halve(torch.nn.functional.pad(cs, (0, P - m)))
+    return v[0], v[1], v[2]
+
+
+def root_stats(grad, hess, bag):
+    """Root ``(sum_g, sum_h, cnt)`` via the canonical chunked pairwise
+    reduction (bitwise the reference's ``root_stats``)."""
+    return reduce_chunk_sums(root_chunk_sums(grad, hess, bag))
+
+
+def default_hist_mode() -> str:
+    """int8h: gradients as one int8 column, hessians as an int8 hi+lo
+    pair (the reference's default)."""
+    return "int8h"
+
+
+def effective_hist_mode(mode: str, n: int) -> str:
+    """The reference's downgrade of quantized modes past the exact-int32
+    row bound (to the float modes, which this package does not
+    implement: such datasets raise in ``pack_values_q``)."""
+    if is_quantized(mode) and n > _INT8_ROW_LIMIT:
+        return "hilo" if mode == "int8hh" else "hhilo"
+    return mode
+
+
+def resolve_backend(data: DeviceData, num_leaf_slots: int,
+                    hist_mode: str = "int8h") -> str:
+    """``"compact"`` when the tree's tail waves are wider than the
+    compaction threshold (fused kernel on shallow waves, route + compact
+    kernel on deep ones), else ``"fused"`` (every wave fused) — the
+    reference's "compact" backend and its degradation to "pallas"."""
+    if hist_mode not in QUANTIZED_MODES:
+        raise NotImplementedError(
+            f"hist_mode {hist_mode!r}: lightgbm_tpu_torch implements the "
+            f"quantized modes {QUANTIZED_MODES} only")
+    if data.group_max_bins > 256:
+        raise NotImplementedError("more than 256 bins per column")
+    if num_leaf_slots > 1024:
+        raise NotImplementedError("num_leaves > 1024")
+    _, A_tail = stage_plan(num_leaf_slots)
+    return "compact" if A_tail > compact_slot_threshold() else "fused"
+
+
+def wave_uses_compact(backend: str, num_slots: int) -> bool:
+    """The per-wave dispatch predicate: waves with more active slots than
+    the compaction threshold take route + the leaf-compacted kernel."""
+    return backend == "compact" and num_slots > compact_slot_threshold()
+
+
+def _set(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> None:
+    """In-place scatter ``dst[idx] = src`` (indices past the live range
+    land in ``dst``'s trailing dump slot)."""
+    dst.index_put_((idx.long(),), src)
+
+
+def apply_hist_wave(hist_state, new_h, act_small, act_parent, act_sibling,
+                    L: int):
+    """Sibling subtraction + persistence of both children into the
+    per-leaf state: -> ``(ids [2A], grid [2A, G, B, 3])``.  Padding slots
+    (id -1) carry garbage whose scan results the caller drops."""
+    dump = torch.full_like(act_small, L)
+    parent_h = hist_state[act_parent.clamp(0, L - 1).long()]
+    sib_h = parent_h - new_h
+    _set(hist_state, torch.where(act_small >= 0, act_small, dump), new_h)
+    _set(hist_state, torch.where(act_sibling >= 0, act_sibling, dump),
+         sib_h)
+    ids = torch.cat([act_small, act_sibling])
+    grid = torch.cat([new_h, sib_h], dim=0)
+    return ids, grid
+
+
+def scan_grid(data: DeviceData, params: GrowthParams, feature_mask, ids,
+              grid, lsg, lsh, lc) -> SplitResult:
+    """EFB unbundle + best-split scan of the changed-leaf grids."""
+    L = params.num_leaves
+    safe = ids.clamp(0, L - 1).long()
+    if data.is_bundled:
+        grid = unbundle_grid(grid, lsg[safe], lsh[safe], lc[safe],
+                             data.feat_group, data.feat_offset,
+                             data.num_bins, data.default_bins,
+                             bin_stride(data.max_bins))
+    fc = split_scan_chunk_features(grid.shape[0], grid.shape[1],
+                                   grid.shape[2], data.has_missing)
+    return find_best_splits(grid, lsg[safe], lsh[safe], lc[safe],
+                            data.num_bins, data.missing_types,
+                            data.default_bins, params.split, feature_mask,
+                            any_missing=data.has_missing, feature_chunk=fc)
+
+
+def rescan_changed(data: DeviceData, params: GrowthParams, feature_mask,
+                   s: _WaveState, new_h):
+    """Post-histogram flow of every wave: sibling subtraction, EFB
+    unbundle, rescan of the changed leaves -> ``(ids, SplitResult)``."""
+    ids, grid = apply_hist_wave(s.hist_state, new_h, s.act_small,
+                                s.act_parent, s.act_sibling,
+                                params.num_leaves)
+    res = scan_grid(data, params, feature_mask, ids, grid, s.leaf_sum_grad,
+                    s.leaf_sum_hess, s.leaf_count)
+    return ids, res
+
+
+def _empty_best(L: int, B: int, dev) -> SplitResult:
+    z = torch.zeros(L + 1, dtype=torch.float32, device=dev)
+    return SplitResult(
+        gain=torch.full((L + 1,), NEG_INF, dtype=torch.float32, device=dev),
+        feature=torch.zeros(L + 1, dtype=torch.int32, device=dev),
+        threshold=torch.zeros(L + 1, dtype=torch.int32, device=dev),
+        default_left=torch.zeros(L + 1, dtype=torch.bool, device=dev),
+        is_categorical=torch.zeros(L + 1, dtype=torch.bool, device=dev),
+        cat_mask=torch.zeros((L + 1, B), dtype=torch.bool, device=dev),
+        left_sum_grad=z.clone(), left_sum_hess=z.clone(),
+        left_count=z.clone(), right_sum_grad=z.clone(),
+        right_sum_hess=z.clone(), right_count=z.clone(),
+        left_output=z.clone(), right_output=z.clone())
+
+
+def _init_state(data: DeviceData, grad, hess, params: GrowthParams,
+                bag_mask, A0: int) -> _WaveState:
+    """Empty tree, root leaf statistics, root-wave active set."""
+    dev = data.device
+    n = data.num_data
+    L = params.num_leaves
+    Lm = max(L - 1, 1)
+    B = bin_stride(data.max_bins)
+    Bh = bin_stride(data.group_max_bins)
+    G = data.num_groups
+
+    def i32(shape, fill=0):
+        return torch.full(shape, fill, dtype=torch.int32, device=dev)
+
+    leaf2 = i32((2, data.n_pad), -1)
+    leaf2[0, :n] = 0
+    if bag_mask is not None:
+        leaf2[1, :n] = torch.where(bag_mask, 0, -1).to(torch.int32)
+    else:
+        leaf2[1, :n] = 0
+    bag = leaf2[1, :n] == 0
+    sum_g, sum_h, cnt = root_stats(grad, hess, bag)
+    root_out = leaf_output(sum_g, sum_h, params.split.lambda_l1,
+                           params.split.lambda_l2)
+
+    def f32_root(v):
+        out = torch.zeros(L + 1, dtype=torch.float32, device=dev)
+        out[0] = v
+        return out
+
+    tree = dict(
+        feature=i32((Lm + 1,)), threshold_bin=i32((Lm + 1,)),
+        default_left=torch.zeros(Lm + 1, dtype=torch.bool, device=dev),
+        is_categorical=torch.zeros(Lm + 1, dtype=torch.bool, device=dev),
+        cat_mask=torch.zeros((Lm + 1, B), dtype=torch.bool, device=dev),
+        left_child=i32((Lm + 1,), -1), right_child=i32((Lm + 1,), -1),
+        gain=torch.zeros(Lm + 1, dtype=torch.float32, device=dev),
+        internal_value=torch.zeros(Lm + 1, dtype=torch.float32, device=dev),
+        internal_count=i32((Lm + 1,)))
+    act_small = i32((A0,), -1)
+    act_small[0] = 0
+    return _WaveState(
+        leaf2=leaf2,
+        nl=torch.ones((), dtype=torch.int64, device=dev),
+        done=torch.zeros((), dtype=torch.bool, device=dev),
+        leaf_sum_grad=f32_root(sum_g), leaf_sum_hess=f32_root(sum_h),
+        leaf_count=f32_root(cnt),
+        leaf_depth=i32((L + 1,)),
+        leaf_value=f32_root(root_out),
+        leaf_parent=i32((L + 1,), -1),
+        leaf_is_left=torch.zeros(L + 1, dtype=torch.bool, device=dev),
+        hist_state=torch.zeros((L + 1, G, Bh, 3), dtype=torch.float32,
+                               device=dev),
+        best=_empty_best(L, B, dev),
+        pend_sel=torch.zeros(L, dtype=torch.bool, device=dev),
+        pend_new=i32((L,)),
+        act_small=act_small, act_parent=i32((A0,), -1),
+        act_sibling=i32((A0,), -1),
+        tree=tree)
+
+
+def _apply_wave(s: _WaveState, leaf2, ids, res: SplitResult, A_out: int,
+                params: GrowthParams, wave_cap: int) -> _WaveState:
+    """Merge the rescanned best splits, select this wave's splits by gain
+    rank, record tree nodes, update leaf state and stage the next wave's
+    active sets (the reference's ``_apply_wave``)."""
+    L = params.num_leaves
+    Lm = max(L - 1, 1)
+    dev = leaf2.device
+    best = s.best
+    merge_idx = torch.where(ids >= 0, ids, torch.full_like(ids, L))
+    best = best.map(lambda cur, new: cur.index_put_((merge_idx.long(),),
+                                                    new), res)
+
+    # --- select this wave's splits --------------------------------------
+    lid = torch.arange(L, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    gain = torch.where(lid < s.nl, best.gain[:L], neg)
+    if params.max_depth > 0:
+        gain = torch.where(s.leaf_depth[:L] >= params.max_depth, neg, gain)
+    can = gain > 0.0
+    order = torch.argsort(-gain, stable=True)       # leaves by gain desc
+    rank = torch.empty_like(order)
+    rank[order] = lid
+    budget = L - s.nl
+    k = torch.minimum(torch.minimum(can.sum(), budget),
+                      torch.tensor(min(wave_cap, A_out), device=dev))
+    sel = can & (rank < k)
+    new_id = torch.where(sel, s.nl + rank, torch.full_like(rank, L))
+    node_idx = torch.where(sel, s.nl - 1 + rank, torch.full_like(rank, Lm))
+
+    # --- record tree nodes ------------------------------------------------
+    b = lambda x: x[:L]                                 # noqa: E731
+    t = s.tree
+    dl = torch.where(b(best.is_categorical), False, b(best.default_left))
+    _set(t["feature"], node_idx, b(best.feature))
+    _set(t["threshold_bin"], node_idx, b(best.threshold))
+    _set(t["default_left"], node_idx, dl)
+    _set(t["is_categorical"], node_idx, b(best.is_categorical))
+    _set(t["cat_mask"], node_idx, b(best.cat_mask))
+    _set(t["gain"], node_idx, b(best.gain))
+    _set(t["internal_value"], node_idx, b(s.leaf_value))
+    _set(t["internal_count"], node_idx, b(s.leaf_count).to(torch.int32))
+    _set(t["left_child"], node_idx, (~lid).to(torch.int32))
+    _set(t["right_child"], node_idx, (~new_id).to(torch.int32))
+    # fix the parent's child pointer: leaf l was ~l, becomes node_idx
+    parent = torch.where(sel, b(s.leaf_parent), -1)
+    is_left = b(s.leaf_is_left)
+    dump = torch.full_like(node_idx, Lm)
+    fix_left = torch.where(sel & is_left & (parent >= 0), parent, dump)
+    fix_right = torch.where(sel & ~is_left & (parent >= 0), parent, dump)
+    _set(t["left_child"], fix_left, node_idx.to(torch.int32))
+    _set(t["right_child"], fix_right, node_idx.to(torch.int32))
+
+    # --- update leaf state: left child keeps id l, right -> new_id -------
+    def upd(cur, left, right):
+        out = torch.empty_like(cur)
+        out[:L] = torch.where(sel, left, cur[:L])
+        out[L] = cur[L]
+        _set(out, new_id, right)
+        return out
+
+    depth1 = b(s.leaf_depth) + 1
+    lsg = upd(s.leaf_sum_grad, b(best.left_sum_grad), b(best.right_sum_grad))
+    lsh = upd(s.leaf_sum_hess, b(best.left_sum_hess), b(best.right_sum_hess))
+    lc = upd(s.leaf_count, b(best.left_count), b(best.right_count))
+    lv = upd(s.leaf_value, b(best.left_output), b(best.right_output))
+    ld = upd(s.leaf_depth, depth1, depth1)
+    node32 = node_idx.to(torch.int32)
+    lp = upd(s.leaf_parent, node32, node32)
+    lil = upd(s.leaf_is_left, torch.ones_like(sel), torch.zeros_like(sel))
+
+    # --- this wave's splits become the pending route ---------------------
+    pend_new = torch.where(sel, new_id, torch.zeros_like(new_id))
+
+    # --- next wave's active sets (smaller child + subtraction) -----------
+    smaller_left = b(best.left_count) <= b(best.right_count)
+    small_val = torch.where(smaller_left, lid, new_id)
+    sib_val = torch.where(smaller_left, new_id, lid)
+    slot = torch.where(sel, rank, torch.full_like(rank, A_out))
+
+    def actives(v):
+        out = torch.full((A_out + 1,), -1, dtype=torch.int32, device=dev)
+        _set(out, slot, v.to(torch.int32))
+        return out[:A_out].contiguous()
+
+    return _WaveState(
+        leaf2=leaf2, nl=s.nl + k, done=(k == 0),
+        leaf_sum_grad=lsg, leaf_sum_hess=lsh, leaf_count=lc,
+        leaf_depth=ld, leaf_value=lv, leaf_parent=lp, leaf_is_left=lil,
+        hist_state=s.hist_state, best=best,
+        pend_sel=sel, pend_new=pend_new.to(torch.int32),
+        act_small=actives(small_val), act_parent=actives(lid),
+        act_sibling=actives(sib_val), tree=t)
+
+
+def _pending_tables(data: DeviceData, s: _WaveState, L: int):
+    """Route arguments of the pending splits (per-leaf ``[L]`` views)."""
+    bt = s.best
+    return (bt.feature[:L], bt.threshold[:L], bt.default_left[:L],
+            bt.is_categorical[:L], bt.cat_mask[:L], s.pend_sel, s.pend_new,
+            data.missing_types, data.nan_bins, data.default_bins,
+            data.feat_group, data.feat_offset, data.num_bins)
+
+
+def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
+               params: GrowthParams,
+               bag_mask: Optional[torch.Tensor] = None,
+               feature_mask: Optional[torch.Tensor] = None,
+               hist_mode: Optional[str] = None) -> BuiltTree:
+    """Grow one tree with the per-wave kernel dispatch of the reference:
+    fused route+histogram on waves of <= 32 slots, route then the
+    leaf-compacted histogram above that, route-values at the end."""
+    n = data.num_data
+    L = params.num_leaves
+    mode = effective_hist_mode(hist_mode or default_hist_mode(), n)
+    backend = resolve_backend(data, L, mode)
+    plan, A_tail = stage_plan(L, params.wave_size)
+    if n <= COMPILE_LEAN_ROWS and params.wave_size != 1:
+        plan = []
+    wave_cap = params.wave_size if params.wave_size > 0 else L
+    vals, scales = pack_values_q(grad, hess, mode, data.n_pad)
+
+    def body(s: _WaveState, A_out: int) -> _WaveState:
+        tabs = _pending_tables(data, s, L)
+        if wave_uses_compact(backend, s.act_small.shape[0]):
+            leaf2 = route_rows(data.bins_t, s.leaf2, *tabs)
+            new_h = hist_active_compact(
+                data.bins_t, vals, leaf2[1].contiguous(), s.act_small,
+                scales, num_leaf_slots=L, max_bins=data.group_max_bins,
+                mode=mode)
+        else:
+            new_h, leaf2 = hist_route(
+                data.bins_t, vals, s.leaf2, s.act_small, *tabs, scales,
+                max_bins=data.group_max_bins, mode=mode)
+        ids, res = rescan_changed(data, params, feature_mask, s, new_h)
+        return _apply_wave(s, leaf2, ids, res, A_out, params, wave_cap)
+
+    s = _init_state(data, grad, hess, params, bag_mask,
+                    plan[0] if plan else A_tail)
+
+    def finished(s: _WaveState) -> bool:
+        done, nl = torch.stack([s.done.long(), s.nl]).tolist()
+        return bool(done) or nl >= L
+
+    # staged waves, then the fixed-width tail; a wave after the stop
+    # condition would change nothing, so the loop ends there
+    i = 0
+    while not finished(s):
+        if i < len(plan):
+            A_out = plan[i + 1] if i + 1 < len(plan) else A_tail
+        else:
+            A_out = A_tail
+        s = body(s, A_out)
+        i += 1
+
+    # apply the last wave's pending splits and emit each row's leaf value
+    lv_final = torch.where(s.nl > 1, s.leaf_value[:L],
+                           torch.zeros_like(s.leaf_value[:L]))
+    leaf2, row_value = route_rows_values(
+        data.bins_t, s.leaf2, *_pending_tables(data, s, L), lv_final)
+    t = {k: v[:max(L - 1, 1)] for k, v in s.tree.items()}
+    return BuiltTree(
+        **t,
+        leaf_value=s.leaf_value[:L],
+        leaf_count=s.leaf_count[:L].to(torch.int32),
+        leaf_depth=s.leaf_depth[:L],
+        num_leaves=s.nl.to(torch.int32),
+        row_leaf=leaf2[0, :n],
+        row_value=row_value[:n])
+
+
+def predict_built_tree(tree: BuiltTree, data: DeviceData,
+                       bins: torch.Tensor) -> torch.Tensor:
+    """Leaf value per row of ``bins [n, G]`` for a just-built tree."""
+    n = bins.shape[0]
+    node = torch.zeros(n, dtype=torch.int64, device=bins.device)
+    if int(tree.num_leaves) <= 1:
+        node = node - 1                      # ~0: leaf 0
+    bins = bins.long()
+    for _ in range(tree.leaf_value.shape[0] - 1):
+        is_leaf = node < 0
+        nidx = node.clamp(min=0)
+        f = tree.feature.long()[nidx]
+        c = bins.gather(1, data.feat_group.long()[f][:, None])[:, 0]
+        db = data.default_bins.long()[f]
+        b = unbundle_bin(c, data.feat_offset.long()[f],
+                         data.num_bins.long()[f], db)
+        mt = data.missing_types[f]
+        is_missing = (((mt == MISSING_NAN) & (b == data.nan_bins.long()[f]))
+                      | ((mt == MISSING_ZERO) & (b == db)))
+        go_left = torch.where(is_missing, tree.default_left[nidx],
+                              b <= tree.threshold_bin.long()[nidx])
+        nxt = torch.where(go_left, tree.left_child.long()[nidx],
+                          tree.right_child.long()[nidx])
+        node = torch.where(is_leaf, node, nxt)
+    leaf = torch.where(node < 0, ~node, torch.zeros_like(node))
+    return tree.leaf_value[leaf]

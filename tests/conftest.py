@@ -34,3 +34,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: bench-shaped test (minutes on the CPU mesh); "
         "deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (lightgbm_tpu_torch's CUDA "
+        "kernels); skipped where no CUDA device is present")
