@@ -14,15 +14,33 @@ and the script exits non-zero):
    PyTorch version on the same CUDA inputs, at every wave width the
    headline tree uses, and require bitwise equality; time kernel, plain
    version and (where one exists) a single PyTorch library call;
-3. slice — ``lgb.train`` of the headline binary GBDT (the bench's
-   synthetic 1M x 28 set, 255 leaves, max_bin 63, lr 0.1,
+3. small-data kernels — the same for the small-data path's shapes: the
+   fused route+histogram kernel at 65,536 rows, 256 bins and 32 slots
+   with bagged-out rows (hist leaf -1) that the -1 slots collect, the
+   route-values kernel at 63 leaves and 256 bins, and the fused split
+   scan on a ``[64, 28, 256, 3]`` wave;
+4. headline path — ``lgb.train`` of the headline binary GBDT (the
+   bench's synthetic 1M x 28 set, 255 leaves, max_bin 63, lr 0.1,
    min_data_in_leaf 20) with every kernel launch counter reset first;
-   require every kernel to have launched, train AUC >= 0.93 and finite
-   predictions.  Its ms/iter is the wall of the whole ``lgb.train``
-   call, the Booster's setup (upload, objective init) included.
+   require the route, histogram and route-values kernels to have
+   launched and the split scan not (above 65,536 rows the torch scan
+   runs), train AUC >= 0.93 and finite predictions;
+5. small-data path — ``lgb.train`` of the upstream
+   ``examples/binary_classification/train.conf`` configuration (binary,
+   63 leaves, max_bin 255, lr 0.1, feature and bagging fraction 0.8,
+   bagging_freq 5, min_data_in_leaf 50, min_sum_hessian_in_leaf 5,
+   binary_logloss and auc on the training and the valid set every
+   iteration) on the bench's generator at 65,536 + 13,107 rows, 100
+   iterations with early stopping after 10, counters reset first;
+   require the split scan, the fused route+histogram and the
+   route-values kernels to have launched, valid AUC >= 0.90 and finite
+   predictions.
 
-The last lines are the kernel table as one JSON object, the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.
+A path's ms/iter is the wall of the whole ``lgb.train`` call, the
+Booster's setup (upload, objective init) and, on the small-data path,
+the per-iteration evaluation included.  The last lines are the kernel
+table as one JSON object, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -36,8 +54,22 @@ HEADLINE_ROWS = 1_000_000
 HEADLINE_FEATURES = 28
 HEADLINE_ITERS = 32
 AUC_GATE = 0.93
+SMALL_ROWS = 65_536              # the most rows the split kernel takes
+SMALL_VALID = SMALL_ROWS // 5    # as bench.py valid_leg
+SMALL_ITERS = 100
+SMALL_EARLY_STOP = 10
+VALID_AUC_GATE = 0.90
+# examples/binary_classification/train.conf of the upstream project
+TRAIN_CONF = {"objective": "binary", "metric": "binary_logloss,auc",
+              "metric_freq": 1, "is_training_metric": True,
+              "num_leaves": 63, "max_bin": 255, "learning_rate": 0.1,
+              "feature_fraction": 0.8, "bagging_freq": 5,
+              "bagging_fraction": 0.8, "min_data_in_leaf": 50,
+              "min_sum_hessian_in_leaf": 5.0, "verbose": -1}
 # memory rate of one H100 SXM (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
+# float32 rate outside the tensor cores of one H100 SXM (data sheet)
+FP32_OPS_PER_S = 67e12
 # 32-bit integer adds per clock per SM at compute capability 9.0 (CUDA C++
 # Programming Guide, throughput of native arithmetic instructions).  The
 # kernels' work is integer: compares in routing, shared-memory atomic adds
@@ -79,6 +111,18 @@ def headline_data(seed: int = 0):
     return X, y
 
 
+def small_data(seed: int = 3):
+    """The bench's synthetic generator at the small-data path's size
+    (bench.py valid_leg): ``(X, y, X_valid, y_valid)``."""
+    import numpy as np
+    n = SMALL_ROWS + SMALL_VALID
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, HEADLINE_FEATURES)).astype(np.float32)
+    y = (X[:, 0] * 2 + X[:, 1] - X[:, 2]
+         + rng.normal(scale=1.0, size=n) > 0).astype(np.float32)
+    return X[:SMALL_ROWS], y[:SMALL_ROWS], X[SMALL_ROWS:], y[SMALL_ROWS:]
+
+
 def time_ms(fn, reps: int, warm: int = 2) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
     import torch
@@ -95,20 +139,23 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, int_ops: float, int_rate: float) -> dict:
-    """The least time for ``nbytes`` of traffic and ``int_ops`` int32
-    adds: the larger of the two, with both parts."""
+def bound(nbytes: float, ops: float, ops_rate: float) -> dict:
+    """The least time for ``nbytes`` of traffic and ``ops`` operations at
+    ``ops_rate`` per second: the larger of the two, with both parts."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = int_ops / int_rate * 1e3
+    t_ops = ops / ops_rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes_bound_ms=t_bytes, ops_bound_ms=t_ops)
 
 
-def wave_inputs(dd, nl: int, n_sel: int, A: int, gen, L: int = 255):
-    """A mid-tree wave at the headline shapes: rows spread over ``nl``
-    leaves, ``n_sel`` of them split by random numerical tables, ``A``
-    active slots (two of them -1 padding when A >= 16)."""
+def wave_inputs(dd, nl: int, n_sel: int, A: int, gen, L: int = 255,
+                bag: float = 1.0):
+    """A mid-tree wave on ``dd``: rows spread over ``nl`` leaves, ``n_sel``
+    of them split by random numerical tables, ``A`` active slots (two of
+    them -1 when A >= 16).  With ``bag`` < 1 each row is in the bag with
+    that probability; out-of-bag rows carry hist leaf -1, as bagging
+    leaves them."""
     import torch
     from lightgbm_tpu_torch.ops.histogram import bin_stride
     from lightgbm_tpu_torch.ops.route import leaf_tables
@@ -118,7 +165,11 @@ def wave_inputs(dd, nl: int, n_sel: int, A: int, gen, L: int = 255):
     leaf2 = torch.full((2, n_pad), -1, dtype=torch.int32, device=dev)
     leaf2[0, :n] = torch.randint(0, nl, (n,), generator=gen,
                                  device=dev).int()
-    leaf2[1] = leaf2[0]
+    if bag < 1.0:
+        keep = torch.rand(n, generator=gen, device=dev) < bag
+        leaf2[1, :n] = torch.where(keep, leaf2[0, :n], -1)
+    else:
+        leaf2[1] = leaf2[0]
     sel = torch.zeros(L, dtype=torch.bool, device=dev)
     sel[torch.randperm(nl, generator=gen, device=dev)[:n_sel]] = True
     rank = torch.cumsum(sel.int(), 0) - 1
@@ -147,11 +198,9 @@ def kernel_phase(dd, vals, entries):
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops.compact import hist_compact_raw
     from lightgbm_tpu_torch.ops.histogram import (
-        HIST_BLOCK, bin_stride, hist_launch_shape, hist_plain,
-        hist_route_plain, hist_route_raw, slot_tables)
+        HIST_BLOCK, bin_stride, hist_launch_shape, hist_plain, slot_tables)
     from lightgbm_tpu_torch.ops.route import (
-        ROUTE_BLOCK, _route_grid, route_plain, route_rows_raw,
-        route_rows_values_raw, route_values_plain)
+        ROUTE_BLOCK, _route_grid, route_plain, route_rows_raw)
     dev = dd.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     sms = cuda_build.multiprocessor_count(dev)
@@ -172,81 +221,32 @@ def kernel_phase(dd, vals, entries):
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
         raise AssertionError("route kernel != plain version")
-    lv = torch.randn(L, generator=gen, device=dev)
-    out2, v2 = route_rows_values_raw(dd.bins_t, leaf2, tabs, cat, lv)
-    ref2, rv2 = route_values_plain(dd.bins_t, leaf2, tabs, cat, lv)
-    torch.cuda.synchronize()
-    if not (torch.equal(out2, ref2) and torch.equal(v2, rv2)):
-        raise AssertionError("route-values kernel != plain version")
     lib = cuda_build.library("route")
-    grid = _route_grid(n_pad, dev)
     buf = torch.empty_like(leaf2)
-    vbuf = torch.empty(n_pad, dtype=torch.float32, device=dev)
     ms2 = time_ms(lambda: lib.lgbm_route_rows(
         dd.bins_t.data_ptr(), n_pad, leaf2.data_ptr(), buf.data_ptr(),
-        tabs.data_ptr(), L, cat.data_ptr(), B, grid, ROUTE_BLOCK, stream),
-        50)
-    ms4 = time_ms(lambda: lib.lgbm_route_rows_values(
-        dd.bins_t.data_ptr(), n_pad, leaf2.data_ptr(), buf.data_ptr(),
-        tabs.data_ptr(), L, cat.data_ptr(), B, lv.data_ptr(),
-        vbuf.data_ptr(), grid, ROUTE_BLOCK, stream), 50)
+        tabs.data_ptr(), L, cat.data_ptr(), B, _route_grid(n_pad, dev),
+        ROUTE_BLOCK, stream), 50)
     plain2 = time_ms(lambda: route_plain(dd.bins_t, leaf2, tabs, cat), 5)
-    plain4 = time_ms(lambda: route_values_plain(dd.bins_t, leaf2, tabs, cat,
-                                                lv), 5)
     moved_rows = int((tabs[4][leaf2[0].clamp(min=0).long()] != 0).sum())
     b2 = bound(16 * n_pad + moved_rows + tab_bytes, n_pad, int_rate)
-    b4 = bound(20 * n_pad + moved_rows + tab_bytes + 4 * L, n_pad,
-               int_rate)
     entries.append(dict(
         name="route", route="cuda",
         source="lightgbm_tpu_torch/csrc/route.cu",
         replaces="lightgbm_tpu/ops/pallas_route.py:85",
         max_abs_err=0.0, ms=ms2, plain_ms=plain2, library_ms=None, **b2))
+    log(f"kernel route: bitwise ok, {ms2:.4f} ms (plain {plain2:.3f} ms, "
+        f"bound {b2['bound_ms']:.4f} ms)")
+    lv = torch.randn(L, generator=gen, device=dev)
     entries.append(dict(
         name="route_values", route="cuda",
         source="lightgbm_tpu_torch/csrc/route.cu",
-        replaces="lightgbm_tpu/ops/pallas_route.py:168",
-        max_abs_err=float((v2 - rv2).abs().max()), ms=ms4, plain_ms=plain4,
-        library_ms=None, **b4))
-    log(f"kernel route: bitwise ok, {ms2:.4f} ms (plain {plain2:.3f} ms, "
-        f"bound {b2['bound_ms']:.4f} ms)")
-    log(f"kernel route_values: bitwise ok, {ms4:.4f} ms (plain "
-        f"{plain4:.3f} ms, bound {b4['bound_ms']:.4f} ms)")
+        replaces="lightgbm_tpu/ops/pallas_route.py:168", max_abs_err=0.0,
+        **k4_measure(dd, leaf2, tabs, cat, lv, int_rate)))
 
     # -- K1: fused route + histogram at 8, 16, 32 slots ------------------
-    lib1 = cuda_build.library("hist_route")
-    k1_rows = []
-    for A in (8, 16, 32):
-        leaf2, tabs, cat, active = wave_inputs(dd, A, A // 2, A, gen)
-        raw, l2n = hist_route_raw(dd.bins_t, vals, leaf2, active, tabs, cat,
-                                  L, dd.group_max_bins)
-        inv, src = slot_tables(active, L, collect_unbagged=True)
-        ref_raw, ref_l2 = hist_route_plain(dd.bins_t, vals, leaf2, tabs, cat,
-                                           inv, src, B)
-        torch.cuda.synchronize()
-        if not (torch.equal(raw, ref_raw) and torch.equal(l2n, ref_l2)):
-            raise AssertionError(f"hist_route kernel != plain (A={A})")
-        As, Ft, gx, rpb = hist_launch_shape(n_pad, G, A, B, C, sms)
-        obuf = torch.zeros_like(raw)
-        lbuf = torch.empty_like(leaf2)
-        ms = time_ms(lambda: lib1.lgbm_hist_route(
-            dd.bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
-            leaf2.data_ptr(), lbuf.data_ptr(), tabs.data_ptr(), L,
-            cat.data_ptr(), B, inv.data_ptr(), src.data_ptr(), A, B, Ft, As,
-            gx, rpb, HIST_BLOCK, obuf.data_ptr(), stream), 20)
-        pl = time_ms(lambda: hist_route_plain(dd.bins_t, vals, leaf2, tabs,
-                                              cat, inv, src, B), 3)
-        hl = ref_l2[1].long()
-        n_active = int((inv.long()[torch.where(hl >= 0, hl, L)] >= 0).sum())
-        moved_rows = int((tabs[4][leaf2[0].clamp(min=0).long()] != 0).sum())
-        bd = bound(16 * n_pad + moved_rows + (G + C) * n_active
-                   + raw.numel() * 4 + tab_bytes + (L + 1 + A) * 4,
-                   G * C * n_active, int_rate)
-        k1_rows.append(dict(slots=A, ms=ms, plain_ms=pl, library_ms=None,
-                            **bd))
-        log(f"kernel hist_route A={A}: bitwise ok, {ms:.4f} ms (plain "
-            f"{pl:.3f} ms, bound {bd['bound_ms']:.4f} ms by "
-            f"{bd['bound_by']}, {n_active} active rows)")
+    k1_rows = [k1_measure(dd, vals, A, A // 2, gen, L, int_rate)
+               for A in (8, 16, 32)]
     entries.append(_widest(dict(
         name="hist_route", route="cuda",
         source="lightgbm_tpu_torch/csrc/hist_route.cu",
@@ -304,6 +304,225 @@ def kernel_phase(dd, vals, entries):
         k3_rows))
 
 
+def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
+    """K4 (route + per-row leaf value, the last pass of a tree) on one
+    wave's tables: kernel vs plain version bitwise, times and bound."""
+    import torch
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.ops.route import (
+        ROUTE_BLOCK, _route_grid, route_rows_values_raw, route_values_plain)
+    dev = dd.device
+    n_pad = dd.n_pad
+    L, B = cat.shape
+    out, v = route_rows_values_raw(dd.bins_t, leaf2, tabs, cat, lv)
+    ref, rv = route_values_plain(dd.bins_t, leaf2, tabs, cat, lv)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, ref) and torch.equal(v, rv)):
+        raise AssertionError(f"route-values kernel != plain (L={L}, B={B})")
+    lib = cuda_build.library("route")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    buf = torch.empty_like(leaf2)
+    vbuf = torch.empty(n_pad, dtype=torch.float32, device=dev)
+    ms = time_ms(lambda: lib.lgbm_route_rows_values(
+        dd.bins_t.data_ptr(), n_pad, leaf2.data_ptr(), buf.data_ptr(),
+        tabs.data_ptr(), L, cat.data_ptr(), B, lv.data_ptr(),
+        vbuf.data_ptr(), _route_grid(n_pad, dev), ROUTE_BLOCK, stream), 50)
+    pl = time_ms(lambda: route_values_plain(dd.bins_t, leaf2, tabs, cat,
+                                            lv), 5)
+    moved_rows = int((tabs[4][leaf2[0].clamp(min=0).long()] != 0).sum())
+    bd = bound(20 * n_pad + moved_rows + 11 * L * 4 + L * B + 4 * L, n_pad,
+               int_rate)
+    log(f"kernel route_values L={L} B={B} rows={dd.num_data}: bitwise ok, "
+        f"{ms:.4f} ms (plain {pl:.3f} ms, bound {bd['bound_ms']:.4f} ms)")
+    return dict(ms=ms, plain_ms=pl, library_ms=None, **bd)
+
+
+def k1_measure(dd, vals, A: int, n_sel: int, gen, L: int,
+               int_rate: float, bag: float = 1.0) -> dict:
+    """K1 (fused route + histogram) at ``A`` slots of a wave with
+    ``n_sel`` pending splits and rows in the bag with probability
+    ``bag``: kernel vs plain version bitwise, times and bound.  With
+    ``bag`` < 1 the -1 slots must have collected every out-of-bag row."""
+    import torch
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.ops.histogram import (
+        HIST_BLOCK, bin_stride, hist_launch_shape, hist_route_plain,
+        hist_route_raw, slot_tables)
+    dev = dd.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    G, n_pad = dd.bins_t.shape
+    C = vals.shape[0]
+    B = bin_stride(dd.group_max_bins)
+    tab_bytes = 11 * L * 4 + L * B
+    lib1 = cuda_build.library("hist_route")
+    leaf2, tabs, cat, active = wave_inputs(dd, A, n_sel, A, gen, L, bag)
+    raw, l2n = hist_route_raw(dd.bins_t, vals, leaf2, active, tabs, cat,
+                              L, dd.group_max_bins)
+    inv, src = slot_tables(active, L, collect_unbagged=True)
+    ref_raw, ref_l2 = hist_route_plain(dd.bins_t, vals, leaf2, tabs, cat,
+                                       inv, src, B)
+    torch.cuda.synchronize()
+    if not (torch.equal(raw, ref_raw) and torch.equal(l2n, ref_l2)):
+        raise AssertionError(f"hist_route kernel != plain (A={A}, B={B})")
+    if bag < 1.0:
+        # each -1 slot holds the out-of-bag rows: count column, column 0
+        n_oob = int((ref_l2[1, :dd.num_data] < 0).sum())
+        slot = int(torch.nonzero(active < 0)[0, 0])
+        got = int(ref_raw[slot, 0, :, C - 1].sum())
+        if n_oob == 0 or got != n_oob:
+            raise AssertionError(f"hist_route -1 slot holds {got} rows, "
+                                 f"{n_oob} are out of the bag")
+    As, Ft, gx, rpb = hist_launch_shape(
+        n_pad, G, A, B, C, cuda_build.multiprocessor_count(dev))
+    obuf = torch.zeros_like(raw)
+    lbuf = torch.empty_like(leaf2)
+    ms = time_ms(lambda: lib1.lgbm_hist_route(
+        dd.bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
+        leaf2.data_ptr(), lbuf.data_ptr(), tabs.data_ptr(), L,
+        cat.data_ptr(), B, inv.data_ptr(), src.data_ptr(), A, B, Ft, As,
+        gx, rpb, HIST_BLOCK, obuf.data_ptr(), stream), 20)
+    pl = time_ms(lambda: hist_route_plain(dd.bins_t, vals, leaf2, tabs,
+                                          cat, inv, src, B), 3)
+    hl = ref_l2[1].long()
+    n_active = int((inv.long()[torch.where(hl >= 0, hl, L)] >= 0).sum())
+    moved_rows = int((tabs[4][leaf2[0].clamp(min=0).long()] != 0).sum())
+    bd = bound(16 * n_pad + moved_rows + (G + C) * n_active
+               + raw.numel() * 4 + tab_bytes + (L + 1 + A) * 4,
+               G * C * n_active, int_rate)
+    log(f"kernel hist_route A={A} B={B} rows={dd.num_data}: bitwise ok, "
+        f"{ms:.4f} ms (plain {pl:.3f} ms, bound {bd['bound_ms']:.4f} ms by "
+        f"{bd['bound_by']}, {n_active} active rows)")
+    return dict(slots=A, ms=ms, plain_ms=pl, library_ms=None, **bd)
+
+
+def split_wave_inputs(F: int, B: int, L2: int, n: int, gen, dev):
+    """A split-scan wave ``[L2, F, B, 3]``: histograms of ``n`` simulated
+    rows spread over ``L2`` leaves (every feature partitions the same
+    rows), their leaf totals and random per-feature bin counts and
+    missing types."""
+    import torch
+    leaf = torch.randint(0, L2, (n,), generator=gen, device=dev)
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
+    num_bins = torch.randint(B // 2, B + 1, (F,), generator=gen,
+                             device=dev).int()
+    mt = torch.randint(0, 3, (F,), generator=gen, device=dev).int()
+    db = (torch.rand(F, generator=gen, device=dev) * num_bins).int()
+    bins = (torch.rand(n, F, generator=gen, device=dev) * num_bins).long()
+    ghc = torch.stack([g, h, torch.ones_like(g)], -1)          # [n, 3]
+    idx = (leaf[:, None] * F + torch.arange(F, device=dev)) * B + bins
+    grid = torch.zeros(L2 * F * B, 3, device=dev)
+    grid.index_add_(0, idx.reshape(-1),
+                    ghc[:, None, :].expand(n, F, 3).reshape(-1, 3))
+    tot = torch.zeros(L2, 3, device=dev).index_add_(0, leaf, ghc)
+    return (grid.reshape(L2, F, B, 3), tot[:, 0].contiguous(),
+            tot[:, 1].contiguous(), tot[:, 2].contiguous(), num_bins, mt,
+            db)
+
+
+def k6_flops_per_cell(B: int, any_missing: bool) -> int:
+    """Float operations of the split scan per (leaf, feature, bin) cell:
+    the 3-channel prefix scan, with missing values the suffix scan, its
+    broadcast and the missing-left sums, and per variant 3 right-side
+    subtractions, two gains (5 each) and their sum.  Compares and the
+    argmax are not counted, so the bound is a lower one."""
+    lg = B.bit_length() - 1
+    per_variant = 3 + 2 * 5 + 1
+    if any_missing:
+        return 3 * lg + 6 * lg + 3 + 2 * per_variant
+    return 3 * lg + per_variant
+
+
+def small_kernel_phase(dds, vals, int_rate: float, entries) -> None:
+    """The small-data path's kernels at its shapes, with the path's
+    bagging fraction: K1 at 256 bins and 32 slots on 65,536 rows and K4
+    at 63 leaves (added to their entries under ``small_data``), and the
+    split scan K6 on a ``[64, 28, 256, 3]`` wave (its own entry)."""
+    import torch
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.ops.split import SplitParams
+    from lightgbm_tpu_torch.ops.split_kernel import (
+        PACKED, find_best_splits_kernel, split_epilogue, split_hyper,
+        split_kernel_ok, split_scan_launch, split_scan_plain)
+    dev = dds.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    L = TRAIN_CONF["num_leaves"]
+    bag = TRAIN_CONF["bagging_fraction"]
+    k1 = k1_measure(dds, vals, 32, 16, gen, L, int_rate, bag)
+    # a tree's last pass: 32 leaves, 31 of them split -> 63 leaves
+    leaf2, tabs, cat, _ = wave_inputs(dds, 32, 31, 32, gen, L, bag)
+    lv = torch.randn(L, generator=gen, device=dev)
+    k4 = k4_measure(dds, leaf2, tabs, cat, lv, int_rate)
+    small = {"hist_route": dict(rows=dds.num_data, bins=256, **k1),
+             "route_values": dict(rows=dds.num_data, leaves=L,
+                                  bins=cat.shape[1], **k4)}
+    for e in entries:
+        if e["name"] in small:
+            e["small_data"] = small[e["name"]]
+
+    F, B, L2 = HEADLINE_FEATURES, 256, 64
+    if not split_kernel_ok(F, B, False, SMALL_ROWS):
+        raise AssertionError("split_kernel_ok refuses the path's shape")
+    inputs = split_wave_inputs(F, B, L2, SMALL_ROWS, gen, dev)
+    params = SplitParams(
+        min_data_in_leaf=TRAIN_CONF["min_data_in_leaf"],
+        min_sum_hessian_in_leaf=TRAIN_CONF["min_sum_hessian_in_leaf"])
+    hyper = split_hyper(params)
+    fmask = torch.rand(F, generator=gen, device=dev) < 0.8
+    fm8 = fmask.to(torch.uint8)
+    # every packed field reaches the result unchanged through the
+    # epilogue, so the wrapper's result holds the kernel's output
+    res = find_best_splits_kernel(*inputs, params=params,
+                                  feature_mask=fmask, any_missing=True)
+    ref = split_scan_plain(*inputs, fmask, hyper, True)
+    ref_res = split_epilogue(ref, *inputs[1:4], params, B)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(res.__dict__.values(),
+                                                  ref_res.__dict__.values())):
+        raise AssertionError("split scan kernel != plain version")
+    n_split = int((res.gain > 0).sum())
+    if n_split < L2 // 2:
+        raise AssertionError(f"split scan wave found {n_split} splits")
+    lib = cuda_build.library("split")
+    out = torch.empty((L2, PACKED), dtype=torch.float32, device=dev)
+    ms = time_ms(lambda: split_scan_launch(lib, *inputs, fm8, hyper, True,
+                                           out), 50)
+    pl = time_ms(lambda: split_scan_plain(*inputs, fmask, hyper, True), 5)
+    nbytes = (inputs[0].numel() * 4 + 3 * L2 * 4 + 3 * F * 4 + F
+              + out.numel() * 4)
+    bd = bound(nbytes, L2 * F * B * k6_flops_per_cell(B, True),
+               FP32_OPS_PER_S)
+    entries.append(dict(
+        name="split_scan", route="cuda",
+        source="lightgbm_tpu_torch/csrc/split.cu",
+        replaces="lightgbm_tpu/ops/pallas_split.py:206",
+        max_abs_err=0.0, ms=ms, plain_ms=pl,
+        library_ms=None, shape=[L2, F, B, 3], **bd))
+    log(f"kernel split_scan [{L2}, {F}, {B}, 3]: bitwise ok, {n_split} "
+        f"splits, {ms:.4f} ms (plain {pl:.3f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']})")
+
+
+def train_path(lgb, name, counters, params, ds, rounds, **kw):
+    """One user-facing ``lgb.train`` with every launch counter reset just
+    before and read just after: -> ``(booster, seconds, launches)``."""
+    import torch
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    bst = lgb.train(dict(params), ds, num_boost_round=rounds, device="cuda",
+                    **kw)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"{name}: {bst.current_iteration()} iterations in {seconds:.3f} s "
+        f"= {1e3 * seconds / max(1, bst.current_iteration()):.2f} ms/iter "
+        f"(setup included); launches {launches}")
+    return bst, seconds, launches
+
+
 def _widest(entry: dict, by_width: list) -> dict:
     """One kernel's entry: the numbers of its widest wave, plus every
     measured wave width under ``by_width``."""
@@ -328,6 +547,7 @@ def main() -> int:
                                                   pack_values_q)
     from lightgbm_tpu_torch.ops.route import (route_rows_raw,
                                               route_rows_values_raw)
+    from lightgbm_tpu_torch.ops.split_kernel import find_best_splits_kernel
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
@@ -349,39 +569,77 @@ def main() -> int:
     kernel_phase(dd, vals, entries)
     torch.cuda.synchronize()
 
-    # 3. the slice: headline training through the user entry points
+    # 3. kernels at the small-data path's shapes
+    t0 = time.time()
+    Xs, ys, Xv, yv = small_data()
+    ds_small = lgb.Dataset(Xs, label=ys,
+                           params={"max_bin": TRAIN_CONF["max_bin"]})
+    dv_small = lgb.Dataset(Xv, label=yv, reference=ds_small)
+    ds_small.construct()
+    dv_small.construct()
+    log(f"small-data data + binning {time.time() - t0:.1f} s")
+    dds = to_device(ds_small._constructed, "cuda")
+    gs = torch.randn(dds.num_data, device="cuda") * 0.5
+    hs = torch.rand(dds.num_data, device="cuda") * 0.25
+    vals_s, _ = pack_values_q(gs, hs, "int8h", dds.n_pad)
+    small_kernel_phase(dds, vals_s, int32_ops_per_s(
+        cuda_build.multiprocessor_count(dds.device)), entries)
+    torch.cuda.synchronize()
+
     counters = {"route": route_rows_raw, "route_values": route_rows_values_raw,
-                "hist_route": hist_route_raw, "hist_compact": hist_compact_raw}
-    for fn in counters.values():
-        fn.launches = 0
+                "hist_route": hist_route_raw, "hist_compact": hist_compact_raw,
+                "split_scan": find_best_splits_kernel}
+
+    # 4. the headline path through the user entry points
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
               "learning_rate": 0.1, "min_data_in_leaf": 20, "verbose": -1}
-    torch.cuda.synchronize()
-    t0 = time.time()
-    bst = lgb.train(params, ds, num_boost_round=HEADLINE_ITERS,
-                    device="cuda")
-    torch.cuda.synchronize()
-    train_s = time.time() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    bst, _, head = train_path(lgb, "headline", counters, params, ds,
+                              HEADLINE_ITERS)
     pred = bst.predict(X)
     torch.cuda.synchronize()
     auc = binary_auc(y, pred)
-    log(f"slice: {bst.current_iteration()} iterations in {train_s:.3f} s = "
-        f"{1e3 * train_s / max(1, bst.current_iteration()):.2f} ms/iter "
-        f"(setup included); "
-        f"train auc {auc:.5f}; launches {launches}; digest "
+    log(f"headline: train auc {auc:.5f}; digest "
         f"{bst.digest(include_scores=False)}")
     if pred.shape != (HEADLINE_ROWS,) or not np.isfinite(pred).all():
         raise AssertionError("predictions are not finite [n] values")
     if not auc >= AUC_GATE:
         raise AssertionError(f"train auc {auc} < {AUC_GATE}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k, v in head.items() if v <= 0 and k != "split_scan"]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
+        raise AssertionError(f"kernels not launched on the headline path: "
                              f"{missing}")
+    if head["split_scan"] != 0:
+        raise AssertionError("the split kernel ran above 65,536 rows")
+
+    # 5. the small-data path: train.conf with a valid set and early stop
+    evals = {}
+    bst, _, small = train_path(
+        lgb, "small-data", counters, TRAIN_CONF, ds_small, SMALL_ITERS,
+        valid_sets=[dv_small], valid_names=["valid"],
+        early_stopping_rounds=SMALL_EARLY_STOP, evals_result=evals,
+        verbose_eval=False)
+    pred = bst.predict(Xv)
+    torch.cuda.synchronize()
+    vauc = binary_auc(yv, pred)
+    log(f"small-data: valid auc {vauc:.5f} at best_iteration "
+        f"{bst.best_iteration}; last recorded valid auc "
+        f"{evals['valid']['auc'][-1]:.5f}, train auc "
+        f"{evals['training']['auc'][-1]:.5f}; digest "
+        f"{bst.digest(include_scores=False)}")
+    if pred.shape != (SMALL_VALID,) or not np.isfinite(pred).all():
+        raise AssertionError("valid predictions are not finite [n] values")
+    if not vauc >= VALID_AUC_GATE:
+        raise AssertionError(f"valid auc {vauc} < {VALID_AUC_GATE}")
+    missing = [k for k in ("split_scan", "hist_route", "route_values")
+               if small[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the small-data "
+                             f"path: {missing}")
 
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        e["launches"] = head[e["name"]] + small[e["name"]]
+        e["launches_by_path"] = {"headline": head[e["name"]],
+                                 "small_data": small[e["name"]]}
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
-"""User-facing ``Dataset`` and ``Booster`` (the slice's subset).
+"""User-facing ``Dataset`` and ``Booster`` (the port's subset).
 
 The reference Python package's surface (`python-package/lightgbm/basic.py`:
 ``Dataset`` `:572`, ``Booster`` `:1264`), as the JAX package's
 ``basic.py`` offers it, for numpy input: a ``Dataset`` bins on the host
 (``io/dataset.py``) and a ``Booster`` trains on one device.  A
-``Booster`` trains on ``cuda`` unless it is given ``device="cpu"`` (or
-the ``device`` parameter).
+``Dataset`` made with ``reference=`` (a validation set) bins with the
+reference's mappers.  A ``Booster`` trains on ``cuda`` unless it is
+given ``device="cpu"`` (or the ``device`` parameter).
 """
 from __future__ import annotations
 
@@ -20,12 +21,14 @@ from .io.dataset import BinnedDataset, Metadata
 class Dataset:
     """Training data wrapper (numpy arrays)."""
 
-    def __init__(self, data, label=None, weight=None, init_score=None,
-                 feature_name="auto", categorical_feature="auto",
+    def __init__(self, data, label=None, reference: "Dataset" = None,
+                 weight=None, init_score=None, feature_name="auto",
+                 categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
         self.data = data
         self.label = label
+        self.reference = reference
         self.weight = weight
         self.init_score = init_score
         self.feature_name = feature_name
@@ -44,9 +47,11 @@ class Dataset:
                else [int(c) for c in self.categorical_feature])
         names = (list(self.feature_name)
                  if isinstance(self.feature_name, (list, tuple)) else None)
+        ref = (self.reference.construct()._constructed
+               if self.reference is not None else None)
         self._constructed = BinnedDataset.from_raw(
             X, Config.from_params(self.params), categorical_features=cat,
-            feature_names=names, metadata=Metadata())
+            feature_names=names, reference=ref, metadata=Metadata())
         md = self._constructed.metadata
         if self.label is not None:
             md.set_field("label", np.asarray(self.label).reshape(-1))
@@ -67,6 +72,8 @@ class Booster:
                  model_str: Optional[str] = None, device=None):
         from .boosting.gbdt import GBDT
         self.params = dict(params or {})
+        self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
         cfg = Config.from_params(self.params)
         self.device = str(device or cfg.device)
         if train_set is not None:
@@ -83,9 +90,27 @@ class Booster:
             self._gbdt = GBDT(cfg, None, self.device)
             self._gbdt.load_model_from_string(model_str)
 
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Score ``data`` (binned with the training set's mappers: make it
+        with ``reference=``) after every iteration."""
+        data.construct()
+        self._gbdt.add_valid(data._constructed, name)
+        return self
+
     def update(self) -> bool:
         """One boosting iteration; True when no split was possible."""
         return self._gbdt.train_one_iter()
+
+    def eval_train(self):
+        """``[(name, metric, value, higher_is_better)]`` on the training
+        set."""
+        name = getattr(self, "_train_data_name", "training")
+        return [(name, m, v, h) for _, m, v, h in self._gbdt.eval_train()]
+
+    def eval_valid(self):
+        """``[(name, metric, value, higher_is_better)]`` on every valid
+        set."""
+        return self._gbdt.eval_valid()
 
     def current_iteration(self) -> int:
         return self._gbdt.iter
@@ -95,6 +120,10 @@ class Booster:
 
     def predict(self, data, num_iteration: int = -1,
                 raw_score: bool = False) -> np.ndarray:
+        """``num_iteration <= 0`` predicts with ``best_iteration`` when it
+        is set, else with every tree."""
+        if num_iteration is None or num_iteration <= 0:
+            num_iteration = self.best_iteration
         return self._gbdt.predict(np.asarray(data), raw_score=raw_score,
                                   num_iteration=num_iteration)
 

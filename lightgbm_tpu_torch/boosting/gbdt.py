@@ -1,12 +1,18 @@
-"""GBDT — the boosting engine (the slice's subset).
+"""GBDT — the boosting engine (the port's subset).
 
 Port of the JAX package's ``boosting/gbdt.py`` (reference
 ``src/boosting/gbdt.cpp``; model text IO ``gbdt_model_text.cpp``).  One
 iteration mirrors ``TrainOneIter`` (`gbdt.cpp:377-472`): gradients from
-the objective, one tree per class through the serial learner, stumps
-zeroed, shrinkage, and the score update from the kernel-emitted per-row
-leaf values.  The reference's ``lax.scan`` windows are a TPU dispatch
-mechanism and are not ported: iterations run one at a time.
+the objective, the bagging and feature masks, one tree per class through
+the serial learner, stumps zeroed, shrinkage, and the score update from
+the kernel-emitted per-row leaf values; validation sets are scored by
+walking each new tree over their bins.  The reference's ``lax.scan``
+windows are a TPU dispatch mechanism and are not ported: iterations run
+one at a time.
+
+Bagging and feature fraction draw from the reference's keyed RNG
+(``utils/random.py``), so both packages sample the same rows and
+features from the same seeds.
 
 Trees exist as device ``BuiltTree`` tensors right after training and as
 host ``Tree`` objects for the model file; host trees are made on first
@@ -21,11 +27,15 @@ import torch
 
 from ..config import Config
 from ..io.dataset import BinnedDataset
-from ..io.device import to_device
-from ..learner.serial import BuiltTree, GrowthParams, build_tree
+from ..io.device import DeviceData, to_device
+from ..learner.serial import (BuiltTree, GrowthParams, build_tree,
+                              predict_built_tree)
+from ..metric.metrics import (Metric, create_metric,
+                              default_metric_for_objective)
 from ..models.tree import Tree, predict_binned
 from ..objective.objectives import ObjectiveFunction, create_objective
 from ..ops.split import SplitParams
+from ..utils import random as keyed
 from ..utils.log import log_info, log_warning
 
 K_MODEL_VERSION = "v2"     # reference gbdt_model_text.cpp:13
@@ -49,15 +59,31 @@ def growth_params_from_config(c: Config) -> GrowthParams:
         split=split_params_from_config(c))
 
 
+def bag_mask(seed: int, epoch: int, n: int, fraction: float,
+             device) -> torch.Tensor:
+    """Bernoulli row mask, pure in (seed, bagging epoch): the reference's
+    ``_device_bag_mask`` (``gbdt.py:103-109``)."""
+    key = keyed.fold_in(keyed.PRNGKey(seed), epoch)
+    return keyed.uniform(key, (n,), device) < fraction
+
+
+def feature_mask(seed: int, tree_idx: int, F: int, k: int) -> torch.Tensor:
+    """Exactly-k feature mask, pure in (seed, global tree index): the
+    reference's ``_device_feature_mask`` (``gbdt.py:112-123``).  Its
+    ``top_k`` breaks ties by the lowest index; a stable descending sort
+    does the same."""
+    r = keyed.uniform(keyed.fold_in(keyed.PRNGKey(seed), tree_idx), (F,))
+    idx = torch.sort(r, descending=True, stable=True).indices[:k]
+    mask = torch.zeros(F, dtype=torch.bool)
+    mask[idx] = True
+    return mask
+
+
 def _check_supported(c: Config) -> None:
     """Options outside this slice raise instead of training something
     else."""
     if c.boosting_type != "gbdt":
         raise NotImplementedError(f"boosting={c.boosting_type}")
-    if c.bagging_freq > 0 and c.bagging_fraction < 1.0:
-        raise NotImplementedError("bagging")
-    if c.feature_fraction < 1.0:
-        raise NotImplementedError("feature_fraction")
     if c.tree_learner != "serial" or c.num_machines > 1:
         raise NotImplementedError(f"tree_learner={c.tree_learner}")
     if c.num_tree_per_iteration != 1:
@@ -86,6 +112,12 @@ class GBDT:
         self.feature_names: List[str] = []
         self.max_feature_idx = 0
         self.scores: Optional[torch.Tensor] = None
+        self.valid_sets: List[BinnedDataset] = []
+        self.valid_names: List[str] = []
+        self._valid_device: List[DeviceData] = []
+        self._valid_scores: List[torch.Tensor] = []
+        self.metrics: List[Metric] = []
+        self._bag: Optional[Tuple[int, torch.Tensor]] = None
         if train_set is not None:
             self._init_train(train_set)
 
@@ -115,6 +147,66 @@ class GBDT:
         self.scores = torch.as_tensor(scores, device=self.device)
         self.growth = growth_params_from_config(c)
         self.hist_mode = c.hist_mode or None
+        self._setup_metrics()
+
+    def _setup_metrics(self) -> None:
+        c = self.config
+        names = list(c.metric)
+        if not names and c.objective != "none":
+            names = [default_metric_for_objective(c.objective)]
+        seen = set()
+        for nm in names:
+            m = create_metric(nm, c)
+            if m is not None and m.names[0] not in seen:
+                self.metrics.append(m)
+                seen.add(m.names[0])
+
+    def add_valid(self, valid_set: BinnedDataset, name: str) -> None:
+        """Reference GBDT::AddValidDataset (``gbdt.cpp:124+``): the set,
+        binned with the training set's mappers, is scored on the device
+        after every tree."""
+        if self._num_models():
+            raise NotImplementedError(
+                "add_valid after training has started (replaying trees "
+                "into valid scores) is not ported yet")
+        ms = valid_set.metadata.init_score
+        if ms is not None:
+            score = torch.as_tensor(
+                np.asarray(ms, np.float64).reshape(-1, 1).astype(np.float32),
+                device=self.device)
+        else:
+            score = torch.full((valid_set.num_data, 1),
+                               self.init_score_value, dtype=torch.float32,
+                               device=self.device)
+        self.valid_sets.append(valid_set)
+        self.valid_names.append(name)
+        self._valid_device.append(to_device(valid_set, self.device))
+        self._valid_scores.append(score)
+
+    def _bagging_mask(self, it: int) -> Optional[torch.Tensor]:
+        """Row subsampling mask of iteration ``it`` (reference Bagging,
+        ``gbdt.cpp:225-286``): pure in (``bagging_seed``, ``it //
+        bagging_freq``), made once per bagging epoch."""
+        c = self.config
+        if c.bagging_freq <= 0 or c.bagging_fraction >= 1.0:
+            return None
+        epoch = it // c.bagging_freq
+        if self._bag is None or self._bag[0] != epoch:
+            self._bag = (epoch, bag_mask(c.bagging_seed, epoch,
+                                         self.num_data, c.bagging_fraction,
+                                         self.device))
+        return self._bag[1]
+
+    def _feature_mask(self, tree_idx: int) -> Optional[torch.Tensor]:
+        """Per-tree feature subsampling (``serial_tree_learner.cpp:240-266``),
+        pure in (``feature_fraction_seed``, global tree index)."""
+        c = self.config
+        if c.feature_fraction >= 1.0:
+            return None
+        F = self.device_data.num_features
+        k = max(1, int(c.feature_fraction * F))
+        return feature_mask(c.feature_fraction_seed, tree_idx, F,
+                            k).to(self.device)
 
     # -- host trees ------------------------------------------------------
     @property
@@ -143,14 +235,19 @@ class GBDT:
         when training should stop (the tree is a stump: no split meets
         the requirements)."""
         grad, hess = self.objective.get_gradients(self.scores[:, 0])
+        K = self.num_tree_per_iteration
         bt = build_tree(self.device_data, grad, hess, self.growth,
+                        bag_mask=self._bagging_mask(self.iter),
+                        feature_mask=self._feature_mask(self.iter * K),
                         hist_mode=self.hist_mode)
-        if int(bt.num_leaves) <= 1:
+        nl, depth = torch.stack([bt.num_leaves,
+                                 bt.leaf_depth.max()]).tolist()
+        if nl <= 1:
             log_warning("stopped training because there are no more leaves "
                         f"that meet the split requirements (iteration "
                         f"{self.iter + 1})")
             return True
-        self._update_scores(bt, 0)
+        self._update_scores(bt, 0, depth)
         bias = (self.init_score_value
                 if (self._num_models() == 0
                     and abs(self.init_score_value) > 1e-15) else 0.0)
@@ -160,10 +257,40 @@ class GBDT:
         self.iter += 1
         return False
 
-    def _update_scores(self, bt: BuiltTree, k: int) -> None:
+    def _update_scores(self, bt: BuiltTree, k: int, depth: int) -> None:
         """Add the shrunk kernel-emitted per-row leaf values: one fused
-        multiply-add per row, as the reference's compiled update."""
+        multiply-add per row, as the reference's compiled update.  Valid
+        scores add the shrunk values of a device walk of the tree, ``depth``
+        levels deep (the product rounded, then the add, as the reference's
+        eager update)."""
         self.scores[:, k].add_(bt.row_value, alpha=self.shrinkage_rate)
+        lr = torch.tensor(self.shrinkage_rate, dtype=torch.float32,
+                          device=self.device)
+        for vd, score in zip(self._valid_device, self._valid_scores):
+            score[:, k] += lr * predict_built_tree(bt, vd, depth)
+
+    # -- evaluation ----------------------------------------------------------
+    def eval_train(self) -> List[Tuple[str, str, float, bool]]:
+        md = self.train_set.metadata
+        return self._eval_set("training", self.scores, md.label, md.weight)
+
+    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        out = []
+        for name, vs, score in zip(self.valid_names, self.valid_sets,
+                                   self._valid_scores):
+            out.extend(self._eval_set(name, score, vs.metadata.label,
+                                      vs.metadata.weight))
+        return out
+
+    def _eval_set(self, name, scores, label, weight):
+        """``[(set name, metric name, value, higher_is_better)]`` over the
+        raw scores (reference ``gbdt.cpp:OutputMetric``)."""
+        if label is None:
+            return []
+        s = scores[:, 0].cpu().numpy()
+        label = np.asarray(label)
+        return [(name, mname, val, hib) for m in self.metrics
+                for mname, val, hib in m.eval(label, s, weight)]
 
     def _to_host_tree(self, bt: BuiltTree) -> Tree:
         """Device BuiltTree -> host Tree with real-valued thresholds."""

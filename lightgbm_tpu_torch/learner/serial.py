@@ -44,6 +44,7 @@ from ..ops.histogram import (QUANTIZED_MODES, bin_stride, hist_route,
 from ..ops.route import route_rows, route_rows_values, unbundle_bin
 from ..ops.split import (SplitParams, SplitResult, find_best_splits,
                          leaf_output, split_scan_chunk_features)
+from ..ops.split_kernel import find_best_splits_kernel, split_kernel_ok
 
 NEG_INF = -1e30
 
@@ -235,7 +236,10 @@ def apply_hist_wave(hist_state, new_h, act_small, act_parent, act_sibling,
 
 def scan_grid(data: DeviceData, params: GrowthParams, feature_mask, ids,
               grid, lsg, lsh, lc) -> SplitResult:
-    """EFB unbundle + best-split scan of the changed-leaf grids."""
+    """EFB unbundle + best-split scan of the changed-leaf grids: the
+    fused split kernel (K6) where :func:`split_kernel_ok` holds (at most
+    65,536 rows, numerical features), else the torch scan — the
+    reference's choice of scan."""
     L = params.num_leaves
     safe = ids.clamp(0, L - 1).long()
     if data.is_bundled:
@@ -243,6 +247,13 @@ def scan_grid(data: DeviceData, params: GrowthParams, feature_mask, ids,
                              data.feat_group, data.feat_offset,
                              data.num_bins, data.default_bins,
                              bin_stride(data.max_bins))
+    if split_kernel_ok(grid.shape[1], grid.shape[2], data.has_categorical,
+                       data.num_data):
+        return find_best_splits_kernel(
+            grid.contiguous(), lsg[safe], lsh[safe], lc[safe],
+            data.num_bins, data.missing_types, data.default_bins,
+            params=params.split, feature_mask=feature_mask,
+            any_missing=data.has_missing)
     fc = split_scan_chunk_features(grid.shape[0], grid.shape[1],
                                    grid.shape[2], data.has_missing)
     return find_best_splits(grid, lsg[safe], lsh[safe], lc[safe],
@@ -511,28 +522,37 @@ def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
 
 
 def predict_built_tree(tree: BuiltTree, data: DeviceData,
-                       bins: torch.Tensor) -> torch.Tensor:
-    """Leaf value per row of ``bins [n, G]`` for a just-built tree."""
-    n = bins.shape[0]
-    node = torch.zeros(n, dtype=torch.int64, device=bins.device)
-    if int(tree.num_leaves) <= 1:
-        node = node - 1                      # ~0: leaf 0
-    bins = bins.long()
-    for _ in range(tree.leaf_value.shape[0] - 1):
+                       depth: int) -> torch.Tensor:
+    """Leaf value per row of ``data`` (walking its ``bins_t``) for a
+    just-built tree whose deepest leaf is at ``depth`` (0 for a stump):
+    one pass per level."""
+    n = data.num_data
+    bins_t = data.bins_t[:, :n].long()
+    node = torch.zeros(n, dtype=torch.int64, device=bins_t.device)
+    if depth < 1:
+        return tree.leaf_value[node]         # a stump: leaf 0
+    # per-node tables, cast once: node -> feature -> column tables
+    feature = tree.feature.long()
+    group = data.feat_group.long()[feature]
+    offset = data.feat_offset.long()[feature]
+    nbins = data.num_bins.long()[feature]
+    dbin = data.default_bins.long()[feature]
+    mtype = data.missing_types[feature]
+    nanb = data.nan_bins.long()[feature]
+    thr = tree.threshold_bin.long()
+    left = tree.left_child.long()
+    right = tree.right_child.long()
+    for _ in range(depth):
         is_leaf = node < 0
         nidx = node.clamp(min=0)
-        f = tree.feature.long()[nidx]
-        c = bins.gather(1, data.feat_group.long()[f][:, None])[:, 0]
-        db = data.default_bins.long()[f]
-        b = unbundle_bin(c, data.feat_offset.long()[f],
-                         data.num_bins.long()[f], db)
-        mt = data.missing_types[f]
-        is_missing = (((mt == MISSING_NAN) & (b == data.nan_bins.long()[f]))
+        c = bins_t.gather(0, group[nidx][None, :])[0]
+        db = dbin[nidx]
+        b = unbundle_bin(c, offset[nidx], nbins[nidx], db)
+        mt = mtype[nidx]
+        is_missing = (((mt == MISSING_NAN) & (b == nanb[nidx]))
                       | ((mt == MISSING_ZERO) & (b == db)))
         go_left = torch.where(is_missing, tree.default_left[nidx],
-                              b <= tree.threshold_bin.long()[nidx])
-        nxt = torch.where(go_left, tree.left_child.long()[nidx],
-                          tree.right_child.long()[nidx])
+                              b <= thr[nidx])
+        nxt = torch.where(go_left, left[nidx], right[nidx])
         node = torch.where(is_leaf, node, nxt)
-    leaf = torch.where(node < 0, ~node, torch.zeros_like(node))
-    return tree.leaf_value[leaf]
+    return tree.leaf_value[~node]

@@ -1,4 +1,4 @@
-"""Evaluation metrics (the slice's subset): AUC and binary logloss.
+"""Evaluation metrics (the port's subset): AUC, binary logloss and l2.
 
 Copied from the JAX package's ``metric/metrics.py`` (host numpy, no
 JAX).  Each metric takes the RAW model score and applies the link
@@ -63,3 +63,65 @@ def binary_logloss(label, score, sigmoid: float = 1.0,
     return _wmean(loss, weight)
 
 
+def l2(label, score, weight=None) -> float:
+    return _wmean((np.asarray(score) - np.asarray(label)) ** 2, weight)
+
+
+class Metric:
+    """One named evaluation metric: ``eval(label, raw_score, weight)`` ->
+    ``[(name, value, higher_is_better)]`` (reference ``Metric::Eval``)."""
+    names = ()
+
+    def __init__(self, config):
+        self.config = config
+
+    def eval(self, label, score, weight=None):
+        raise NotImplementedError
+
+
+class BinaryLoglossMetric(Metric):
+    names = ("binary_logloss",)
+
+    def eval(self, label, score, weight=None):
+        return [("binary_logloss",
+                 binary_logloss(label, score, self.config.sigmoid, weight),
+                 False)]
+
+
+class AucMetric(Metric):
+    names = ("auc",)
+
+    def eval(self, label, score, weight=None):
+        return [("auc", binary_auc(label, score, weight), True)]
+
+
+class L2Metric(Metric):
+    names = ("l2",)
+
+    def eval(self, label, score, weight=None):
+        return [("l2", l2(label, score, weight), False)]
+
+
+METRICS = {
+    "binary_logloss": BinaryLoglossMetric, "binary": BinaryLoglossMetric,
+    "auc": AucMetric,
+    "l2": L2Metric, "mse": L2Metric, "mean_squared_error": L2Metric,
+    "regression": L2Metric, "regression_l2": L2Metric,
+}
+
+
+def create_metric(name: str, config) -> Optional[Metric]:
+    """Factory (reference ``src/metric/metric.cpp:11-57``) over the
+    metrics ported so far; others raise."""
+    key = name.strip().lower()
+    if key in ("", "none", "null", "na"):
+        return None
+    cls = METRICS.get(key)
+    if cls is None:
+        raise NotImplementedError(f"metric {name!r} is not ported to "
+                                  f"lightgbm_tpu_torch yet")
+    return cls(config)
+
+
+def default_metric_for_objective(objective: str) -> str:
+    return {"binary": "binary_logloss"}.get(objective, "l2")

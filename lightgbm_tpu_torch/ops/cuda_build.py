@@ -2,8 +2,9 @@
 
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with ``ctypes``; pointers travel as
-``c_void_p`` and every entry point launches on the stream it is given and
-returns ``cudaGetLastError()``.  Libraries land in
+``c_void_p``, floats as ``c_float``, and every entry point launches on
+the stream it is given and returns ``cudaGetLastError()``.  Libraries
+land in
 ``lightgbm_tpu_torch/_build/`` under a name that carries a hash of the
 sources and flags, so an edited source rebuilds at its next use.
 :func:`build_all` starts one ``nvcc`` per source at once.
@@ -32,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # one library per kernel source; the value lists its C entry points as
 # (name, argtypes) with pointers and the stream as c_void_p
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 LIBRARIES = {
     "route": {
         "lgbm_route_rows": [_P, _LL, _P, _P, _P, _I, _P, _I, _I, _I, _P],
@@ -45,6 +47,10 @@ LIBRARIES = {
     "hist_compact": {
         "lgbm_hist_compact": [_P, _LL, _I, _P, _I, _P, _I, _P, _P, _I, _I,
                               _I, _I, _I, _LL, _I, _P, _P],
+    },
+    "split": {
+        "lgbm_split_scan": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F,
+                            _F, _F, _F, _I, _P, _I, _P],
     },
 }
 

@@ -19,6 +19,8 @@ from lightgbm_tpu_torch.convert import device_data_from_numpy
 from lightgbm_tpu_torch.io.dataset import BinnedDataset as TDataset
 from lightgbm_tpu_torch.io.device import feature_meta_np as t_feature_meta
 
+torch.set_num_threads(1)   # tiny tensors: more threads only spin
+
 
 def _matrix(seed=0, n=4000):
     rng = np.random.RandomState(seed)

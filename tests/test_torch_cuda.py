@@ -7,8 +7,9 @@ card (marked ``cuda``; skipped where no CUDA device is present).
 with only PyTorch lacks.)
 
 Each kernel wrapper runs on CUDA tensors and on CPU copies of the same
-inputs (the plain version); results must be bitwise equal.  The launch
-counters must move on CUDA only.
+inputs (the plain version); results must be bitwise equal — the split
+scan's too, every field of its result, at the small-data path's shape
+``[64, 28, 256, 3]``.  The launch counters must move on CUDA only.
 """
 import numpy as np
 import pytest
@@ -33,11 +34,11 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(seed=0, n=20000):
+def _inputs(seed=0, n=20000, max_bin=63):
     rng = np.random.RandomState(seed)
     X = rng.normal(size=(n, 8))
     X[rng.rand(n) < 0.1, 1] = np.nan
-    ds = BinnedDataset.from_raw(X, Config.from_params({"max_bin": 63}))
+    ds = BinnedDataset.from_raw(X, Config.from_params({"max_bin": max_bin}))
     dd = device_data_from_numpy(ds.bins, feature_meta_np(ds), "cpu")
     leaf2 = torch.full((2, dd.n_pad), -1, dtype=torch.int32)
     leaf2[0, :n] = torch.as_tensor(rng.randint(0, 20, size=n))
@@ -47,9 +48,10 @@ def _inputs(seed=0, n=20000):
     sel = torch.as_tensor(rng.rand(L) < 0.5) & (torch.arange(L) < 20)
     tabs, cat = t_route.leaf_tables(
         torch.as_tensor(rng.randint(0, F, size=L)).int(),
-        torch.as_tensor(rng.randint(0, 60, size=L)).int(),
+        torch.as_tensor(rng.randint(0, max_bin - 3, size=L)).int(),
         torch.as_tensor(rng.rand(L) < 0.5), torch.zeros(L, dtype=torch.bool),
-        torch.zeros((L, 64), dtype=torch.bool), sel,
+        torch.zeros((L, t_hist.bin_stride(dd.max_bins)), dtype=torch.bool),
+        sel,
         torch.where(sel, 20 + torch.cumsum(sel.int(), 0) - 1, 0).int(),
         dd.missing_types, dd.nan_bins, dd.default_bins, dd.feat_group,
         dd.feat_offset, dd.num_bins)
@@ -88,6 +90,28 @@ def test_hist_route_kernel_bitwise(cuda_device, A):
 
 
 @pytest.mark.cuda
+def test_small_path_kernels_bitwise(cuda_device):
+    """K1 and K4 at the small-data path's 256-bin stride and 63 leaves,
+    with bagged-out rows that the -1 slots of K1 collect."""
+    dd, leaf2, tabs, cat, vals, rng = _inputs(seed=5, n=65536, max_bin=255)
+    assert cat.shape == (L, 256)
+    active = torch.as_tensor(rng.choice(40, 32, replace=False)).int()
+    active[-2:] = -1
+    args = (dd.bins_t, vals, leaf2, active, tabs, cat)
+    raw, l2 = t_hist.hist_route_raw(*[t.to(cuda_device) for t in args], L,
+                                    dd.group_max_bins)
+    rraw, rl2 = t_hist.hist_route_raw(*args, L, dd.group_max_bins)
+    assert torch.equal(raw.cpu(), rraw) and torch.equal(l2.cpu(), rl2)
+    n_oob = int((rl2[1, :dd.num_data] < 0).sum())
+    assert n_oob > 0 and int(rraw[-1, 0, :, -1].sum()) == n_oob
+    lv = torch.as_tensor(rng.normal(size=L).astype(np.float32))
+    cu = [t.to(cuda_device) for t in (dd.bins_t, leaf2, tabs, cat, lv)]
+    l2, v = t_route.route_rows_values_raw(*cu)
+    rl2, rv = t_route.route_rows_values_raw(dd.bins_t, leaf2, tabs, cat, lv)
+    assert torch.equal(l2.cpu(), rl2) and torch.equal(v.cpu(), rv)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("A", [64, 128])
 def test_hist_compact_kernel_bitwise(cuda_device, A):
     dd, leaf2, tabs, cat, vals, rng = _inputs(seed=A)
@@ -101,3 +125,55 @@ def test_hist_compact_kernel_bitwise(cuda_device, A):
     ref = t_compact.hist_compact_raw(*args, L, dd.group_max_bins)
     assert torch.equal(raw.cpu(), ref)
     assert (ref[30:] == 0).all()
+
+
+def _split_inputs(seed, L2, F, B, missing=True, n_rows=20000):
+    """Consistent histograms from simulated rows (every feature
+    partitions the same rows), as the split scan sees them."""
+    rng = np.random.RandomState(seed)
+    num_bins = rng.randint(B // 2, B + 1, size=F).astype(np.int32)
+    mt = (rng.randint(0, 3, size=F) if missing
+          else np.zeros(F)).astype(np.int32)
+    db = np.array([rng.randint(0, nb) for nb in num_bins], np.int32)
+    leaf = rng.randint(0, L2, size=n_rows)
+    g = rng.normal(size=n_rows)
+    h = np.abs(rng.normal(size=n_rows)) + 0.1
+    hist = np.zeros((L2, F, B, 3), np.float32)
+    for f in range(F):
+        bins = rng.randint(0, num_bins[f], size=n_rows)
+        np.add.at(hist[:, f, :, 0], (leaf, bins), g)
+        np.add.at(hist[:, f, :, 1], (leaf, bins), h)
+        np.add.at(hist[:, f, :, 2], (leaf, bins), 1.0)
+    tot = [np.bincount(leaf, w, L2).astype(np.float32)
+           for w in (g, h, np.ones(n_rows))]
+    return [torch.as_tensor(a) for a in (hist, *tot, num_bins, mt, db)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L2,F,B,missing,masked", [
+    (64, 28, 256, True, False), (64, 28, 256, True, True),
+    (16, 6, 64, False, False)], ids=["path", "path_masked", "b64"])
+def test_split_kernel_bitwise(cuda_device, L2, F, B, missing, masked):
+    from lightgbm_tpu_torch.ops import split_kernel as t_split
+    from lightgbm_tpu_torch.ops.split import SplitParams
+    args = _split_inputs(L2 + F, L2, F, B, missing)
+    fm = torch.as_tensor(np.random.RandomState(F).rand(F) < 0.8) \
+        if masked else None
+    params = SplitParams(min_data_in_leaf=50, min_sum_hessian_in_leaf=5.0)
+    n0 = t_split.find_best_splits_kernel.launches
+    got = t_split.find_best_splits_kernel(
+        *[a.to(cuda_device) for a in args], params=params,
+        feature_mask=None if fm is None else fm.to(cuda_device),
+        any_missing=missing)
+    torch.cuda.synchronize()
+    assert t_split.find_best_splits_kernel.launches == n0 + 1
+    ref = t_split.find_best_splits_kernel(*args, params=params,
+                                          feature_mask=fm,
+                                          any_missing=missing)
+    assert (ref.gain > 0).sum() >= L2 // 2
+    for name in ("gain", "feature", "threshold", "default_left",
+                 "left_sum_grad", "left_sum_hess", "left_count",
+                 "right_sum_grad", "right_sum_hess", "right_count",
+                 "left_output", "right_output"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), \
+            name

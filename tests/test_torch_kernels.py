@@ -32,6 +32,8 @@ from lightgbm_tpu_torch.ops import compact as t_compact
 from lightgbm_tpu_torch.ops import histogram as t_hist
 from lightgbm_tpu_torch.ops import route as t_route
 
+torch.set_num_threads(1)   # tiny tensors: more threads only spin
+
 L = 31
 
 

@@ -9,7 +9,10 @@
   bitwise as well);
 * one ``build_tree`` agrees node for node with the reference's
   ``build_tree`` under ``hist_backend="compact"`` (Pallas kernels in
-  interpret mode), on the same bins handed over by ``convert``.
+  interpret mode, the split kernel included through
+  ``LGBM_TPU_SPLIT_INTERPRET=1``), on the same bins handed over by
+  ``convert``; at <= 65,536 rows both take the fused split kernel, above
+  it both take the scan of ``ops/split.py``.
 """
 import functools
 
@@ -34,6 +37,9 @@ from lightgbm_tpu_torch.ops import compact as t_compact
 from lightgbm_tpu_torch.ops import histogram as t_hist
 from lightgbm_tpu_torch.ops import route as t_route
 from lightgbm_tpu_torch.ops import split as tsplit
+from lightgbm_tpu_torch.ops import split_kernel as t_split
+
+torch.set_num_threads(1)   # tiny tensors: more threads only spin
 
 
 def _grad_hess(n, seed=0):
@@ -167,7 +173,8 @@ BUILD_CASES = [(3000, 15, "fused"), (3000, 127, "compact"),
 
 @pytest.mark.parametrize("n,L,backend", BUILD_CASES,
                          ids=[b for _, _, b in BUILD_CASES])
-def test_build_tree_node_for_node(n, L, backend):
+def test_build_tree_node_for_node(monkeypatch, n, L, backend):
+    monkeypatch.setenv("LGBM_TPU_SPLIT_INTERPRET", "1")
     rng = np.random.RandomState(6)
     X = rng.normal(size=(n, 6))
     X[rng.rand(n) < 0.1, 1] = np.nan
@@ -187,7 +194,8 @@ def test_build_tree_node_for_node(n, L, backend):
         "fused" if backend == "fused" else "compact")
     calls = {f: f.plain_calls for f in (
         t_hist.hist_route_raw, t_compact.hist_compact_raw,
-        t_route.route_rows_raw, t_route.route_rows_values_raw)}
+        t_route.route_rows_raw, t_route.route_rows_values_raw,
+        t_split.find_best_splits_kernel)}
     tt = tserial.build_tree(td, torch.as_tensor(g), torch.as_tensor(h),
                             tserial.GrowthParams(
                                 split=tsplit.SplitParams(**split),
@@ -197,6 +205,8 @@ def test_build_tree_node_for_node(n, L, backend):
     assert moved[t_hist.hist_route_raw] == (backend != "compact")
     assert moved[t_compact.hist_compact_raw] == (backend != "fused")
     assert moved[t_route.route_rows_raw] == (backend != "fused")
+    assert moved[t_split.find_best_splits_kernel] == (
+        n <= t_split.SPLIT_KERNEL_MAX_ROWS)
     nl = int(jt.num_leaves)
     assert int(tt.num_leaves) == nl and nl > L // 2
     m = nl - 1
@@ -216,8 +226,10 @@ def test_build_tree_node_for_node(n, L, backend):
                                   np.asarray(jt.row_leaf))
     np.testing.assert_array_equal(tt.row_value.numpy(),
                                   np.asarray(jt.row_value))
-    # the device walk of the built tree lands every row where routing did
-    pred = tserial.predict_built_tree(tt, td,
-                                      td.bins_t[:, :td.num_data].t())
-    np.testing.assert_array_equal(pred.numpy(),
-                                  tt.leaf_value.numpy()[tt.row_leaf.numpy()])
+    # the device walk of the built tree lands every row where routing did,
+    # in as many passes as the tree is deep (more passes change nothing)
+    depth = int(tt.leaf_depth.max())
+    want = tt.leaf_value.numpy()[tt.row_leaf.numpy()]
+    for passes in (depth, L - 1):
+        pred = tserial.predict_built_tree(tt, td, passes)
+        np.testing.assert_array_equal(pred.numpy(), want)

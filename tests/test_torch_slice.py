@@ -1,11 +1,16 @@
 """The slice as a whole: ``lgb.train`` in both packages at toy size.
 
 The JAX side is forced onto the kernel backend
-(``LGBM_TPU_HIST_BACKEND=compact``, Pallas in interpret mode on the
+(``LGBM_TPU_HIST_BACKEND=compact`` and ``LGBM_TPU_SPLIT_INTERPRET=1``:
+its histogram, route and split kernels in Pallas interpret mode on the
 CPU); the port runs its kernels' plain versions on the CPU.  One config
 runs every wave fused (15 leaves), the other route + leaf-compacted
 histogram (127 leaves; at <= 65,536 rows every wave runs at the tail
-width); a third trains the L2 regression objective.  The digests
+width); a third trains the L2 regression objective.  At these sizes
+every wave's split scan is the fused split kernel in both packages,
+except in the "lane_unaligned" config (6 features x 16 bins): there the
+reference keeps its XLA scan (``F*B`` is not a multiple of 128 lanes)
+while the port, which has no lane condition, takes the kernel.  The digests
 (``include_scores=False``) must match, or the first divergence must be
 a near-tie flip by
 ``lightgbm_tpu.parallel.envelope.model_flip_report`` with train AUC in
@@ -14,6 +19,7 @@ agreement.  A model the JAX package saved and the port loaded through
 """
 import numpy as np
 import pytest
+import torch
 
 from tools.numcheck.tolerance_registry import tol
 
@@ -29,6 +35,9 @@ from lightgbm_tpu_torch.metric import metrics as t_metrics
 from lightgbm_tpu_torch.ops import compact as t_compact
 from lightgbm_tpu_torch.ops import histogram as t_hist
 from lightgbm_tpu_torch.ops import route as t_route
+from lightgbm_tpu_torch.ops import split_kernel as t_split
+
+torch.set_num_threads(1)   # tiny tensors: more threads only spin
 
 ITERS = 4
 
@@ -41,30 +50,35 @@ def _data(seed=0, n=3000, f=6):
     return X, y
 
 
-def _params(leaves, objective="binary"):
-    return {"objective": objective, "num_leaves": leaves, "max_bin": 63,
-            "learning_rate": 0.1, "min_data_in_leaf": 20, "verbose": -1}
+def _params(leaves, objective="binary", max_bin=63):
+    return {"objective": objective, "num_leaves": leaves,
+            "max_bin": max_bin, "learning_rate": 0.1,
+            "min_data_in_leaf": 20, "verbose": -1}
 
 
 WRAPPERS = (t_hist.hist_route_raw, t_compact.hist_compact_raw,
-            t_route.route_rows_raw, t_route.route_rows_values_raw)
+            t_route.route_rows_raw, t_route.route_rows_values_raw,
+            t_split.find_best_splits_kernel)
 
 
-FUSED = {t_hist.hist_route_raw, t_route.route_rows_values_raw}
+FUSED = {t_hist.hist_route_raw, t_route.route_rows_values_raw,
+         t_split.find_best_splits_kernel}
 COMPACT = {t_compact.hist_compact_raw, t_route.route_rows_raw,
-           t_route.route_rows_values_raw}
+           t_route.route_rows_values_raw, t_split.find_best_splits_kernel}
 
 
-@pytest.mark.parametrize("leaves,objective,expect", [
-    (15, "binary", FUSED), (127, "binary", COMPACT),
-    (15, "regression", FUSED),
-], ids=["fused", "compact", "regression"])
-def test_train_matches_reference(monkeypatch, leaves, objective, expect):
+@pytest.mark.parametrize("leaves,objective,max_bin,expect", [
+    (15, "binary", 63, FUSED), (127, "binary", 63, COMPACT),
+    (15, "regression", 63, FUSED), (15, "binary", 15, FUSED),
+], ids=["fused", "compact", "regression", "lane_unaligned"])
+def test_train_matches_reference(monkeypatch, leaves, objective, max_bin,
+                                 expect):
     monkeypatch.setenv("LGBM_TPU_HIST_BACKEND", "compact")
+    monkeypatch.setenv("LGBM_TPU_SPLIT_INTERPRET", "1")
     X, y = _data()
     if objective == "regression":
         y = (X[:, 0] * 2 + X[:, 1] - X[:, 2]).astype(np.float32)
-    params = _params(leaves, objective)
+    params = _params(leaves, objective, max_bin)
     jb = jlgb.train(dict(params), jlgb.Dataset(X, label=y),
                     num_boost_round=ITERS)
     before = {w: w.plain_calls for w in WRAPPERS}
