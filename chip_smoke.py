@@ -36,6 +36,25 @@ and the script exits non-zero):
    route-values kernels to have launched, valid AUC >= 0.90 and finite
    predictions.
 
+6. stream kernels — at the stream path's shapes (a 1,048,576-row
+   block, 28 columns, 64-bin stride) the wide active-leaf histogram K5
+   on int8h values and on hhilo values (A = 32, C = 4) and the
+   leaf-compacted K3 at A = 128, each adding into the nonzero carry a
+   previous block left, held bitwise against its plain version (the
+   float one runs on CPU copies: only the CPU adds in its fixed order);
+7. stream identity — ``ingest_synthetic`` writes the bench's A/B store
+   (4,194,304 rows x 28, max_bin 63) into a temporary directory;
+   ``lgb.train_streaming`` (63 leaves, lr 0.1, blocks of 1,048,576 rows,
+   2 iterations, int8h) and in-memory training on
+   ``store.to_binned_dataset`` must give one digest (scores included);
+   the stream must launch K5 (int8h), K2 and K4, the in-memory run K1;
+8. stream scale — the bench's stream leg (``bench.py`` stream config)
+   cut from 100,000,000 rows to 20,000,000: past 16,909,320 rows the
+   mode is hhilo, so the float K5 must launch and the int8h K5 and K1
+   must not; the scores must be finite and their AUC on the store's
+   labels >= 0.93; rows per second, wall and peak device memory are
+   logged.  The temporary stores are removed at the end.
+
 A path's ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
 the per-iteration evaluation included.  The last lines are the kernel
@@ -46,8 +65,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HEADLINE_ROWS = 1_000_000
@@ -66,6 +87,15 @@ TRAIN_CONF = {"objective": "binary", "metric": "binary_logloss,auc",
               "feature_fraction": 0.8, "bagging_freq": 5,
               "bagging_fraction": 0.8, "min_data_in_leaf": 50,
               "min_sum_hessian_in_leaf": 5.0, "verbose": -1}
+# the bench's stream leg (bench.py stream config): 63 leaves, max_bin 63,
+# blocks of 1,048,576 rows; its A/B store size; its 100M rows cut to 20M
+STREAM_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
+                 "learning_rate": 0.1, "verbose": -1}
+STREAM_FEATURES = 28
+STREAM_BLOCK = 1 << 20
+STREAM_ITERS = 2
+STREAM_IDENT_ROWS = 4_194_304
+STREAM_SCALE_ROWS = 20_000_000
 # memory rate of one H100 SXM (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 # float32 rate outside the tensor cores of one H100 SXM (data sheet)
@@ -504,6 +534,248 @@ def small_kernel_phase(dds, vals, int_rate: float, entries) -> None:
         f"{bd['bound_ms']:.4f} ms by {bd['bound_by']})")
 
 
+def stream_wave(gen, nl: int, A: int, G: int = STREAM_FEATURES,
+                R: int = STREAM_BLOCK, max_bins: int = 63):
+    """One streamed block of a wave: bins ``[G, R]``, gradients, hist
+    leaves over ``nl`` leaves with 5% of rows at -1 (padding rows), and
+    ``A`` active slots, two of them -1."""
+    import torch
+    dev = gen.device
+    bins_t = torch.randint(0, max_bins, (G, R), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    g = torch.randn(R, generator=gen, device=dev) * 0.5
+    h = torch.rand(R, generator=gen, device=dev) * 0.25
+    hl = torch.randint(0, nl, (R,), generator=gen, device=dev).int()
+    hl[torch.rand(R, generator=gen, device=dev) < 0.05] = -1
+    active = torch.randperm(nl, generator=gen, device=dev)[:A].int()
+    active[-2:] = -1
+    return bins_t, g, h, hl, active.contiguous()
+
+
+def _flat_cells(bins_t, hl, inv, rows, B: int, C: int):
+    """Flat ``[A, G, B, C]`` cell indices of ``rows``, ``[G, r, C]``."""
+    import torch
+    G = bins_t.shape[0]
+    L = inv.shape[0] - 1
+    sl = inv.long()[torch.where(hl >= 0, hl.long(), L)][rows]
+    cells = ((sl[None, :] * G + torch.arange(G, device=hl.device)[:, None])
+             * B + bins_t[:, rows].long()) * C
+    return cells[:, :, None] + torch.arange(C, device=hl.device)[None, None]
+
+
+def stream_kernel_phase(int_rate: float, entries) -> dict:
+    """K5 on int8h and hhilo values and the seeded K3 at the stream path's
+    shapes, each adding into the carry a previous block left: bitwise
+    against the plain version, times and bounds.  Appends the two K5
+    entries; -> the seeded K3 numbers."""
+    import torch
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.ops.compact import hist_compact_raw
+    from lightgbm_tpu_torch.ops.histogram import (
+        FLOAT_CHUNK, HIST_BLOCK, bin_stride, float_slots_per_block,
+        hist_active_float_raw, hist_active_raw, hist_float_plain,
+        hist_launch_shape, hist_plain, pack_values, pack_values_q,
+        slot_tables)
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = cuda_build.multiprocessor_count(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    L, A, G, R = STREAM_PARAMS["num_leaves"], 32, STREAM_FEATURES, \
+        STREAM_BLOCK
+    B = bin_stride(63)
+    prev = stream_wave(gen, L, A)
+    bins_t, g, h, hl, active = stream_wave(gen, L, A)
+    inv, src = slot_tables(active, L, collect_unbagged=True)
+    rows = torch.nonzero(inv.long()[torch.where(hl >= 0, hl.long(), L)]
+                         >= 0)[:, 0]
+    n_active = int(rows.numel())
+    small = (L + 1 + A) * 4
+
+    # -- K5, int8h --------------------------------------------------------
+    vp, sc = pack_values_q(prev[1], prev[2], "int8h", R)
+    vals, _ = pack_values_q(g, h, "int8h", R, scales=sc)
+    C = vals.shape[0]
+    carry = hist_active_raw(prev[0], vp, prev[3], active, L, 63)
+    got = hist_active_raw(bins_t, vals, hl, active, L, 63, carry.clone())
+    ref = carry + hist_plain(bins_t, vals, hl, inv, src, B)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, ref) and not torch.equal(carry, ref)):
+        raise AssertionError("hist_active kernel != plain version")
+    lib = cuda_build.library("hist_active")
+    As, Ft, gx, rpb = hist_launch_shape(R, G, A, B, C, sms)
+    obuf = carry.clone()
+    ms = time_ms(lambda: lib.lgbm_hist_active(
+        bins_t.data_ptr(), R, G, vals.data_ptr(), C, hl.data_ptr(), L,
+        inv.data_ptr(), src.data_ptr(), A, B, Ft, As, gx, rpb, HIST_BLOCK,
+        obuf.data_ptr(), stream), 20)
+    pl = time_ms(lambda: carry + hist_plain(bins_t, vals, hl, inv, src, B),
+                 3)
+    idx = _flat_cells(bins_t, hl, inv, rows, B, C).reshape(-1)
+    vv = vals[:, rows].int().t()[None].expand(G, -1, -1).reshape(-1)
+    vv = vv.contiguous()
+    lacc = carry.clone().reshape(-1)
+    lib_ms = time_ms(lambda: lacc.index_add_(0, idx, vv), 5)
+    bd = bound(G * R + C * R + 4 * R + 2 * carry.numel() * 4 + small,
+               G * C * n_active, int_rate)
+    entries.append(dict(
+        name="hist_active", route="cuda",
+        source="lightgbm_tpu_torch/csrc/hist_active.cu",
+        replaces="lightgbm_tpu/ops/pallas_histogram.py:343",
+        max_abs_err=0.0, ms=ms, plain_ms=pl, library_ms=lib_ms,
+        rows=R, slots=A, mode="int8h", **bd))
+    log(f"kernel hist_active (K5 int8h) A={A} rows={R}: bitwise ok "
+        f"(seeded), {ms:.4f} ms (plain {pl:.3f} ms, int32 index_add_ "
+        f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+        f"{bd['bound_by']}, {n_active} active rows)")
+
+    # -- K5, hhilo ---------------------------------------------------------
+    vp = pack_values(prev[1], prev[2], "hhilo", R)
+    vals = pack_values(g, h, "hhilo", R)
+    carry = hist_active_float_raw(prev[0], vp, prev[3], active, L, 63)
+    got = hist_active_float_raw(bins_t, vals, hl, active, L, 63,
+                                carry.clone())
+    cpu = [t.cpu() for t in (bins_t, vals, hl, inv, src, carry)]
+    t0 = time.time()
+    ref = hist_float_plain(*cpu[:5], B, cpu[5].clone())
+    pl = 1e3 * (time.time() - t0)
+    got = got.cpu()
+    err = float((got - ref).abs().max())
+    if not (torch.equal(got, ref) and not torch.equal(cpu[5], ref)):
+        raise AssertionError(f"hist_float kernel != plain version "
+                             f"(max abs err {err})")
+    lib = cuda_build.library("hist_float")
+    K = -(-R // FLOAT_CHUNK)
+    part = torch.empty((K, A, G, B, C), dtype=torch.float32, device=dev)
+    obuf = carry.clone()
+    ms = time_ms(lambda: lib.lgbm_hist_float(
+        bins_t.data_ptr(), R, G, vals.data_ptr(), C, hl.data_ptr(), L,
+        inv.data_ptr(), src.data_ptr(), A, B,
+        float_slots_per_block(A, B, C), FLOAT_CHUNK, part.data_ptr(),
+        obuf.data_ptr(), stream), 10)
+    idx = _flat_cells(bins_t, hl, inv, rows, B, C).reshape(-1)
+    vv = vals[:, rows].t()[None].expand(G, -1, -1).reshape(-1).contiguous()
+    lacc = carry.clone().reshape(-1)
+    lib_ms = time_ms(lambda: lacc.index_add_(0, idx, vv), 5)
+    bd = bound(G * R + 4 * C * R + 4 * R + 2 * carry.numel() * 4 + small,
+               G * C * n_active + carry.numel(), FP32_OPS_PER_S)
+    entries.append(dict(
+        name="hist_float", route="cuda",
+        source="lightgbm_tpu_torch/csrc/hist_float.cu",
+        replaces="lightgbm_tpu/ops/pallas_histogram.py:343",
+        max_abs_err=err, ms=ms, plain_ms=pl, plain_device="cpu",
+        library_ms=lib_ms, rows=R, slots=A, mode="hhilo", **bd))
+    log(f"kernel hist_float (K5 hhilo) A={A} rows={R}: bitwise ok "
+        f"(seeded), {ms:.4f} ms (plain on the CPU {pl:.1f} ms, f32 "
+        f"index_add_ {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+        f"{bd['bound_by']})")
+
+    # -- K3 seeded at 128 slots (255 leaves) -------------------------------
+    L3, A3 = 255, 128
+    prev = stream_wave(gen, L3, A3)
+    bins_t, g, h, hl, active = stream_wave(gen, L3, A3)
+    active = prev[4]
+    vp, sc = pack_values_q(prev[1], prev[2], "int8h", R)
+    vals, _ = pack_values_q(g, h, "int8h", R, scales=sc)
+    carry = hist_compact_raw(prev[0], vp, prev[3], active, L3, 63)
+    got = hist_compact_raw(bins_t, vals, hl, active, L3, 63, carry.clone())
+    inv, src = slot_tables(active, L3, collect_unbagged=False)
+    ref = carry + hist_plain(bins_t, vals, hl, inv, src, B)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, ref) and not torch.equal(carry, ref)):
+        raise AssertionError("seeded hist_compact kernel != plain version")
+    lib = cuda_build.library("hist_compact")
+    As, Ft, gx, rpb = hist_launch_shape(R, G, A3, B, C, sms)
+    obuf = carry.clone()
+    ms = time_ms(lambda: lib.lgbm_hist_compact(
+        bins_t.data_ptr(), R, G, vals.data_ptr(), C, hl.data_ptr(), L3,
+        inv.data_ptr(), src.data_ptr(), A3, B, Ft, As, gx, rpb, HIST_BLOCK,
+        obuf.data_ptr(), stream), 20)
+    log(f"kernel hist_compact (K3 seeded) A={A3} rows={R}: bitwise ok, "
+        f"{ms:.4f} ms")
+    return dict(rows=R, slots=A3, ms=ms, seeded=True)
+
+
+def stream_paths(lgb, counters, tmp: str) -> dict:
+    """The identity and scale phases of the streamed path: -> launches
+    per phase."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    oc = lgb.outofcore
+    cfg = Config.from_params(STREAM_PARAMS)
+
+    def run(name, store):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        bst = lgb.train_streaming(STREAM_PARAMS, store,
+                                  num_boost_round=STREAM_ITERS,
+                                  block_rows=STREAM_BLOCK, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{name}: {store.n} rows x {STREAM_ITERS} iterations in "
+            f"{wall:.3f} s = {store.n * STREAM_ITERS / wall:.4g} rows/s; "
+            f"peak device memory {peak / 2**20:.1f} MiB; launches "
+            f"{launches}")
+        return bst, launches
+
+    # identity: streamed == in memory, digest with scores
+    t0 = time.time()
+    store = oc.ingest_synthetic(os.path.join(tmp, "ident"),
+                                STREAM_IDENT_ROWS, STREAM_FEATURES, cfg,
+                                seed=3, shard_rows=STREAM_IDENT_ROWS)
+    log(f"stream identity: ingest {time.time() - t0:.1f} s")
+    bst, ident = run("stream identity", store)
+    for k in ("hist_active", "route", "route_values"):
+        if ident[k] <= 0:
+            raise AssertionError(f"{k} did not launch in the stream")
+    if ident["hist_float"] != 0:
+        raise AssertionError("the float K5 ran on an int8h stream")
+    for fn in counters.values():
+        fn.launches = 0
+    mem = GBDT(cfg, store.to_binned_dataset(cfg), "cuda")
+    for _ in range(STREAM_ITERS):
+        mem.train_one_iter()
+    torch.cuda.synchronize()
+    if counters["hist_route"].launches <= 0:
+        raise AssertionError("K1 did not launch in memory")
+    d_str, d_mem = bst.digest(), mem.digest()
+    log(f"stream identity: streamed {d_str} in memory {d_mem}")
+    if d_str != d_mem:
+        raise AssertionError("streamed digest != in-memory digest")
+    del mem
+
+    # scale: past the int8 row bound the stream runs hhilo
+    t0 = time.time()
+    store = oc.ingest_synthetic(
+        os.path.join(tmp, "scale"), STREAM_SCALE_ROWS, STREAM_FEATURES, cfg,
+        seed=2, shard_rows=max(STREAM_BLOCK, STREAM_SCALE_ROWS // 32))
+    log(f"stream scale: ingest {time.time() - t0:.1f} s, "
+        f"{len(store.manifest['shards'])} shards")
+    bst, scale = run("stream scale", store)
+    if scale["hist_float"] <= 0:
+        raise AssertionError("the float K5 did not launch past the int8 "
+                             "row bound")
+    if scale["hist_active"] != 0 or scale["hist_route"] != 0:
+        raise AssertionError("an int8h histogram kernel ran on the hhilo "
+                             "stream")
+    scores = bst.scores.numpy()[:, 0]
+    auc = binary_auc(store.labels_array(), scores)
+    log(f"stream scale: train auc {auc:.5f}")
+    if not np.isfinite(scores).all():
+        raise AssertionError("streamed scores are not finite")
+    if not auc >= AUC_GATE:
+        raise AssertionError(f"stream auc {auc} < {AUC_GATE}")
+    return {"stream_identity": ident, "stream_scale": scale}
+
+
 def train_path(lgb, name, counters, params, ds, rounds, **kw):
     """One user-facing ``lgb.train`` with every launch counter reset just
     before and read just after: -> ``(booster, seconds, launches)``."""
@@ -543,7 +815,9 @@ def main() -> int:
     from lightgbm_tpu_torch.metric.metrics import binary_auc
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops.compact import hist_compact_raw
-    from lightgbm_tpu_torch.ops.histogram import (hist_route_raw,
+    from lightgbm_tpu_torch.ops.histogram import (hist_active_float_raw,
+                                                  hist_active_raw,
+                                                  hist_route_raw,
                                                   pack_values_q)
     from lightgbm_tpu_torch.ops.route import (route_rows_raw,
                                               route_rows_values_raw)
@@ -588,7 +862,9 @@ def main() -> int:
 
     counters = {"route": route_rows_raw, "route_values": route_rows_values_raw,
                 "hist_route": hist_route_raw, "hist_compact": hist_compact_raw,
-                "split_scan": find_best_splits_kernel}
+                "split_scan": find_best_splits_kernel,
+                "hist_active": hist_active_raw,
+                "hist_float": hist_active_float_raw}
 
     # 4. the headline path through the user entry points
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
@@ -604,7 +880,8 @@ def main() -> int:
         raise AssertionError("predictions are not finite [n] values")
     if not auc >= AUC_GATE:
         raise AssertionError(f"train auc {auc} < {AUC_GATE}")
-    missing = [k for k, v in head.items() if v <= 0 and k != "split_scan"]
+    missing = [k for k in ("route", "route_values", "hist_route",
+                           "hist_compact") if head[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the headline path: "
                              f"{missing}")
@@ -636,10 +913,23 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the small-data "
                              f"path: {missing}")
 
+    # 6.-8. the streamed out-of-core path
+    int_rate = int32_ops_per_s(cuda_build.multiprocessor_count(dd.device))
+    k3 = stream_kernel_phase(int_rate, entries)
     for e in entries:
-        e["launches"] = head[e["name"]] + small[e["name"]]
-        e["launches_by_path"] = {"headline": head[e["name"]],
-                                 "small_data": small[e["name"]]}
+        if e["name"] == "hist_compact":
+            e["stream_seeded"] = k3
+    torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="lgbm_stream_")
+    try:
+        by_path = {"headline": head, "small_data": small,
+                   **stream_paths(lgb, counters, tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for e in entries:
+        e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
+        e["launches"] = sum(e["launches_by_path"].values())
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

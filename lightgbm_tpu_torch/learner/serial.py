@@ -32,15 +32,18 @@ is updated in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 from ..io.binning import MISSING_NAN, MISSING_ZERO
 from ..io.device import DeviceData
-from ..ops.compact import compact_slot_threshold, hist_active_compact
-from ..ops.histogram import (QUANTIZED_MODES, bin_stride, hist_route,
-                             is_quantized, pack_values_q, unbundle_grid)
+from ..ops.compact import (compact_slot_threshold, hist_active_compact,
+                           hist_compact_raw)
+from ..ops.histogram import (QUANTIZED_MODES, bin_stride, combine_hist_cols,
+                             hist_active_float_raw, hist_active_raw,
+                             hist_route, is_quantized, pack_values,
+                             pack_values_q, unbundle_grid, value_cols)
 from ..ops.route import route_rows, route_rows_values, unbundle_bin
 from ..ops.split import (SplitParams, SplitResult, find_best_splits,
                          leaf_output, split_scan_chunk_features)
@@ -181,11 +184,18 @@ def default_hist_mode() -> str:
 
 def effective_hist_mode(mode: str, n: int) -> str:
     """The reference's downgrade of quantized modes past the exact-int32
-    row bound (to the float modes, which this package does not
-    implement: such datasets raise in ``pack_values_q``)."""
+    row bound (``n`` is the global row count, a stream's included) to
+    the closest float mode: int8hh to hilo, the others to hhilo."""
     if is_quantized(mode) and n > _INT8_ROW_LIMIT:
         return "hilo" if mode == "int8hh" else "hhilo"
     return mode
+
+
+def _check_kernel_config(group_max_bins: int, num_leaf_slots: int) -> None:
+    if group_max_bins > 256:
+        raise NotImplementedError("more than 256 bins per column")
+    if num_leaf_slots > 1024:
+        raise NotImplementedError("num_leaves > 1024")
 
 
 def resolve_backend(data: DeviceData, num_leaf_slots: int,
@@ -196,12 +206,11 @@ def resolve_backend(data: DeviceData, num_leaf_slots: int,
     reference's "compact" backend and its degradation to "pallas"."""
     if hist_mode not in QUANTIZED_MODES:
         raise NotImplementedError(
-            f"hist_mode {hist_mode!r}: lightgbm_tpu_torch implements the "
-            f"quantized modes {QUANTIZED_MODES} only")
-    if data.group_max_bins > 256:
-        raise NotImplementedError("more than 256 bins per column")
-    if num_leaf_slots > 1024:
-        raise NotImplementedError("num_leaves > 1024")
+            f"hist_mode {hist_mode!r} in memory (K1 and K3 on float "
+            f"values; ROADMAP A2): lightgbm_tpu_torch trains the float "
+            f"modes only through train_streaming, in memory the quantized "
+            f"modes {QUANTIZED_MODES}")
+    _check_kernel_config(data.group_max_bins, num_leaf_slots)
     _, A_tail = stage_plan(num_leaf_slots)
     return "compact" if A_tail > compact_slot_threshold() else "fused"
 
@@ -210,6 +219,71 @@ def wave_uses_compact(backend: str, num_slots: int) -> bool:
     """The per-wave dispatch predicate: waves with more active slots than
     the compaction threshold take route + the leaf-compacted kernel."""
     return backend == "compact" and num_slots > compact_slot_threshold()
+
+
+class HistFold(NamedTuple):
+    """The streamed histogram fold built by :func:`make_hist_fold_fn`.
+
+    ``fold(bins_t, grad, hess, hist_leaf, active, acc, scales)`` adds one
+    block's rows into the carried raw accumulator ``acc`` (``[A, G, B,
+    C]``, int32 on the quantized modes, float32 on the float ones) and
+    returns it; ``init_acc()`` makes the zero carry; ``unpack(acc,
+    scales)`` turns the finished chain into the ``[A, G, B, 3]`` f32 grid
+    the split scan reads.  ``backend`` is the kernel: "wide" (K5) or
+    "compact" (K3)."""
+    fold: Callable
+    init_acc: Callable
+    unpack: Callable
+    backend: str
+    hist_mode: str
+    quantized: bool
+
+
+def make_hist_fold_fn(data: DeviceData, num_leaf_slots: int,
+                      num_active: int, hist_mode: Optional[str] = None,
+                      num_data: Optional[int] = None) -> HistFold:
+    """The out-of-core histogram fold (the reference's
+    ``make_hist_fold_fn``): each wave of a streamed tree histograms its
+    rows block by block into one carry, unpacked once per wave.
+
+    ``num_data`` is the stream's global row count: the hist mode keys on
+    it, not on the block size (int32 cells bound the rows folded through
+    them), as the in-memory model this fold must equal keys on n.
+    Quantized waves wider than the compaction threshold take the seeded
+    K3, every other wave the seeded K5; a float wave takes K5 at any
+    width (float compact folds drop to the wide kernel, as the
+    reference's do).  Both kernels sum each cell in an order that does
+    not depend on the block size."""
+    mode = effective_hist_mode(hist_mode or default_hist_mode(),
+                               data.num_data if num_data is None
+                               else num_data)
+    _check_kernel_config(data.group_max_bins, num_leaf_slots)
+    quantized = is_quantized(mode)
+    compact = quantized and num_active > compact_slot_threshold()
+    mb = data.group_max_bins
+    shape = (num_active, data.num_groups, bin_stride(mb), value_cols(mode))
+    dtype = torch.int32 if quantized else torch.float32
+    dev = data.device
+
+    def init_acc():
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def fold(bins_t, grad, hess, hist_leaf, active, acc, scales=None):
+        n_pad = bins_t.shape[1]
+        if not quantized:
+            vals = pack_values(grad, hess, mode, n_pad)
+            return hist_active_float_raw(bins_t, vals, hist_leaf, active,
+                                         num_leaf_slots, mb, acc)
+        vals, _ = pack_values_q(grad, hess, mode, n_pad, scales=scales)
+        kernel = hist_compact_raw if compact else hist_active_raw
+        return kernel(bins_t, vals, hist_leaf, active, num_leaf_slots, mb,
+                      acc)
+
+    def unpack(acc, scales=None):
+        return combine_hist_cols(acc, mode, scales)
+
+    return HistFold(fold, init_acc, unpack,
+                    "compact" if compact else "wide", mode, quantized)
 
 
 def _set(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> None:
@@ -292,8 +366,25 @@ def _empty_best(L: int, B: int, dev) -> SplitResult:
 def _init_state(data: DeviceData, grad, hess, params: GrowthParams,
                 bag_mask, A0: int) -> _WaveState:
     """Empty tree, root leaf statistics, root-wave active set."""
-    dev = data.device
     n = data.num_data
+    leaf2 = torch.full((2, data.n_pad), -1, dtype=torch.int32,
+                       device=data.device)
+    leaf2[0, :n] = 0
+    if bag_mask is not None:
+        leaf2[1, :n] = torch.where(bag_mask, 0, -1).to(torch.int32)
+    else:
+        leaf2[1, :n] = 0
+    bag = leaf2[1, :n] == 0
+    sum_g, sum_h, cnt = root_stats(grad, hess, bag)
+    return root_state(data, leaf2, sum_g, sum_h, cnt, params, A0)
+
+
+def root_state(data: DeviceData, leaf2, sum_g, sum_h, cnt,
+               params: GrowthParams, A0: int) -> _WaveState:
+    """The one-leaf tree from the root statistics, with the root-wave
+    active set (``leaf2`` as given: a streamed tree keeps its leaf
+    vectors per block, outside the state)."""
+    dev = data.device
     L = params.num_leaves
     Lm = max(L - 1, 1)
     B = bin_stride(data.max_bins)
@@ -303,14 +394,6 @@ def _init_state(data: DeviceData, grad, hess, params: GrowthParams,
     def i32(shape, fill=0):
         return torch.full(shape, fill, dtype=torch.int32, device=dev)
 
-    leaf2 = i32((2, data.n_pad), -1)
-    leaf2[0, :n] = 0
-    if bag_mask is not None:
-        leaf2[1, :n] = torch.where(bag_mask, 0, -1).to(torch.int32)
-    else:
-        leaf2[1, :n] = 0
-    bag = leaf2[1, :n] == 0
-    sum_g, sum_h, cnt = root_stats(grad, hess, bag)
     root_out = leaf_output(sum_g, sum_h, params.split.lambda_l1,
                            params.split.lambda_l2)
 
@@ -506,10 +589,19 @@ def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
         i += 1
 
     # apply the last wave's pending splits and emit each row's leaf value
-    lv_final = torch.where(s.nl > 1, s.leaf_value[:L],
-                           torch.zeros_like(s.leaf_value[:L]))
     leaf2, row_value = route_rows_values(
-        data.bins_t, s.leaf2, *_pending_tables(data, s, L), lv_final)
+        data.bins_t, s.leaf2, *_pending_tables(data, s, L),
+        final_leaf_values(s, L))
+    return finished_tree(s, L, leaf2[0, :n], row_value[:n])
+
+
+def final_leaf_values(s: _WaveState, L: int) -> torch.Tensor:
+    """The leaf values the last route emits (zeros for a stump)."""
+    return torch.where(s.nl > 1, s.leaf_value[:L],
+                       torch.zeros_like(s.leaf_value[:L]))
+
+
+def finished_tree(s: _WaveState, L: int, row_leaf, row_value) -> BuiltTree:
     t = {k: v[:max(L - 1, 1)] for k, v in s.tree.items()}
     return BuiltTree(
         **t,
@@ -517,8 +609,8 @@ def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
         leaf_count=s.leaf_count[:L].to(torch.int32),
         leaf_depth=s.leaf_depth[:L],
         num_leaves=s.nl.to(torch.int32),
-        row_leaf=leaf2[0, :n],
-        row_value=row_value[:n])
+        row_leaf=row_leaf,
+        row_value=row_value)
 
 
 def predict_built_tree(tree: BuiltTree, data: DeviceData,

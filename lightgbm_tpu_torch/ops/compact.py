@@ -15,8 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from .histogram import (HIST_BLOCK, _check, bin_stride, dequant_hist,
-                        hist_launch_shape, hist_plain, slot_tables)
+from .histogram import (HIST_BLOCK, _check_active_inputs, bin_stride,
+                        dequant_hist, hist_launch_shape, hist_plain,
+                        slot_tables)
 
 # leaf slots per group in the reference's compacted kernel; waves wider
 # than this take K3 (the reference's dispatch threshold)
@@ -28,40 +29,36 @@ def compact_slot_threshold() -> int:
 
 
 def hist_compact_raw(bins_t, vals, hist_leaf, active, num_leaf_slots: int,
-                     max_bins: int):
+                     max_bins: int, acc=None):
     """Leaf-compacted histogram kernel (K3) over the routed hist leaves
-    ``hist_leaf [n_pad]`` int32: -> ``[A, G, B, C]`` int32."""
-    G, n_pad = bins_t.shape
-    C = vals.shape[0]
-    A = active.shape[0]
-    L = num_leaf_slots
+    ``hist_leaf [n_pad]`` int32: adds into the carry ``acc`` (``[A, G, B,
+    C]`` int32; zeros when None) in place and returns it.  A streamed
+    fold chains per-block calls through one carry; int32 sums make the
+    chain bitwise one call over all rows."""
     B = bin_stride(max_bins)
+    acc = _check_active_inputs(bins_t, vals, hist_leaf, active, acc, B,
+                               torch.int8, torch.int32)
+    G, n_pad = bins_t.shape
+    C, A, L = vals.shape[0], active.shape[0], num_leaf_slots
     dev = bins_t.device
-    _check(bins_t, "bins_t", torch.uint8)
-    _check(vals, "vals", torch.int8, (C, n_pad), dev)
-    _check(hist_leaf, "hist_leaf", torch.int32, (n_pad,), dev)
-    _check(active, "active", torch.int32, (A,), dev)
-    if not 1 <= C <= 5:
-        raise ValueError(f"vals: {C} value columns, the kernel takes 1-5")
     inv, src = slot_tables(active, L, collect_unbagged=False)
     if dev.type == "cpu":
         hist_compact_raw.plain_calls += 1
-        return hist_plain(bins_t, vals, hist_leaf, inv, src, B)
+        return acc.add_(hist_plain(bins_t, vals, hist_leaf, inv, src, B))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from .cuda_build import check_launch, library, multiprocessor_count
     lib = library("hist_compact")
-    out = torch.zeros((A, G, B, C), dtype=torch.int32, device=dev)
     As, Ft, gx, rpb = hist_launch_shape(n_pad, G, A, B, C,
                                         multiprocessor_count(dev))
     code = lib.lgbm_hist_compact(
         bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
         hist_leaf.data_ptr(), L, inv.data_ptr(), src.data_ptr(), A, B, Ft,
-        As, gx, rpb, HIST_BLOCK, out.data_ptr(),
+        As, gx, rpb, HIST_BLOCK, acc.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     check_launch(code, "hist_compact")
     hist_compact_raw.launches += 1
-    return out
+    return acc
 
 
 hist_compact_raw.launches = 0

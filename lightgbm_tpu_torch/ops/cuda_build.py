@@ -48,6 +48,14 @@ LIBRARIES = {
         "lgbm_hist_compact": [_P, _LL, _I, _P, _I, _P, _I, _P, _P, _I, _I,
                               _I, _I, _I, _LL, _I, _P, _P],
     },
+    "hist_active": {
+        "lgbm_hist_active": [_P, _LL, _I, _P, _I, _P, _I, _P, _P, _I, _I,
+                             _I, _I, _I, _LL, _I, _P, _P],
+    },
+    "hist_float": {
+        "lgbm_hist_float": [_P, _LL, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                            _I, _P, _P, _P],
+    },
     "split": {
         "lgbm_split_scan": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F,
                             _F, _F, _F, _I, _P, _I, _P],

@@ -1,18 +1,23 @@
-"""Active-leaf histograms: quantized values, the fused route+histogram
-kernel (K1) with its plain version, and the helpers both histogram
-kernels share.
+"""Active-leaf histograms: value rows (quantized and float), the fused
+route+histogram kernel (K1), the wide active-leaf histogram kernel (K5,
+quantized and float) with their plain versions, and the helpers the
+histogram kernels share.
 
 Counterpart of the JAX package's ``ops/pallas_histogram.py`` (value
-packing, dequantization, the scatter oracle, the fused kernel) and
-``ops/histogram.py`` (``unbundle_grid``).  The TPU kernels build one-hot
-matrices for the MXU because the TPU has no atomics; here the kernels
-(``csrc/hist_route.cu``, ``csrc/hist_compact.cu``) add int8 values into
-int32 cells with atomics, which is exact in any order, so only the
-quantized modes (``int8``, ``int8h``, ``int8hh``) are implemented.
+packing, dequantization, the scatter oracle, the fused and wide
+kernels) and ``ops/histogram.py`` (``unbundle_grid``).  The TPU kernels
+build one-hot matrices for the MXU because the TPU has no atomics; here
+the quantized kernels (``csrc/hist_route.cu``, ``csrc/hist_active.cu``,
+``csrc/hist_compact.cu``) add int8 values into int32 cells with
+atomics, which is exact in any order.  The float modes (``bf16``,
+``hilo``, ``hhilo``, ``ghilo``) sum bf16-rounded values in float32 in a
+fixed order (``csrc/hist_float.cu``, see :func:`hist_active_float_raw`);
+only the streamed folds (``boosting/streaming.py``) take them.
 
 Layout: ``bins_t`` is ``[G, n_pad]`` uint8 (``io/device.py``), ``vals``
-``[C, n_pad]`` int8 with padding rows 0, and a raw histogram
-``[A, G, B, C]`` int32 with ``B = bin_stride(group max bins)``.
+``[C, n_pad]`` (int8, or float32 on the float modes) with padding rows
+0, and a raw histogram ``[A, G, B, C]`` (int32, or float32) with
+``B = bin_stride(group max bins)``.
 
 Every wrapper runs its kernel for CUDA tensors and its plain version for
 CPU tensors; it counts kernel launches in ``.launches`` and plain calls
@@ -43,10 +48,54 @@ def bin_stride(max_bins: int) -> int:
 
 
 QUANTIZED_MODES = ("int8", "int8h", "int8hh")
+# float value rows, summed in float32 after rounding to bf16 (the TPU
+# kernel's bf16 operands); only the streamed folds take them
+FLOAT_MODES = ("bf16", "hilo", "hhilo", "ghilo")
 
 
 def is_quantized(mode: str) -> bool:
     return mode in QUANTIZED_MODES
+
+
+def value_cols(mode: str) -> int:
+    """Value rows ``C`` of ``mode``'s packing."""
+    return {"int8": 3, "int8h": 4, "int8hh": 5, "bf16": 3, "hilo": 5,
+            "hhilo": 4, "ghilo": 4}[mode]
+
+
+def split_hi_lo(x: torch.Tensor):
+    """``x -> (hi, lo)``: ``hi`` keeps the top 16 bits of the float32
+    pattern (exact in bf16), ``lo = x - hi`` (exact).  Bit masking, as
+    the reference, not a cast pair."""
+    bits = x.float().contiguous().view(torch.int32)
+    hi = (bits & -65536).view(torch.float32)       # 0xFFFF0000
+    return hi, x.float() - hi
+
+
+def pack_values(grad: torch.Tensor, hess: torch.Tensor, mode: str,
+                n_pad: int) -> torch.Tensor:
+    """Float value rows ``[C, n_pad]`` f32 (padding rows 0), bitwise the
+    reference's ``pack_values``: "bf16" C=3 ``(g, h, 1)``; "hilo" C=5
+    ``(g_hi, g_lo, h_hi, h_lo, 1)``; "hhilo" C=4 ``(g, h_hi, h_lo, 1)``;
+    "ghilo" C=4 ``(g_hi, g_lo, h, 1)``."""
+    if mode not in FLOAT_MODES:
+        raise ValueError(f"pack_values: {mode!r} is not a float mode "
+                         f"{FLOAT_MODES}")
+    g = grad.float()
+    h = hess.float()
+    ones = torch.ones_like(g)
+    if mode == "hilo":
+        rows = [*split_hi_lo(g), *split_hi_lo(h), ones]
+    elif mode == "ghilo":
+        rows = [*split_hi_lo(g), h, ones]
+    elif mode == "hhilo":
+        rows = [g, *split_hi_lo(h), ones]
+    else:
+        rows = [g, h, ones]
+    vals = torch.zeros((len(rows), n_pad), dtype=torch.float32,
+                       device=g.device)
+    vals[:, :g.shape[0]] = torch.stack(rows)
+    return vals
 
 
 # the quantization steps are computed as products with float32
@@ -67,7 +116,7 @@ def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
 
 
 def pack_values_q(grad: torch.Tensor, hess: torch.Tensor, mode: str,
-                  n_pad: int):
+                  n_pad: int, scales: torch.Tensor = None):
     """Quantized value rows: ``-> (vals int8 [C, n_pad], scales f32 [2])``.
 
     Port of the JAX package's ``pack_values_q`` in its exact operation
@@ -77,17 +126,22 @@ def pack_values_q(grad: torch.Tensor, hess: torch.Tensor, mode: str,
     reference's tree build compiles them.
     mode="int8": C=3 ``(g, h, 1)``; "int8h": C=4 ``(g, h_hi, h_lo, 1)``;
     "int8hh": C=5 ``(g_hi, g_lo, h_hi, h_lo, 1)``.
+    ``scales`` (``[2]`` f32 ``(sg, sh)``) replaces the scales derived
+    from these rows: a streamed tree quantizes every block with the
+    absmax over all its rows.
     """
     if not is_quantized(mode):
-        raise NotImplementedError(
-            f"hist_mode {mode!r}: lightgbm_tpu_torch implements the "
-            f"quantized modes {QUANTIZED_MODES} only")
+        raise ValueError(f"pack_values_q: {mode!r} is not a quantized "
+                         f"mode {QUANTIZED_MODES}")
     n = grad.shape[0]
     g = grad.float()
     h = hess.float()
-    tiny = torch.tensor(1e-30, dtype=torch.float32, device=g.device)
-    sg = torch.maximum(g.abs().max(), tiny)
-    sh = torch.maximum(h.abs().max(), tiny)
+    if scales is None:
+        tiny = torch.tensor(1e-30, dtype=torch.float32, device=g.device)
+        sg = torch.maximum(g.abs().max(), tiny)
+        sh = torch.maximum(h.abs().max(), tiny)
+    else:
+        sg, sh = scales[0], scales[1]
 
     def q(x, scale):
         t = x * (127.0 / scale)
@@ -138,6 +192,25 @@ def dequant_hist(out_i32: torch.Tensor, scales: torch.Tensor,
         h = out[..., 1] * h1
         cnt = out[..., 2]
     return torch.stack([g, h, cnt], dim=-1)
+
+
+def combine_hist_cols(out: torch.Tensor, mode: str,
+                      scales: torch.Tensor = None) -> torch.Tensor:
+    """``[..., C]`` raw value columns -> ``[..., 3]`` f32 ``(sum_grad,
+    sum_hess, count)``: dequantize (quantized modes) or add the float
+    hi/lo pairs (the reference's ``combine_hist_cols``)."""
+    if is_quantized(mode):
+        return dequant_hist(out, scales, mode)
+    if mode == "hilo":
+        return torch.stack([out[..., 0] + out[..., 1],
+                            out[..., 2] + out[..., 3], out[..., 4]], dim=-1)
+    if mode == "hhilo":
+        return torch.stack([out[..., 0], out[..., 1] + out[..., 2],
+                            out[..., 3]], dim=-1)
+    if mode == "ghilo":
+        return torch.stack([out[..., 0] + out[..., 1], out[..., 2],
+                            out[..., 3]], dim=-1)
+    return out
 
 
 def slot_tables(active: torch.Tensor, num_leaf_slots: int,
@@ -294,6 +367,168 @@ def hist_route(bins_t, vals, leaf2, active, feature, threshold,
     raw, leaf2_new = hist_route_raw(bins_t, vals, leaf2, active, tabs, cat,
                                     feature.shape[0], max_bins)
     return dequant_hist(raw, scales, mode), leaf2_new
+
+
+def _check_active_inputs(bins_t, vals, hist_leaf, active, acc, B: int,
+                         vals_dtype, acc_dtype):
+    """Shape, type and device checks of the histogram wrappers over
+    routed hist leaves (K5, K3); -> the carry (zeros when ``acc`` is
+    None)."""
+    G, n_pad = bins_t.shape
+    C = vals.shape[0]
+    A = active.shape[0]
+    dev = bins_t.device
+    _check(bins_t, "bins_t", torch.uint8)
+    _check(vals, "vals", vals_dtype, (C, n_pad), dev)
+    _check(hist_leaf, "hist_leaf", torch.int32, (n_pad,), dev)
+    _check(active, "active", torch.int32, (A,), dev)
+    if not 1 <= C <= 5:
+        raise ValueError(f"vals: {C} value columns, the kernel takes 1-5")
+    if acc is None:
+        return torch.zeros((A, G, B, C), dtype=acc_dtype, device=dev)
+    _check(acc, "acc", acc_dtype, (A, G, B, C), dev)
+    return acc
+
+
+def hist_active_raw(bins_t, vals, hist_leaf, active, num_leaf_slots: int,
+                    max_bins: int, acc=None):
+    """Wide active-leaf histogram (K5) on quantized values over the hist
+    leaves ``hist_leaf [n_pad]`` int32, with no routing: adds into the
+    carry ``acc`` (``[A, G, B, C]`` int32; zeros when None) in place and
+    returns it.
+
+    The counterpart of the reference's ``hist_active_pallas`` with a
+    carried accumulator (``acc=``, ``raw=True``): int32 sums are exact
+    in any order, so a chain of per-block calls through one carry is
+    bitwise one call over all rows.  Slots whose id is -1 collect the
+    rows whose hist leaf is -1 (padding and bagged-out rows), as in
+    K1."""
+    B = bin_stride(max_bins)
+    acc = _check_active_inputs(bins_t, vals, hist_leaf, active, acc, B,
+                               torch.int8, torch.int32)
+    G, n_pad = bins_t.shape
+    C, A, L = vals.shape[0], active.shape[0], num_leaf_slots
+    dev = bins_t.device
+    inv, src = slot_tables(active, L, collect_unbagged=True)
+    if dev.type == "cpu":
+        hist_active_raw.plain_calls += 1
+        return acc.add_(hist_plain(bins_t, vals, hist_leaf, inv, src, B))
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from .cuda_build import check_launch, library, multiprocessor_count
+    lib = library("hist_active")
+    As, Ft, gx, rpb = hist_launch_shape(n_pad, G, A, B, C,
+                                        multiprocessor_count(dev))
+    code = lib.lgbm_hist_active(
+        bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
+        hist_leaf.data_ptr(), L, inv.data_ptr(), src.data_ptr(), A, B, Ft,
+        As, gx, rpb, HIST_BLOCK, acc.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(code, "hist_active")
+    hist_active_raw.launches += 1
+    return acc
+
+
+hist_active_raw.launches = 0
+hist_active_raw.plain_calls = 0
+
+
+# The float K5 sums each cell in a fixed order, so its result does not
+# depend on how rows are split into blocks: rows are cut into chunks of
+# FLOAT_CHUNK (a divisor of the streamed block granularity, 8,192 rows),
+# each chunk's partial sums its rows in row order from +0.0, and the
+# partials are added into the carry in chunk order.
+FLOAT_CHUNK = 2048
+FLOAT_LANES = 32                 # columns per thread block, one per lane
+FLOAT_SMEM_BUDGET = 200 * 1024   # shared memory of one block, bytes
+
+
+def float_slots_per_block(A: int, B: int, C: int) -> int:
+    """Slots per block of the float kernel: its ``[slots, C, B, 32]``
+    float32 partial plus the chunk's slot bytes fit the budget."""
+    per_slot = C * B * FLOAT_LANES * 4
+    return max(1, min(A, (FLOAT_SMEM_BUDGET - 2 * FLOAT_CHUNK) // per_slot))
+
+
+def hist_float_plain(bins_t, vals, hist_leaf, inv, src, B: int, acc):
+    """Plain version of the float K5 in its exact order, into ``acc``.
+
+    Values are rounded to bf16 first (the TPU kernel's operands).  Per
+    chunk of ``FLOAT_CHUNK`` rows a 1-D float32 ``index_add_`` on the
+    CPU, whose indices run row by row, sums every cell's rows in row
+    order from +0.0 (the CPU kernel adds sequentially; the tests hold it
+    to a numpy loop); then each output slot adds its accumulation
+    slot's partial to the carry, chunk by chunk.  Only CPU tensors: the
+    CUDA ``index_add_`` adds with atomics in no fixed order."""
+    if bins_t.device.type != "cpu":
+        raise ValueError("hist_float_plain runs on CPU tensors only")
+    G, n_pad = bins_t.shape
+    C = vals.shape[0]
+    A = src.shape[0]
+    L = inv.shape[0] - 1
+    cells = G * B * C
+    hl = hist_leaf.long()
+    sl = inv.long()[torch.where(hl >= 0, hl, torch.full_like(hl, L))]
+    v = vals.to(torch.bfloat16).float()
+    gs = torch.arange(G)
+    cs = torch.arange(C)
+    has = src >= 0
+    take = src.long()[has]
+    flat = acc.view(A, cells)
+    for k0 in range(0, n_pad, FLOAT_CHUNK):
+        rows = torch.nonzero(sl[k0:k0 + FLOAT_CHUNK] >= 0)[:, 0] + k0
+        part = torch.zeros(A * cells, dtype=torch.float32)
+        if rows.numel():
+            base = ((sl[rows][:, None] * G + gs[None, :]) * B
+                    + bins_t[:, rows].t().long()) * C            # [r, G]
+            idx = base[:, :, None] + cs[None, None, :]           # [r, G, C]
+            val = v[:, rows].t()[:, None, :].expand(-1, G, -1)
+            part.index_add_(0, idx.reshape(-1), val.reshape(-1))
+        flat[has] = flat[has] + part.view(A, cells)[take]
+    return acc
+
+
+def hist_active_float_raw(bins_t, vals, hist_leaf, active,
+                          num_leaf_slots: int, max_bins: int, acc=None):
+    """Wide active-leaf histogram (K5) on float value rows
+    (:func:`pack_values`): adds the float32 sums of the bf16-rounded
+    values, per (slot, column, bin, value row), into the carry ``acc``
+    (``[A, G, B, C]`` f32; zeros when None) in place and returns it.
+
+    Fixed order, no float atomics (see ``FLOAT_CHUNK``): the result does
+    not depend on the block size, and a chain of per-block calls whose
+    boundaries are multiples of ``FLOAT_CHUNK`` is bitwise one call over
+    all rows.  Slots whose id is -1 collect the rows whose hist leaf is
+    -1.  The CUDA kernel (``csrc/hist_float.cu``) is bitwise its plain
+    version, :func:`hist_float_plain`."""
+    B = bin_stride(max_bins)
+    acc = _check_active_inputs(bins_t, vals, hist_leaf, active, acc, B,
+                               torch.float32, torch.float32)
+    G, n_pad = bins_t.shape
+    C, A, L = vals.shape[0], active.shape[0], num_leaf_slots
+    dev = bins_t.device
+    inv, src = slot_tables(active, L, collect_unbagged=True)
+    if dev.type == "cpu":
+        hist_active_float_raw.plain_calls += 1
+        return hist_float_plain(bins_t, vals, hist_leaf, inv, src, B, acc)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from .cuda_build import check_launch, library
+    lib = library("hist_float")
+    K = -(-n_pad // FLOAT_CHUNK)
+    partial = torch.empty((K, A, G, B, C), dtype=torch.float32, device=dev)
+    code = lib.lgbm_hist_float(
+        bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
+        hist_leaf.data_ptr(), L, inv.data_ptr(), src.data_ptr(), A, B,
+        float_slots_per_block(A, B, C), FLOAT_CHUNK, partial.data_ptr(),
+        acc.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(code, "hist_float")
+    hist_active_float_raw.launches += 1
+    return acc
+
+
+hist_active_float_raw.launches = 0
+hist_active_float_raw.plain_calls = 0
 
 
 def hist_active_scatter(bins, grad, hess, row_leaf, active, *,

@@ -7,7 +7,8 @@ card (marked ``cuda``; skipped where no CUDA device is present).
 with only PyTorch lacks.)
 
 Each kernel wrapper runs on CUDA tensors and on CPU copies of the same
-inputs (the plain version); results must be bitwise equal — the split
+inputs (the plain version; the histogram kernels of the streamed folds
+add into a nonzero carry); results must be bitwise equal — the split
 scan's too, every field of its result, at the small-data path's shape
 ``[64, 28, 256, 3]``.  The launch counters must move on CUDA only.
 """
@@ -125,6 +126,48 @@ def test_hist_compact_kernel_bitwise(cuda_device, A):
     ref = t_compact.hist_compact_raw(*args, L, dd.group_max_bins)
     assert torch.equal(raw.cpu(), ref)
     assert (ref[30:] == 0).all()
+
+
+def _carry(rng, shape, dtype):
+    """A nonzero carry, as a previous block of a stream leaves it."""
+    if dtype == torch.int32:
+        return torch.as_tensor(rng.randint(-5000, 5000, size=shape)
+                               .astype(np.int32))
+    return torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,A", [("quantized", 32), ("float", 32),
+                                    ("float", 128), ("compact", 128)])
+def test_seeded_hist_kernels_bitwise(cuda_device, kind, A):
+    """K5 (quantized and float) and K3, each adding into a nonzero carry,
+    against their plain versions on CPU copies of the same inputs."""
+    dd, leaf2, tabs, cat, vals, rng = _inputs(seed=A + len(kind))
+    hleaf = t_route.route_rows_raw(dd.bins_t, leaf2, tabs, cat)[1]
+    hleaf = hleaf.contiguous()
+    active = torch.full((A,), -1, dtype=torch.int32)
+    active[:30] = torch.as_tensor(rng.choice(40, 30, replace=False)).int()
+    if kind == "float":
+        g = torch.as_tensor(rng.normal(size=dd.num_data).astype(np.float32))
+        h = torch.as_tensor(rng.uniform(0.01, 0.25, size=dd.num_data)
+                            .astype(np.float32))
+        vals = t_hist.pack_values(g, h, "hhilo", dd.n_pad)
+        fn, dtype = t_hist.hist_active_float_raw, torch.float32
+    elif kind == "quantized":
+        fn, dtype = t_hist.hist_active_raw, torch.int32
+    else:
+        fn, dtype = t_compact.hist_compact_raw, torch.int32
+    B = t_hist.bin_stride(dd.group_max_bins)
+    acc = _carry(rng, (A, dd.num_groups, B, vals.shape[0]), dtype)
+    args = (dd.bins_t, vals, hleaf, active)
+    n0 = fn.launches
+    got = fn(*[t.to(cuda_device) for t in args], L, dd.group_max_bins,
+             acc.to(cuda_device))
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    ref = fn(*args, L, dd.group_max_bins, acc.clone())
+    assert torch.equal(got.cpu(), ref)
+    assert not torch.equal(ref, acc)
 
 
 def _split_inputs(seed, L2, F, B, missing=True, n_rows=20000):

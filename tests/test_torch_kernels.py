@@ -10,8 +10,18 @@ route values and the int8 histograms (after ``dequant_hist`` on both
 sides) must be bitwise equal.  The inputs cover -1 active slots,
 out-of-bag rows, padding rows, NaN and zero missing types, and an
 EFB-bundled dataset for routing.
+
+The wide active-leaf histogram K5 (``hist_active_pallas``) and K3 are
+held in their seeded form: two row blocks folded through one carry
+(the reference's ``acc=``/``raw=True``), then unpacked.  Quantized, the
+port's plain version is bitwise the reference's kernel.  On the float
+modes both are held to a float64 sum of the bf16-rounded values within
+``tol("f32_accum")``; the port's plain version sums in its documented
+order (checked against a row loop), so a chain of blocks is bitwise one
+call over all rows.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -22,8 +32,12 @@ from lightgbm_tpu.config import Config as JConfig
 from lightgbm_tpu.io.dataset import BinnedDataset as JDataset
 from lightgbm_tpu.io.device import feature_meta_np
 from lightgbm_tpu.ops.compact import hist_active_compact as j_compact
-from lightgbm_tpu.ops.pallas_histogram import (hist_active_scatter,
-                                               hist_route_pallas)
+from lightgbm_tpu.ops.compact import unpack_hist_compact_raw
+from lightgbm_tpu.ops.pallas_histogram import (hist_active_pallas,
+                                               hist_active_scatter,
+                                               hist_route_pallas,
+                                               pack_values as j_pack_values,
+                                               unpack_hist_raw)
 from lightgbm_tpu.ops.pallas_route import (route_rows_pallas,
                                            route_rows_values_pallas)
 
@@ -228,3 +242,205 @@ def test_hist_active_scatter_matches():
     np.testing.assert_array_equal(got[..., 2], ref[..., 2])
     np.testing.assert_allclose(got, ref, rtol=tol("f32_accum"),
                                atol=tol("f32_accum"))
+
+
+# -- K5 and seeded K3: two blocks of a stream through one carry ----------
+CUT = 8192          # the block boundary (a multiple of the stream chunk)
+
+
+def _stream_wave(seed, A, n_neg, n=12000):
+    """A 12,000-row dataset (two blocks: 8,192 rows, then 4,096 with the
+    padding), gradients, hist leaves with -1 rows, an active set."""
+    ds = _dataset(False, seed=seed, n=n)
+    dd = device_data_from_numpy(ds.bins, feature_meta_np(ds), "cpu")
+    rng = np.random.RandomState(seed)
+    g = torch.as_tensor(rng.normal(size=n).astype(np.float32))
+    h = torch.as_tensor(rng.uniform(0.01, 0.25, size=n).astype(np.float32))
+    hleaf = np.full(dd.n_pad, -1, np.int32)
+    hleaf[:n] = np.where(rng.rand(n) < 0.9, rng.randint(0, 20, size=n), -1)
+    return dd, g, h, hleaf, _active(seed, A, n_neg)
+
+
+def _blocks(n_pad):
+    return ((0, CUT), (CUT, n_pad))
+
+
+def _ref_fold(fn, dd, vals, hleaf, active, scales, mode, **kw):
+    """The reference kernel over the two blocks, seeded with its raw
+    carry."""
+    bt, v = dd.bins_t.numpy(), vals.numpy()
+    raw = None
+    for lo, hi in _blocks(dd.n_pad):
+        raw = fn(jnp.asarray(bt[:, lo:hi]), jnp.asarray(v[:, lo:hi]),
+                 jnp.asarray(hleaf[lo:hi]), jnp.asarray(active),
+                 None if scales is None else jnp.asarray(scales.numpy()),
+                 raw, num_features=dd.num_groups,
+                 max_bins=dd.group_max_bins, mode=mode, interpret=True,
+                 raw=True, **kw)
+    return raw
+
+
+def _jit_unpack(fn):
+    """The reference's unpack as its fold compiles it (jitted: the
+    hi+lo dequantization is a fused multiply-add there)."""
+    return jax.jit(fn, static_argnums=(1, 2, 3, 4))
+
+
+def _port_fold(fn, dd, vals, hleaf, active, acc=None):
+    for lo, hi in _blocks(dd.n_pad):
+        acc = fn(dd.bins_t[:, lo:hi].contiguous(),
+                 vals[:, lo:hi].contiguous(), torch.as_tensor(hleaf[lo:hi]),
+                 torch.as_tensor(active), L, dd.group_max_bins, acc)
+    return acc
+
+
+@pytest.mark.parametrize("mode,A,n_neg", [("int8", 8, 2), ("int8h", 32, 3),
+                                          ("int8hh", 8, 1)])
+def test_hist_active_seeded_bitwise(mode, A, n_neg):
+    dd, g, h, hleaf, active = _stream_wave(40 + A, A, n_neg)
+    vals, scales = t_hist.pack_values_q(g, h, mode, dd.n_pad)
+    raw = _ref_fold(hist_active_pallas, dd, vals, hleaf, active, scales,
+                    mode)
+    ref = np.asarray(_jit_unpack(unpack_hist_raw)(
+        raw, A, dd.num_groups, dd.group_max_bins, mode,
+        jnp.asarray(scales.numpy())))
+    before = t_hist.hist_active_raw.plain_calls
+    acc = _port_fold(t_hist.hist_active_raw, dd, vals, hleaf, active)
+    assert t_hist.hist_active_raw.plain_calls == before + 2
+    got = t_hist.combine_hist_cols(acc, mode, scales).numpy()
+    np.testing.assert_array_equal(got, ref)
+    # every -1 slot holds each row whose hist leaf is -1, once per column
+    n_neg_rows = int((hleaf[:dd.num_data] < 0).sum())
+    counts = acc[torch.as_tensor(active < 0)][..., -1].sum(dim=2)
+    assert (counts == n_neg_rows).all()
+
+
+def test_hist_compact_seeded_bitwise():
+    A, n_neg = 64, 5
+    dd, g, h, hleaf, _ = _stream_wave(29, 8, 1)
+    rng = np.random.RandomState(A)
+    active = np.full(A, -1, np.int32)
+    active[:L - n_neg] = rng.choice(L, L - n_neg, replace=False)
+    vals, scales = t_hist.pack_values_q(g, h, "int8h", dd.n_pad)
+    raw = _ref_fold(j_compact, dd, vals, hleaf, active, scales, "int8h",
+                    num_leaf_slots=L)
+    ref = np.asarray(_jit_unpack(unpack_hist_compact_raw)(
+        raw, A, dd.num_groups, dd.group_max_bins, "int8h",
+        jnp.asarray(scales.numpy())))
+    acc = _port_fold(t_compact.hist_compact_raw, dd, vals, hleaf, active)
+    got = t_hist.combine_hist_cols(acc, "int8h", scales).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert (got[active < 0] == 0.0).all()
+
+
+@pytest.mark.parametrize("mode", t_hist.FLOAT_MODES)
+def test_pack_values_bitwise(mode):
+    rng = np.random.RandomState(len(mode))
+    n = 3001
+    g = rng.normal(size=n).astype(np.float32)
+    h = rng.uniform(0.001, 0.3, size=n).astype(np.float32)
+    ref = np.asarray(j_pack_values(jnp.asarray(g), jnp.asarray(h), mode))
+    got = t_hist.pack_values(torch.as_tensor(g), torch.as_tensor(h), mode,
+                             ref.shape[1])
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _f64_oracle(dd, vals, hleaf, active, mode):
+    """float64 sums of the bf16-rounded values, combined to ``[A, G, B,
+    3]`` as the kernels combine their columns."""
+    A, G = len(active), dd.num_groups
+    B = t_hist.bin_stride(dd.group_max_bins)
+    v = vals.to(torch.bfloat16).double().numpy()
+    bins = dd.bins_t.numpy().astype(np.int64)
+    out = np.zeros((A, G, B, v.shape[0]))
+    for s, a in enumerate(active):
+        rows = np.nonzero(hleaf == a)[0]
+        for f in range(G):
+            for c in range(v.shape[0]):
+                np.add.at(out[s, f, :, c], bins[f, rows], v[c, rows])
+    return t_hist.combine_hist_cols(torch.as_tensor(out), mode).numpy()
+
+
+@pytest.mark.parametrize("mode,A", [("hhilo", 32), ("hilo", 8),
+                                    ("bf16", 8), ("ghilo", 8)])
+def test_hist_active_float_within_f64(mode, A):
+    dd, g, h, hleaf, active = _stream_wave(50 + A, A, 2)
+    vals = t_hist.pack_values(g, h, mode, dd.n_pad)
+    oracle = _f64_oracle(dd, vals, hleaf, active, mode)
+    raw = _ref_fold(hist_active_pallas, dd, vals, hleaf, active, None, mode)
+    ref = np.asarray(_jit_unpack(unpack_hist_raw)(
+        raw, A, dd.num_groups, dd.group_max_bins, mode))
+    acc = _port_fold(t_hist.hist_active_float_raw, dd, vals, hleaf, active)
+    got = t_hist.combine_hist_cols(acc, mode).numpy()
+    for name, arr in (("reference", ref), ("port", got)):
+        np.testing.assert_allclose(arr, oracle, rtol=tol("f32_accum"),
+                                   atol=tol("f32_accum"), err_msg=name)
+    np.testing.assert_array_equal(got[..., 2], oracle[..., 2])
+
+
+def test_hist_active_float_block_invariant():
+    """One call over all rows is bitwise two chained calls."""
+    dd, g, h, hleaf, active = _stream_wave(61, 16, 2, n=20000)
+    vals = t_hist.pack_values(g, h, "hhilo", dd.n_pad)
+    one = t_hist.hist_active_float_raw(dd.bins_t, vals,
+                                       torch.as_tensor(hleaf),
+                                       torch.as_tensor(active), L,
+                                       dd.group_max_bins)
+    two = None
+    for lo, hi in ((0, 2 * CUT), (2 * CUT, dd.n_pad)):
+        two = t_hist.hist_active_float_raw(
+            dd.bins_t[:, lo:hi].contiguous(), vals[:, lo:hi].contiguous(),
+            torch.as_tensor(hleaf[lo:hi]), torch.as_tensor(active), L,
+            dd.group_max_bins, two)
+    assert torch.equal(one, two)
+
+
+def test_float_plain_sums_in_row_order():
+    """The float plain version's order: a 1-D float32 ``index_add_`` on
+    the CPU adds in index order (held to a sequential loop on values
+    whose sum depends on the order), and the whole K5 plain version
+    equals a row loop of its contract (per chunk of ``FLOAT_CHUNK``
+    rows, each cell from +0.0 in row order; partials into the carry in
+    chunk order)."""
+    rng = np.random.RandomState(5)
+    idx = rng.randint(0, 7, size=20000)
+    val = (rng.normal(size=20000)
+           * 10.0 ** rng.randint(-4, 8, size=20000)).astype(np.float32)
+    seq = np.zeros(7, np.float32)
+    for i, x in zip(idx, val):
+        seq[i] = np.float32(seq[i] + x)
+    rev = np.zeros(7, np.float32)
+    for i, x in zip(idx[::-1], val[::-1]):
+        rev[i] = np.float32(rev[i] + x)
+    assert not np.array_equal(seq, rev)        # the order matters here
+    got = torch.zeros(7).index_add_(0, torch.as_tensor(idx),
+                                    torch.as_tensor(val))
+    np.testing.assert_array_equal(got.numpy(), seq)
+
+    dd, g, h, hleaf, active = _stream_wave(71, 8, 2, n=3000)
+    vals = t_hist.pack_values(g, h, "hilo", dd.n_pad)
+    carry = torch.as_tensor(rng.normal(size=(8, dd.num_groups, 64, 5))
+                            .astype(np.float32))
+    got = t_hist.hist_active_float_raw(
+        dd.bins_t, vals, torch.as_tensor(hleaf), torch.as_tensor(active), L,
+        dd.group_max_bins, carry.clone()).numpy()
+    v = vals.to(torch.bfloat16).float().numpy()
+    bins = dd.bins_t.numpy()
+    want = carry.numpy().copy()
+    slot_of = {}
+    for s, a in enumerate(active):
+        slot_of.setdefault(int(a), s)
+    for k0 in range(0, dd.n_pad, t_hist.FLOAT_CHUNK):
+        part = np.zeros_like(want)
+        for r in range(k0, min(k0 + t_hist.FLOAT_CHUNK, dd.n_pad)):
+            s = slot_of.get(int(hleaf[r]))
+            if s is None:
+                continue
+            for f in range(dd.num_groups):
+                for c in range(v.shape[0]):
+                    b = bins[f, r]
+                    part[s, f, b, c] = np.float32(part[s, f, b, c]
+                                                  + v[c, r])
+        for s, a in enumerate(active):
+            want[s] = want[s] + part[slot_of[int(a)]]
+    np.testing.assert_array_equal(got, want)

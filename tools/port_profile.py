@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in lightgbm_tpu_torch's training on a GPU.
 
-    python3 tools/port_profile.py [--path headline|small] [--scan kernel|torch]
-                                  [--out F]
+    python3 tools/port_profile.py [--path headline|small|stream]
+                                  [--scan kernel|torch] [--out F]
 
 ``--path headline`` (the default) builds the bench's synthetic binary
 set (``chip_smoke.headline_data``: 1M x 28, max_bin 63) and a Booster of
@@ -11,13 +11,21 @@ the headline config (255 leaves, lr 0.1, min_data_in_leaf 20).
 upstream binary_classification ``train.conf`` (``chip_smoke.TRAIN_CONF``)
 on the generator's 65,536 training rows with its 13,107-row valid set;
 each iteration there is ``update()`` plus the training and valid
-evaluation ``lgb.train`` makes with ``metric_freq=1``.  ``--scan torch``
+evaluation ``lgb.train`` makes with ``metric_freq=1``.  ``--path
+stream`` writes ``chip_smoke.py``'s stream identity store (the bench's
+synthetic 4,194,304 x 28 rows, max_bin 63) into a temporary directory
+and streams it in blocks of 1,048,576 rows (63 leaves, lr 0.1); there
+an iteration is one streamed tree (gradients, every wave's uploads,
+routes and folds, the score update), and the profile also splits the
+device time into host-to-device copies, device-to-host copies and
+kernels.  ``--scan torch``
 makes the learner take the torch split scan where it would take the
 split kernel (the scan before the kernel was ported), for comparison.
 
-After a warm-up of 2 iterations it times 8 iterations on the host clock
-without a profiler (steady ms/iter, the Booster's setup excluded), then
-profiles 8 more with ``torch.profiler`` (CPU + CUDA activities), with
+After a warm-up of 2 iterations (1 on the stream) it times 8
+iterations (2 on the stream) on the host clock without a profiler
+(steady ms/iter, the Booster's setup excluded), then profiles as many
+more with ``torch.profiler`` (CPU + CUDA activities), with
 each wave's split scan inside a ``split_scan`` range and each valid-set
 tree walk (``predict_built_tree``) inside a ``valid_walk`` range.
 Prints one JSON line with both walls (``steady_ms_per_iter``,
@@ -32,18 +40,21 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPLIT_KERNEL = "split_scan_kernel"
-PORT_KERNELS = ("route_kernel", "hist_kernel", SPLIT_KERNEL)
-ITERS = 8
+PORT_KERNELS = ("route_kernel", "hist_kernel", "hist_float", SPLIT_KERNEL)
+ITERS = {"headline": 8, "small": 8, "stream": 2}
+WARMUP = {"headline": 2, "small": 2, "stream": 1}
 
 
-def _timed_iters(step, torch) -> float:
+def _timed_iters(step, torch, iters: int) -> float:
     t0 = time.time()
-    for _ in range(ITERS):
+    for _ in range(iters):
         step()
     torch.cuda.synchronize()
     return time.time() - t0
@@ -93,10 +104,25 @@ def _range_kernels(prof, label: str):
             len(ranges))
 
 
-def _booster(lgb, path: str):
+def _booster(lgb, path: str, tmp: str):
     """-> (booster, one-iteration step, training rows)."""
-    from chip_smoke import (HEADLINE_ROWS, SMALL_ROWS, TRAIN_CONF,
-                            headline_data, small_data)
+    from chip_smoke import (HEADLINE_ROWS, SMALL_ROWS, STREAM_BLOCK,
+                            STREAM_FEATURES, STREAM_IDENT_ROWS,
+                            STREAM_PARAMS, TRAIN_CONF, headline_data,
+                            small_data)
+    if path == "stream":
+        from lightgbm_tpu_torch.boosting.streaming import StreamTrainer
+        from lightgbm_tpu_torch.config import Config
+        cfg = Config.from_params(STREAM_PARAMS)
+        store = lgb.outofcore.ingest_synthetic(
+            tmp, STREAM_IDENT_ROWS, STREAM_FEATURES, cfg, seed=3,
+            shard_rows=STREAM_IDENT_ROWS)
+        tr = StreamTrainer(cfg, store, block_rows=STREAM_BLOCK,
+                           device="cuda")
+
+        def step():
+            tr.train(tr.booster.iter + 1)
+        return tr.booster, step, STREAM_IDENT_ROWS
     if path == "headline":
         X, y = headline_data()
         params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
@@ -120,7 +146,7 @@ def _booster(lgb, path: str):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("headline", "small"),
+    ap.add_argument("--path", choices=("headline", "small", "stream"),
                     default="headline")
     ap.add_argument("--scan", choices=("kernel", "torch"), default="kernel")
     ap.add_argument("--out", default="")
@@ -137,16 +163,21 @@ def main() -> int:
     card = card_line()
     _instrument(torch, args.scan == "kernel")
 
-    bst, step, n_rows = _booster(lgb, args.path)
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    steady = _timed_iters(step, torch)
+    it = ITERS[args.path]
+    tmp = tempfile.mkdtemp(prefix="lgbm_profile_")
+    try:
+        bst, step, n_rows = _booster(lgb, args.path, tmp)
+        for _ in range(WARMUP[args.path]):
+            step()
+        torch.cuda.synchronize()
+        steady = _timed_iters(step, torch, it)
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall = _timed_iters(step, torch)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = _timed_iters(step, torch, it)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     # the split scan's device time: the torch kernels inside its ranges
     # plus the split kernel, which runs only there (launched through
@@ -173,7 +204,13 @@ def main() -> int:
                    if SPLIT_KERNEL in r["name"])
     port_us = sum(r["self_device_us"] for r in kernel_rows
                   if any(k in r["name"] for k in PORT_KERNELS))
-    it = ITERS
+
+    def device_us(prefix):
+        return sum(r["self_device_us"] for r in kernel_rows
+                   if r["name"].startswith(prefix))
+    h2d_us, d2h_us = device_us("Memcpy HtoD"), device_us("Memcpy DtoH")
+    copy_us = sum(r["self_device_us"] for r in kernel_rows
+                  if r["name"].startswith("Mem"))
     summary = {
         "card": card, "path": args.path, "scan": args.scan,
         "rows": n_rows, "iters": it,
@@ -188,6 +225,12 @@ def main() -> int:
         "valid_walk_launches_per_iter": walk_launches / it,
         "device_kernel_launches_per_iter": sum(
             r["count"] for r in kernel_rows) / it,
+        # copies run on their own stream on the streamed path and may
+        # overlap kernels: busy time is the sum of both, not their union
+        "h2d_copy_ms_per_iter": h2d_us / 1e3 / it,
+        "d2h_copy_ms_per_iter": d2h_us / 1e3 / it,
+        "kernel_ms_per_iter": (busy_us - copy_us) / 1e3 / it,
+        "h2d_share_of_wall": (h2d_us / 1e6) / wall if wall > 0 else None,
         "top": kernel_rows[:12],
     }
     if args.out:
