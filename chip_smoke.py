@@ -38,10 +38,15 @@ and the script exits non-zero):
 
 6. stream kernels — at the stream path's shapes (a 1,048,576-row
    block, 28 columns, 64-bin stride) the wide active-leaf histogram K5
-   on int8h values and on hhilo values (A = 32, C = 4) and the
+   on int8h values and on hhilo values (A = 32, C = 4), each on a
+   uniform wave and on a skewed one (every row that is not padding in
+   one slot, as in the first wave of every tree), and the
    leaf-compacted K3 at A = 128, each adding into the nonzero carry a
    previous block left, held bitwise against its plain version (the
-   float one runs on CPU copies: only the CPU adds in its fixed order);
+   float one runs on CPU copies, compared by bit pattern: only the CPU
+   adds in its fixed order); the float K5's two phases (chunk partials,
+   fold) are timed apart and its contract floor (the partial traffic)
+   is logged beside its bound;
 7. stream identity — ``ingest_synthetic`` writes the bench's A/B store
    (4,194,304 rows x 28, max_bin 63) into a temporary directory;
    ``lgb.train_streaming`` (63 leaves, lr 0.1, blocks of 1,048,576 rows,
@@ -52,8 +57,9 @@ and the script exits non-zero):
    cut from 100,000,000 rows to 20,000,000: past 16,909,320 rows the
    mode is hhilo, so the float K5 must launch and the int8h K5 and K1
    must not; the scores must be finite and their AUC on the store's
-   labels >= 0.93; rows per second, wall and peak device memory are
-   logged.  The temporary stores are removed at the end.
+   labels >= 0.93; rows per second, wall, peak device memory and the
+   model's digest are logged.  The temporary stores are removed at the
+   end.
 
 A path's ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
@@ -228,7 +234,7 @@ def kernel_phase(dd, vals, entries):
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops.compact import hist_compact_raw
     from lightgbm_tpu_torch.ops.histogram import (
-        HIST_BLOCK, bin_stride, hist_launch_shape, hist_plain, slot_tables)
+        bin_stride, hist_launcher, hist_plain, hist_plan, hist_slab, slot_tables)
     from lightgbm_tpu_torch.ops.route import (
         ROUTE_BLOCK, _route_grid, route_plain, route_rows_raw)
     dev = dd.device
@@ -284,7 +290,6 @@ def kernel_phase(dd, vals, entries):
         max_abs_err=0.0), k1_rows))
 
     # -- K3: leaf-compacted histogram at 64 and 128 slots -----------------
-    lib3 = cuda_build.library("hist_compact")
     k3_rows = []
     for A in (64, 128):
         leaf2, tabs, cat, active = wave_inputs(dd, 127 if A == 128 else 63,
@@ -297,12 +302,11 @@ def kernel_phase(dd, vals, entries):
         torch.cuda.synchronize()
         if not torch.equal(raw, ref_raw):
             raise AssertionError(f"hist_compact kernel != plain (A={A})")
-        As, Ft, gx, rpb = hist_launch_shape(n_pad, G, A, B, C, sms)
+        plan = hist_plan(n_pad, G, A, B, C, sms, L, False)
+        slab = hist_slab(plan, A, G, B, C, dev)
         obuf = torch.zeros_like(raw)
-        ms = time_ms(lambda: lib3.lgbm_hist_compact(
-            dd.bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
-            hleaf.data_ptr(), L, inv.data_ptr(), src.data_ptr(), A, B, Ft,
-            As, gx, rpb, HIST_BLOCK, obuf.data_ptr(), stream), 20)
+        ms = time_ms(hist_launcher("hist_compact", dd.bins_t, vals, hleaf,
+                                   inv, src, L, B, plan, slab, obuf), 20)
         pl = time_ms(lambda: hist_plain(dd.bins_t, vals, hleaf, inv, src, B),
                      3)
         # the library yardstick: one int32 index_add_ over the active
@@ -322,7 +326,7 @@ def kernel_phase(dd, vals, entries):
         bd = bound(4 * n_pad + (G + C) * n_active + raw.numel() * 4
                    + (L + 1 + A) * 4, G * C * n_active, int_rate)
         k3_rows.append(dict(slots=A, ms=ms, plain_ms=pl, library_ms=lib_ms,
-                            **bd))
+                            plan=plan.__dict__, **bd))
         log(f"kernel hist_compact A={A}: bitwise ok, {ms:.4f} ms (plain "
             f"{pl:.3f} ms, index_add_ {lib_ms:.4f} ms, bound "
             f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, {n_active} "
@@ -376,15 +380,13 @@ def k1_measure(dd, vals, A: int, n_sel: int, gen, L: int,
     import torch
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops.histogram import (
-        HIST_BLOCK, bin_stride, hist_launch_shape, hist_route_plain,
-        hist_route_raw, slot_tables)
+        bin_stride, hist_launcher, hist_plan, hist_route_plain, hist_route_raw,
+        hist_slab, slot_tables)
     dev = dd.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
     G, n_pad = dd.bins_t.shape
     C = vals.shape[0]
     B = bin_stride(dd.group_max_bins)
     tab_bytes = 11 * L * 4 + L * B
-    lib1 = cuda_build.library("hist_route")
     leaf2, tabs, cat, active = wave_inputs(dd, A, n_sel, A, gen, L, bag)
     raw, l2n = hist_route_raw(dd.bins_t, vals, leaf2, active, tabs, cat,
                               L, dd.group_max_bins)
@@ -402,15 +404,14 @@ def k1_measure(dd, vals, A: int, n_sel: int, gen, L: int,
         if n_oob == 0 or got != n_oob:
             raise AssertionError(f"hist_route -1 slot holds {got} rows, "
                                  f"{n_oob} are out of the bag")
-    As, Ft, gx, rpb = hist_launch_shape(
-        n_pad, G, A, B, C, cuda_build.multiprocessor_count(dev))
+    plan = hist_plan(n_pad, G, A, B, C, cuda_build.multiprocessor_count(dev),
+                     L, True)
+    slab = hist_slab(plan, A, G, B, C, dev)
     obuf = torch.zeros_like(raw)
     lbuf = torch.empty_like(leaf2)
-    ms = time_ms(lambda: lib1.lgbm_hist_route(
-        dd.bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
-        leaf2.data_ptr(), lbuf.data_ptr(), tabs.data_ptr(), L,
-        cat.data_ptr(), B, inv.data_ptr(), src.data_ptr(), A, B, Ft, As,
-        gx, rpb, HIST_BLOCK, obuf.data_ptr(), stream), 20)
+    ms = time_ms(hist_launcher("hist_route", dd.bins_t, vals, leaf2, inv,
+                               src, L, B, plan, slab, obuf, lbuf, tabs, cat),
+                 20)
     pl = time_ms(lambda: hist_route_plain(dd.bins_t, vals, leaf2, tabs,
                                           cat, inv, src, B), 3)
     hl = ref_l2[1].long()
@@ -422,7 +423,8 @@ def k1_measure(dd, vals, A: int, n_sel: int, gen, L: int,
     log(f"kernel hist_route A={A} B={B} rows={dd.num_data}: bitwise ok, "
         f"{ms:.4f} ms (plain {pl:.3f} ms, bound {bd['bound_ms']:.4f} ms by "
         f"{bd['bound_by']}, {n_active} active rows)")
-    return dict(slots=A, ms=ms, plain_ms=pl, library_ms=None, **bd)
+    return dict(slots=A, ms=ms, plain_ms=pl, library_ms=None,
+                plan=plan.__dict__, **bd)
 
 
 def split_wave_inputs(F: int, B: int, L2: int, n: int, gen, dev):
@@ -535,10 +537,12 @@ def small_kernel_phase(dds, vals, int_rate: float, entries) -> None:
 
 
 def stream_wave(gen, nl: int, A: int, G: int = STREAM_FEATURES,
-                R: int = STREAM_BLOCK, max_bins: int = 63):
+                R: int = STREAM_BLOCK, max_bins: int = 63, skew: bool = False):
     """One streamed block of a wave: bins ``[G, R]``, gradients, hist
     leaves over ``nl`` leaves with 5% of rows at -1 (padding rows), and
-    ``A`` active slots, two of them -1."""
+    ``A`` active slots, two of them -1.  With ``skew`` every row that is
+    not padding sits in the first active slot, as in the first wave of
+    every tree."""
     import torch
     dev = gen.device
     bins_t = torch.randint(0, max_bins, (G, R), generator=gen, device=dev,
@@ -549,6 +553,8 @@ def stream_wave(gen, nl: int, A: int, G: int = STREAM_FEATURES,
     hl[torch.rand(R, generator=gen, device=dev) < 0.05] = -1
     active = torch.randperm(nl, generator=gen, device=dev)[:A].int()
     active[-2:] = -1
+    if skew:
+        hl = torch.where(hl >= 0, active[0], hl)
     return bins_t, g, h, hl, active.contiguous()
 
 
@@ -563,36 +569,32 @@ def _flat_cells(bins_t, hl, inv, rows, B: int, C: int):
     return cells[:, :, None] + torch.arange(C, device=hl.device)[None, None]
 
 
-def stream_kernel_phase(int_rate: float, entries) -> dict:
-    """K5 on int8h and hhilo values and the seeded K3 at the stream path's
-    shapes, each adding into the carry a previous block left: bitwise
-    against the plain version, times and bounds.  Appends the two K5
-    entries; -> the seeded K3 numbers."""
+def _active_rows(hl, inv):
+    import torch
+    L = inv.shape[0] - 1
+    return torch.nonzero(inv.long()[torch.where(hl >= 0, hl.long(), L)]
+                         >= 0)[:, 0]
+
+
+def k5_int8h_measure(gen, shape: str, int_rate: float) -> dict:
+    """The seeded K5 on int8h values at the stream block shape, adding
+    into the carry a previous block left: bitwise against the plain
+    version, times and bound."""
     import torch
     from lightgbm_tpu_torch.ops import cuda_build
-    from lightgbm_tpu_torch.ops.compact import hist_compact_raw
     from lightgbm_tpu_torch.ops.histogram import (
-        FLOAT_CHUNK, HIST_BLOCK, bin_stride, float_slots_per_block,
-        hist_active_float_raw, hist_active_raw, hist_float_plain,
-        hist_launch_shape, hist_plain, pack_values, pack_values_q,
-        slot_tables)
-    dev = torch.device("cuda")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    sms = cuda_build.multiprocessor_count(dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
+        bin_stride, hist_active_raw, hist_launcher, hist_plain, hist_plan,
+        hist_slab, pack_values_q, slot_tables)
+    dev = gen.device
     L, A, G, R = STREAM_PARAMS["num_leaves"], 32, STREAM_FEATURES, \
         STREAM_BLOCK
     B = bin_stride(63)
+    skew = shape == "skewed"
     prev = stream_wave(gen, L, A)
-    bins_t, g, h, hl, active = stream_wave(gen, L, A)
+    bins_t, g, h, hl, active = stream_wave(gen, L, A, skew=skew)
     inv, src = slot_tables(active, L, collect_unbagged=True)
-    rows = torch.nonzero(inv.long()[torch.where(hl >= 0, hl.long(), L)]
-                         >= 0)[:, 0]
+    rows = _active_rows(hl, inv)
     n_active = int(rows.numel())
-    small = (L + 1 + A) * 4
-
-    # -- K5, int8h --------------------------------------------------------
     vp, sc = pack_values_q(prev[1], prev[2], "int8h", R)
     vals, _ = pack_values_q(g, h, "int8h", R, scales=sc)
     C = vals.shape[0]
@@ -601,14 +603,13 @@ def stream_kernel_phase(int_rate: float, entries) -> dict:
     ref = carry + hist_plain(bins_t, vals, hl, inv, src, B)
     torch.cuda.synchronize()
     if not (torch.equal(got, ref) and not torch.equal(carry, ref)):
-        raise AssertionError("hist_active kernel != plain version")
-    lib = cuda_build.library("hist_active")
-    As, Ft, gx, rpb = hist_launch_shape(R, G, A, B, C, sms)
+        raise AssertionError(f"hist_active kernel != plain version ({shape})")
+    plan = hist_plan(R, G, A, B, C, cuda_build.multiprocessor_count(dev), L,
+                     False)
+    slab = hist_slab(plan, A, G, B, C, dev)
     obuf = carry.clone()
-    ms = time_ms(lambda: lib.lgbm_hist_active(
-        bins_t.data_ptr(), R, G, vals.data_ptr(), C, hl.data_ptr(), L,
-        inv.data_ptr(), src.data_ptr(), A, B, Ft, As, gx, rpb, HIST_BLOCK,
-        obuf.data_ptr(), stream), 20)
+    ms = time_ms(hist_launcher("hist_active", bins_t, vals, hl, inv, src, L,
+                               B, plan, slab, obuf), 20)
     pl = time_ms(lambda: carry + hist_plain(bins_t, vals, hl, inv, src, B),
                  3)
     idx = _flat_cells(bins_t, hl, inv, rows, B, C).reshape(-1)
@@ -616,22 +617,41 @@ def stream_kernel_phase(int_rate: float, entries) -> dict:
     vv = vv.contiguous()
     lacc = carry.clone().reshape(-1)
     lib_ms = time_ms(lambda: lacc.index_add_(0, idx, vv), 5)
-    bd = bound(G * R + C * R + 4 * R + 2 * carry.numel() * 4 + small,
-               G * C * n_active, int_rate)
-    entries.append(dict(
-        name="hist_active", route="cuda",
-        source="lightgbm_tpu_torch/csrc/hist_active.cu",
-        replaces="lightgbm_tpu/ops/pallas_histogram.py:343",
-        max_abs_err=0.0, ms=ms, plain_ms=pl, library_ms=lib_ms,
-        rows=R, slots=A, mode="int8h", **bd))
-    log(f"kernel hist_active (K5 int8h) A={A} rows={R}: bitwise ok "
-        f"(seeded), {ms:.4f} ms (plain {pl:.3f} ms, int32 index_add_ "
+    bd = bound(G * R + C * R + 4 * R + 2 * carry.numel() * 4
+               + (L + 1 + A) * 4, G * C * n_active, int_rate)
+    log(f"kernel hist_active (K5 int8h, {shape}) A={A} rows={R}: bitwise "
+        f"ok (seeded), {ms:.4f} ms (plain {pl:.3f} ms, int32 index_add_ "
         f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
-        f"{bd['bound_by']}, {n_active} active rows)")
+        f"{bd['bound_by']}, {n_active} active rows, slab "
+        f"{slab.numel() * 4 / 2**20:.1f} MiB)")
+    return dict(ms=ms, plain_ms=pl, library_ms=lib_ms, rows=R, slots=A,
+                mode="int8h", shape=shape, active_rows=n_active,
+                plan=plan.__dict__, slab_bytes=slab.numel() * 4, **bd)
 
-    # -- K5, hhilo ---------------------------------------------------------
+
+def k5_float_measure(gen, shape: str) -> dict:
+    """The seeded float K5 on hhilo values at the stream block shape:
+    bitwise (bit patterns) against the plain version on CPU copies (only
+    the CPU adds in its fixed order), times of the whole call and of its
+    two phases, the bound and the contract's floor."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (
+        FLOAT_CHUNK, bin_stride, float_plan, float_scratch,
+        hist_active_float_raw, hist_float_launcher, hist_float_plain,
+        pack_values, slot_tables)
+    dev = gen.device
+    L, A, G, R = STREAM_PARAMS["num_leaves"], 32, STREAM_FEATURES, \
+        STREAM_BLOCK
+    B = bin_stride(63)
+    skew = shape == "skewed"
+    prev = stream_wave(gen, L, A)
+    bins_t, g, h, hl, active = stream_wave(gen, L, A, skew=skew)
+    inv, src = slot_tables(active, L, collect_unbagged=True)
+    rows = _active_rows(hl, inv)
+    n_active = int(rows.numel())
     vp = pack_values(prev[1], prev[2], "hhilo", R)
     vals = pack_values(g, h, "hhilo", R)
+    C = vals.shape[0]
     carry = hist_active_float_raw(prev[0], vp, prev[3], active, L, 63)
     got = hist_active_float_raw(bins_t, vals, hl, active, L, 63,
                                 carry.clone())
@@ -641,34 +661,77 @@ def stream_kernel_phase(int_rate: float, entries) -> dict:
     pl = 1e3 * (time.time() - t0)
     got = got.cpu()
     err = float((got - ref).abs().max())
-    if not (torch.equal(got, ref) and not torch.equal(cpu[5], ref)):
-        raise AssertionError(f"hist_float kernel != plain version "
-                             f"(max abs err {err})")
-    lib = cuda_build.library("hist_float")
-    K = -(-R // FLOAT_CHUNK)
-    part = torch.empty((K, A, G, B, C), dtype=torch.float32, device=dev)
+    same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    if not (same and not torch.equal(cpu[5], ref)):
+        raise AssertionError(f"hist_float kernel != plain version ({shape}, "
+                             f"max abs err {err})")
+    plan = float_plan(A, B, C)
+    part, counts = float_scratch(R, A, G, B, C, dev)
     obuf = carry.clone()
-    ms = time_ms(lambda: lib.lgbm_hist_float(
-        bins_t.data_ptr(), R, G, vals.data_ptr(), C, hl.data_ptr(), L,
-        inv.data_ptr(), src.data_ptr(), A, B,
-        float_slots_per_block(A, B, C), FLOAT_CHUNK, part.data_ptr(),
-        obuf.data_ptr(), stream), 10)
+
+    def run(phase):
+        return hist_float_launcher(bins_t, vals, hl, inv, src, L, B, plan,
+                                   part, counts, obuf, phase)
+    ms = time_ms(run("both"), 10)
+    partial_ms = time_ms(run("partial"), 10)
+    fold_ms = time_ms(run("fold"), 10)
     idx = _flat_cells(bins_t, hl, inv, rows, B, C).reshape(-1)
     vv = vals[:, rows].t()[None].expand(G, -1, -1).reshape(-1).contiguous()
     lacc = carry.clone().reshape(-1)
     lib_ms = time_ms(lambda: lacc.index_add_(0, idx, vv), 5)
-    bd = bound(G * R + 4 * C * R + 4 * R + 2 * carry.numel() * 4 + small,
-               G * C * n_active + carry.numel(), FP32_OPS_PER_S)
+    bd = bound(G * R + 4 * C * R + 4 * R + 2 * carry.numel() * 4
+               + (L + 1 + A) * 4, G * C * n_active + carry.numel(),
+               FP32_OPS_PER_S)
+    # the contract's own floor: each (chunk, slot) pair with rows writes a
+    # G x B x C f32 partial that the fold reads back
+    slot = inv.long()[torch.where(hl >= 0, hl.long(), L)][rows]
+    pairs = int(torch.unique((rows // FLOAT_CHUNK) * A + slot).numel())
+    partial_bytes = 2 * pairs * G * B * C * 4
+    floor_ms = partial_bytes / PEAK_BYTES_PER_S * 1e3
+    log(f"kernel hist_float (K5 hhilo, {shape}) A={A} rows={R}: bitwise ok "
+        f"(seeded), {ms:.4f} ms = partials {partial_ms:.4f} + fold "
+        f"{fold_ms:.4f} ms (plain on the CPU {pl:.1f} ms, f32 index_add_ "
+        f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+        f"{bd['bound_by']}, contract floor {floor_ms:.4f} ms for "
+        f"{pairs} chunk partials, {plan.warps} warps/block)")
+    return dict(ms=ms, plain_ms=pl, plain_device="cpu", library_ms=lib_ms,
+                max_abs_err=err, rows=R, slots=A, mode="hhilo", shape=shape,
+                active_rows=n_active, partial_ms=partial_ms,
+                fold_ms=fold_ms, chunk_partials=pairs,
+                contract_floor_ms=floor_ms, warps=plan.warps, **bd)
+
+
+def stream_kernel_phase(int_rate: float, entries) -> dict:
+    """K5 on int8h and hhilo values (a uniform and a skewed wave) and the
+    seeded K3 at the stream path's shapes, each adding into the carry a
+    previous block left: bitwise against the plain version, times and
+    bounds.  Appends the two K5 entries; -> the seeded K3 numbers."""
+    import torch
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.ops.compact import hist_compact_raw
+    from lightgbm_tpu_torch.ops.histogram import (
+        bin_stride, hist_launcher, hist_plain, hist_plan, hist_slab,
+        pack_values_q, slot_tables)
+    dev = torch.device("cuda")
+    sms = cuda_build.multiprocessor_count(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    G, R = STREAM_FEATURES, STREAM_BLOCK
+    B = bin_stride(63)
+
+    uni = k5_int8h_measure(gen, "uniform", int_rate)
+    entries.append(dict(
+        name="hist_active", route="cuda",
+        source="lightgbm_tpu_torch/csrc/hist_active.cu",
+        replaces="lightgbm_tpu/ops/pallas_histogram.py:343",
+        max_abs_err=0.0, **uni,
+        skewed=k5_int8h_measure(gen, "skewed", int_rate)))
+    uni = k5_float_measure(gen, "uniform")
     entries.append(dict(
         name="hist_float", route="cuda",
         source="lightgbm_tpu_torch/csrc/hist_float.cu",
-        replaces="lightgbm_tpu/ops/pallas_histogram.py:343",
-        max_abs_err=err, ms=ms, plain_ms=pl, plain_device="cpu",
-        library_ms=lib_ms, rows=R, slots=A, mode="hhilo", **bd))
-    log(f"kernel hist_float (K5 hhilo) A={A} rows={R}: bitwise ok "
-        f"(seeded), {ms:.4f} ms (plain on the CPU {pl:.1f} ms, f32 "
-        f"index_add_ {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
-        f"{bd['bound_by']})")
+        replaces="lightgbm_tpu/ops/pallas_histogram.py:343", **uni,
+        skewed=k5_float_measure(gen, "skewed")))
 
     # -- K3 seeded at 128 slots (255 leaves) -------------------------------
     L3, A3 = 255, 128
@@ -677,6 +740,7 @@ def stream_kernel_phase(int_rate: float, entries) -> dict:
     active = prev[4]
     vp, sc = pack_values_q(prev[1], prev[2], "int8h", R)
     vals, _ = pack_values_q(g, h, "int8h", R, scales=sc)
+    C = vals.shape[0]
     carry = hist_compact_raw(prev[0], vp, prev[3], active, L3, 63)
     got = hist_compact_raw(bins_t, vals, hl, active, L3, 63, carry.clone())
     inv, src = slot_tables(active, L3, collect_unbagged=False)
@@ -684,16 +748,14 @@ def stream_kernel_phase(int_rate: float, entries) -> dict:
     torch.cuda.synchronize()
     if not (torch.equal(got, ref) and not torch.equal(carry, ref)):
         raise AssertionError("seeded hist_compact kernel != plain version")
-    lib = cuda_build.library("hist_compact")
-    As, Ft, gx, rpb = hist_launch_shape(R, G, A3, B, C, sms)
+    plan = hist_plan(R, G, A3, B, C, sms, L3, False)
+    slab = hist_slab(plan, A3, G, B, C, dev)
     obuf = carry.clone()
-    ms = time_ms(lambda: lib.lgbm_hist_compact(
-        bins_t.data_ptr(), R, G, vals.data_ptr(), C, hl.data_ptr(), L3,
-        inv.data_ptr(), src.data_ptr(), A3, B, Ft, As, gx, rpb, HIST_BLOCK,
-        obuf.data_ptr(), stream), 20)
+    ms = time_ms(hist_launcher("hist_compact", bins_t, vals, hl, inv, src, L3,
+                               B, plan, slab, obuf), 20)
     log(f"kernel hist_compact (K3 seeded) A={A3} rows={R}: bitwise ok, "
         f"{ms:.4f} ms")
-    return dict(rows=R, slots=A3, ms=ms, seeded=True)
+    return dict(rows=R, slots=A3, ms=ms, seeded=True, plan=plan.__dict__)
 
 
 def stream_paths(lgb, counters, tmp: str) -> dict:
@@ -760,6 +822,7 @@ def stream_paths(lgb, counters, tmp: str) -> dict:
     log(f"stream scale: ingest {time.time() - t0:.1f} s, "
         f"{len(store.manifest['shards'])} shards")
     bst, scale = run("stream scale", store)
+    log(f"stream scale: digest {bst.digest()}")
     if scale["hist_float"] <= 0:
         raise AssertionError("the float K5 did not launch past the int8 "
                              "row bound")

@@ -19,7 +19,9 @@
 //
 // What bounds it on an H100: the roofline bound is bytes (bins G B/row,
 // values C B/row, hist leaf 4 B/row, the carry read and written once);
-// in practice the G*C shared-memory atomics per active row.
+// in practice the G*C shared-memory atomics per active row and the
+// merge of the per-block tiles; hist_smem.cuh says what the design does
+// about both.  The slab reduction adds into the carry.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -30,16 +32,9 @@ extern "C" int lgbm_hist_active(const void* bins_t, long long n_pad, int G,
                                 const void* hist_leaf, int L,
                                 const void* inv, const void* src, int A,
                                 int B, int Ft, int As, int grid_x,
-                                long long rows_per_block, int block,
+                                long long rows_per_block, void* slab,
                                 void* acc, void* stream) {
-  int smem = hist_smem_bytes(L, false, As, Ft, B, C);
-  cudaFuncSetAttribute(hist_kernel<false>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid(grid_x, (G + Ft - 1) / Ft, (A + As - 1) / As);
-  hist_kernel<false><<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)bins_t, n_pad, G, (const int8_t*)vals, C,
-      (const int*)hist_leaf, nullptr, nullptr, L, nullptr, 0,
-      (const int*)inv, (const int*)src, A, B, Ft, As, rows_per_block,
-      (int*)acc);
-  return (int)cudaGetLastError();
+  return launch_hist<false>(bins_t, n_pad, G, vals, C, hist_leaf, nullptr,
+                            nullptr, L, nullptr, 0, inv, src, A, B, Ft, As,
+                            grid_x, rows_per_block, slab, acc, stream);
 }

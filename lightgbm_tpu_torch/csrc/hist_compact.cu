@@ -16,9 +16,10 @@
 // B/row, bins G B/row, values C B/row); in practice the G*C shared-memory
 // atomics per active row bound it.  With 64 or 128 slots one column of
 // the histogram (slots x B x C int32, 128 KB at 128 slots, 64 bins,
-// int8h) fills a block's shared memory, so the grid tiles columns one at
-// a time and each tile re-reads the hist leaf vector (4 B/row/column);
-// slot groups split the slots when even one column does not fit.
+// int8h) fills most of a block's 227 KB, so the grid tiles columns (3
+// at a time at 64 slots, one at 128) and each tile re-reads the hist
+// leaf vector (4 B/row/column tile); slot groups split the slots when
+// even one column does not fit.  hist_smem.cuh has the body's design.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,16 +30,9 @@ extern "C" int lgbm_hist_compact(const void* bins_t, long long n_pad, int G,
                                  const void* hist_leaf, int L,
                                  const void* inv, const void* src, int A,
                                  int B, int Ft, int As, int grid_x,
-                                 long long rows_per_block, int block,
+                                 long long rows_per_block, void* slab,
                                  void* out, void* stream) {
-  int smem = hist_smem_bytes(L, false, As, Ft, B, C);
-  cudaFuncSetAttribute(hist_kernel<false>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid(grid_x, (G + Ft - 1) / Ft, (A + As - 1) / As);
-  hist_kernel<false><<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)bins_t, n_pad, G, (const int8_t*)vals, C,
-      (const int*)hist_leaf, nullptr, nullptr, L, nullptr, 0,
-      (const int*)inv, (const int*)src, A, B, Ft, As, rows_per_block,
-      (int*)out);
-  return (int)cudaGetLastError();
+  return launch_hist<false>(bins_t, n_pad, G, vals, C, hist_leaf, nullptr,
+                            nullptr, L, nullptr, 0, inv, src, A, B, Ft, As,
+                            grid_x, rows_per_block, slab, out, stream);
 }

@@ -15,11 +15,12 @@
 // What bounds it on an H100: the roofline bound is bytes (bins G B/row,
 // values C B/row, leaf vectors 16 B/row); in practice the G*C atomics per
 // in-bag active row (112 at 28 columns, int8h) bound it.  The design
-// keeps those atomics in shared memory (one global atomic per nonzero
-// cell per block at the end), tiles the columns so a tile of the
-// histogram fits a block's shared memory, and re-runs the integer route
-// per column tile instead of storing the routed leaves: only the first
-// column tile writes leaf2'.
+// keeps those atomics in shared memory, merges the blocks' tiles through
+// an int32 slab scratch (hist_smem.cuh), tiles the columns so a tile of
+// the histogram fills up to the 227 KB of a block, and re-runs the
+// integer route per column tile instead of storing the routed leaves
+// (2, 3 and 5 column tiles at 8, 16 and 32 slots on 28 columns, 64
+// bins): only the first column tile writes leaf2'.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,16 +32,9 @@ extern "C" int lgbm_hist_route(const void* bins_t, long long n_pad, int G,
                                const void* cat_mask, int Bcat,
                                const void* inv, const void* src, int A,
                                int B, int Ft, int As, int grid_x,
-                               long long rows_per_block, int block,
+                               long long rows_per_block, void* slab,
                                void* out, void* stream) {
-  int smem = hist_smem_bytes(L, true, As, Ft, B, C);
-  cudaFuncSetAttribute(hist_kernel<true>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid(grid_x, (G + Ft - 1) / Ft, (A + As - 1) / As);
-  hist_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)bins_t, n_pad, G, (const int8_t*)vals, C,
-      (const int*)leaf2_in, (int*)leaf2_out, (const int*)tabs, L,
-      (const uint8_t*)cat_mask, Bcat, (const int*)inv, (const int*)src, A,
-      B, Ft, As, rows_per_block, (int*)out);
-  return (int)cudaGetLastError();
+  return launch_hist<true>(bins_t, n_pad, G, vals, C, leaf2_in, leaf2_out,
+                           tabs, L, cat_mask, Bcat, inv, src, A, B, Ft, As,
+                           grid_x, rows_per_block, slab, out, stream);
 }

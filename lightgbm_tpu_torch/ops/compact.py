@@ -15,9 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from .histogram import (HIST_BLOCK, _check_active_inputs, bin_stride,
-                        dequant_hist, hist_launch_shape, hist_plain,
-                        slot_tables)
+from .histogram import (_check_active_inputs, _check_vector_rows,
+                        bin_stride, dequant_hist, hist_launcher, hist_plain,
+                        hist_plan, hist_slab, slot_tables)
 
 # leaf slots per group in the reference's compacted kernel; waves wider
 # than this take K3 (the reference's dispatch threshold)
@@ -47,15 +47,11 @@ def hist_compact_raw(bins_t, vals, hist_leaf, active, num_leaf_slots: int,
         return acc.add_(hist_plain(bins_t, vals, hist_leaf, inv, src, B))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    from .cuda_build import check_launch, library, multiprocessor_count
-    lib = library("hist_compact")
-    As, Ft, gx, rpb = hist_launch_shape(n_pad, G, A, B, C,
-                                        multiprocessor_count(dev))
-    code = lib.lgbm_hist_compact(
-        bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
-        hist_leaf.data_ptr(), L, inv.data_ptr(), src.data_ptr(), A, B, Ft,
-        As, gx, rpb, HIST_BLOCK, acc.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    from .cuda_build import check_launch, multiprocessor_count
+    _check_vector_rows(n_pad, bins_t, vals, hist_leaf, acc)
+    plan = hist_plan(n_pad, G, A, B, C, multiprocessor_count(dev), L, False)
+    code = hist_launcher("hist_compact", bins_t, vals, hist_leaf, inv, src,
+                         L, B, plan, hist_slab(plan, A, G, B, C, dev), acc)()
     check_launch(code, "hist_compact")
     hist_compact_raw.launches += 1
     return acc

@@ -42,19 +42,22 @@ LIBRARIES = {
     },
     "hist_route": {
         "lgbm_hist_route": [_P, _LL, _I, _P, _I, _P, _P, _P, _I, _P, _I,
-                            _P, _P, _I, _I, _I, _I, _I, _LL, _I, _P, _P],
+                            _P, _P, _I, _I, _I, _I, _I, _LL, _P, _P, _P],
     },
     "hist_compact": {
         "lgbm_hist_compact": [_P, _LL, _I, _P, _I, _P, _I, _P, _P, _I, _I,
-                              _I, _I, _I, _LL, _I, _P, _P],
+                              _I, _I, _I, _LL, _P, _P, _P],
     },
     "hist_active": {
         "lgbm_hist_active": [_P, _LL, _I, _P, _I, _P, _I, _P, _P, _I, _I,
-                             _I, _I, _I, _LL, _I, _P, _P],
+                             _I, _I, _I, _LL, _P, _P, _P],
     },
     "hist_float": {
+        "lgbm_hist_float_partial": [_P, _LL, _I, _P, _I, _P, _I, _P, _I, _I,
+                                    _I, _I, _I, _P, _P, _P],
+        "lgbm_hist_float_fold": [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
         "lgbm_hist_float": [_P, _LL, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
-                            _I, _P, _P, _P],
+                            _I, _I, _P, _P, _P, _P],
     },
     "split": {
         "lgbm_split_scan": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F,

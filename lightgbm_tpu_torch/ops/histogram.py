@@ -26,16 +26,20 @@ in ``.plain_calls``.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .route import leaf_tables
 
-# shared memory a histogram block may hold as int32 cells (one column of
-# a 128-slot, 64-bin, 4-value histogram)
-HIST_SMEM_BUDGET = 128 * 1024
-HIST_BLOCK = 1024
+# shared memory one block may use on sm_90 (227 KB), and what one
+# multiprocessor holds for all its resident blocks (each reserves 1 KB)
+SMEM_BLOCK_MAX = 232_448
+SMEM_SM = 233_472
+HIST_THREADS = 1024      # threads of a histogram block (csrc/hist_smem.cuh)
+HIST_MIN_ROWS = 4096     # fewest rows worth a row partition of their own
+ROUTE_TAB_ROWS = 11      # rows of the per-leaf route table (route_row.cuh)
 
 
 def next_pow2(x: int) -> int:
@@ -265,20 +269,125 @@ def hist_plain(bins_t: torch.Tensor, vals: torch.Tensor,
                        torch.zeros_like(out))
 
 
-def hist_launch_shape(n_pad: int, G: int, A: int, B: int, C: int,
-                      sms: int):
-    """Kernel tiling: ``-> (As, Ft, grid_x, rows_per_block)``: slots and
-    columns per block so one tile fits ``HIST_SMEM_BUDGET``, and about two
-    blocks per multiprocessor in all."""
-    cells = HIST_SMEM_BUDGET // 4 // (B * C)
-    if cells >= A:
-        As, Ft = A, min(G, cells // A)
+@dataclass(frozen=True)
+class HistPlan:
+    """Launch plan of the int32 histogram kernels (``csrc/hist_smem.cuh``):
+    blocks of ``As`` slots x ``Ft`` columns, ``grid_x`` row partitions of
+    ``rows_per_block`` rows (a multiple of 4) each, ``smem`` bytes of
+    shared memory per block.  Every partition writes one slab of the
+    int32 scratch ``[grid_x, A, G, B, C]``."""
+    As: int
+    Ft: int
+    col_tiles: int
+    slot_groups: int
+    grid_x: int
+    rows_per_block: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid_x * self.col_tiles * self.slot_groups
+
+
+def hist_smem_bytes(L: int, route: bool, As: int, Ft: int, B: int,
+                    C: int) -> int:
+    """Shared memory of one histogram block: the slot table, K1's route
+    tables, the int32 tile (``hist_smem_bytes`` in the CUDA source)."""
+    return ((L + 1) + (ROUTE_TAB_ROWS * L if route else 0)
+            + As * Ft * B * C) * 4
+
+
+def hist_plan(n_pad: int, G: int, A: int, B: int, C: int, sms: int,
+              L: int, route: bool) -> HistPlan:
+    """Tiles as large as a block's shared memory allows, balanced over
+    the columns (or, when one column of all slots does not fit, over the
+    slots); as many row partitions as fill every multiprocessor's
+    resident blocks once, at least ``HIST_MIN_ROWS`` rows each."""
+    if not 1 <= C <= 5:
+        raise ValueError(f"{C} value columns, the kernels take 1-5")
+    head = hist_smem_bytes(L, route, 0, 0, B, C)
+    per = hist_smem_bytes(L, route, 1, 1, B, C) - head   # slot x column
+    room = (SMEM_BLOCK_MAX - head) // per
+    if room < 1:
+        raise ValueError(f"one histogram column ({B} bins x {C} values) "
+                         f"does not fit a block's shared memory")
+    if A <= room:
+        col_tiles = math.ceil(G / min(G, room // A))
+        Ft = math.ceil(G / col_tiles)
+        slot_groups = 1
+        As = A
     else:
-        As, Ft = max(1, cells), 1
-    tiles = math.ceil(G / Ft) * math.ceil(A / As)
-    gx = max(1, min(math.ceil(n_pad / HIST_BLOCK),
-                    math.ceil(2 * sms / tiles)))
-    return As, Ft, gx, math.ceil(n_pad / gx)
+        slot_groups = math.ceil(A / room)
+        As = math.ceil(A / slot_groups)
+        col_tiles, Ft = G, 1
+    smem = hist_smem_bytes(L, route, As, Ft, B, C)
+    resident = min(2048 // HIST_THREADS, SMEM_SM // (smem + 1024))
+    tiles = col_tiles * slot_groups
+    gx = max(1, min(sms * resident // tiles,
+                    math.ceil(n_pad / HIST_MIN_ROWS)))
+    rpb = -(-math.ceil(n_pad / gx) // 4) * 4
+    return HistPlan(As, Ft, col_tiles, slot_groups, math.ceil(n_pad / rpb),
+                    rpb, smem)
+
+
+def hist_slab(plan: HistPlan, A: int, G: int, B: int, C: int, device):
+    """The int32 scratch the blocks write their tiles into (every cell is
+    written, so it is not cleared)."""
+    return torch.empty((plan.grid_x, A, G, B, C), dtype=torch.int32,
+                       device=device)
+
+
+def _check_vector_rows(n_pad: int, *tensors) -> None:
+    """The CUDA histogram kernels read 4 rows at a time (16-byte hist
+    leaf and value loads): ``n_pad`` a multiple of 4 and every pointer
+    16-byte aligned."""
+    if n_pad % 4:
+        raise ValueError(f"n_pad={n_pad}: the CUDA histogram kernels take "
+                         f"a multiple of 4 rows")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the CUDA histogram kernels take 16-byte "
+                             "aligned tensors")
+
+
+class BoundLaunch:
+    """A kernel's C entry point bound to its arguments; it holds the
+    tensors the arguments point into, so none of them is freed before
+    the launch."""
+
+    def __init__(self, fn, args, tensors):
+        self.fn, self.args, self.tensors = fn, args, tensors
+
+    def __call__(self) -> int:
+        return self.fn(*self.args)
+
+
+def hist_launcher(kind: str, bins_t, vals, leaf, inv, src, L: int, B: int,
+                  plan: HistPlan, slab, out, leaf2_out=None, tabs=None,
+                  cat_mask=None):
+    """One of the int32 histogram kernels (``kind`` "hist_route",
+    "hist_compact" or "hist_active") with its slab reduction into
+    ``out``, bound to its arguments: -> a callable that launches both and
+    returns the CUDA error code.  ``leaf`` is ``leaf2`` for K1, the hist
+    leaves otherwise."""
+    from .cuda_build import library
+    G, n_pad = bins_t.shape
+    C = vals.shape[0]
+    A = src.shape[0]
+    stream = torch.cuda.current_stream(bins_t.device).cuda_stream
+    tail = (inv.data_ptr(), src.data_ptr(), A, B, plan.Ft, plan.As,
+            plan.grid_x, plan.rows_per_block, slab.data_ptr(),
+            out.data_ptr(), stream)
+    fn = getattr(library(kind), f"lgbm_{kind}")
+    tensors = (bins_t, vals, leaf, inv, src, slab, out, leaf2_out, tabs,
+               cat_mask)
+    if kind == "hist_route":
+        return BoundLaunch(fn, (bins_t.data_ptr(), n_pad, G, vals.data_ptr(),
+                                C, leaf.data_ptr(), leaf2_out.data_ptr(),
+                                tabs.data_ptr(), L, cat_mask.data_ptr(),
+                                cat_mask.shape[1], *tail), tensors)
+    return BoundLaunch(fn, (bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
+                            leaf.data_ptr(), L, *tail), tensors)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
@@ -323,18 +432,14 @@ def hist_route_raw(bins_t, vals, leaf2, active, tabs, cat_mask,
                                 src, B)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    from .cuda_build import check_launch, library, multiprocessor_count
-    lib = library("hist_route")
+    from .cuda_build import check_launch, multiprocessor_count
+    _check_vector_rows(n_pad, bins_t, vals, leaf2)
     out = torch.zeros((A, G, B, C), dtype=torch.int32, device=dev)
     leaf2_out = torch.empty_like(leaf2)
-    As, Ft, gx, rpb = hist_launch_shape(n_pad, G, A, B, C,
-                                        multiprocessor_count(dev))
-    code = lib.lgbm_hist_route(
-        bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C, leaf2.data_ptr(),
-        leaf2_out.data_ptr(), tabs.data_ptr(), L, cat_mask.data_ptr(),
-        cat_mask.shape[1], inv.data_ptr(), src.data_ptr(), A, B, Ft, As,
-        gx, rpb, HIST_BLOCK, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    plan = hist_plan(n_pad, G, A, B, C, multiprocessor_count(dev), L, True)
+    code = hist_launcher("hist_route", bins_t, vals, leaf2, inv, src, L, B,
+                         plan, hist_slab(plan, A, G, B, C, dev), out,
+                         leaf2_out, tabs, cat_mask)()
     check_launch(code, "hist_route")
     hist_route_raw.launches += 1
     return out, leaf2_out
@@ -415,15 +520,11 @@ def hist_active_raw(bins_t, vals, hist_leaf, active, num_leaf_slots: int,
         return acc.add_(hist_plain(bins_t, vals, hist_leaf, inv, src, B))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    from .cuda_build import check_launch, library, multiprocessor_count
-    lib = library("hist_active")
-    As, Ft, gx, rpb = hist_launch_shape(n_pad, G, A, B, C,
-                                        multiprocessor_count(dev))
-    code = lib.lgbm_hist_active(
-        bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
-        hist_leaf.data_ptr(), L, inv.data_ptr(), src.data_ptr(), A, B, Ft,
-        As, gx, rpb, HIST_BLOCK, acc.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    from .cuda_build import check_launch, multiprocessor_count
+    _check_vector_rows(n_pad, bins_t, vals, hist_leaf, acc)
+    plan = hist_plan(n_pad, G, A, B, C, multiprocessor_count(dev), L, False)
+    code = hist_launcher("hist_active", bins_t, vals, hist_leaf, inv, src, L,
+                         B, plan, hist_slab(plan, A, G, B, C, dev), acc)()
     check_launch(code, "hist_active")
     hist_active_raw.launches += 1
     return acc
@@ -439,15 +540,88 @@ hist_active_raw.plain_calls = 0
 # each chunk's partial sums its rows in row order from +0.0, and the
 # partials are added into the carry in chunk order.
 FLOAT_CHUNK = 2048
-FLOAT_LANES = 32                 # columns per thread block, one per lane
-FLOAT_SMEM_BUDGET = 200 * 1024   # shared memory of one block, bytes
+FLOAT_LANES = 32        # columns per block of the partial kernel, one a lane
+FLOAT_MAX_WARPS = 16    # warps per block of the partial kernel
 
 
-def float_slots_per_block(A: int, B: int, C: int) -> int:
-    """Slots per block of the float kernel: its ``[slots, C, B, 32]``
-    float32 partial plus the chunk's slot bytes fit the budget."""
-    per_slot = C * B * FLOAT_LANES * 4
-    return max(1, min(A, (FLOAT_SMEM_BUDGET - 2 * FLOAT_CHUNK) // per_slot))
+@dataclass(frozen=True)
+class FloatPlan:
+    """Launch plan of the float K5's partial kernel (``csrc/hist_float.cu``):
+    ``warps`` warps per block, ``chp`` sorted positions per staged column
+    row, ``smem`` bytes of shared memory per block."""
+    warps: int
+    chp: int
+    smem: int
+
+
+def float_chp(A: int) -> int:
+    """Positions of one staged row of the chunk in sorted order: every
+    slot's run starts at a multiple of 4, so at most 3 gaps per slot;
+    ``chp % 8 == 4`` puts the 32 column rows on 32 different banks."""
+    return -(-(FLOAT_CHUNK + 3 * min(A, FLOAT_CHUNK)) // 8) * 8 + 4
+
+
+def float_smem_bytes(W: int, A: int, B: int, C: int, chp: int) -> int:
+    """Shared memory of one partial block (``float_smem`` in the CUDA
+    source): W tiles [B][32] f32, the sort's counters, the chunk's row
+    slots, its values (bf16) and its bins, each region 16-byte aligned."""
+    def up16(x):
+        return -(-x // 16) * 16
+    ints = -(-(W * A + 3 * A + 4) // 4) * 4
+    return (W * B * FLOAT_LANES * 4 + ints * 4 + up16(FLOAT_CHUNK * 2)
+            + up16(C * chp * 2) + FLOAT_LANES * chp)
+
+
+def float_plan(A: int, B: int, C: int) -> FloatPlan:
+    """As many warps (each owns one [B][32] tile) as fit a block."""
+    chp = float_chp(A)
+    for W in range(FLOAT_MAX_WARPS, 0, -1):
+        smem = float_smem_bytes(W, A, B, C, chp)
+        if smem <= SMEM_BLOCK_MAX:
+            return FloatPlan(W, chp, smem)
+    raise ValueError(f"float K5: {A} slots x {B} bins do not fit a block")
+
+
+def float_scratch(n_pad: int, A: int, G: int, B: int, C: int, device):
+    """``(partial [K, A, C, B, G] f32, counts [K, A] int32)``: the chunk
+    partials at their worst case (every slot has rows in every chunk) and
+    the rows of each (chunk, slot).  Written before they are read: not
+    cleared."""
+    K = -(-n_pad // FLOAT_CHUNK)
+    return (torch.empty((K, A, C, B, G), dtype=torch.float32, device=device),
+            torch.empty((K, A), dtype=torch.int32, device=device))
+
+
+def hist_float_launcher(bins_t, vals, hist_leaf, inv, src, L: int, B: int,
+                        plan: FloatPlan, scratch, counts, acc,
+                        phase: str = "both"):
+    """The float K5 (``phase`` "partial", "fold" or "both") bound to its
+    arguments: -> a callable that launches it and returns the CUDA error
+    code.  ``scratch`` holds the chunk partials."""
+    from .cuda_build import library
+    G, n_pad = bins_t.shape
+    C = vals.shape[0]
+    A = src.shape[0]
+    K = counts.shape[0]
+    lib = library("hist_float")
+    stream = torch.cuda.current_stream(bins_t.device).cuda_stream
+    head = (bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
+            hist_leaf.data_ptr(), L, inv.data_ptr())
+    tensors = (bins_t, vals, hist_leaf, inv, src, scratch, counts, acc)
+    if phase == "partial":
+        return BoundLaunch(lib.lgbm_hist_float_partial,
+                           (*head, A, B, FLOAT_CHUNK, plan.chp, plan.warps,
+                            scratch.data_ptr(), counts.data_ptr(), stream),
+                           tensors)
+    if phase == "fold":
+        return BoundLaunch(lib.lgbm_hist_float_fold,
+                           (scratch.data_ptr(), counts.data_ptr(), K, A, C, B,
+                            G, src.data_ptr(), acc.data_ptr(), stream),
+                           tensors)
+    return BoundLaunch(lib.lgbm_hist_float,
+                       (*head, src.data_ptr(), A, B, FLOAT_CHUNK, plan.chp,
+                        plan.warps, scratch.data_ptr(), counts.data_ptr(),
+                        acc.data_ptr(), stream), tensors)
 
 
 def hist_float_plain(bins_t, vals, hist_leaf, inv, src, B: int, acc):
@@ -513,15 +687,11 @@ def hist_active_float_raw(bins_t, vals, hist_leaf, active,
         return hist_float_plain(bins_t, vals, hist_leaf, inv, src, B, acc)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    from .cuda_build import check_launch, library
-    lib = library("hist_float")
-    K = -(-n_pad // FLOAT_CHUNK)
-    partial = torch.empty((K, A, G, B, C), dtype=torch.float32, device=dev)
-    code = lib.lgbm_hist_float(
-        bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
-        hist_leaf.data_ptr(), L, inv.data_ptr(), src.data_ptr(), A, B,
-        float_slots_per_block(A, B, C), FLOAT_CHUNK, partial.data_ptr(),
-        acc.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    from .cuda_build import check_launch
+    _check_vector_rows(n_pad, bins_t, vals, hist_leaf)
+    scratch, counts = float_scratch(n_pad, A, G, B, C, dev)
+    code = hist_float_launcher(bins_t, vals, hist_leaf, inv, src, L, B,
+                               float_plan(A, B, C), scratch, counts, acc)()
     check_launch(code, "hist_float")
     hist_active_float_raw.launches += 1
     return acc

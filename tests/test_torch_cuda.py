@@ -136,17 +136,52 @@ def _carry(rng, shape, dtype):
     return torch.as_tensor(rng.normal(size=shape).astype(np.float32))
 
 
+SEEDED_CASES = [("quantized", 32, "uniform"), ("float", 32, "uniform"),
+                ("float", 128, "uniform"), ("compact", 128, "uniform"),
+                ("quantized", 32, "skewed"), ("float", 32, "skewed"),
+                ("quantized", 32, "sparse"), ("float", 32, "sparse"),
+                ("float", 128, "sparse")]
+
+
+def _wave_leaves(hleaf, active, wave, rng):
+    """The uniform wave as routed, a skewed one (every row that is not
+    padding in the first active slot, as every tree's first wave) or a
+    sparse one (each 2,048-row chunk in 2 of the active slots, so most
+    slots have no rows in most chunks)."""
+    if wave == "uniform":
+        return hleaf
+    live = active[active >= 0]
+    if wave == "skewed":
+        return torch.where(hleaf >= 0, live[0], hleaf).contiguous()
+    out = hleaf.clone()
+    chunk = t_hist.FLOAT_CHUNK
+    for k0 in range(0, out.shape[0], chunk):
+        pick = live[torch.as_tensor(rng.choice(live.shape[0], 2,
+                                               replace=False))]
+        seg = out[k0:k0 + chunk]
+        choice = pick[torch.as_tensor(rng.randint(0, 2, size=seg.shape[0]))]
+        out[k0:k0 + chunk] = torch.where(seg >= 0, choice, seg)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind,A", [("quantized", 32), ("float", 32),
-                                    ("float", 128), ("compact", 128)])
-def test_seeded_hist_kernels_bitwise(cuda_device, kind, A):
+@pytest.mark.parametrize(
+    "kind,A,wave", SEEDED_CASES,
+    ids=[f"{k}-{a}" if w == "uniform" else f"{k}-{a}-{w}"
+         for k, a, w in SEEDED_CASES])
+def test_seeded_hist_kernels_bitwise(cuda_device, kind, A, wave):
     """K5 (quantized and float) and K3, each adding into a nonzero carry,
-    against their plain versions on CPU copies of the same inputs."""
+    against their plain versions on CPU copies of the same inputs, on a
+    uniform, a skewed and a sparse wave.  Float results are compared by
+    bit pattern (``torch.equal`` takes -0.0 for 0.0); the float carry
+    holds some -0.0 cells, which the plain version's adds of +0.0 turn
+    into +0.0 and the kernel must too."""
     dd, leaf2, tabs, cat, vals, rng = _inputs(seed=A + len(kind))
     hleaf = t_route.route_rows_raw(dd.bins_t, leaf2, tabs, cat)[1]
     hleaf = hleaf.contiguous()
     active = torch.full((A,), -1, dtype=torch.int32)
     active[:30] = torch.as_tensor(rng.choice(40, 30, replace=False)).int()
+    hleaf = _wave_leaves(hleaf, active, wave, rng)
     if kind == "float":
         g = torch.as_tensor(rng.normal(size=dd.num_data).astype(np.float32))
         h = torch.as_tensor(rng.uniform(0.01, 0.25, size=dd.num_data)
@@ -159,6 +194,8 @@ def test_seeded_hist_kernels_bitwise(cuda_device, kind, A):
         fn, dtype = t_compact.hist_compact_raw, torch.int32
     B = t_hist.bin_stride(dd.group_max_bins)
     acc = _carry(rng, (A, dd.num_groups, B, vals.shape[0]), dtype)
+    if kind == "float":
+        acc[torch.as_tensor(rng.rand(*acc.shape) < 0.05)] = -0.0
     args = (dd.bins_t, vals, hleaf, active)
     n0 = fn.launches
     got = fn(*[t.to(cuda_device) for t in args], L, dd.group_max_bins,
@@ -166,7 +203,10 @@ def test_seeded_hist_kernels_bitwise(cuda_device, kind, A):
     torch.cuda.synchronize()
     assert fn.launches == n0 + 1
     ref = fn(*args, L, dd.group_max_bins, acc.clone())
-    assert torch.equal(got.cpu(), ref)
+    if dtype == torch.float32:
+        assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+    else:
+        assert torch.equal(got.cpu(), ref)
     assert not torch.equal(ref, acc)
 
 

@@ -444,3 +444,131 @@ def test_float_plain_sums_in_row_order():
         for s, a in enumerate(active):
             want[s] = want[s] + part[slot_of[int(a)]]
     np.testing.assert_array_equal(got, want)
+
+
+# -- launch plans and scratch of the CUDA histogram kernels (host logic) --
+# (n_pad, G, A, B, C, L, route): the paths' shapes (headline K1 at 8-32
+# slots and K3 at 64-128, small-data K1 at 256 bins, the stream block's
+# K5 and seeded K3) and edge shapes (odd value-row counts, wide groups,
+# many slots, fewer rows than a partition)
+PLAN_SHAPES = [
+    (1001472, 28, 8, 64, 4, 255, True), (1001472, 28, 16, 64, 4, 255, True),
+    (1001472, 28, 32, 64, 4, 255, True), (1001472, 28, 64, 64, 4, 255, False),
+    (1001472, 28, 128, 64, 4, 255, False), (65536, 28, 32, 256, 4, 63, True),
+    (1 << 20, 28, 32, 64, 4, 63, False), (1 << 20, 28, 128, 64, 4, 255, False),
+    (1 << 20, 28, 32, 64, 3, 63, False), (1 << 20, 28, 32, 256, 5, 63, False),
+    (8192, 200, 512, 256, 5, 1023, False), (2048, 3, 2, 8, 1, 7, True)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=[f"n{s[0]}-G{s[1]}-A{s[2]}-B{s[3]}-C{s[4]}"
+                              for s in PLAN_SHAPES])
+def test_hist_plan_tiles_fit_and_cover_once(shape):
+    """Every block's tile fits the 227 KB a block may hold, and the grid
+    covers every (row, column, slot) exactly once: row partitions of a
+    multiple of 4 rows, balanced column tiles and slot groups, one slab
+    per row partition."""
+    n_pad, G, A, B, C, L, route = shape
+    sms = 132
+    plan = t_hist.hist_plan(n_pad, G, A, B, C, sms, L, route)
+    assert plan.smem == t_hist.hist_smem_bytes(L, route, plan.As, plan.Ft, B,
+                                               C)
+    assert plan.smem <= t_hist.SMEM_BLOCK_MAX
+    assert plan.rows_per_block % 4 == 0
+    rows = np.zeros(n_pad, np.int64)
+    for x in range(plan.grid_x):
+        rows[x * plan.rows_per_block:(x + 1) * plan.rows_per_block] += 1
+    assert (rows == 1).all()
+    cols = np.zeros(G, np.int64)
+    for y in range(plan.col_tiles):
+        cols[y * plan.Ft:(y + 1) * plan.Ft] += 1
+    assert (cols == 1).all() and (plan.col_tiles - 1) * plan.Ft < G
+    slots = np.zeros(A, np.int64)
+    for z in range(plan.slot_groups):
+        slots[z * plan.As:(z + 1) * plan.As] += 1
+    assert (slots == 1).all() and (plan.slot_groups - 1) * plan.As < A
+    # as many blocks as fill the multiprocessors once, at most
+    resident = min(2, t_hist.SMEM_SM // (plan.smem + 1024))
+    assert plan.blocks <= max(sms * resident,
+                              plan.col_tiles * plan.slot_groups)
+    slab = t_hist.hist_slab(plan, A, G, B, C, "cpu")
+    assert slab.shape == (plan.grid_x, A, G, B, C)
+    assert slab.dtype == torch.int32
+
+
+@pytest.mark.parametrize("A,B,C", [(1, 64, 4), (32, 64, 4), (128, 64, 4),
+                                   (32, 256, 4), (8, 256, 5), (1024, 64, 3),
+                                   (4, 8, 3)])
+def test_float_plan_fits_and_sorts(A, B, C):
+    """The float K5's partial block fits a block's shared memory with at
+    least one warp; its staged rows hold the chunk sorted by slot with
+    every slot's run starting at a multiple of 4, on 32 different banks
+    (``chp % 8 == 4``); the scratch holds a partial per (chunk, slot)
+    and the rows of each."""
+    plan = t_hist.float_plan(A, B, C)
+    assert 1 <= plan.warps <= t_hist.FLOAT_MAX_WARPS
+    assert plan.smem == t_hist.float_smem_bytes(plan.warps, A, B, C,
+                                                plan.chp)
+    assert plan.smem <= t_hist.SMEM_BLOCK_MAX
+    if plan.warps < t_hist.FLOAT_MAX_WARPS:
+        assert t_hist.float_smem_bytes(plan.warps + 1, A, B, C,
+                                       plan.chp) > t_hist.SMEM_BLOCK_MAX
+    chunk = t_hist.FLOAT_CHUNK
+    assert plan.chp % 8 == 4
+    # the worst case: every slot with rows, each run padded by 3
+    assert plan.chp >= chunk + 3 * min(A, chunk)
+    G, n_pad = 28, 5 * chunk + 100
+    part, counts = t_hist.float_scratch(n_pad, A, G, B, C, "cpu")
+    K = -(-n_pad // chunk)
+    assert part.shape == (K, A, C, B, G) and part.dtype == torch.float32
+    assert counts.shape == (K, A) and counts.dtype == torch.int32
+
+
+def test_hist_kernels_take_aligned_rows():
+    """The CUDA histogram kernels read 4 rows at a time: the wrappers
+    refuse a row count that is not a multiple of 4 and a tensor that is
+    not 16-byte aligned (a view into another tensor's storage)."""
+    ok = torch.zeros(64, dtype=torch.int32)
+    t_hist._check_vector_rows(64, ok)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        t_hist._check_vector_rows(66, ok)
+    with pytest.raises(ValueError, match="aligned"):
+        t_hist._check_vector_rows(60, ok[1:61])
+
+
+@pytest.mark.parametrize("wave", ["skewed", "sparse"])
+@pytest.mark.parametrize("mode", ["int8h", "hhilo"])
+def test_hist_active_plain_waves(mode, wave):
+    """K5's plain versions on the two waves the CUDA tests add beside the
+    uniform one: a skewed wave (every row in one slot, as every tree's
+    first wave) and a sparse one (each 2,048-row chunk in 2 of the
+    slots): every row lands in its slot once and the float version keeps
+    its block invariance."""
+    dd, g, h, hleaf, active = _stream_wave(83, 16, 2, n=12000)
+    rng = np.random.RandomState(7)
+    live = active[active >= 0]
+    if wave == "skewed":
+        hleaf = np.where(hleaf >= 0, live[0], hleaf).astype(np.int32)
+    else:
+        for k0 in range(0, dd.n_pad, t_hist.FLOAT_CHUNK):
+            pick = rng.choice(live, 2, replace=False)
+            seg = hleaf[k0:k0 + t_hist.FLOAT_CHUNK]
+            hleaf[k0:k0 + t_hist.FLOAT_CHUNK] = np.where(
+                seg >= 0, pick[rng.randint(0, 2, size=seg.size)], seg)
+    n_live = int((hleaf[:dd.num_data] >= 0).sum())
+    if mode == "int8h":
+        vals, _ = t_hist.pack_values_q(g, h, mode, dd.n_pad)
+        fn = t_hist.hist_active_raw
+    else:
+        vals = t_hist.pack_values(g, h, mode, dd.n_pad)
+        fn = t_hist.hist_active_float_raw
+    acc = _port_fold(fn, dd, vals, hleaf, active)
+    one = fn(dd.bins_t, vals, torch.as_tensor(hleaf),
+             torch.as_tensor(active), L, dd.group_max_bins)
+    assert torch.equal(acc.view(torch.int32), one.view(torch.int32))
+    first = {}
+    for s, a in enumerate(active):
+        first.setdefault(int(a), s)
+    held = sum(int(acc[first[int(a)], 0, :, -1].sum())
+               for a in np.unique(live))
+    assert held == n_live
