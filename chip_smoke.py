@@ -18,7 +18,12 @@ and the script exits non-zero):
    fused route+histogram kernel at 65,536 rows, 256 bins and 32 slots
    with bagged-out rows (hist leaf -1) that the -1 slots collect, the
    route-values kernel at 63 leaves and 256 bins, and the fused split
-   scan on a ``[64, 28, 256, 3]`` wave;
+   scan on a ``[64, 28, 256, 3]`` and a ``[64, 28, 64, 3]`` wave;
+   the route, route-values and split-scan kernels are also timed as
+   launches captured in a CUDA graph (their device time, no host launch
+   between two kernels), and the route kernels get a second, sector
+   bound: the 32-byte sectors of the bins that the wave's moved rows
+   read, counted on the device, as the card reads them;
 4. headline path — ``lgb.train`` of the headline binary GBDT (the
    bench's synthetic 1M x 28 set, 255 leaves, max_bin 63, lr 0.1,
    min_data_in_leaf 20) with every kernel launch counter reset first;
@@ -175,6 +180,39 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def current_stream(dev) -> int:
+    """The handle of torch's current stream on ``dev`` (inside a graph
+    capture: the capture stream)."""
+    import torch
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def graph_ms(fn, n: int = 100, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``n`` calls captured in one
+    ``torch.cuda.CUDAGraph`` on the capture stream and the graph replayed
+    ``reps`` times between events, so no host launch sits between two
+    kernels.  ``fn`` launches on torch's current stream and returns its
+    CUDA error code."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        codes = [fn() for _ in range(n)]
+    if any(codes):
+        raise RuntimeError(f"a launch captured in the graph failed: {codes}")
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * n)
+
+
 def bound(nbytes: float, ops: float, ops_rate: float) -> dict:
     """The least time for ``nbytes`` of traffic and ``ops`` operations at
     ``ops_rate`` per second: the larger of the two, with both parts."""
@@ -227,6 +265,22 @@ def wave_inputs(dd, nl: int, n_sel: int, A: int, gen, L: int = 255,
     return leaf2, tabs, cat, active.contiguous()
 
 
+def moved_sectors(bins_t, leaf2, tabs):
+    """Rows a route wave moves and the 32-byte sectors of the transposed
+    bins their split columns lie in, counted on the device: -> ``(moved
+    rows, distinct sectors)``.  The card reads whole sectors, so a wave
+    whose neighbouring rows split on different columns reads up to 32
+    bytes for each one-byte bin."""
+    import torch
+    from lightgbm_tpu_torch.ops.route import T_GROUP, T_SEL
+    n_pad = bins_t.shape[1]
+    rl = leaf2[0].long()
+    leaf = rl.clamp(min=0)
+    rows = torch.nonzero((rl >= 0) & (tabs[T_SEL][leaf] != 0))[:, 0]
+    addr = tabs[T_GROUP][leaf[rows]].long() * n_pad + rows
+    return int(rows.numel()), int(torch.unique(addr // 32).numel())
+
+
 def kernel_phase(dd, vals, entries):
     """Kernel vs plain version at the headline shapes (bitwise), with
     times and bounds; appends one dict per kernel to ``entries``."""
@@ -238,7 +292,6 @@ def kernel_phase(dd, vals, entries):
     from lightgbm_tpu_torch.ops.route import (
         ROUTE_BLOCK, _route_grid, route_plain, route_rows_raw)
     dev = dd.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
     sms = cuda_build.multiprocessor_count(dev)
     int_rate = int32_ops_per_s(sms)
     log(f"int32 add rate {int_rate:.4g}/s ({sms} SMs)")
@@ -259,20 +312,29 @@ def kernel_phase(dd, vals, entries):
         raise AssertionError("route kernel != plain version")
     lib = cuda_build.library("route")
     buf = torch.empty_like(leaf2)
-    ms2 = time_ms(lambda: lib.lgbm_route_rows(
-        dd.bins_t.data_ptr(), n_pad, leaf2.data_ptr(), buf.data_ptr(),
-        tabs.data_ptr(), L, cat.data_ptr(), B, _route_grid(n_pad, dev),
-        ROUTE_BLOCK, stream), 50)
+
+    def k2_call(stream=torch.cuda.current_stream(dev).cuda_stream):
+        return lib.lgbm_route_rows(
+            dd.bins_t.data_ptr(), n_pad, leaf2.data_ptr(), buf.data_ptr(),
+            tabs.data_ptr(), L, cat.data_ptr(), B, _route_grid(n_pad, dev),
+            ROUTE_BLOCK, stream)
+    ms2 = time_ms(k2_call, 50)
+    dev2 = graph_ms(lambda: k2_call(current_stream(dev)))
     plain2 = time_ms(lambda: route_plain(dd.bins_t, leaf2, tabs, cat), 5)
-    moved_rows = int((tabs[4][leaf2[0].clamp(min=0).long()] != 0).sum())
+    moved_rows, sectors = moved_sectors(dd.bins_t, leaf2, tabs)
     b2 = bound(16 * n_pad + moved_rows + tab_bytes, n_pad, int_rate)
+    sec2 = bound(16 * n_pad + 32 * sectors + tab_bytes, n_pad, int_rate)
     entries.append(dict(
         name="route", route="cuda",
         source="lightgbm_tpu_torch/csrc/route.cu",
         replaces="lightgbm_tpu/ops/pallas_route.py:85",
-        max_abs_err=0.0, ms=ms2, plain_ms=plain2, library_ms=None, **b2))
-    log(f"kernel route: bitwise ok, {ms2:.4f} ms (plain {plain2:.3f} ms, "
-        f"bound {b2['bound_ms']:.4f} ms)")
+        max_abs_err=0.0, ms=ms2, graph_ms=dev2, plain_ms=plain2,
+        library_ms=None, moved_rows=moved_rows, sectors=sectors,
+        sector_bound_ms=sec2["bound_ms"], **b2))
+    log(f"kernel route: bitwise ok, {ms2:.4f} ms back to back, {dev2:.4f} "
+        f"ms in a graph (plain {plain2:.3f} ms, bound {b2['bound_ms']:.4f} "
+        f"ms; {moved_rows} moved rows touch {sectors} sectors: sector "
+        f"bound {sec2['bound_ms']:.4f} ms)")
     lv = torch.randn(L, generator=gen, device=dev)
     entries.append(dict(
         name="route_values", route="cuda",
@@ -354,21 +416,30 @@ def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
     if not (torch.equal(out, ref) and torch.equal(v, rv)):
         raise AssertionError(f"route-values kernel != plain (L={L}, B={B})")
     lib = cuda_build.library("route")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     buf = torch.empty_like(leaf2)
     vbuf = torch.empty(n_pad, dtype=torch.float32, device=dev)
-    ms = time_ms(lambda: lib.lgbm_route_rows_values(
-        dd.bins_t.data_ptr(), n_pad, leaf2.data_ptr(), buf.data_ptr(),
-        tabs.data_ptr(), L, cat.data_ptr(), B, lv.data_ptr(),
-        vbuf.data_ptr(), _route_grid(n_pad, dev), ROUTE_BLOCK, stream), 50)
+
+    def call(stream=torch.cuda.current_stream(dev).cuda_stream):
+        return lib.lgbm_route_rows_values(
+            dd.bins_t.data_ptr(), n_pad, leaf2.data_ptr(), buf.data_ptr(),
+            tabs.data_ptr(), L, cat.data_ptr(), B, lv.data_ptr(),
+            vbuf.data_ptr(), _route_grid(n_pad, dev), ROUTE_BLOCK, stream)
+    ms = time_ms(call, 50)
+    gms = graph_ms(lambda: call(current_stream(dev)))
     pl = time_ms(lambda: route_values_plain(dd.bins_t, leaf2, tabs, cat,
                                             lv), 5)
-    moved_rows = int((tabs[4][leaf2[0].clamp(min=0).long()] != 0).sum())
-    bd = bound(20 * n_pad + moved_rows + 11 * L * 4 + L * B + 4 * L, n_pad,
-               int_rate)
+    moved_rows, sectors = moved_sectors(dd.bins_t, leaf2, tabs)
+    tab_bytes = 11 * L * 4 + L * B + 4 * L
+    bd = bound(20 * n_pad + moved_rows + tab_bytes, n_pad, int_rate)
+    sec = bound(20 * n_pad + 32 * sectors + tab_bytes, n_pad, int_rate)
     log(f"kernel route_values L={L} B={B} rows={dd.num_data}: bitwise ok, "
-        f"{ms:.4f} ms (plain {pl:.3f} ms, bound {bd['bound_ms']:.4f} ms)")
-    return dict(ms=ms, plain_ms=pl, library_ms=None, **bd)
+        f"{ms:.4f} ms back to back, {gms:.4f} ms in a graph (plain "
+        f"{pl:.3f} ms, bound {bd['bound_ms']:.4f} ms; {moved_rows} moved "
+        f"rows touch {sectors} sectors: sector bound "
+        f"{sec['bound_ms']:.4f} ms)")
+    return dict(ms=ms, graph_ms=gms, plain_ms=pl, library_ms=None,
+                moved_rows=moved_rows, sectors=sectors,
+                sector_bound_ms=sec["bound_ms"], **bd)
 
 
 def k1_measure(dd, vals, A: int, n_sel: int, gen, L: int,
@@ -469,13 +540,9 @@ def small_kernel_phase(dds, vals, int_rate: float, entries) -> None:
     """The small-data path's kernels at its shapes, with the path's
     bagging fraction: K1 at 256 bins and 32 slots on 65,536 rows and K4
     at 63 leaves (added to their entries under ``small_data``), and the
-    split scan K6 on a ``[64, 28, 256, 3]`` wave (its own entry)."""
+    split scan K6 on a ``[64, 28, 256, 3]`` wave (its own entry) and on
+    a ``[64, 28, 64, 3]`` one (under ``by_shape``)."""
     import torch
-    from lightgbm_tpu_torch.ops import cuda_build
-    from lightgbm_tpu_torch.ops.split import SplitParams
-    from lightgbm_tpu_torch.ops.split_kernel import (
-        PACKED, find_best_splits_kernel, split_epilogue, split_hyper,
-        split_kernel_ok, split_scan_launch, split_scan_plain)
     dev = dds.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -493,9 +560,27 @@ def small_kernel_phase(dds, vals, int_rate: float, entries) -> None:
         if e["name"] in small:
             e["small_data"] = small[e["name"]]
 
-    F, B, L2 = HEADLINE_FEATURES, 256, 64
+    by_shape = [k6_measure(HEADLINE_FEATURES, B, 64, gen, dev)
+                for B in (256, 64)]
+    entries.append(dict(
+        name="split_scan", route="cuda",
+        source="lightgbm_tpu_torch/csrc/split.cu",
+        replaces="lightgbm_tpu/ops/pallas_split.py:206", max_abs_err=0.0,
+        **by_shape[0], by_shape=by_shape))
+
+
+def k6_measure(F: int, B: int, L2: int, gen, dev) -> dict:
+    """K6 on one ``[L2, F, B, 3]`` wave with the path's constraints and
+    feature fraction: the wrapper's result against the plain version
+    (every field bitwise), times and bound."""
+    import torch
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.ops.split import SplitParams
+    from lightgbm_tpu_torch.ops.split_kernel import (
+        PACKED, find_best_splits_kernel, split_epilogue, split_hyper,
+        split_kernel_ok, split_scan_launch, split_scan_plain)
     if not split_kernel_ok(F, B, False, SMALL_ROWS):
-        raise AssertionError("split_kernel_ok refuses the path's shape")
+        raise AssertionError(f"split_kernel_ok refuses [{L2}, {F}, {B}, 3]")
     inputs = split_wave_inputs(F, B, L2, SMALL_ROWS, gen, dev)
     params = SplitParams(
         min_data_in_leaf=TRAIN_CONF["min_data_in_leaf"],
@@ -512,28 +597,27 @@ def small_kernel_phase(dds, vals, int_rate: float, entries) -> None:
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(res.__dict__.values(),
                                                   ref_res.__dict__.values())):
-        raise AssertionError("split scan kernel != plain version")
+        raise AssertionError(f"split scan kernel != plain version (B={B})")
     n_split = int((res.gain > 0).sum())
     if n_split < L2 // 2:
         raise AssertionError(f"split scan wave found {n_split} splits")
     lib = cuda_build.library("split")
     out = torch.empty((L2, PACKED), dtype=torch.float32, device=dev)
-    ms = time_ms(lambda: split_scan_launch(lib, *inputs, fm8, hyper, True,
-                                           out), 50)
+
+    def call():
+        return split_scan_launch(lib, *inputs, fm8, hyper, True, out)
+    ms = time_ms(call, 50)
+    gms = graph_ms(call)
     pl = time_ms(lambda: split_scan_plain(*inputs, fmask, hyper, True), 5)
     nbytes = (inputs[0].numel() * 4 + 3 * L2 * 4 + 3 * F * 4 + F
               + out.numel() * 4)
     bd = bound(nbytes, L2 * F * B * k6_flops_per_cell(B, True),
                FP32_OPS_PER_S)
-    entries.append(dict(
-        name="split_scan", route="cuda",
-        source="lightgbm_tpu_torch/csrc/split.cu",
-        replaces="lightgbm_tpu/ops/pallas_split.py:206",
-        max_abs_err=0.0, ms=ms, plain_ms=pl,
-        library_ms=None, shape=[L2, F, B, 3], **bd))
     log(f"kernel split_scan [{L2}, {F}, {B}, 3]: bitwise ok, {n_split} "
-        f"splits, {ms:.4f} ms (plain {pl:.3f} ms, bound "
-        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']})")
+        f"splits, {ms:.4f} ms back to back, {gms:.4f} ms in a graph (plain "
+        f"{pl:.3f} ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']})")
+    return dict(shape=[L2, F, B, 3], ms=ms, graph_ms=gms, plain_ms=pl,
+                library_ms=None, splits=n_split, **bd)
 
 
 def stream_wave(gen, nl: int, A: int, G: int = STREAM_FEATURES,

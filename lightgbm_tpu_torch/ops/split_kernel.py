@@ -30,7 +30,10 @@ kernel computes them):
 
 :func:`split_scan_plain` is the plain PyTorch version the CPU runs; on a
 CUDA tensor :func:`find_best_splits_kernel` launches ``csrc/split.cu``
-or raises.  The reference's TPU layout conditions (lane alignment of
+or raises.  The kernel runs one block per leaf and one warp per feature
+(``32 / B`` features a warp below 32 bins), each lane holding ``B / 32``
+consecutive bins in registers; its scan steps are the same Hillis-Steele
+steps, so the result is bitwise this plain version's.  The reference's TPU layout conditions (lane alignment of
 ``F*B``, the VMEM leaf tile, the per-call lane cap and its feature
 chunking) change no result and have no counterpart here, nor does its
 kill switch: a build or launch failure raises.
@@ -49,13 +52,14 @@ from .split import (K_EPSILON, K_MIN_SCORE, SplitParams, SplitResult,
 # the reference sends datasets of at most this many rows to its fused
 # split kernel (its compile-lean row threshold)
 SPLIT_KERNEL_MAX_ROWS = 65536
-SPLIT_THREADS = 256        # threads per block of the CUDA kernel
+SPLIT_MAX_BINS = 256       # the widest bin stride the kernel takes
+SPLIT_THREADS = 1024       # most threads per block (a warp per feature)
 PACKED = 8                 # floats per packed winner row
 
 
 def _stride_ok(B: int) -> bool:
-    """A bin stride the kernel takes: a power of two <= ``SPLIT_THREADS``."""
-    return 1 <= B <= SPLIT_THREADS and not B & (B - 1)
+    """A bin stride the kernel takes: a power of two <= ``SPLIT_MAX_BINS``."""
+    return 1 <= B <= SPLIT_MAX_BINS and not B & (B - 1)
 
 
 def split_kernel_ok(num_features: int, B: int, has_categorical: bool,
@@ -201,15 +205,16 @@ def split_scan_plain(grid, leaf_sum_grad, leaf_sum_hess, leaf_count,
 
 def split_scan_launch(lib, grid, lsg, lsh, lc, num_bins, missing_types,
                       default_bins, fmask_u8, hyper, any_missing: bool,
-                      out: torch.Tensor) -> int:
-    """One launch of ``lgbm_split_scan`` into ``out``; -> its CUDA error
+                      out: torch.Tensor, threads: int = SPLIT_THREADS) -> int:
+    """One launch of ``lgbm_split_scan`` into ``out`` on torch's current
+    stream, with blocks of at most ``threads`` threads; -> its CUDA error
     code (0 on success)."""
     L2, F, B, _ = grid.shape
     return lib.lgbm_split_scan(
         grid.data_ptr(), L2, F, B, lsg.data_ptr(), lsh.data_ptr(),
         lc.data_ptr(), num_bins.data_ptr(), missing_types.data_ptr(),
         default_bins.data_ptr(), fmask_u8.data_ptr(), *hyper,
-        int(any_missing), out.data_ptr(), SPLIT_THREADS,
+        int(any_missing), out.data_ptr(), threads,
         torch.cuda.current_stream(grid.device).cuda_stream)
 
 
@@ -225,7 +230,7 @@ def find_best_splits_kernel(grid, leaf_sum_grad, leaf_sum_hess, leaf_count,
     dev = grid.device
     if not _stride_ok(B):
         raise ValueError(f"split kernel: bin stride {B} is not a power of "
-                         f"two <= {SPLIT_THREADS}")
+                         f"two <= {SPLIT_MAX_BINS}")
     hyper = split_hyper(params)
     if dev.type == "cpu":
         find_best_splits_kernel.plain_calls += 1

@@ -10,7 +10,9 @@ Each kernel wrapper runs on CUDA tensors and on CPU copies of the same
 inputs (the plain version; the histogram kernels of the streamed folds
 add into a nonzero carry); results must be bitwise equal — the split
 scan's too, every field of its result, at the small-data path's shape
-``[64, 28, 256, 3]``.  The launch counters must move on CUDA only.
+``[64, 28, 256, 3]`` and on waves built to reach every corner of its
+lane layout (bin strides 16-256, more features than warps, ties).  The
+launch counters must move on CUDA only.
 """
 import numpy as np
 import pytest
@@ -19,10 +21,13 @@ import torch
 from lightgbm_tpu_torch.convert import device_data_from_numpy
 from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.io.dataset import BinnedDataset
+from lightgbm_tpu_torch.io.binning import MISSING_NAN
 from lightgbm_tpu_torch.io.device import feature_meta_np
 from lightgbm_tpu_torch.ops import compact as t_compact
 from lightgbm_tpu_torch.ops import histogram as t_hist
 from lightgbm_tpu_torch.ops import route as t_route
+from lightgbm_tpu_torch.ops import split_kernel as t_split
+from lightgbm_tpu_torch.ops.split import SplitParams
 
 L = 63
 
@@ -232,17 +237,66 @@ def _split_inputs(seed, L2, F, B, missing=True, n_rows=20000):
     return [torch.as_tensor(a) for a in (hist, *tot, num_bins, mt, db)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("L2,F,B,missing,masked", [
-    (64, 28, 256, True, False), (64, 28, 256, True, True),
-    (16, 6, 64, False, False)], ids=["path", "path_masked", "b64"])
-def test_split_kernel_bitwise(cuda_device, L2, F, B, missing, masked):
-    from lightgbm_tpu_torch.ops import split_kernel as t_split
-    from lightgbm_tpu_torch.ops.split import SplitParams
-    args = _split_inputs(L2 + F, L2, F, B, missing)
+def _split_case(L2, F, B, missing, masked, special):
+    """A split-scan wave, its feature mask and its params.  ``special``:
+    ``"infeasible"`` leaves the last leaf 50 rows' worth of counts, so
+    no threshold has ``min_data_in_leaf`` = 50 on both sides (every cell
+    is infeasible: the winner must be bin 0 of feature 0);
+    ``"nan_last"`` gives every feature all ``B`` bins and a NaN bin (the
+    last, where the suffix scan starts) and adds the same large gradient
+    to it and to bin 0, so the winners go missing-left and carry the
+    suffix total;
+    ``"tie"`` makes each odd feature a copy of the even one before it
+    (bins, missing type, cells) and empties every missing cell, so the
+    winner ties with its twin and, where it has a missing cell, its
+    variants tie too."""
+    args = _split_inputs(L2 + F + B, L2, F, B, missing)
+    hist, tg, th, tc, num_bins, mt, db = args
+    if special == "tie":
+        for src in range(0, F - 1, 2):
+            for t in (num_bins, mt, db):
+                t[src + 1] = t[src]
+            hist[:, src + 1] = hist[:, src]
+        hist[:, t_split.split_masks(num_bins, mt, db, None, B)[1]] = 0.0
+    elif special == "nan_last":
+        num_bins[:] = B
+        mt[:] = MISSING_NAN
+        hist[:, :, 0, 0] += 1000.0
+        hist[:, :, B - 1, 0] += 1000.0
+        tg += 2000.0
+    elif special == "infeasible":
+        hist[-1, ..., 2] *= 50.0 / float(tc[-1])
+        tc[-1] = 50.0
     fm = torch.as_tensor(np.random.RandomState(F).rand(F) < 0.8) \
         if masked else None
     params = SplitParams(min_data_in_leaf=50, min_sum_hessian_in_leaf=5.0)
+    return args, fm, params
+
+
+SPLIT_CASES = {
+    "path": (64, 28, 256, True, False, None),
+    "path_masked": (64, 28, 256, True, True, None),
+    "b64": (16, 6, 64, False, False, None),
+    "b256_no_missing": (64, 28, 256, False, True, None),
+    **{f"b{B}_f40": (2, 40, B, True, True, "infeasible")
+       for B in (16, 32, 64, 128, 256)},
+    **{f"b{B}_tie": (1, 40, B, True, False, "tie")
+       for B in (16, 32, 64, 128, 256)},
+    **{f"b{B}_nan_last": (2, 28, B, True, False, "nan_last")
+       for B in (16, 256)},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_kernel_bitwise(cuda_device, case):
+    """K6 against its plain version, every field bitwise: bin strides 16
+    to 256, more features than a block has warps (F = 40), waves of 1, 2
+    and 64 leaves, missing values off and on, a feature mask, a leaf
+    whose cells are all infeasible and exact ties between two features
+    and between the two variants."""
+    L2, F, B, missing, masked, special = SPLIT_CASES[case]
+    args, fm, params = _split_case(*SPLIT_CASES[case])
     n0 = t_split.find_best_splits_kernel.launches
     got = t_split.find_best_splits_kernel(
         *[a.to(cuda_device) for a in args], params=params,
@@ -254,6 +308,12 @@ def test_split_kernel_bitwise(cuda_device, L2, F, B, missing, masked):
                                           feature_mask=fm,
                                           any_missing=missing)
     assert (ref.gain > 0).sum() >= L2 // 2
+    if special == "infeasible":
+        assert ref.feature[-1] == 0 and ref.threshold[-1] == 0
+    if special == "tie":
+        assert (ref.feature % 2 == 0).all() and not ref.default_left.any()
+    if special == "nan_last":
+        assert ref.default_left.all()
     for name in ("gain", "feature", "threshold", "default_left",
                  "left_sum_grad", "left_sum_hess", "left_count",
                  "right_sum_grad", "right_sum_hess", "right_count",

@@ -118,6 +118,107 @@ def test_seg_scans_match_reference_order():
             tsk.seg_suffix(t).reshape(5, 3 * B).numpy(), np.asarray(ref_s))
 
 
+def _shfl(r, d, up):
+    """``__shfl_up_sync`` / ``__shfl_down_sync`` by ``d`` lanes over the
+    lane axis (-2) of ``r``: a lane with no source keeps its own value."""
+    S = r.shape[-2]
+    lane = torch.arange(S)
+    src = lane - d if up else lane + d
+    src = torch.where((src >= 0) & (src < S), src, lane)
+    return r[..., src, :]
+
+
+def _lanes(x):
+    """``[..., B]`` -> ``[..., S, V]``: each of ``S`` lanes of a segment
+    holds ``V = B / 32`` consecutive bins (one bin for B < 32)."""
+    B = x.shape[-1]
+    V = max(1, B // 32)
+    return x.reshape(*x.shape[:-1], B // V, V)
+
+
+def _lane_prefix(x):
+    """The kernel's Hillis-Steele prefix scan in its lane layout: every
+    step computes new values from the old ones, a step ``k < V`` in-lane
+    from registers plus the crossing term from the lane below by a
+    one-lane shuffle, a step ``k >= V`` by a shuffle of ``k / V``
+    lanes."""
+    B = x.shape[-1]
+    r = _lanes(x)
+    S, V = r.shape[-2:]
+    sl = torch.arange(S)[:, None]
+    k = 1
+    while k < B:
+        if k < V:
+            new = r.clone()
+            new[..., k:] = r[..., k:] + r[..., :V - k]
+            below = _shfl(r[..., V - k:], 1, up=True)
+            new[..., :k] = r[..., :k] + torch.where(sl >= 1, below, 0.0)
+        else:
+            d = k // V
+            new = r + torch.where(sl >= d, _shfl(r, d, up=True), 0.0)
+        r = new
+        k *= 2
+    return r.reshape(x.shape)
+
+
+def _lane_suffix_total(x):
+    """The kernel's missing-cell total: of the suffix scan, only the
+    adds that reach lane 0's result (``x[i] += x[i + k]`` for ``i`` a
+    multiple of ``2k``), in-lane for ``k < V`` and by a shuffle down of
+    register 0 by ``k / V`` lanes for ``k >= V``.  -> ``[...]``."""
+    B = x.shape[-1]
+    r = _lanes(x).clone()
+    S, V = r.shape[-2:]
+    sl = torch.arange(S)
+    k = 1
+    while k < V:
+        r[..., 0::2 * k] = r[..., 0::2 * k] + r[..., k::2 * k]
+        k *= 2
+    while k < B:
+        d = k // V
+        t = _shfl(r[..., :1], d, up=False)[..., 0]
+        r[..., 0] = torch.where(sl % (2 * d) == 0, r[..., 0] + t, r[..., 0])
+        k *= 2
+    return r[..., 0, 0]
+
+
+def _scan_data(B, rng):
+    """Random float32 rows of mixed scales with signed zeros, and rows
+    with one nonzero cell among signed zeros (the missing cell's scan)."""
+    x = (rng.normal(size=(6, 3, B))
+         * 10.0 ** rng.randint(-3, 4, size=(6, 3, B))).astype(np.float32)
+    x[rng.rand(*x.shape) < 0.2] = 0.0
+    x[rng.rand(*x.shape) < 0.2] = -0.0
+    hot = np.where(rng.rand(3, 3, B) < 0.5, -0.0, 0.0).astype(np.float32)
+    hot[:2, :, rng.randint(B)] = rng.normal(size=(2, 3)).astype(np.float32)
+    hot[2] = -0.0                       # a total of -0.0
+    return torch.as_tensor(np.concatenate([x, hot]))
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("B", [2, 4, 8, 16, 32, 64, 128, 256])
+def test_lane_decomposition_matches_seg_scans_bitwise(B):
+    """The register/shuffle layout of ``csrc/split.cu`` sums in the
+    reference's order: its prefix scan is bitwise ``seg_cumsum``, its
+    missing total bitwise lane 0 of ``seg_suffix``, and its broadcast
+    (the total + 0.0 in every bin) bitwise ``seg_cumsum`` of the total
+    moved to lane 0, on random float32 data
+    with signed zeros, one-hot rows and totals of +-0, +-inf and nan."""
+    t = _scan_data(B, np.random.RandomState(B))
+    assert torch.equal(_bits(_lane_prefix(t)), _bits(tsk.seg_cumsum(t)))
+    total = _lane_suffix_total(t)
+    assert torch.equal(_bits(total), _bits(tsk.seg_suffix(t)[..., 0]))
+    tot = torch.cat([total.reshape(-1), torch.tensor(
+        [0.0, -0.0, float("inf"), -float("inf"), float("nan")])])
+    at0 = torch.zeros(tot.shape + (B,))
+    at0[:, 0] = tot
+    closed = (tot + 0.0)[:, None].expand(-1, B)
+    assert torch.equal(_bits(closed), _bits(tsk.seg_cumsum(at0)))
+
+
 def test_wrapper_never_runs_plain_off_the_cpu():
     args = [torch.as_tensor(np.array(a)).to("meta")
             for a in _consistent_hist(0, 4, 2, 16)]
