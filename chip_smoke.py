@@ -14,6 +14,18 @@ and the script exits non-zero):
    PyTorch version on the same CUDA inputs, at every wave width the
    headline tree uses, and require bitwise equality; time kernel, plain
    version and (where one exists) a single PyTorch library call;
+2b. float kernels — at the headline shapes (1,001,472 padded rows, 28
+   columns, 64-bin stride, 255 leaves) the float K1 at 8 / 16 / 32 slots
+   on hhilo values with bagged-out rows (the -1 slots must collect them),
+   at 32 slots on hilo values and on a skewed wave (every row in one
+   slot), and the float K3 at 64 / 128 slots on hhilo, at 128 on hilo
+   and on a skewed 128-slot wave: each held bitwise (bit patterns) to its
+   plain version on CPU copies (only the CPU adds in its fixed order),
+   the float K1 also to K2 followed by the float K5 and the float K3 to
+   the float K5 on its non-negative slots, on the card; timed beside that
+   composition (K1's yardstick), the f32 ``index_add_`` (K3's library
+   call), the bound and, for K1, the contract floor of its chunk
+   partials;
 3. small-data kernels — the same for the small-data path's shapes: the
    fused route+histogram kernel at 65,536 rows, 256 bins and 32 slots
    with bagged-out rows (hist leaf -1) that the -1 slots collect, the
@@ -39,9 +51,12 @@ and the script exits non-zero):
    iterations with early stopping after 10, counters reset first;
    require the split scan, the fused route+histogram and the
    route-values kernels to have launched, valid AUC >= 0.90 and finite
-   predictions.
-
-6. stream kernels — at the stream path's shapes (a 1,048,576-row
+   predictions;
+6. float headline — the headline's ``lgb.train`` with ``gpu_use_dp``
+   (so hilo values), 8 iterations, counters reset first: the float K1,
+   K2, the float K3 and K4 must launch and no int8 histogram kernel;
+   train AUC >= 0.93 and finite predictions;
+7. stream kernels — at the stream path's shapes (a 1,048,576-row
    block, 28 columns, 64-bin stride) the wide active-leaf histogram K5
    on int8h values and on hhilo values (A = 32, C = 4), each on a
    uniform wave and on a skewed one (every row that is not padding in
@@ -52,19 +67,29 @@ and the script exits non-zero):
    adds in its fixed order); the float K5's two phases (chunk partials,
    fold) are timed apart and its contract floor (the partial traffic)
    is logged beside its bound;
-7. stream identity — ``ingest_synthetic`` writes the bench's A/B store
+8. stream identity — ``ingest_synthetic`` writes the bench's A/B store
    (4,194,304 rows x 28, max_bin 63) into a temporary directory;
    ``lgb.train_streaming`` (63 leaves, lr 0.1, blocks of 1,048,576 rows,
    2 iterations, int8h) and in-memory training on
    ``store.to_binned_dataset`` must give one digest (scores included);
    the stream must launch K5 (int8h), K2 and K4, the in-memory run K1;
-8. stream scale — the bench's stream leg (``bench.py`` stream config)
+9. stream scale — the bench's stream leg (``bench.py`` stream config)
    cut from 100,000,000 rows to 20,000,000: past 16,909,320 rows the
    mode is hhilo, so the float K5 must launch and the int8h K5 and K1
    must not; the scores must be finite and their AUC on the store's
    labels >= 0.93; rows per second, wall, peak device memory and the
-   model's digest are logged.  The temporary stores are removed at the
-   end.
+   model's digest are logged;
+10. in-memory scale — the same 20M rows (``store.to_binned_dataset``)
+   trained in memory with the same parameters: hhilo there too, through
+   the float K1; its digest (scores included) must be the streamed
+   one's, no int8 histogram kernel may run and the peak device memory
+   must stay under 4 GiB (the kernels' scratch does not grow with rows x
+   slots);
+11. 20M headline width — the same rows with the headline's tree (255
+   leaves, ``min_data_in_leaf`` 20), streamed and in memory, 2
+   iterations each: equal digests, the float K1 and K3 launched in
+   memory, the same memory limit.  The temporary stores are removed at
+   the end.
 
 A path's ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
@@ -107,6 +132,12 @@ STREAM_BLOCK = 1 << 20
 STREAM_ITERS = 2
 STREAM_IDENT_ROWS = 4_194_304
 STREAM_SCALE_ROWS = 20_000_000
+# the headline's tree on the 20M store (max_bin 63 as the store's bins)
+HEAD20_PARAMS = dict(STREAM_PARAMS, num_leaves=255, min_data_in_leaf=20)
+# in-memory float runs at 20M rows: the kernels' scratch must not grow
+# with rows x slots
+INMEM_PEAK_LIMIT = 4 << 30
+FLOAT_ITERS = 8
 # memory rate of one H100 SXM (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 # float32 rate outside the tensor cores of one H100 SXM (data sheet)
@@ -620,6 +651,229 @@ def k6_measure(F: int, B: int, L2: int, gen, dev) -> dict:
                 library_ms=None, splits=n_split, **bd)
 
 
+def float_values(dd, mode: str, gen):
+    """Float value rows (``pack_values``) of random gradients on ``dd``."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import pack_values
+    g = torch.randn(dd.num_data, generator=gen, device=dd.device) * 0.5
+    h = torch.rand(dd.num_data, generator=gen, device=dd.device) * 0.25
+    return pack_values(g, h, mode, dd.n_pad)
+
+
+def skew_wave(leaf2, tabs, leaf: int):
+    """Every row that is not padding in ``leaf``, which the wave's
+    tables leave unsplit: the shape of every tree's first wave."""
+    import torch
+    from lightgbm_tpu_torch.ops.route import T_SEL
+    tabs = tabs.clone()
+    tabs[T_SEL, leaf] = 0
+    return torch.where(leaf2 >= 0, leaf, leaf2).contiguous(), tabs
+
+
+def bits_equal(a, b) -> bool:
+    """Float tensors compared by bit pattern (``torch.equal`` takes -0.0
+    for 0.0)."""
+    import torch
+    return torch.equal(a.cpu().contiguous().view(torch.int32),
+                       b.cpu().contiguous().view(torch.int32))
+
+
+def chunk_pairs(hl, inv, rows, A: int) -> int:
+    """(chunk, accumulation slot) pairs with rows: the chunk partials the
+    float K5's order writes and reads back."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import FLOAT_CHUNK
+    L = inv.shape[0] - 1
+    slot = inv.long()[torch.where(hl >= 0, hl.long(), L)][rows]
+    return int(torch.unique((rows // FLOAT_CHUNK) * A + slot).numel())
+
+
+def k1_float_measure(dd, mode: str, A: int, gen, L: int = 255,
+                     bag: float = 1.0, skew: bool = False) -> dict:
+    """The float K1 at ``A`` slots of a headline wave: bitwise (bit
+    patterns) against its plain version on CPU copies and against K2
+    followed by the float K5 on the card; times of the kernel, of that
+    composition (its yardstick) and of the plain version; the bound and
+    the contract floor (the chunk partials written and read back)."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (
+        FLOAT_WINDOW, bin_stride, float_plan, float_scratch,
+        hist_active_float_raw, hist_float_launcher, hist_route_float_launches,
+        hist_route_float_plain, hist_route_float_raw, slot_tables)
+    from lightgbm_tpu_torch.ops.route import route_rows_raw
+    dev = dd.device
+    G, n_pad = dd.bins_t.shape
+    B = bin_stride(dd.group_max_bins)
+    vals = float_values(dd, mode, gen)
+    C = vals.shape[0]
+    leaf2, tabs, cat, active = wave_inputs(dd, max(A, 8), A // 2, A, gen, L,
+                                           bag)
+    if skew:
+        leaf2, tabs = skew_wave(leaf2, tabs, int(active[0]))
+    raw, l2n = hist_route_float_raw(dd.bins_t, vals, leaf2, active, tabs,
+                                    cat, L, dd.group_max_bins)
+    routed = route_rows_raw(dd.bins_t, leaf2, tabs, cat)
+    k5 = hist_active_float_raw(dd.bins_t, vals, routed[1].contiguous(),
+                               active, L, dd.group_max_bins)
+    inv, src = slot_tables(active, L, collect_unbagged=True)
+    cpu = [t.cpu() for t in (dd.bins_t, vals, leaf2, tabs, cat, inv, src)]
+    t0 = time.time()
+    ref, ref_l2 = hist_route_float_plain(*cpu, B, torch.zeros(raw.shape))
+    pl = 1e3 * (time.time() - t0)
+    torch.cuda.synchronize()
+    err = float((raw.cpu() - ref).abs().max())
+    if not (bits_equal(raw, ref) and torch.equal(l2n.cpu(), ref_l2)):
+        raise AssertionError(f"hist_route_float kernel != plain version "
+                             f"({mode}, A={A}, skew={skew}, max abs err "
+                             f"{err})")
+    if not (bits_equal(raw, k5) and torch.equal(l2n, routed)):
+        raise AssertionError(f"hist_route_float != K2 + float K5 ({mode}, "
+                             f"A={A}, skew={skew})")
+    hl = ref_l2[1].to(dev)
+    rows = torch.nonzero(inv.long()[torch.where(hl >= 0, hl.long(), L)]
+                         >= 0)[:, 0]
+    n_active = int(rows.numel())
+    if bag < 1.0 and bool((active < 0).any()):
+        # each -1 slot holds the out-of-bag rows: count column, column 0
+        n_oob = int((ref_l2[1, :dd.num_data] < 0).sum())
+        slot = int(torch.nonzero(active < 0)[0, 0])
+        got = int(ref[slot, 0, :, C - 1].sum())
+        if n_oob == 0 or got != n_oob:
+            raise AssertionError(f"hist_route_float -1 slot holds {got} "
+                                 f"rows, {n_oob} are out of the bag")
+    plan = float_plan(A, B, C)
+    part, counts = float_scratch(min(n_pad, FLOAT_WINDOW), A, G, B, C, dev)
+    obuf = torch.zeros_like(raw)
+    lbuf = torch.empty_like(leaf2)
+    launches = hist_route_float_launches(dd.bins_t, vals, leaf2, inv, src,
+                                         L, B, plan, part, counts, obuf, lbuf,
+                                         tabs, cat)
+    ms = time_ms(lambda: [f() for f in launches], 10)
+    part5, counts5 = float_scratch(n_pad, A, G, B, C, dev)
+    k5_call = hist_float_launcher(dd.bins_t, vals, routed[1].contiguous(),
+                                  inv, src, L, B, plan, part5, counts5,
+                                  torch.zeros_like(raw))
+    yard = time_ms(lambda: (route_rows_raw(dd.bins_t, leaf2, tabs, cat),
+                            k5_call()), 10)
+    del part5
+    tab_bytes = 11 * L * 4 + L * cat.shape[1]
+    bd = bound(16 * n_pad + G * n_pad + 4 * C * n_pad + 2 * raw.numel() * 4
+               + tab_bytes + (L + 1 + A) * 4, G * C * n_active + raw.numel(),
+               FP32_OPS_PER_S)
+    pairs = chunk_pairs(hl, inv, rows, A)
+    floor_ms = 2 * pairs * G * B * C * 4 / PEAK_BYTES_PER_S * 1e3
+    log(f"kernel hist_route_float ({mode}{', skewed' if skew else ''}"
+        f"{', bag %.1f' % bag if bag < 1 else ''}) A={A} rows={dd.num_data}: "
+        f"bitwise ok (plain, K2 + float K5), {ms:.4f} ms (K2 + float K5 "
+        f"{yard:.4f} ms, plain on the CPU {pl:.1f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, contract floor "
+        f"{floor_ms:.4f} ms for {pairs} chunk partials, {len(launches)} "
+        f"windows, {plan.warps} warps/block)")
+    return dict(slots=A, mode=mode, shape="skewed" if skew else "uniform",
+                bag=bag, ms=ms, yardstick_ms=yard, plain_ms=pl,
+                plain_device="cpu", library_ms=None, max_abs_err=err,
+                active_rows=n_active, chunk_partials=pairs,
+                contract_floor_ms=floor_ms, windows=len(launches), **bd)
+
+
+def k3_float_measure(dd, mode: str, A: int, gen, L: int = 255,
+                     skew: bool = False) -> dict:
+    """The float K3 at ``A`` slots of a headline wave after its route:
+    bitwise (bit patterns) against its plain version on CPU copies and
+    against the float K5 on its non-negative slots on the card; times of
+    the kernel (and of its sort and walk apart), the plain version and an
+    f32 ``index_add_``; the bound."""
+    import torch
+    from lightgbm_tpu_torch.ops.compact import (
+        CompactFloatScratch, hist_compact_float_launcher,
+        hist_compact_float_raw)
+    from lightgbm_tpu_torch.ops.histogram import (
+        bin_stride, hist_active_float_raw, hist_float_plain, slot_tables)
+    from lightgbm_tpu_torch.ops.route import route_rows_raw
+    dev = dd.device
+    G, n_pad = dd.bins_t.shape
+    B = bin_stride(dd.group_max_bins)
+    vals = float_values(dd, mode, gen)
+    C = vals.shape[0]
+    leaf2, tabs, cat, active = wave_inputs(dd, 127 if A == 128 else 63,
+                                           A - 2, A, gen, L, 0.8)
+    hl = route_rows_raw(dd.bins_t, leaf2, tabs, cat)[1].contiguous()
+    if skew:
+        hl = torch.where(hl >= 0, active[0], hl).contiguous()
+    raw = hist_compact_float_raw(dd.bins_t, vals, hl, active, L,
+                                 dd.group_max_bins)
+    k5 = hist_active_float_raw(dd.bins_t, vals, hl, active, L,
+                               dd.group_max_bins)
+    inv, src = slot_tables(active, L, collect_unbagged=False)
+    cpu = [t.cpu() for t in (dd.bins_t, vals, hl, inv, src)]
+    t0 = time.time()
+    ref = hist_float_plain(*cpu, B, torch.zeros(raw.shape))
+    pl = 1e3 * (time.time() - t0)
+    torch.cuda.synchronize()
+    err = float((raw.cpu() - ref).abs().max())
+    live = active >= 0
+    if not (bits_equal(raw, ref) and bits_equal(raw[live], k5[live])
+            and not raw[~live].any()):
+        raise AssertionError(f"hist_compact_float kernel != plain version "
+                             f"or float K5 ({mode}, A={A}, skew={skew}, max "
+                             f"abs err {err})")
+    rows = _active_rows(hl, inv)
+    n_active = int(rows.numel())
+    scratch = CompactFloatScratch.empty(n_pad, A, G, C, dev)
+    obuf = torch.zeros_like(raw)
+
+    def run(phase):
+        return hist_compact_float_launcher(dd.bins_t, vals, hl, inv, src, L,
+                                           B, scratch, obuf, phase)
+    ms = time_ms(run("both"), 5)
+    sort_ms = time_ms(run("sort"), 5)
+    walk_ms = time_ms(run("walk"), 5)
+    idx = _flat_cells(dd.bins_t, hl, inv, rows, B, C).reshape(-1)
+    vv = vals[:, rows].t()[None].expand(G, -1, -1).reshape(-1).contiguous()
+    lacc = torch.zeros(raw.numel(), device=dev)
+    lib_ms = time_ms(lambda: lacc.index_add_(0, idx, vv), 5)
+    bd = bound(4 * n_pad + (G + 4 * C) * n_active + 2 * raw.numel() * 4
+               + (L + 1 + A) * 4, G * C * n_active, FP32_OPS_PER_S)
+    log(f"kernel hist_compact_float ({mode}{', skewed' if skew else ''}) "
+        f"A={A} rows={dd.num_data}: bitwise ok (plain, float K5), {ms:.4f} ms "
+        f"= sort {sort_ms:.4f} + walk {walk_ms:.4f} ms (plain on the CPU "
+        f"{pl:.1f} ms, f32 index_add_ {lib_ms:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}, {n_active} "
+        f"active rows)")
+    return dict(slots=A, mode=mode, shape="skewed" if skew else "uniform",
+                ms=ms, sort_ms=sort_ms, walk_ms=walk_ms, plain_ms=pl,
+                plain_device="cpu", library_ms=lib_ms, max_abs_err=err,
+                active_rows=n_active, **bd)
+
+
+def float_kernel_phase(dd, entries) -> None:
+    """The float K1 and K3 at the headline shapes (255 leaves, 64-bin
+    stride) on hhilo and hilo values: K1 at 8 / 16 / 32 slots with
+    bagged-out rows (and a skewed 32-slot wave), K3 at 64 / 128 slots
+    (and a skewed 128-slot wave).  Appends their entries (the numbers of
+    the widest uniform hhilo wave, every wave under ``by_width``)."""
+    import torch
+    gen = torch.Generator(device=dd.device)
+    gen.manual_seed(4)
+    k1 = [k1_float_measure(dd, "hhilo", A, gen, bag=0.8) for A in (8, 16, 32)]
+    k1 += [k1_float_measure(dd, "hilo", 32, gen, bag=0.8),
+           k1_float_measure(dd, "hhilo", 32, gen, skew=True)]
+    entries.append(dict(
+        name="hist_route_float", route="cuda",
+        source="lightgbm_tpu_torch/csrc/hist_route_float.cu",
+        replaces="lightgbm_tpu/ops/pallas_histogram.py:637",
+        **{k: v for k, v in k1[2].items() if k != "slots"}, by_width=k1))
+    k3 = [k3_float_measure(dd, "hhilo", A, gen) for A in (64, 128)]
+    k3 += [k3_float_measure(dd, "hilo", 128, gen),
+           k3_float_measure(dd, "hhilo", 128, gen, skew=True)]
+    entries.append(dict(
+        name="hist_compact_float", route="cuda",
+        source="lightgbm_tpu_torch/csrc/hist_compact_float.cu",
+        replaces="lightgbm_tpu/ops/compact.py:179",
+        **{k: v for k, v in k3[1].items() if k != "slots"}, by_width=k3))
+    torch.cuda.synchronize()
+
+
 def stream_wave(gen, nl: int, A: int, G: int = STREAM_FEATURES,
                 R: int = STREAM_BLOCK, max_bins: int = 63, skew: bool = False):
     """One streamed block of a wave: bins ``[G, R]``, gradients, hist
@@ -853,13 +1107,13 @@ def stream_paths(lgb, counters, tmp: str) -> dict:
     oc = lgb.outofcore
     cfg = Config.from_params(STREAM_PARAMS)
 
-    def run(name, store):
+    def run(name, store, params=STREAM_PARAMS):
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        bst = lgb.train_streaming(STREAM_PARAMS, store,
+        bst = lgb.train_streaming(params, store,
                                   num_boost_round=STREAM_ITERS,
                                   block_rows=STREAM_BLOCK, device="cuda")
         torch.cuda.synchronize()
@@ -920,7 +1174,66 @@ def stream_paths(lgb, counters, tmp: str) -> dict:
         raise AssertionError("streamed scores are not finite")
     if not auc >= AUC_GATE:
         raise AssertionError(f"stream auc {auc} < {AUC_GATE}")
-    return {"stream_identity": ident, "stream_scale": scale}
+
+    # the same 20M rows in memory: past the int8 row bound the in-memory
+    # learner runs hhilo through the float K1 (63 leaves: waves of <= 32
+    # slots) and must build the streamed model, scores included
+    t0 = time.time()
+    ds20 = store.to_binned_dataset(cfg)
+    log(f"in-memory 20M: dataset from the store {time.time() - t0:.1f} s")
+
+    def in_memory(name, params):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        mem = GBDT(Config.from_params(params), ds20, "cuda")
+        for _ in range(STREAM_ITERS):
+            mem.train_one_iter()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        log(f"{name}: {store.n} rows x {STREAM_ITERS} iterations in memory "
+            f"in {wall:.3f} s (upload included); peak device memory "
+            f"{peak / 2**20:.1f} MiB; launches {launches}")
+        if not peak < INMEM_PEAK_LIMIT:
+            raise AssertionError(f"{name}: peak device memory {peak} B >= "
+                                 f"{INMEM_PEAK_LIMIT} B")
+        for k in ("hist_route", "hist_compact", "hist_active"):
+            if launches[k] != 0:
+                raise AssertionError(f"{name}: the int8 kernel {k} ran on "
+                                     f"the hhilo path")
+        return mem, launches
+
+    mem, inmem = in_memory("in-memory scale", STREAM_PARAMS)
+    d_str, d_mem = bst.digest(), mem.digest()
+    log(f"in-memory scale: streamed {d_str} in memory {d_mem}")
+    if d_str != d_mem:
+        raise AssertionError("in-memory 20M digest != streamed scale digest")
+    if inmem["hist_route_float"] <= 0:
+        raise AssertionError("the float K1 did not launch in memory")
+    del mem, bst
+
+    # the headline's width on the same rows: 255 leaves (float K3 on the
+    # 64- and 128-slot waves in memory), streamed and in memory
+    bst, head_str = run("stream 20M headline width", store,
+                        HEAD20_PARAMS)
+    mem, head_mem = in_memory("in-memory 20M headline width", HEAD20_PARAMS)
+    d_str, d_mem = bst.digest(), mem.digest()
+    log(f"20M headline width: streamed {d_str} in memory {d_mem}")
+    if d_str != d_mem:
+        raise AssertionError("in-memory 20M headline-width digest != "
+                             "streamed digest")
+    for k in ("hist_route_float", "hist_compact_float", "route",
+              "route_values"):
+        if head_mem[k] <= 0:
+            raise AssertionError(f"{k} did not launch in memory at the "
+                                 f"headline width")
+    return {"stream_identity": ident, "stream_scale": scale,
+            "inmem_scale": inmem, "stream_20m_headline": head_str,
+            "inmem_20m_headline": head_mem}
 
 
 def train_path(lgb, name, counters, params, ds, rounds, **kw):
@@ -961,9 +1274,11 @@ def main() -> int:
     from lightgbm_tpu_torch.io.device import to_device
     from lightgbm_tpu_torch.metric.metrics import binary_auc
     from lightgbm_tpu_torch.ops import cuda_build
-    from lightgbm_tpu_torch.ops.compact import hist_compact_raw
+    from lightgbm_tpu_torch.ops.compact import (hist_compact_float_raw,
+                                                hist_compact_raw)
     from lightgbm_tpu_torch.ops.histogram import (hist_active_float_raw,
                                                   hist_active_raw,
+                                                  hist_route_float_raw,
                                                   hist_route_raw,
                                                   pack_values_q)
     from lightgbm_tpu_torch.ops.route import (route_rows_raw,
@@ -989,6 +1304,7 @@ def main() -> int:
     entries = []
     kernel_phase(dd, vals, entries)
     torch.cuda.synchronize()
+    float_kernel_phase(dd, entries)
 
     # 3. kernels at the small-data path's shapes
     t0 = time.time()
@@ -1011,7 +1327,9 @@ def main() -> int:
                 "hist_route": hist_route_raw, "hist_compact": hist_compact_raw,
                 "split_scan": find_best_splits_kernel,
                 "hist_active": hist_active_raw,
-                "hist_float": hist_active_float_raw}
+                "hist_float": hist_active_float_raw,
+                "hist_route_float": hist_route_float_raw,
+                "hist_compact_float": hist_compact_float_raw}
 
     # 4. the headline path through the user entry points
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
@@ -1060,7 +1378,34 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the small-data "
                              f"path: {missing}")
 
-    # 6.-8. the streamed out-of-core path
+    # 6. the headline through lgb.train on float values: gpu_use_dp
+    # selects hilo
+    fparams = dict(params, gpu_use_dp=True)
+    bst, _, hfloat = train_path(lgb, "headline float (gpu_use_dp)", counters,
+                                fparams, ds, FLOAT_ITERS)
+    pred = bst.predict(X)
+    torch.cuda.synchronize()
+    auc = binary_auc(y, pred)
+    log(f"headline float: hist_mode {bst._gbdt.hist_mode}, train auc "
+        f"{auc:.5f}; digest {bst.digest(include_scores=False)}")
+    if bst._gbdt.hist_mode != "hilo":
+        raise AssertionError("gpu_use_dp did not select hilo")
+    if pred.shape != (HEADLINE_ROWS,) or not np.isfinite(pred).all():
+        raise AssertionError("float predictions are not finite [n] values")
+    if not auc >= AUC_GATE:
+        raise AssertionError(f"float train auc {auc} < {AUC_GATE}")
+    missing = [k for k in ("hist_route_float", "route", "hist_compact_float",
+                           "route_values") if hfloat[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the float headline "
+                             f"path: {missing}")
+    ran = [k for k in ("hist_route", "hist_compact", "hist_active")
+           if hfloat[k] != 0]
+    if ran:
+        raise AssertionError(f"int8 kernels ran on the float path: {ran}")
+    del bst
+
+    # 7.-11. the streamed out-of-core path
     int_rate = int32_ops_per_s(cuda_build.multiprocessor_count(dd.device))
     k3 = stream_kernel_phase(int_rate, entries)
     for e in entries:
@@ -1070,6 +1415,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="lgbm_stream_")
     try:
         by_path = {"headline": head, "small_data": small,
+                   "headline_float": hfloat,
                    **stream_paths(lgb, counters, tmp)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -88,6 +88,25 @@ def _check_supported(c: Config) -> None:
         raise NotImplementedError(f"tree_learner={c.tree_learner}")
     if c.num_tree_per_iteration != 1:
         raise NotImplementedError("multiclass objectives")
+    check_unported_options(c)
+
+
+def check_unported_options(c: Config) -> None:
+    """Options the reference acts on and the port does not read yet
+    raise, in memory and streamed alike, rather than train or predict
+    something else."""
+    if c.snapshot_freq > 0:
+        raise NotImplementedError(
+            f"snapshot_freq={c.snapshot_freq}: snapshots are not ported "
+            f"yet (ROADMAP A6)")
+    if c.pred_early_stop:
+        raise NotImplementedError(
+            "pred_early_stop: prediction early stopping is not ported yet "
+            "(ROADMAP A6)")
+    if c.mesh_shape:
+        raise NotImplementedError(
+            f"mesh_shape={c.mesh_shape}: the device mesh is not ported yet "
+            f"(ROADMAP A11)")
 
 
 class GBDT:

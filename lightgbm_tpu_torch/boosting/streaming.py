@@ -64,7 +64,8 @@ from ..learner.serial import (STREAM_CHUNK, _apply_wave, _pending_tables,
 from ..objective.objectives import create_objective
 from ..ops.route import route_rows, route_rows_values
 from ..utils.log import log_info, log_warning
-from .gbdt import GBDT, feature_mask, growth_params_from_config
+from .gbdt import (GBDT, check_unported_options, feature_mask,
+                   growth_params_from_config)
 
 _SCALE_CHUNK = 1 << 24
 DEFAULT_BLOCK_ROWS = 1 << 20
@@ -157,6 +158,7 @@ class _Source:
 
 
 def _check_streamable(config: Config, src: _Source) -> None:
+    check_unported_options(config)
     bad = None
     if config.boosting_type != "gbdt":
         bad = f"boosting={config.boosting_type} (host score patching)"

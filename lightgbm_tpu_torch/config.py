@@ -12,7 +12,8 @@ hyper-parameter; `ParameterAlias`-style canonicalisation
 The JAX package's mesh extensions (`mesh_shape`, `data_axis_name`,
 `feature_axis_name`, `hist_dtype`) are kept as accepted keys so the two
 packages read the same parameter dictionaries; this package trains on
-one device and ignores them.
+one device, and a non-empty `mesh_shape` raises at training
+(`boosting/gbdt.py:check_unported_options`).
 """
 from __future__ import annotations
 

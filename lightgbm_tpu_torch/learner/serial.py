@@ -40,7 +40,7 @@ from ..io.binning import MISSING_NAN, MISSING_ZERO
 from ..io.device import DeviceData
 from ..ops.compact import (compact_slot_threshold, hist_active_compact,
                            hist_compact_raw)
-from ..ops.histogram import (QUANTIZED_MODES, bin_stride, combine_hist_cols,
+from ..ops.histogram import (bin_stride, combine_hist_cols,
                              hist_active_float_raw, hist_active_raw,
                              hist_route, is_quantized, pack_values,
                              pack_values_q, unbundle_grid, value_cols)
@@ -198,18 +198,13 @@ def _check_kernel_config(group_max_bins: int, num_leaf_slots: int) -> None:
         raise NotImplementedError("num_leaves > 1024")
 
 
-def resolve_backend(data: DeviceData, num_leaf_slots: int,
-                    hist_mode: str = "int8h") -> str:
+def resolve_backend(data: DeviceData, num_leaf_slots: int) -> str:
     """``"compact"`` when the tree's tail waves are wider than the
     compaction threshold (fused kernel on shallow waves, route + compact
     kernel on deep ones), else ``"fused"`` (every wave fused) — the
-    reference's "compact" backend and its degradation to "pallas"."""
-    if hist_mode not in QUANTIZED_MODES:
-        raise NotImplementedError(
-            f"hist_mode {hist_mode!r} in memory (K1 and K3 on float "
-            f"values; ROADMAP A2): lightgbm_tpu_torch trains the float "
-            f"modes only through train_streaming, in memory the quantized "
-            f"modes {QUANTIZED_MODES}")
+    reference's "compact" backend and its degradation to "pallas".  The
+    quantized modes take the int32 K1 and K3, the float modes their
+    fixed-order float counterparts."""
     _check_kernel_config(data.group_max_bins, num_leaf_slots)
     _, A_tail = stage_plan(num_leaf_slots)
     return "compact" if A_tail > compact_slot_threshold() else "fused"
@@ -544,16 +539,21 @@ def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
                hist_mode: Optional[str] = None) -> BuiltTree:
     """Grow one tree with the per-wave kernel dispatch of the reference:
     fused route+histogram on waves of <= 32 slots, route then the
-    leaf-compacted histogram above that, route-values at the end."""
+    leaf-compacted histogram above that, route-values at the end.  The
+    quantized modes pack int8 values (int32 kernels), the float modes
+    float32 values (the fixed-order float kernels, ``scales`` None)."""
     n = data.num_data
     L = params.num_leaves
     mode = effective_hist_mode(hist_mode or default_hist_mode(), n)
-    backend = resolve_backend(data, L, mode)
+    backend = resolve_backend(data, L)
     plan, A_tail = stage_plan(L, params.wave_size)
     if n <= COMPILE_LEAN_ROWS and params.wave_size != 1:
         plan = []
     wave_cap = params.wave_size if params.wave_size > 0 else L
-    vals, scales = pack_values_q(grad, hess, mode, data.n_pad)
+    if is_quantized(mode):
+        vals, scales = pack_values_q(grad, hess, mode, data.n_pad)
+    else:
+        vals, scales = pack_values(grad, hess, mode, data.n_pad), None
 
     def body(s: _WaveState, A_out: int) -> _WaveState:
         tabs = _pending_tables(data, s, L)

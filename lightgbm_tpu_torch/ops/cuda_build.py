@@ -59,6 +59,15 @@ LIBRARIES = {
         "lgbm_hist_float": [_P, _LL, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                             _I, _I, _P, _P, _P, _P],
     },
+    "hist_route_float": {
+        "lgbm_hist_route_float": [_P, _LL, _LL, _I, _P, _I, _P, _P, _P, _I,
+                                  _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+                                  _P, _P, _P],
+    },
+    "hist_compact_float": {
+        "lgbm_hist_compact_float": [_P, _LL, _I, _P, _I, _P, _I, _P, _P, _I,
+                                    _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    },
     "split": {
         "lgbm_split_scan": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F,
                             _F, _F, _F, _I, _P, _I, _P],

@@ -10,9 +10,12 @@ build one-hot matrices for the MXU because the TPU has no atomics; here
 the quantized kernels (``csrc/hist_route.cu``, ``csrc/hist_active.cu``,
 ``csrc/hist_compact.cu``) add int8 values into int32 cells with
 atomics, which is exact in any order.  The float modes (``bf16``,
-``hilo``, ``hhilo``, ``ghilo``) sum bf16-rounded values in float32 in a
-fixed order (``csrc/hist_float.cu``, see :func:`hist_active_float_raw`);
-only the streamed folds (``boosting/streaming.py``) take them.
+``hilo``, ``hhilo``, ``ghilo``) sum bf16-rounded values in float32 in
+one fixed order (see ``FLOAT_CHUNK``): the float K5
+(``csrc/hist_float.cu``, :func:`hist_active_float_raw`) of the streamed
+folds, and in memory the float K1 (``csrc/hist_route_float.cu``,
+:func:`hist_route_float_raw`) and the float K3
+(``csrc/hist_compact_float.cu``, ``ops/compact.py``).
 
 Layout: ``bins_t`` is ``[G, n_pad]`` uint8 (``io/device.py``), ``vals``
 ``[C, n_pad]`` (int8, or float32 on the float modes) with padding rows
@@ -53,7 +56,7 @@ def bin_stride(max_bins: int) -> int:
 
 QUANTIZED_MODES = ("int8", "int8h", "int8hh")
 # float value rows, summed in float32 after rounding to bf16 (the TPU
-# kernel's bf16 operands); only the streamed folds take them
+# kernel's bf16 operands)
 FLOAT_MODES = ("bf16", "hilo", "hhilo", "ghilo")
 
 
@@ -464,14 +467,19 @@ def hist_route(bins_t, vals, leaf2, active, feature, threshold,
                mode: str):
     """Fused previous-wave routing + active-leaf histograms, the
     counterpart of the reference's ``hist_route_pallas``:
-    -> ``(hist [A, G, B, 3] f32, leaf2_new [2, n_pad] int32)``."""
+    -> ``(hist [A, G, B, 3] f32, leaf2_new [2, n_pad] int32)``.  Int8
+    ``vals`` take the int32 K1 and are dequantized with ``scales``;
+    float32 ``vals`` (:func:`pack_values`) take the float K1 and their
+    hi/lo columns are added (``scales`` is None)."""
     tabs, cat = leaf_tables(feature, threshold, default_left,
                             is_categorical, cat_mask, sel, new_id,
                             missing_types, nan_bins, default_bins,
                             feat_group, feat_offset, num_bins_arr)
-    raw, leaf2_new = hist_route_raw(bins_t, vals, leaf2, active, tabs, cat,
-                                    feature.shape[0], max_bins)
-    return dequant_hist(raw, scales, mode), leaf2_new
+    kernel = (hist_route_float_raw if vals.dtype == torch.float32
+              else hist_route_raw)
+    raw, leaf2_new = kernel(bins_t, vals, leaf2, active, tabs, cat,
+                            feature.shape[0], max_bins)
+    return combine_hist_cols(raw, mode, scales), leaf2_new
 
 
 def _check_active_inputs(bins_t, vals, hist_leaf, active, acc, B: int,
@@ -699,6 +707,105 @@ def hist_active_float_raw(bins_t, vals, hist_leaf, active,
 
 hist_active_float_raw.launches = 0
 hist_active_float_raw.plain_calls = 0
+
+
+# in-memory float K1 calls chain windows of this many rows through the
+# carry, bitwise one call (a multiple of FLOAT_CHUNK): the chunk
+# partials' scratch follows the window, not the row count
+FLOAT_WINDOW = 1 << 20
+
+
+def hist_route_float_launches(bins_t, vals, leaf2, inv, src, L: int, B: int,
+                              plan: FloatPlan, scratch, counts, acc,
+                              leaf2_out, tabs, cat_mask):
+    """The float K1 over every window of ``FLOAT_WINDOW`` rows, each
+    bound to its arguments: -> one callable per window (it launches the
+    window's partial and fold kernels and returns the CUDA error code).
+    ``scratch`` and ``counts`` hold one window's chunk partials."""
+    from .cuda_build import library
+    G, n_pad = bins_t.shape
+    C = vals.shape[0]
+    A = src.shape[0]
+    fn = library("hist_route_float").lgbm_hist_route_float
+    stream = torch.cuda.current_stream(bins_t.device).cuda_stream
+    tensors = (bins_t, vals, leaf2, inv, src, scratch, counts, acc,
+               leaf2_out, tabs, cat_mask)
+    out = []
+    for w0 in range(0, n_pad, FLOAT_WINDOW):
+        rows = min(FLOAT_WINDOW, n_pad - w0)
+        out.append(BoundLaunch(fn, (
+            bins_t.data_ptr() + w0, n_pad, rows, G,
+            vals.data_ptr() + 4 * w0, C, leaf2.data_ptr() + 4 * w0,
+            leaf2_out.data_ptr() + 4 * w0, tabs.data_ptr(), L,
+            cat_mask.data_ptr(), cat_mask.shape[1], inv.data_ptr(),
+            src.data_ptr(), A, B, FLOAT_CHUNK, plan.chp, plan.warps,
+            scratch.data_ptr(), counts.data_ptr(), acc.data_ptr(), stream),
+            tensors))
+    return out
+
+
+def hist_route_float_raw(bins_t, vals, leaf2, active, tabs, cat_mask,
+                         num_leaf_slots: int, max_bins: int, acc=None):
+    """Fused route + active-leaf histogram (K1) on float value rows
+    (:func:`pack_values`): apply the per-leaf tables ``tabs`` to
+    ``leaf2``, then add the float32 sums of the bf16-rounded values of
+    the routed hist leaves' rows, per (slot, column, bin, value row),
+    into the carry ``acc`` (``[A, G, B, C]`` f32; zeros when None).
+    -> ``(acc, leaf2' [2, n_pad] int32)``.
+
+    The float K5's order (``FLOAT_CHUNK``), so a call is bitwise
+    :func:`ops.route.route_rows_raw` followed by
+    :func:`hist_active_float_raw` on the routed hist leaves, and an
+    in-memory float model is bitwise the streamed one.  Slots whose id
+    is -1 collect the rows whose hist leaf is -1 (bagged out; padding
+    rows carry zero values), as the TPU kernel's do.  The CUDA kernel
+    (``csrc/hist_route_float.cu``) runs over windows of
+    ``FLOAT_WINDOW`` rows chained through the carry and counts one
+    launch per window."""
+    G, n_pad = bins_t.shape
+    C = vals.shape[0]
+    A = active.shape[0]
+    L = num_leaf_slots
+    B = bin_stride(max_bins)
+    dev = bins_t.device
+    _check(leaf2, "leaf2", torch.int32, (2, n_pad), dev)
+    _check(tabs, "tabs", torch.int32, (tabs.shape[0], L), dev)
+    _check(cat_mask, "cat_mask", torch.uint8, (L, cat_mask.shape[1]), dev)
+    acc = _check_active_inputs(bins_t, vals, leaf2[1], active, acc, B,
+                               torch.float32, torch.float32)
+    inv, src = slot_tables(active, L, collect_unbagged=True)
+    if dev.type == "cpu":
+        hist_route_float_raw.plain_calls += 1
+        return hist_route_float_plain(bins_t, vals, leaf2, tabs, cat_mask,
+                                      inv, src, B, acc)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from .cuda_build import check_launch
+    _check_vector_rows(n_pad, bins_t, vals, leaf2, acc)
+    leaf2_out = torch.empty_like(leaf2)
+    scratch, counts = float_scratch(min(n_pad, FLOAT_WINDOW), A, G, B, C,
+                                    dev)
+    for launch in hist_route_float_launches(
+            bins_t, vals, leaf2, inv, src, L, B, float_plan(A, B, C),
+            scratch, counts, acc, leaf2_out, tabs, cat_mask):
+        check_launch(launch(), "hist_route_float")
+        hist_route_float_raw.launches += 1
+    return acc, leaf2_out
+
+
+hist_route_float_raw.launches = 0
+hist_route_float_raw.plain_calls = 0
+
+
+def hist_route_float_plain(bins_t, vals, leaf2, tabs, cat_mask, inv, src,
+                           B: int, acc):
+    """Plain version of :func:`hist_route_float_raw` (CPU tensors only):
+    the plain route, then the float K5's plain version on the routed
+    hist leaves, into ``acc``."""
+    from .route import route_plain
+    leaf2_new = route_plain(bins_t, leaf2, tabs, cat_mask)
+    return (hist_float_plain(bins_t, vals, leaf2_new[1], inv, src, B, acc),
+            leaf2_new)
 
 
 def hist_active_scatter(bins, grad, hess, row_leaf, active, *,

@@ -320,3 +320,83 @@ def test_split_kernel_bitwise(cuda_device, case):
                  "left_output", "right_output"):
         assert torch.equal(getattr(got, name).cpu(), getattr(ref, name)), \
             name
+
+
+FLOAT_CASES = [("hhilo", 8, "uniform"), ("hilo", 32, "uniform"),
+               ("hhilo", 32, "skewed"), ("bf16", 16, "uniform")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,A,wave", FLOAT_CASES,
+                         ids=[f"{m}-{a}-{w}" for m, a, w in FLOAT_CASES])
+def test_float_k1_k3_kernels_bitwise(cuda_device, monkeypatch, mode, A, wave):
+    """The float K1 (over windows of 8,192 rows chained through the
+    carry) and the float K3 (its walk in several rounds of chunks) against their plain versions on CPU copies,
+    compared by bit pattern, into a carry with -0.0 cells; on the card
+    the float K1 is bitwise K2 followed by the float K5, and the float
+    K3 bitwise the float K5 on its non-negative slots (its -1 slots keep
+    the carry)."""
+    monkeypatch.setattr(t_hist, "FLOAT_WINDOW", 8192)
+    # 40,000 rows: 20 chunks, more than a walk block of the float K3
+    # takes in one round
+    dd, leaf2, tabs, cat, _, rng = _inputs(seed=A + len(mode), n=40000)
+    g = torch.as_tensor(rng.normal(size=dd.num_data).astype(np.float32))
+    h = torch.as_tensor(rng.uniform(0.01, 0.25, size=dd.num_data)
+                        .astype(np.float32))
+    vals = t_hist.pack_values(g, h, mode, dd.n_pad)
+    active = torch.as_tensor(rng.choice(40, A, replace=False)).int()
+    active[-2:] = -1
+    if wave == "skewed":
+        # every row in leaf active[0], which no split of the wave moves
+        leaf2 = torch.where(leaf2 >= 0, active[0], leaf2).contiguous()
+        tabs = tabs.clone()
+        tabs[t_route.T_SEL, active[0]] = 0
+    B = t_hist.bin_stride(dd.group_max_bins)
+
+    def bits(t):
+        return t.cpu().view(torch.int32)
+
+    def carry(A):
+        c = _carry(rng, (A, dd.num_groups, B, vals.shape[0]), torch.float32)
+        c[torch.as_tensor(rng.rand(*c.shape) < 0.05)] = -0.0
+        return c
+
+    acc = carry(A)
+    cu = [t.to(cuda_device) for t in (dd.bins_t, vals, leaf2, active, tabs,
+                                      cat, acc)]
+    n0 = t_hist.hist_route_float_raw.launches
+    k1, l2 = t_hist.hist_route_float_raw(*cu[:6], L, dd.group_max_bins,
+                                         cu[6].clone())
+    torch.cuda.synchronize()
+    assert t_hist.hist_route_float_raw.launches == n0 + 5   # 5 windows
+    ref, rl2 = t_hist.hist_route_float_raw(dd.bins_t, vals, leaf2, active,
+                                           tabs, cat, L, dd.group_max_bins,
+                                           acc.clone())
+    assert torch.equal(l2.cpu(), rl2)
+    assert torch.equal(bits(k1), bits(ref)) and not torch.equal(ref, acc)
+    routed = t_route.route_rows_raw(cu[0], cu[2], cu[4], cu[5])
+    k5 = t_hist.hist_active_float_raw(cu[0], cu[1], routed[1].contiguous(),
+                                      cu[3], L, dd.group_max_bins,
+                                      cu[6].clone())
+    assert torch.equal(bits(k1), bits(k5))
+
+    hleaf = rl2[1].contiguous()
+    act3 = torch.full((64 if A < 32 else 128,), -1, dtype=torch.int32)
+    act3[:30] = torch.as_tensor(rng.choice(40, 30, replace=False)).int()
+    if wave == "skewed":
+        hleaf = torch.where(hleaf >= 0, act3[0], hleaf).contiguous()
+    acc3 = carry(act3.shape[0])
+    cu3 = [t.to(cuda_device) for t in (dd.bins_t, vals, hleaf, act3, acc3)]
+    n0 = t_compact.hist_compact_float_raw.launches
+    k3 = t_compact.hist_compact_float_raw(*cu3[:4], L, dd.group_max_bins,
+                                          cu3[4].clone())
+    torch.cuda.synchronize()
+    assert t_compact.hist_compact_float_raw.launches == n0 + 1
+    ref3 = t_compact.hist_compact_float_raw(dd.bins_t, vals, hleaf, act3, L,
+                                            dd.group_max_bins, acc3.clone())
+    assert torch.equal(bits(k3), bits(ref3))
+    k5 = t_hist.hist_active_float_raw(*cu3[:4], L, dd.group_max_bins,
+                                      cu3[4].clone())
+    live = act3 >= 0
+    assert torch.equal(bits(k3)[live], bits(k5)[live])
+    assert torch.equal(bits(k3)[~live], acc3[~live].view(torch.int32))

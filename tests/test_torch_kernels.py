@@ -572,3 +572,163 @@ def test_hist_active_plain_waves(mode, wave):
     held = sum(int(acc[first[int(a)], 0, :, -1].sum())
                for a in np.unique(live))
     assert held == n_live
+
+
+# -- float K1 and float K3 (the in-memory float modes) -----------------
+def _float_vals(dd, seed, mode):
+    rng = np.random.RandomState(seed)
+    g = rng.normal(size=dd.num_data).astype(np.float32)
+    h = rng.uniform(0.01, 0.25, size=dd.num_data).astype(np.float32)
+    return t_hist.pack_values(torch.as_tensor(g), torch.as_tensor(h), mode,
+                              dd.n_pad)
+
+
+@pytest.mark.parametrize("A,n_neg,mode", [(8, 2, "bf16"), (16, 3, "hhilo"),
+                                          (32, 2, "hilo")])
+def test_hist_route_float_matches_reference(A, n_neg, mode):
+    """Float K1's plain version against the reference's fused kernel in
+    interpret mode on the same float value rows: the routed leaf vectors
+    bitwise, the histograms within ``tol("f32_accum")`` (the sums are
+    the same, only their order differs: the port's is the float K5's),
+    the counts exact."""
+    ds = _dataset(False)
+    dd, meta, leaf2, tables, metas = _wave(ds, seed=17 + A)
+    vals = _float_vals(dd, A, mode)
+    active = _active(A + 1, A, n_neg)
+    ref_h, ref_l2 = hist_route_pallas(
+        jnp.asarray(dd.bins_t.numpy()), jnp.asarray(vals.numpy()),
+        jnp.asarray(leaf2), jnp.asarray(active),
+        *_args(tables, metas, "jax"), None, num_features=dd.num_groups,
+        max_bins=dd.group_max_bins, mode=mode, any_cat=False,
+        interpret=True)
+    before = t_hist.hist_route_float_raw.plain_calls
+    got_h, got_l2 = t_hist.hist_route(
+        dd.bins_t, vals, torch.as_tensor(leaf2), torch.as_tensor(active),
+        *_args(tables, metas, "torch"), None, max_bins=dd.group_max_bins,
+        mode=mode)
+    assert t_hist.hist_route_float_raw.plain_calls == before + 1
+    np.testing.assert_array_equal(got_l2.numpy(), np.asarray(ref_l2))
+    ref_h = np.asarray(ref_h)
+    assert got_h.shape == ref_h.shape
+    np.testing.assert_allclose(got_h.numpy(), ref_h, rtol=tol("f32_accum"),
+                               atol=tol("f32_accum"))
+    np.testing.assert_array_equal(got_h.numpy()[..., 2], ref_h[..., 2])
+    # -1 slots collect the out-of-bag rows, as the TPU kernel's do
+    assert ref_h[np.nonzero(active < 0)[0]][..., 2].sum() > 0
+
+
+@pytest.mark.parametrize("A,mode", [(64, "hhilo"), (128, "hilo"),
+                                    (64, "bf16")])
+def test_hist_compact_float_matches_reference(A, mode):
+    """Float K3's plain version against the reference's leaf-compacted
+    kernel in interpret mode on float values: within
+    ``tol("f32_accum")``, counts exact, -1 slots exact zeros."""
+    ds = _dataset(False)
+    dd, meta, leaf2, tables, metas = _wave(ds, seed=31 + A)
+    hleaf = t_route.route_rows(dd.bins_t, torch.as_tensor(leaf2),
+                               *_args(tables, metas, "torch"))[1]
+    hleaf = hleaf.contiguous()
+    vals = _float_vals(dd, A, mode)
+    rng = np.random.RandomState(A)
+    active = np.full(A, -1, np.int32)          # -1 slots + inactive leaves
+    active[:L - 5] = rng.choice(L, L - 5, replace=False)
+    rng.shuffle(active)
+    ref = np.asarray(j_compact(
+        jnp.asarray(dd.bins_t.numpy()), jnp.asarray(vals.numpy()),
+        jnp.asarray(hleaf.numpy()), jnp.asarray(active), None,
+        num_features=dd.num_groups, max_bins=dd.group_max_bins,
+        num_leaf_slots=L, mode=mode, interpret=True))
+    before = t_compact.hist_compact_float_raw.plain_calls
+    got = t_compact.hist_active_compact(
+        dd.bins_t, vals, hleaf, torch.as_tensor(active), None,
+        num_leaf_slots=L, max_bins=dd.group_max_bins, mode=mode).numpy()
+    assert t_compact.hist_compact_float_raw.plain_calls == before + 1
+    np.testing.assert_allclose(got, ref, rtol=tol("f32_accum"),
+                               atol=tol("f32_accum"))
+    np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+    assert (got[active < 0] == 0.0).all()
+
+
+@pytest.mark.parametrize("mode", ["hhilo", "hilo"])
+def test_float_k1_k3_plain_are_route_and_k5(mode):
+    """Within the port, on a 20,000-row wave (ten chunks) into a carry
+    with -0.0 cells: the float K1 plain version is bitwise the plain
+    route followed by the float K5's plain version, and the float K3
+    plain version is bitwise the float K5's on every non-negative slot
+    (its -1 slots keep the carry: they get nothing)."""
+    dd, g, h, _, _ = _stream_wave(91, 8, 1, n=20000)
+    rng = np.random.RandomState(9)
+    vals = t_hist.pack_values(g, h, mode, dd.n_pad)
+    n, n_pad = dd.num_data, dd.n_pad
+    leaf2 = np.full((2, n_pad), -1, np.int32)
+    leaf2[0, :n] = rng.randint(0, 20, size=n)
+    leaf2[1, :n] = np.where(rng.rand(n) < 0.85, leaf2[0, :n], -1)
+    F = dd.num_features
+    sel = torch.as_tensor(rng.rand(L) < 0.5) & (torch.arange(L) < 20)
+    tabs, cat = t_route.leaf_tables(
+        torch.as_tensor(rng.randint(0, F, size=L)).int(),
+        torch.as_tensor(rng.randint(0, 40, size=L)).int(),
+        torch.as_tensor(rng.rand(L) < 0.5), torch.zeros(L, dtype=torch.bool),
+        torch.zeros((L, 64), dtype=torch.bool), sel,
+        torch.where(sel, 20 + torch.cumsum(sel.int(), 0) - 1, 0).int(),
+        dd.missing_types, dd.nan_bins, dd.default_bins, dd.feat_group,
+        dd.feat_offset, dd.num_bins)
+    leaf2 = torch.as_tensor(leaf2)
+    B = t_hist.bin_stride(dd.group_max_bins)
+
+    def carry(A):
+        c = torch.as_tensor(rng.normal(size=(A, dd.num_groups, B,
+                                             vals.shape[0]))
+                            .astype(np.float32))
+        c[torch.as_tensor(rng.rand(*c.shape) < 0.05)] = -0.0
+        return c
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    active = torch.as_tensor(_active(5, 16, 3))
+    acc = carry(16)
+    k1, l2 = t_hist.hist_route_float_raw(dd.bins_t, vals, leaf2, active,
+                                         tabs, cat, L, dd.group_max_bins,
+                                         acc.clone())
+    routed = t_route.route_rows_raw(dd.bins_t, leaf2, tabs, cat)
+    k5 = t_hist.hist_active_float_raw(dd.bins_t, vals,
+                                      routed[1].contiguous(), active, L,
+                                      dd.group_max_bins, acc.clone())
+    assert torch.equal(l2, routed)
+    assert torch.equal(bits(k1), bits(k5))
+
+    hleaf = routed[1].contiguous()
+    active = torch.full((64,), -1, dtype=torch.int32)
+    active[:L - 4] = torch.as_tensor(rng.choice(L, L - 4, replace=False))
+    active = active[torch.as_tensor(rng.permutation(64))].contiguous()
+    acc = carry(64)
+    k3 = t_compact.hist_compact_float_raw(dd.bins_t, vals, hleaf, active, L,
+                                          dd.group_max_bins, acc.clone())
+    k5 = t_hist.hist_active_float_raw(dd.bins_t, vals, hleaf, active, L,
+                                      dd.group_max_bins, acc.clone())
+    live = active >= 0
+    assert torch.equal(bits(k3[live]), bits(k5[live]))
+    assert torch.equal(bits(k3[~live]), bits(acc[~live]))
+
+
+@pytest.mark.parametrize("B", [8, 64, 128, 256])
+def test_compact_float_walk_block_fits(B):
+    """The float K3's walk block: as many warps (one chunk tile each) as
+    a block's shared memory holds beside the totals' tile and a flag per
+    warp, up to the cap; its scratch holds the sort's counts and
+    positions per (slot, chunk), the bins of each row 4 a word and bf16
+    values."""
+    from lightgbm_tpu_torch.ops.compact import (
+        COMPACT_FLOAT_MAX_WARPS, CompactFloatScratch,
+        compact_float_walk_smem, compact_float_walk_warps)
+    W = compact_float_walk_warps(B)
+    assert 1 <= W <= COMPACT_FLOAT_MAX_WARPS
+    assert compact_float_walk_smem(W, B) <= t_hist.SMEM_BLOCK_MAX
+    if W < COMPACT_FLOAT_MAX_WARPS:
+        assert compact_float_walk_smem(W + 1, B) > t_hist.SMEM_BLOCK_MAX
+    sc = CompactFloatScratch.empty(5 * t_hist.FLOAT_CHUNK + 100, 128, 28, 5,
+                                   "cpu")
+    assert sc.counts.shape == (128, 6) and sc.offs.shape == (128, 6)
+    assert sc.sbins.shape == (5 * t_hist.FLOAT_CHUNK + 100, 7)
+    assert sc.svals.shape == (5, 5 * t_hist.FLOAT_CHUNK + 100)

@@ -123,3 +123,35 @@ def test_model_string_round_trip():
                                atol=tol("f32_tight"))
     # a loaded model writes the same text in both packages
     assert tb.model_to_string() == jl.model_to_string()
+
+
+@pytest.mark.parametrize("mode,leaves,kernel", [
+    ("hhilo", 15, t_hist.hist_route_float_raw),
+    ("hilo", 127, t_compact.hist_compact_float_raw),
+    ("bf16", 127, t_compact.hist_compact_float_raw),
+], ids=["hhilo_fused", "hilo_compact", "bf16_compact"])
+def test_float_train_matches_reference(monkeypatch, mode, leaves, kernel):
+    """In-memory training on a float histogram mode in both packages:
+    the port's float K1 / K3 (plain versions) sum in the float K5's
+    fixed order, the reference's kernels in their MXU order, so the
+    ladder holds: the same trees with leaf values within
+    ``tol("f32_eps_few")``, or a first divergence that
+    ``model_flip_report`` classifies as a near-tie; train AUC within
+    ``tol("metric_coarse")``."""
+    monkeypatch.setenv("LGBM_TPU_HIST_BACKEND", "compact")
+    monkeypatch.setenv("LGBM_TPU_SPLIT_INTERPRET", "1")
+    X, y = _data(seed=4)
+    params = dict(_params(leaves), hist_mode=mode)
+    jb = jlgb.train(dict(params), jlgb.Dataset(X, label=y),
+                    num_boost_round=ITERS)
+    before = kernel.plain_calls
+    tb = tlgb.train(dict(params), tlgb.Dataset(X, label=y),
+                    num_boost_round=ITERS, device="cpu")
+    assert kernel.plain_calls > before
+    assert tb.current_iteration() == ITERS
+    rep = model_flip_report(jb.model_to_string(), tb.model_to_string())
+    assert rep["near_tie"], rep
+    if rep["flip_tree"] is None:
+        assert rep["max_leaf_value_gap"] <= tol("f32_eps_few"), rep
+    assert abs(binary_auc(y, jb.predict(X)) - binary_auc(y, tb.predict(X))
+               ) <= tol("metric_coarse")

@@ -169,10 +169,29 @@ def test_pipeline_off_same_model():
     assert on == off
 
 
-def test_float_mode_in_memory_raises():
-    X, y, _ = _data(n=3000)
-    with pytest.raises(NotImplementedError, match="train_streaming"):
-        _in_memory(dict(BASE, hist_mode="hhilo"), X, y)
+# leaves per float mode: 15 runs every wave through the float K1 (the
+# 8-slot tail), 127 through the float K3 (at <= 65,536 rows every wave
+# has the 64-slot tail width)
+FLOAT_LEAVES = {"bf16": 15, "hilo": 127, "hhilo": 127, "ghilo": 15}
+
+
+@pytest.mark.parametrize("mode", t_hist.FLOAT_MODES)
+def test_float_mode_in_memory_matches_stream(mode):
+    """In memory the float modes take the float K1 (waves of <= 32
+    slots) or the float K3 (wider waves), both in the float K5's fixed
+    order; the streamed fold takes the float K5 on every wave.  The two
+    models are bitwise equal, scores included."""
+    X, y, _ = _data()
+    params = dict(BASE, hist_mode=mode, num_leaves=FLOAT_LEAVES[mode])
+    kernel = (t_hist.hist_route_float_raw if FLOAT_LEAVES[mode] <= 31
+              else t_compact.hist_compact_float_raw)
+    before = kernel.plain_calls
+    mem = _in_memory(params, X, y)
+    assert kernel.plain_calls > before
+    tr, st = _stream(params, X, y)
+    assert tr.fold.hist_mode == mode and not tr.fold.quantized
+    assert st.digest() == mem.digest()
+    assert st.save_model_to_string() == mem.save_model_to_string()
 
 
 @pytest.mark.parametrize("extra,match", [

@@ -105,10 +105,13 @@ def ptxas_report() -> tuple:
 
 def build_parent(parent: str, out_dir: str) -> dict:
     """Build the parent's kernel sources: -> name -> library, loaded
-    with this tree's C interface."""
+    with this tree's C interface.  A library the parent does not have
+    yet is left out (both sides then launch this tree's)."""
     csrc = os.path.join(parent, "lightgbm_tpu_torch", "csrc")
     procs = []
     for name in cuda_build.LIBRARIES:
+        if not os.path.exists(os.path.join(csrc, f"{name}.cu")):
+            continue
         path = os.path.join(out_dir, f"lib{name}-parent.so")
         cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", csrc,
                "-o", path, os.path.join(csrc, f"{name}.cu")]
