@@ -22,10 +22,14 @@ and the script exits non-zero):
    and on a skewed 128-slot wave: each held bitwise (bit patterns) to its
    plain version on CPU copies (only the CPU adds in its fixed order),
    the float K1 also to K2 followed by the float K5 and the float K3 to
-   the float K5 on its non-negative slots, on the card; timed beside that
-   composition (K1's yardstick), the f32 ``index_add_`` (K3's library
-   call), the bound and, for K1, the contract floor of its chunk
-   partials;
+   the float K5 on its non-negative slots, on the card; each timed whole
+   and in its three phases apart (the sort; the walks: heavy slots'
+   chunk partials and light slots' walks; the fold), its choice of heavy
+   and light slots on the card held to the host rule; beside K1 that
+   composition (its yardstick, with the float K5's partial and fold
+   phases apart), the f32 ``index_add_`` over the active rows (the
+   library call of both), the bound and, for K1, the float K5's contract
+   floor (its chunk partials written and read back);
 3. small-data kernels — the same for the small-data path's shapes: the
    fused route+histogram kernel at 65,536 rows, 256 bins and 32 slots
    with bagged-out rows (hist leaf -1) that the -1 slots collect, the
@@ -688,13 +692,85 @@ def chunk_pairs(hl, inv, rows, A: int) -> int:
     return int(torch.unique((rows // FLOAT_CHUNK) * A + slot).numel())
 
 
+def walk_measure(dd, vals, hl, inv, src, L: int, B: int, acc_shape,
+                 reps: int = 5) -> dict:
+    """The float K3 launched through its window launchers: times of a
+    whole call, of its three phases apart (the sort; the walks: heavy
+    chunk partials and light walks; the fold of the heavy partials) and
+    of each kernel in a CUDA graph, and its heavy/light choice on the
+    card held against the host rule (``float_walk_split``)."""
+    import torch
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.ops.histogram import (
+        FLOAT_CHUNK, FLOAT_WALK_KERNELS, FloatWalkScratch, float_dense_rows,
+        float_light_rows, float_walk_launches, float_walk_plan,
+        float_walk_split)
+    G, n_pad = dd.bins_t.shape
+    C, A = vals.shape[0], src.shape[0]
+    plan = float_walk_plan(n_pad, A, G, B, C, L,
+                           cuda_build.multiprocessor_count(dd.device))
+    scratch = FloatWalkScratch.empty(plan, A, G, B, C, dd.device)
+    obuf = torch.zeros(acc_shape, device=dd.device)
+
+    def launches(phase):
+        return float_walk_launches(dd.bins_t, vals, hl, inv, src, L, B, plan,
+                                   scratch, obuf, phase)
+
+    def run(phase):
+        fns = launches(phase)
+        return lambda: [f() for f in fns]
+
+    def on_stream(phase):   # bound to the current (capture) stream
+        return lambda: max(f() for f in launches(phase))
+    times = {}
+    for ph in ("both", "sort", "walk", "fold"):
+        times[f"{ph}_ms"] = time_ms(run(ph), reps)
+        times[f"{ph}_graph_ms"] = graph_ms(on_stream(ph), n=20)
+    # each kernel's device time (on the scratch of the calls above)
+    times["kernel_graph_ms"] = {k: graph_ms(on_stream(k), n=20)
+                                for k in FLOAT_WALK_KERNELS}
+    # the last window's plan, against the host rule on its rows
+    run("sort")()
+    torch.cuda.synchronize()
+    w0 = (n_pad - 1) // plan.window * plan.window
+    rows = n_pad - w0
+    meta = scratch.meta(A, rows).cpu()
+    hw = hl[w0:].long()
+    sl = inv.long()[torch.where(hw >= 0, hw, L)]
+    kw = -(-rows // FLOAT_CHUNK)
+    ks = torch.arange(rows, device=hw.device) // FLOAT_CHUNK
+    on = sl >= 0
+    counts = torch.bincount(sl[on] * kw + ks[on], minlength=A * kw)
+    hbase, lrows, hcount = float_walk_split(counts.view(A, kw).tolist(),
+                                            float_light_rows(rows),
+                                            float_dense_rows(rows),
+                                            plan.pcap)
+    if (meta[3].tolist() != hbase or meta[4].tolist() != lrows
+            or meta[5].tolist() != hcount):
+        raise AssertionError("hist_compact_float: the card's plan != the "
+                             "host rule")
+    return dict(ms=times.pop("both_ms"), graph_ms=times.pop("both_graph_ms"),
+                **times, windows=-(-n_pad // plan.window),
+                heavy_slots=sum(h >= 0 for h in hbase),
+                light_slots=sum(h < 0 and n > 0 for h, n in zip(hbase, lrows)),
+                heavy_pairs=sum(hcount), walked_rows_max=max(lrows),
+                scratch_bytes=scratch.nbytes)
+
+
+def kernel_line(walk: dict) -> str:
+    return " ".join(f"{k} {v:.4f}" for k, v in walk["kernel_graph_ms"].items())
+
+
 def k1_float_measure(dd, mode: str, A: int, gen, L: int = 255,
                      bag: float = 1.0, skew: bool = False) -> dict:
     """The float K1 at ``A`` slots of a headline wave: bitwise (bit
     patterns) against its plain version on CPU copies and against K2
-    followed by the float K5 on the card; times of the kernel, of that
-    composition (its yardstick) and of the plain version; the bound and
-    the contract floor (the chunk partials written and read back)."""
+    followed by the float K5 on the card; times of the kernel and of its
+    partial and fold phases apart (back to back and in a CUDA graph), of
+    that composition (its yardstick, with the float K5's partial and fold
+    phases apart), of the plain version and of an f32 ``index_add_`` over
+    the routed rows (its library call); the bound and the float K5's
+    contract floor (its chunk partials written and read back)."""
     import torch
     from lightgbm_tpu_torch.ops.histogram import (
         FLOAT_WINDOW, bin_stride, float_plan, float_scratch,
@@ -730,8 +806,7 @@ def k1_float_measure(dd, mode: str, A: int, gen, L: int = 255,
         raise AssertionError(f"hist_route_float != K2 + float K5 ({mode}, "
                              f"A={A}, skew={skew})")
     hl = ref_l2[1].to(dev)
-    rows = torch.nonzero(inv.long()[torch.where(hl >= 0, hl.long(), L)]
-                         >= 0)[:, 0]
+    rows = _active_rows(hl, inv)
     n_active = int(rows.numel())
     if bag < 1.0 and bool((active < 0).any()):
         # each -1 slot holds the out-of-bag rows: count column, column 0
@@ -745,17 +820,42 @@ def k1_float_measure(dd, mode: str, A: int, gen, L: int = 255,
     part, counts = float_scratch(min(n_pad, FLOAT_WINDOW), A, G, B, C, dev)
     obuf = torch.zeros_like(raw)
     lbuf = torch.empty_like(leaf2)
-    launches = hist_route_float_launches(dd.bins_t, vals, leaf2, inv, src,
-                                         L, B, plan, part, counts, obuf, lbuf,
-                                         tabs, cat)
-    ms = time_ms(lambda: [f() for f in launches], 10)
+
+    def k1_call(phase):
+        fns = hist_route_float_launches(dd.bins_t, vals, leaf2, inv, src, L,
+                                        B, plan, part, counts, obuf, lbuf,
+                                        tabs, cat, phase)
+        return lambda: [f() for f in fns]
+
+    def k1_graph(phase):   # bound to the current (capture) stream
+        return lambda: max(f() for f in hist_route_float_launches(
+            dd.bins_t, vals, leaf2, inv, src, L, B, plan, part, counts, obuf,
+            lbuf, tabs, cat, phase))
+    walk = {}
+    for ph in ("both", "partial", "fold"):
+        walk["ms" if ph == "both" else f"{ph}_ms"] = time_ms(k1_call(ph), 10)
+        walk["graph_ms" if ph == "both" else f"{ph}_graph_ms"] = graph_ms(
+            k1_graph(ph), n=20)
+    walk["windows"] = -(-n_pad // FLOAT_WINDOW)
+    del part
     part5, counts5 = float_scratch(n_pad, A, G, B, C, dev)
-    k5_call = hist_float_launcher(dd.bins_t, vals, routed[1].contiguous(),
-                                  inv, src, L, B, plan, part5, counts5,
-                                  torch.zeros_like(raw))
+    hl5 = routed[1].contiguous()
+
+    def k5_call(phase):
+        return hist_float_launcher(dd.bins_t, vals, hl5, inv, src, L, B,
+                                   plan, part5, counts5,
+                                   torch.zeros_like(raw), phase)
+    k5_both = k5_call("both")
     yard = time_ms(lambda: (route_rows_raw(dd.bins_t, leaf2, tabs, cat),
-                            k5_call()), 10)
+                            k5_both()), 10)
+    k5_partial_ms = time_ms(k5_call("partial"), 10)
+    k5_fold_ms = time_ms(k5_call("fold"), 10)
     del part5
+    idx = _flat_cells(dd.bins_t, hl, inv, rows, B, C).reshape(-1)
+    vv = vals[:, rows].t()[None].expand(G, -1, -1).reshape(-1).contiguous()
+    lacc = torch.zeros(raw.numel(), device=dev)
+    lib_ms = time_ms(lambda: lacc.index_add_(0, idx, vv), 5)
+    del idx, vv
     tab_bytes = 11 * L * 4 + L * cat.shape[1]
     bd = bound(16 * n_pad + G * n_pad + 4 * C * n_pad + 2 * raw.numel() * 4
                + tab_bytes + (L + 1 + A) * 4, G * C * n_active + raw.numel(),
@@ -764,16 +864,22 @@ def k1_float_measure(dd, mode: str, A: int, gen, L: int = 255,
     floor_ms = 2 * pairs * G * B * C * 4 / PEAK_BYTES_PER_S * 1e3
     log(f"kernel hist_route_float ({mode}{', skewed' if skew else ''}"
         f"{', bag %.1f' % bag if bag < 1 else ''}) A={A} rows={dd.num_data}: "
-        f"bitwise ok (plain, K2 + float K5), {ms:.4f} ms (K2 + float K5 "
-        f"{yard:.4f} ms, plain on the CPU {pl:.1f} ms, bound "
-        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, contract floor "
-        f"{floor_ms:.4f} ms for {pairs} chunk partials, {len(launches)} "
-        f"windows, {plan.warps} warps/block)")
+        f"bitwise ok (plain, K2 + float K5), {walk['ms']:.4f} ms = "
+        f"partials {walk['partial_ms']:.4f} + fold {walk['fold_ms']:.4f} "
+        f"ms; in a graph {walk['graph_ms']:.4f} = "
+        f"{walk['partial_graph_ms']:.4f} + {walk['fold_graph_ms']:.4f} ms "
+        f"(K2 + float K5 {yard:.4f} ms with the float K5's partials "
+        f"{k5_partial_ms:.4f} + fold {k5_fold_ms:.4f} ms; f32 index_add_ "
+        f"{lib_ms:.4f} ms; plain on the CPU {pl:.1f} ms; bound "
+        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}; the float K5's "
+        f"contract floor {floor_ms:.4f} ms for {pairs} chunk partials; "
+        f"{walk['windows']} windows)")
     return dict(slots=A, mode=mode, shape="skewed" if skew else "uniform",
-                bag=bag, ms=ms, yardstick_ms=yard, plain_ms=pl,
-                plain_device="cpu", library_ms=None, max_abs_err=err,
-                active_rows=n_active, chunk_partials=pairs,
-                contract_floor_ms=floor_ms, windows=len(launches), **bd)
+                bag=bag, **walk, yardstick_ms=yard,
+                k5_partial_ms=k5_partial_ms, k5_fold_ms=k5_fold_ms,
+                plain_ms=pl, plain_device="cpu", library_ms=lib_ms,
+                max_abs_err=err, active_rows=n_active, chunk_partials=pairs,
+                contract_floor_ms=floor_ms, **bd)
 
 
 def k3_float_measure(dd, mode: str, A: int, gen, L: int = 255,
@@ -781,12 +887,10 @@ def k3_float_measure(dd, mode: str, A: int, gen, L: int = 255,
     """The float K3 at ``A`` slots of a headline wave after its route:
     bitwise (bit patterns) against its plain version on CPU copies and
     against the float K5 on its non-negative slots on the card; times of
-    the kernel (and of its sort and walk apart), the plain version and an
-    f32 ``index_add_``; the bound."""
+    the kernel and of its phases (``walk_measure``), of the plain version
+    and of an f32 ``index_add_``; the bound."""
     import torch
-    from lightgbm_tpu_torch.ops.compact import (
-        CompactFloatScratch, hist_compact_float_launcher,
-        hist_compact_float_raw)
+    from lightgbm_tpu_torch.ops.compact import hist_compact_float_raw
     from lightgbm_tpu_torch.ops.histogram import (
         bin_stride, hist_active_float_raw, hist_float_plain, slot_tables)
     from lightgbm_tpu_torch.ops.route import route_rows_raw
@@ -819,31 +923,30 @@ def k3_float_measure(dd, mode: str, A: int, gen, L: int = 255,
                              f"abs err {err})")
     rows = _active_rows(hl, inv)
     n_active = int(rows.numel())
-    scratch = CompactFloatScratch.empty(n_pad, A, G, C, dev)
-    obuf = torch.zeros_like(raw)
-
-    def run(phase):
-        return hist_compact_float_launcher(dd.bins_t, vals, hl, inv, src, L,
-                                           B, scratch, obuf, phase)
-    ms = time_ms(run("both"), 5)
-    sort_ms = time_ms(run("sort"), 5)
-    walk_ms = time_ms(run("walk"), 5)
+    walk = walk_measure(dd, vals, hl, inv, src, L, B, raw.shape)
     idx = _flat_cells(dd.bins_t, hl, inv, rows, B, C).reshape(-1)
     vv = vals[:, rows].t()[None].expand(G, -1, -1).reshape(-1).contiguous()
     lacc = torch.zeros(raw.numel(), device=dev)
     lib_ms = time_ms(lambda: lacc.index_add_(0, idx, vv), 5)
+    del idx, vv
     bd = bound(4 * n_pad + (G + 4 * C) * n_active + 2 * raw.numel() * 4
                + (L + 1 + A) * 4, G * C * n_active, FP32_OPS_PER_S)
     log(f"kernel hist_compact_float ({mode}{', skewed' if skew else ''}) "
-        f"A={A} rows={dd.num_data}: bitwise ok (plain, float K5), {ms:.4f} ms "
-        f"= sort {sort_ms:.4f} + walk {walk_ms:.4f} ms (plain on the CPU "
-        f"{pl:.1f} ms, f32 index_add_ {lib_ms:.4f} ms, "
-        f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}, {n_active} "
-        f"active rows)")
+        f"A={A} rows={dd.num_data}: bitwise ok (plain, float K5), "
+        f"{walk['ms']:.4f} ms = sort {walk['sort_ms']:.4f} + walk "
+        f"{walk['walk_ms']:.4f} + fold {walk['fold_ms']:.4f} ms; in a graph "
+        f"{walk['graph_ms']:.4f} = {walk['sort_graph_ms']:.4f} + "
+        f"{walk['walk_graph_ms']:.4f} + {walk['fold_graph_ms']:.4f} ms "
+        f"(by kernel {kernel_line(walk)}; {walk['heavy_slots']} slots with "
+        f"heavy pairs, {walk['heavy_pairs']} heavy pairs, "
+        f"{walk['light_slots']} walked whole, at most "
+        f"{walk['walked_rows_max']} rows a walk; plain on the CPU "
+        f"{pl:.1f} ms, f32 index_add_ {lib_ms:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, {n_active} active "
+        f"rows)")
     return dict(slots=A, mode=mode, shape="skewed" if skew else "uniform",
-                ms=ms, sort_ms=sort_ms, walk_ms=walk_ms, plain_ms=pl,
-                plain_device="cpu", library_ms=lib_ms, max_abs_err=err,
-                active_rows=n_active, **bd)
+                **walk, plain_ms=pl, plain_device="cpu", library_ms=lib_ms,
+                max_abs_err=err, active_rows=n_active, **bd)
 
 
 def float_kernel_phase(dd, entries) -> None:

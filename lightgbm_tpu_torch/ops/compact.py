@@ -11,20 +11,20 @@ quantized modes rows stay in dataset order (see the note in the
 source).  On the float modes (``csrc/hist_compact_float.cu``) the rows
 are sorted by slot on the card, stably, and each slot's rows are summed
 in the float K5's fixed order (``ops/histogram.py:FLOAT_CHUNK``), so a
-call is bitwise the float K5 on its non-negative slots.  The contract is
+call is bitwise the float K5 on its non-negative slots
+(``csrc/hist_float_walk.cuh`` holds the design).  The contract is
 the reference's: ``[A, G, B, 3]`` sums per active slot, with exact zeros
 in ``-1`` slots and nothing from rows whose leaf is not active.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
-from .histogram import (FLOAT_CHUNK, SMEM_BLOCK_MAX, BoundLaunch,
-                        _check_active_inputs, _check_vector_rows, bin_stride,
-                        combine_hist_cols, hist_float_plain, hist_launcher,
-                        hist_plain, hist_plan, hist_slab, slot_tables)
+from .histogram import (FloatWalkScratch, _check_active_inputs,
+                        _check_vector_rows, bin_stride, combine_hist_cols,
+                        float_walk_launches, float_walk_plan,
+                        hist_float_plain, hist_launcher, hist_plain,
+                        hist_plan, hist_slab, slot_tables)
 
 # leaf slots per group in the reference's compacted kernel; waves wider
 # than this take K3 (the reference's dispatch threshold)
@@ -68,79 +68,6 @@ hist_compact_raw.launches = 0
 hist_compact_raw.plain_calls = 0
 
 
-# the walk kernel of the float K3: at most this many warps (chunks walked
-# at once) a block (LGBM_CF_MAX_WARPS in the CUDA source)
-COMPACT_FLOAT_MAX_WARPS = 12
-
-
-def compact_float_walk_smem(warps: int, B: int) -> int:
-    """Shared memory of a walk block of the float K3: the totals'
-    ``[B][32]`` float32 tile, one chunk tile per warp and a flag each."""
-    return ((warps + 1) * B * 32 + warps) * 4
-
-
-def compact_float_walk_warps(B: int) -> int:
-    """Warps of a walk block of the float K3: as many as fit a block's
-    shared memory, up to ``COMPACT_FLOAT_MAX_WARPS``."""
-    for warps in range(COMPACT_FLOAT_MAX_WARPS, 0, -1):
-        if compact_float_walk_smem(warps, B) <= SMEM_BLOCK_MAX:
-            return warps
-    raise ValueError(f"float K3: {B} bins do not fit a walk block")
-
-
-@dataclass
-class CompactFloatScratch:
-    """The float K3's device scratch, sized by the row count and the
-    slots, not by their product: ``counts``/``offs`` ``[A, K]`` int32
-    (rows of each (slot, chunk) and their first sorted position), and the
-    active rows in sorted order: ``sbins [n_pad, ceil(G / 4)]`` int32
-    (their bins, row-major, 4 a word) and ``svals [C, n_pad]`` int16
-    (their values as bf16 bits).  Every cell read is written first: not
-    cleared."""
-    counts: torch.Tensor
-    offs: torch.Tensor
-    sbins: torch.Tensor
-    svals: torch.Tensor
-
-    @classmethod
-    def empty(cls, n_pad: int, A: int, G: int, C: int, device):
-        K = -(-n_pad // FLOAT_CHUNK)
-
-        def i32(*shape):
-            return torch.empty(shape, dtype=torch.int32, device=device)
-        return cls(i32(A, K), i32(A, K), i32(n_pad, -(-G // 4)),
-                   torch.empty((C, n_pad), dtype=torch.int16,
-                               device=device))
-
-
-# phases of one float K3 launch: the whole call, or its sort or its walk
-# alone (the walk reads the sort a "sort" launch left in the scratch)
-COMPACT_FLOAT_PHASES = {"both": 0, "sort": 1, "walk": 2}
-
-
-def hist_compact_float_launcher(bins_t, vals, hist_leaf, inv, src, L: int,
-                                B: int, scratch: CompactFloatScratch, acc,
-                                phase: str = "both"):
-    """The float K3 (``phase`` "both", "sort" or "walk") bound to its
-    arguments: -> a callable that launches it and returns the CUDA error
-    code."""
-    from .cuda_build import library
-    G, n_pad = bins_t.shape
-    C = vals.shape[0]
-    A = src.shape[0]
-    fn = library("hist_compact_float").lgbm_hist_compact_float
-    stream = torch.cuda.current_stream(bins_t.device).cuda_stream
-    sc = scratch
-    return BoundLaunch(fn, (
-        bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C,
-        hist_leaf.data_ptr(), L, inv.data_ptr(), src.data_ptr(), A, B,
-        FLOAT_CHUNK, compact_float_walk_warps(B),
-        COMPACT_FLOAT_PHASES[phase], sc.counts.data_ptr(),
-        sc.offs.data_ptr(), sc.sbins.data_ptr(), sc.svals.data_ptr(),
-        acc.data_ptr(), stream),
-        (bins_t, vals, hist_leaf, inv, src, acc, *sc.__dict__.values()))
-
-
 def hist_compact_float_raw(bins_t, vals, hist_leaf, active,
                            num_leaf_slots: int, max_bins: int, acc=None):
     """Leaf-compacted histogram kernel (K3) on float value rows
@@ -152,8 +79,10 @@ def hist_compact_float_raw(bins_t, vals, hist_leaf, active,
     The float K5's order, so the non-negative slots are bitwise
     :func:`ops.histogram.hist_active_float_raw`'s; -1 slots get nothing
     (exact zeros from a zero carry) and rows of inactive leaves add
-    nothing.  The CUDA kernel (``csrc/hist_compact_float.cu``) sorts the
-    rows by slot on the card and keeps no per-chunk partials."""
+    nothing.  The CUDA kernel (``csrc/hist_compact_float.cu``, the design
+    of ``csrc/hist_float_walk.cuh``) sorts the rows by slot on the card;
+    it runs over windows of ``FLOAT_WINDOW`` rows chained through the
+    carry and counts one launch per window."""
     B = bin_stride(max_bins)
     acc = _check_active_inputs(bins_t, vals, hist_leaf, active, acc, B,
                                torch.float32, torch.float32)
@@ -166,13 +95,14 @@ def hist_compact_float_raw(bins_t, vals, hist_leaf, active,
         return hist_float_plain(bins_t, vals, hist_leaf, inv, src, B, acc)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    from .cuda_build import check_launch
+    from .cuda_build import check_launch, multiprocessor_count
     _check_vector_rows(n_pad, bins_t, vals, hist_leaf, acc)
-    scratch = CompactFloatScratch.empty(n_pad, A, G, C, dev)
-    code = hist_compact_float_launcher(bins_t, vals, hist_leaf, inv, src, L,
-                                       B, scratch, acc)()
-    check_launch(code, "hist_compact_float")
-    hist_compact_float_raw.launches += 1
+    plan = float_walk_plan(n_pad, A, G, B, C, L, multiprocessor_count(dev))
+    scratch = FloatWalkScratch.empty(plan, A, G, B, C, dev)
+    for launch in float_walk_launches(bins_t, vals, hist_leaf, inv, src, L,
+                                      B, plan, scratch, acc):
+        check_launch(launch(), "hist_compact_float")
+        hist_compact_float_raw.launches += 1
     return acc
 
 

@@ -61,12 +61,13 @@ LIBRARIES = {
     },
     "hist_route_float": {
         "lgbm_hist_route_float": [_P, _LL, _LL, _I, _P, _I, _P, _P, _P, _I,
-                                  _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
-                                  _P, _P, _P],
+                                  _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _P, _P, _P, _P],
     },
     "hist_compact_float": {
-        "lgbm_hist_compact_float": [_P, _LL, _I, _P, _I, _P, _I, _P, _P, _I,
-                                    _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+        "lgbm_hist_compact_float": [_P, _LL, _LL, _I, _P, _I, _P, _I, _P,
+                                    _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                    _P, _P, _P, _P, _P],
     },
     "split": {
         "lgbm_split_scan": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F,

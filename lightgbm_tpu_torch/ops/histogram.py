@@ -15,7 +15,8 @@ one fixed order (see ``FLOAT_CHUNK``): the float K5
 (``csrc/hist_float.cu``, :func:`hist_active_float_raw`) of the streamed
 folds, and in memory the float K1 (``csrc/hist_route_float.cu``,
 :func:`hist_route_float_raw`) and the float K3
-(``csrc/hist_compact_float.cu``, ``ops/compact.py``).
+(``csrc/hist_compact_float.cu`` + ``csrc/hist_float_walk.cuh``,
+``ops/compact.py``).
 
 Layout: ``bins_t`` is ``[G, n_pad]`` uint8 (``io/device.py``), ``vals``
 ``[C, n_pad]`` (int8, or float32 on the float modes) with padding rows
@@ -709,19 +710,221 @@ hist_active_float_raw.launches = 0
 hist_active_float_raw.plain_calls = 0
 
 
-# in-memory float K1 calls chain windows of this many rows through the
-# carry, bitwise one call (a multiple of FLOAT_CHUNK): the chunk
-# partials' scratch follows the window, not the row count
+# The in-memory float kernels (K1 and K3) run over windows of this many
+# rows, chained through the carry, which is bitwise one call (a multiple
+# of FLOAT_CHUNK): their scratch follows the window, not the row count.
 FLOAT_WINDOW = 1 << 20
+# the float K1's launches (csrc/hist_route_float.cu): its partial and
+# fold kernels, or one alone for timing them apart
+FLOAT_K1_PHASES = {"both": 3, "partial": 1, "fold": 2}
+# the float K3 walks at most this many rows per chunk of a window of a
+# slot (its first chunks); a larger slot's later chunks become heavy
+# pairs (chunk partials, folded after the walk), and a slot with at least
+# FLOAT_DENSE_ROWS_PER_CHUNK rows per chunk walks none
+FLOAT_LIGHT_ROWS_PER_CHUNK = 16
+FLOAT_DENSE_ROWS_PER_CHUNK = 64
+# a window's partial scratch holds as many (slot, chunk) pairs as this
+# many slots with rows in every chunk; the largest slots take it first
+FLOAT_HEAVY_SLOTS = 16
+# warps of a block of the heavy-partial kernel (FW_HEAVY_WARPS), and its
+# blocks per multiprocessor in the grid-stride launch
+FLOAT_HEAVY_WARPS = 4
+FLOAT_HEAVY_BLOCKS_PER_SM = 8
+# slots a wave of the in-memory float kernels may have (the fill block's
+# per-warp counts and the plan block's slot order are in shared memory)
+FLOAT_WALK_MAX_SLOTS = 4096
+FLOAT_FILL_WARPS = 8     # FW_FILL_THREADS / 32
+# each slot's run of sorted positions starts at a multiple of
+# FLOAT_WALK_ALIGN; a walking warp loads FLOAT_WALK_BATCH rows at once
+FLOAT_WALK_ALIGN = 16
+FLOAT_WALK_BATCH = 32
+# the float K3's kernels (csrc/hist_float_walk.cuh FW_K_* masks) in one
+# window's launch: all of them, or a phase or one kernel alone, for
+# timing them apart
+FLOAT_WALK_KERNELS = {"count": 1, "scan": 2, "plan": 4, "fill": 8,
+                      "heavy": 16, "light": 32, "fold": 64}
+FLOAT_WALK_PHASES = {"both": 127, "sort": 15, "walk": 48, "fold": 64,
+                     **FLOAT_WALK_KERNELS}
+
+
+@dataclass(frozen=True)
+class FloatWalkPlan:
+    """Launch plan of the float K3 (``csrc/hist_float_walk.cuh``) for a
+    call: windows of ``window`` rows
+    (``chunks`` chunks each), ``pcap`` heavy (slot, chunk) partials per
+    window, ``heavy_blocks`` blocks of the grid-stride heavy-partial
+    kernel, and the shared memory of each kernel's block."""
+    window: int
+    chunks: int
+    pcap: int
+    heavy_blocks: int
+    count_smem: int
+    plan_smem: int
+    fill_smem: int
+    heavy_smem: int
+    light_smem: int
+
+
+def float_walk_plan(n_pad: int, A: int, G: int, B: int, C: int, L: int,
+                    sms: int) -> FloatWalkPlan:
+    """The plan of one call over ``n_pad`` rows; raises where a block
+    would not fit its shared memory."""
+    if not 1 <= A <= FLOAT_WALK_MAX_SLOTS:
+        raise ValueError(f"{A} slots: the float K3 takes "
+                         f"1-{FLOAT_WALK_MAX_SLOTS}")
+    window = min(n_pad, FLOAT_WINDOW)
+    chunks = -(-window // FLOAT_CHUNK)
+    pcap = FLOAT_HEAVY_SLOTS * chunks
+    ncg = -(-G // FLOAT_LANES)
+    heavy_blocks = max(1, min(-(-pcap * C * ncg // FLOAT_HEAVY_WARPS),
+                              sms * FLOAT_HEAVY_BLOCKS_PER_SM))
+    plan = FloatWalkPlan(
+        window, chunks, pcap, heavy_blocks,
+        count_smem=A * 4,
+        plan_smem=3 * A * 4,
+        fill_smem=(((FLOAT_FILL_WARPS + 1) * A + 2 * FLOAT_CHUNK) * 4
+                   + FLOAT_LANES * FLOAT_CHUNK),
+        heavy_smem=FLOAT_HEAVY_WARPS * B * FLOAT_LANES * 4,
+        light_smem=B * FLOAT_LANES * 16)
+    for name in ("count_smem", "plan_smem", "fill_smem", "heavy_smem",
+                 "light_smem"):
+        if getattr(plan, name) > SMEM_BLOCK_MAX:
+            raise ValueError(f"float walk: {name} {getattr(plan, name)} B "
+                             f"exceeds a block's shared memory ({A} slots, "
+                             f"{B} bins, {L} leaves)")
+    return plan
+
+
+def float_walk_rows(rows: int, A: int) -> int:
+    """Sorted positions of a window of ``rows`` rows (``fw_rows``): each
+    slot's run padded to ``FLOAT_WALK_ALIGN``, then a batch of slack."""
+    al = FLOAT_WALK_ALIGN
+    return -(-(rows + al * A) // al) * al + FLOAT_WALK_BATCH
+
+
+def float_light_rows(rows: int) -> int:
+    """The rows of a slot the float K3 walks in a window of ``rows``
+    rows, at most."""
+    return FLOAT_LIGHT_ROWS_PER_CHUNK * -(-rows // FLOAT_CHUNK)
+
+
+def float_dense_rows(rows: int) -> int:
+    """The rows from which a slot of a window of ``rows`` rows walks
+    none."""
+    return FLOAT_DENSE_ROWS_PER_CHUNK * -(-rows // FLOAT_CHUNK)
+
+
+def float_walk_split(counts, light_rows: int, dense_rows: int, pcap: int):
+    """The plan kernel's split (``fw_plan_kernel``), for the tests and the
+    card's check: ``counts[s][k]`` rows of each (slot, chunk) ->
+    ``(hbase, lrows, hcount)`` per slot: the slot's first heavy pair in
+    the partial scratch (-1: none), the rows its walk takes and its heavy
+    pairs.  A slot with more than ``light_rows`` rows keeps its first
+    chunks up to that many rows for the walk (none from ``dense_rows``
+    rows on) and gives its later chunks with rows to partials, largest
+    slots first (ties by slot) while their pairs fit ``pcap``; every
+    other slot is walked whole."""
+    tot = [sum(int(x) for x in row) for row in counts]
+    order = sorted(range(len(counts)), key=lambda s: (-tot[s], s))
+    split = []
+    for row, t in zip(counts, tot):
+        run, k = 0, len(row)
+        if t > light_rows:
+            k = 0 if t >= dense_rows else max(
+                i for i in range(len(row))
+                if sum(int(x) for x in row[:i]) <= light_rows)
+            run = sum(int(x) for x in row[:k])
+        split.append((k, run, sum(1 for x in row[k:] if int(x) > 0)))
+    hbase = [-1] * len(counts)
+    lrows = list(tot)
+    hcount = [0] * len(counts)
+    cum = 0
+    for s in order:
+        k, run, c = split[s]
+        if not (c > 0 and cum + c <= pcap):
+            break
+        hbase[s], lrows[s], hcount[s] = cum, run, c
+        cum += c
+    return hbase, lrows, hcount
+
+
+@dataclass
+class FloatWalkScratch:
+    """One window's device scratch of the float K3, reused by every
+    window of a call: ``ints`` int32 (rows, first sorted
+    position and chunks with rows before it of each (slot, chunk) ``[3,
+    A, Kw]``, the per-slot table ``[6A + 2]``, the heavy pairs
+    ``[pcap]``), the window's active
+    rows in sorted order, column-major over ``R = float_walk_rows(window,
+    A)`` positions (``sbins [G, R]`` uint8, their bins; ``svals [C, R]``
+    int32, their bf16 bits with the chunk in the high half) and the heavy
+    pairs' chunk partials ``partial [pcap, C, B, G]`` f32.  Every cell
+    read is written first (the walks read past a run's end only the rows
+    they ignore): not cleared."""
+    ints: torch.Tensor
+    sbins: torch.Tensor
+    svals: torch.Tensor
+    partial: torch.Tensor
+
+    @classmethod
+    def empty(cls, plan: FloatWalkPlan, A: int, G: int, B: int, C: int,
+              device):
+        def t(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=device)
+        R = float_walk_rows(plan.window, A)
+        return cls(t((3 * A * plan.chunks + 6 * A + 2 + plan.pcap,),
+                     torch.int32),
+                   t((G, R), torch.uint8), t((C, R), torch.int32),
+                   t((plan.pcap, C, B, G), torch.float32))
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.__dict__.values())
+
+    def meta(self, A: int, rows: int):
+        """The per-slot table a window of ``rows`` rows left: ``(rows,
+        chunks with rows, first sorted position, first heavy pair or -1,
+        rows walked, heavy pairs)`` per slot, ``[6, A]``."""
+        kw = -(-rows // FLOAT_CHUNK)
+        return self.ints[3 * A * kw:3 * A * kw + 6 * A].view(6, A)
+
+
+def float_walk_launches(bins_t, vals, hist_leaf, inv, src, L: int, B: int,
+                        plan: FloatWalkPlan, scratch: FloatWalkScratch, acc,
+                        phase: str = "both"):
+    """The float K3 (``csrc/hist_compact_float.cu``) over every window of
+    ``plan.window`` rows, each bound to its arguments: -> one callable per
+    window (it launches the window's ``phase``, a key of
+    ``FLOAT_WALK_PHASES``, and returns the CUDA error code)."""
+    from .cuda_build import library
+    G, n_pad = bins_t.shape
+    C = vals.shape[0]
+    A = src.shape[0]
+    fn = library("hist_compact_float").lgbm_hist_compact_float
+    stream = torch.cuda.current_stream(bins_t.device).cuda_stream
+    sc = scratch
+    tensors = (bins_t, vals, hist_leaf, inv, src, acc, *sc.__dict__.values())
+    out = []
+    for w0 in range(0, n_pad, plan.window):
+        rows = min(plan.window, n_pad - w0)
+        out.append(BoundLaunch(fn, (
+            bins_t.data_ptr() + w0, n_pad, rows, G, vals.data_ptr() + 4 * w0,
+            C, hist_leaf.data_ptr() + 4 * w0, L, inv.data_ptr(),
+            src.data_ptr(), A, B, FLOAT_CHUNK, float_light_rows(rows),
+            float_dense_rows(rows), plan.pcap, plan.heavy_blocks, FLOAT_WALK_PHASES[phase],
+            sc.ints.data_ptr(), sc.sbins.data_ptr(), sc.svals.data_ptr(),
+            sc.partial.data_ptr(), acc.data_ptr(), stream), tensors))
+    return out
 
 
 def hist_route_float_launches(bins_t, vals, leaf2, inv, src, L: int, B: int,
                               plan: FloatPlan, scratch, counts, acc,
-                              leaf2_out, tabs, cat_mask):
+                              leaf2_out, tabs, cat_mask, phase: str = "both"):
     """The float K1 over every window of ``FLOAT_WINDOW`` rows, each
     bound to its arguments: -> one callable per window (it launches the
-    window's partial and fold kernels and returns the CUDA error code).
-    ``scratch`` and ``counts`` hold one window's chunk partials."""
+    window's ``phase`` of ``FLOAT_K1_PHASES`` and returns the CUDA error
+    code).  ``scratch`` and ``counts`` hold one window's chunk
+    partials."""
     from .cuda_build import library
     G, n_pad = bins_t.shape
     C = vals.shape[0]
@@ -739,8 +942,8 @@ def hist_route_float_launches(bins_t, vals, leaf2, inv, src, L: int, B: int,
             leaf2_out.data_ptr() + 4 * w0, tabs.data_ptr(), L,
             cat_mask.data_ptr(), cat_mask.shape[1], inv.data_ptr(),
             src.data_ptr(), A, B, FLOAT_CHUNK, plan.chp, plan.warps,
-            scratch.data_ptr(), counts.data_ptr(), acc.data_ptr(), stream),
-            tensors))
+            FLOAT_K1_PHASES[phase], scratch.data_ptr(), counts.data_ptr(),
+            acc.data_ptr(), stream), tensors))
     return out
 
 
@@ -759,9 +962,10 @@ def hist_route_float_raw(bins_t, vals, leaf2, active, tabs, cat_mask,
     in-memory float model is bitwise the streamed one.  Slots whose id
     is -1 collect the rows whose hist leaf is -1 (bagged out; padding
     rows carry zero values), as the TPU kernel's do.  The CUDA kernel
-    (``csrc/hist_route_float.cu``) runs over windows of
-    ``FLOAT_WINDOW`` rows chained through the carry and counts one
-    launch per window."""
+    (``csrc/hist_route_float.cu``: the float K5's partial kernel with the
+    route, then a fold with one thread per (slot, value row, bin,
+    column)) runs over windows of ``FLOAT_WINDOW`` rows chained through
+    the carry and counts one launch per window."""
     G, n_pad = bins_t.shape
     C = vals.shape[0]
     A = active.shape[0]

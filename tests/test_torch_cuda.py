@@ -323,22 +323,51 @@ def test_split_kernel_bitwise(cuda_device, case):
 
 
 FLOAT_CASES = [("hhilo", 8, "uniform"), ("hilo", 32, "uniform"),
-               ("hhilo", 32, "skewed"), ("bf16", 16, "uniform")]
+               ("hhilo", 32, "skewed"), ("bf16", 16, "uniform"),
+               ("hhilo", 16, "mixed"), ("hilo", 32, "mixed")]
+
+
+def _walk_sides(hleaf, inv, A, n_pad):
+    """Per window of ``FLOAT_WINDOW`` rows of the float K3: (slots with
+    heavy pairs, slots walked whole with rows) by its plan kernel's rule
+    (``float_walk_split``)."""
+    L = inv.shape[0] - 1
+    hl = hleaf.long()
+    sl = inv.long()[torch.where(hl >= 0, hl, torch.full_like(hl, L))]
+    plan = t_hist.float_walk_plan(n_pad, A, 1, 8, 1, L, 132)
+    out = []
+    for w0 in range(0, n_pad, plan.window):
+        rows = min(plan.window, n_pad - w0)
+        ws = sl[w0:w0 + rows]
+        ks = torch.arange(rows) // t_hist.FLOAT_CHUNK
+        counts = [[int(((ws == s) & (ks == k)).sum())
+                   for k in range(-(-rows // t_hist.FLOAT_CHUNK))]
+                  for s in range(A)]
+        hb, lrows, _ = t_hist.float_walk_split(
+            counts, t_hist.float_light_rows(rows),
+            t_hist.float_dense_rows(rows), plan.pcap)
+        out.append((sum(h >= 0 for h in hb),
+                    sum(h < 0 and n > 0 for h, n in zip(hb, lrows))))
+    return out
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode,A,wave", FLOAT_CASES,
                          ids=[f"{m}-{a}-{w}" for m, a, w in FLOAT_CASES])
 def test_float_k1_k3_kernels_bitwise(cuda_device, monkeypatch, mode, A, wave):
-    """The float K1 (over windows of 8,192 rows chained through the
-    carry) and the float K3 (its walk in several rounds of chunks) against their plain versions on CPU copies,
-    compared by bit pattern, into a carry with -0.0 cells; on the card
-    the float K1 is bitwise K2 followed by the float K5, and the float
-    K3 bitwise the float K5 on its non-negative slots (its -1 slots keep
-    the carry)."""
+    """The float K1 and the float K3 (each over windows of 8,192 rows
+    chained through the carry) against their plain versions on CPU
+    copies, compared by bit pattern, into a carry with -0.0 cells; on the
+    card the float K1 is bitwise K2 followed by the float K5, and the
+    float K3 bitwise the float K5 on its non-negative slots (its -1 slots
+    keep the carry).  A mixed wave gives two slots most rows (about 1,400
+    and 300 a chunk) and the others a few, so every window of the float
+    K3 has heavy slots (chunk partials, folded) and light ones
+    (walked)."""
     monkeypatch.setattr(t_hist, "FLOAT_WINDOW", 8192)
-    # 40,000 rows: 20 chunks, more than a walk block of the float K3
-    # takes in one round
+    # the walk budget the mixed wave is built around
+    monkeypatch.setattr(t_hist, "FLOAT_LIGHT_ROWS_PER_CHUNK", 64)
+    # 40,000 rows: 20 chunks in 5 windows
     dd, leaf2, tabs, cat, _, rng = _inputs(seed=A + len(mode), n=40000)
     g = torch.as_tensor(rng.normal(size=dd.num_data).astype(np.float32))
     h = torch.as_tensor(rng.uniform(0.01, 0.25, size=dd.num_data)
@@ -351,6 +380,19 @@ def test_float_k1_k3_kernels_bitwise(cuda_device, monkeypatch, mode, A, wave):
         leaf2 = torch.where(leaf2 >= 0, active[0], leaf2).contiguous()
         tabs = tabs.clone()
         tabs[t_route.T_SEL, active[0]] = 0
+    if wave == "mixed":
+        # 70% of the rows in leaf active[0], 15% in active[1], neither
+        # split by the wave; the rest where they were
+        hv = active[:2].clone()
+        pick = torch.as_tensor(rng.rand(dd.num_data))
+        row = leaf2[:, :dd.num_data]
+        for leaf, p0, p1 in ((hv[0], 0.0, 0.7), (hv[1], 0.7, 0.85)):
+            take = (pick >= p0) & (pick < p1)
+            row[0] = torch.where(take, leaf, row[0])
+            row[1] = torch.where(take & (row[1] >= 0), leaf, row[1])
+        leaf2 = leaf2.contiguous()
+        tabs = tabs.clone()
+        tabs[t_route.T_SEL, hv.long()] = 0
     B = t_hist.bin_stride(dd.group_max_bins)
 
     def bits(t):
@@ -382,7 +424,14 @@ def test_float_k1_k3_kernels_bitwise(cuda_device, monkeypatch, mode, A, wave):
 
     hleaf = rl2[1].contiguous()
     act3 = torch.full((64 if A < 32 else 128,), -1, dtype=torch.int32)
-    act3[:30] = torch.as_tensor(rng.choice(40, 30, replace=False)).int()
+    if wave == "mixed":
+        rest = [x for x in rng.permutation(40) if x not in hv.tolist()]
+        act3[:30] = torch.as_tensor(hv.tolist() + rest[:28]).int()
+        inv3, _ = t_hist.slot_tables(act3, L, collect_unbagged=False)
+        sides = _walk_sides(hleaf, inv3, act3.shape[0], dd.n_pad)
+        assert len(sides) == 5 and all(h > 0 and n > 0 for h, n in sides)
+    else:
+        act3[:30] = torch.as_tensor(rng.choice(40, 30, replace=False)).int()
     if wave == "skewed":
         hleaf = torch.where(hleaf >= 0, act3[0], hleaf).contiguous()
     acc3 = carry(act3.shape[0])
@@ -391,7 +440,7 @@ def test_float_k1_k3_kernels_bitwise(cuda_device, monkeypatch, mode, A, wave):
     k3 = t_compact.hist_compact_float_raw(*cu3[:4], L, dd.group_max_bins,
                                           cu3[4].clone())
     torch.cuda.synchronize()
-    assert t_compact.hist_compact_float_raw.launches == n0 + 1
+    assert t_compact.hist_compact_float_raw.launches == n0 + 5   # 5 windows
     ref3 = t_compact.hist_compact_float_raw(dd.bins_t, vals, hleaf, act3, L,
                                             dd.group_max_bins, acc3.clone())
     assert torch.equal(bits(k3), bits(ref3))

@@ -714,21 +714,105 @@ def test_float_k1_k3_plain_are_route_and_k5(mode):
 
 @pytest.mark.parametrize("B", [8, 64, 128, 256])
 def test_compact_float_walk_block_fits(B):
-    """The float K3's walk block: as many warps (one chunk tile each) as
-    a block's shared memory holds beside the totals' tile and a flag per
-    warp, up to the cap; its scratch holds the sort's counts and
-    positions per (slot, chunk), the bins of each row 4 a word and bf16
-    values."""
-    from lightgbm_tpu_torch.ops.compact import (
-        COMPACT_FLOAT_MAX_WARPS, CompactFloatScratch,
-        compact_float_walk_smem, compact_float_walk_warps)
-    W = compact_float_walk_warps(B)
-    assert 1 <= W <= COMPACT_FLOAT_MAX_WARPS
-    assert compact_float_walk_smem(W, B) <= t_hist.SMEM_BLOCK_MAX
-    if W < COMPACT_FLOAT_MAX_WARPS:
-        assert compact_float_walk_smem(W + 1, B) > t_hist.SMEM_BLOCK_MAX
-    sc = CompactFloatScratch.empty(5 * t_hist.FLOAT_CHUNK + 100, 128, 28, 5,
-                                   "cpu")
-    assert sc.counts.shape == (128, 6) and sc.offs.shape == (128, 6)
-    assert sc.sbins.shape == (5 * t_hist.FLOAT_CHUNK + 100, 7)
-    assert sc.svals.shape == (5, 5 * t_hist.FLOAT_CHUNK + 100)
+    """The float K3's blocks fit a block's shared memory: a light walk's
+    warp holds an int4 (total, partial, chunk) per cell of its [B][32]
+    lanes, a heavy-partial block a [B][32] float tile per warp; the fill
+    block per-warp slot counts, a chunk's rows and 32 staged columns.  The window's scratch holds the
+    sort's counts, positions and ranks per (slot, chunk), the per-slot
+    table, the heavy pairs, each active row's bins (4 a word) and packed
+    values, and ``pcap`` chunk partials."""
+    n_pad, A, G, C, L = 5 * t_hist.FLOAT_CHUNK + 100, 128, 28, 5, 255
+    plan = t_hist.float_walk_plan(n_pad, A, G, B, C, L, 132)
+    assert plan.light_smem == B * 32 * 16 <= t_hist.SMEM_BLOCK_MAX
+    assert (plan.heavy_smem == t_hist.FLOAT_HEAVY_WARPS * B * 32 * 4
+            <= t_hist.SMEM_BLOCK_MAX)
+    assert plan.fill_smem <= t_hist.SMEM_BLOCK_MAX
+    assert plan.count_smem == A * 4
+    assert plan.window == n_pad and plan.chunks == 6
+    assert plan.pcap == t_hist.FLOAT_HEAVY_SLOTS * 6
+    sc = t_hist.FloatWalkScratch.empty(plan, A, G, B, C, "cpu")
+    assert sc.ints.shape == (3 * A * 6 + 6 * A + 2 + plan.pcap,)
+    # every slot's run padded to 16 positions, 16-byte aligned columns,
+    # and a batch of slack past the last run
+    R = t_hist.float_walk_rows(n_pad, A)
+    assert R % 16 == 0 and R >= n_pad + 15 * A + t_hist.FLOAT_WALK_BATCH
+    assert sc.sbins.shape == (G, R) and sc.sbins.dtype == torch.uint8
+    assert sc.svals.shape == (C, R) and sc.svals.dtype == torch.int32
+    assert sc.partial.shape == (plan.pcap, C, B, G)
+    assert sc.meta(A, n_pad).shape == (6, A)
+
+
+@pytest.mark.parametrize("mode", ["hhilo", "hilo"])
+def test_float_walk_scratch_bounded(mode):
+    """At 20M rows and 128 slots (the in-memory 255-leaf waves) the float
+    K3's scratch is one window's, the same as at one window of rows:
+    it does not grow with rows x slots, and stays a small part of the
+    4 GiB the 20M in-memory runs may peak at."""
+    C = t_hist.value_cols(mode)
+    G, B, L = 28, 64, 255
+    sizes = {}
+    for n_pad in (t_hist.FLOAT_WINDOW, 20_000_000, 40_000_000):
+        plan = t_hist.float_walk_plan(n_pad, 128, G, B, C, L, 132)
+        assert plan.window == t_hist.FLOAT_WINDOW
+        sc = t_hist.FloatWalkScratch.empty(plan, 128, G, B, C, "meta")
+        sizes[n_pad] = sc.nbytes
+    assert len(set(sizes.values())) == 1
+    assert sizes[20_000_000] < 400 << 20
+    # the heavy pairs' partials are at most FLOAT_HEAVY_SLOTS slots' worth
+    plan = t_hist.float_walk_plan(20_000_000, 128, G, B, C, L, 132)
+    assert plan.pcap == t_hist.FLOAT_HEAVY_SLOTS * plan.chunks
+    assert plan.chunks == t_hist.FLOAT_WINDOW // t_hist.FLOAT_CHUNK
+
+
+def test_float_walk_windows_and_threshold():
+    """The float K3's windows of ``FLOAT_WINDOW`` rows (the last one
+    shorter) and each window's walk budget,
+    ``FLOAT_LIGHT_ROWS_PER_CHUNK`` rows per chunk of that window; the plan refuses waves it cannot hold."""
+    W, ch = t_hist.FLOAT_WINDOW, t_hist.FLOAT_CHUNK
+    plan = t_hist.float_walk_plan(2 * W + 8, 64, 28, 64, 4, 255, 132)
+    assert plan.window == W and plan.chunks == W // ch
+    assert plan.heavy_blocks == 132 * t_hist.FLOAT_HEAVY_BLOCKS_PER_SM
+    rpc = t_hist.FLOAT_LIGHT_ROWS_PER_CHUNK
+    assert t_hist.float_light_rows(W) == rpc * (W // ch)
+    assert t_hist.float_light_rows(8) == rpc
+    assert t_hist.float_light_rows(ch + 4) == 2 * rpc
+    small = t_hist.float_walk_plan(4096, 8, 3, 8, 3, 7, 132)
+    assert small.window == 4096 and small.chunks == 2
+    assert small.heavy_blocks == -(-small.pcap * 3 // 4)
+    with pytest.raises(ValueError, match="slots"):
+        t_hist.float_walk_plan(4096, t_hist.FLOAT_WALK_MAX_SLOTS + 1, 3, 8,
+                               3, 7, 132)
+    with pytest.raises(ValueError, match="shared memory"):
+        t_hist.float_walk_plan(4096, 8, 3, 512, 3, 7, 132)
+
+
+@pytest.mark.parametrize("case", ["budget", "dense", "cap", "ties", "empty"])
+def test_float_walk_split_rule(case):
+    """The float K3 plan kernel's split (its host twin): a slot with more
+    than ``light_rows`` rows keeps its first chunks up to that many rows
+    for the walk (none from ``dense_rows`` rows on) and gives its later
+    chunks with rows to partials, whose
+    pairs are numbered on from the previous slot's, largest slots first
+    and ties by slot, while they fit ``pcap``; the rest are walked
+    whole.  -> ``(hbase, lrows, hcount)``."""
+    f = t_hist.float_walk_split
+    if case == "budget":
+        # slot 1 (9 rows, first): 2 + 3 rows fit 5, chunk 3 goes heavy;
+        # slot 2: its first chunk alone exceeds 5, so its 3 chunks with
+        # rows go heavy, numbered after slot 1's; slot 0 fits
+        assert f([[1, 1, 1, 0], [2, 3, 0, 4], [6, 0, 1, 1]], 5, 99, 10) == \
+            ([-1, 0, 1], [3, 5, 0], [0, 1, 3])
+    elif case == "dense":
+        # slot 1 reaches the dense rows: all its chunks with rows go heavy
+        assert f([[1, 1, 1, 0], [2, 3, 0, 4], [6, 0, 1, 1]], 5, 9, 10) == \
+            ([-1, 0, 3], [3, 0, 0], [0, 3, 3])
+    elif case == "cap":
+        # the largest slot's 4 pairs fit, the next one's 3 would not: it
+        # and every smaller slot are walked whole
+        assert f([[9, 9, 9, 9], [9, 9, 9, 0], [6, 6, 0, 0]], 8, 99, 4) == \
+            ([0, -1, -1], [0, 27, 12], [4, 0, 0])
+    elif case == "ties":
+        assert f([[4, 4], [4, 4]], 4, 99, 10) == ([0, 1], [4, 4], [1, 1])
+    else:
+        assert f([[0, 0], [0, 0]], 0, 0, 10) == ([-1, -1], [0, 0], [0, 0])
+        assert f([], 4, 8, 10) == ([], [], [])

@@ -4,31 +4,41 @@ against the kernels of a parent tree.
 
     python3 tools/hist_ab.py --quick [--out FILE]
     python3 tools/hist_ab.py --parent DIR [--out FILE]
+    python3 tools/hist_ab.py --sweep [--out FILE]
 
 ``--quick``: print what ``ptxas -v`` reports for every kernel source of
 this tree (registers, shared memory, spills) and what ``cuobjdump -sass``
-finds in each library (shared atomics by opcode, fused multiply-adds;
-the split scan must hold no more of them than its build with
+finds in each library (shared atomics by opcode, float atomics of any
+space, fused multiply-adds; the float K1 and K3 must hold no float
+atomic; the split scan must hold no more FFMAs than its build with
 ``-fmad=false``: its sums are held bitwise to the reference's rounded
 adds and products), then run the kernel phases of
 ``chip_smoke.py`` (every kernel once at its path's shapes, held bitwise
 against its plain version, and timed) and stop.
 
+``--sweep``: time this tree's float K3 at the waves of ``chip_smoke.py``'s
+phase 2b with each of several walk budgets
+(``FLOAT_LIGHT_ROWS_PER_CHUNK``), which must all give the same bits.
+
 ``--parent DIR``: ``DIR`` holds a checkout of the parent tree (only its
 ``lightgbm_tpu_torch/csrc`` is read).  Its sources are built with
 ``nvcc`` into a temporary directory and loaded with this tree's C
-interface; the parent's split kernel takes blocks of at most
-``PARENT_SPLIT_THREADS`` threads.  At the shapes ``chip_smoke.py`` uses,
-each kernel of both trees runs once on the same inputs (results must be
-bitwise equal), then is timed in turns: parent, change, change, parent
-(the split scan also as launches captured in a CUDA graph).  Then the
-small-data path of ``chip_smoke.py`` (``train.conf`` on 65,536 rows with
-its valid set and early stopping) and its 20,000,000-row hhilo stream
-train with the parent's kernels and with this tree's, in the same
-order, and the four digests of each must be equal.  Prints a summary
-and, with ``--out``, writes the results as one JSON object; times are
-means over back-to-back launches (warm), on the card named in the
-output.
+interface, or, for the float K1 and K3 of a parent without
+``hist_float_walk.cuh``, with theirs before it (``WHOLE_CALL_FLOAT``),
+launched the way that parent's wrappers launched them; the parent's
+split kernel takes blocks of at most ``PARENT_SPLIT_THREADS`` threads.
+At the shapes ``chip_smoke.py`` uses (the float K1 and K3 at every wave
+of its phase 2b), each kernel of both trees runs once on the same
+inputs (results must be bitwise equal, float ones by bit pattern), then
+is timed in turns: parent, change, change, parent (the split scan also
+as launches captured in a CUDA graph).  Then the small-data path of
+``chip_smoke.py`` (``train.conf`` on 65,536 rows with its valid set and
+early stopping), its 20,000,000-row hhilo stream and those rows trained
+in memory with the headline's 255 leaves (the float K1 and K3) train
+with the parent's kernels and with this tree's, in the same order, and
+the four digests of each must be equal.  Prints a summary and, with
+``--out``, writes the results as one JSON object; times are means over
+back-to-back launches (warm), on the card named in the output.
 """
 from __future__ import annotations
 
@@ -51,9 +61,25 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from lightgbm_tpu_torch.ops import cuda_build  # noqa: E402
 
-# the parent's split kernel: one block of at most 256 threads per leaf
-PARENT_SPLIT_THREADS = 256
+# the parent's split kernel: blocks of at most this many threads (a warp
+# per feature since PR 5; a parent before it took 256)
+PARENT_SPLIT_THREADS = 1024
 STREAM_G = cs.STREAM_FEATURES
+# the float K1 and K3 before hist_float_walk.cuh: K1 the float K5's
+# partial and fold kernels over windows of FLOAT_WINDOW rows (its partial
+# kernel's plan: ops/histogram.py float_plan), K3 one call of a sort by
+# slot and a walk of at most 12 warps a block
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+WHOLE_CALL_FLOAT = {
+    "hist_route_float": {
+        "lgbm_hist_route_float": [_P, _LL, _LL, _I, _P, _I, _P, _P, _P, _I,
+                                  _P, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+                                  _P, _P, _P]},
+    "hist_compact_float": {
+        "lgbm_hist_compact_float": [_P, _LL, _I, _P, _I, _P, _I, _P, _P, _I,
+                                    _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]},
+}
+WHOLE_CALL_K3_MAX_WARPS = 12
 
 
 def _sass(so: str) -> str:
@@ -82,7 +108,7 @@ def ptxas_report() -> tuple:
         procs.append((name, so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     lines = []
-    ffma = {}
+    ffma, fatom = {}, {}
     for name, so, p in procs:
         out, _ = p.communicate()
         lines += [f"{name}: {ln}" for ln in out.decode().splitlines()
@@ -92,22 +118,35 @@ def ptxas_report() -> tuple:
         ops = {}
         for op in re.findall(r"\b(ATOMS\.[A-Z0-9.]+)", dump):
             ops[op] = ops.get(op, 0) + 1
-        ffma[os.path.basename(so)] = len(re.findall(r"\bFFMA\b", dump))
-        lines.append(f"{os.path.basename(so)}: shared atomics {ops}, FFMA "
-                     f"{ffma[os.path.basename(so)]}")
+        base = os.path.basename(so)
+        ffma[base] = len(re.findall(r"\bFFMA\b", dump))
+        # float atomics of any space: ATOMS/ATOMG/ATOM/RED on F16-F64
+        fatom[base] = re.findall(
+            r"\b((?:ATOMS|ATOMG|ATOM|RED)\.[A-Z0-9.]*\bB?F(?:16|32|64)\b"
+            r"[A-Z0-9.]*)", dump)
+        lines.append(f"{base}: shared atomics {ops}, float atomics "
+                     f"{len(fatom[base])}, FFMA {ffma[base]}")
     shutil.rmtree(tmp, ignore_errors=True)
     ok = ffma["split.so"] == ffma["split-nofma.so"]
     lines.append(f"split scan: FFMA {ffma['split.so']} with contraction on, "
                  f"{ffma['split-nofma.so']} with -fmad=false: "
                  f"{'nothing contracted' if ok else 'CONTRACTED'}")
-    return "\n".join(lines), ok
+    floats = {n: fatom[f"{n}.so"] for n in ("hist_route_float",
+                                            "hist_compact_float")}
+    lines.append(f"float K1/K3 float atomics: {floats}")
+    return "\n".join(lines), ok and not any(floats.values())
 
 
-def build_parent(parent: str, out_dir: str) -> dict:
-    """Build the parent's kernel sources: -> name -> library, loaded
-    with this tree's C interface.  A library the parent does not have
-    yet is left out (both sides then launch this tree's)."""
+def build_parent(parent: str, out_dir: str) -> tuple:
+    """Build the parent's kernel sources: -> (name -> library, whether
+    its float K1 and K3 take the whole-call interface).  Libraries are
+    loaded with this tree's C interface or that one.  A library the
+    parent does not have yet is left out (both sides then launch this
+    tree's)."""
     csrc = os.path.join(parent, "lightgbm_tpu_torch", "csrc")
+    whole = not os.path.exists(os.path.join(csrc, "hist_float_walk.cuh"))
+    interfaces = dict(cuda_build.LIBRARIES,
+                      **(WHOLE_CALL_FLOAT if whole else {}))
     procs = []
     for name in cuda_build.LIBRARIES:
         if not os.path.exists(os.path.join(csrc, f"{name}.cu")):
@@ -123,30 +162,127 @@ def build_parent(parent: str, out_dir: str) -> dict:
         if p.returncode:
             raise RuntimeError(f"parent {name}.cu: {out.decode()}")
         lib = ctypes.CDLL(path)
-        for fn, argtypes in cuda_build.LIBRARIES[name].items():
+        for fn, argtypes in interfaces[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
         libs[name] = lib
-    return libs
+    return libs, whole
 
 
 @contextlib.contextmanager
-def kernels_of(libs: dict, split_threads: int):
+def kernels_of(libs: dict, split_threads: int, whole_float: bool = False):
     """Launch through ``libs`` (name -> library) in place of the loaded
-    ones, the split scan with blocks of at most ``split_threads``."""
-    from lightgbm_tpu_torch.ops import split_kernel
+    ones, the split scan with blocks of at most ``split_threads``; with
+    ``whole_float`` the float K1 and K3 through the wrappers of the
+    whole-call interface."""
+    from lightgbm_tpu_torch.ops import compact, histogram, split_kernel
     saved = dict(cuda_build._loaded)
     launch = split_kernel.split_scan_launch
+    k1, k3 = histogram.hist_route_float_raw, compact.hist_compact_float_raw
     cuda_build._loaded.update(libs)
     split_kernel.split_scan_launch = functools.partial(launch,
                                                        threads=split_threads)
+    if whole_float:
+        histogram.hist_route_float_raw = functools.partial(whole_k1_raw, k1)
+        compact.hist_compact_float_raw = functools.partial(whole_k3_raw, k3)
     try:
         yield
     finally:
         cuda_build._loaded.clear()
         cuda_build._loaded.update(saved)
         split_kernel.split_scan_launch = launch
+        histogram.hist_route_float_raw = k1
+        compact.hist_compact_float_raw = k3
+
+
+def whole_k1_windows(lib, bins_t, vals, leaf2, inv, src, L, B, acc,
+                     leaf2_out, tabs, cat):
+    """The whole-call float K1 over windows of ``FLOAT_WINDOW`` rows: ->
+    one callable per window."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (
+        FLOAT_CHUNK, FLOAT_WINDOW, BoundLaunch, float_plan, float_scratch)
+    G, n_pad = bins_t.shape
+    C, A = vals.shape[0], src.shape[0]
+    plan = float_plan(A, B, C)
+    part, counts = float_scratch(min(n_pad, FLOAT_WINDOW), A, G, B, C,
+                                 bins_t.device)
+    stream = torch.cuda.current_stream(bins_t.device).cuda_stream
+    tensors = (bins_t, vals, leaf2, inv, src, part, counts, acc, leaf2_out,
+               tabs, cat)
+    return [BoundLaunch(lib.lgbm_hist_route_float, (
+        bins_t.data_ptr() + w0, n_pad, min(FLOAT_WINDOW, n_pad - w0), G,
+        vals.data_ptr() + 4 * w0, C, leaf2.data_ptr() + 4 * w0,
+        leaf2_out.data_ptr() + 4 * w0, tabs.data_ptr(), L, cat.data_ptr(),
+        cat.shape[1], inv.data_ptr(), src.data_ptr(), A, B, FLOAT_CHUNK,
+        plan.chp, plan.warps, part.data_ptr(), counts.data_ptr(),
+        acc.data_ptr(), stream), tensors)
+        for w0 in range(0, n_pad, FLOAT_WINDOW)]
+
+
+def whole_k3_call(lib, bins_t, vals, hist_leaf, inv, src, L, B, acc):
+    """The whole-call float K3 (its sort and walk), bound: -> a
+    callable."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (FLOAT_CHUNK, SMEM_BLOCK_MAX,
+                                                  BoundLaunch)
+    G, n_pad = bins_t.shape
+    C, A = vals.shape[0], src.shape[0]
+    dev = bins_t.device
+    K = -(-n_pad // FLOAT_CHUNK)
+    warps = next(w for w in range(WHOLE_CALL_K3_MAX_WARPS, 0, -1)
+                 if ((w + 1) * B * 32 + w) * 4 <= SMEM_BLOCK_MAX)
+    counts = torch.empty((A, K), dtype=torch.int32, device=dev)
+    offs = torch.empty_like(counts)
+    sbins = torch.empty((n_pad, -(-G // 4)), dtype=torch.int32, device=dev)
+    svals = torch.empty((C, n_pad), dtype=torch.int16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return BoundLaunch(lib.lgbm_hist_compact_float, (
+        bins_t.data_ptr(), n_pad, G, vals.data_ptr(), C, hist_leaf.data_ptr(),
+        L, inv.data_ptr(), src.data_ptr(), A, B, FLOAT_CHUNK, warps, 0,
+        counts.data_ptr(), offs.data_ptr(), sbins.data_ptr(),
+        svals.data_ptr(), acc.data_ptr(), stream),
+        (bins_t, vals, hist_leaf, inv, src, acc, counts, offs, sbins, svals))
+
+
+def whole_k1_raw(counter, bins_t, vals, leaf2, active, tabs, cat_mask,
+                 num_leaf_slots, max_bins, acc=None):
+    """``hist_route_float_raw`` on the whole-call float K1 (CUDA tensors;
+    launches counted on ``counter``)."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import bin_stride, slot_tables
+    G = bins_t.shape[0]
+    C, A, L = vals.shape[0], active.shape[0], num_leaf_slots
+    B = bin_stride(max_bins)
+    if acc is None:
+        acc = torch.zeros((A, G, B, C), device=bins_t.device)
+    inv, src = slot_tables(active, L, collect_unbagged=True)
+    leaf2_out = torch.empty_like(leaf2)
+    for f in whole_k1_windows(cuda_build.library("hist_route_float"),
+                              bins_t, vals, leaf2, inv, src, L, B, acc,
+                              leaf2_out, tabs, cat_mask):
+        cuda_build.check_launch(f(), "hist_route_float (parent)")
+        counter.launches += 1
+    return acc, leaf2_out
+
+
+def whole_k3_raw(counter, bins_t, vals, hist_leaf, active, num_leaf_slots,
+                 max_bins, acc=None):
+    """``hist_compact_float_raw`` on the whole-call float K3."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import bin_stride, slot_tables
+    G = bins_t.shape[0]
+    C, A, L = vals.shape[0], active.shape[0], num_leaf_slots
+    B = bin_stride(max_bins)
+    if acc is None:
+        acc = torch.zeros((A, G, B, C), device=bins_t.device)
+    inv, src = slot_tables(active, L, collect_unbagged=False)
+    f = whole_k3_call(cuda_build.library("hist_compact_float"), bins_t, vals,
+                      hist_leaf, inv, src, L, B, acc)
+    cuda_build.check_launch(f(), "hist_compact_float (parent)")
+    counter.launches += 1
+    return acc
 
 
 def turns(parent_fn, change_fn, reps: int, graph: bool = False) -> dict:
@@ -169,12 +305,13 @@ class Sides:
     """The parent's and this tree's libraries, and the split scan's
     block size in each."""
 
-    def __init__(self, plibs):
+    def __init__(self, plibs, whole_float: bool = False):
         self.plibs = plibs
+        self.whole_float = whole_float
         self.mine = {n: cuda_build.library(n) for n in cuda_build.LIBRARIES}
 
     def parent(self):
-        return kernels_of(self.plibs, PARENT_SPLIT_THREADS)
+        return kernels_of(self.plibs, PARENT_SPLIT_THREADS, self.whole_float)
 
     def change(self):
         from lightgbm_tpu_torch.ops.split_kernel import SPLIT_THREADS
@@ -242,6 +379,79 @@ def float_case(sides, bins_t, vals, hl, inv, src, L, B, carry):
             raise RuntimeError("launch failed")
         torch.cuda.synchronize()
         return torch.equal(out_c.view(torch.int32), out_p.view(torch.int32))
+    return parent, change, equal
+
+
+def float_k1_case(sides, dd, vals, leaf2, inv, src, L, B, tabs, cat):
+    """The float K1 of both trees on the same inputs, every window of a
+    call: -> (parent, change, equal); equal compares the sums by bit
+    pattern and leaf2'."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (
+        FLOAT_WINDOW, float_plan, float_scratch, hist_route_float_launches)
+    G, n_pad = dd.bins_t.shape
+    C, A = vals.shape[0], src.shape[0]
+
+    def make(whole):
+        acc = torch.zeros((A, G, B, C), device=dd.device)
+        lo = torch.empty_like(leaf2)
+        if whole:
+            fns = whole_k1_windows(sides.plibs["hist_route_float"],
+                                   dd.bins_t, vals, leaf2, inv, src, L, B,
+                                   acc, lo, tabs, cat)
+        else:
+            part, counts = float_scratch(min(n_pad, FLOAT_WINDOW), A, G, B,
+                                         C, dd.device)
+            fns = hist_route_float_launches(dd.bins_t, vals, leaf2, inv, src,
+                                            L, B, float_plan(A, B, C), part,
+                                            counts, acc, lo, tabs, cat)
+        return (lambda: max(f() for f in fns)), (acc, lo)
+    with sides.parent():
+        parent, p_out = make(sides.whole_float)
+    with sides.change():
+        change, c_out = make(False)
+
+    def equal():
+        if parent() or change():
+            raise RuntimeError("launch failed")
+        torch.cuda.synchronize()
+        return (cs.bits_equal(p_out[0], c_out[0])
+                and torch.equal(p_out[1], c_out[1]))
+    return parent, change, equal
+
+
+def float_k3_case(sides, dd, vals, hl, inv, src, L, B):
+    """The float K3 of both trees on the same inputs: -> (parent, change,
+    equal); equal compares the sums by bit pattern."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (
+        FloatWalkScratch, float_walk_launches, float_walk_plan)
+    G, n_pad = dd.bins_t.shape
+    C, A = vals.shape[0], src.shape[0]
+    dev = dd.device
+
+    def make(whole):
+        acc = torch.zeros((A, G, B, C), device=dev)
+        if whole:
+            fns = [whole_k3_call(sides.plibs["hist_compact_float"], dd.bins_t,
+                                 vals, hl, inv, src, L, B, acc)]
+        else:
+            plan = float_walk_plan(n_pad, A, G, B, C, L,
+                                   cuda_build.multiprocessor_count(dev))
+            fns = float_walk_launches(
+                dd.bins_t, vals, hl, inv, src, L, B, plan,
+                FloatWalkScratch.empty(plan, A, G, B, C, dev), acc)
+        return (lambda: max(f() for f in fns)), acc
+    with sides.parent():
+        parent, p_out = make(sides.whole_float)
+    with sides.change():
+        change, c_out = make(False)
+
+    def equal():
+        if parent() or change():
+            raise RuntimeError("launch failed")
+        torch.cuda.synchronize()
+        return cs.bits_equal(p_out, c_out)
     return parent, change, equal
 
 
@@ -330,6 +540,34 @@ def kernel_ab(sides) -> list:
         record("K3 hist_compact", f"headline A={A}",
                int_case(sides, "hist_compact", dd.bins_t, vals, hleaf, inv,
                         src, L, B, zero), 20)
+    # the float K1 and K3 at chip_smoke.py's phase-2b waves
+    for mode, A, bag, skew in (("hhilo", 8, 0.8, False),
+                               ("hhilo", 16, 0.8, False),
+                               ("hhilo", 32, 0.8, False),
+                               ("hilo", 32, 0.8, False),
+                               ("hhilo", 32, 1.0, True)):
+        vf = cs.float_values(dd, mode, gen)
+        leaf2, tabs, cat, active = cs.wave_inputs(dd, max(A, 8), A // 2, A,
+                                                  gen, L, bag)
+        if skew:
+            leaf2, tabs = cs.skew_wave(leaf2, tabs, int(active[0]))
+        inv, src = slot_tables(active, L, collect_unbagged=True)
+        record("float K1 hist_route_float",
+               f"headline {mode} A={A}{' skewed' if skew else ''}",
+               float_k1_case(sides, dd, vf, leaf2, inv, src, L, B, tabs, cat),
+               10)
+    for mode, A, skew in (("hhilo", 64, False), ("hhilo", 128, False),
+                          ("hilo", 128, False), ("hhilo", 128, True)):
+        vf = cs.float_values(dd, mode, gen)
+        leaf2, tabs, cat, active = cs.wave_inputs(
+            dd, 127 if A == 128 else 63, A - 2, A, gen, L, 0.8)
+        hleaf = route_plain(dd.bins_t, leaf2, tabs, cat)[1].contiguous()
+        if skew:
+            hleaf = torch.where(hleaf >= 0, active[0], hleaf).contiguous()
+        inv, src = slot_tables(active, L, collect_unbagged=False)
+        record("float K3 hist_compact_float",
+               f"headline {mode} A={A}{' skewed' if skew else ''}",
+               float_k3_case(sides, dd, vf, hleaf, inv, src, L, B), 10)
     del dd, ds, X, y
 
     Xs, ys, _, _ = cs.small_data()
@@ -389,10 +627,79 @@ def kernel_ab(sides) -> list:
     return rows
 
 
+def light_sweep(rpcs=(4, 8, 12, 16, 24, 32)) -> list:
+    """This tree's float K3 at chip_smoke.py's phase-2b waves with
+    ``FLOAT_LIGHT_ROWS_PER_CHUNK`` set to each of ``rpcs`` in turn: the
+    time of a call and its split at each; every setting must give the
+    same bits (the split only moves work between the walk and the
+    partials)."""
+    import torch
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.io.device import to_device
+    from lightgbm_tpu_torch.ops import histogram
+    from lightgbm_tpu_torch.ops.histogram import bin_stride, slot_tables
+    from lightgbm_tpu_torch.ops.route import route_plain
+    X, y = cs.headline_data()
+    ds = lgb.Dataset(X, label=y, params={"max_bin": 63}).construct()
+    dd = to_device(ds._constructed, "cuda")
+    L, B = 255, bin_stride(dd.group_max_bins)
+    G = dd.bins_t.shape[0]
+    gen = torch.Generator(device=dd.device)
+    gen.manual_seed(5)
+    rows = []
+    saved = histogram.FLOAT_LIGHT_ROWS_PER_CHUNK
+    try:
+        for mode, A, skew in (("hhilo", 64, False), ("hhilo", 128, False),
+                              ("hilo", 128, False), ("hhilo", 128, True)):
+            vf = cs.float_values(dd, mode, gen)
+            leaf2, tabs, cat, active = cs.wave_inputs(
+                dd, 127 if A == 128 else 63, A - 2, A, gen, L, 0.8)
+            hl = route_plain(dd.bins_t, leaf2, tabs, cat)[1].contiguous()
+            if skew:
+                hl = torch.where(hl >= 0, active[0], hl).contiguous()
+            inv, src = slot_tables(active, L, collect_unbagged=False)
+            C = vf.shape[0]
+            shape = f"{mode} A={A}{' skewed' if skew else ''}"
+            res, first = [], None
+            for rpc in rpcs:
+                histogram.FLOAT_LIGHT_ROWS_PER_CHUNK = rpc
+                w = cs.walk_measure(dd, vf, hl, inv, src, L, B, (A, G, B, C))
+                acc = torch.zeros((A, G, B, C), device=dd.device)
+                plan = histogram.float_walk_plan(
+                    dd.n_pad, A, G, B, C, L,
+                    cuda_build.multiprocessor_count(dd.device))
+                for f in histogram.float_walk_launches(
+                        dd.bins_t, vf, hl, inv, src, L, B, plan,
+                        histogram.FloatWalkScratch.empty(plan, A, G, B, C,
+                                                         dd.device), acc):
+                    cuda_build.check_launch(f(), "hist_compact_float")
+                torch.cuda.synchronize()
+                if first is None:
+                    first = acc
+                elif not cs.bits_equal(acc, first):
+                    raise AssertionError(f"float K3 {shape}: the walk "
+                                         f"budget changed the bits")
+                res.append(dict(rows_per_chunk=rpc, **{
+                    k: w[k] for k in ("ms", "graph_ms", "sort_ms", "walk_ms",
+                                      "fold_ms", "heavy_slots",
+                                      "light_slots", "heavy_pairs",
+                                      "walked_rows_max")}))
+            cs.log(f"sweep hist_compact_float {shape}: " + "; ".join(
+                f"{r['rows_per_chunk']}: {r['ms']:.4f} ms ({r['heavy_pairs']}"
+                f" heavy pairs, walks <= {r['walked_rows_max']} rows)"
+                for r in res))
+            rows.append(dict(kernel="hist_compact_float", shape=shape,
+                             runs=res))
+    finally:
+        histogram.FLOAT_LIGHT_ROWS_PER_CHUNK = saved
+    return rows
+
+
 def path_ab(sides, tmp: str) -> dict:
-    """The small-data path and the 20M-row hhilo stream, each trained with
-    the parent's kernels and with this tree's in turns: walls and
-    digests, which must be equal."""
+    """The small-data path, the 20M-row hhilo stream and those rows in
+    memory at 255 leaves (the float K1 and K3), each trained with the
+    parent's kernels and with this tree's in turns: walls and digests,
+    which must be equal."""
     import torch
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.config import Config
@@ -434,10 +741,28 @@ def path_ab(sides, tmp: str) -> dict:
         return (time.time() - t0, torch.cuda.max_memory_allocated() / 2**20,
                 bst.digest())
 
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.ops.compact import hist_compact_float_raw
+    t0 = time.time()
+    ds20 = store.to_binned_dataset(cfg)
+    cs.log(f"in-memory ab: dataset from the store {time.time() - t0:.1f} s")
+
+    def inmem():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        mem = GBDT(Config.from_params(cs.HEAD20_PARAMS), ds20, "cuda")
+        for _ in range(cs.STREAM_ITERS):
+            mem.train_one_iter()
+        torch.cuda.synchronize()
+        return (time.time() - t0, torch.cuda.max_memory_allocated() / 2**20,
+                mem.digest())
+
     result = {}
     for name, run, counter in (("small_data", small, find_best_splits_kernel),
                                ("stream_scale", stream,
-                                hist_active_float_raw)):
+                                hist_active_float_raw),
+                               ("inmem_20m_255", inmem,
+                                hist_compact_float_raw)):
         runs = []
         for which in ("parent", "change", "change", "parent"):
             n0 = counter.launches
@@ -459,6 +784,8 @@ def path_ab(sides, tmp: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time the float K3 at several walk budgets")
     ap.add_argument("--parent")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
@@ -474,7 +801,8 @@ def main() -> int:
         cs.log(report)
         if not no_fma:
             raise AssertionError("nvcc contracted a multiply-add in the "
-                                 "split scan")
+                                 "split scan, or a float K1/K3 library holds "
+                                 "a float atomic")
         cs.log(f"build_s {cuda_build.build_all():.2f}")
         import lightgbm_tpu_torch as lgb
         from lightgbm_tpu_torch.io.device import to_device
@@ -482,8 +810,11 @@ def main() -> int:
         int_rate = cs.int32_ops_per_s(cuda_build.multiprocessor_count(
             torch.device("cuda")))
         entries = []
+        def headline_phases(dd, vals, entries):
+            cs.kernel_phase(dd, vals, entries)
+            cs.float_kernel_phase(dd, entries)
         for data, max_bin, phase in (
-                (cs.headline_data(), 63, cs.kernel_phase),
+                (cs.headline_data(), 63, headline_phases),
                 (cs.small_data()[:2], cs.TRAIN_CONF["max_bin"],
                  lambda d, v, e: cs.small_kernel_phase(d, v, int_rate, e))):
             ds = lgb.Dataset(*data[:1], label=data[1],
@@ -496,13 +827,16 @@ def main() -> int:
         cs.stream_kernel_phase(int_rate, entries)
         torch.cuda.synchronize()
         result["kernels"] = entries
+    elif args.sweep:
+        cuda_build.build_all()
+        result["sweep"] = light_sweep()
     else:
         if not args.parent:
             ap.error("--parent DIR or --quick")
         cuda_build.build_all()
         tmp = tempfile.mkdtemp(prefix="hist_ab_")
         try:
-            sides = Sides(build_parent(args.parent, tmp))
+            sides = Sides(*build_parent(args.parent, tmp))
             result["kernels"] = kernel_ab(sides)
             result["paths"] = path_ab(sides, tmp)
         finally:
