@@ -8,7 +8,9 @@ and the script exits non-zero):
 
 1. build — compile the CUDA kernels from ``lightgbm_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel) into
-   ``lightgbm_tpu_torch/_build/``;
+   ``lightgbm_tpu_torch/_build/``, and beside them the empty kernel of
+   the launch floor (``tools/launch_floor.cu``) into a temporary
+   directory;
 2. kernels — at the headline shapes (1,000,000 rows x 28 columns,
    63 bins, 255 leaves, int8h values) run each kernel and its plain
    PyTorch version on the same CUDA inputs, at every wave width the
@@ -93,7 +95,26 @@ and the script exits non-zero):
    leaves, ``min_data_in_leaf`` 20), streamed and in memory, 2
    iterations each: equal digests, the float K1 and K3 launched in
    memory, the same memory limit.  The temporary stores are removed at
-   the end.
+   the end;
+12. serving — the bench's serving model (``bench.py`` serve legs:
+   200,000 x 28 rows, binary, 63 leaves, 100 iterations) trained with
+   counters reset (K1 and K4 must launch; at 63 leaves no wave is wider
+   than 32 slots, so K2 and K3 must not); ``serve.compile_model`` on the
+   card, a 1,048,576-row batch scored raw and binned through CUDA graphs
+   (rows/s beside an eager run and the host numpy walk): routing raw ==
+   binned on every row and == the host ``predict_leaf`` on 20,000 rows,
+   scores raw == binned and within 1 f32 ulp of the f64 host sum there;
+   a seeded 3-class forest with categorical, NaN- and zero-missing nodes
+   and stumps held to the host the same way; 300 mixed requests through
+   ``PredictionServer`` (buckets 256/1024/4096), each resolved exactly
+   once within 1 ulp, no graph captured and no batch run eagerly after
+   warmup; then ``tools/load_harness.sweep`` at 1k/5k/20k QPS for 2 s
+   each (the bench's 1k-50k for 5 s, cut), with no failure, and the same
+   sweep through a stand-in that resolves each request at submit (the
+   generator's own tail), both with the heap frozen (``gc.freeze``) so
+   that no full collection stalls them.  Rows/s,
+   compile and warm seconds, per-bucket p50/p99 and the sweep table are
+   logged beside the card's name and power limit.
 
 A path's ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
@@ -103,6 +124,7 @@ table as one JSON object, the card's name and power limit, and
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -142,6 +164,24 @@ HEAD20_PARAMS = dict(STREAM_PARAMS, num_leaves=255, min_data_in_leaf=20)
 # with rows x slots
 INMEM_PEAK_LIMIT = 4 << 30
 FLOAT_ITERS = 8
+# the bench's serving legs (bench.py:680-795 serve_leg, :797-855
+# serve_load_leg): 28 features, 200,000 training rows from seed 11, 63
+# leaves, one 1,048,576-row batch, buckets (256, 1024, 4096) with a 1 ms
+# wait, 300 mixed requests; its QPS sweep (1k/5k/20k/50k for 5 s each)
+# cut to 1k/5k/20k for 2 s each to fit the smoke's time limit
+SERVE_PARAMS = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
+                "learning_rate": 0.1, "min_data_in_leaf": 20, "verbose": -1}
+SERVE_TRAIN_ROWS = 200_000
+SERVE_ITERS = 100
+SERVE_ROWS = 1 << 20
+SERVE_REPS = 4
+SERVE_SAMPLE = 20_000
+SERVE_FOREST_ROWS = 65_536
+SERVE_BUCKETS = (256, 1024, 4096)
+SERVE_SIZES = (1, 3, 17, 100, 240, 900)
+SERVE_REQUESTS = 300
+SERVE_QPS = (1_000.0, 5_000.0, 20_000.0)
+SERVE_QPS_S = 2.0
 # memory rate of one H100 SXM (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 # float32 rate outside the tensor cores of one H100 SXM (data sheet)
@@ -199,6 +239,82 @@ def small_data(seed: int = 3):
     return X[:SMALL_ROWS], y[:SMALL_ROWS], X[SMALL_ROWS:], y[SMALL_ROWS:]
 
 
+def random_forest(seed: int, num_class: int = 3, iters: int = 12,
+                  num_leaves: int = 31, num_features: int = 10,
+                  cat_features=(8, 9)):
+    """A seeded forest of the port's ``Tree`` objects that reaches every
+    rule of the serving walk: ``num_class`` trees an iteration, stumps,
+    numerical nodes of every missing type (None, Zero, NaN) and either
+    default side, thresholds at 0 and at the zero threshold's edges, and
+    categorical nodes (value bitsets over 0-40) on ``cat_features``."""
+    import numpy as np
+    from lightgbm_tpu_torch.models.tree import Tree
+    rng = np.random.RandomState(seed)
+    trees = []
+    for _ in range(iters * num_class):
+        t = Tree(num_leaves)
+        t.leaf_value[0] = rng.normal()
+        if rng.rand() < 0.1:
+            trees.append(t)                      # a stump
+            continue
+        parent = {0: (-1, 0)}                    # leaf -> (node, side)
+        for _ in range(rng.randint(1, num_leaves)):
+            leaf = rng.randint(t.num_leaves)
+            node, new = t.num_leaves - 1, t.num_leaves
+            up, side = parent[leaf]
+            if up >= 0:
+                (t.left_child if side == 0 else t.right_child)[up] = node
+            t.left_child[node], t.right_child[node] = ~leaf, ~new
+            parent[leaf], parent[new] = (node, 0), (node, 1)
+            f = rng.randint(num_features)
+            t.split_feature[node] = t.split_feature_inner[node] = f
+            if f in cat_features:
+                cats = rng.choice(41, size=rng.randint(1, 12), replace=False)
+                words = [0] * (int(cats.max()) // 32 + 1)
+                for c in cats:
+                    words[c // 32] |= 1 << int(c % 32)
+                t.decision_type[node] = 1
+                t.threshold[node] = t.threshold_bin[node] = t.num_cat
+                t.cat_threshold.extend(words)
+                t.cat_boundaries.append(len(t.cat_threshold))
+                t.num_cat += 1
+            else:
+                t.decision_type[node] = ((rng.randint(3) << 2)
+                                         | (rng.randint(2) << 1))
+                t.threshold[node] = rng.choice(
+                    [rng.normal(), 0.0, 1e-35, -1e-35, rng.normal() * 1e-3])
+            t.leaf_value[new] = rng.normal()
+            t.num_leaves += 1
+        t.leaf_value[:t.num_leaves] *= 10.0 ** rng.uniform(-3, 1)
+        t._recompute_depth()
+        trees.append(t)
+    return trees
+
+
+def forest_rows(trees, n: int, seed: int, num_features: int = 10,
+                cat_features=(8, 9)):
+    """Rows for :func:`random_forest`: normal values with 10% NaN, 10%
+    exact zeros and some values of +-1e-36 (the zero threshold's inside),
+    +-1e-35 and each numerical threshold rounded to f32 and one f32 step
+    either side; categorical columns hold integers -3..44 (unseen and
+    negative categories included) as float32."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, num_features)).astype(np.float32)
+    thr = np.concatenate([t.threshold[:t.num_leaves - 1] for t in trees
+                          if t.num_leaves > 1]).astype(np.float32)
+    edges = np.concatenate([thr, np.nextafter(thr, np.float32(np.inf)),
+                            np.nextafter(thr, np.float32(-np.inf)),
+                            np.float32([1e-36, -1e-36, 1e-35, -1e-35])])
+    pick = rng.rand(n, num_features) < 0.2
+    X[pick] = rng.choice(edges, size=int(pick.sum()))
+    X[rng.rand(n, num_features) < 0.1] = 0.0
+    for c in cat_features:
+        X[:, c] = rng.randint(-3, 45, size=n)
+    X[rng.rand(n, num_features) < 0.1] = np.nan
+    return X
+
+
 def time_ms(fn, reps: int, warm: int = 2) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
     import torch
@@ -246,6 +362,51 @@ def graph_ms(fn, n: int = 100, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (reps * n)
+
+
+# the empty kernel of the launch floor: on no path, so built here from
+# tools/ and not from the package's csrc/
+LAUNCH_FLOOR_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tools", "launch_floor.cu")
+_launch_floor_lib = []
+
+
+def start_launch_floor_build(out_dir: str):
+    """Start ``nvcc`` on ``tools/launch_floor.cu`` with the package's
+    flags -> ``(process, library path)``; it compiles while the
+    package's kernels do."""
+    from lightgbm_tpu_torch.ops import cuda_build
+    path = os.path.join(out_dir, "liblaunch_floor.so")
+    cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", path,
+           LAUNCH_FLOOR_SRC]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT), path
+
+
+def load_launch_floor(proc, path: str) -> None:
+    """Wait for the launch-floor build and load its library."""
+    import ctypes
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed on tools/launch_floor.cu:\n"
+                           + out.decode(errors="replace"))
+    lib = ctypes.CDLL(path)
+    lib.lgbm_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.lgbm_empty.restype = ctypes.c_int
+    _launch_floor_lib.append(lib)
+
+
+def launch_floor(grid: int, block: int, dev) -> dict:
+    """An empty kernel's time at a ``grid`` x ``block`` launch, back to
+    back and in a CUDA graph (``tools/launch_floor.cu``): the floor under
+    a kernel of that launch shape."""
+    lib = _launch_floor_lib[0]
+
+    def call(stream=current_stream(dev)):
+        return lib.lgbm_empty(grid, block, stream)
+    return dict(launch_floor_ms=time_ms(call, 200),
+                launch_floor_graph_ms=graph_ms(
+                    lambda: call(current_stream(dev))))
 
 
 def bound(nbytes: float, ops: float, ops_rate: float) -> dict:
@@ -359,17 +520,20 @@ def kernel_phase(dd, vals, entries):
     moved_rows, sectors = moved_sectors(dd.bins_t, leaf2, tabs)
     b2 = bound(16 * n_pad + moved_rows + tab_bytes, n_pad, int_rate)
     sec2 = bound(16 * n_pad + 32 * sectors + tab_bytes, n_pad, int_rate)
+    floor = launch_floor(_route_grid(n_pad, dev), ROUTE_BLOCK, dev)
     entries.append(dict(
         name="route", route="cuda",
         source="lightgbm_tpu_torch/csrc/route.cu",
         replaces="lightgbm_tpu/ops/pallas_route.py:85",
         max_abs_err=0.0, ms=ms2, graph_ms=dev2, plain_ms=plain2,
         library_ms=None, moved_rows=moved_rows, sectors=sectors,
-        sector_bound_ms=sec2["bound_ms"], **b2))
+        sector_bound_ms=sec2["bound_ms"], **floor, **b2))
     log(f"kernel route: bitwise ok, {ms2:.4f} ms back to back, {dev2:.4f} "
         f"ms in a graph (plain {plain2:.3f} ms, bound {b2['bound_ms']:.4f} "
         f"ms; {moved_rows} moved rows touch {sectors} sectors: sector "
-        f"bound {sec2['bound_ms']:.4f} ms)")
+        f"bound {sec2['bound_ms']:.4f} ms; an empty kernel of its grid "
+        f"{floor['launch_floor_ms']:.4f} ms back to back, "
+        f"{floor['launch_floor_graph_ms']:.4f} ms in a graph)")
     lv = torch.randn(L, generator=gen, device=dev)
     entries.append(dict(
         name="route_values", route="cuda",
@@ -406,20 +570,7 @@ def kernel_phase(dd, vals, entries):
                                    inv, src, L, B, plan, slab, obuf), 20)
         pl = time_ms(lambda: hist_plain(dd.bins_t, vals, hleaf, inv, src, B),
                      3)
-        # the library yardstick: one int32 index_add_ over the active
-        # rows' precomputed flat cell indices
-        sl = inv.long()[torch.where(hleaf >= 0, hleaf.long(), L)]
-        rows = torch.nonzero(sl >= 0)[:, 0]
-        n_active = int(rows.numel())
-        cells = ((sl[rows][None, :] * G
-                  + torch.arange(G, device=dev)[:, None]) * B
-                 + dd.bins_t[:, rows].long()) * C           # [G, r]
-        idx = (cells[:, :, None]
-               + torch.arange(C, device=dev)[None, None, :]).reshape(-1)
-        vv = vals[:, rows].int().t()[None].expand(G, -1, -1).reshape(-1)
-        vv = vv.contiguous()
-        acc = torch.zeros(A * G * B * C, dtype=torch.int32, device=dev)
-        lib_ms = time_ms(lambda: acc.index_add_(0, idx, vv), 5)
+        n_active, lib_ms = index_add_ms(dd, vals, hleaf, inv, A, L, B)
         bd = bound(4 * n_pad + (G + C) * n_active + raw.numel() * 4
                    + (L + 1 + A) * 4, G * C * n_active, int_rate)
         k3_rows.append(dict(slots=A, ms=ms, plain_ms=pl, library_ms=lib_ms,
@@ -433,6 +584,28 @@ def kernel_phase(dd, vals, entries):
         source="lightgbm_tpu_torch/csrc/hist_compact.cu",
         replaces="lightgbm_tpu/ops/compact.py:179", max_abs_err=0.0),
         k3_rows))
+
+
+def index_add_ms(dd, vals, hleaf, inv, A: int, L: int, B: int):
+    """The library yardstick of the int32 histograms: one int32
+    ``index_add_`` of the active rows' values at their precomputed flat
+    cells (rows whose hist leaf, -1 as leaf ``L``, has a slot) ->
+    ``(active rows, ms)``."""
+    import torch
+    dev = dd.device
+    G = dd.bins_t.shape[0]
+    C = vals.shape[0]
+    sl = inv.long()[torch.where(hleaf >= 0, hleaf.long(), L)]
+    rows = torch.nonzero(sl >= 0)[:, 0]
+    cells = ((sl[rows][None, :] * G
+              + torch.arange(G, device=dev)[:, None]) * B
+             + dd.bins_t[:, rows].long()) * C               # [G, r]
+    idx = (cells[:, :, None]
+           + torch.arange(C, device=dev)[None, None, :]).reshape(-1)
+    vv = vals[:, rows].int().t()[None].expand(G, -1, -1).reshape(-1)
+    vv = vv.contiguous()
+    acc = torch.zeros(A * G * B * C, dtype=torch.int32, device=dev)
+    return int(rows.numel()), time_ms(lambda: acc.index_add_(0, idx, vv), 5)
 
 
 def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
@@ -467,14 +640,17 @@ def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
     tab_bytes = 11 * L * 4 + L * B + 4 * L
     bd = bound(20 * n_pad + moved_rows + tab_bytes, n_pad, int_rate)
     sec = bound(20 * n_pad + 32 * sectors + tab_bytes, n_pad, int_rate)
+    floor = launch_floor(_route_grid(n_pad, dev), ROUTE_BLOCK, dev)
     log(f"kernel route_values L={L} B={B} rows={dd.num_data}: bitwise ok, "
         f"{ms:.4f} ms back to back, {gms:.4f} ms in a graph (plain "
         f"{pl:.3f} ms, bound {bd['bound_ms']:.4f} ms; {moved_rows} moved "
         f"rows touch {sectors} sectors: sector bound "
-        f"{sec['bound_ms']:.4f} ms)")
+        f"{sec['bound_ms']:.4f} ms; an empty kernel of its grid "
+        f"{floor['launch_floor_ms']:.4f} ms back to back, "
+        f"{floor['launch_floor_graph_ms']:.4f} ms in a graph)")
     return dict(ms=ms, graph_ms=gms, plain_ms=pl, library_ms=None,
                 moved_rows=moved_rows, sectors=sectors,
-                sector_bound_ms=sec["bound_ms"], **bd)
+                sector_bound_ms=sec["bound_ms"], **floor, **bd)
 
 
 def k1_measure(dd, vals, A: int, n_sel: int, gen, L: int,
@@ -520,16 +696,16 @@ def k1_measure(dd, vals, A: int, n_sel: int, gen, L: int,
                  20)
     pl = time_ms(lambda: hist_route_plain(dd.bins_t, vals, leaf2, tabs,
                                           cat, inv, src, B), 3)
-    hl = ref_l2[1].long()
-    n_active = int((inv.long()[torch.where(hl >= 0, hl, L)] >= 0).sum())
+    n_active, lib_ms = index_add_ms(dd, vals, ref_l2[1], inv, A, L, B)
     moved_rows = int((tabs[4][leaf2[0].clamp(min=0).long()] != 0).sum())
     bd = bound(16 * n_pad + moved_rows + (G + C) * n_active
                + raw.numel() * 4 + tab_bytes + (L + 1 + A) * 4,
                G * C * n_active, int_rate)
     log(f"kernel hist_route A={A} B={B} rows={dd.num_data}: bitwise ok, "
-        f"{ms:.4f} ms (plain {pl:.3f} ms, bound {bd['bound_ms']:.4f} ms by "
-        f"{bd['bound_by']}, {n_active} active rows)")
-    return dict(slots=A, ms=ms, plain_ms=pl, library_ms=None,
+        f"{ms:.4f} ms (plain {pl:.3f} ms, index_add_ {lib_ms:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}, {n_active} "
+        f"active rows)")
+    return dict(slots=A, ms=ms, plain_ms=pl, library_ms=lib_ms,
                 plan=plan.__dict__, **bd)
 
 
@@ -1339,6 +1515,194 @@ def stream_paths(lgb, counters, tmp: str) -> dict:
             "inmem_20m_headline": head_mem}
 
 
+def ulp_check(what: str, got, oracle) -> float:
+    """Worst distance of f32 ``got`` from the f64 ``oracle`` in f32 ulp
+    of the oracle; raises past 1."""
+    import numpy as np
+    ulp = np.spacing(np.abs(oracle).astype(np.float32)).astype(np.float64)
+    worst = float(np.max(np.abs(np.asarray(got, np.float64) - oracle) / ulp))
+    if not worst <= 1.0:
+        raise AssertionError(f"{what}: {worst:.3f} f32 ulp from the f64 "
+                             f"host sum")
+    return worst
+
+
+def host_scores(trees, X, K: int = 1):
+    """The f64 sequential host sum (tree t into class t % K)."""
+    import numpy as np
+    X64 = np.asarray(X, np.float64)
+    out = np.zeros((X.shape[0], K))
+    for i, t in enumerate(trees):
+        out[:, i % K] += t.predict_batch(X64)
+    return out if K > 1 else out[:, 0]
+
+
+def serve_phase(lgb, counters, card: str) -> dict:
+    """Phase 12: the bench's serving legs through the port on the card.
+    -> the training run's kernel launches."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.models.tree import predict_leaf
+    from lightgbm_tpu_torch.serve import (PredictionServer, compile_model,
+                                          compile_trees)
+    from tools.load_harness import sweep
+    F = HEADLINE_FEATURES
+    rng = np.random.RandomState(11)
+    X = rng.normal(size=(SERVE_TRAIN_ROWS, F)).astype(np.float32)
+    y = (X[:, 0] * 2 + X[:, 1] - X[:, 2]
+         + rng.normal(scale=1.0, size=SERVE_TRAIN_ROWS) > 0).astype(
+             np.float32)
+    ds = lgb.Dataset(X, label=y, params={"max_bin": SERVE_PARAMS["max_bin"]})
+    bst, _, launches = train_path(lgb, "serve model", counters,
+                                  SERVE_PARAMS, ds, SERVE_ITERS)
+    del X, ds
+    # 63 leaves: every wave has at most 32 slots, so the fused K1 builds
+    # every histogram and K2 and K3 have no wave to run
+    missing = [k for k in ("hist_route", "route_values") if launches[k] <= 0]
+    ran = [k for k in ("route", "hist_compact") if launches[k] != 0]
+    if missing or ran:
+        raise AssertionError(f"serve model: kernels not launched {missing}, "
+                             f"off its plan {ran}")
+    models = bst._gbdt.models
+
+    t0 = time.time()
+    cm = compile_model(bst)
+    compile_s = time.time() - t0
+    if cm.device.type != "cuda" or not cm.has_binned:
+        raise AssertionError(f"compiled on {cm.device}, binned "
+                             f"{cm.has_binned}")
+    Xq = rng.normal(size=(SERVE_ROWS, F)).astype(np.float32)
+    t0 = time.time()
+    bins = cm.bin_rows(Xq)
+    bin_s = time.time() - t0
+    t0 = time.time()
+    cm.warm([SERVE_ROWS])
+    cm.warm([SERVE_ROWS], binned=True)
+    torch.cuda.synchronize()
+    warm_big_s = time.time() - t0
+
+    def rows_per_s(fn):
+        out = fn()
+        t0 = time.time()
+        for _ in range(SERVE_REPS):
+            fn()
+        return out, SERVE_ROWS * SERVE_REPS / (time.time() - t0)
+    raw, raw_rate = rows_per_s(lambda: cm.predict_raw(Xq))
+    braw, bin_rate = rows_per_s(lambda: cm.predict_raw(bins, binned=True))
+    cold = compile_model(bst)
+    _, eager_rate = rows_per_s(lambda: cold.predict_raw(Xq))
+    if cm.eager_calls or cm.captures != 2 or not cold.eager_calls:
+        raise AssertionError(f"graphs: {cm.captures} captures, "
+                             f"{cm.eager_calls} eager calls")
+    S = SERVE_SAMPLE
+    t0 = time.time()
+    host = host_scores(models, Xq[:S])
+    host_rate = S / (time.time() - t0)
+    if raw.shape != (SERVE_ROWS,) or not np.isfinite(raw).all():
+        raise AssertionError("served scores are not finite [n] values")
+    if not np.array_equal(raw, braw):
+        raise AssertionError("binned scores != raw scores")
+    worst = max(ulp_check("serve raw", raw[:S], host),
+                ulp_check("serve binned", braw[:S], host))
+    leaves = cm.leaf_indices(Xq)
+    if not np.array_equal(leaves, cm.leaf_indices(bins, binned=True)):
+        raise AssertionError("binned routing != raw routing")
+    if not np.array_equal(leaves[:S], predict_leaf(models, Xq[:S])):
+        raise AssertionError("device routing != host predict_leaf")
+    del leaves, bins, cold
+    log(f"serve ({card}): {len(models)} trees depth {cm.pack.max_depth}; "
+        f"{SERVE_ROWS} rows: raw {raw_rate:.1f} rows/s, binned "
+        f"{bin_rate:.1f} rows/s (graphs), raw eager {eager_rate:.1f} "
+        f"rows/s, host anchor {host_rate:.1f} rows/s on {S} rows; compile "
+        f"{compile_s:.3f} s, bin_rows {bin_s:.3f} s, warm of the "
+        f"{SERVE_ROWS}-row bucket raw + binned {warm_big_s:.3f} s; routing "
+        f"bit-exact (all rows raw == binned, {S} == host), worst "
+        f"{worst:.3f} ulp")
+
+    # a seeded 3-class forest: categorical, NaN- and zero-missing, stumps
+    trees = random_forest(7)
+    Xf = forest_rows(trees, SERVE_FOREST_ROWS, 8)
+    fm = compile_trees(trees, num_class=3, device="cuda")
+    fm.warm([SERVE_FOREST_ROWS])
+    got = fm.predict_raw(Xf)
+    if not np.array_equal(fm.leaf_indices(Xf), predict_leaf(trees, Xf)):
+        raise AssertionError("forest: device routing != host predict_leaf")
+    fworst = ulp_check("forest", got, host_scores(trees, Xf, 3))
+    log(f"serve forest ({card}): {len(trees)} trees, 3 classes, "
+        f"{sum(t.num_cat for t in trees)} categorical nodes, "
+        f"{sum(t.num_leaves == 1 for t in trees)} stumps, "
+        f"{SERVE_FOREST_ROWS} rows: routing bit-exact, worst {fworst:.3f} "
+        f"ulp")
+
+    # the async server: 300 mixed requests, then the open-loop sweep
+    t0 = time.time()
+    srv = PredictionServer(cm, max_batch=max(SERVE_BUCKETS), max_wait_ms=1.0,
+                           buckets=SERVE_BUCKETS, min_bucket=SERVE_BUCKETS[0],
+                           raw_score=True)
+    warm_s = time.time() - t0
+    done = np.zeros(SERVE_REQUESTS, np.int64)
+    try:
+        futs, spans = [], []
+        for i in range(SERVE_REQUESTS):
+            off = (37 * i) % (S - 1024)
+            k = SERVE_SIZES[i % len(SERVE_SIZES)]
+            fu = srv.submit(Xq[off:off + k])
+            fu.add_done_callback(lambda f, i=i: done.__setitem__(
+                i, done[i] + 1))
+            futs.append(fu)
+            spans.append((off, k))
+        for fu, (off, k) in zip(futs, spans):
+            ulp_check("server", np.atleast_1d(fu.result(120)),
+                      host[off:off + k])
+        st = srv.stats()
+        pool = rng.normal(size=(8192, F)).astype(np.float32)
+        # a full collection walks this process's whole heap for tens of
+        # ms and stalls the generator and the worker alike: frozen, the
+        # sweep times the server, not the collector
+        gc.collect()
+        gc.freeze()
+        table = sweep(srv, pool, SERVE_QPS, SERVE_QPS_S, rows_per_request=1,
+                      seed=13)
+        # the same schedule through a stand-in that resolves at submit:
+        # the generator's own tail, in the same interpreter
+        alone = sweep(_InstantServer(), pool, SERVE_QPS, SERVE_QPS_S,
+                      rows_per_request=1, seed=13)
+    finally:
+        gc.unfreeze()
+        srv.close()
+    after = srv.stats()
+    if not (done == 1).all() or st["resolved"] != SERVE_REQUESTS \
+            or st["failed"] or st["pending"]:
+        raise AssertionError(f"server delivery: {st}, resolutions "
+                             f"{np.bincount(done)}")
+    if after["steady_captures"] or after["steady_eager"]:
+        raise AssertionError(f"server left its warmed graphs: {after}")
+    if any(r["failures"] for r in table):
+        raise AssertionError(f"sweep failures: {table}")
+    lat = {b: (v["p50"], v["p99"]) for b, v in st["latency_ms"].items()}
+    log(f"serve server ({card}): {SERVE_REQUESTS}/{SERVE_REQUESTS} resolved "
+        f"exactly once in {st['batches']} batches, steady_captures "
+        f"{after['steady_captures']}, steady_eager {after['steady_eager']}; "
+        f"warm of {list(SERVE_BUCKETS)} {warm_s:.3f} s; p50/p99 ms by "
+        f"bucket {lat}")
+    for r in table:
+        log(f"serve sweep ({card}): {json.dumps(r)}")
+    for r in alone:
+        log(f"serve sweep, generator alone ({card}): {json.dumps(r)}")
+    return launches
+
+
+class _InstantServer:
+    """Resolves each request as it is submitted: a sweep through it
+    times the load generator alone."""
+
+    def submit(self, X):
+        from concurrent.futures import Future
+        fu = Future()
+        fu.set_result(X[:, 0])
+        return fu
+
+
 def train_path(lgb, name, counters, params, ds, rounds, **kw):
     """One user-facing ``lgb.train`` with every launch counter reset just
     before and read just after: -> ``(booster, seconds, launches)``."""
@@ -1391,7 +1755,13 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
     # 1. build
-    build_s = cuda_build.build_all()
+    floor_dir = tempfile.mkdtemp(prefix="lgbm_launch_floor_")
+    try:
+        floor_build = start_launch_floor_build(floor_dir)
+        build_s = cuda_build.build_all()
+        load_launch_floor(*floor_build)
+    finally:
+        shutil.rmtree(floor_dir, ignore_errors=True)
     log(f"build_s {build_s:.2f}")
     torch.cuda.synchronize()
 
@@ -1522,6 +1892,9 @@ def main() -> int:
                    **stream_paths(lgb, counters, tmp)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # 12. serving
+    by_path["serve"] = serve_phase(lgb, counters, card)
 
     for e in entries:
         e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}

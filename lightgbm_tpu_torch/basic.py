@@ -6,13 +6,16 @@ The reference Python package's surface (`python-package/lightgbm/basic.py`:
 (``io/dataset.py``) and a ``Booster`` trains on one device.  A
 ``Dataset`` made with ``reference=`` (a validation set) bins with the
 reference's mappers.  A ``Booster`` trains on ``cuda`` unless it is
-given ``device="cpu"`` (or the ``device`` parameter).
+given ``device="cpu"`` (or the ``device`` parameter); a ``cuda``
+``Booster`` predicts through the compiled predictor (``serve/``) on the
+card unless ``predict`` is given ``device=False``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 from .config import Config
 from .io.dataset import BinnedDataset, Metadata
@@ -74,6 +77,7 @@ class Booster:
         self.params = dict(params or {})
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
+        self._serve_cache: Dict[tuple, Any] = {}
         cfg = Config.from_params(self.params)
         self.device = str(device or cfg.device)
         if train_set is not None:
@@ -118,14 +122,50 @@ class Booster:
     def digest(self, include_scores: bool = True) -> str:
         return self._gbdt.digest(include_scores=include_scores)
 
-    def predict(self, data, num_iteration: int = -1,
-                raw_score: bool = False) -> np.ndarray:
-        """``num_iteration <= 0`` predicts with ``best_iteration`` when it
-        is set, else with every tree."""
+    def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                device=None) -> np.ndarray:
+        """Predict (the reference ``Booster.predict`` surface).
+
+        ``num_iteration <= 0`` predicts with ``best_iteration`` when it
+        is set, else with every tree; every mode truncates the same way
+        (``num_iteration`` x the trees per iteration).  ``device=True``
+        compiles the model once per truncation (``serve.compile_model``)
+        onto this Booster's device and scores there; ``False`` takes the
+        host walk (the oracle the compiled path is held to); ``None``
+        takes the compiled path when this Booster is on ``cuda`` and the
+        host walk when it is on the CPU.  ``pred_leaf`` returns the
+        ``[n, T]`` leaf indices.
+        """
+        X = np.asarray(data)
         if num_iteration is None or num_iteration <= 0:
             num_iteration = self.best_iteration
-        return self._gbdt.predict(np.asarray(data), raw_score=raw_score,
+        if pred_contrib:
+            raise NotImplementedError(
+                "pred_contrib (SHAP contributions) is not ported to "
+                "lightgbm_tpu_torch yet (ROADMAP A6)")
+        if device is None:
+            device = torch.device(self.device).type == "cuda"
+        if device:
+            cm = self._device_predictor(num_iteration)
+            if pred_leaf:
+                return cm.leaf_indices(X)
+            return cm.predict(X, raw_score=raw_score)
+        if pred_leaf:
+            return self._gbdt.predict_leaf(X, num_iteration=num_iteration)
+        return self._gbdt.predict(X, raw_score=raw_score,
                                   num_iteration=num_iteration)
+
+    def _device_predictor(self, num_iteration: int = -1):
+        """The serving-compiled form of this model, cached per (model
+        length, truncation): training another iteration invalidates it.
+        A single entry, so a stale pack does not hold device memory."""
+        from .serve import compile_model
+        key = (len(self._gbdt.models), int(num_iteration or -1))
+        if key not in self._serve_cache:
+            self._serve_cache = {key: compile_model(
+                self._gbdt, num_iteration=num_iteration)}
+        return self._serve_cache[key]
 
     def model_to_string(self, num_iteration: int = -1) -> str:
         return self._gbdt.save_model_to_string(num_iteration)

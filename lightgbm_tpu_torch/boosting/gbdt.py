@@ -32,8 +32,9 @@ from ..learner.serial import (BuiltTree, GrowthParams, build_tree,
                               predict_built_tree)
 from ..metric.metrics import (Metric, create_metric,
                               default_metric_for_objective)
-from ..models.tree import Tree, predict_binned
-from ..objective.objectives import ObjectiveFunction, create_objective
+from ..models.tree import Tree, predict_leaf
+from ..objective.objectives import (ObjectiveFunction, create_objective,
+                                    load_objective)
 from ..ops.split import SplitParams
 from ..utils import random as keyed
 from ..utils.log import log_info, log_warning
@@ -128,6 +129,7 @@ class GBDT:
         self.shrinkage_rate = config.learning_rate
         self.num_class = max(1, config.num_class)
         self.num_tree_per_iteration = config.num_tree_per_iteration
+        self.average_output = False
         self.feature_names: List[str] = []
         self.max_feature_idx = 0
         self.scores: Optional[torch.Tensor] = None
@@ -353,38 +355,50 @@ class GBDT:
         return t
 
     # -- prediction ---------------------------------------------------------
+    def _num_trees(self, num_iteration: int) -> int:
+        """Trees used by a prediction: ``num_iteration * K`` when
+        ``num_iteration > 0``, else all (K trees per iteration)."""
+        T = len(self.models)
+        if num_iteration is not None and num_iteration > 0:
+            T = min(T, num_iteration * max(1, self.num_tree_per_iteration))
+        return T
+
     def predict_raw(self, X: np.ndarray, num_iteration: int = -1
                     ) -> np.ndarray:
-        """Raw scores ``[n]`` float64.  With the training set: rows binned
-        through its mappers and the trees walked on the device; a loaded
-        model (no dataset) walks the host trees over raw values."""
+        """Raw scores float64, ``[n]`` (or ``[n, K]`` with K trees per
+        iteration): the host walk over raw values, tree ``t`` adding
+        into class ``t % K`` (the JAX package's ``_predict_loaded``), for
+        a trained and a loaded model alike.  The device path is the
+        compiled predictor (``serve/compiler.py``), held to this walk."""
         models = self.models
-        T = len(models)
-        if num_iteration is not None and num_iteration > 0:
-            T = min(T, num_iteration)
+        T = self._num_trees(num_iteration)
+        K = max(1, self.num_tree_per_iteration)
+        X = np.asarray(X, np.float64)
+        out = np.zeros((X.shape[0], K))
         if T == 0:
-            return np.full(len(X), self.init_score_value, np.float64)
-        if self.train_set is None:
-            X = np.asarray(X, np.float64)
-            out = np.zeros(X.shape[0])
-            for i in range(T):
-                out += models[i].predict_batch(X)
-            return out
-        valid = self.train_set.create_valid(np.asarray(X),
-                                            prediction_mode=True)
-        dd = self.device_data
-        bins = torch.as_tensor(valid.bins, device=self.device)
-        return predict_binned(models[:T], bins, dd.nan_bins,
-                              dd.default_bins,
-                              dd.missing_types).cpu().numpy()
+            out[:] = self.init_score_value
+        for i in range(T):
+            out[:, i % K] += models[i].predict_batch(X)
+        return out if K > 1 else out[:, 0]
 
     def predict(self, X: np.ndarray, raw_score: bool = False,
                 num_iteration: int = -1) -> np.ndarray:
         raw = self.predict_raw(X, num_iteration)
         if raw_score or self.objective is None:
             return raw
+        if self.average_output:
+            raw = raw / max(1, len(self.models)
+                            // max(1, self.num_tree_per_iteration))
         return self.objective.convert_output(
             torch.as_tensor(raw, dtype=torch.float32)).numpy()
+
+    def predict_leaf(self, X: np.ndarray,
+                     num_iteration: int = -1) -> np.ndarray:
+        """Per-tree leaf indices ``[n, T]`` int32 (PredictLeafIndex),
+        truncated as :meth:`predict_raw` is; the host walk over raw
+        values (``models/tree.py:predict_leaf``)."""
+        return predict_leaf(self.models[:self._num_trees(num_iteration)],
+                            X)
 
     def digest(self, include_scores: bool = True) -> str:
         from ..obs import determinism
@@ -442,19 +456,10 @@ class GBDT:
             kv.get("num_tree_per_iteration", self.num_class))
         self.max_feature_idx = int(kv.get("max_feature_idx", 0))
         self.feature_names = kv.get("feature_names", "").split()
+        self.average_output = "average_output" in kv
         obj_str = kv.get("objective", "")
         if obj_str and self.objective is None:
-            name = obj_str.split()[0]
-            params = dict(p.split(":", 1) for p in obj_str.split()[1:]
-                          if ":" in p)
-            cfg_params = {"objective": name}
-            if "sigmoid" in params:
-                cfg_params["sigmoid"] = float(params["sigmoid"])
-            try:
-                self.objective = create_objective(
-                    Config.from_params(cfg_params))
-            except (ValueError, NotImplementedError):
-                self.objective = None
+            self.objective = load_objective(obj_str)
         models = []
         if rest:
             for blk in ("Tree=" + rest).split("Tree="):

@@ -1,5 +1,5 @@
-"""Decision tree model — host structure-of-arrays, text model format,
-host prediction, and a device predictor over binned rows.
+"""Decision tree model — host structure-of-arrays, text model format and
+host prediction (the oracle that ``serve/compiler.py`` is held to).
 
 Port of the JAX package's ``models/tree.py`` (reference ``Tree``,
 `include/LightGBM/tree.h:15-300`, `src/io/tree.cpp`): the same flat
@@ -15,7 +15,6 @@ import math
 from typing import List, Sequence
 
 import numpy as np
-import torch
 
 from ..io.binning import MISSING_NAN, MISSING_ZERO
 
@@ -135,7 +134,6 @@ class Tree:
         """Vectorized tree output per row -> float64 [n]."""
         return np.asarray(self.leaf_value)[self.predict_leaf_batch(X)]
 
-
     # -- text serialization (reference tree.cpp:209-242) -----------------
     def to_string(self) -> str:
         n = self.num_leaves
@@ -220,6 +218,18 @@ class Tree:
                     self.leaf_depth[~child] = depth[node] + 1
 
 
+def predict_leaf(trees: Sequence[Tree], X: np.ndarray) -> np.ndarray:
+    """Per-tree leaf index per row over raw values -> ``[n, T]`` int32
+    (PredictLeafIndex; the JAX package's ``GBDT.predict_leaf``): the
+    host oracle that the compiled predictor (``serve/compiler.py``) is
+    held to, categorical and missing-value nodes included."""
+    X = np.asarray(X, np.float64)
+    out = np.zeros((X.shape[0], len(trees)), np.int32)
+    for i, t in enumerate(trees):
+        out[:, i] = t.predict_leaf_batch(X)
+    return out
+
+
 def _fmt_float(v) -> str:
     return repr(round(float(v), 8)) if np.isfinite(v) else str(v)
 
@@ -234,72 +244,4 @@ def _bitset_to_values(words: Sequence[int]) -> List[int]:
             b = (w & -w).bit_length() - 1
             out.append(base + b)
             w &= w - 1
-    return out
-
-
-
-def predict_binned(trees: Sequence[Tree], bins: torch.Tensor,
-                   nan_bins: torch.Tensor, zero_bins: torch.Tensor,
-                   missing_types: torch.Tensor,
-                   tree_chunk: int = 32) -> torch.Tensor:
-    """Sum of tree outputs over binned rows on the device -> ``[n]``
-    float64 (numerical splits; ``bins [n, F]`` in used-feature columns,
-    as ``BinnedDataset.create_valid(prediction_mode=True)`` makes them).
-
-    Trees walk in chunks of ``tree_chunk``: node state ``[T, n]``, one
-    gather per depth step, leaf values summed in tree order in float64.
-    """
-    dev = bins.device
-    n = bins.shape[0]
-    out = torch.zeros(n, dtype=torch.float64, device=dev)
-    bins_t = bins.long().t().contiguous()                    # [F, n]
-    nanb = nan_bins.long()
-    zb = zero_bins.long()
-    mtypes = missing_types.long()
-    for c0 in range(0, len(trees), tree_chunk):
-        chunk = trees[c0:c0 + tree_chunk]
-        T = len(chunk)
-        M = max(max(t.num_leaves for t in chunk) - 1, 1)
-        sf = np.zeros((T, M), np.int64)
-        tb = np.zeros((T, M), np.int64)
-        lc = np.full((T, M), ~0, np.int64)
-        rc = np.full((T, M), ~0, np.int64)
-        dl = np.zeros((T, M), bool)
-        lv = np.zeros((T, M + 1), np.float64)
-        depth = 1
-        for i, t in enumerate(chunk):
-            m = t.num_leaves - 1
-            lv[i, :t.num_leaves] = t.leaf_value[:t.num_leaves]
-            if m == 0:
-                continue
-            if t.num_cat:
-                raise NotImplementedError("categorical splits")
-            sf[i, :m] = t.split_feature_inner[:m]
-            tb[i, :m] = t.threshold_bin[:m]
-            lc[i, :m] = t.left_child[:m]
-            rc[i, :m] = t.right_child[:m]
-            dl[i, :m] = (t.decision_type[:m] & K_DEFAULT_LEFT_MASK) != 0
-            depth = max(depth, t.max_depth)
-        sf, tb, lc, rc, dl, lv = (torch.as_tensor(a, device=dev)
-                                  for a in (sf, tb, lc, rc, dl, lv))
-        rows = torch.arange(T, device=dev)[:, None] * M
-        node = torch.zeros((T, n), dtype=torch.int64, device=dev)
-        stump = torch.as_tensor([t.num_leaves <= 1 for t in chunk],
-                                device=dev)
-        node[stump] = ~0                     # stumps: leaf 0
-        for _ in range(depth):
-            idx = rows + node.clamp(min=0)
-            f = sf.view(-1)[idx]
-            b = bins_t.gather(0, f)                          # [T, n]
-            mt = mtypes[f]
-            is_missing = (((mt == MISSING_NAN) & (b == nanb[f]))
-                          | ((mt == MISSING_ZERO) & (b == zb[f])))
-            go_left = torch.where(is_missing, dl.view(-1)[idx],
-                                  b <= tb.view(-1)[idx])
-            nxt = torch.where(go_left, lc.view(-1)[idx], rc.view(-1)[idx])
-            node = torch.where(node < 0, node, nxt)
-        leaf = torch.where(node < 0, ~node, torch.zeros_like(node))
-        vals = lv.gather(1, leaf)                            # [T, n]
-        for i in range(T):
-            out += vals[i]
     return out

@@ -5,6 +5,10 @@ Port of the JAX package's ``objective/objectives.py`` classes
 ``RegressionL2`` (``regression_objective.hpp``), with labels and weights
 as tensors on the training device.  Arithmetic follows the reference's
 operation order.
+
+A model loaded from text may name any objective of the JAX package:
+:func:`load_objective` gives it the objective's output conversion
+(:class:`OutputObjective`) even where the port cannot train it yet.
 """
 from __future__ import annotations
 
@@ -13,7 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, _canonical_objective
 
 
 def _apply_weight(grad, hess, weight):
@@ -148,3 +152,76 @@ def create_objective(config: Config) -> Optional[ObjectiveFunction]:
             f"objective {config.objective!r} is not ported to "
             f"lightgbm_tpu_torch yet (have: {sorted(OBJECTIVES)})")
     return cls(config)
+
+
+# output conversion of each objective the JAX package names
+# (lightgbm_tpu/objective/objectives.py convert_output)
+_IDENTITY = ("regression", "regression_l1", "huber", "fair", "quantile",
+             "mape", "lambdarank")
+_EXP = ("poisson", "gamma", "tweedie")
+
+
+class OutputObjective(ObjectiveFunction):
+    """The output conversion of a loaded model's objective, for the
+    objectives the port cannot train (training with them raises in
+    :func:`create_objective`).  ``to_string`` gives back the model
+    file's objective line."""
+
+    def __init__(self, name: str, text: str, sigmoid: float = 1.0,
+                 sqrt: bool = False):
+        super().__init__(Config())
+        self.name = name
+        self.text = text
+        self.sigmoid = float(sigmoid)
+        self.sqrt = bool(sqrt)
+
+    def get_gradients(self, score):
+        raise NotImplementedError(
+            f"objective {self.name!r} is not ported to lightgbm_tpu_torch "
+            f"for training yet (ROADMAP A5): a loaded model predicts only")
+
+    def convert_output(self, score):
+        n = self.name
+        if n == "regression" and self.sqrt:
+            return torch.sign(score) * score * score
+        if n in _IDENTITY:
+            return score
+        if n in _EXP:
+            return torch.exp(score)
+        if n in ("binary", "multiclassova"):
+            return torch.sigmoid(self.sigmoid * score)
+        if n == "multiclass":
+            return torch.softmax(score, dim=-1)
+        if n == "xentropy":
+            return torch.sigmoid(score)
+        return 1.0 - torch.exp(-torch.exp(score))      # xentlambda
+
+    def to_string(self):
+        return self.text
+
+
+def load_objective(text: str) -> Optional[ObjectiveFunction]:
+    """The objective of a model file's ``objective=`` line (for example
+    ``binary sigmoid:1``, ``multiclass num_class:3`` or ``regression
+    sqrt``): the trainable objective where the port has it, else its
+    :class:`OutputObjective`; ``None`` for a custom objective (raw
+    scores).  A name the port cannot resolve raises
+    ``NotImplementedError``."""
+    tokens = text.split()
+    try:
+        name = _canonical_objective(tokens[0] if tokens else "")
+    except ValueError:
+        raise NotImplementedError(
+            f"model objective {text!r} is not known to "
+            f"lightgbm_tpu_torch: its output conversion cannot be "
+            f"applied") from None
+    if name == "none":
+        return None
+    params = dict(t.split(":", 1) for t in tokens[1:] if ":" in t)
+    sigmoid = float(params.get("sigmoid", 1.0))
+    sqrt = "sqrt" in tokens[1:]
+    if name == "binary":
+        return BinaryLogloss(Config.from_params({"sigmoid": sigmoid}))
+    if name == "regression" and not sqrt:
+        return RegressionL2(Config())
+    return OutputObjective(name, text, sigmoid=sigmoid, sqrt=sqrt)

@@ -12,7 +12,8 @@ add into a nonzero carry); results must be bitwise equal — the split
 scan's too, every field of its result, at the small-data path's shape
 ``[64, 28, 256, 3]`` and on waves built to reach every corner of its
 lane layout (bin strides 16-256, more features than warps, ties).  The
-launch counters must move on CUDA only.
+launch counters must move on CUDA only.  The compiled predictor
+(``serve/``, no kernel of its own) is held to the host oracle on the card.
 """
 import numpy as np
 import pytest
@@ -449,3 +450,71 @@ def test_float_k1_k3_kernels_bitwise(cuda_device, monkeypatch, mode, A, wave):
     live = act3 >= 0
     assert torch.equal(bits(k3)[live], bits(k5)[live])
     assert torch.equal(bits(k3)[~live], acc3[~live].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_predictor_matches_host_oracle(cuda_device):
+    """The compiled predictor on the card (``serve/compiler.py``) on a
+    seeded 3-class forest with stumps, every missing type and
+    categorical nodes: leaf indices bitwise the host oracle, scores
+    within one f32 ulp of the f64 host sum, eager and as a replayed
+    CUDA graph alike (the same bits); the server scores through the
+    warmed graphs only."""
+    from chip_smoke import forest_rows, random_forest
+    from lightgbm_tpu_torch.models.tree import predict_leaf
+    from lightgbm_tpu_torch.serve import PredictionServer, compile_trees
+    trees = random_forest(0)
+    X = forest_rows(trees, 5000, 100)
+    cm = compile_trees(trees, num_class=3, device=cuda_device)
+    assert np.array_equal(cm.leaf_indices(X), predict_leaf(trees, X))
+    oracle = np.zeros((len(X), 3))
+    for i, t in enumerate(trees):
+        oracle[:, i % 3] += t.predict_batch(X.astype(np.float64))
+    eager = cm.predict_raw(X)                    # bucket 8,192, eager
+    assert cm.eager_calls == 1 and cm.captures == 0
+    cm.warm([8192])
+    graph = cm.predict_raw(X)
+    assert cm.captures == 1 and cm.eager_calls == 1
+    assert np.array_equal(graph.view(np.int32), eager.view(np.int32))
+    ulp = np.spacing(np.abs(oracle).astype(np.float32)).astype(np.float64)
+    assert np.all(np.abs(graph.astype(np.float64) - oracle) <= ulp)
+    with PredictionServer(cm, max_batch=1024, max_wait_ms=1.0,
+                          buckets=(256, 1024), raw_score=True) as srv:
+        futs = [srv.submit(X[i:i + k]) for i, k in
+                enumerate((1, 17, 300, 1024, 5))]
+        for i, (k, fu) in enumerate(zip((1, 17, 300, 1024, 5), futs)):
+            got = np.asarray(fu.result(60), np.float64).reshape(k, 3)
+            assert np.all(np.abs(got - oracle[i:i + k]) <= ulp[i:i + k])
+        st = srv.stats()
+    assert st["resolved"] == 5 and st["steady_captures"] == 0
+    assert st["steady_eager"] == 0
+
+
+
+@pytest.mark.cuda
+def test_cuda_booster_predicts_on_card_by_default(cuda_device):
+    """A Booster on ``cuda``, trained there or loaded there, predicts
+    through the compiled predictor unless asked for the host walk:
+    ``device=None`` fills its serving cache and returns f32 within one
+    ulp of the f64 host walk (``device=False``), and ``pred_leaf`` gives
+    the host's leaves."""
+    import lightgbm_tpu_torch as tlgb
+    rng = np.random.RandomState(0)
+    X = rng.normal(size=(5000, 6)).astype(np.float32)
+    X[rng.rand(*X.shape) < 0.1] = np.nan
+    y = (np.nan_to_num(X[:, 0]) + np.nan_to_num(X[:, 1]) > 0
+         ).astype(np.float32)
+    trained = tlgb.train({"objective": "binary", "num_leaves": 15,
+                          "num_iterations": 5, "verbose": -1},
+                         tlgb.Dataset(X, label=y), device=cuda_device)
+    loaded = tlgb.Booster(model_str=trained.model_to_string(),
+                          device=cuda_device)
+    for bst in (trained, loaded):
+        host = bst.predict(X, raw_score=True, device=False)
+        assert host.dtype == np.float64 and not bst._serve_cache
+        got = bst.predict(X, raw_score=True)
+        assert got.dtype == np.float32 and bst._serve_cache
+        ulp = np.spacing(np.abs(host).astype(np.float32)).astype(np.float64)
+        assert np.all(np.abs(got.astype(np.float64) - host) <= ulp)
+        assert np.array_equal(bst.predict(X, pred_leaf=True),
+                              bst.predict(X, pred_leaf=True, device=False))
