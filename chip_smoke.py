@@ -32,6 +32,17 @@ and the script exits non-zero):
    phases apart), the f32 ``index_add_`` over the active rows (the
    library call of both), the bound and, for K1, the float K5's contract
    floor (its chunk partials written and read back);
+2c. categorical kernels — on the categorical headline data (the headline
+   rows, labels drawn first, then column 1 made 48 equal-frequency
+   buckets and column 2 four, each relabelled by a seeded permutation,
+   and column 3 200 uniform noise categories, past ``max_bin``: see
+   ``categorize``), waves in which about a third of the splits are
+   categorical on columns 1-3 with random masks: K2 and K4 at the
+   128-slot tail state, K1 at 8 / 16 / 32 slots, K3 at 64 / 128 slots
+   on the hist leaves the categorical K2 wrote, and the float K1 (hhilo,
+   32 slots, 20% bagged out), each bitwise its plain version and timed
+   beside its numerical twin: the same wave, its categorical leaves
+   compared with a threshold (entries ``*_cat``, ``numerical_ms``);
 3. small-data kernels — the same for the small-data path's shapes: the
    fused route+histogram kernel at 65,536 rows, 256 bins and 32 slots
    with bagged-out rows (hist leaf -1) that the -1 slots collect, the
@@ -42,6 +53,13 @@ and the script exits non-zero):
    between two kernels), and the route kernels get a second, sector
    bound: the 32-byte sectors of the bins that the wave's moved rows
    read, counted on the device, as the card reads them;
+3c. small-data categorical kernels — phase 2c's categorical waves at
+   the small-data path's shapes (its rows with columns 1-3 categorical,
+   256-bin stride, 63 leaves, bagging 0.8): K2, K4, K1 and the float
+   K1; and K2, K4 and K1 on the same rows with column 26 a categorical
+   that EFB bundles with the sparse columns 25 and 27 (63 bins), every
+   categorical split of the wave on it, so the kernels unbundle before
+   the mask lookup; each beside its numerical twin, as in phase 2c;
 4. headline path — ``lgb.train`` of the headline binary GBDT (the
    bench's synthetic 1M x 28 set, 255 leaves, max_bin 63, lr 0.1,
    min_data_in_leaf 20) with every kernel launch counter reset first;
@@ -114,12 +132,37 @@ and the script exits non-zero):
    generator's own tail), both with the heap frozen (``gc.freeze``) so
    that no full collection stalls them.  Rows/s,
    compile and warm seconds, per-bucket p50/p99 and the sweep table are
-   logged beside the card's name and power limit.
+   logged beside the card's name and power limit;
+13. categorical headline — phase 4 on the categorical headline data
+   (``categorical_feature=[1, 2, 3]``), counters reset first: K1, K2, K3
+   and K4 must launch and the split kernel not (both packages gate it
+   off categorical data), train AUC >= 0.93, finite predictions, and
+   the trees must hold many-vs-many nodes on column 1 (more than one
+   category) and one-vs-rest nodes on column 2 (one category each);
+   then the same with ``gpu_use_dp`` (hilo), 8 iterations: the float K1,
+   K2, the float K3 and K4 must launch, no int8 histogram kernel and no
+   split kernel, train AUC >= 0.93;
+14. categorical valid set — phase 5's configuration on its rows with
+   columns 1-3 categorical, the valid rows holding categories the
+   training rows never have (column 3 ids past 200, some column 1 ids
+   past 48): K1 and K4 must launch and the split kernel not, valid AUC
+   >= 0.90 at ``best_iteration``;
+15. categorical serving — phase 13's model compiled on the card, 20,000
+   of its rows with unseen, negative and NaN categories scored raw and
+   binned: routing raw == binned == the host ``predict_leaf``, scores
+   raw == binned and within 1 f32 ulp of the f64 host sum;
+16. categorical stream — 262,144 rows of the categorical headline data
+   written as CSV into a temporary directory, ingested with
+   ``categorical_column`` and streamed (63 leaves, blocks of 131,072
+   rows, 2 iterations): K5, K2 and K4 must launch, the model must hold
+   categorical nodes, and its digest (scores included) must be that of
+   in-memory training on ``store.to_binned_dataset``.
 
 A path's ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
 the per-iteration evaluation included.  The last lines are the kernel
-table as one JSON object, the card's name and power limit, and
+table as one JSON object (a categorical entry's ``launches`` count its
+kernel on phases 13-16 only), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -163,6 +206,8 @@ HEAD20_PARAMS = dict(STREAM_PARAMS, num_leaves=255, min_data_in_leaf=20)
 # in-memory float runs at 20M rows: the kernels' scratch must not grow
 # with rows x slots
 INMEM_PEAK_LIMIT = 4 << 30
+CAT_STREAM_ROWS = 262_144
+CAT_STREAM_BLOCK = 131_072
 FLOAT_ITERS = 8
 # the bench's serving legs (bench.py:680-795 serve_leg, :797-855
 # serve_load_leg): 28 features, 200,000 training rows from seed 11, 63
@@ -225,6 +270,35 @@ def headline_data(seed: int = 0):
     y = (X[:, 0] * 2 + X[:, 1] - X[:, 2]
          + rng.normal(scale=1.0, size=HEADLINE_ROWS) > 0).astype(np.float32)
     return X, y
+
+
+CAT_COLUMNS = [1, 2, 3]
+CAT_MANY, CAT_FEW, CAT_NOISE = 48, 4, 200
+CAT_UNSEEN = 20
+
+
+def categorize(X, seed: int, many: int = CAT_MANY, few: int = CAT_FEW,
+               noise: int = CAT_NOISE, valid_from=None):
+    """Columns 1-3 of ``X`` become integer categories, in place (draw the
+    labels first): column 1 ``many`` equal-frequency buckets of its
+    values and column 2 ``few``, each relabelled by a seeded permutation
+    so that no numerical threshold orders them (many-vs-many and
+    one-vs-rest splits); column 3 ``noise`` uniform categories of noise.
+    Rows from ``valid_from`` on (valid rows) also get categories the rows
+    before never have: column 3 draws from ``noise + CAT_UNSEEN``, and 5%
+    of column 1 takes ids past ``many``."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    for col, k in ((1, many), (2, few)):
+        q = np.quantile(X[:valid_from, col], np.linspace(0, 1, k + 1)[1:-1])
+        X[:, col] = rng.permutation(k)[np.searchsorted(q, X[:, col])]
+    X[:, 3] = rng.randint(0, noise, size=len(X))
+    if valid_from is not None:
+        nv = len(X) - valid_from
+        X[valid_from:, 3] = rng.randint(0, noise + CAT_UNSEEN, size=nv)
+        rows = valid_from + np.nonzero(rng.rand(nv) < 0.05)[0]
+        X[rows, 1] = many + rng.randint(0, CAT_UNSEEN, size=len(rows))
+    return X
 
 
 def small_data(seed: int = 3):
@@ -420,12 +494,17 @@ def bound(nbytes: float, ops: float, ops_rate: float) -> dict:
 
 
 def wave_inputs(dd, nl: int, n_sel: int, A: int, gen, L: int = 255,
-                bag: float = 1.0):
+                bag: float = 1.0, cat_share: float = 0.0,
+                cat_features=None, cat_off: bool = False):
     """A mid-tree wave on ``dd``: rows spread over ``nl`` leaves, ``n_sel``
     of them split by random numerical tables, ``A`` active slots (two of
     them -1 when A >= 16).  With ``bag`` < 1 each row is in the bag with
     that probability; out-of-bag rows carry hist leaf -1, as bagging
-    leaves them."""
+    leaves them.  With ``cat_share`` > 0 about that share of the split
+    leaves split categorically (on ``cat_features`` when given), each
+    with a random mask of left bins; ``cat_off`` draws the same wave and
+    then compares those leaves' bins with their thresholds instead (the
+    categorical wave's numerical twin)."""
     import torch
     from lightgbm_tpu_torch.ops.histogram import bin_stride
     from lightgbm_tpu_torch.ops.route import leaf_tables
@@ -448,10 +527,23 @@ def wave_inputs(dd, nl: int, n_sel: int, A: int, gen, L: int = 255,
     threshold = torch.randint(0, dd.max_bins - 1, (L,), generator=gen,
                               device=dev).int()
     B = bin_stride(dd.max_bins)
+    is_cat = torch.zeros(L, dtype=torch.bool, device=dev)
+    cat_mask = torch.zeros((L, B), dtype=torch.bool, device=dev)
+    if cat_share > 0:
+        is_cat = sel & (torch.rand(L, generator=gen, device=dev) < cat_share)
+        if cat_features is not None:
+            cf = torch.as_tensor(cat_features, dtype=torch.int32, device=dev)
+            pick = torch.randint(0, len(cat_features), (L,), generator=gen,
+                                 device=dev)
+            feature = torch.where(is_cat, cf[pick], feature)
+        cat_mask = (torch.rand((L, B), generator=gen, device=dev) < 0.5
+                    ) & is_cat[:, None]
+        if cat_off:
+            is_cat = torch.zeros_like(is_cat)
+            cat_mask = torch.zeros_like(cat_mask)
     tabs, cat = leaf_tables(
         feature, threshold, torch.zeros(L, dtype=torch.bool, device=dev),
-        torch.zeros(L, dtype=torch.bool, device=dev),
-        torch.zeros((L, B), dtype=torch.bool, device=dev), sel, new_id,
+        is_cat, cat_mask, sel, new_id,
         dd.missing_types, dd.nan_bins, dd.default_bins, dd.feat_group,
         dd.feat_offset, dd.num_bins)
     live = nl + n_sel
@@ -501,6 +593,48 @@ def kernel_phase(dd, vals, entries):
 
     # -- K2 / K4: route and route-values at the 128-slot tail state ------
     leaf2, tabs, cat, _ = wave_inputs(dd, 127, 64, 128, gen)
+    entries.append(dict(
+        name="route", route="cuda",
+        source="lightgbm_tpu_torch/csrc/route.cu",
+        replaces="lightgbm_tpu/ops/pallas_route.py:85",
+        max_abs_err=0.0, **k2_measure(dd, leaf2, tabs, cat, int_rate)))
+    lv = torch.randn(L, generator=gen, device=dev)
+    entries.append(dict(
+        name="route_values", route="cuda",
+        source="lightgbm_tpu_torch/csrc/route.cu",
+        replaces="lightgbm_tpu/ops/pallas_route.py:168", max_abs_err=0.0,
+        **k4_measure(dd, leaf2, tabs, cat, lv, int_rate)))
+
+    # -- K1: fused route + histogram at 8, 16, 32 slots ------------------
+    k1_rows = [k1_measure(dd, vals, A, A // 2, gen, L, int_rate)
+               for A in (8, 16, 32)]
+    entries.append(_widest(dict(
+        name="hist_route", route="cuda",
+        source="lightgbm_tpu_torch/csrc/hist_route.cu",
+        replaces="lightgbm_tpu/ops/pallas_histogram.py:637",
+        max_abs_err=0.0), k1_rows))
+
+    # -- K3: leaf-compacted histogram at 64 and 128 slots -----------------
+    k3_rows = [k3_measure(dd, vals, A, gen, L, int_rate) for A in (64, 128)]
+    entries.append(_widest(dict(
+        name="hist_compact", route="cuda",
+        source="lightgbm_tpu_torch/csrc/hist_compact.cu",
+        replaces="lightgbm_tpu/ops/compact.py:179", max_abs_err=0.0),
+        k3_rows))
+
+
+def k2_measure(dd, leaf2, tabs, cat, int_rate: float) -> dict:
+    """K2 (route) on one wave's tables: kernel vs plain version bitwise,
+    times back to back and in a CUDA graph, the bound, the sector bound
+    and the launch floor of its grid."""
+    import torch
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.ops.route import (
+        ROUTE_BLOCK, _route_grid, route_plain, route_rows_raw)
+    dev = dd.device
+    n_pad = dd.n_pad
+    L, B = cat.shape
+    tab_bytes = 11 * L * 4 + L * B
     out = route_rows_raw(dd.bins_t, leaf2, tabs, cat)
     ref = route_plain(dd.bins_t, leaf2, tabs, cat)
     torch.cuda.synchronize()
@@ -521,69 +655,199 @@ def kernel_phase(dd, vals, entries):
     b2 = bound(16 * n_pad + moved_rows + tab_bytes, n_pad, int_rate)
     sec2 = bound(16 * n_pad + 32 * sectors + tab_bytes, n_pad, int_rate)
     floor = launch_floor(_route_grid(n_pad, dev), ROUTE_BLOCK, dev)
-    entries.append(dict(
-        name="route", route="cuda",
-        source="lightgbm_tpu_torch/csrc/route.cu",
-        replaces="lightgbm_tpu/ops/pallas_route.py:85",
-        max_abs_err=0.0, ms=ms2, graph_ms=dev2, plain_ms=plain2,
-        library_ms=None, moved_rows=moved_rows, sectors=sectors,
-        sector_bound_ms=sec2["bound_ms"], **floor, **b2))
-    log(f"kernel route: bitwise ok, {ms2:.4f} ms back to back, {dev2:.4f} "
+    n_cat = int(tabs[3].sum())
+    log(f"kernel route ({n_cat} categorical splits) rows={dd.num_data}: "
+        f"bitwise ok, {ms2:.4f} ms back to back, {dev2:.4f} "
         f"ms in a graph (plain {plain2:.3f} ms, bound {b2['bound_ms']:.4f} "
         f"ms; {moved_rows} moved rows touch {sectors} sectors: sector "
         f"bound {sec2['bound_ms']:.4f} ms; an empty kernel of its grid "
         f"{floor['launch_floor_ms']:.4f} ms back to back, "
         f"{floor['launch_floor_graph_ms']:.4f} ms in a graph)")
+    return dict(ms=ms2, graph_ms=dev2, plain_ms=plain2, library_ms=None,
+                moved_rows=moved_rows, sectors=sectors,
+                sector_bound_ms=sec2["bound_ms"], **floor, **b2)
+
+
+def k3_measure(dd, vals, A: int, gen, L: int, int_rate: float,
+               **cat) -> dict:
+    """K3 (leaf-compacted histogram) at ``A`` slots on the hist leaves
+    that K2 wrote for a wave (``cat``: :func:`wave_inputs`'s categorical
+    arguments): K2 vs its plain version and K3 vs its plain version
+    bitwise, times, the ``index_add_`` yardstick and the bound."""
+    import torch
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.ops.compact import hist_compact_raw
+    from lightgbm_tpu_torch.ops.histogram import (
+        bin_stride, hist_launcher, hist_plain, hist_plan, hist_slab,
+        slot_tables)
+    from lightgbm_tpu_torch.ops.route import route_plain, route_rows_raw
+    dev = dd.device
+    G, n_pad = dd.bins_t.shape
+    C = vals.shape[0]
+    B = bin_stride(dd.group_max_bins)
+    sms = cuda_build.multiprocessor_count(dev)
+    leaf2, tabs, cmask, active = wave_inputs(dd, 127 if A == 128 else 63,
+                                             A - 2, A, gen, L, **cat)
+    routed = route_rows_raw(dd.bins_t, leaf2, tabs, cmask)
+    if not torch.equal(routed, route_plain(dd.bins_t, leaf2, tabs, cmask)):
+        raise AssertionError(f"route kernel != plain (A={A})")
+    hleaf = routed[1].contiguous()
+    raw = hist_compact_raw(dd.bins_t, vals, hleaf, active, L,
+                           dd.group_max_bins)
+    inv, src = slot_tables(active, L, collect_unbagged=False)
+    ref_raw = hist_plain(dd.bins_t, vals, hleaf, inv, src, B)
+    torch.cuda.synchronize()
+    if not torch.equal(raw, ref_raw):
+        raise AssertionError(f"hist_compact kernel != plain (A={A})")
+    plan = hist_plan(n_pad, G, A, B, C, sms, L, False)
+    slab = hist_slab(plan, A, G, B, C, dev)
+    obuf = torch.zeros_like(raw)
+    ms = time_ms(hist_launcher("hist_compact", dd.bins_t, vals, hleaf,
+                               inv, src, L, B, plan, slab, obuf), 20)
+    pl = time_ms(lambda: hist_plain(dd.bins_t, vals, hleaf, inv, src, B), 3)
+    n_active, lib_ms = index_add_ms(dd, vals, hleaf, inv, A, L, B)
+    bd = bound(4 * n_pad + (G + C) * n_active + raw.numel() * 4
+               + (L + 1 + A) * 4, G * C * n_active, int_rate)
+    log(f"kernel hist_compact A={A} ({int(tabs[3].sum())} categorical "
+        f"splits routed by K2): bitwise ok, {ms:.4f} ms (plain "
+        f"{pl:.3f} ms, index_add_ {lib_ms:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, {n_active} "
+        f"active rows)")
+    return dict(slots=A, ms=ms, plain_ms=pl, library_ms=lib_ms,
+                plan=plan.__dict__, **bd)
+
+
+CAT_SHARE = 1 / 3      # share of a wave's splits that are categorical
+CAT_KERNELS = (        # (entry, counter, source, the categorical branch)
+    ("route_cat", "route", "lightgbm_tpu_torch/csrc/route.cu",
+     "lightgbm_tpu/ops/pallas_route.py:144"),
+    ("route_values_cat", "route_values", "lightgbm_tpu_torch/csrc/route.cu",
+     "lightgbm_tpu/ops/pallas_route.py:144"),
+    ("hist_route_cat", "hist_route", "lightgbm_tpu_torch/csrc/hist_route.cu",
+     "lightgbm_tpu/ops/pallas_histogram.py:699"),
+    ("hist_compact_cat", "hist_compact",
+     "lightgbm_tpu_torch/csrc/hist_compact.cu",
+     "lightgbm_tpu/ops/compact.py:179"),
+    ("hist_route_float_cat", "hist_route_float",
+     "lightgbm_tpu_torch/csrc/hist_route_float.cu",
+     "lightgbm_tpu/ops/pallas_histogram.py:699"))
+
+
+def cat_kernel_phase(ddc, vals, int_rate: float, entries) -> None:
+    """Phase 2c: the route kernels' categorical branch at the headline
+    shapes, on the categorical headline data (columns 1-3 categorical):
+    waves in which about a third of the splits are categorical, on
+    columns 1-3 with random masks.  K2 and K4 at the 128-slot tail
+    state, K1 at 8 / 16 / 32 slots, K3 at 64 / 128 slots on the hist
+    leaves that the categorical K2 wrote, the float K1 (hhilo, 32 slots,
+    20% bagged out): each bitwise its plain version, and timed beside
+    its numerical twin (``numerical_ms``: the same wave, its categorical
+    leaves compared with a threshold instead).  Appends one entry
+    each."""
+    rows, twins = (_cat_waves(ddc, vals, int_rate, off) for off in
+                   (False, True))
+    for name, counter, source, replaces in CAT_KERNELS:
+        twin = twins[name]
+        entries.append(dict(
+            name=name, counter=counter, route="cuda", source=source,
+            replaces=replaces, numerical_ms=twin["ms"],
+            numerical_graph_ms=twin.get("graph_ms"),
+            **{"max_abs_err": 0.0, **{k: v for k, v in rows[name].items()
+                                      if k != "slots"}}))
+
+
+def _cat_waves(ddc, vals, int_rate: float, cat_off: bool) -> dict:
+    """Phase 2c's measurements, on categorical waves or (``cat_off``)
+    on their numerical twins: -> rows by entry name."""
+    import torch
+    dev = ddc.device
+    L = 255
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    cat = dict(cat_share=CAT_SHARE, cat_features=CAT_COLUMNS,
+               cat_off=cat_off)
+    leaf2, tabs, cmask, _ = wave_inputs(ddc, 127, 64, 128, gen, **cat)
     lv = torch.randn(L, generator=gen, device=dev)
-    entries.append(dict(
-        name="route_values", route="cuda",
-        source="lightgbm_tpu_torch/csrc/route.cu",
-        replaces="lightgbm_tpu/ops/pallas_route.py:168", max_abs_err=0.0,
-        **k4_measure(dd, leaf2, tabs, cat, lv, int_rate)))
+    return {
+        "route_cat": k2_measure(ddc, leaf2, tabs, cmask, int_rate),
+        "route_values_cat": k4_measure(ddc, leaf2, tabs, cmask, lv,
+                                       int_rate),
+        "hist_route_cat": _widest({}, [
+            k1_measure(ddc, vals, A, A // 2, gen, L, int_rate, **cat)
+            for A in (8, 16, 32)]),
+        "hist_compact_cat": _widest({}, [
+            k3_measure(ddc, vals, A, gen, L, int_rate, **cat)
+            for A in (64, 128)]),
+        "hist_route_float_cat": k1_float_measure(ddc, "hhilo", 32, gen,
+                                                 bag=0.8, **cat)}
 
-    # -- K1: fused route + histogram at 8, 16, 32 slots ------------------
-    k1_rows = [k1_measure(dd, vals, A, A // 2, gen, L, int_rate)
-               for A in (8, 16, 32)]
-    entries.append(_widest(dict(
-        name="hist_route", route="cuda",
-        source="lightgbm_tpu_torch/csrc/hist_route.cu",
-        replaces="lightgbm_tpu/ops/pallas_histogram.py:637",
-        max_abs_err=0.0), k1_rows))
 
-    # -- K3: leaf-compacted histogram at 64 and 128 slots -----------------
-    k3_rows = []
-    for A in (64, 128):
-        leaf2, tabs, cat, active = wave_inputs(dd, 127 if A == 128 else 63,
-                                               A - 2, A, gen)
-        hleaf = route_plain(dd.bins_t, leaf2, tabs, cat)[1].contiguous()
-        raw = hist_compact_raw(dd.bins_t, vals, hleaf, active, L,
-                               dd.group_max_bins)
-        inv, src = slot_tables(active, L, collect_unbagged=False)
-        ref_raw = hist_plain(dd.bins_t, vals, hleaf, inv, src, B)
-        torch.cuda.synchronize()
-        if not torch.equal(raw, ref_raw):
-            raise AssertionError(f"hist_compact kernel != plain (A={A})")
-        plan = hist_plan(n_pad, G, A, B, C, sms, L, False)
-        slab = hist_slab(plan, A, G, B, C, dev)
-        obuf = torch.zeros_like(raw)
-        ms = time_ms(hist_launcher("hist_compact", dd.bins_t, vals, hleaf,
-                                   inv, src, L, B, plan, slab, obuf), 20)
-        pl = time_ms(lambda: hist_plain(dd.bins_t, vals, hleaf, inv, src, B),
-                     3)
-        n_active, lib_ms = index_add_ms(dd, vals, hleaf, inv, A, L, B)
-        bd = bound(4 * n_pad + (G + C) * n_active + raw.numel() * 4
-                   + (L + 1 + A) * 4, G * C * n_active, int_rate)
-        k3_rows.append(dict(slots=A, ms=ms, plain_ms=pl, library_ms=lib_ms,
-                            plan=plan.__dict__, **bd))
-        log(f"kernel hist_compact A={A}: bitwise ok, {ms:.4f} ms (plain "
-            f"{pl:.3f} ms, index_add_ {lib_ms:.4f} ms, bound "
-            f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}, {n_active} "
-            f"active rows)")
-    entries.append(_widest(dict(
-        name="hist_compact", route="cuda",
-        source="lightgbm_tpu_torch/csrc/hist_compact.cu",
-        replaces="lightgbm_tpu/ops/compact.py:179", max_abs_err=0.0),
-        k3_rows))
+def bundled_cat_data(X, y, max_bin: int = 63):
+    """A copy of ``X`` (columns 1-3 categorical) whose columns 25-27 are
+    sparse and mutually exclusive, 26 categorical: EFB bundles them into
+    one group column.  -> ``(Dataset, categorical columns)``."""
+    import numpy as np
+    import lightgbm_tpu_torch as lgb
+    rng = np.random.RandomState(5)
+    n = len(X)
+    Xb = X.copy()
+    rows = np.arange(n)
+    on = rng.rand(n) < 0.3
+    Xb[:, 25] = np.where((rows % 3 == 0) & on, rng.normal(size=n), 0.0)
+    Xb[:, 26] = np.where((rows % 3 == 1) & on, rng.randint(1, 7, size=n), 0)
+    Xb[:, 27] = np.where((rows % 3 == 2) & on, rng.normal(size=n), 0.0)
+    cats = CAT_COLUMNS + [26]
+    return lgb.Dataset(Xb, label=y, params={"max_bin": max_bin},
+                       categorical_feature=cats).construct(), cats
+
+
+def small_cat_kernel_phase(ddc, ddb, vals, vals_b, int_rate: float,
+                           entries) -> None:
+    """Phase 3c: the categorical branch at the small-data path's shapes
+    (65,536 rows, 256-bin stride, 63 leaves, bagging 0.8) on its
+    categorical data — K2 and K4 on a tree's last pass, K1 and the float
+    K1 at 32 slots — and on a bundled categorical column (column 26 of
+    the same rows, EFB-bundled with 25 and 27 at 63 bins: every
+    categorical split on it unbundles before the mask lookup): K2, K4
+    and K1.  Added to the categorical entries under ``small_data`` and
+    ``bundled``."""
+    import torch
+    dev = ddc.device
+    L = TRAIN_CONF["num_leaves"]
+    bag = TRAIN_CONF["bagging_fraction"]
+    if not (ddb.is_bundled and int(ddb.feat_offset[26]) >= 0
+            and bool(ddb.is_categorical[26])):
+        raise AssertionError("column 26 is not a bundled categorical")
+    found = {}
+    for key, dd, v, feats in (("small_data", ddc, vals, CAT_COLUMNS),
+                              ("bundled", ddb, vals_b, [26])):
+        for off in (False, True):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(8)
+            cat = dict(cat_share=CAT_SHARE, cat_features=feats, cat_off=off)
+            leaf2, tabs, cmask, _ = wave_inputs(dd, 32, 31, 32, gen, L, bag,
+                                                **cat)
+            lv = torch.randn(L, generator=gen, device=dev)
+            rows = {
+                "route_cat": k2_measure(dd, leaf2, tabs, cmask, int_rate),
+                "route_values_cat": k4_measure(dd, leaf2, tabs, cmask, lv,
+                                               int_rate),
+                "hist_route_cat": k1_measure(dd, v, 32, 16, gen, L,
+                                             int_rate, bag, **cat)}
+            if key == "small_data":
+                rows["hist_route_float_cat"] = k1_float_measure(
+                    dd, "hhilo", 32, gen, L, bag, **cat)
+            if off:
+                for name, row in rows.items():
+                    found[key][name].update(
+                        numerical_ms=row["ms"],
+                        numerical_graph_ms=row.get("graph_ms"))
+            else:
+                found[key] = rows
+    for e in entries:
+        for key, rows in found.items():
+            if e["name"] in rows:
+                e[key] = dict(rows=ddc.num_data, **rows[e["name"]])
 
 
 def index_add_ms(dd, vals, hleaf, inv, A: int, L: int, B: int):
@@ -641,7 +905,8 @@ def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
     bd = bound(20 * n_pad + moved_rows + tab_bytes, n_pad, int_rate)
     sec = bound(20 * n_pad + 32 * sectors + tab_bytes, n_pad, int_rate)
     floor = launch_floor(_route_grid(n_pad, dev), ROUTE_BLOCK, dev)
-    log(f"kernel route_values L={L} B={B} rows={dd.num_data}: bitwise ok, "
+    log(f"kernel route_values L={L} B={B} rows={dd.num_data} "
+        f"({int(tabs[3].sum())} categorical splits): bitwise ok, "
         f"{ms:.4f} ms back to back, {gms:.4f} ms in a graph (plain "
         f"{pl:.3f} ms, bound {bd['bound_ms']:.4f} ms; {moved_rows} moved "
         f"rows touch {sectors} sectors: sector bound "
@@ -654,11 +919,12 @@ def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
 
 
 def k1_measure(dd, vals, A: int, n_sel: int, gen, L: int,
-               int_rate: float, bag: float = 1.0) -> dict:
+               int_rate: float, bag: float = 1.0, **cat) -> dict:
     """K1 (fused route + histogram) at ``A`` slots of a wave with
-    ``n_sel`` pending splits and rows in the bag with probability
-    ``bag``: kernel vs plain version bitwise, times and bound.  With
-    ``bag`` < 1 the -1 slots must have collected every out-of-bag row."""
+    ``n_sel`` pending splits (``cat``: :func:`wave_inputs`'s categorical
+    arguments) and rows in the bag with probability ``bag``: kernel vs
+    plain version bitwise, times and bound.  With ``bag`` < 1 the -1
+    slots must have collected every out-of-bag row."""
     import torch
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops.histogram import (
@@ -669,7 +935,8 @@ def k1_measure(dd, vals, A: int, n_sel: int, gen, L: int,
     C = vals.shape[0]
     B = bin_stride(dd.group_max_bins)
     tab_bytes = 11 * L * 4 + L * B
-    leaf2, tabs, cat, active = wave_inputs(dd, A, n_sel, A, gen, L, bag)
+    leaf2, tabs, cat, active = wave_inputs(dd, A, n_sel, A, gen, L, bag,
+                                           **cat)
     raw, l2n = hist_route_raw(dd.bins_t, vals, leaf2, active, tabs, cat,
                               L, dd.group_max_bins)
     inv, src = slot_tables(active, L, collect_unbagged=True)
@@ -701,7 +968,8 @@ def k1_measure(dd, vals, A: int, n_sel: int, gen, L: int,
     bd = bound(16 * n_pad + moved_rows + (G + C) * n_active
                + raw.numel() * 4 + tab_bytes + (L + 1 + A) * 4,
                G * C * n_active, int_rate)
-    log(f"kernel hist_route A={A} B={B} rows={dd.num_data}: bitwise ok, "
+    log(f"kernel hist_route A={A} B={B} rows={dd.num_data} "
+        f"({int(tabs[3].sum())} categorical splits): bitwise ok, "
         f"{ms:.4f} ms (plain {pl:.3f} ms, index_add_ {lib_ms:.4f} ms, "
         f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}, {n_active} "
         f"active rows)")
@@ -938,7 +1206,7 @@ def kernel_line(walk: dict) -> str:
 
 
 def k1_float_measure(dd, mode: str, A: int, gen, L: int = 255,
-                     bag: float = 1.0, skew: bool = False) -> dict:
+                     bag: float = 1.0, skew: bool = False, **cat) -> dict:
     """The float K1 at ``A`` slots of a headline wave: bitwise (bit
     patterns) against its plain version on CPU copies and against K2
     followed by the float K5 on the card; times of the kernel and of its
@@ -958,8 +1226,9 @@ def k1_float_measure(dd, mode: str, A: int, gen, L: int = 255,
     B = bin_stride(dd.group_max_bins)
     vals = float_values(dd, mode, gen)
     C = vals.shape[0]
+    cat_share = cat.get("cat_share", 0.0)
     leaf2, tabs, cat, active = wave_inputs(dd, max(A, 8), A // 2, A, gen, L,
-                                           bag)
+                                           bag, **cat)
     if skew:
         leaf2, tabs = skew_wave(leaf2, tabs, int(active[0]))
     raw, l2n = hist_route_float_raw(dd.bins_t, vals, leaf2, active, tabs,
@@ -1039,6 +1308,7 @@ def k1_float_measure(dd, mode: str, A: int, gen, L: int = 255,
     pairs = chunk_pairs(hl, inv, rows, A)
     floor_ms = 2 * pairs * G * B * C * 4 / PEAK_BYTES_PER_S * 1e3
     log(f"kernel hist_route_float ({mode}{', skewed' if skew else ''}"
+        f"{', %d categorical splits' % int(tabs[3].sum()) if cat_share else ''}"
         f"{', bag %.1f' % bag if bag < 1 else ''}) A={A} rows={dd.num_data}: "
         f"bitwise ok (plain, K2 + float K5), {walk['ms']:.4f} ms = "
         f"partials {walk['partial_ms']:.4f} + fold {walk['fold_ms']:.4f} "
@@ -1692,6 +1962,217 @@ def serve_phase(lgb, counters, card: str) -> dict:
     return launches
 
 
+def cat_nodes(models) -> dict:
+    """Left-category counts of every categorical node, by feature."""
+    out = {}
+    for t in models:
+        for node in range(t.num_leaves - 1):
+            if t.decision_type[node] & 1:
+                ci = int(t.threshold_bin[node])
+                words = t.cat_threshold[t.cat_boundaries[ci]:
+                                        t.cat_boundaries[ci + 1]]
+                out.setdefault(int(t.split_feature[node]), []).append(
+                    sum(bin(int(w)).count("1") for w in words))
+    return out
+
+
+def cat_headline_phase(lgb, counters, params, ds_cat, X, y):
+    """Phase 13: the headline with columns 1-3 categorical through
+    ``lgb.train``: -> ``(booster, launches)``."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    bst, _, launches = train_path(lgb, "categorical headline", counters,
+                                  params, ds_cat, HEADLINE_ITERS)
+    pred = bst.predict(X)
+    torch.cuda.synchronize()
+    auc = binary_auc(y, pred)
+    nodes = cat_nodes(bst._gbdt.models)
+    log(f"categorical headline: train auc {auc:.5f}; categorical nodes "
+        f"by feature {{f: (nodes, most categories)}} "
+        f"{ {f: (len(c), max(c)) for f, c in sorted(nodes.items())} }; "
+        f"digest {bst.digest(include_scores=False)}")
+    if pred.shape != (len(X),) or not np.isfinite(pred).all():
+        raise AssertionError("predictions are not finite [n] values")
+    if not auc >= AUC_GATE:
+        raise AssertionError(f"categorical train auc {auc} < {AUC_GATE}")
+    missing = [k for k in ("route", "route_values", "hist_route",
+                           "hist_compact") if launches[k] <= 0]
+    if missing or launches["split_scan"] != 0:
+        raise AssertionError(f"categorical headline: kernels not launched "
+                             f"{missing}, split kernel "
+                             f"{launches['split_scan']} times")
+    if not (nodes.get(1) and max(nodes[1]) > 1 and nodes.get(2)
+            and set(nodes[2]) == {1}):
+        raise AssertionError("no many-vs-many nodes on feature 1 or "
+                             "one-vs-rest nodes on feature 2")
+    return bst, launches
+
+
+def cat_headline_float_phase(lgb, counters, params, ds_cat, X, y):
+    """Phase 13b: the categorical headline on float values
+    (``gpu_use_dp``: hilo), 8 iterations: -> launches."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    bst, _, launches = train_path(
+        lgb, "categorical headline float (gpu_use_dp)", counters,
+        dict(params, gpu_use_dp=True), ds_cat, FLOAT_ITERS)
+    pred = bst.predict(X)
+    torch.cuda.synchronize()
+    auc = binary_auc(y, pred)
+    log(f"categorical headline float: hist_mode {bst._gbdt.hist_mode}, "
+        f"train auc {auc:.5f}; "
+        f"{sum(t.num_cat for t in bst._gbdt.models)} categorical nodes; "
+        f"digest {bst.digest(include_scores=False)}")
+    if pred.shape != (len(X),) or not np.isfinite(pred).all():
+        raise AssertionError("float predictions are not finite [n] values")
+    if not auc >= AUC_GATE:
+        raise AssertionError(f"categorical float train auc {auc} < "
+                             f"{AUC_GATE}")
+    missing = [k for k in ("hist_route_float", "route", "hist_compact_float",
+                           "route_values") if launches[k] <= 0]
+    ran = [k for k in ("hist_route", "hist_compact", "split_scan")
+           if launches[k] != 0]
+    if missing or ran:
+        raise AssertionError(f"categorical float headline: kernels not "
+                             f"launched {missing}, off its plan {ran}")
+    return launches
+
+
+def cat_valid_phase(lgb, counters):
+    """Phase 14: the small-data path's configuration on its data with
+    columns 1-3 categorical, valid rows holding categories the training
+    rows never have: -> launches."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    Xs, ys, Xv, yv = small_data()
+    X = categorize(np.concatenate([Xs, Xv]), 3, valid_from=SMALL_ROWS)
+    Xs, Xv = X[:SMALL_ROWS], X[SMALL_ROWS:]
+    unseen = int(((Xv[:, 1] >= CAT_MANY) | (Xv[:, 3] >= CAT_NOISE)).sum())
+    ds = lgb.Dataset(Xs, label=ys, params={"max_bin": TRAIN_CONF["max_bin"]},
+                     categorical_feature=CAT_COLUMNS)
+    dv = lgb.Dataset(Xv, label=yv, reference=ds)
+    evals = {}
+    bst, _, launches = train_path(
+        lgb, "categorical small-data", counters, TRAIN_CONF, ds,
+        SMALL_ITERS, valid_sets=[dv], valid_names=["valid"],
+        early_stopping_rounds=SMALL_EARLY_STOP, evals_result=evals,
+        verbose_eval=False)
+    pred = bst.predict(Xv)
+    torch.cuda.synchronize()
+    vauc = binary_auc(yv, pred)
+    log(f"categorical small-data: valid auc {vauc:.5f} at best_iteration "
+        f"{bst.best_iteration} ({unseen} valid rows with an unseen "
+        f"category; {sum(t.num_cat for t in bst._gbdt.models)} categorical "
+        f"nodes); digest {bst.digest(include_scores=False)}")
+    if pred.shape != (SMALL_VALID,) or not np.isfinite(pred).all():
+        raise AssertionError("valid predictions are not finite [n] values")
+    if not vauc >= VALID_AUC_GATE:
+        raise AssertionError(f"categorical valid auc {vauc} < "
+                             f"{VALID_AUC_GATE}")
+    missing = [k for k in ("hist_route", "route_values") if launches[k] <= 0]
+    if missing or launches["split_scan"] != 0 or not unseen:
+        raise AssertionError(f"categorical small-data: kernels not "
+                             f"launched {missing}, split kernel "
+                             f"{launches['split_scan']} times, {unseen} "
+                             f"unseen rows")
+    return launches
+
+
+def cat_serve_phase(bst, X) -> None:
+    """Phase 15: the categorical headline model compiled on the card,
+    20,000 rows raw and binned with unseen, negative and NaN categories:
+    routing raw == binned == the host ``predict_leaf``, scores raw ==
+    binned and within 1 f32 ulp of the f64 host sum."""
+    import numpy as np
+    from lightgbm_tpu_torch.models.tree import predict_leaf
+    from lightgbm_tpu_torch.serve import compile_model
+    rng = np.random.RandomState(13)
+    Q = X[:SERVE_SAMPLE].copy()
+    odd = rng.rand(SERVE_SAMPLE, 3)
+    Q[:, CAT_COLUMNS] = np.where(odd < 0.03, CAT_NOISE + 7, Q[:, CAT_COLUMNS])
+    Q[:, CAT_COLUMNS] = np.where((odd >= 0.03) & (odd < 0.05), -1.0,
+                                 Q[:, CAT_COLUMNS])
+    Q[:, CAT_COLUMNS] = np.where((odd >= 0.05) & (odd < 0.07), np.nan,
+                                 Q[:, CAT_COLUMNS])
+    models = bst._gbdt.models
+    cm = compile_model(bst)
+    if cm.device.type != "cuda" or cm.pack.catbin_words is None:
+        raise AssertionError("the categorical model did not compile binned "
+                             "on the card")
+    bins = cm.bin_rows(Q)
+    host = predict_leaf(models, Q)
+    raw = cm.leaf_indices(Q)
+    binned = cm.leaf_indices(bins, binned=True)
+    if not (np.array_equal(raw, host) and np.array_equal(binned, host)):
+        raise AssertionError(f"categorical routing: raw != host on "
+                             f"{int((raw != host).sum())}, binned != host "
+                             f"on {int((binned != host).sum())} (row, tree)")
+    s_raw = cm.predict_raw(Q)
+    s_bin = cm.predict_raw(bins, binned=True)
+    if not np.array_equal(s_raw.view(np.int32), s_bin.view(np.int32)):
+        raise AssertionError("categorical scores: raw != binned")
+    worst = ulp_check("categorical scores", s_raw, host_scores(models, Q))
+    log(f"categorical serving: {SERVE_SAMPLE} rows, {len(models)} trees, "
+        f"{int((odd < 0.07).sum())} unseen / negative / NaN categories: "
+        f"routing raw == binned == host, scores raw == binned, {worst:.3f} "
+        f"ulp from the f64 host sum")
+
+
+def cat_stream_phase(lgb, counters, X, y, tmp: str) -> dict:
+    """Phase 16: 262,144 rows of the categorical set written as CSV,
+    ingested with ``categorical_column`` and streamed (63 leaves, blocks
+    of 131,072 rows, 2 iterations): its digest (scores included) must be
+    in-memory training's on ``store.to_binned_dataset``.  -> the
+    stream's launches."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.config import Config
+    n = CAT_STREAM_ROWS
+    t0 = time.time()
+    path = os.path.join(tmp, "categorical.csv")
+    np.savetxt(path, np.concatenate([y[:n, None], X[:n]], axis=1),
+               delimiter=",", fmt="%.9g")
+    params = dict(STREAM_PARAMS, categorical_column=",".join(
+        str(c + 1) for c in CAT_COLUMNS))
+    cfg = Config.from_params(params)
+    store = lgb.outofcore.ingest([path], cfg, os.path.join(tmp, "cat_store"))
+    prep_s = time.time() - t0
+    if [store.mappers[c].bin_type for c in CAT_COLUMNS] != [1, 1, 1]:
+        raise AssertionError("the store's columns 1-3 are not categorical")
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    bst = lgb.train_streaming(params, store, num_boost_round=STREAM_ITERS,
+                              block_rows=CAT_STREAM_BLOCK, device="cuda")
+    torch.cuda.synchronize()
+    stream_s = time.time() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    mem = GBDT(cfg, store.to_binned_dataset(cfg), "cuda")
+    for _ in range(STREAM_ITERS):
+        mem.train_one_iter()
+    torch.cuda.synchronize()
+    d_str, d_mem = bst.digest(), mem.digest()
+    log(f"categorical stream: CSV + ingest {prep_s:.2f} s, {n} x "
+        f"{STREAM_ITERS} streamed in {stream_s:.3f} s; launches {launches}; "
+        f"{sum(t.num_cat for t in bst.models)} categorical nodes; streamed "
+        f"{d_str} in memory {d_mem}")
+    if d_str != d_mem:
+        raise AssertionError("categorical streamed digest != in-memory")
+    if not any(t.num_cat for t in bst.models):
+        raise AssertionError("no categorical node in the streamed model")
+    missing = [k for k in ("hist_active", "route", "route_values")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the categorical "
+                             f"stream: {missing}")
+    return launches
+
+
 class _InstantServer:
     """Resolves each request as it is submitted: a sweep through it
     times the load generator alone."""
@@ -1779,6 +2260,21 @@ def main() -> int:
     torch.cuda.synchronize()
     float_kernel_phase(dd, entries)
 
+    # 2c. the categorical branch at the headline shapes, on the
+    # categorical headline data (the labels drawn first)
+    t0 = time.time()
+    Xc = categorize(X.copy(), 1)
+    ds_cat = lgb.Dataset(Xc, label=y, params={"max_bin": 63},
+                         categorical_feature=CAT_COLUMNS).construct()
+    log(f"categorical headline data + binning {time.time() - t0:.1f} s")
+    ddc = to_device(ds_cat._constructed, "cuda")
+    t0 = time.time()
+    cat_kernel_phase(ddc, vals, int32_ops_per_s(
+        cuda_build.multiprocessor_count(ddc.device)), entries)
+    torch.cuda.synchronize()
+    log(f"categorical kernel phase {time.time() - t0:.1f} s")
+    del ddc
+
     # 3. kernels at the small-data path's shapes
     t0 = time.time()
     Xs, ys, Xv, yv = small_data()
@@ -1795,6 +2291,22 @@ def main() -> int:
     small_kernel_phase(dds, vals_s, int32_ops_per_s(
         cuda_build.multiprocessor_count(dds.device)), entries)
     torch.cuda.synchronize()
+
+    # 3c. the categorical branch at the small-data path's shapes, and on
+    # a bundled categorical column
+    t0 = time.time()
+    Xsc = categorize(Xs.copy(), 3)
+    dsc = lgb.Dataset(Xsc, label=ys, params={"max_bin": TRAIN_CONF["max_bin"]},
+                      categorical_feature=CAT_COLUMNS).construct()
+    dsb, _ = bundled_cat_data(Xsc, ys)
+    ddsc = to_device(dsc._constructed, "cuda")
+    ddsb = to_device(dsb._constructed, "cuda")
+    vals_b, _ = pack_values_q(gs, hs, "int8h", ddsb.n_pad)
+    small_cat_kernel_phase(ddsc, ddsb, vals_s, vals_b, int32_ops_per_s(
+        cuda_build.multiprocessor_count(dds.device)), entries)
+    torch.cuda.synchronize()
+    log(f"small categorical kernel phase {time.time() - t0:.1f} s")
+    del ddsc, ddsb, dsc, dsb
 
     counters = {"route": route_rows_raw, "route_values": route_rows_values_raw,
                 "hist_route": hist_route_raw, "hist_compact": hist_compact_raw,
@@ -1896,8 +2408,36 @@ def main() -> int:
     # 12. serving
     by_path["serve"] = serve_phase(lgb, counters, card)
 
+    # 13.-16. categorical features: the headline, a valid set, serving
+    # and a stream
+    t0 = time.time()
+    bst, by_path["cat_headline"] = cat_headline_phase(lgb, counters, params,
+                                                      ds_cat, Xc, y)
+    by_path["cat_headline_float"] = cat_headline_float_phase(
+        lgb, counters, params, ds_cat, Xc, y)
+    log(f"phase 13 {time.time() - t0:.1f} s")
+    t0 = time.time()
+    by_path["cat_small_data"] = cat_valid_phase(lgb, counters)
+    log(f"phase 14 {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cat_serve_phase(bst, Xc)
+    log(f"phase 15 {time.time() - t0:.1f} s")
+    del bst, ds_cat
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="lgbm_cat_stream_")
+    try:
+        by_path["cat_stream"] = cat_stream_phase(lgb, counters, Xc, y, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 16 {time.time() - t0:.1f} s")
+
     for e in entries:
-        e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()}
+        # a categorical entry counts its kernel's launches on the
+        # categorical paths only
+        key = e.get("counter", e["name"])
+        e["launches_by_path"] = {p: c[key] for p, c in by_path.items()
+                                 if "counter" not in e
+                                 or p.startswith("cat_")}
         e["launches"] = sum(e["launches_by_path"].values())
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -2,7 +2,9 @@
 
 The reference Python package's surface (`python-package/lightgbm/basic.py`:
 ``Dataset`` `:572`, ``Booster`` `:1264`), as the JAX package's
-``basic.py`` offers it, for numpy input: a ``Dataset`` bins on the host
+``basic.py`` offers it, for numpy and pandas input (``category``
+columns become their codes and, with ``categorical_feature="auto"``,
+categorical features): a ``Dataset`` bins on the host
 (``io/dataset.py``) and a ``Booster`` trains on one device.  A
 ``Dataset`` made with ``reference=`` (a validation set) bins with the
 reference's mappers.  A ``Booster`` trains on ``cuda`` unless it is
@@ -21,8 +23,33 @@ from .config import Config
 from .io.dataset import BinnedDataset, Metadata
 
 
+def _data_to_numpy(data):
+    """numpy or pandas -> ``(float array, pandas info or None)``; the
+    info holds the ``category`` columns and the column names."""
+    if hasattr(data, "dtypes") and hasattr(data, "columns"):    # pandas
+        import pandas as pd               # local import; optional dep
+        out = np.empty((len(data), data.shape[1]), np.float64)
+        cat_cols = []
+        for i, col in enumerate(data.columns):
+            s = data[col]
+            if str(s.dtype) == "category":
+                cat_cols.append(i)
+                out[:, i] = s.cat.codes.astype(np.float64)
+            else:
+                out[:, i] = pd.to_numeric(s, errors="coerce").astype(
+                    np.float64)
+        return out, {"categorical": cat_cols,
+                     "names": [str(c) for c in data.columns]}
+    X = np.asarray(data)
+    if X.dtype == np.object_:
+        X = X.astype(np.float64)
+    return X, None
+
+
 class Dataset:
-    """Training data wrapper (numpy arrays)."""
+    """Training data wrapper (numpy arrays or a pandas DataFrame).
+    ``categorical_feature`` lists column indices or names; ``"auto"``
+    takes a DataFrame's ``category`` columns."""
 
     def __init__(self, data, label=None, reference: "Dataset" = None,
                  weight=None, init_score=None, feature_name="auto",
@@ -43,13 +70,16 @@ class Dataset:
     def construct(self) -> "Dataset":
         if self._constructed is not None:
             return self
-        X = np.asarray(self.data)
-        if X.dtype == np.object_:
-            X = X.astype(np.float64)
-        cat = ([] if self.categorical_feature in ("auto", None)
-               else [int(c) for c in self.categorical_feature])
-        names = (list(self.feature_name)
-                 if isinstance(self.feature_name, (list, tuple)) else None)
+        X, pd_info = _data_to_numpy(self.data)
+        names = pd_info["names"] if pd_info is not None else None
+        cat = []
+        if self.categorical_feature == "auto" and pd_info is not None:
+            cat = pd_info["categorical"]
+        if self.categorical_feature not in ("auto", None):
+            cat = [names.index(c) if isinstance(c, str) and names
+                   else int(c) for c in self.categorical_feature]
+        if isinstance(self.feature_name, (list, tuple)):
+            names = list(self.feature_name)
         ref = (self.reference.construct()._constructed
                if self.reference is not None else None)
         self._constructed = BinnedDataset.from_raw(
@@ -137,7 +167,7 @@ class Booster:
         host walk when it is on the CPU.  ``pred_leaf`` returns the
         ``[n, T]`` leaf indices.
         """
-        X = np.asarray(data)
+        X = _data_to_numpy(data)[0]
         if num_iteration is None or num_iteration <= 0:
             num_iteration = self.best_iteration
         if pred_contrib:

@@ -32,7 +32,8 @@ from ..learner.serial import (BuiltTree, GrowthParams, build_tree,
                               predict_built_tree)
 from ..metric.metrics import (Metric, create_metric,
                               default_metric_for_objective)
-from ..models.tree import Tree, predict_leaf
+from ..models.tree import (K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, Tree,
+                           _construct_bitset, predict_leaf)
 from ..objective.objectives import (ObjectiveFunction, create_objective,
                                     load_objective)
 from ..ops.split import SplitParams
@@ -332,6 +333,10 @@ class GBDT:
         feat_inner = host(bt.feature)
         thr_bin = host(bt.threshold_bin)
         dl = host(bt.default_left)
+        is_cat = host(bt.is_categorical)
+        # the masks come to the host once a tree, and only when a node
+        # is categorical
+        cat_mask = host(bt.cat_mask) if is_cat.any() else None
         t.split_feature_inner[:m] = feat_inner
         t.left_child[:m] = host(bt.left_child)
         t.right_child[:m] = host(bt.right_child)
@@ -346,9 +351,28 @@ class GBDT:
             orig = ds.used_features[inner]
             mapper = ds.mappers[orig]
             t.split_feature[node] = orig
-            dt = np.int8((mapper.missing_type & 3) << 2)
+            mt = mapper.missing_type
+            if is_cat[node]:
+                # a value bitset of the left categories (bins past the
+                # feature's own are padding); threshold holds the
+                # categorical node's index
+                bins = np.nonzero(cat_mask[node])[0]
+                bins = bins[bins < mapper.num_bin]
+                values = sorted(int(mapper.bin_2_categorical[b])
+                                for b in bins)
+                ci = t.num_cat
+                t.decision_type[node] = np.int8(
+                    K_CATEGORICAL_MASK | ((mt & 3) << 2))
+                t.threshold[node] = float(ci)
+                t.threshold_bin[node] = ci
+                t.cat_threshold.extend(_construct_bitset(values))
+                t.cat_boundaries.append(len(t.cat_threshold))
+                t.cat_left_bins.append(np.asarray(sorted(bins), np.int32))
+                t.num_cat += 1
+                continue
+            dt = np.int8((mt & 3) << 2)
             if dl[node]:
-                dt |= np.int8(2)
+                dt |= np.int8(K_DEFAULT_LEFT_MASK)
             t.decision_type[node] = dt
             t.threshold_bin[node] = int(thr_bin[node])
             t.threshold[node] = mapper.threshold_value(int(thr_bin[node]))

@@ -20,13 +20,15 @@ def train(params: Dict[str, Any], train_set: Dataset,
           early_stopping_rounds: Optional[int] = None,
           evals_result: Optional[Dict] = None,
           verbose_eval=True, callbacks: Optional[Sequence] = None,
-          device=None) -> Booster:
+          device=None, categorical_feature="auto") -> Booster:
     """Train one model on ``device`` (default: the ``device`` parameter,
     ``cuda`` unless set).  ``num_iterations`` in ``params`` overrides
     ``num_boost_round`` and ``early_stopping_round`` sets
     ``early_stopping_rounds``, as in the reference.  With early stopping
     ``best_iteration`` is the 1-based iteration of the best score of the
-    first valid metric that stopped; ``predict`` uses it by default."""
+    first valid metric that stopped; ``predict`` uses it by default.
+    ``categorical_feature`` other than ``"auto"`` overrides the training
+    set's (indices or column names)."""
     params = canonicalize_params(dict(params or {}))
     if "num_iterations" in params:
         num_boost_round = int(params["num_iterations"])
@@ -39,6 +41,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
             "valid_data files are not ported to lightgbm_tpu_torch yet: "
             "pass Dataset objects as valid_sets")
 
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
     booster = Booster(params=params, train_set=train_set, device=device)
     valid_names = list(valid_names or [])
     for i, vs in enumerate(valid_sets or []):

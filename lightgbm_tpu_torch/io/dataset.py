@@ -9,9 +9,6 @@ matrix is ONE dense ``[num_rows, num_groups]`` int array (uint8 when
 every group has <=256 bins), moved to the device by ``io/device.py``.
 EFB utilities (`dataset.cpp:48-210` equivalents) live in this module.
 
-Categorical features are not supported by this package yet:
-:meth:`BinnedDataset.from_raw` raises ``NotImplementedError`` for them.
-
 ``Metadata`` mirrors the reference Metadata (`dataset.h:36-248`): labels,
 weights, query boundaries, init scores.
 """
@@ -353,10 +350,6 @@ class BinnedDataset:
         ds.feature_names = (list(feature_names) if feature_names
                             else [f"Column_{i}" for i in range(num_features)])
         cat_set = set(int(c) for c in categorical_features)
-        if cat_set:
-            raise NotImplementedError(
-                "categorical features are not supported by "
-                "lightgbm_tpu_torch yet (numerical splits only)")
 
         if reference is not None:
             # align bin mappers with reference dataset (used for valid sets;

@@ -119,10 +119,6 @@ def device_data_from_arrays(bins: np.ndarray, meta: dict,
     """Build :class:`DeviceData` from host ``[n, G]`` bins and a
     :func:`feature_meta_np`-shaped dictionary."""
     device = torch.device(device)
-    if meta["has_categorical"]:
-        raise NotImplementedError(
-            "categorical features are not supported by lightgbm_tpu_torch "
-            "yet")
     bins = np.ascontiguousarray(bins)
     if bins.dtype != np.uint8:
         raise NotImplementedError(

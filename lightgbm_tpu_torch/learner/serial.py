@@ -307,7 +307,8 @@ def scan_grid(data: DeviceData, params: GrowthParams, feature_mask, ids,
               grid, lsg, lsh, lc) -> SplitResult:
     """EFB unbundle + best-split scan of the changed-leaf grids: the
     fused split kernel (K6) where :func:`split_kernel_ok` holds (at most
-    65,536 rows, numerical features), else the torch scan — the
+    65,536 rows, numerical features), else the torch scan, with the
+    categorical search where the data has categorical features — the
     reference's choice of scan."""
     L = params.num_leaves
     safe = ids.clamp(0, L - 1).long()
@@ -328,7 +329,9 @@ def scan_grid(data: DeviceData, params: GrowthParams, feature_mask, ids,
     return find_best_splits(grid, lsg[safe], lsh[safe], lc[safe],
                             data.num_bins, data.missing_types,
                             data.default_bins, params.split, feature_mask,
-                            any_missing=data.has_missing, feature_chunk=fc)
+                            any_missing=data.has_missing, feature_chunk=fc,
+                            is_categorical=data.is_categorical,
+                            any_categorical=data.has_categorical)
 
 
 def rescan_changed(data: DeviceData, params: GrowthParams, feature_mask,
@@ -617,7 +620,9 @@ def predict_built_tree(tree: BuiltTree, data: DeviceData,
                        depth: int) -> torch.Tensor:
     """Leaf value per row of ``data`` (walking its ``bins_t``) for a
     just-built tree whose deepest leaf is at ``depth`` (0 for a stump):
-    one pass per level."""
+    one pass per level.  A categorical node sends bin ``b`` left where
+    its ``cat_mask`` holds ``min(b, B - 1)`` (the reference walk's
+    clamp of the mask lookup)."""
     n = data.num_data
     bins_t = data.bins_t[:, :n].long()
     node = torch.zeros(n, dtype=torch.int64, device=bins_t.device)
@@ -634,6 +639,7 @@ def predict_built_tree(tree: BuiltTree, data: DeviceData,
     thr = tree.threshold_bin.long()
     left = tree.left_child.long()
     right = tree.right_child.long()
+    Bcat = tree.cat_mask.shape[-1]
     for _ in range(depth):
         is_leaf = node < 0
         nidx = node.clamp(min=0)
@@ -645,6 +651,10 @@ def predict_built_tree(tree: BuiltTree, data: DeviceData,
                       | ((mt == MISSING_ZERO) & (b == db)))
         go_left = torch.where(is_missing, tree.default_left[nidx],
                               b <= thr[nidx])
+        if data.has_categorical:
+            cat_left = tree.cat_mask[nidx, b.clamp(max=Bcat - 1)]
+            go_left = torch.where(tree.is_categorical[nidx], cat_left,
+                                  go_left)
         nxt = torch.where(go_left, left[nidx], right[nidx])
         node = torch.where(is_leaf, node, nxt)
     return tree.leaf_value[~node]

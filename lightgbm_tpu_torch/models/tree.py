@@ -56,9 +56,11 @@ class Tree:
         self.leaf_value = np.zeros(max_leaves, np.float64)
         self.leaf_count = np.zeros(max_leaves, np.int32)
         self.leaf_depth = np.zeros(max_leaves, np.int32)
-        # categorical bitsets over raw values (loaded models)
+        # categorical bitsets over raw values, and each categorical
+        # node's left bins (binned serving)
         self.cat_boundaries: List[int] = [0]
         self.cat_threshold: List[int] = []               # uint32 words (values)
+        self.cat_left_bins: List[np.ndarray] = []        # per cat node, bin ids
         self.shrinkage_rate = 1.0
 
     def shrinkage(self, rate: float) -> None:
@@ -197,14 +199,46 @@ class Tree:
             t.cat_boundaries = [int(v) for v in kv["cat_boundaries"].split()]
             t.cat_threshold = [int(v) for v in kv["cat_threshold"].split()]
         t.shrinkage_rate = float(kv.get("shrinkage", 1.0))
-        # categorical thresholds are cat-node indices stored as doubles
-        # (a loaded model predicts over raw values: numerical
-        # threshold_bin stays 0)
+        # categorical thresholds are cat-node indices stored as doubles;
+        # numerical threshold_bin / cat_left_bins need bin mappers — see
+        # align_with_mappers
         cat_nodes = (t.decision_type[:m] & K_CATEGORICAL_MASK) != 0
         t.threshold_bin[:m] = np.where(cat_nodes,
                                        t.threshold[:m].astype(np.int32), 0)
         t._recompute_depth()
         return t
+
+    def align_with_mappers(self, mappers, feature_to_inner=None) -> None:
+        """Recover the bin-space thresholds (``threshold_bin``,
+        ``cat_left_bins``) of a loaded tree from its real-valued ones
+        through the training set's BinMappers (per ORIGINAL feature),
+        so the tree can serve binned rows."""
+        m = self.num_leaves - 1
+        self.cat_left_bins = [np.zeros(0, np.int32)] * self.num_cat
+        for node in range(m):
+            f = int(self.split_feature[node])
+            if feature_to_inner is not None:
+                self.split_feature_inner[node] = feature_to_inner.get(f, 0)
+            mapper = mappers[f]
+            if self.decision_type[node] & K_CATEGORICAL_MASK:
+                ci = int(self.threshold[node])
+                self.threshold_bin[node] = ci
+                words = self.cat_threshold[self.cat_boundaries[ci]:
+                                           self.cat_boundaries[ci + 1]]
+                bins = [mapper.categorical_2_bin[v]
+                        for v in _bitset_to_values(words)
+                        if v in mapper.categorical_2_bin]
+                self.cat_left_bins[ci] = np.asarray(sorted(bins), np.int32)
+            else:
+                ub = mapper.bin_upper_bound
+                if mapper.missing_type == MISSING_NAN:
+                    ub = ub[:-1]
+                # the model text holds ub[t] exactly (repr), so a
+                # left bisection finds t
+                self.threshold_bin[node] = min(
+                    int(np.searchsorted(ub, self.threshold[node],
+                                        side="left")),
+                    max(len(ub) - 1, 0))
 
     def _recompute_depth(self) -> None:
         if self.num_leaves <= 1:
@@ -232,6 +266,17 @@ def predict_leaf(trees: Sequence[Tree], X: np.ndarray) -> np.ndarray:
 
 def _fmt_float(v) -> str:
     return repr(round(float(v), 8)) if np.isfinite(v) else str(v)
+
+
+def _construct_bitset(values: Sequence[int]) -> List[int]:
+    """``Common::ConstructBitset`` (utils/common.h): uint32 words with
+    bit ``v`` set for every ``v`` in ``values``."""
+    if len(values) == 0:
+        return [0]
+    words = [0] * (max(values) // 32 + 1)
+    for v in values:
+        words[v // 32] |= (1 << (v % 32))
+    return words
 
 
 def _bitset_to_values(words: Sequence[int]) -> List[int]:

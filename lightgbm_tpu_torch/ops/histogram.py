@@ -1038,13 +1038,35 @@ def hist_active_scatter(bins, grad, hess, row_leaf, active, *,
     return hist[:A * F * B].reshape(A, F, B, 3)
 
 
+SUM_BLOCK = 32
+
+
+def fixed_sum(x: torch.Tensor, dim: int, base: int = SUM_BLOCK
+              ) -> torch.Tensor:
+    """Sum over ``dim`` in the reference's compiled order on the CPU:
+    sequential from 0.0 within blocks of ``base``, then the block totals
+    the same way (``torch.sum`` adds in another order).  The length is a
+    bin stride: a power of two, so at most ``base`` or a multiple of
+    it."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n <= base:
+        acc = torch.zeros_like(x[..., 0])
+        for i in range(n):
+            acc = acc + x[..., i]
+        return acc
+    blk = x.reshape(x.shape[:-1] + (n // base, base))
+    return fixed_sum(fixed_sum(blk, -1, base), -1, base)
+
+
 def unbundle_grid(grid, leaf_sum_grad, leaf_sum_hess, leaf_count,
                   feat_group, feat_offset, num_bins, default_bins,
                   out_stride: int):
     """Expand EFB group-column histograms ``[A, G, Bg, 3]`` into
     per-feature grids ``[A, F, B, 3]`` (port of the reference's
     ``unbundle_grid``): a bundled feature's shared default cell is
-    rebuilt from the leaf totals by subtraction (``FixHistogram``)."""
+    rebuilt from the leaf totals by subtraction (``FixHistogram``), the
+    other cells summed in the reference's order (:func:`fixed_sum`)."""
     A, G, Bg, _ = grid.shape
     B = out_stride
     dev = grid.device
@@ -1060,7 +1082,7 @@ def unbundle_grid(grid, leaf_sum_grad, leaf_sum_hess, leaf_count,
     flat = grid.reshape(A, G * Bg, 3)
     out = flat[:, idx]
     out = torch.where(valid[None, :, :, None], out, torch.zeros_like(out))
-    sums = out.sum(dim=2)
+    sums = fixed_sum(out, 2)
     totals = torch.stack([leaf_sum_grad, leaf_sum_hess, leaf_count],
                          dim=-1)[:, None, :]
     fix = totals - sums

@@ -1,12 +1,15 @@
-"""Vectorized best-split search over histograms (numerical splits).
+"""Vectorized best-split search over histograms.
 
-Port of the JAX package's ``ops/split.py`` for the numerical path:
-prefix sums over the bin axis for every (leaf, feature) pair at once,
-both missing-value directions evaluated in parallel, and one masked
-argmax with first-max tie-breaks (reference
-``FindBestThresholdSequence``, `feature_histogram.hpp:312-452`;
-``GetLeafSplitGain`` / ``CalculateSplittedLeafOutput``,
-`feature_histogram.hpp:291-308`).
+Port of the JAX package's ``ops/split.py``: prefix sums over the bin
+axis for every (leaf, feature) pair at once, both missing-value
+directions evaluated in parallel, and one masked argmax with first-max
+tie-breaks (reference ``FindBestThresholdSequence``,
+`feature_histogram.hpp:312-452`; ``GetLeafSplitGain`` /
+``CalculateSplittedLeafOutput``, `feature_histogram.hpp:291-308`).
+Categorical features take one-vs-rest splits up to
+``max_cat_to_onehot`` bins and the sorted many-vs-many search above
+(`feature_histogram.hpp:104-259`); the winner's left bins are its
+``cat_mask``.
 
 Threshold ``t`` sends ``bin <= t`` left; missing values (the NaN bin for
 MissingType::NaN, the zero/default bin for MissingType::Zero) go to the
@@ -17,7 +20,8 @@ Summation order: the prefix sums run in one fixed order,
 :func:`prefix_sum` — sequential within blocks of 16 bins, then the
 block totals' exclusive prefix added on — which is the order the
 reference's compiled scan uses on the CPU, so the two packages' gains
-agree bitwise on identical histograms.
+agree bitwise on identical histograms.  The many-vs-many sort is stable
+over the reference's total order of floats (:func:`_total_order_key`).
 """
 from __future__ import annotations
 
@@ -140,13 +144,18 @@ def find_best_splits(hist: torch.Tensor, leaf_sum_grad, leaf_sum_hess,
                      params: SplitParams,
                      feature_mask: Optional[torch.Tensor] = None,
                      any_missing: bool = True,
-                     feature_chunk: Optional[int] = None) -> SplitResult:
-    """Best numerical split for every leaf over every feature.
+                     feature_chunk: Optional[int] = None,
+                     is_categorical: Optional[torch.Tensor] = None,
+                     any_categorical: bool = False) -> SplitResult:
+    """Best split for every leaf over every feature.
 
     ``hist`` is ``[L, F, B, 3]`` (grad, hess, count); the leaf sums are
-    the authoritative ``[L]`` totals.  ``feature_chunk`` scans the
-    feature axis in chunks whose winners merge with the argmax's
-    first-max tie-break (chunked == unchunked bitwise)."""
+    the authoritative ``[L]`` totals.  ``is_categorical`` ``[F]`` marks
+    the categorical features; ``any_categorical`` False skips their
+    search statically, as the reference does for all-numerical data.
+    ``feature_chunk`` scans the feature axis in chunks whose winners
+    merge with the argmax's first-max tie-break (chunked == unchunked
+    bitwise)."""
     F = hist.shape[1]
     l1, l2 = params.lambda_l1, params.lambda_l2
     parent_gain = leaf_split_gain(leaf_sum_grad, leaf_sum_hess, l1, l2)
@@ -154,10 +163,12 @@ def find_best_splits(hist: torch.Tensor, leaf_sum_grad, leaf_sum_hess,
 
     def block(s, e):
         fm = feature_mask[s:e] if feature_mask is not None else None
+        ic = (is_categorical[s:e] if any_categorical
+              and is_categorical is not None else None)
         return _find_best_splits_block(
             hist[:, s:e], leaf_sum_grad, leaf_sum_hess, leaf_count,
             num_bins[s:e], missing_types[s:e], default_bins[s:e], params,
-            fm, any_missing)
+            fm, any_missing, ic)
 
     if feature_chunk is None or feature_chunk >= F:
         res = block(0, F)
@@ -180,8 +191,10 @@ def find_best_splits(hist: torch.Tensor, leaf_sum_grad, leaf_sum_hess,
 def _find_best_splits_block(hist, leaf_sum_grad, leaf_sum_hess, leaf_count,
                             num_bins, missing_types, default_bins,
                             params: SplitParams, feature_mask,
-                            any_missing: bool) -> SplitResult:
-    """One feature block: the winner per leaf with its RAW gain."""
+                            any_missing: bool,
+                            is_categorical=None) -> SplitResult:
+    """One feature block: the winner per leaf with its RAW gain
+    (``is_categorical`` None: no categorical search)."""
     L, F, B, _ = hist.shape
     dev = hist.device
     g = hist[..., 0]
@@ -269,7 +282,13 @@ def _find_best_splits_block(hist, leaf_sum_grad, leaf_sum_hess, leaf_count,
         num_lg, num_lh, num_lc = sel(lg), sel(lh), sel(lc)
         num_default_left = best_var.bool()
 
-    feat_gain = num_best_gain                                        # [L, F]
+    if is_categorical is not None:
+        cat_gain, cat_mask_lr, cat_lg, cat_lh, cat_lc = _categorical_splits(
+            g, h, c, tg, th, tc, num_bins, valid_bin, params)
+        use_cat = is_categorical[None, :]                            # [1, F]
+        feat_gain = torch.where(use_cat, cat_gain, num_best_gain)    # [L, F]
+    else:
+        feat_gain = num_best_gain
     if feature_mask is not None:
         feat_gain = torch.where(feature_mask[None, :], feat_gain, min_score)
     best_feat = torch.argmax(feat_gain, dim=-1)                      # [L]
@@ -277,18 +296,119 @@ def _find_best_splits_block(hist, leaf_sum_grad, leaf_sum_hess, leaf_count,
     b_lg = _take_last(num_lg, best_feat)
     b_lh = _take_last(num_lh, best_feat)
     b_lc = _take_last(num_lc, best_feat)
+    dl = _take_last(num_default_left, best_feat)
+    if is_categorical is not None:
+        bf_cat = is_categorical[best_feat]
+        b_lg = torch.where(bf_cat, _take_last(cat_lg, best_feat), b_lg)
+        b_lh = torch.where(bf_cat, _take_last(cat_lh, best_feat), b_lh)
+        b_lc = torch.where(bf_cat, _take_last(cat_lc, best_feat), b_lc)
+        dl = dl & ~bf_cat
+        cat_mask = torch.gather(
+            cat_mask_lr, 1,
+            best_feat[:, None, None].expand(L, 1, B))[:, 0]          # [L, B]
+        eff_l2 = torch.where(bf_cat, l2 + params.cat_l2, l2)
+    else:
+        bf_cat = torch.zeros(L, dtype=torch.bool, device=dev)
+        cat_mask = torch.zeros((L, B), dtype=torch.bool, device=dev)
+        eff_l2 = l2
     b_rg = leaf_sum_grad - b_lg
     b_rh = leaf_sum_hess - b_lh
     b_rc = leaf_count - b_lc
-    left_out = -threshold_l1(b_lg, l1) / (b_lh + l2)
-    right_out = -threshold_l1(b_rg, l1) / (b_rh + l2)
+    left_out = -threshold_l1(b_lg, l1) / (b_lh + eff_l2)
+    right_out = -threshold_l1(b_rg, l1) / (b_rh + eff_l2)
     return SplitResult(
         gain=best_gain.float(),
         feature=best_feat.to(torch.int32),
         threshold=_take_last(best_bin, best_feat).to(torch.int32),
-        default_left=_take_last(num_default_left, best_feat),
-        is_categorical=torch.zeros(L, dtype=torch.bool, device=dev),
-        cat_mask=torch.zeros((L, B), dtype=torch.bool, device=dev),
+        default_left=dl,
+        is_categorical=bf_cat,
+        cat_mask=cat_mask,
         left_sum_grad=b_lg, left_sum_hess=b_lh, left_count=b_lc,
         right_sum_grad=b_rg, right_sum_hess=b_rh, right_count=b_rc,
         left_output=left_out, right_output=right_out)
+
+
+def _total_order_key(x: torch.Tensor) -> torch.Tensor:
+    """int32 keys that order float32 values as the reference's sort does
+    (IEEE total order: -0.0 before +0.0, NaNs at the ends), so a stable
+    sort of the keys is its stable argsort."""
+    bits = x.contiguous().view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def _categorical_splits(g, h, c, tg, th, tc, num_bins, valid_bin,
+                        params: SplitParams):
+    """One-vs-rest + sorted many-vs-many categorical search
+    (`feature_histogram.hpp:104-259`): per (leaf, feature) the best gain,
+    the left-going bin mask ``[L, F, B]`` and the left sums.  The gain
+    and the outputs use ``lambda_l2 + cat_l2``."""
+    L, F, B = g.shape
+    dev = g.device
+    l1 = params.lambda_l1
+    l2 = params.lambda_l2 + params.cat_l2
+    min_d = params.min_data_in_leaf * 1.0
+    min_h = params.min_sum_hessian_in_leaf + K_EPSILON
+    min_score = torch.full((), K_MIN_SCORE, dtype=torch.float32, device=dev)
+    tg3, th3, tc3 = tg[..., None], th[..., None], tc[..., None]  # [L, 1, 1]
+
+    occupied = valid_bin[None] & (c > 0)                             # [L, F, B]
+
+    # --- one-vs-rest: left = the single category k ----------------------
+    oh_gain = _split_gain(g, h, tg3 - g, th3 - h, l1, l2)
+    oh_ok = (occupied & (c >= min_d) & (tc3 - c >= min_d)
+             & (h >= min_h) & (th3 - h >= min_h))
+    oh_gain = torch.where(oh_ok, oh_gain, min_score)
+    oh_best = torch.argmax(oh_gain, dim=-1)                          # [L, F]
+    oh_best_gain = _take_last(oh_gain, oh_best)
+
+    # --- many-vs-many: sort by grad / (hess + cat_smooth), scan both ends
+    ratio = g / (h + params.cat_smooth)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+    sort_key = torch.where(occupied, ratio, inf)
+    order = torch.argsort(_total_order_key(sort_key), dim=-1, stable=True)
+    sg = torch.gather(g, -1, order)
+    sh = torch.gather(h, -1, order)
+    sc = torch.gather(c, -1, order)
+    occ_sorted = torch.gather(occupied, -1, order)
+    n_occ = occupied.sum(-1, dtype=torch.int32)                      # [L, F]
+
+    def direction(sg, sh, sc, occ):
+        cs = prefix_sum(torch.stack([sg, sh, sc]))
+        csg, csh, csc = cs[0], cs[1], cs[2]
+        # count OCCUPIED categories in the prefix: the backward prefix
+        # starts with the unoccupied inf-key slots
+        k_occ = torch.cumsum(occ.to(torch.int32), dim=-1, dtype=torch.int32)
+        mg = _split_gain(csg, csh, tg3 - csg, th3 - csh, l1, l2)
+        okk = ((csc >= min_d) & (tc3 - csc >= min_d) & (csh >= min_h)
+               & (th3 - csh >= min_h) & occ
+               & (k_occ <= params.max_cat_threshold)
+               & (k_occ < n_occ[..., None]))
+        mg = torch.where(okk, mg, min_score)
+        best_k = torch.argmax(mg, dim=-1)
+        return (_take_last(mg, best_k), best_k, _take_last(csg, best_k),
+                _take_last(csh, best_k), _take_last(csc, best_k))
+
+    fw = direction(sg, sh, sc, occ_sorted)
+    bw = direction(sg.flip(-1), sh.flip(-1), sc.flip(-1),
+                   occ_sorted.flip(-1))
+    use_bw = bw[0] > fw[0]
+    mv_gain, mv_lg, mv_lh, mv_lc = (torch.where(use_bw, b, f) for b, f in
+                                    zip(bw[:1] + bw[2:], fw[:1] + fw[2:]))
+
+    # the winning direction's left bins over the original bin ids: each
+    # bin's rank in the sort (the inverse permutation, by a scatter)
+    pos = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(B, device=dev).expand(L, F, B))
+    in_fw = pos <= fw[1][..., None]
+    in_bw = (B - 1 - pos) <= bw[1][..., None]
+    mv_mask = torch.where(use_bw[..., None], in_bw, in_fw) & occupied
+
+    # --- one-hot below max_cat_to_onehot bins, else many-vs-many --------
+    use_onehot = (num_bins <= params.max_cat_to_onehot)[None, :]     # [1, F]
+    bin_ids = torch.arange(B, device=dev)
+    oh_mask = bin_ids[None, None, :] == oh_best[..., None]
+    return (torch.where(use_onehot, oh_best_gain, mv_gain),
+            torch.where(use_onehot[..., None], oh_mask, mv_mask),
+            torch.where(use_onehot, _take_last(g, oh_best), mv_lg),
+            torch.where(use_onehot, _take_last(h, oh_best), mv_lh),
+            torch.where(use_onehot, _take_last(c, oh_best), mv_lc))

@@ -37,7 +37,10 @@ state is the flat entry index.  Two input paths share the walk:
 * **binned** — ``[n, Fi]`` uint8/int32 rows binned through the TRAINING
   bin mappers (:meth:`CompiledModel.bin_rows`): integer ``bin <=
   threshold_bin`` compares, a node's missing bin (its feature's NaN or
-  zero bin) going to its default side.
+  zero bin) going to its default side, and categorical membership
+  through each node's left BINS (``Tree.cat_left_bins``) as bitsets; an
+  unseen category bins to the sentinel ``num_bin``, in no set, and goes
+  right.
 """
 from __future__ import annotations
 
@@ -85,7 +88,7 @@ class ServePack:
     ``child[entry, side]`` (side 0 left, 1 right; a leaf's children are
     itself).  Binned-path tables are None when the pack was built
     without mappers; categorical tables are None when no tree has a
-    categorical node.
+    categorical node (both, for the binned path's bin bitsets).
     """
 
     root: torch.Tensor                 # [T] int64 entry of each tree's root
@@ -104,6 +107,9 @@ class ServePack:
     split_feature_inner: Optional[torch.Tensor]  # [T*N] int64 used column
     threshold_bin: Optional[torch.Tensor]        # [T*N] int32
     missing_bin: Optional[torch.Tensor]  # [T*N] int32 NaN/zero bin or -1
+    catbin_offset: Optional[torch.Tensor]  # [T*N] int64 into catbin_words
+    catbin_nwords: Optional[torch.Tensor]  # [T*N] int32
+    catbin_words: Optional[torch.Tensor]   # [W] int32 (left-bin bitsets)
     num_trees: int                     # trees of the model (before padding)
     num_class: int
     max_depth: int                     # walk steps
@@ -116,7 +122,8 @@ def build_pack(trees: Sequence[Tree], mappers=None,
 
     ``mappers`` (per ORIGINAL feature, with ``used_features`` giving the
     inner-column order) also builds the binned path; trees must then be
-    the ones trained on those mappers.
+    bin-aligned: trained on those mappers, or loaded and given
+    ``Tree.align_with_mappers``.
     """
     K = max(1, num_class)
     T = len(trees)
@@ -145,6 +152,9 @@ def build_pack(trees: Sequence[Tree], mappers=None,
     sfi = np.zeros((T_pad, N), np.int64)
     tb = np.zeros((T_pad, N), np.int32)
     mb = np.full((T_pad, N), -1, np.int32)
+    bo = np.zeros((T_pad, N), np.int64)
+    bn = np.zeros((T_pad, N), np.int32)
+    catbin_words = []
     binned = mappers is not None
     inner = (list(used_features) if used_features is not None
              else list(range(len(mappers)))) if binned else []
@@ -180,11 +190,16 @@ def build_pack(trees: Sequence[Tree], mappers=None,
             co[i, node] = len(cat_words)
             cn[i, node] = len(words)
             cat_words.extend(int(w) for w in words)
+            if binned:
+                bins = np.asarray(t.cat_left_bins[ci], np.int64)
+                bwords = [0] * (int(bins.max()) // 32 + 1 if len(bins)
+                                else 1)
+                for b in bins:
+                    bwords[int(b) // 32] |= 1 << (int(b) % 32)
+                bo[i, node] = len(catbin_words)
+                bn[i, node] = len(bwords)
+                catbin_words.extend(bwords)
         if binned:
-            if ic[i, :m].any():
-                raise NotImplementedError(
-                    "binned serving of categorical splits waits for "
-                    "categorical training in the port (ROADMAP A2)")
             sfi[i, :m] = t.split_feature_inner[:m]
             tb[i, :m] = t.threshold_bin[:m]
             for node in range(m):
@@ -200,6 +215,8 @@ def build_pack(trees: Sequence[Tree], mappers=None,
 
     has_cat = bool(ic.any())
     words = np.asarray(cat_words or [0], np.uint32).view(np.int32)
+    bwords = np.asarray(catbin_words or [0], np.uint32).view(np.int32)
+    bin_cat = binned and has_cat
     return ServePack(
         root=torch.as_tensor(root, device=device), child=dev(child),
         split_feature=dev(sf), threshold=dev(thr), default_left=dev(dl),
@@ -212,6 +229,10 @@ def build_pack(trees: Sequence[Tree], mappers=None,
         split_feature_inner=dev(sfi) if binned else None,
         threshold_bin=dev(tb) if binned else None,
         missing_bin=dev(mb) if binned else None,
+        catbin_offset=dev(bo) if bin_cat else None,
+        catbin_nwords=dev(bn) if bin_cat else None,
+        catbin_words=(torch.as_tensor(bwords, device=device) if bin_cat
+                      else None),
         num_trees=T, num_class=K, max_depth=depth)
 
 
@@ -248,6 +269,11 @@ def _leaf_entries_block(pack: ServePack, Xb: torch.Tensor,
             left = torch.where(b == pack.missing_bin[node],
                                pack.default_left[node],
                                b <= pack.threshold_bin[node])
+            if pack.catbin_words is not None:
+                cat_left = _bitset_member(pack.catbin_words,
+                                          pack.catbin_offset[node],
+                                          pack.catbin_nwords[node], b)
+                left = torch.where(pack.is_cat[node], cat_left, left)
         else:
             v = torch.gather(Xt, 0, pack.split_feature[node])
             left = torch.where(

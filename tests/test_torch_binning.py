@@ -1,9 +1,10 @@
 """lightgbm_tpu_torch binning and device data against the JAX package.
 
 The port keeps its own copy of the binning and dataset code; on the same
-X (NaNs, zeros, sparse columns that bundle under EFB, a constant column)
-its BinMappers, bins, bundle layout and device metadata must be
-byte-identical to ``lightgbm_tpu.io.dataset.BinnedDataset.from_raw``.
+X (NaNs, zeros, sparse columns that bundle under EFB, a constant column,
+categorical columns) its BinMappers, bins, bundle layout and device
+metadata must be byte-identical to
+``lightgbm_tpu.io.dataset.BinnedDataset.from_raw``.
 """
 import numpy as np
 import pytest
@@ -92,9 +93,48 @@ def test_device_data_matches_reference_layout(params):
     assert dd.is_bundled == mj["is_bundled"]
 
 
-def test_categorical_features_raise():
+@pytest.mark.parametrize("params", PARAMS[:2],
+                         ids=["max_bin63", "zero_as_missing"])
+def test_categorical_features_bin_as_reference(params):
+    """Categorical columns — a few categories with negatives and NaNs,
+    more categories than ``max_bin`` (the rarest fall into the cut), and
+    a sparse column that EFB bundles — bin as the JAX package bins
+    them: mappers, bins, bundles and device metadata byte-identical,
+    and a valid set's and prediction mode's miss bins too."""
     X = _matrix()
-    X[:, 4] = np.abs(np.round(X[:, 4] * 2))
-    with pytest.raises(NotImplementedError):
-        TDataset.from_raw(X, TConfig.from_params({}),
-                          categorical_features=[4])
+    rng = np.random.RandomState(1)
+    X[:, 4] = np.round(X[:, 4] * 2)                  # -5..5: negatives
+    X[rng.rand(len(X)) < 0.05, 4] = np.nan
+    X[:, 0] = rng.randint(0, 300, size=len(X))       # > max_bin categories
+    X[:, 6] = np.where(X[:, 6] != 0, rng.randint(1, 9, size=len(X)), 0)
+    cats = [0, 4, 6]
+    j = JDataset.from_raw(X, JConfig.from_params(dict(params)),
+                          categorical_features=cats)
+    t = TDataset.from_raw(X, TConfig.from_params(dict(params)),
+                          categorical_features=cats)
+    for mj, mt in zip(j.mappers, t.mappers):
+        dj, dt = mj.to_dict(), mt.to_dict()
+        np.testing.assert_array_equal(dj.pop("bin_upper_bound"),
+                                      dt.pop("bin_upper_bound"))
+        assert dj == dt
+    assert [t.mappers[c].bin_type for c in cats] == [1, 1, 1]
+    assert t.mappers[0].num_bin < 300
+    np.testing.assert_array_equal(j.bins, t.bins)
+    assert t.bundle is not None and t.bundle.is_bundled
+    assert j.bundle.groups == t.bundle.groups
+    mj, mt = j_feature_meta(j), t_feature_meta(t)
+    for k in mj:
+        np.testing.assert_array_equal(np.asarray(mj[k]), np.asarray(mt[k]))
+    assert mt["has_categorical"]
+    dd = device_data_from_numpy(t.bins, mt, "cpu")
+    assert dd.has_categorical and bool(dd.is_categorical[cats].all())
+    # unseen categories: num_bin - 1 in a valid set, num_bin in
+    # prediction mode (the reference's two miss bins)
+    Xv = X[:500].copy()
+    Xv[:, 0] = 1000 + np.arange(500)
+    for pm in (False, True):
+        vj = JDataset.from_raw(Xv, JConfig.from_params(dict(params)),
+                               reference=j, prediction_mode=pm)
+        vt = TDataset.from_raw(Xv, TConfig.from_params(dict(params)),
+                               reference=t, prediction_mode=pm)
+        np.testing.assert_array_equal(vj.bins, vt.bins)

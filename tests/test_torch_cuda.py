@@ -12,8 +12,11 @@ add into a nonzero carry); results must be bitwise equal — the split
 scan's too, every field of its result, at the small-data path's shape
 ``[64, 28, 256, 3]`` and on waves built to reach every corner of its
 lane layout (bin strides 16-256, more features than warps, ties).  The
-launch counters must move on CUDA only.  The compiled predictor
-(``serve/``, no kernel of its own) is held to the host oracle on the card.
+launch counters must move on CUDA only.  The categorical branch of the
+route kernels runs on waves with categorical splits (a bundled
+categorical column included).  The compiled predictor (``serve/``, no
+kernel of its own) is held to the host oracle on the card, binned
+categorical rows included.
 """
 import numpy as np
 import pytest
@@ -41,24 +44,50 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(seed=0, n=20000, max_bin=63):
+def _cat_columns(X, rng):
+    """Column 2 becomes 30 categories; columns 5-7 sparse and mutually
+    exclusive (EFB bundles them), 6 categorical -> categorical columns."""
+    n = len(X)
+    X[:, 2] = rng.randint(0, 30, size=n)
+    rows = np.arange(n)
+    on = rng.rand(n) < 0.3
+    X[:, 5] = np.where((rows % 3 == 0) & on, rng.normal(size=n), 0.0)
+    X[:, 6] = np.where((rows % 3 == 1) & on, rng.randint(1, 7, size=n), 0)
+    X[:, 7] = np.where((rows % 3 == 2) & on, rng.normal(size=n), 0.0)
+    return [2, 6]
+
+
+def _inputs(seed=0, n=20000, max_bin=63, cat=False):
+    """A wave: leaf vectors with bagged-out rows, split tables, int8h
+    values.  With ``cat`` the data has categorical columns (one bundled
+    by EFB at 63 bins) and about a third of the leaves split
+    categorically with random masks."""
     rng = np.random.RandomState(seed)
     X = rng.normal(size=(n, 8))
     X[rng.rand(n) < 0.1, 1] = np.nan
-    ds = BinnedDataset.from_raw(X, Config.from_params({"max_bin": max_bin}))
+    cats = _cat_columns(X, rng) if cat else []
+    ds = BinnedDataset.from_raw(X, Config.from_params({"max_bin": max_bin}),
+                                categorical_features=cats)
+    # the bundle fits one uint8 column at 63 bins, not at 255
+    assert not cat or (ds.bundle is not None) == (max_bin == 63)
     dd = device_data_from_numpy(ds.bins, feature_meta_np(ds), "cpu")
     leaf2 = torch.full((2, dd.n_pad), -1, dtype=torch.int32)
     leaf2[0, :n] = torch.as_tensor(rng.randint(0, 20, size=n))
     leaf2[1, :n] = torch.where(torch.as_tensor(rng.rand(n) < 0.8),
                                leaf2[0, :n], -1)
     F = dd.num_features
+    B = t_hist.bin_stride(dd.max_bins)
     sel = torch.as_tensor(rng.rand(L) < 0.5) & (torch.arange(L) < 20)
+    feature = torch.as_tensor(rng.randint(0, F, size=L)).int()
+    threshold = torch.as_tensor(rng.randint(0, max_bin - 3, size=L)).int()
+    default_left = torch.as_tensor(rng.rand(L) < 0.5)
+    is_cat = torch.zeros(L, dtype=torch.bool)
+    cat_mask = torch.zeros((L, B), dtype=torch.bool)
+    if cat:
+        is_cat = torch.as_tensor(rng.rand(L) < 1 / 3)
+        cat_mask = torch.as_tensor(rng.rand(L, B) < 0.5) & is_cat[:, None]
     tabs, cat = t_route.leaf_tables(
-        torch.as_tensor(rng.randint(0, F, size=L)).int(),
-        torch.as_tensor(rng.randint(0, max_bin - 3, size=L)).int(),
-        torch.as_tensor(rng.rand(L) < 0.5), torch.zeros(L, dtype=torch.bool),
-        torch.zeros((L, t_hist.bin_stride(dd.max_bins)), dtype=torch.bool),
-        sel,
+        feature, threshold, default_left, is_cat, cat_mask, sel,
         torch.where(sel, 20 + torch.cumsum(sel.int(), 0) - 1, 0).int(),
         dd.missing_types, dd.nan_bins, dd.default_bins, dd.feat_group,
         dd.feat_offset, dd.num_bins)
@@ -450,6 +479,80 @@ def test_float_k1_k3_kernels_bitwise(cuda_device, monkeypatch, mode, A, wave):
     live = act3 >= 0
     assert torch.equal(bits(k3)[live], bits(k5)[live])
     assert torch.equal(bits(k3)[~live], acc3[~live].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_bin", [63, 255])
+def test_categorical_kernels_bitwise(cuda_device, max_bin):
+    """The categorical branch of the route kernels: K2, K4, K1, the float
+    K1 and K3 on the rows K2 routed, on a wave in which about a third of
+    the leaves split categorically (at 63 bins one categorical column is
+    bundled by EFB), bitwise their plain versions on CPU copies."""
+    dd, leaf2, tabs, cat, vals, rng = _inputs(seed=7, max_bin=max_bin,
+                                              cat=True)
+    assert int(tabs[t_route.T_ISCAT].sum()) > 0
+    lv = torch.as_tensor(rng.normal(size=L).astype(np.float32))
+    cu = [t.to(cuda_device) for t in (dd.bins_t, leaf2, tabs, cat, lv)]
+    out = t_route.route_rows_raw(*cu[:4])
+    ref = t_route.route_rows_raw(dd.bins_t, leaf2, tabs, cat)
+    assert torch.equal(out.cpu(), ref)
+    l2, v = t_route.route_rows_values_raw(*cu)
+    rl2, rv = t_route.route_rows_values_raw(dd.bins_t, leaf2, tabs, cat, lv)
+    assert torch.equal(l2.cpu(), rl2) and torch.equal(v.cpu(), rv)
+    active = torch.as_tensor(rng.choice(40, 16, replace=False)).int()
+    active[-2:] = -1
+    args = (dd.bins_t, vals, leaf2, active, tabs, cat)
+    raw, l2 = t_hist.hist_route_raw(*[t.to(cuda_device) for t in args], L,
+                                    dd.group_max_bins)
+    rraw, rl2 = t_hist.hist_route_raw(*args, L, dd.group_max_bins)
+    assert torch.equal(raw.cpu(), rraw) and torch.equal(l2.cpu(), ref)
+    hleaf = ref[1].contiguous()
+    act3 = torch.full((64,), -1, dtype=torch.int32)
+    act3[:30] = torch.as_tensor(rng.choice(40, 30, replace=False)).int()
+    args = (dd.bins_t, vals, hleaf, act3)
+    k3 = t_compact.hist_compact_raw(*[t.to(cuda_device) for t in args], L,
+                                    dd.group_max_bins)
+    assert torch.equal(k3.cpu(), t_compact.hist_compact_raw(
+        *args, L, dd.group_max_bins))
+    g = torch.as_tensor(rng.normal(size=dd.num_data).astype(np.float32))
+    h = torch.as_tensor(rng.uniform(0.01, 0.25, size=dd.num_data)
+                        .astype(np.float32))
+    fv = t_hist.pack_values(g, h, "hhilo", dd.n_pad)
+    args = (dd.bins_t, fv, leaf2, active, tabs, cat)
+    fk1, fl2 = t_hist.hist_route_float_raw(
+        *[t.to(cuda_device) for t in args], L, dd.group_max_bins)
+    rk1, rfl2 = t_hist.hist_route_float_raw(*args, L, dd.group_max_bins)
+    assert torch.equal(fl2.cpu(), ref)
+    assert torch.equal(fk1.cpu().view(torch.int32), rk1.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_binned_categorical_walk(cuda_device):
+    """A categorical model compiled onto the card: leaf routing of binned
+    rows (unseen, negative and NaN categories at the sentinel bin) ==
+    raw rows == the host walk."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.models.tree import predict_leaf
+    from lightgbm_tpu_torch.serve import compile_model
+    rng = np.random.RandomState(3)
+    X = rng.normal(size=(20000, 8)).astype(np.float32)
+    y = (X[:, 0] + (X[:, 2] % 3 == 1) > 0.5).astype(np.float32)
+    cats = _cat_columns(X, rng)
+    y = (y + (X[:, 2] % 4 == 1) > 0.5).astype(np.float32)
+    bst = tlgb.train({"objective": "binary", "num_leaves": 31,
+                      "verbose": -1}, tlgb.Dataset(X, label=y,
+                                                   categorical_feature=cats),
+                     num_boost_round=5, device=cuda_device)
+    models = bst._gbdt.models
+    assert any(t.num_cat for t in models)
+    Q = X[:5000].copy()
+    Q[:500, 2] = 99
+    Q[500:700, 2] = -2
+    Q[700:900, 6] = np.nan
+    cm = compile_model(bst)
+    host = predict_leaf(models, Q)
+    assert np.array_equal(cm.leaf_indices(Q), host)
+    assert np.array_equal(cm.leaf_indices(cm.bin_rows(Q), binned=True), host)
 
 
 @pytest.mark.cuda

@@ -9,7 +9,9 @@ quantized values, leaf vectors, active sets and split tables.  Routing,
 route values and the int8 histograms (after ``dequant_hist`` on both
 sides) must be bitwise equal.  The inputs cover -1 active slots,
 out-of-bag rows, padding rows, NaN and zero missing types, and an
-EFB-bundled dataset for routing.
+EFB-bundled dataset for routing, and tables in which about a third of
+the leaves split categorically (the reference kernels with
+``any_cat=True``).
 
 The wide active-leaf histogram K5 (``hist_active_pallas``) and K3 are
 held in their seeded form: two row blocks folded through one carry
@@ -71,9 +73,11 @@ def _dataset(bundled: bool, seed=3, n=3000):
     return ds
 
 
-def _wave(ds, seed, hist_frac=0.8):
+def _wave(ds, seed, hist_frac=0.8, cat=False):
     """Same-seed wave inputs: leaf vectors with bagged-out and padding
-    rows, per-leaf split tables over the dataset's logical features."""
+    rows, per-leaf split tables over the dataset's logical features.
+    With ``cat`` about a third of the leaves split categorically, each
+    with a random mask of left bins."""
     rng = np.random.RandomState(seed)
     meta = feature_meta_np(ds)
     dd = device_data_from_numpy(ds.bins, meta, "cpu")
@@ -86,14 +90,19 @@ def _wave(ds, seed, hist_frac=0.8):
     leaf2[1, :n] = hist_leaf
     feature = rng.randint(0, F, size=L).astype(np.int32)
     nb = meta["num_bins"][feature]
+    B = t_hist.bin_stride(meta["max_bins"])
     tables = dict(
         feature=feature,
         threshold=(rng.rand(L) * (nb - 1)).astype(np.int32),
         default_left=rng.rand(L) < 0.5,
         is_categorical=np.zeros(L, bool),
-        cat_mask=np.zeros((L, t_hist.bin_stride(meta["max_bins"])), bool),
+        cat_mask=np.zeros((L, B), bool),
         sel=rng.rand(L) < 0.6,
         new_id=(20 + np.arange(L)) % L)
+    if cat:
+        tables["is_categorical"] = rng.rand(L) < 1 / 3
+        tables["cat_mask"] = ((rng.rand(L, B) < 0.5)
+                              & tables["is_categorical"][:, None])
     tables["new_id"] = tables["new_id"].astype(np.int32)
     metas = [meta[k] for k in ("missing_types", "nan_bins", "default_bins",
                                "feat_group", "feat_offset", "num_bins")]
@@ -127,14 +136,17 @@ def _active(seed, A, n_neg):
     return active
 
 
-@pytest.mark.parametrize("bundled", [False, True], ids=["plain", "efb"])
-def test_route_bitwise(bundled):
+@pytest.mark.parametrize("bundled,cat", [
+    pytest.param(False, False, id="plain"), pytest.param(True, False, id="efb"),
+    pytest.param(False, True, id="plain-cat"),
+    pytest.param(True, True, id="efb-cat")])
+def test_route_bitwise(bundled, cat):
     ds = _dataset(bundled)
-    dd, meta, leaf2, tables, metas = _wave(ds, seed=11)
+    dd, meta, leaf2, tables, metas = _wave(ds, seed=11, cat=cat)
     bt_j = jnp.asarray(dd.bins_t.numpy())
     ref = np.asarray(route_rows_pallas(bt_j, jnp.asarray(leaf2),
                                        *_args(tables, metas, "jax"),
-                                       any_cat=False, interpret=True))
+                                       any_cat=cat, interpret=True))
     before = t_route.route_rows_raw.plain_calls
     got = t_route.route_rows(dd.bins_t, torch.as_tensor(leaf2),
                              *_args(tables, metas, "torch"))
@@ -142,16 +154,23 @@ def test_route_bitwise(bundled):
     np.testing.assert_array_equal(got.numpy(), ref)
     moved = (ref[0] != leaf2[0]).sum()
     assert moved > 0 and (ref[:, dd.num_data:] == -1).all()
+    if cat:
+        # rows of categorical leaves moved both ways
+        rl = np.maximum(leaf2[0, :dd.num_data], 0)
+        on_cat = tables["is_categorical"][rl] & tables["sel"][rl] & (
+            leaf2[0, :dd.num_data] >= 0)
+        went = ref[0, :dd.num_data][on_cat] != leaf2[0, :dd.num_data][on_cat]
+        assert 0 < went.sum() < on_cat.sum()
 
 
-def test_route_values_bitwise():
+def test_route_values_bitwise(cat=False):
     ds = _dataset(True)
-    dd, meta, leaf2, tables, metas = _wave(ds, seed=12)
+    dd, meta, leaf2, tables, metas = _wave(ds, seed=12, cat=cat)
     lv = np.random.RandomState(5).normal(scale=0.3, size=L).astype(
         np.float32)
     ref_l2, ref_v = route_rows_values_pallas(
         jnp.asarray(dd.bins_t.numpy()), jnp.asarray(leaf2),
-        *_args(tables, metas, "jax"), jnp.asarray(lv), any_cat=False,
+        *_args(tables, metas, "jax"), jnp.asarray(lv), any_cat=cat,
         interpret=True)
     got_l2, got_v = t_route.route_rows_values(
         dd.bins_t, torch.as_tensor(leaf2), *_args(tables, metas, "torch"),
@@ -161,11 +180,18 @@ def test_route_values_bitwise():
     assert (got_v.numpy()[dd.num_data:] == 0.0).all()
 
 
-@pytest.mark.parametrize("A,n_neg,mode", [(8, 2, "int8h"), (16, 3, "int8h"),
-                                          (8, 1, "int8hh")])
-def test_hist_route_bitwise(A, n_neg, mode):
-    ds = _dataset(False)
-    dd, meta, leaf2, tables, metas = _wave(ds, seed=13 + A)
+def test_route_values_categorical_bitwise():
+    test_route_values_bitwise(cat=True)
+
+
+@pytest.mark.parametrize("A,n_neg,mode,cat", [
+    pytest.param(8, 2, "int8h", False, id="8-2-int8h"),
+    pytest.param(16, 3, "int8h", False, id="16-3-int8h"),
+    pytest.param(8, 1, "int8hh", False, id="8-1-int8hh"),
+    pytest.param(16, 3, "int8h", True, id="16-3-int8h-cat")])
+def test_hist_route_bitwise(A, n_neg, mode, cat):
+    ds = _dataset(cat)
+    dd, meta, leaf2, tables, metas = _wave(ds, seed=13 + A, cat=cat)
     vals, scales = _vals(dd, seed=A, mode=mode)
     active = _active(A, A, n_neg)
     G = dd.num_groups
@@ -174,7 +200,7 @@ def test_hist_route_bitwise(A, n_neg, mode):
         jnp.asarray(leaf2), jnp.asarray(active),
         *_args(tables, metas, "jax"), jnp.asarray(scales.numpy()),
         num_features=G, max_bins=dd.group_max_bins, mode=mode,
-        any_cat=False, interpret=True)
+        any_cat=cat, interpret=True)
     before = t_hist.hist_route_raw.plain_calls
     got_h, got_l2 = t_hist.hist_route(
         dd.bins_t, vals, torch.as_tensor(leaf2), torch.as_tensor(active),
@@ -190,14 +216,23 @@ def test_hist_route_bitwise(A, n_neg, mode):
     assert ref_h[neg][..., 2].sum() > 0
 
 
-@pytest.mark.parametrize("A,n_neg", [(64, 5)])
-def test_hist_compact_bitwise(A, n_neg):
+@pytest.mark.parametrize("A,n_neg,cat", [
+    pytest.param(64, 5, False, id="64-5"),
+    pytest.param(64, 5, True, id="64-5-cat")])
+def test_hist_compact_bitwise(A, n_neg, cat):
     ds = _dataset(False)
-    dd, meta, leaf2, tables, metas = _wave(ds, seed=29)
+    dd, meta, leaf2, tables, metas = _wave(ds, seed=29, cat=cat)
     # the compact kernel reads the ROUTED hist leaves (route first)
     hleaf = t_route.route_rows(dd.bins_t, torch.as_tensor(leaf2),
                                *_args(tables, metas, "torch"))[1]
     hleaf = hleaf.contiguous()
+    if cat:
+        # the leaves that the reference's route wrote, categorical
+        # splits included
+        ref_l2 = route_rows_pallas(
+            jnp.asarray(dd.bins_t.numpy()), jnp.asarray(leaf2),
+            *_args(tables, metas, "jax"), any_cat=True, interpret=True)
+        np.testing.assert_array_equal(hleaf.numpy(), np.asarray(ref_l2)[1])
     vals, scales = _vals(dd, seed=A)
     rng = np.random.RandomState(A)
     active = np.full(A, -1, np.int32)          # -1 slots + inactive leaves
@@ -583,23 +618,26 @@ def _float_vals(dd, seed, mode):
                               dd.n_pad)
 
 
-@pytest.mark.parametrize("A,n_neg,mode", [(8, 2, "bf16"), (16, 3, "hhilo"),
-                                          (32, 2, "hilo")])
-def test_hist_route_float_matches_reference(A, n_neg, mode):
+@pytest.mark.parametrize("A,n_neg,mode,cat", [
+    pytest.param(8, 2, "bf16", False, id="8-2-bf16"),
+    pytest.param(16, 3, "hhilo", False, id="16-3-hhilo"),
+    pytest.param(32, 2, "hilo", False, id="32-2-hilo"),
+    pytest.param(16, 3, "hhilo", True, id="16-3-hhilo-cat")])
+def test_hist_route_float_matches_reference(A, n_neg, mode, cat):
     """Float K1's plain version against the reference's fused kernel in
     interpret mode on the same float value rows: the routed leaf vectors
     bitwise, the histograms within ``tol("f32_accum")`` (the sums are
     the same, only their order differs: the port's is the float K5's),
     the counts exact."""
-    ds = _dataset(False)
-    dd, meta, leaf2, tables, metas = _wave(ds, seed=17 + A)
+    ds = _dataset(cat)
+    dd, meta, leaf2, tables, metas = _wave(ds, seed=17 + A, cat=cat)
     vals = _float_vals(dd, A, mode)
     active = _active(A + 1, A, n_neg)
     ref_h, ref_l2 = hist_route_pallas(
         jnp.asarray(dd.bins_t.numpy()), jnp.asarray(vals.numpy()),
         jnp.asarray(leaf2), jnp.asarray(active),
         *_args(tables, metas, "jax"), None, num_features=dd.num_groups,
-        max_bins=dd.group_max_bins, mode=mode, any_cat=False,
+        max_bins=dd.group_max_bins, mode=mode, any_cat=cat,
         interpret=True)
     before = t_hist.hist_route_float_raw.plain_calls
     got_h, got_l2 = t_hist.hist_route(

@@ -164,6 +164,21 @@ def test_prefix_sum_fixed_order_matches_compiled_cumsum():
             tsplit.prefix_sum(torch.as_tensor(x)).numpy(), ref)
 
 
+def test_fixed_sum_matches_compiled_sum():
+    """The sum that rebuilds an EFB-bundled feature's default cell: the
+    reference's compiled ``jnp.sum`` over the bin axis, bitwise, at every
+    bin stride (``torch.sum`` adds in another order)."""
+    rng = np.random.RandomState(6)
+    for B in (8, 16, 32, 64, 128, 256):
+        x = (rng.normal(size=(12, 5, B, 3))
+             * 10.0 ** rng.uniform(-3, 3, size=(12, 5, B, 3))
+             ).astype(np.float32)
+        ref = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=2))(
+            jnp.asarray(x)))
+        np.testing.assert_array_equal(
+            t_hist.fixed_sum(torch.as_tensor(x), 2).numpy(), ref)
+
+
 # (rows, leaves, backend): at <= 65,536 rows every wave runs at the tail
 # width; 70,000 rows take the staged plan 8, 8, 8, 8, 16, 32 (fused) then
 # 64, 128 and the 128-slot tail (route + compact), as the headline does

@@ -108,6 +108,35 @@ def test_train_matches_reference(monkeypatch, leaves, objective, max_bin,
         np.testing.assert_allclose(pt, pj, rtol=0, atol=tol("f32_accum"))
 
 
+def test_efb_bundled_matches_reference(monkeypatch):
+    """Three sparse, mutually exclusive columns that EFB bundles into one
+    group column (8 features, so ``F * B`` is lane-aligned and both
+    packages take their split kernel): the same digest.  The bundled
+    features' default cells are rebuilt from the leaf totals minus a
+    sum in the reference's compiled order (``ops/histogram.py:
+    fixed_sum``)."""
+    monkeypatch.setenv("LGBM_TPU_HIST_BACKEND", "compact")
+    monkeypatch.setenv("LGBM_TPU_SPLIT_INTERPRET", "1")
+    rng = np.random.RandomState(0)
+    n = 3000
+    X = rng.normal(size=(n, 8)).astype(np.float32)
+    rows = np.arange(n)
+    on = rng.rand(n) < 0.3
+    for i, f in enumerate((4, 5, 6)):
+        X[:, f] = np.where((rows % 3 == i) & on, X[:, f], 0.0)
+    y = (X[:, 0] + X[:, 4] - X[:, 5] + 0.5 * rng.normal(size=n)
+         > 0).astype(np.float32)
+    params = _params(15)
+    jb = jlgb.train(dict(params), jlgb.Dataset(X, label=y),
+                    num_boost_round=ITERS)
+    before = t_split.find_best_splits_kernel.plain_calls
+    tb = tlgb.train(dict(params), tlgb.Dataset(X, label=y),
+                    num_boost_round=ITERS, device="cpu")
+    assert t_split.find_best_splits_kernel.plain_calls > before
+    assert tb._gbdt.train_set.bundle.is_bundled
+    assert tb.digest() == jb.digest()
+
+
 def test_model_string_round_trip():
     X, y = _data(seed=1)
     jb = jlgb.train(_params(15), jlgb.Dataset(X, label=y),
