@@ -156,9 +156,49 @@ and the script exits non-zero):
    ``categorical_column`` and streamed (63 leaves, blocks of 131,072
    rows, 2 iterations): K5, K2 and K4 must launch, the model must hold
    categorical nodes, and its digest (scores included) must be that of
-   in-memory training on ``store.to_binned_dataset``.
+   in-memory training on ``store.to_binned_dataset``;
+17. multiclass headline — the headline's rows (binned once) with 5
+   classes from the quantiles of its latent ``2 X0 + X1 - X2 + noise``,
+   ``multiclass``, 255 leaves, ``max_bin`` 63, 8 iterations (40 trees),
+   counters reset first: K1, K2, K3 and K4 on every class tree, no split
+   kernel; the train ``multi_logloss`` must fall every iteration and end
+   at most 85% of ln 5; the model compiled on the card scores all rows
+   ``[n, 5]``, the probabilities summing to 1 within 1e-5, its routing
+   equal to the host walk and its raw scores within 1 f32 ulp of the f64
+   host sum on 20,000 rows; then ``multiclassova``, 2 iterations;
+18. multiclass small-data — upstream's
+   ``examples/multiclass_classification/train.conf`` (5 classes,
+   ``multi_logloss`` and ``multi_error`` on both sets, 31 leaves, lr
+   0.05, ``max_bin`` 255, early stopping 10, at most 100 rounds) on the
+   small-data rows with 5-class labels: the split kernel on every class
+   tree, valid ``multi_logloss`` at ``best_iteration`` at most 85% of
+   ln 5;
+19. ranking — the bench's MS LTR-shaped set (``bench.py ranking_leg``:
+   19,000 queries of log-normal sizes, about 2.27M docs x 136 features,
+   relevance 0-4) with its configuration (``lambdarank``, 255 leaves,
+   lr 0.1, ``min_data_in_leaf`` 0, ``min_sum_hessian_in_leaf`` 100,
+   ``max_bin`` 255), 8 iterations: each iteration's gradient time (the
+   torch lambdarank operations) beside its wall, train NDCG@10 >= 0.60
+   (the bench's gate), K1-K4 launched; before it, K1 at 8/16/32 slots,
+   K2 + K3 at 64/128 and K2 and K4 on a 128-slot wave on the ranking
+   data (136 columns at a 256-bin stride) with the first iteration's
+   int8h lambdarank values, bitwise against their plain versions (under
+   ``rank`` in their kernel entries);
+20. regression family — every regression-family objective (L1, Huber,
+   Fair, quantile 0.9, Poisson, Gamma, Tweedie, MAPE, xentropy,
+   xentlambda, ``reg_sqrt``) on the headline's rows (Gamma and Tweedie
+   on ``exp(z / 8)``, see ``REG_FAMILY``), 2 iterations each:
+   each default metric falls; L1's and the quantile's renewed leaves
+   equal a numpy percentile of the residuals per leaf, computed on the
+   host from the row leaves and scores the renewal read;
+21. streams — the identity store's generator at 2,097,152 rows (two
+   1,048,576-row blocks) with 3-class and continuous labels from its
+   first two columns: ``multiclass`` and ``huber`` streamed and in
+   memory, 2 iterations each, equal digests (scores included), K5, K2
+   and K4 in the stream.
 
-A path's ms/iter is the wall of the whole ``lgb.train`` call, the
+Each of phases 17-21 prints one ``{"phase": ...}`` JSON line.  A path's
+ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
 the per-iteration evaluation included.  The last lines are the kernel
 table as one JSON object (a categorical entry's ``launches`` count its
@@ -227,6 +267,50 @@ SERVE_SIZES = (1, 3, 17, 100, 240, 900)
 SERVE_REQUESTS = 300
 SERVE_QPS = (1_000.0, 5_000.0, 20_000.0)
 SERVE_QPS_S = 2.0
+# multiclass headline (phase 17): 5 classes from the quantiles of the
+# headline's latent, the headline's tree, 8 iterations (40 trees); the
+# train multi_logloss must end at most this share of ln 5 (uniform)
+MC_CLASSES = 5
+MC_ITERS = 8
+MC_OVA_ITERS = 2
+MC_LOSS_SHARE = 0.85
+# sum of the served class probabilities: 1 within a few f32 ulps
+MC_PROB_SUM_TOL = 1e-5
+# examples/multiclass_classification/train.conf of the upstream project
+MC_TRAIN_CONF = {"objective": "multiclass", "num_class": MC_CLASSES,
+                 "metric": "multi_logloss,multi_error", "metric_freq": 1,
+                 "is_training_metric": True, "max_bin": 255,
+                 "learning_rate": 0.05, "num_leaves": 31, "verbose": -1}
+# the bench's ranking leg (bench.py ranking_leg, MS LTR shape): its data
+# and configuration, its NDCG@10 gate; 8 iterations
+RANK_QUERIES = 19_000
+RANK_FEATURES = 136
+RANK_ITERS = 8
+RANK_NDCG_GATE = 0.60
+RANK_PARAMS = {"objective": "lambdarank", "num_leaves": 255,
+               "learning_rate": 0.1, "min_data_in_leaf": 0,
+               "min_sum_hessian_in_leaf": 100, "max_bin": 255,
+               "metric": "ndcg", "ndcg_eval_at": [10], "verbose": -1}
+# the regression family on the headline's rows (phase 20): each objective
+# with its label of the latent z, 2 iterations.  Gamma and Tweedie take
+# exp(z / 8), not exp(z / 2) (labels over five decades), as both packages
+# diverge there at the first tree: Gamma's Newton step from log(mean) is
+# about mean / y (huge for the smallest labels), and Tweedie's gradients
+# reach hundreds, so int8h's one-byte gradients round the rest to 0
+# against float root totals and a leaf value explodes
+# (tests/test_torch_objectives.py: test_gamma_first_tree_diverges_as_in_
+# reference, test_int8h_heavy_tailed_gradients_match_reference)
+REG_ITERS = 2
+REG_FAMILY = (("regression_l1", "z", {}), ("huber", "z", {}),
+              ("fair", "z", {}), ("quantile", "z", {"alpha": 0.9}),
+              ("poisson", "exp", {}), ("gamma", "exp8", {}),
+              ("tweedie", "exp8", {}), ("mape", "exp", {}),
+              ("xentropy", "sigmoid", {}), ("xentlambda", "sigmoid", {}),
+              ("regression", "abs", {"reg_sqrt": True}))
+# the streams of phase 21: the identity store's generator at 2,097,152
+# rows (two blocks), 3 classes and Huber, 2 iterations each
+MC_STREAM_ROWS = 2_097_152
+MC_STREAM_CLASSES = 3
 # memory rate of one H100 SXM (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 # float32 rate outside the tensor cores of one H100 SXM (data sheet)
@@ -261,15 +345,23 @@ def int32_ops_per_s(sms: int) -> float:
     return sms * INT32_ADDS_PER_CLOCK_PER_SM * mhz * 1e6
 
 
-def headline_data(seed: int = 0):
-    """The bench's synthetic binary set (bench.py synthetic_leg)."""
+def headline_latent(seed: int = 0):
+    """The bench's synthetic set (bench.py synthetic_leg) before its
+    threshold: ``(X, z)``, ``z = 2 X0 + X1 - X2 + noise``."""
     import numpy as np
     rng = np.random.RandomState(seed)
     X = rng.normal(size=(HEADLINE_ROWS, HEADLINE_FEATURES)).astype(
         np.float32)
-    y = (X[:, 0] * 2 + X[:, 1] - X[:, 2]
-         + rng.normal(scale=1.0, size=HEADLINE_ROWS) > 0).astype(np.float32)
-    return X, y
+    z = (X[:, 0] * 2 + X[:, 1] - X[:, 2]
+         + rng.normal(scale=1.0, size=HEADLINE_ROWS))
+    return X, z
+
+
+def headline_data(seed: int = 0):
+    """The bench's synthetic binary set: its latent above 0."""
+    import numpy as np
+    X, z = headline_latent(seed)
+    return X, (z > 0).astype(np.float32)
 
 
 CAT_COLUMNS = [1, 2, 3]
@@ -301,15 +393,23 @@ def categorize(X, seed: int, many: int = CAT_MANY, few: int = CAT_FEW,
     return X
 
 
-def small_data(seed: int = 3):
+def small_latent(seed: int = 3):
     """The bench's synthetic generator at the small-data path's size
-    (bench.py valid_leg): ``(X, y, X_valid, y_valid)``."""
+    (bench.py valid_leg) before its threshold: ``(X, z)`` over the
+    training rows and then the valid rows."""
     import numpy as np
     n = SMALL_ROWS + SMALL_VALID
     rng = np.random.RandomState(seed)
     X = rng.normal(size=(n, HEADLINE_FEATURES)).astype(np.float32)
-    y = (X[:, 0] * 2 + X[:, 1] - X[:, 2]
-         + rng.normal(scale=1.0, size=n) > 0).astype(np.float32)
+    z = X[:, 0] * 2 + X[:, 1] - X[:, 2] + rng.normal(scale=1.0, size=n)
+    return X, z
+
+
+def small_data(seed: int = 3):
+    """``(X, y, X_valid, y_valid)``: the latent above 0."""
+    import numpy as np
+    X, z = small_latent(seed)
+    y = (z > 0).astype(np.float32)
     return X[:SMALL_ROWS], y[:SMALL_ROWS], X[SMALL_ROWS:], y[SMALL_ROWS:]
 
 
@@ -2173,6 +2273,474 @@ def cat_stream_phase(lgb, counters, X, y, tmp: str) -> dict:
     return launches
 
 
+def relabel_binned(ds, label):
+    """A ``BinnedDataset`` over ``ds``'s bins and mappers with other
+    labels: the rows are binned once."""
+    import copy
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    out = copy.copy(ds)
+    out.metadata = Metadata()
+    out.metadata.set_field("label", label)
+    return out
+
+
+def relabel(ds, label):
+    """The same for a user ``Dataset``."""
+    import copy
+    out = copy.copy(ds.construct())
+    out.label, out.weight, out.init_score = label, None, None
+    out._constructed = relabel_binned(ds._constructed, label)
+    return out
+
+
+def class_labels(z, k: int, cut_rows=None):
+    """``k`` classes from the quantiles of the latent (of its first
+    ``cut_rows`` rows)."""
+    import numpy as np
+    q = np.quantile(z[:cut_rows], np.arange(1, k) / k)
+    return np.digitize(z, q).astype(np.float32)
+
+
+def phase_line(name: str, card: str, **fields) -> None:
+    """A new phase's result as one JSON line."""
+    print(json.dumps({"phase": name, "card": card, **fields}), flush=True)
+
+
+def multiclass_phase(lgb, counters, ds, X, z, card: str) -> dict:
+    """Phase 17: the headline's rows with 5 classes through ``lgb.train``
+    (K1, K2 + K3 and K4 on every class tree), served on the card, then
+    ``multiclassova``: -> launches by path."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.serve import compile_model
+    y = class_labels(z, MC_CLASSES)
+    ds5 = relabel(ds, y)
+    params = {"objective": "multiclass", "num_class": MC_CLASSES,
+              "num_leaves": 255, "max_bin": 63, "learning_rate": 0.1,
+              "min_data_in_leaf": 20, "verbose": -1}
+    evals = {}
+    bst, seconds, launches = train_path(
+        lgb, "multiclass headline", counters, params, ds5, MC_ITERS,
+        valid_sets=[ds5], valid_names=["training"], evals_result=evals,
+        verbose_eval=False)
+    ll = evals["training"]["multi_logloss"]
+    limit = MC_LOSS_SHARE * float(np.log(MC_CLASSES))
+    log(f"multiclass headline: train multi_logloss {ll}; digest "
+        f"{bst.digest(include_scores=False)}")
+    if not all(b < a for a, b in zip(ll, ll[1:])) or not ll[-1] <= limit:
+        raise AssertionError(f"multi_logloss {ll} does not fall every "
+                             f"iteration to <= {limit}")
+    missing = [k for k in ("route", "route_values", "hist_route",
+                           "hist_compact") if launches[k] <= 0]
+    if missing or launches["split_scan"] != 0:
+        raise AssertionError(f"multiclass headline: kernels not launched "
+                             f"{missing}, split kernel "
+                             f"{launches['split_scan']} times")
+    trees = bst._gbdt.models
+    if len(trees) != MC_CLASSES * MC_ITERS:
+        raise AssertionError(f"{len(trees)} trees, not "
+                             f"{MC_CLASSES * MC_ITERS}")
+    # serving on the card: [n, K] probabilities, routing == host walk
+    t0 = time.time()
+    cm = compile_model(bst)
+    prob = cm.predict(X)
+    torch.cuda.synchronize()
+    serve_s = time.time() - t0
+    Xs = X[:SERVE_SAMPLE]
+    leaf = cm.leaf_indices(Xs)
+    host_leaf = bst.predict(Xs, pred_leaf=True, device=False)
+    raw = cm.predict_raw(Xs)
+    ulp = ulp_check("multiclass raw scores", raw,
+                    host_scores(trees, Xs, MC_CLASSES))
+    gap = float(np.abs(prob.sum(axis=1) - 1.0).max())
+    log(f"multiclass serving: {len(X)} rows in {serve_s:.3f} s (compile "
+        f"included), probabilities sum to 1 within {gap:.3g}; routing on "
+        f"{SERVE_SAMPLE} rows == host: {np.array_equal(leaf, host_leaf)}; "
+        f"raw within {ulp:.3f} ulp")
+    if prob.shape != (len(X), MC_CLASSES) or not np.isfinite(prob).all():
+        raise AssertionError("served probabilities are not finite [n, K]")
+    if not gap <= MC_PROB_SUM_TOL:
+        raise AssertionError(f"probabilities sum to 1 within {gap}")
+    if not np.array_equal(leaf, host_leaf):
+        raise AssertionError("multiclass routing differs from the host")
+    # one-vs-all on the same rows
+    ova = {}
+    bst_o, ova_s, ova_launch = train_path(
+        lgb, "multiclassova headline", counters,
+        dict(params, objective="multiclassova"), ds5, MC_OVA_ITERS,
+        valid_sets=[ds5], valid_names=["training"], evals_result=ova,
+        verbose_eval=False)
+    oll = ova["training"]["multi_logloss"]
+    log(f"multiclassova: train multi_logloss {oll}; digest "
+        f"{bst_o.digest(include_scores=False)}")
+    if not oll[-1] < oll[0] or len(bst_o._gbdt.models) != (
+            MC_CLASSES * MC_OVA_ITERS):
+        raise AssertionError(f"multiclassova did not learn: {oll}")
+    phase_line("17_multiclass_headline", card,
+               ms_per_iter=1e3 * seconds / MC_ITERS,
+               multi_logloss=ll, digest=bst.digest(include_scores=False),
+               serve_rows_per_s=len(X) / serve_s, prob_sum_gap=gap,
+               raw_ulp=ulp, ova_ms_per_iter=1e3 * ova_s / MC_OVA_ITERS,
+               ova_multi_logloss=oll,
+               ova_digest=bst_o.digest(include_scores=False),
+               launches=launches, launches_per_tree={
+                   k: v / len(trees) for k, v in launches.items()})
+    return {"multiclass": launches, "multiclass_ova": ova_launch}
+
+
+def multiclass_small_phase(lgb, counters, ds_small, dv_small,
+                           card: str) -> dict:
+    """Phase 18: upstream's multiclass ``train.conf`` on the small-data
+    rows (5 classes; K6 runs for every class tree): -> launches."""
+    import numpy as np
+    _, z = small_latent()
+    y = class_labels(z, MC_CLASSES, cut_rows=SMALL_ROWS)
+    ds = relabel(ds_small, y[:SMALL_ROWS])
+    dv = relabel(dv_small, y[SMALL_ROWS:])
+    evals = {}
+    bst, seconds, launches = train_path(
+        lgb, "multiclass small-data", counters, MC_TRAIN_CONF, ds,
+        SMALL_ITERS, valid_sets=[dv], valid_names=["valid"],
+        early_stopping_rounds=SMALL_EARLY_STOP, evals_result=evals,
+        verbose_eval=False)
+    best = bst.best_iteration
+    vll = evals["valid"]["multi_logloss"][best - 1]
+    verr = evals["valid"]["multi_error"][best - 1]
+    limit = MC_LOSS_SHARE * float(np.log(MC_CLASSES))
+    trees = len(bst._gbdt.models)
+    log(f"multiclass small-data: {bst.current_iteration()} iterations, "
+        f"best {best}: valid multi_logloss {vll:.5f}, multi_error "
+        f"{verr:.5f}; digest {bst.digest(include_scores=False)}")
+    if not vll <= limit:
+        raise AssertionError(f"valid multi_logloss {vll} > {limit}")
+    missing = [k for k in ("split_scan", "hist_route", "route_values")
+               if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"multiclass small-data: kernels not launched "
+                             f"{missing}")
+    phase_line("18_multiclass_small_data", card,
+               ms_per_iter=1e3 * seconds / bst.current_iteration(),
+               iterations=bst.current_iteration(), best_iteration=best,
+               valid_multi_logloss=vll, valid_multi_error=verr,
+               digest=bst.digest(include_scores=False), launches=launches,
+               launches_per_tree={k: v / trees for k, v in launches.items()})
+    return launches
+
+
+def rank_data():
+    """The bench's MS LTR-shaped ranking set (bench.py ranking_leg):
+    ``(X, relevance, query sizes)``."""
+    import numpy as np
+    rng = np.random.RandomState(7)
+    sizes = np.clip(np.round(rng.lognormal(mean=4.55, sigma=0.7,
+                                           size=RANK_QUERIES)),
+                    1, 1251).astype(np.int64)
+    n = int(sizes.sum())
+    X = rng.normal(size=(n, RANK_FEATURES)).astype(np.float32)
+    raw = X[:, 0] + 0.6 * X[:, 1] - 0.4 * X[:, 2] \
+        + rng.normal(scale=0.8, size=n)
+    rel = np.digitize(raw, np.quantile(raw, [0.55, 0.78, 0.92, 0.98])
+                      ).astype(np.float32)
+    return X, rel, sizes
+
+
+def rank_kernel_phase(ds, entries) -> None:
+    """The ranking path's kernels on its data (136 columns at a 256-bin
+    stride, which ``hist_plan`` tiles into one column a block from 32
+    slots on) with the first iteration's int8h lambdarank values: K1 at
+    8, 16 and 32 slots, K2 + K3 at 64 and 128, and K2 and K4 on one
+    128-slot wave, each bitwise against its plain version (added to
+    their entries under ``rank``).  The exact-zero hessians are counted:
+    only a query whose labels are all equal has them, and this data's
+    queries (about 120 documents, relevance 0-4) have none, so
+    ``tests/test_torch_cuda.py::test_ranking_shape_kernels_bitwise``
+    holds the kernels to half-zero hessians at this width."""
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.device import to_device
+    from lightgbm_tpu_torch.objective.objectives import create_objective
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.ops.histogram import bin_stride, pack_values_q
+    t0 = time.time()
+    dd = to_device(ds._constructed, "cuda")
+    n = dd.num_data
+    obj = create_objective(Config.from_params(RANK_PARAMS))
+    obj.init(ds._constructed.metadata, n, "cuda")
+    g, h = obj.get_gradients_k(torch.zeros((n, 1), device="cuda"))
+    vals, _ = pack_values_q(g[:, 0], h[:, 0], "int8h", dd.n_pad)
+    zero_h = int((h == 0).sum())
+    G = dd.bins_t.shape[0]
+    B = bin_stride(dd.group_max_bins)
+    del obj, g, h
+    if G != RANK_FEATURES or B != 256:
+        raise AssertionError(f"rank kernels: {G} columns, stride {B}")
+    int_rate = int32_ops_per_s(cuda_build.multiprocessor_count(dd.device))
+    gen = torch.Generator(device=dd.device)
+    gen.manual_seed(19)
+    L = RANK_PARAMS["num_leaves"]
+    leaf2, tabs, cat, _ = wave_inputs(dd, 127, 64, 128, gen, L)
+    lv = torch.randn(L, generator=gen, device=dd.device)
+    shape = dict(rows=n, columns=G, bins=B, zero_hessians=zero_h)
+    rank = {"route": dict(shape, **k2_measure(dd, leaf2, tabs, cat,
+                                              int_rate)),
+            "route_values": dict(shape, **k4_measure(dd, leaf2, tabs, cat,
+                                                     lv, int_rate)),
+            "hist_route": dict(shape, by_width=[
+                k1_measure(dd, vals, A, A // 2, gen, L, int_rate)
+                for A in (8, 16, 32)]),
+            "hist_compact": dict(shape, by_width=[
+                k3_measure(dd, vals, A, gen, L, int_rate)
+                for A in (64, 128)])}
+    for e in entries:
+        if e["name"] in rank:
+            e["rank"] = rank[e["name"]]
+    del dd, vals
+    torch.cuda.synchronize()
+    log(f"rank kernels at {G} columns x {B} bins, {n} rows ({zero_h} zero "
+        f"hessians): bitwise ok, {time.time() - t0:.1f} s")
+
+
+def rank_phase(lgb, counters, card: str, entries) -> dict:
+    """Phase 19: lambdarank at the bench's MS LTR shape through
+    ``lgb.train``, each iteration's gradient time (the torch lambdarank
+    operations, synchronized around) beside the rest of it: ->
+    launches."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.metric.metrics import NDCGMetric
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.objective.objectives import LambdarankNDCG
+    t0 = time.time()
+    X, rel, sizes = rank_data()
+    gen_s = time.time() - t0
+    t0 = time.time()
+    ds = lgb.Dataset(X, label=rel, group=sizes,
+                     params={"max_bin": RANK_PARAMS["max_bin"]}).construct()
+    bin_s = time.time() - t0
+    del X
+    log(f"rank: {len(sizes)} queries, {len(rel)} docs x {RANK_FEATURES}; "
+        f"data {gen_s:.1f} s, binning {bin_s:.1f} s")
+    rank_kernel_phase(ds, entries)
+    grad_ms, ends = [], []
+    plain = LambdarankNDCG.get_gradients
+
+    def timed(self, score):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain(self, score)
+        torch.cuda.synchronize()
+        grad_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    def mark(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    LambdarankNDCG.get_gradients = timed
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        bst = lgb.train(dict(RANK_PARAMS), ds, num_boost_round=RANK_ITERS,
+                        device="cuda", callbacks=[mark], verbose_eval=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        LambdarankNDCG.get_gradients = plain
+    iter_ms = [1e3 * (b - a) for a, b in zip([start] + ends[:-1], ends)]
+    g = bst._gbdt
+    qb = np.concatenate([[0], np.cumsum(sizes)])
+    scores = g.scores[:, 0].cpu().numpy()
+    (_, ndcg10, _), = NDCGMetric(Config.from_params(RANK_PARAMS)).eval(
+        rel, scores, None, qb)
+    share = sum(grad_ms) / max(1e-9, sum(iter_ms))
+    # the first iteration also uploads the rows and builds the buckets
+    steady = sum(grad_ms[1:]) / max(1e-9, sum(iter_ms[1:]))
+    log(f"rank: {RANK_ITERS} iterations in {seconds:.3f} s (setup "
+        f"included); per iteration ms {[round(x, 2) for x in iter_ms]}, "
+        f"of which gradients {[round(x, 2) for x in grad_ms]} (share "
+        f"{share:.3f}, after the first iteration {steady:.3f}); train "
+        f"NDCG@10 {ndcg10:.5f}; launches {launches}; digest "
+        f"{g.digest(include_scores=False)}")
+    if not np.isfinite(scores).all():
+        raise AssertionError("ranking scores are not finite")
+    if not ndcg10 >= RANK_NDCG_GATE:
+        raise AssertionError(f"train NDCG@10 {ndcg10} < {RANK_NDCG_GATE}")
+    missing = [k for k in ("route", "route_values", "hist_route",
+                           "hist_compact") if launches[k] <= 0]
+    if missing or launches["split_scan"] != 0:
+        raise AssertionError(f"rank: kernels not launched {missing}, split "
+                             f"kernel {launches['split_scan']} times")
+    phase_line("19_rank_mslr_shape", card, docs=len(rel),
+               queries=len(sizes), features=RANK_FEATURES,
+               binning_s=bin_s, seconds=seconds, iter_ms=iter_ms,
+               grad_ms=grad_ms, grad_share=share, grad_share_steady=steady,
+               ndcg10=float(ndcg10),
+               digest=g.digest(include_scores=False), launches=launches,
+               launches_per_tree={k: v / RANK_ITERS
+                                  for k, v in launches.items()})
+    return launches
+
+
+def host_percentile(values, row_leaf, num_leaves: int, alpha: float):
+    """Per-leaf percentile of f32 ``values`` on the host, in numpy f32
+    arithmetic: sorted within the leaf, read at ``alpha * (count - 1)``
+    with linear interpolation (the reference's PercentileFun)."""
+    import numpy as np
+    order = np.lexsort((values, row_leaf))
+    sv, sl = values[order], row_leaf[order]
+    lid = np.arange(num_leaves)
+    start = np.searchsorted(sl, lid, side="left")
+    cnt = np.searchsorted(sl, lid, side="right") - start
+    pos = np.float32(alpha) * (cnt - 1).astype(np.float32)
+    lo, hi = np.floor(pos).astype(np.int64), np.ceil(pos).astype(np.int64)
+    frac = pos - lo.astype(np.float32)
+    n = len(sv)
+    vlo = sv[np.clip(start + lo, 0, n - 1)]
+    vhi = sv[np.clip(start + hi, 0, n - 1)]
+    out = vlo * (np.float32(1) - frac) + vhi * frac
+    return np.where(cnt > 0, out, np.float32(0))
+
+
+def regression_phase(lgb, counters, ds, z, card: str) -> dict:
+    """Phase 20: every regression-family objective on the headline's
+    rows (binned once), 2 iterations each; the renewed leaves of L1 and
+    quantile held to a host percentile of the residuals: -> launches by
+    objective."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.objective import objectives as objs
+    labels = {"z": z, "exp": np.exp(z / 2), "exp8": np.exp(z / 8),
+              "sigmoid": 1 / (1 + np.exp(-z)), "abs": np.abs(z)}
+    out, lines = {}, {}
+    for name, kind, extra in REG_FAMILY:
+        key = name + ("_sqrt" if extra.get("reg_sqrt") else "")
+        y = labels[kind].astype(np.float32)
+        dsr = relabel(ds, y)
+        params = {"objective": name, "num_leaves": 255, "max_bin": 63,
+                  "learning_rate": 0.1, "min_data_in_leaf": 20,
+                  "verbose": -1, **extra}
+        renewals = []
+        cls = objs.OBJECTIVES[name]
+        plain = cls.renew_tree_output
+
+        def record(self, score, row_leaf, L, plain=plain):
+            res = plain(self, score, row_leaf, L)
+            renewals.append(tuple(t.cpu().numpy().copy() for t in (
+                score, row_leaf, res, self.label)))
+            return res
+        checked = name in ("regression_l1", "quantile")
+        if checked:
+            cls.renew_tree_output = record
+        evals = {}
+        try:
+            bst, seconds, launches = train_path(
+                lgb, f"regression family: {key}", counters, params, dsr,
+                REG_ITERS, valid_sets=[dsr], valid_names=["training"],
+                evals_result=evals, verbose_eval=False)
+        finally:
+            if checked:
+                cls.renew_tree_output = plain
+        (metric, vals), = evals["training"].items()
+        log(f"{key}: train {metric} {vals}; digest "
+            f"{bst.digest(include_scores=False)}")
+        if len(vals) != REG_ITERS or not vals[1] < vals[0]:
+            raise AssertionError(f"{key}: {metric} {vals} did not fall")
+        if launches["route_values"] <= 0 or launches["hist_route"] <= 0:
+            raise AssertionError(f"{key}: kernels not launched {launches}")
+        worst = None
+        if checked:
+            alpha = 0.5 if name == "regression_l1" else extra["alpha"]
+            worst = 0
+            for score, row_leaf, res, label in renewals:
+                want = host_percentile(label - score, row_leaf, len(res),
+                                       alpha)
+                worst = max(worst, int((want != res).sum()))
+            log(f"{key}: {len(renewals)} renewed trees, leaves differing "
+                f"from the host percentile: {worst}")
+            if len(renewals) != REG_ITERS or worst:
+                raise AssertionError(f"{key}: renewed leaves differ from the "
+                                     f"host percentile ({worst})")
+        out[f"reg_{key}"] = launches
+        lines[key] = {"metric": metric, "values": vals,
+                      "ms_per_iter": 1e3 * seconds / REG_ITERS,
+                      "digest": bst.digest(include_scores=False),
+                      "renewal_mismatches": worst}
+        del bst, dsr
+        torch.cuda.synchronize()
+    phase_line("20_regression_family", card, objectives=lines)
+    return out
+
+
+def multiclass_stream_phase(lgb, counters, tmp: str, card: str) -> dict:
+    """Phase 21: the identity store's generator at 2,097,152 rows (two
+    1,048,576-row blocks), labels of 3 classes and a continuous one from
+    its first two columns; ``multiclass`` then ``huber`` streamed and in
+    memory, 2 iterations each: equal digests, scores included: ->
+    launches by path."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.boosting.streaming import StreamTrainer
+    from lightgbm_tpu_torch.config import Config
+    cfg = Config.from_params(STREAM_PARAMS)
+    store = lgb.outofcore.ingest_synthetic(
+        os.path.join(tmp, "mc"), MC_STREAM_ROWS, STREAM_FEATURES, cfg,
+        seed=4, shard_rows=MC_STREAM_ROWS)
+    base = store.to_binned_dataset(cfg)
+    b = base.bins
+    latent = (b[:, 0].astype(np.float32) + 0.5 * b[:, 1]
+              + np.random.RandomState(5).normal(size=len(b)).astype(
+                  np.float32) * 4)
+    out, lines = {}, {}
+    for name, label in (("multiclass", class_labels(latent,
+                                                    MC_STREAM_CLASSES)),
+                        ("huber", latent / 16)):
+        params = dict(STREAM_PARAMS, objective=name)
+        if name == "multiclass":
+            params["num_class"] = MC_STREAM_CLASSES
+        c = Config.from_params(params)
+        res = relabel_binned(base, label)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        st = StreamTrainer(c, res, block_rows=STREAM_BLOCK,
+                           device="cuda").train(STREAM_ITERS)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        streamed = {k: fn.launches for k, fn in counters.items()}
+        for fn in counters.values():
+            fn.launches = 0
+        mem = GBDT(c, res, "cuda")
+        for _ in range(STREAM_ITERS):
+            mem.train_one_iter()
+        torch.cuda.synchronize()
+        inmem = {k: fn.launches for k, fn in counters.items()}
+        d_str, d_mem = st.digest(), mem.digest()
+        log(f"stream {name}: {MC_STREAM_ROWS} rows x {STREAM_ITERS} "
+            f"iterations in {wall:.3f} s, {len(st.models)} trees; streamed "
+            f"{d_str} in memory {d_mem}; launches streamed {streamed}, in "
+            f"memory {inmem}")
+        if d_str != d_mem:
+            raise AssertionError(f"stream {name}: streamed digest != in "
+                                 f"memory")
+        if len(st.models) != STREAM_ITERS * mem.num_tree_per_iteration:
+            raise AssertionError(f"stream {name}: {len(st.models)} trees")
+        for k in ("hist_active", "route", "route_values"):
+            if streamed[k] <= 0:
+                raise AssertionError(f"stream {name}: {k} did not launch")
+        out[f"stream_{name}"] = streamed
+        out[f"inmem_{name}"] = inmem
+        lines[name] = {"seconds": wall, "digest": d_str,
+                       "trees": len(st.models), "launches": streamed}
+        del st, mem
+    phase_line("21_streams", card, rows=MC_STREAM_ROWS, streams=lines)
+    return out
+
+
+
 class _InstantServer:
     """Resolves each request as it is submitted: a sweep through it
     times the load generator alone."""
@@ -2248,7 +2816,8 @@ def main() -> int:
 
     # 2. kernels at the headline shapes
     t0 = time.time()
-    X, y = headline_data()
+    X, z = headline_latent()
+    y = (z > 0).astype(np.float32)
     ds = lgb.Dataset(X, label=y, params={"max_bin": 63}).construct()
     log(f"headline data + binning {time.time() - t0:.1f} s")
     dd = to_device(ds._constructed, "cuda")
@@ -2430,6 +2999,28 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 16 {time.time() - t0:.1f} s")
+
+    # 17.-21. multiclass, ranking, the regression family, K-tree streams
+    t0 = time.time()
+    by_path.update(multiclass_phase(lgb, counters, ds, X, z, card))
+    log(f"phase 17 {time.time() - t0:.1f} s")
+    t0 = time.time()
+    by_path["multiclass_small"] = multiclass_small_phase(
+        lgb, counters, ds_small, dv_small, card)
+    log(f"phase 18 {time.time() - t0:.1f} s")
+    t0 = time.time()
+    by_path["rank"] = rank_phase(lgb, counters, card, entries)
+    log(f"phase 19 {time.time() - t0:.1f} s")
+    t0 = time.time()
+    by_path.update(regression_phase(lgb, counters, ds, z, card))
+    log(f"phase 20 {time.time() - t0:.1f} s")
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="lgbm_mc_stream_")
+    try:
+        by_path.update(multiclass_stream_phase(lgb, counters, tmp, card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 21 {time.time() - t0:.1f} s")
 
     for e in entries:
         # a categorical entry counts its kernel's launches on the

@@ -49,17 +49,20 @@ def _data_to_numpy(data):
 class Dataset:
     """Training data wrapper (numpy arrays or a pandas DataFrame).
     ``categorical_feature`` lists column indices or names; ``"auto"``
-    takes a DataFrame's ``category`` columns."""
+    takes a DataFrame's ``category`` columns.  ``group`` gives the
+    ranking queries: per-query sizes (or boundaries from 0), the rows of
+    a query contiguous."""
 
     def __init__(self, data, label=None, reference: "Dataset" = None,
-                 weight=None, init_score=None, feature_name="auto",
-                 categorical_feature="auto",
+                 weight=None, group=None, init_score=None,
+                 feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
         self.data = data
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -88,13 +91,29 @@ class Dataset:
         md = self._constructed.metadata
         if self.label is not None:
             md.set_field("label", np.asarray(self.label).reshape(-1))
-        if self.weight is not None:
-            md.set_field("weight", self.weight)
-        if self.init_score is not None:
-            md.set_field("init_score", self.init_score)
+        for name in ("weight", "group", "init_score"):
+            if getattr(self, name) is not None:
+                md.set_field(name, getattr(self, name))
         if self.free_raw_data:
             self.data = None
         return self
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A validation set binned with this set's mappers."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score,
+                       params=params or self.params)
+
+    def set_group(self, group) -> None:
+        self.group = group
+        if self._constructed is not None:
+            self._constructed.metadata.set_field("group", group)
+
+    def get_group(self):
+        """Per-query sizes, or None."""
+        qb = self.construct()._constructed.metadata.get_field("group")
+        return None if qb is None else np.diff(qb)
 
 
 class Booster:

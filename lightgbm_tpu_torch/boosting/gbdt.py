@@ -2,13 +2,16 @@
 
 Port of the JAX package's ``boosting/gbdt.py`` (reference
 ``src/boosting/gbdt.cpp``; model text IO ``gbdt_model_text.cpp``).  One
-iteration mirrors ``TrainOneIter`` (`gbdt.cpp:377-472`): gradients from
-the objective, the bagging and feature masks, one tree per class through
-the serial learner, stumps zeroed, shrinkage, and the score update from
-the kernel-emitted per-row leaf values; validation sets are scored by
-walking each new tree over their bins.  The reference's ``lax.scan``
-windows are a TPU dispatch mechanism and are not ported: iterations run
-one at a time.
+iteration mirrors ``TrainOneIter`` (`gbdt.cpp:377-472`): gradients
+``[n, K]`` from the objective, one bagging mask for the iteration, then
+K trees (one per class) through the serial learner, each with its own
+feature mask, the leaf renewal of L1 / quantile / MAPE, stumps zeroed,
+shrinkage, and the score update of class k from the kernel-emitted
+per-row leaf values (renewed trees: their leaf values gathered per
+row); validation sets are scored by walking each new tree over their
+bins.  An iteration whose K trees are all stumps ends training and is
+dropped.  The reference's ``lax.scan`` windows are a TPU dispatch
+mechanism and are not ported: iterations run one at a time.
 
 Bagging and feature fraction draw from the reference's keyed RNG
 (``utils/random.py``), so both packages sample the same rows and
@@ -88,8 +91,6 @@ def _check_supported(c: Config) -> None:
         raise NotImplementedError(f"boosting={c.boosting_type}")
     if c.tree_learner != "serial" or c.num_machines > 1:
         raise NotImplementedError(f"tree_learner={c.tree_learner}")
-    if c.num_tree_per_iteration != 1:
-        raise NotImplementedError("multiclass objectives")
     check_unported_options(c)
 
 
@@ -123,7 +124,8 @@ class GBDT:
         self.device = torch.device(device)
         self.objective: Optional[ObjectiveFunction] = None
         self._host_models: List[Tree] = []
-        # device trees waiting for host conversion: (tree, lr, bias)
+        # device trees waiting for host conversion: (tree, lr, bias);
+        # the init score is the bias of each class's first tree
         self._pending: List[Tuple[BuiltTree, float, float]] = []
         self.iter = 0
         self.init_score_value = 0.0
@@ -155,11 +157,16 @@ class GBDT:
         if self.objective is None:
             raise NotImplementedError("custom objectives")
         self.objective.init(train_set.metadata, n, self.device)
-        scores = np.zeros((n, 1), np.float32)
+        K = self.num_tree_per_iteration = \
+            self.objective.num_model_per_iteration
+        scores = np.zeros((n, K), np.float32)
         ms = train_set.metadata.init_score
         if ms is not None:
-            scores = np.asarray(ms, np.float64).reshape(-1, 1).astype(
-                np.float32)
+            # class-major, as the reference stores [n * K] init scores
+            # numcheck: disable=NUM002 -- ingest cast of user-supplied
+            # init_score to the f32 score dtype, not an accumulation
+            scores = np.asarray(ms, np.float64).reshape(
+                -1, K, order="F").astype(np.float32)
         elif c.boost_from_average:
             v = self.objective.boost_from_score()
             if v != 0.0:
@@ -191,13 +198,15 @@ class GBDT:
             raise NotImplementedError(
                 "add_valid after training has started (replaying trees "
                 "into valid scores) is not ported yet")
+        K = self.num_tree_per_iteration
         ms = valid_set.metadata.init_score
         if ms is not None:
-            score = torch.as_tensor(
-                np.asarray(ms, np.float64).reshape(-1, 1).astype(np.float32),
-                device=self.device)
+            score = np.asarray(ms, np.float64).reshape(-1, K, order="F")
+            # numcheck: disable=NUM002 -- ingest cast of init_score
+            score = torch.as_tensor(score.astype(np.float32),
+                                    device=self.device)
         else:
-            score = torch.full((valid_set.num_data, 1),
+            score = torch.full((valid_set.num_data, K),
                                self.init_score_value, dtype=torch.float32,
                                device=self.device)
         self.valid_sets.append(valid_set)
@@ -238,7 +247,7 @@ class GBDT:
             host = self._to_host_tree(bt)
             host.shrinkage(lr)
             if bias:
-                host.add_bias(bias)        # init score lives in tree 0
+                host.add_bias(bias)   # init score: each class's first tree
             self._host_models.append(host)
         self._pending = []
         return self._host_models
@@ -252,67 +261,113 @@ class GBDT:
         return len(self._host_models) + len(self._pending)
 
     # -- training ---------------------------------------------------------
+    def _first_tree_bias(self) -> float:
+        """The bias of the next tree: the init score goes into each
+        class's first tree (reference TrainOneIter's AddBias)."""
+        if (self._num_models() < self.num_tree_per_iteration
+                and abs(self.init_score_value) > 1e-15):
+            return self.init_score_value
+        return 0.0
+
+    def gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(grad, hess), each ``[n, K]`` (reference Boosting())."""
+        return self.objective.get_gradients_k(self.scores)
+
     def train_one_iter(self) -> bool:
         """One boosting iteration (reference TrainOneIter).  Returns True
-        when training should stop (the tree is a stump: no split meets
-        the requirements)."""
-        grad, hess = self.objective.get_gradients(self.scores[:, 0])
+        when training should stop: the K trees are all stumps (no split
+        meets the requirements), and the iteration is dropped."""
+        grad, hess = self.gradients()
         K = self.num_tree_per_iteration
-        bt = build_tree(self.device_data, grad, hess, self.growth,
-                        bag_mask=self._bagging_mask(self.iter),
-                        feature_mask=self._feature_mask(self.iter * K),
-                        hist_mode=self.hist_mode)
-        nl, depth = torch.stack([bt.num_leaves,
-                                 bt.leaf_depth.max()]).tolist()
-        if nl <= 1:
+        bag = self._bagging_mask(self.iter)
+        trees = []
+        for k in range(K):
+            bt = build_tree(self.device_data, grad[:, k].contiguous(),
+                            hess[:, k].contiguous(), self.growth,
+                            bag_mask=bag,
+                            feature_mask=self._feature_mask(
+                                self.iter * K + k),
+                            hist_mode=self.hist_mode)
+            bt = self._renew_leaves(bt, k)
+            nl, depth = torch.stack([bt.num_leaves,
+                                     bt.leaf_depth.max()]).tolist()
+            if nl <= 1:
+                # a stump adds nothing (reference gbdt.cpp:435-460)
+                bt.leaf_value = torch.zeros_like(bt.leaf_value)
+            trees.append((bt, nl, depth))
+        if all(nl <= 1 for _, nl, _ in trees):
             log_warning("stopped training because there are no more leaves "
                         f"that meet the split requirements (iteration "
                         f"{self.iter + 1})")
             return True
-        self._update_scores(bt, 0, depth)
-        bias = (self.init_score_value
-                if (self._num_models() == 0
-                    and abs(self.init_score_value) > 1e-15) else 0.0)
-        self._pending.append((BuiltTree(**{
-            **bt.__dict__, "row_leaf": bt.row_leaf[:0],
-            "row_value": bt.row_value[:0]}), self.shrinkage_rate, bias))
+        for k, (bt, _, depth) in enumerate(trees):
+            self._update_scores(bt, k, depth)
+            self._pending.append((BuiltTree(**{
+                **bt.__dict__, "row_leaf": bt.row_leaf[:0],
+                "row_value": bt.row_value[:0]}), self.shrinkage_rate,
+                self._first_tree_bias()))
         self.iter += 1
         return False
 
+    def _renew_leaves(self, bt: BuiltTree, k: int) -> BuiltTree:
+        """The objective's leaf re-fit (RenewTreeOutput,
+        ``serial_tree_learner.cpp:592-622``): each leaf of the tree takes
+        the objective's percentile of its rows' residuals against class
+        k's scores."""
+        if not self.objective.need_renew_tree_output:
+            return bt
+        L = self.growth.num_leaves
+        new = self.objective.renew_tree_output(self.scores[:, k],
+                                               bt.row_leaf, L)
+        bt.leaf_value = torch.where(
+            torch.arange(L, device=self.device) < bt.num_leaves,
+            new.to(torch.float32), bt.leaf_value)
+        return bt
+
     def _update_scores(self, bt: BuiltTree, k: int, depth: int) -> None:
         """Add the shrunk kernel-emitted per-row leaf values: one fused
-        multiply-add per row, as the reference's compiled update.  Valid
-        scores add the shrunk values of a device walk of the tree, ``depth``
-        levels deep (the product rounded, then the add, as the reference's
-        eager update)."""
-        self.scores[:, k].add_(bt.row_value, alpha=self.shrinkage_rate)
+        multiply-add per row, as the reference's compiled update.  A
+        renewed tree's values are gathered per row and the product is
+        rounded before the add, as the reference's per-iteration loop
+        (the only one renewal takes) does.  Valid scores add the shrunk
+        values of a device walk of the tree, ``depth`` levels deep (the
+        product rounded, then the add, as the reference's eager
+        update)."""
         lr = torch.tensor(self.shrinkage_rate, dtype=torch.float32,
                           device=self.device)
+        if self.objective.need_renew_tree_output:
+            self.scores[:, k] += lr * bt.leaf_value[bt.row_leaf.long()]
+        else:
+            self.scores[:, k].add_(bt.row_value, alpha=self.shrinkage_rate)
         for vd, score in zip(self._valid_device, self._valid_scores):
             score[:, k] += lr * predict_built_tree(bt, vd, depth)
 
     # -- evaluation ----------------------------------------------------------
     def eval_train(self) -> List[Tuple[str, str, float, bool]]:
-        md = self.train_set.metadata
-        return self._eval_set("training", self.scores, md.label, md.weight)
+        return self._eval_set("training", self.scores,
+                              self.train_set.metadata)
 
     def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
         out = []
         for name, vs, score in zip(self.valid_names, self.valid_sets,
                                    self._valid_scores):
-            out.extend(self._eval_set(name, score, vs.metadata.label,
-                                      vs.metadata.weight))
+            out.extend(self._eval_set(name, score, vs.metadata))
         return out
 
-    def _eval_set(self, name, scores, label, weight):
+    def _eval_set(self, name, scores, md):
         """``[(set name, metric name, value, higher_is_better)]`` over the
-        raw scores (reference ``gbdt.cpp:OutputMetric``)."""
-        if label is None:
+        raw scores, ``[n]`` or ``[n, K]``, with the set's query
+        boundaries for the ranking metrics (reference
+        ``gbdt.cpp:OutputMetric``)."""
+        if md.label is None:
             return []
-        s = scores[:, 0].cpu().numpy()
-        label = np.asarray(label)
+        s = scores.cpu().numpy()
+        if s.shape[1] == 1:
+            s = s[:, 0]
+        label = np.asarray(md.label)
         return [(name, mname, val, hib) for m in self.metrics
-                for mname, val, hib in m.eval(label, s, weight)]
+                for mname, val, hib in m.eval(label, s, md.weight,
+                                              md.query_boundaries)]
 
     def _to_host_tree(self, bt: BuiltTree) -> Tree:
         """Device BuiltTree -> host Tree with real-valued thresholds."""
@@ -431,9 +486,7 @@ class GBDT:
     # -- model text IO (reference gbdt_model_text.cpp:235-315) ---------------
     def feature_importance(self, num_iteration: int = -1) -> np.ndarray:
         imp = np.zeros(self.max_feature_idx + 1)
-        T = len(self.models)
-        if num_iteration and num_iteration > 0:
-            T = min(T, num_iteration)
+        T = self._num_trees(num_iteration)
         for t in self.models[:T]:
             for node in range(t.num_leaves - 1):
                 imp[int(t.split_feature[node])] += 1
@@ -448,9 +501,7 @@ class GBDT:
             lines.append(f"objective={self.objective.to_string()}")
         lines.append("feature_names=" + " ".join(self.feature_names))
         lines.append("feature_infos=" + " ".join(self._feature_infos()))
-        T = len(self.models)
-        if num_iteration and num_iteration > 0:
-            T = min(T, num_iteration)
+        T = self._num_trees(num_iteration)
         tree_strs = [f"Tree={i}\n" + self.models[i].to_string() + "\n"
                      for i in range(T)]
         lines.append("tree_sizes=" + " ".join(str(len(s)) for s in tree_strs))

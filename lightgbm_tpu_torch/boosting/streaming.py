@@ -37,12 +37,17 @@ stream, issued before block k's fold is awaited.  The fold order never
 changes, so ``pipeline=False`` (stage and copy each block after the
 previous one is done) builds the same model.
 
-Supported: gbdt boosting with the port's objectives (binary, L2
-regression), weights, ``feature_fraction``, one shard.  These raise:
-bagging (its ``[n]`` device mask breaks the memory contract),
-``boosting != gbdt``, ranking, custom objectives, EFB-bundled resident
-sources, and the data-parallel stream (``tree_learner=data``, S > 1;
-ROADMAP A11/A12).
+Supported: gbdt boosting with the row-wise objectives (the regression,
+binary, multiclass and cross-entropy families: a block's gradients are
+its rows' gradients), K trees an iteration for the multiclass ones (one
+set of gradients an iteration, each class's tree streamed in turn, its
+feature mask keyed on ``iter * K + k``), weights, ``feature_fraction``,
+one shard.  These raise, as in the JAX package: leaf-renewal objectives
+(L1, quantile, MAPE re-fit leaves from every row's score), ranking (row
+blocks would split queries), bagging (its ``[n]`` device mask breaks
+the memory contract), ``boosting != gbdt``, custom objectives,
+EFB-bundled resident sources, and the data-parallel stream
+(``tree_learner=data``, S > 1; ROADMAP A11/A12).
 """
 from __future__ import annotations
 
@@ -157,7 +162,7 @@ class _Source:
         return ds
 
 
-def _check_streamable(config: Config, src: _Source) -> None:
+def _check_streamable(config: Config, objective, src: _Source) -> None:
     check_unported_options(config)
     bad = None
     if config.boosting_type != "gbdt":
@@ -169,9 +174,12 @@ def _check_streamable(config: Config, src: _Source) -> None:
         bad = (f"tree_learner={config.tree_learner} (the data-parallel "
                "stream over several shards is not ported yet: ROADMAP "
                "A11/A12)")
-    elif config.objective == "none":
+    elif objective is None:
         bad = "objective=none / custom fobj"
-    elif "rank" in config.objective or src.query_boundaries() is not None:
+    elif objective.need_renew_tree_output:
+        bad = (f"objective={objective.name} (leaf renewal rewrites "
+               "outputs from per-row scores)")
+    elif "rank" in objective.name or src.query_boundaries() is not None:
         bad = "ranking objectives (row blocks would split queries)"
     elif src.init_score() is not None:
         bad = "init_score (streamed scores start from boost_from_average)"
@@ -278,7 +286,9 @@ class StreamTrainer:
                  pipeline: bool = True):
         self.config = config
         self.src = _Source(source, config)
-        _check_streamable(config, self.src)
+        self.objective = create_objective(config)
+        _check_streamable(config, self.objective, self.src)
+        self.K = self.objective.num_model_per_iteration
         n = self.src.n
         if n <= 0:
             raise ValueError("empty stream source")
@@ -294,13 +304,13 @@ class StreamTrainer:
         self.pipeline = pipeline
 
         light = self.src.light_dataset()
-        self.objective = create_objective(config)
         booster = GBDT(config, None, self.device)
         booster.train_set = light
         booster.growth = growth_params_from_config(config)
         booster.feature_names = light.feature_names
         booster.max_feature_idx = light.num_total_features - 1
         booster.objective = self.objective
+        booster.num_tree_per_iteration = self.K
         self.booster = booster
         self.growth = booster.growth
         self.L = self.growth.num_leaves
@@ -317,7 +327,7 @@ class StreamTrainer:
         self.fold = make_hist_fold_fn(self.dd, self.L, self.A,
                                       hist_mode=config.hist_mode or None,
                                       num_data=n)
-        self.scores = np.zeros((n, 1), np.float32)
+        self.scores = np.zeros((n, self.K), np.float32)
         self._init_scores()
         self._up: Optional[_BlockUploader] = None
 
@@ -348,29 +358,32 @@ class StreamTrainer:
         return torch.from_numpy(out).to(self.device)
 
     def _gradients(self):
-        """-> host (grad [n], hess [n]) and the root chunk sums ``[3, m]``:
-        each block's gradients on the device from its scores, labels and
-        weights (the objectives are row-wise, so a block's slice equals
-        the in-memory rows)."""
-        obj = self.objective
-        grad = np.empty(self.n, np.float32)
-        hess = np.empty(self.n, np.float32)
-        sums = []
+        """-> host (grad [n, K], hess [n, K]) and each class's root chunk
+        sums ``[3, m]``: each block's gradients on the device from its
+        scores, labels and weights (the objectives are row-wise, so a
+        block's slice equals the in-memory rows)."""
+        obj, K = self.objective, self.K
+        grad = np.empty((self.n, K), np.float32)
+        hess = np.empty((self.n, K), np.float32)
+        sums = [[] for _ in range(K)]
         for start, stop, m in self.blocks:
             _, label, weight = self.src.read_rows(start, stop)
-            sc = self._pad(self.scores[start:stop, 0], m)
+            sc = self._pad(self.scores[start:stop], m)
             obj.label = self._pad(np.asarray(label, np.float32), m)
             obj.weight = self._pad(None if weight is None
                                    else np.asarray(weight, np.float32), m)
             try:
-                g, h = obj.get_gradients(sc)
+                g, h = obj.get_gradients_k(sc)
             finally:
                 obj.label = obj.weight = None
             mask = torch.arange(self.R, device=self.device) < m
-            sums.append(root_chunk_sums(g, h, mask))
+            for k in range(K):
+                sums[k].append(root_chunk_sums(g[:, k].contiguous(),
+                                               h[:, k].contiguous(), mask))
             grad[start:stop] = g[:m].cpu().numpy()
             hess[start:stop] = h[:m].cpu().numpy()
-        cs = torch.cat(sums, dim=1)[:, :-(-self.n // STREAM_CHUNK)]
+        m_chunks = -(-self.n // STREAM_CHUNK)
+        cs = [torch.cat(sk, dim=1)[:, :m_chunks] for sk in sums]
         return grad, hess, cs
 
     # -- training ---------------------------------------------------------
@@ -388,25 +401,30 @@ class StreamTrainer:
         return self.booster
 
     def _train_one_iter(self, it: int) -> bool:
-        c = self.config
+        c, K, b = self.config, self.K, self.booster
         grad, hess, cs = self._gradients()
-        fmask = None
-        if c.feature_fraction < 1.0:
-            F = self.dd.num_features
-            fmask = feature_mask(c.feature_fraction_seed, it, F,
-                                 max(1, int(c.feature_fraction * F))
-                                 ).to(self.device)
-        bt = self._build_tree(grad, hess, cs, fmask)
-        if int(bt.num_leaves) <= 1:
+        stumps = 0
+        for k in range(K):
+            fmask = None
+            if c.feature_fraction < 1.0:
+                F = self.dd.num_features
+                fmask = feature_mask(c.feature_fraction_seed, it * K + k, F,
+                                     max(1, int(c.feature_fraction * F))
+                                     ).to(self.device)
+            bt = self._build_tree(np.ascontiguousarray(grad[:, k]),
+                                  np.ascontiguousarray(hess[:, k]), cs[k],
+                                  fmask, k)
+            if int(bt.num_leaves) <= 1:
+                stumps += 1
+                bt.leaf_value = torch.zeros_like(bt.leaf_value)
+            b._pending.append((bt, b.shrinkage_rate, b._first_tree_bias()))
+        if stumps == K:
+            # as in memory: the all-stump iteration is dropped
+            del b._pending[-K:]
             log_warning("stopped training because there are no more leaves "
                         f"that meet the split requirements (iteration "
                         f"{it + 1})")
             return True
-        b = self.booster
-        bias = (b.init_score_value
-                if (b._num_models() == 0
-                    and abs(b.init_score_value) > 1e-15) else 0.0)
-        b._pending.append((bt, b.shrinkage_rate, bias))
         b.iter += 1
         return False
 
@@ -429,7 +447,7 @@ class StreamTrainer:
                 up.finish(bi + 1, up.start(bi + 1, grad, hess))
 
     def _build_tree(self, grad: np.ndarray, hess: np.ndarray,
-                    cs: torch.Tensor, fmask):
+                    cs: torch.Tensor, fmask, k: int):
         L, dev, fold = self.L, self.device, self.fold
         growth = self.growth
         wave_cap = growth.wave_size if growth.wave_size > 0 else L
@@ -481,12 +499,12 @@ class StreamTrainer:
             bins_t, _, _ = up.get(bi)
             _, row_value = route_rows_values(bins_t, l2, *tabs, lv)
             start, stop, m = self.blocks[bi]
-            sc = self._pad(self.scores[start:stop, 0], m)
+            sc = self._pad(self.scores[start:stop, k], m)
             return sc.add_(row_value, alpha=lr)
 
         def store_scores(bi, sc):
             start, stop, m = self.blocks[bi]
-            self.scores[start:stop, 0] = sc[:m].cpu().numpy()
+            self.scores[start:stop, k] = sc[:m].cpu().numpy()
         self._stream_blocks(grad, hess, leaf2, final, store_scores)
         empty = torch.zeros(0, dtype=torch.int32, device=dev)
         return finished_tree(s, L, empty, empty.float())

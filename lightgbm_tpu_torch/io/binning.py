@@ -17,6 +17,7 @@ vectorized over whole columns.
 """
 from __future__ import annotations
 
+import bisect
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -81,24 +82,44 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
     lower_bounds = [math.inf] * max_bin
     bin_cnt = 0
     lower_bounds[0] = float(distinct_values[0])
-    cur_cnt = 0
-    for i in range(num_distinct - 1):
+    # the reference walks the distinct values one by one, adding each
+    # count to the current bin until a boundary; here each boundary is
+    # found by binary searches over the prefix counts (the same walk)
+    last = num_distinct - 1            # candidates i < last
+    cum = [0] + np.cumsum(counts, dtype=np.int64).tolist()
+    small = [0] + np.cumsum(np.where(is_big, 0, counts),
+                            dtype=np.int64).tolist()
+    big = np.flatnonzero(is_big)
+
+    def first_reaching(start, need):
+        # first i in [start, last) whose current count reaches ``need``
+        return bisect.bisect_left(range(start, last), True,
+                                  key=lambda i: cum[i + 1] - cum[start]
+                                  >= need) + start
+
+    def first_big(at):
+        k = int(np.searchsorted(big, at))
+        return int(big[k]) if k < len(big) else num_distinct
+
+    start = 0
+    while start < last:
+        half = max(1.0, mean_bin_size * 0.5)
+        i = min(first_big(start), first_reaching(start, mean_bin_size),
+                first_big(first_reaching(start, half) + 1) - 1)
+        if i >= last:
+            break
+        rest_sample_cnt -= small[i + 1] - small[start]
+        upper_bounds[bin_cnt] = float(distinct_values[i])
+        bin_cnt += 1
+        lower_bounds[bin_cnt] = float(distinct_values[i + 1])
+        if bin_cnt >= max_bin - 1:
+            break
         if not is_big[i]:
-            rest_sample_cnt -= int(counts[i])
-        cur_cnt += int(counts[i])
-        if (is_big[i] or cur_cnt >= mean_bin_size or
-                (is_big[i + 1] and cur_cnt >= max(1.0, mean_bin_size * 0.5))):
-            upper_bounds[bin_cnt] = float(distinct_values[i])
-            bin_cnt += 1
-            lower_bounds[bin_cnt] = float(distinct_values[i + 1])
-            if bin_cnt >= max_bin - 1:
-                break
-            cur_cnt = 0
-            if not is_big[i]:
-                rest_bin_cnt -= 1
-                # C++ double division tolerates rest_bin_cnt==0 (yields inf)
-                mean_bin_size = (rest_sample_cnt / rest_bin_cnt
-                                 if rest_bin_cnt > 0 else math.inf)
+            rest_bin_cnt -= 1
+            # C++ double division tolerates rest_bin_cnt==0 (yields inf)
+            mean_bin_size = (rest_sample_cnt / rest_bin_cnt
+                             if rest_bin_cnt > 0 else math.inf)
+        start = i + 1
     bin_cnt += 1
     for i in range(bin_cnt - 1):
         val = _double_upper_bound((upper_bounds[i] + lower_bounds[i + 1]) / 2.0)
@@ -106,6 +127,34 @@ def greedy_find_bin(distinct_values: np.ndarray, counts: np.ndarray,
             bin_upper_bound.append(val)
     bin_upper_bound.append(math.inf)
     return bin_upper_bound
+
+
+def _distinct_counts(values: np.ndarray, zero_cnt: int):
+    """Distinct sorted values and their counts, with zero (``zero_cnt``
+    of it) spliced at its sorted position (reference bin.cpp FindBin):
+    before the first value when every value is positive, between the
+    last negative and the first positive, after the last when every
+    value is negative.  A run of equal values keeps its last."""
+    zero = (np.array([0.0]), np.array([zero_cnt], np.int64))
+    if len(values) == 0:
+        return zero
+    n = len(values)
+    starts = np.flatnonzero(np.concatenate([[True],
+                                            values[1:] > values[:-1]]))
+    ends = np.append(starts[1:], n)
+    dv, cnts = values[ends - 1], (ends - starts).astype(np.int64)
+    cross = np.flatnonzero((dv[:-1] < 0.0) & (dv[1:] > 0.0)) + 1
+    at = None
+    if values[0] > 0.0 and zero_cnt > 0:
+        at = 0
+    elif len(cross):
+        at = int(cross[0])
+    elif values[-1] < 0.0 and zero_cnt > 0:
+        at = len(dv)
+    if at is not None:
+        dv = np.insert(dv, at, 0.0)
+        cnts = np.insert(cnts, at, zero_cnt)
+    return dv, cnts
 
 
 def find_bin_with_zero_as_one_bin(distinct_values: np.ndarray, counts: np.ndarray,
@@ -197,31 +246,7 @@ class BinMapper:
         self.default_bin = 0
         zero_cnt = int(total_sample_cnt - len(values) - na_cnt)
 
-        # distinct values with zero spliced at its sorted position
-        values = np.sort(values)
-        distinct_values: List[float] = []
-        counts: List[int] = []
-        if len(values) == 0 or (values[0] > 0.0 and zero_cnt > 0):
-            distinct_values.append(0.0)
-            counts.append(zero_cnt)
-        prev = None
-        for v in values:
-            if prev is None or v > prev:
-                if prev is not None and prev < 0.0 and v > 0.0:
-                    distinct_values.append(0.0)
-                    counts.append(zero_cnt)
-                distinct_values.append(float(v))
-                counts.append(1)
-            else:
-                distinct_values[-1] = float(v)
-                counts[-1] += 1
-            prev = v
-        if len(values) > 0 and values[-1] < 0.0 and zero_cnt > 0:
-            distinct_values.append(0.0)
-            counts.append(zero_cnt)
-
-        dv = np.asarray(distinct_values)
-        cnts = np.asarray(counts, dtype=np.int64)
+        dv, cnts = _distinct_counts(np.sort(values), zero_cnt)
         if len(dv) == 0:
             dv = np.array([0.0])
             cnts = np.array([max(0, zero_cnt)], dtype=np.int64)

@@ -15,6 +15,8 @@ weights, query boundaries, init scores.
 from __future__ import annotations
 
 import json
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -86,6 +88,13 @@ class Metadata:
         if self.query_boundaries is not None:
             self.query_boundaries = _subset_query_boundaries(
                 self.query_boundaries, np.asarray(used_indices))
+
+
+def _map_columns(fn, features: Sequence[int]) -> List[np.ndarray]:
+    """``[fn(f) for f in features]`` on a thread per core."""
+    workers = max(1, min(len(features), os.cpu_count() or 1))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        return list(pool.map(fn, features))
 
 
 def _subset_query_boundaries(boundaries: np.ndarray,
@@ -197,8 +206,7 @@ def find_mappers_from_sample(sample: np.ndarray, config: Config,
     """Quantile bin mappers from a sampled row block ``[S, F]``
     (reference FindBin over sampled values, `bin.cpp:72-206`; the
     sampling contract drops zeros for numerical features)."""
-    mappers: List[BinMapper] = []
-    for f in range(sample.shape[1]):
+    def mapper(f: int) -> BinMapper:
         m = BinMapper()
         col = sample[:, f].astype(np.float64)
         bin_type = BIN_CATEGORICAL if f in cat_set else BIN_NUMERICAL
@@ -213,8 +221,8 @@ def find_mappers_from_sample(sample: np.ndarray, config: Config,
                        config.min_data_in_bin, bin_type=bin_type,
                        use_missing=config.use_missing,
                        zero_as_missing=config.zero_as_missing)
-        mappers.append(m)
-    return mappers
+        return m
+    return _map_columns(mapper, range(sample.shape[1]))
 
 
 @dataclass
@@ -434,10 +442,11 @@ class BinnedDataset:
         mappers = ds.mappers
         if not ds.used_features:
             log_warning("all features are trivial (constant); nothing to train on")
-        # 3. bin every row (vectorized per column)
+        # 3. bin every row (vectorized per column, on a thread per core:
+        #    numpy releases the GIL in the searches)
         if cols is None:
-            cols = [mappers[f].value_to_bin(X[:, f])
-                    for f in ds.used_features]
+            cols = _map_columns(lambda f: mappers[f].value_to_bin(X[:, f]),
+                                ds.used_features)
         ds.feature_info = cls._build_feature_info(
             [mappers[f] for f in ds.used_features])
         # 4. EFB: bundle sufficiently sparse features into shared columns

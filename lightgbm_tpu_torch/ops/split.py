@@ -21,7 +21,7 @@ Summation order: the prefix sums run in one fixed order,
 block totals' exclusive prefix added on — which is the order the
 reference's compiled scan uses on the CPU, so the two packages' gains
 agree bitwise on identical histograms.  The many-vs-many sort is stable
-over the reference's total order of floats (:func:`_total_order_key`).
+in the reference's order of floats (:func:`sort_key`).
 """
 from __future__ import annotations
 
@@ -328,10 +328,15 @@ def _find_best_splits_block(hist, leaf_sum_grad, leaf_sum_hess, leaf_count,
         left_output=left_out, right_output=right_out)
 
 
-def _total_order_key(x: torch.Tensor) -> torch.Tensor:
-    """int32 keys that order float32 values as the reference's sort does
-    (IEEE total order: -0.0 before +0.0, NaNs at the ends), so a stable
-    sort of the keys is its stable argsort."""
+def sort_key(x: torch.Tensor) -> torch.Tensor:
+    """int32 keys that order float32 values as the reference's compiled
+    sort does (both zeros and the denormals tie: it compares with
+    denormals flushed to zero; NaNs last), so a stable sort of the keys
+    is its stable argsort: the bit patterns in IEEE total order, after
+    +0.0 replaces zeros and denormals and one NaN every NaN."""
+    tiny = torch.finfo(torch.float32).tiny
+    x = torch.where(torch.isnan(x), torch.full_like(x, torch.nan),
+                    torch.where(torch.abs(x) < tiny, torch.zeros_like(x), x))
     bits = x.contiguous().view(torch.int32)
     return bits ^ ((bits >> 31) & 0x7FFFFFFF)
 
@@ -364,8 +369,8 @@ def _categorical_splits(g, h, c, tg, th, tc, num_bins, valid_bin,
     # --- many-vs-many: sort by grad / (hess + cat_smooth), scan both ends
     ratio = g / (h + params.cat_smooth)
     inf = torch.full((), float("inf"), dtype=torch.float32, device=dev)
-    sort_key = torch.where(occupied, ratio, inf)
-    order = torch.argsort(_total_order_key(sort_key), dim=-1, stable=True)
+    key = torch.where(occupied, ratio, inf)
+    order = torch.argsort(sort_key(key), dim=-1, stable=True)
     sg = torch.gather(g, -1, order)
     sh = torch.gather(h, -1, order)
     sc = torch.gather(c, -1, order)

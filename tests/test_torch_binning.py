@@ -4,7 +4,8 @@ The port keeps its own copy of the binning and dataset code; on the same
 X (NaNs, zeros, sparse columns that bundle under EFB, a constant column,
 categorical columns) its BinMappers, bins, bundle layout and device
 metadata must be byte-identical to
-``lightgbm_tpu.io.dataset.BinnedDataset.from_raw``.
+``lightgbm_tpu.io.dataset.BinnedDataset.from_raw``, whether the port
+bins on one thread or on a thread per core.
 """
 import numpy as np
 import pytest
@@ -69,6 +70,24 @@ def test_binmappers_and_bins_byte_identical(params):
         assert j.bundle.groups == t.bundle.groups
         np.testing.assert_array_equal(j.bundle.feat_offset,
                                       t.bundle.feat_offset)
+
+
+@pytest.mark.parametrize("params", PARAMS,
+                         ids=[str(sorted(p.items())) for p in PARAMS])
+def test_threaded_binning_is_byte_identical(monkeypatch, params):
+    """A dataset finds its mappers and bins its columns on a thread per
+    core: the same mappers and bins as one thread."""
+    from lightgbm_tpu_torch.io import dataset as t_dataset
+    X = _matrix(seed=2)
+    many = TDataset.from_raw(X, TConfig.from_params(dict(params)))
+    monkeypatch.setattr(t_dataset, "_map_columns",
+                        lambda fn, features: [fn(f) for f in features])
+    one = TDataset.from_raw(X, TConfig.from_params(dict(params)))
+    assert [m.to_dict().keys() for m in one.mappers] == \
+        [m.to_dict().keys() for m in many.mappers]
+    for a, b in zip(one.mappers, many.mappers):
+        np.testing.assert_array_equal(a.bin_upper_bound, b.bin_upper_bound)
+    np.testing.assert_array_equal(one.bins, many.bins)
 
 
 def test_efb_bundles_the_sparse_columns():

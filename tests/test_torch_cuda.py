@@ -57,13 +57,13 @@ def _cat_columns(X, rng):
     return [2, 6]
 
 
-def _inputs(seed=0, n=20000, max_bin=63, cat=False):
+def _inputs(seed=0, n=20000, max_bin=63, cat=False, cols=8):
     """A wave: leaf vectors with bagged-out rows, split tables, int8h
     values.  With ``cat`` the data has categorical columns (one bundled
     by EFB at 63 bins) and about a third of the leaves split
     categorically with random masks."""
     rng = np.random.RandomState(seed)
-    X = rng.normal(size=(n, 8))
+    X = rng.normal(size=(n, cols))
     X[rng.rand(n) < 0.1, 1] = np.nan
     cats = _cat_columns(X, rng) if cat else []
     ds = BinnedDataset.from_raw(X, Config.from_params({"max_bin": max_bin}),
@@ -140,6 +140,47 @@ def test_small_path_kernels_bitwise(cuda_device):
     assert torch.equal(raw.cpu(), rraw) and torch.equal(l2.cpu(), rl2)
     n_oob = int((rl2[1, :dd.num_data] < 0).sum())
     assert n_oob > 0 and int(rraw[-1, 0, :, -1].sum()) == n_oob
+    lv = torch.as_tensor(rng.normal(size=L).astype(np.float32))
+    cu = [t.to(cuda_device) for t in (dd.bins_t, leaf2, tabs, cat, lv)]
+    l2, v = t_route.route_rows_values_raw(*cu)
+    rl2, rv = t_route.route_rows_values_raw(dd.bins_t, leaf2, tabs, cat, lv)
+    assert torch.equal(l2.cpu(), rl2) and torch.equal(v.cpu(), rv)
+
+
+@pytest.mark.cuda
+def test_ranking_shape_kernels_bitwise(cuda_device):
+    """K1 at 32 slots, K2 + K3 at 128 and K4 at the ranking shape: 136
+    columns at a 256-bin stride (more columns than one block's tile)
+    with int8h values whose hessians are half exactly 0, as lambdarank
+    gives every document of a query with equal labels."""
+    dd, leaf2, tabs, cat, _, rng = _inputs(seed=7, n=30000, max_bin=255,
+                                           cols=136)
+    assert dd.bins_t.shape[0] == 136 and cat.shape == (L, 256)
+    n = dd.num_data
+    g = torch.as_tensor(rng.normal(size=n).astype(np.float32))
+    h = torch.as_tensor(rng.uniform(0.01, 0.25, size=n).astype(np.float32))
+    h[torch.as_tensor(rng.rand(n) < 0.5)] = 0.0
+    g[h == 0] = 0.0
+    vals, _ = t_hist.pack_values_q(g, h, "int8h", dd.n_pad)
+    active = torch.as_tensor(rng.choice(40, 32, replace=False)).int()
+    active[-2:] = -1
+    args = (dd.bins_t, vals, leaf2, active, tabs, cat)
+    raw, l2 = t_hist.hist_route_raw(*[t.to(cuda_device) for t in args], L,
+                                    dd.group_max_bins)
+    rraw, rl2 = t_hist.hist_route_raw(*args, L, dd.group_max_bins)
+    assert torch.equal(raw.cpu(), rraw) and torch.equal(l2.cpu(), rl2)
+    routed = t_route.route_rows_raw(*[t.to(cuda_device) for t in
+                                      (dd.bins_t, leaf2, tabs, cat)])
+    hleaf = t_route.route_rows_raw(dd.bins_t, leaf2, tabs, cat)
+    assert torch.equal(routed.cpu(), hleaf)
+    hleaf = hleaf[1].contiguous()
+    wide = torch.full((128,), -1, dtype=torch.int32)
+    wide[:40] = torch.as_tensor(rng.permutation(40)).int()
+    args = (dd.bins_t, vals, hleaf, wide)
+    raw = t_compact.hist_compact_raw(*[t.to(cuda_device) for t in args], L,
+                                     dd.group_max_bins)
+    assert torch.equal(raw.cpu(), t_compact.hist_compact_raw(
+        *args, L, dd.group_max_bins))
     lv = torch.as_tensor(rng.normal(size=L).astype(np.float32))
     cu = [t.to(cuda_device) for t in (dd.bins_t, leaf2, tabs, cat, lv)]
     l2, v = t_route.route_rows_values_raw(*cu)
@@ -621,3 +662,104 @@ def test_cuda_booster_predicts_on_card_by_default(cuda_device):
         assert np.all(np.abs(got.astype(np.float64) - host) <= ulp)
         assert np.array_equal(bst.predict(X, pred_leaf=True),
                               bst.predict(X, pred_leaf=True, device=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+def test_cuda_leaf_percentile_matches_cpu(cuda_device, weighted):
+    """The leaf renewal's percentile (sort, searches, interpolation, the
+    weighted prefix sum) on the card is bitwise its CPU run."""
+    from lightgbm_tpu_torch.objective.objectives import leaf_percentile
+    rng = np.random.RandomState(1)
+    n, L = 200_000, 255
+    values = torch.as_tensor(rng.normal(size=n).astype(np.float32))
+    values[torch.as_tensor(rng.rand(n) < 0.05)] = 0.0
+    row_leaf = torch.as_tensor(rng.randint(0, L - 3, size=n).astype(
+        np.int32))
+    w = (torch.as_tensor(rng.uniform(0.1, 2, size=n).astype(np.float32))
+         if weighted else None)
+    for alpha in (0.5, 0.9):
+        cpu = leaf_percentile(values, row_leaf, L, alpha, w)
+        gpu = leaf_percentile(values.to(cuda_device),
+                              row_leaf.to(cuda_device), L, alpha,
+                              None if w is None else w.to(cuda_device))
+        assert torch.equal(gpu.cpu().view(torch.int32),
+                           cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_lambdarank_gradients_match_cpu(cuda_device):
+    """LambdaRank gradients on the card against the CPU run of the same
+    objective: within ``f32_accum`` (the card's sigmoid and sums round
+    differently), and ``0.0`` for docs without pairs."""
+    from tools.numcheck.tolerance_registry import tol
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.objective.objectives import LambdarankNDCG
+    rng = np.random.RandomState(2)
+    sizes = np.concatenate([[1, 2, 17, 300], rng.randint(1, 120, size=200)])
+    n = int(sizes.sum())
+    md = Metadata()
+    md.set_field("label", rng.randint(0, 5, size=n).astype(np.float32))
+    md.set_field("group", sizes)
+    score = torch.as_tensor(rng.normal(size=n).astype(np.float32))
+    out = []
+    for dev in ("cpu", cuda_device):
+        obj = LambdarankNDCG(Config.from_params({"objective": "lambdarank"}))
+        obj.init(md, n, dev)
+        out.append([t.cpu().numpy()
+                    for t in obj.get_gradients(score.to(dev))])
+    for cpu, gpu in zip(*out):
+        np.testing.assert_allclose(gpu, cpu, rtol=tol("f32_accum"),
+                                   atol=tol("f32_accum"))
+    assert out[1][0][0] == 0.0 and out[1][1][0] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["regression_l1", "quantile"])
+def test_cuda_renewal_model_equals_cpu(cuda_device, objective):
+    """Sign gradients and percentile leaves have no transcendental: an L1
+    or quantile model trained on the card is bitwise the CPU model,
+    scores included."""
+    import lightgbm_tpu_torch as tlgb
+    rng = np.random.RandomState(3)
+    X = rng.normal(size=(100_000, 8)).astype(np.float32)
+    y = (X[:, 0] * 2 + X[:, 1] + rng.normal(size=100_000)).astype(
+        np.float32)
+    params = {"objective": objective, "num_leaves": 63, "max_bin": 63,
+              "verbose": -1}
+    digests = [tlgb.train(dict(params), tlgb.Dataset(X, label=y),
+                          num_boost_round=3, device=dev).digest()
+               for dev in ("cpu", cuda_device)]
+    assert digests[0] == digests[1]
+
+
+@pytest.mark.cuda
+def test_cuda_multiclass_trains_and_serves(cuda_device):
+    """A 4-class model on the card: K trees an iteration, its train
+    multi_logloss within ``metric_coarse`` of the CPU run's, and its
+    served probabilities ``[n, K]`` within ``f32_accum_2x`` of the host
+    walk's."""
+    from tools.numcheck.tolerance_registry import tol
+    import lightgbm_tpu_torch as tlgb
+    rng = np.random.RandomState(4)
+    X = rng.normal(size=(100_000, 8)).astype(np.float32)
+    z = X[:, 0] * 2 + X[:, 1] - X[:, 2] + rng.normal(size=100_000)
+    y = np.digitize(z, np.quantile(z, [0.25, 0.5, 0.75])).astype(np.float32)
+    params = {"objective": "multiclass", "num_class": 4, "num_leaves": 63,
+              "max_bin": 63, "verbose": -1}
+    losses = []
+    for dev in ("cpu", cuda_device):
+        ev = {}
+        ds = tlgb.Dataset(X, label=y)
+        bst = tlgb.train(dict(params), ds, num_boost_round=4,
+                         valid_sets=[ds], valid_names=["train"],
+                         evals_result=ev, verbose_eval=False, device=dev)
+        losses.append(ev["train"]["multi_logloss"])
+    np.testing.assert_allclose(losses[1], losses[0],
+                               rtol=tol("metric_coarse"),
+                               atol=tol("metric_coarse"))
+    assert len(bst._gbdt.models) == 16
+    prob = bst.predict(X[:5000])
+    assert prob.shape == (5000, 4)
+    np.testing.assert_allclose(prob, bst.predict(X[:5000], device=False),
+                               rtol=0, atol=tol("f32_accum_2x"))

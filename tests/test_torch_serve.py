@@ -21,7 +21,8 @@ loaded-model prediction, against the JAX package on the CPU.
   holds the JAX package's).
 * Loaded models: 3-class models predict ``[n, 3]`` and every objective
   the JAX package names converts its output as the JAX package's
-  loaded Booster does; an objective the port cannot name raises.
+  loaded Booster does; an objective the port cannot name raises; a
+  trained Poisson model converts its output as the JAX package's.
 """
 import numpy as np
 import pytest
@@ -606,10 +607,25 @@ def test_loaded_unknown_objective_raises(regression_text):
 
 
 def test_output_only_objective_does_not_train():
+    """Poisson, once an output-only objective of loaded models, trains:
+    its model converts its output (``exp``) as the JAX package's
+    Poisson model does, and saves an objective line that loads back to
+    the same predictions."""
     rng = np.random.RandomState(0)
     X = rng.normal(size=(300, 3))
     y = np.abs(X[:, 0])
-    with pytest.raises(NotImplementedError):
-        tlgb.train({"objective": "poisson", "verbose": -1},
-                   tlgb.Dataset(X, label=y), num_boost_round=1,
-                   device="cpu")
+    p = {"objective": "poisson", "num_leaves": 7, "min_data_in_leaf": 5,
+         "verbose": -1}
+    bst = tlgb.train(dict(p), tlgb.Dataset(X, label=y), num_boost_round=3,
+                     device="cpu")
+    raw = bst.predict(X, raw_score=True)
+    want = np.asarray(jlgb.Booster(model_str=bst.model_to_string()).predict(X))
+    np.testing.assert_allclose(bst.predict(X), want, rtol=tol("f32_tight"),
+                               atol=tol("f32_tight"))
+    np.testing.assert_allclose(bst.predict(X), np.exp(raw),
+                               rtol=tol("f32_tight"), atol=tol("f32_tight"))
+    text = bst.model_to_string()
+    assert "objective=poisson" in text
+    np.testing.assert_array_equal(
+        tlgb.Booster(model_str=text, device="cpu").predict(X),
+        bst.predict(X))
