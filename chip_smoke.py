@@ -195,9 +195,39 @@ and the script exits non-zero):
    1,048,576-row blocks) with 3-class and continuous labels from its
    first two columns: ``multiclass`` and ``huber`` streamed and in
    memory, 2 iterations each, equal digests (scores included), K5, K2
-   and K4 in the stream.
+   and K4 in the stream;
+22. model surface — phase 4's headline with ``snapshot_freq`` 8 and
+   ``snapshot_keep`` 2 into a temporary ``output_model`` prefix, killed
+   by the ``snapshot.write`` fault point while writing its iteration-24
+   snapshot (the latest valid one must be iteration 16) and resumed
+   with ``lgb.train(..., resume_from=prefix)``: its model text and
+   digest (scores included) must be phase 4's, K1-K4 launched on the
+   resumed run; phase 5's small-data run with ``snapshot_freq`` 10,
+   killed in its iteration-40 snapshot and resumed from 30: the same
+   stop and best iteration and digest as phase 5; on the resumed
+   headline Booster ``rollback_one_iter`` (31 trees; the training
+   scores within the f32 summation bound, ``F32_UNIT_ROUNDOFF``, of
+   the host f64 walk on 100,000 rows), ``add_valid`` of 200,000 fresh
+   headline rows (seed 1; the 31 trees replayed on the card, within the
+   same bound of the compiled predictor, valid AUC >= 0.93) and one
+   ``update`` (``predict`` within 1 f32 ulp of the host walk of the new
+   32 trees: no stale compiled pack); ``refit`` on 200,000 rows of seed
+   2 (the card's leaves == the host ``predict_leaf`` on 100,000 rows,
+   every leaf value bitwise a numpy refit from those leaves and the
+   card's own gradients; a leaf whose rows all have a zero hessian, a
+   saturated f32 sigmoid, fits 0/0 and is set to 0, as in both
+   packages); prediction early stopping every 4 iterations
+   at margin 4.0 on the 200,000 fresh rows (rounds taken == the host
+   early-stop walk's and scores within 1 f32 ulp of its f64 sums on
+   100,000 rows, some rows stopped, their sign the full prediction's on
+   >= 99% of them; rows/s beside the full compiled prediction);
+   ``save_model`` then ``Booster(model_file=)`` on the card (the same
+   text but for ``feature_infos``, which a loaded model writes as
+   ``none``, and bitwise the same predictions) and a pickle round trip
+   (the same text).  The ms of each snapshot write, of the resume, the
+   rollback, ``add_valid``, refit and model IO are logged.
 
-Each of phases 17-21 prints one ``{"phase": ...}`` JSON line.  A path's
+Each of phases 17-22 prints one ``{"phase": ...}`` JSON line.  A path's
 ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
 the per-iteration evaluation included.  The last lines are the kernel
@@ -311,6 +341,31 @@ REG_FAMILY = (("regression_l1", "z", {}), ("huber", "z", {}),
 # rows (two blocks), 3 classes and Huber, 2 iterations each
 MC_STREAM_ROWS = 2_097_152
 MC_STREAM_CLASSES = 3
+# the model surface (phase 22): the headline snapshotted every 8
+# iterations, 2 kept, its iteration-24 snapshot torn by the fault point
+# (skip the calls of snapshots 8 and 16); the small-data run every 10,
+# its iteration-40 snapshot torn (skip 10, 20, 30); 200,000 fresh
+# headline rows for add_valid (seed 1), refit (seed 2) and prediction
+# early stopping (every 4 iterations, margin 4.0); the host f64 walks of
+# the rollback and refit checks on the first 100,000 rows
+SURFACE_SNAPSHOT_FREQ = 8
+SURFACE_SNAPSHOT_KEEP = 2
+SURFACE_KILL_SKIP = 2
+SURFACE_SMALL_FREQ = 10
+SURFACE_SMALL_KILL_SKIP = 3
+SURFACE_ROWS = 200_000
+SURFACE_HOST_ROWS = 100_000
+SURFACE_PES_FREQ = 4
+SURFACE_PES_MARGIN = 4.0
+# early-stopped rows whose sign agrees with the full prediction
+SURFACE_SIGN_SHARE = 0.99
+# f32 sums held to an f64 oracle: a sum of m f32 terms (the init score
+# and each tree's output, or a subtraction) carries at most m rounding
+# errors of one half ulp (2^-24) of the running sum's magnitude, which
+# the sum of the terms' magnitudes bounds (the standard bound of
+# recursive summation); the card's scores of the same trees are one
+# more rounding (1 ulp) away
+F32_UNIT_ROUNDOFF = 2.0 ** -24
 # memory rate of one H100 SXM (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 # float32 rate outside the tensor cores of one H100 SXM (data sheet)
@@ -2167,6 +2222,8 @@ def cat_valid_phase(lgb, counters):
         f"{bst.best_iteration} ({unseen} valid rows with an unseen "
         f"category; {sum(t.num_cat for t in bst._gbdt.models)} categorical "
         f"nodes); digest {bst.digest(include_scores=False)}")
+    small_ref = {"stop": bst.current_iteration(),
+                 "best": bst.best_iteration, "digest": bst.digest()}
     if pred.shape != (SMALL_VALID,) or not np.isfinite(pred).all():
         raise AssertionError("valid predictions are not finite [n] values")
     if not vauc >= VALID_AUC_GATE:
@@ -2752,6 +2809,370 @@ class _InstantServer:
         return fu
 
 
+def f32_sum_check(what: str, got, oracle, abs_terms, terms: int) -> float:
+    """``got`` (f32 sums) against the f64 ``oracle`` within the recursive
+    summation bound ``terms * 2^-24 * abs_terms`` plus one f32 ulp of
+    the oracle; raises past it.  -> the worst share of the bound used."""
+    import numpy as np
+    oracle = np.asarray(oracle, np.float64)
+    bound = (terms * F32_UNIT_ROUNDOFF * np.asarray(abs_terms, np.float64)
+             + np.spacing(np.abs(oracle).astype(np.float32)))
+    worst = float(np.max(np.abs(np.asarray(got, np.float64) - oracle)
+                         / bound))
+    if not worst <= 1.0:
+        raise AssertionError(f"{what}: {worst:.3f} of the f32 summation "
+                             f"bound from the f64 host walk")
+    return worst
+
+
+def host_outputs(trees, X):
+    """Each tree's f64 output per row of ``X`` (the host walk) ->
+    ``[T, n]``."""
+    import numpy as np
+    X64 = np.asarray(X, np.float64)
+    return np.stack([t.predict_batch(X64) for t in trees])
+
+
+class CallTimes:
+    """Times every call of ``owner.name`` (host clock, the device
+    synchronized before and after) while in a ``with`` block."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.ms = owner, name, []
+
+    def __enter__(self):
+        import torch
+        fn = self.fn = getattr(self.owner, self.name)
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.ms.append(1e3 * (time.perf_counter() - t0))
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def killed_and_resumed(lgb, name, counters, params, ds, rounds, skip: int,
+                       want_iter: int, **kw):
+    """``lgb.train`` with ``snapshot_freq`` killed by the
+    ``snapshot.write`` fault point after ``skip`` snapshots, then resumed
+    from the prefix: -> ``(resumed booster, launches of both runs, ms
+    per snapshot write, resume ms, launches of the resumed run)``."""
+    from lightgbm_tpu_torch.boosting import snapshot as snap
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.utils import faults
+    prefix = params["output_model"]
+    faults.inject("snapshot.write", times=1, skip=skip)
+    try:
+        with CallTimes(snap, "write_snapshot") as writes:
+            try:
+                train_path(lgb, f"{name} (killed)", counters, params, ds,
+                           rounds, **kw)
+            except faults.FaultInjected:
+                pass
+            else:
+                raise AssertionError(f"{name}: the fault did not fire")
+            killed = {k: fn.launches for k, fn in counters.items()}
+            m = snap.latest_valid_snapshot(prefix)
+            if m is None or m["iteration"] != want_iter:
+                raise AssertionError(
+                    f"{name}: latest valid snapshot "
+                    f"{m and m['iteration']}, not {want_iter}")
+            faults.clear()
+            with CallTimes(GBDT, "resume_from_snapshot") as resume:
+                bst, _, resumed = train_path(
+                    lgb, f"{name} (resumed from {want_iter})", counters,
+                    params, ds, rounds, resume_from=prefix, **kw)
+    finally:
+        faults.clear()
+    both = {k: killed[k] + resumed[k] for k in killed}
+    return bst, both, writes.ms, resume.ms[0], resumed
+
+
+def model_surface_phase(lgb, counters, ds, X, y, ds_small, dv_small,
+                        head: dict, small: dict, card: str) -> dict:
+    """Phase 22: the model surface on the card -> launches.  ``head``
+    and ``small`` hold phases 4 and 5's model text, digests (scores
+    included), stop and best iterations."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.io.dataset import Metadata
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    from lightgbm_tpu_torch.models.tree import predict_leaf
+    from lightgbm_tpu_torch.serve import compile_model
+    tmp = tempfile.mkdtemp(prefix="lgbm_snapshots_")
+    out = {}
+    try:
+        # 1. the headline killed in its iteration-24 snapshot, resumed
+        params = dict(head["params"],
+                      snapshot_freq=SURFACE_SNAPSHOT_FREQ,
+                      snapshot_keep=SURFACE_SNAPSHOT_KEEP,
+                      output_model=os.path.join(tmp, "headline.txt"))
+        bst, launches, writes, resume_ms, resumed = killed_and_resumed(
+            lgb, "headline", counters, params, ds, HEADLINE_ITERS,
+            SURFACE_KILL_SKIP, 16)
+        missing = [k for k in ("route", "route_values", "hist_route",
+                               "hist_compact") if resumed[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the resumed "
+                                 f"headline: {missing}")
+        if bst.model_to_string() != head["text"]:
+            raise AssertionError("the resumed headline's model text is "
+                                 "not phase 4's")
+        if bst.digest() != head["digest"]:
+            raise AssertionError("the resumed headline's digest (scores "
+                                 "included) is not phase 4's")
+        out.update(snapshot_write_ms=writes, resume_ms=resume_ms,
+                   headline_digest=head["digest"])
+        log(f"model surface: headline resumed from 16 == phase 4 (text, "
+            f"digest {head['digest'][:8]} with scores); snapshot writes "
+            f"{[round(w, 1) for w in writes]} ms, resume {resume_ms:.1f} "
+            f"ms; resumed launches {resumed}")
+
+        # 2. early stopping across a resume: the small-data run killed in
+        # its iteration-40 snapshot
+        sparams = dict(TRAIN_CONF, snapshot_freq=SURFACE_SMALL_FREQ,
+                       snapshot_keep=SURFACE_SNAPSHOT_KEEP,
+                       output_model=os.path.join(tmp, "small.txt"))
+        sb, small_launch, swrites, sresume_ms, _ = killed_and_resumed(
+            lgb, "small-data", counters, sparams, ds_small, SMALL_ITERS,
+            SURFACE_SMALL_KILL_SKIP, 30, valid_sets=[dv_small],
+            valid_names=["valid"], early_stopping_rounds=SMALL_EARLY_STOP,
+            verbose_eval=False)
+        got = (sb.current_iteration(), sb.best_iteration, sb.digest())
+        want = (small["stop"], small["best"], small["digest"])
+        if got != want:
+            raise AssertionError(f"resumed small-data run (stop, best, "
+                                 f"digest) {got} != phase 5's {want}")
+        launches = {k: launches[k] + small_launch[k] for k in launches}
+        out.update(small_stop=got[0], small_best=got[1],
+                   small_snapshot_write_ms=swrites,
+                   small_resume_ms=sresume_ms)
+        log(f"model surface: small-data resumed from 30 stops at {got[0]}, "
+            f"best {got[1]}, digest {got[2][:8]} == phase 5")
+
+        # 3. rollback, add_valid mid-run, one more update
+        g = bst._gbdt
+        Xh = X[:SURFACE_HOST_ROWS]
+        bst.predict(Xh, raw_score=True)       # caches the 32-tree pack
+        outs = host_outputs(g.models, Xh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst.rollback_one_iter()
+        torch.cuda.synchronize()
+        rollback_ms = 1e3 * (time.perf_counter() - t0)
+        if bst.num_trees() != HEADLINE_ITERS - 1:
+            raise AssertionError(f"{bst.num_trees()} trees after rollback")
+        # init, 32 adds, 1 subtraction, over all 32 trees' magnitudes
+        rb = f32_sum_check("scores after rollback",
+                           g.scores[:SURFACE_HOST_ROWS, 0].cpu().numpy(),
+                           np.sum(outs[:-1], axis=0),
+                           np.abs(outs).sum(axis=0)
+                           + abs(g.init_score_value), HEADLINE_ITERS + 2)
+        X2, z2 = headline_latent(1)
+        X2, y2 = X2[:SURFACE_ROWS], (z2[:SURFACE_ROWS] > 0).astype(
+            np.float32)
+        dv = lgb.Dataset(X2, label=y2, reference=ds)
+        dv.construct()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst.add_valid(dv, "fresh")
+        torch.cuda.synchronize()
+        add_valid_ms = 1e3 * (time.perf_counter() - t0)
+        vs = g._valid_scores[-1][:, 0].cpu().numpy()
+        cm31 = compile_model(g)
+        served = cm31.predict_raw(X2)
+        mag2 = compile_model_abs(g.models).predict_raw(X2)
+        av = f32_sum_check("add_valid scores vs the compiled predictor", vs,
+                           served, mag2, HEADLINE_ITERS)
+        vauc = binary_auc(y2, vs)
+        if not vauc >= AUC_GATE:
+            raise AssertionError(f"valid auc {vauc} < {AUC_GATE}")
+        bst.update()
+        if bst.num_trees() != HEADLINE_ITERS:
+            raise AssertionError("update after rollback")
+        ulp_new = ulp_check("predict after rollback + update",
+                            bst.predict(Xh, raw_score=True,
+                                        num_iteration=HEADLINE_ITERS),
+                            np.sum(np.concatenate(
+                                [outs[:-1], host_outputs(g.models[-1:], Xh)]),
+                                axis=0))
+        out.update(rollback_ms=rollback_ms, rollback_bound_share=rb,
+                   add_valid_ms=add_valid_ms, add_valid_bound_share=av,
+                   valid_auc=vauc, predict_after_update_ulp=ulp_new)
+        log(f"model surface: rollback {rollback_ms:.1f} ms ({rb:.3f} of the "
+            f"bound); add_valid of {SURFACE_ROWS} rows {add_valid_ms:.1f} ms "
+            f"({av:.3f} of the bound), valid auc {vauc:.5f}; after update "
+            f"{ulp_new:.3f} ulp")
+
+        # 4. refit on fresh rows (seed 2)
+        X3, z3 = headline_latent(2)
+        X3, y3 = X3[:SURFACE_ROWS], (z3[:SURFACE_ROWS] > 0).astype(
+            np.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = bst.refit(X3, y3)
+        torch.cuda.synchronize()
+        refit_ms = 1e3 * (time.perf_counter() - t0)
+        leaves = compile_model(g).leaf_indices(X3)
+        if not np.array_equal(leaves[:SURFACE_HOST_ROWS],
+                              predict_leaf(g.models, X3[:SURFACE_HOST_ROWS])):
+            raise AssertionError("refit leaves on the card != host walk")
+        zero_hess = refit_numpy_check(new._gbdt, g.models, leaves, y3)
+        out.update(refit_ms=refit_ms, refit_zero_hessian_leaves=zero_hess)
+        log(f"model surface: refit of {SURFACE_ROWS} rows {refit_ms:.1f} ms, "
+            f"leaves == host walk, leaf values == the numpy refit "
+            f"({zero_hess} leaves of zero hessian set to 0)")
+
+        # 5. prediction early stopping
+        out.update(pes_phase(lgb, bst, X2))
+
+        # 6. model IO
+        out.update(model_io_check(lgb, bst, X2, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_line("model_surface", card, launches=launches, **out)
+    return launches
+
+
+def compile_model_abs(trees):
+    """The trees with each leaf's magnitude, compiled on the card: each
+    row's sum of the trees' output magnitudes."""
+    import copy
+    from lightgbm_tpu_torch.serve import compile_trees
+    mags = []
+    for t in trees:
+        t = copy.deepcopy(t)
+        t.leaf_value = abs(t.leaf_value)
+        mags.append(t)
+    return compile_trees(mags, device="cuda")
+
+
+def refit_numpy_check(new, trees, leaves, label) -> None:
+    """``new``'s refit leaf values (decay 0.9) against a numpy refit of
+    the source ``trees`` from the same leaves and the card's own
+    gradients (the objective's, at each iteration's scores), copied to
+    the host: bitwise.  -> the number of leaves that fitted 0/0."""
+    import numpy as np
+    import torch
+    c = new.config
+    decay = 0.9                     # Booster.refit's default
+    zero_hess = 0
+    score = np.zeros(len(label), np.float32)
+    for i, t in enumerate(trees):
+        s = torch.from_numpy(score[:, None].copy()).to(new.device)
+        grad, hess = new.objective.get_gradients_k(s)
+        gr, he = grad[:, 0].cpu().numpy(), hess[:, 0].cpu().numpy()
+        nl = t.num_leaves
+        sg, sh, cnt = np.zeros(nl), np.zeros(nl), np.zeros(nl)
+        np.add.at(sg, leaves[:, i], gr)
+        np.add.at(sh, leaves[:, i], he)
+        np.add.at(cnt, leaves[:, i], 1.0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            fit = (-(np.sign(sg) * np.maximum(np.abs(sg) - c.lambda_l1, 0.0))
+                   / (sh + c.lambda_l2))
+        old = np.asarray(t.leaf_value[:nl], np.float64)
+        want = np.where(cnt > 0, decay * old
+                        + (1.0 - decay) * fit * c.learning_rate, old)
+        # a leaf whose rows all have zero hessians (a saturated sigmoid
+        # in f32) fits 0/0: Tree.set_leaf_output stores 0.0
+        want = np.where(np.isfinite(want), want, 0.0)
+        got = new.models[i].leaf_value[:nl]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"refit tree {i}: leaf values != the "
+                                 f"numpy refit")
+        zero_hess += int(((cnt > 0) & (sh + c.lambda_l2 == 0)).sum())
+        score = score + want.astype(np.float32)[leaves[:, i]]
+    return zero_hess
+
+
+def pes_phase(lgb, bst, X) -> dict:
+    """Prediction early stopping on the card (every ``SURFACE_PES_FREQ``
+    iterations, margin ``SURFACE_PES_MARGIN``) against the host rounds
+    and the full prediction."""
+    import numpy as np
+    import torch
+    params = dict(bst.params, pred_early_stop=True,
+                  pred_early_stop_freq=SURFACE_PES_FREQ,
+                  pred_early_stop_margin=SURFACE_PES_MARGIN)
+    pes = lgb.Booster(params, model_str=bst.model_to_string(),
+                      device="cuda")
+    cm = pes._device_predictor()
+    raw, taken = cm.predict_raw_early_stop(X, SURFACE_PES_FREQ,
+                                           SURFACE_PES_MARGIN)
+    full = cm.predict_raw(X)
+    Xh = X[:SURFACE_HOST_ROWS]
+    hraw, htaken = pes._gbdt.predict_raw_early_stop(Xh, pes.num_trees())
+    if not np.array_equal(taken[:SURFACE_HOST_ROWS], htaken):
+        raise AssertionError("early-stop rounds on the card != host")
+    ulp = ulp_check("early-stopped scores", raw[:SURFACE_HOST_ROWS],
+                    hraw[:, 0])
+    rounds = -(-HEADLINE_ITERS // SURFACE_PES_FREQ)
+    stopped = taken < rounds
+    share = float(stopped.mean())
+    agree = float((np.sign(raw[stopped]) == np.sign(full[stopped])).mean())
+    if not share > 0:
+        raise AssertionError("no row stopped early")
+    if not agree >= SURFACE_SIGN_SHARE:
+        raise AssertionError(f"sign agrees on {agree} of the stopped rows")
+
+    def rate(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        return 3 * len(X) / (time.perf_counter() - t0)
+    es_rate = rate(lambda: pes.predict(X, raw_score=True))
+    full_rate = rate(lambda: cm.predict_raw(X))
+    log(f"model surface: early stop routing == host on "
+        f"{SURFACE_HOST_ROWS} rows, {ulp:.3f} ulp; {share:.4f} of rows "
+        f"stop, sign agrees on {agree:.4f} of them; {es_rate:.0f} rows/s "
+        f"(full prediction {full_rate:.0f})")
+    return dict(pes_stopped_share=share, pes_sign_agree=agree,
+                pes_ulp=ulp, pes_rows_per_s=es_rate,
+                full_rows_per_s=full_rate)
+
+
+def model_io_check(lgb, bst, X, tmp: str) -> dict:
+    """``save_model`` then ``Booster(model_file=)`` on the card: the same
+    model text but for ``feature_infos`` (a loaded model writes them as
+    ``none``, as the JAX package's loaded model does), bitwise the same
+    predictions; a pickle round trip keeps the text."""
+    import pickle
+    import numpy as np
+    path = os.path.join(tmp, "model.txt")
+    t0 = time.perf_counter()
+    bst.save_model(path)
+    loaded = lgb.Booster(model_file=path, device="cuda")
+    io_ms = 1e3 * (time.perf_counter() - t0)
+    with open(path) as f:
+        saved = f.read().splitlines()
+    back = loaded.model_to_string().splitlines()
+    diff = [i for i, (a, b) in enumerate(zip(saved, back)) if a != b]
+    if len(saved) != len(back) or any(
+            not back[i].startswith("feature_infos=")
+            or set(back[i].split("=", 1)[1].split()) != {"none"}
+            for i in diff):
+        raise AssertionError("a loaded model writes another text")
+    if not np.array_equal(loaded.predict(X), bst.predict(X)):
+        raise AssertionError("a loaded model predicts otherwise")
+    text = bst.model_to_string()
+    if pickle.loads(pickle.dumps(bst)).model_to_string() != text:
+        raise AssertionError("a pickle round trip changes the model text")
+    log(f"model surface: save + load {io_ms:.1f} ms, same text and "
+        f"predictions; pickle keeps the text")
+    return dict(model_io_ms=io_ms)
+
+
 def train_path(lgb, name, counters, params, ds, rounds, **kw):
     """One user-facing ``lgb.train`` with every launch counter reset just
     before and read just after: -> ``(booster, seconds, launches)``."""
@@ -2890,6 +3311,8 @@ def main() -> int:
               "learning_rate": 0.1, "min_data_in_leaf": 20, "verbose": -1}
     bst, _, head = train_path(lgb, "headline", counters, params, ds,
                               HEADLINE_ITERS)
+    head_ref = {"params": params, "text": bst.model_to_string(),
+                "digest": bst.digest()}
     pred = bst.predict(X)
     torch.cuda.synchronize()
     auc = binary_auc(y, pred)
@@ -2922,6 +3345,8 @@ def main() -> int:
         f"{evals['valid']['auc'][-1]:.5f}, train auc "
         f"{evals['training']['auc'][-1]:.5f}; digest "
         f"{bst.digest(include_scores=False)}")
+    small_ref = {"stop": bst.current_iteration(),
+                 "best": bst.best_iteration, "digest": bst.digest()}
     if pred.shape != (SMALL_VALID,) or not np.isfinite(pred).all():
         raise AssertionError("valid predictions are not finite [n] values")
     if not vauc >= VALID_AUC_GATE:
@@ -3021,6 +3446,14 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 21 {time.time() - t0:.1f} s")
+
+    # 22. the model surface: snapshots and resume, rollback, add_valid,
+    # refit, prediction early stopping, model IO
+    t0 = time.time()
+    by_path["model_surface"] = model_surface_phase(
+        lgb, counters, ds, X, y, ds_small, dv_small, head_ref, small_ref,
+        card)
+    log(f"phase 22 {time.time() - t0:.1f} s")
 
     for e in entries:
         # a categorical entry counts its kernel's launches on the

@@ -11,13 +11,15 @@ PyTorch versions.  Importing the package loads no CUDA code: kernels
 build at first use.  Serving: ``lgb.serve.compile_model(bst)`` packs a
 model onto its device and ``lgb.serve.PredictionServer`` micro-batches
 requests through it; a ``cuda`` Booster's ``bst.predict(X)`` takes that
-path.
+path.  Snapshots: ``snapshot_freq`` with ``output_model`` writes atomic
+snapshots during ``lgb.train`` and ``lgb.train(..., resume_from=)``
+continues a run from the latest valid one, bit for bit.
 """
 from . import serve
 from .basic import Booster, Dataset
 from .boosting.streaming import train_streaming
-from .engine import train
+from .engine import predict, train
 from .io import outofcore
 
-__all__ = ["Booster", "Dataset", "outofcore", "serve", "train",
+__all__ = ["Booster", "Dataset", "outofcore", "predict", "serve", "train",
            "train_streaming"]

@@ -10,11 +10,14 @@ categorical features): a ``Dataset`` bins on the host
 reference's mappers.  A ``Booster`` trains on ``cuda`` unless it is
 given ``device="cpu"`` (or the ``device`` parameter); a ``cuda``
 ``Booster`` predicts through the compiled predictor (``serve/``) on the
-card unless ``predict`` is given ``device=False``.
+card unless ``predict`` is given ``device=False``.  The model surface
+follows the JAX package's ``basic.py``: model files, the JSON dump,
+feature importance, rollback, refit, SHAP contributions (on the host),
+copies and pickles (which hold the model text, never tensors).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -105,15 +108,72 @@ class Dataset:
                        group=group, init_score=init_score,
                        params=params or self.params)
 
-    def set_group(self, group) -> None:
-        self.group = group
+    def subset(self, used_indices) -> "Dataset":
+        """The rows ``used_indices`` of this set, binned as this set is."""
+        self.construct()
+        sub = Dataset.__new__(Dataset)
+        sub.__dict__.update(self.__dict__)
+        sub._constructed = self._constructed.subset(np.asarray(used_indices))
+        sub.reference = self
+        return sub
+
+    def set_field(self, name, data) -> None:
+        self.construct()
+        self._constructed.metadata.set_field(name, data)
+
+    def get_field(self, name):
+        self.construct()
+        return self._constructed.metadata.get_field(name)
+
+    def _set(self, name, data) -> None:
+        setattr(self, name, data)
         if self._constructed is not None:
-            self._constructed.metadata.set_field("group", group)
+            self._constructed.metadata.set_field(name, data)
+
+    def set_label(self, label) -> None:
+        self._set("label", label)
+
+    def set_weight(self, weight) -> None:
+        self._set("weight", weight)
+
+    def set_group(self, group) -> None:
+        self._set("group", group)
+
+    def set_init_score(self, init_score) -> None:
+        self._set("init_score", init_score)
+
+    def get_label(self):
+        return self.get_field("label")
+
+    def get_weight(self):
+        return self.get_field("weight")
+
+    def get_init_score(self):
+        return self.get_field("init_score")
 
     def get_group(self):
         """Per-query sizes, or None."""
-        qb = self.construct()._constructed.metadata.get_field("group")
+        qb = self.get_field("group")
         return None if qb is None else np.diff(qb)
+
+    def num_data(self) -> int:
+        self.construct()
+        return self._constructed.num_data
+
+    def num_feature(self) -> int:
+        self.construct()
+        return self._constructed.num_total_features
+
+    def save_binary(self, filename: str) -> None:
+        """The binned set as the JAX package writes it
+        (``BinnedDataset.save_binary``; either package loads it)."""
+        self.construct()
+        self._constructed.save_binary(filename)
+
+    @property
+    def feature_names(self) -> List[str]:
+        self.construct()
+        return self._constructed.feature_names
 
 
 class Booster:
@@ -129,23 +189,36 @@ class Booster:
         self._serve_cache: Dict[tuple, Any] = {}
         cfg = Config.from_params(self.params)
         self.device = str(device or cfg.device)
+        self._train_dataset = train_set
         if train_set is not None:
             train_set.params = {**self.params, **train_set.params}
             train_set.construct()
             self._gbdt = GBDT(cfg, train_set._constructed, self.device)
-        else:
-            if model_file is not None:
-                with open(model_file, encoding="utf-8") as f:
-                    model_str = f.read()
-            if model_str is None:
-                raise ValueError(
-                    "need one of train_set, model_file, model_str")
-            self._gbdt = GBDT(cfg, None, self.device)
-            self._gbdt.load_model_from_string(model_str)
+            return
+        if model_file is not None:
+            from .utils.file_io import open_read
+            with open_read(model_file) as f:
+                model_str = f.read()
+        if model_str is None:
+            raise ValueError(
+                "need one of train_set, model_file, model_str")
+        self._init_from_string(model_str)
+
+    def _init_from_string(self, text: str, copy: bool = False) -> None:
+        """Load model text; ``copy`` (a copy or an unpickled Booster)
+        also keeps its ``feature_infos``, so the copy writes the same
+        text."""
+        from .boosting.gbdt import GBDT
+        self._gbdt = GBDT(Config.from_params(self.params), None,
+                          self.device)
+        self._gbdt.load_model_from_string(text, keep_feature_infos=copy)
+        self._serve_cache = {}
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Score ``data`` (binned with the training set's mappers: make it
-        with ``reference=``) after every iteration."""
+        with ``reference=``) after every iteration; added after training
+        started, the existing trees are replayed into its scores on this
+        Booster's device."""
         data.construct()
         self._gbdt.add_valid(data._constructed, name)
         return self
@@ -153,6 +226,13 @@ class Booster:
     def update(self) -> bool:
         """One boosting iteration; True when no split was possible."""
         return self._gbdt.train_one_iter()
+
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's trees, and their outputs from the
+        training and valid scores."""
+        self._gbdt.rollback_one_iter()
+        self._serve_cache = {}
+        return self
 
     def eval_train(self):
         """``[(name, metric, value, higher_is_better)]`` on the training
@@ -167,6 +247,9 @@ class Booster:
 
     def current_iteration(self) -> int:
         return self._gbdt.iter
+
+    def num_trees(self) -> int:
+        return self._gbdt.num_trees()
 
     def digest(self, include_scores: bool = True) -> str:
         return self._gbdt.digest(include_scores=include_scores)
@@ -184,22 +267,29 @@ class Booster:
         host walk (the oracle the compiled path is held to); ``None``
         takes the compiled path when this Booster is on ``cuda`` and the
         host walk when it is on the CPU.  ``pred_leaf`` returns the
-        ``[n, T]`` leaf indices.
+        ``[n, T]`` leaf indices; ``pred_contrib`` the SHAP values
+        ``[n, F + 1]`` (per class for K > 1), always on the host
+        (``boosting/contrib.py``).  With the ``pred_early_stop``
+        parameter both paths score in rounds of
+        ``pred_early_stop_freq`` iterations and a row whose margin
+        passes ``pred_early_stop_margin`` takes no more trees.
         """
         X = _data_to_numpy(data)[0]
         if num_iteration is None or num_iteration <= 0:
             num_iteration = self.best_iteration
         if pred_contrib:
-            raise NotImplementedError(
-                "pred_contrib (SHAP contributions) is not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP A6)")
+            from .boosting.contrib import predict_contrib
+            return predict_contrib(self._gbdt, X, num_iteration)
         if device is None:
             device = torch.device(self.device).type == "cuda"
         if device:
             cm = self._device_predictor(num_iteration)
             if pred_leaf:
                 return cm.leaf_indices(X)
-            return cm.predict(X, raw_score=raw_score)
+            c = self._gbdt.config
+            early = ((c.pred_early_stop_freq, c.pred_early_stop_margin)
+                     if c.pred_early_stop else None)
+            return cm.predict(X, raw_score=raw_score, early_stop=early)
         if pred_leaf:
             return self._gbdt.predict_leaf(X, num_iteration=num_iteration)
         return self._gbdt.predict(X, raw_score=raw_score,
@@ -207,8 +297,9 @@ class Booster:
 
     def _device_predictor(self, num_iteration: int = -1):
         """The serving-compiled form of this model, cached per (model
-        length, truncation): training another iteration invalidates it.
-        A single entry, so a stale pack does not hold device memory."""
+        length, truncation): training another iteration invalidates it;
+        rollback, refit and resume clear it.  A single entry, so a stale
+        pack does not hold device memory."""
         from .serve import compile_model
         key = (len(self._gbdt.models), int(num_iteration or -1))
         if key not in self._serve_cache:
@@ -216,5 +307,122 @@ class Booster:
                 self._gbdt, num_iteration=num_iteration)}
         return self._serve_cache[key]
 
+    def refit(self, data, label, decay_rate: float = 0.9,
+              **kwargs) -> "Booster":
+        """Refit the leaf values of the tree structures on new data
+        (reference ``Booster.refit``, ``gbdt.cpp:268-280``): ``new_leaf =
+        decay_rate * old + (1 - decay_rate) * refit``.  Returns a new
+        Booster on this Booster's device; this one is untouched.
+        ``kwargs`` go into the new Booster's parameters (``lambda_l1``,
+        ``lambda_l2`` steer the refit)."""
+        params = dict(self.params)
+        params.update(kwargs)
+        new = Booster(params=params, model_str=self.model_to_string(),
+                      device=self.device)
+        if kwargs:
+            new._gbdt.reset_config(params)
+        md = Metadata()
+        md.set_field("label", np.asarray(label).reshape(-1))
+        new._gbdt.refit_rows(_data_to_numpy(data)[0], md, decay_rate)
+        return new
+
+    # -- model IO ----------------------------------------------------------
+    def save_model(self, filename: str, num_iteration: int = -1
+                   ) -> "Booster":
+        if num_iteration is None or num_iteration <= 0:
+            num_iteration = self.best_iteration
+        self._gbdt.save_model(filename, num_iteration)
+        return self
+
     def model_to_string(self, num_iteration: int = -1) -> str:
-        return self._gbdt.save_model_to_string(num_iteration)
+        return self._gbdt.save_model_to_string(num_iteration or -1)
+
+    def model_from_string(self, model_str: str) -> "Booster":
+        self._init_from_string(model_str)
+        self._train_dataset = None
+        return self
+
+    def dump_model(self, num_iteration: int = -1) -> Dict[str, Any]:
+        """JSON dump (reference DumpModel, ``gbdt_model_text.cpp:15-49``)."""
+        g = self._gbdt
+        T = g._num_trees(num_iteration)
+        trees = [{"tree_index": i, "num_leaves": t.num_leaves,
+                  "num_cat": t.num_cat, "shrinkage": t.shrinkage_rate,
+                  "tree_structure": _tree_to_json(t, 0)}
+                 for i, t in enumerate(g.models[:T])]
+        return {
+            "name": "tree",
+            "version": "v2",
+            "num_class": g.num_class,
+            "num_tree_per_iteration": g.num_tree_per_iteration,
+            "label_index": 0,
+            "max_feature_idx": g.max_feature_idx,
+            "feature_names": g.feature_names,
+            "objective": (g.objective.to_string() if g.objective else ""),
+            "average_output": g.average_output,
+            "tree_info": trees,
+        }
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: int = -1) -> np.ndarray:
+        return self._gbdt.feature_importance(importance_type,
+                                             iteration or -1)
+
+    def feature_name(self) -> List[str]:
+        return list(self._gbdt.feature_names)
+
+    def num_feature(self) -> int:
+        return self._gbdt.max_feature_idx + 1
+
+    def free_dataset(self) -> "Booster":
+        self._train_dataset = None
+        return self
+
+    def __copy__(self):
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, memo):
+        new = Booster.__new__(Booster)
+        new.__setstate__(self.__getstate__())
+        return new
+
+    def __getstate__(self):
+        return {"params": self.params, "device": self.device,
+                "model_str": self.model_to_string(),
+                "best_iteration": self.best_iteration,
+                "best_score": self.best_score}
+
+    def __setstate__(self, state):
+        self.params = state["params"]
+        self.device = state.get("device", "cuda")
+        self.best_iteration = state.get("best_iteration", -1)
+        self.best_score = {k: dict(v) for k, v in
+                           state.get("best_score", {}).items()}
+        self._train_dataset = None
+        self._init_from_string(state["model_str"], copy=True)
+
+
+def _tree_to_json(t, node: int) -> Dict[str, Any]:
+    """One node of the JSON dump, its subtree included (the JAX
+    package's ``_tree_to_json``)."""
+    if t.num_leaves == 1:
+        return {"leaf_value": float(t.leaf_value[0])}
+    if node < 0:
+        leaf = ~node
+        return {"leaf_index": int(leaf),
+                "leaf_value": float(t.leaf_value[leaf]),
+                "leaf_count": int(t.leaf_count[leaf])}
+    dt = int(t.decision_type[node])
+    return {
+        "split_index": int(node),
+        "split_feature": int(t.split_feature[node]),
+        "split_gain": float(t.split_gain[node]),
+        "threshold": float(t.threshold[node]),
+        "decision_type": "==" if dt & 1 else "<=",
+        "default_left": bool(dt & 2),
+        "missing_type": ["None", "Zero", "NaN"][(dt >> 2) & 3],
+        "internal_value": float(t.internal_value[node]),
+        "internal_count": int(t.internal_count[node]),
+        "left_child": _tree_to_json(t, int(t.left_child[node])),
+        "right_child": _tree_to_json(t, int(t.right_child[node])),
+    }

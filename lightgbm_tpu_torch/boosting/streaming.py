@@ -163,7 +163,7 @@ class _Source:
 
 
 def _check_streamable(config: Config, objective, src: _Source) -> None:
-    check_unported_options(config)
+    check_unported_options(config, streamed=True)
     bad = None
     if config.boosting_type != "gbdt":
         bad = f"boosting={config.boosting_type} (host score patching)"

@@ -1,12 +1,14 @@
 """Training callbacks (reference python-package/lightgbm/callback.py:49-215):
 print_evaluation, record_evaluation, early_stopping.
 
-Copied from the JAX package's ``callback.py`` (which imports no JAX).
+Copied from the JAX package's ``callback.py`` (which imports no JAX);
+early stopping keeps its state on the booster as the JAX package's
+training loop does, so that snapshots carry it.
 """
 from __future__ import annotations
 
 import collections
-from typing import Callable, Dict, List
+from typing import Callable, Dict
 
 from .utils.log import log_info
 
@@ -51,50 +53,54 @@ def record_evaluation(eval_result: Dict) -> Callable:
 
 
 def early_stopping(stopping_rounds: int, verbose: bool = True) -> Callable:
-    """Stop when no valid metric improves for `stopping_rounds` rounds
-    (reference callback.py:142-215)."""
-    best_score: List[float] = []
-    best_iter: List[int] = []
-    best_score_list: List = []
-    cmp_op: List[Callable] = []
+    """Stop when a valid metric has not improved for ``stopping_rounds``
+    rounds (reference ``callback.py:142-215``; the rule of the JAX
+    package's training loop, ``gbdt.py:_train``): after each iteration
+    every valid metric updates its best, then the first metric (in the
+    order they first appeared) that has stalled stops training at its
+    best iteration; a run that reaches its last round ends at the first
+    metric's best.  Training metrics never stop a run.
 
-    def _init(env: CallbackEnv) -> None:
+    The bookkeeping lives on the booster's ``GBDT`` as ``_es_state``,
+    in the snapshot manifest's keys and units: ``best_scores`` and
+    ``best_iter`` (the 1-based iteration) per ``"<set>:<metric>"`` key,
+    and ``key_order``.  A snapshot carries it, so a resumed run stops
+    where the uninterrupted one would, with the same best scores
+    (``best_score``: each valid metric's best value)."""
+
+    def _stop(state, key, why):
+        if verbose:
+            log_info(f"{why}, best iteration is:\n"
+                     f"[{state['best_iter'][key]}]")
+        best = [(*k.split(":", 1), v, None)
+                for k, v in state["best_scores"].items()]
+        raise EarlyStopException(state["best_iter"][key] - 1, best)
+
+    def _callback(env: CallbackEnv) -> None:
         if not env.evaluation_result_list:
             raise ValueError(
                 "For early stopping, at least one validation set is required")
-        if verbose:
+        state = env.model._gbdt._es_state
+        if verbose and not state["key_order"]:
             log_info(f"Training until validation scores don't improve for "
                      f"{stopping_rounds} rounds.")
+        it = env.iteration + 1
+        train_name = getattr(env.model, "_train_data_name", "training")
         for name, metric, val, higher_better in env.evaluation_result_list:
-            best_iter.append(0)
-            best_score_list.append(None)
-            if higher_better:
-                best_score.append(float("-inf"))
-                cmp_op.append(lambda x, y: x > y)
-            else:
-                best_score.append(float("inf"))
-                cmp_op.append(lambda x, y: x < y)
-
-    def _callback(env: CallbackEnv) -> None:
-        if not best_score:
-            _init(env)
-        for i, (name, metric, val, _) in enumerate(env.evaluation_result_list):
-            if best_score_list[i] is None or cmp_op[i](val, best_score[i]):
-                best_score[i] = val
-                best_iter[i] = env.iteration
-                best_score_list[i] = env.evaluation_result_list
-            train_name = getattr(env.model, "_train_data_name", "training")
             if name in ("training", train_name):
-                continue        # train metric never triggers stopping
-            if env.iteration - best_iter[i] >= stopping_rounds:
-                if verbose:
-                    log_info(f"Early stopping, best iteration is:\n"
-                             f"[{best_iter[i] + 1}]")
-                raise EarlyStopException(best_iter[i], best_score_list[i])
-            if env.iteration == env.end_iteration - 1:
-                if verbose:
-                    log_info(f"Did not meet early stopping. Best iteration "
-                             f"is: [{best_iter[i] + 1}]")
-                raise EarlyStopException(best_iter[i], best_score_list[i])
+                continue
+            key = f"{name}:{metric}"
+            if key not in state["key_order"]:
+                state["key_order"].append(key)
+            best = state["best_scores"].get(key)
+            if best is None or (val > best if higher_better else val < best):
+                state["best_scores"][key] = float(val)
+                state["best_iter"][key] = it
+        for key in state["key_order"]:
+            if it - state["best_iter"][key] >= stopping_rounds:
+                _stop(state, key, "Early stopping")
+        if env.iteration == env.end_iteration - 1 and state["key_order"]:
+            _stop(state, state["key_order"][0],
+                  "Did not meet early stopping")
     _callback.order = 30
     return _callback

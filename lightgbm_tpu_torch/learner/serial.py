@@ -618,16 +618,23 @@ def finished_tree(s: _WaveState, L: int, row_leaf, row_value) -> BuiltTree:
 
 def predict_built_tree(tree: BuiltTree, data: DeviceData,
                        depth: int) -> torch.Tensor:
-    """Leaf value per row of ``data`` (walking its ``bins_t``) for a
-    just-built tree whose deepest leaf is at ``depth`` (0 for a stump):
-    one pass per level.  A categorical node sends bin ``b`` left where
-    its ``cat_mask`` holds ``min(b, B - 1)`` (the reference walk's
-    clamp of the mask lookup)."""
+    """Leaf value per row of ``data`` for a tree whose deepest leaf is
+    at ``depth``: :func:`built_tree_leaves`, then one gather."""
+    return tree.leaf_value[built_tree_leaves(tree, data, depth)]
+
+
+def built_tree_leaves(tree, data: DeviceData, depth: int) -> torch.Tensor:
+    """Leaf index per row of ``data`` (walking its ``bins_t``) ``[n]``
+    int64, for a just-built :class:`BuiltTree` or the node tables of a
+    host tree (``boosting/gbdt.py:replay_tables``) whose deepest leaf is
+    at ``depth`` (0 for a stump): one pass per level.  A categorical
+    node sends bin ``b`` left where its ``cat_mask`` holds ``min(b, B -
+    1)`` (the reference walk's clamp of the mask lookup)."""
     n = data.num_data
     bins_t = data.bins_t[:, :n].long()
     node = torch.zeros(n, dtype=torch.int64, device=bins_t.device)
     if depth < 1:
-        return tree.leaf_value[node]         # a stump: leaf 0
+        return node                          # a stump: leaf 0
     # per-node tables, cast once: node -> feature -> column tables
     feature = tree.feature.long()
     group = data.feat_group.long()[feature]
@@ -657,4 +664,4 @@ def predict_built_tree(tree: BuiltTree, data: DeviceData,
                                   go_left)
         nxt = torch.where(go_left, left[nidx], right[nidx])
         node = torch.where(is_leaf, node, nxt)
-    return tree.leaf_value[~node]
+    return ~node

@@ -71,6 +71,11 @@ class Tree:
     def add_bias(self, bias: float) -> None:
         self.leaf_value[:self.num_leaves] += bias
 
+    def set_leaf_output(self, leaf: int, value: float) -> None:
+        """Set one leaf's output; a non-finite value becomes 0.0 (the
+        reference's ``Tree::SetLeafOutput`` sanitisation)."""
+        self.leaf_value[leaf] = float(value) if math.isfinite(value) else 0.0
+
     @property
     def max_depth(self) -> int:
         return int(self.leaf_depth[:self.num_leaves].max()) if self.num_leaves > 1 else 0

@@ -248,21 +248,21 @@ def _bitset_member(words, offset, nwords, v):
     return ok & (((word >> (v & 31)) & 1) == 1)
 
 
-def _leaf_entries_block(pack: ServePack, Xb: torch.Tensor,
-                        binned: bool) -> torch.Tensor:
+def _leaf_entries_block(pack: ServePack, Xb: torch.Tensor, binned: bool,
+                        trees: slice = slice(None)) -> torch.Tensor:
     """Leaf entry per (tree, row) of one row block -> ``[T, rows]``
     int64 (flat entries; ``pack.leaf_index`` / ``pack.leaf_value`` read
-    them).
+    them), over the pack's trees or the slice ``trees`` of them.
 
     The per-depth step is the reference ``Tree::GetLeaf`` decision
     (``tree.h:112-119``, ``NumericalDecision`` / ``CategoricalDecision``)
     over all trees at once: one gather per node table, one select per
     rule.
     """
-    T = pack.root.shape[0]
+    root = pack.root[trees]
     rows = Xb.shape[0]
     Xt = (Xb.to(torch.int32) if binned else Xb).t().contiguous()  # [F, r]
-    node = pack.root[:, None].expand(T, rows)
+    node = root[:, None].expand(root.shape[0], rows)
     for _ in range(pack.max_depth):
         if binned:
             b = torch.gather(Xt, 0, pack.split_feature_inner[node])
@@ -293,14 +293,21 @@ def _leaf_entries_block(pack: ServePack, Xb: torch.Tensor,
     return node
 
 
+def _sum_block(pack: ServePack, Xb: torch.Tensor, binned: bool,
+               trees: slice = slice(None)) -> torch.Tensor:
+    """Each class's f64 leaf values summed over its trees (of the slice
+    ``trees``, whole iterations) for one row block -> ``[rows, K]``
+    f64."""
+    vals = pack.leaf_value[_leaf_entries_block(pack, Xb, binned, trees)]
+    K = pack.num_class
+    return vals.view(-1, K, vals.shape[1]).sum(0).t()
+
+
 def _score_block(pack: ServePack, Xb: torch.Tensor,
                  binned: bool) -> torch.Tensor:
     """Raw scores of one row block -> ``[rows, K]`` f32: each class's
     f64 leaf values summed over its trees, rounded once."""
-    vals = pack.leaf_value[_leaf_entries_block(pack, Xb, binned)]
-    K = pack.num_class
-    s = vals.view(-1, K, vals.shape[1]).sum(0)                  # [K, r]
-    return s.t().to(torch.float32)
+    return _sum_block(pack, Xb, binned).to(torch.float32)
 
 
 def _row_chunks(n: int, rchunk: int):
@@ -486,12 +493,63 @@ class CompiledModel:
             out = self._score(Xp, binned)[:n]
         return out if self.num_class > 1 else out[:, 0]
 
+    def predict_raw_early_stop(self, X: np.ndarray, freq: int,
+                               margin: float, *, binned: bool = False
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Prediction early stopping on the device (the rounds of the host
+        oracle ``GBDT.predict_raw_early_stop``): the trees in rounds of
+        ``freq`` iterations over the rows still active, each round's
+        rows gathered on the device and padded to :func:`next_bucket`
+        (so that the walk meets a few row counts, not one a round);
+        each class's leaf values accumulate in f64 on the device and
+        round to f32 once.  After a round a row whose margin (binary
+        2|s|, multiclass top1 - top2) exceeds ``margin`` stops.  ->
+        ``(raw [n] or [n, K] f32, rounds taken per row [n] int32)``."""
+        from ..boosting.gbdt import early_stop_mask
+        X, n = self._prepare(X, binned, pad=False)
+        K = self.num_class
+        if self.num_trees == 0:
+            raw = np.full((n, K), self.base_score, np.float32)
+            return (raw if K > 1 else raw[:, 0]), np.zeros(n, np.int32)
+        Xd = torch.from_numpy(np.ascontiguousarray(X)).to(self.device)
+        acc = torch.zeros((n, K), dtype=torch.float64, device=self.device)
+        taken = torch.zeros(n, dtype=torch.int32, device=self.device)
+        active = torch.ones(n, dtype=torch.bool, device=self.device)
+        per_round = max(1, int(freq)) * K
+        T_pad = self.pack.root.shape[0]
+        for t0 in range(0, self.num_trees, per_round):
+            rows = torch.nonzero(active).view(-1)
+            m = rows.shape[0]
+            if m == 0:
+                break
+            bucket = next_bucket(m, self.min_bucket)
+            rows_pad = torch.cat([rows, rows.new_zeros(bucket - m)])
+            Xb = Xd[rows_pad]
+            trees = slice(t0, min(T_pad, t0 + per_round))
+            part = torch.empty((bucket, K), dtype=torch.float64,
+                               device=self.device)
+            for c0, c1 in _row_chunks(bucket, self.rchunk):
+                part[c0:c1] = _sum_block(self.pack, Xb[c0:c1], binned, trees)
+            acc[rows] += part[:m]
+            taken[rows] += 1
+            active[rows[early_stop_mask(acc[rows], margin)]] = False
+        raw = acc.to(torch.float32).cpu().numpy()
+        return (raw if K > 1 else raw[:, 0]), taken.cpu().numpy()
+
     def predict(self, X: np.ndarray, raw_score: bool = False,
-                *, binned: bool = False, pad: bool = True) -> np.ndarray:
+                *, binned: bool = False, pad: bool = True,
+                early_stop: Optional[Tuple[int, float]] = None
+                ) -> np.ndarray:
         """Objective-transformed prediction (the ``Booster.predict``
         contract: sigmoid/softmax applied unless ``raw_score``); the
-        conversion runs on the host's copy of the raw scores."""
-        raw = self.predict_raw(X, binned=binned, pad=pad)
+        conversion runs on the host's copy of the raw scores.
+        ``early_stop=(freq, margin)`` scores through
+        :meth:`predict_raw_early_stop`."""
+        if early_stop is not None:
+            raw = self.predict_raw_early_stop(X, *early_stop,
+                                              binned=binned)[0]
+        else:
+            raw = self.predict_raw(X, binned=binned, pad=pad)
         if raw_score or self.objective is None:
             return raw
         if self.average_output:

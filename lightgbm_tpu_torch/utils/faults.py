@@ -1,8 +1,10 @@
 """Fault injection: named failure points for robustness tests.
 
-A copy of the JAX package's ``utils/faults.py`` for the port's one seam
-so far:
+A copy of the JAX package's ``utils/faults.py`` for the port's seams:
 
+* ``snapshot.write`` — mid-file during a snapshot's model write
+  (``utils/file_io.atomic_write`` with ``chunks=2``,
+  ``boosting/snapshot.py``): a preemption while serializing;
 * ``serve.score`` — the serving harness's batched device scoring
   (``serve/server.py``); retried by the shared policy
   (``utils/retry.py``), and the delivery contract (exactly once per

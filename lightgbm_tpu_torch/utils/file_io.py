@@ -1,9 +1,13 @@
-"""File IO the shard store needs (copied from the JAX package's
-``utils/file_io.py``).
+"""File IO of the shard store, model files and snapshots (copied from
+the JAX package's ``utils/file_io.py``).
 
+* :func:`open_read` / :func:`open_write` / :func:`exists` — local paths,
+  or a scheme registered with :func:`register_scheme`.
 * :func:`atomic_write` — the payload lands in ``path + ".tmp"``, is
   flushed and fsynced, and is published with one ``os.replace``:
-  readers never see a half-written file under the final name.
+  readers never see a half-written file under the final name.  With
+  ``chunks > 1`` the ``snapshot.write`` fault point sits between the
+  chunks, so a test can tear a write mid-file.
 * :func:`localize` / :func:`release` — a real OS path for a source:
   identity for local files; a scheme registered with
   :func:`register_scheme` (``hdfs://``, ``gs://``, ...) is copied to a
@@ -49,6 +53,33 @@ def _find_opener(path: str) -> Optional[Callable]:
     return None
 
 
+def open_read(path: str, binary: bool = False):
+    opener = _find_opener(path)
+    mode = "rb" if binary else "r"
+    if opener is not None:
+        return opener(path, mode)
+    return open(path, mode)
+
+
+def open_write(path: str, binary: bool = False):
+    opener = _find_opener(path)
+    mode = "wb" if binary else "w"
+    if opener is not None:
+        return opener(path, mode)
+    return open(path, mode)
+
+
+def exists(path: str) -> bool:
+    opener = _find_opener(path)
+    if opener is not None:
+        try:
+            with opener(path, "rb"):
+                return True
+        except OSError:
+            return False
+    return os.path.exists(path)
+
+
 def release(path: str) -> None:
     """Delete a temporary copy made by :func:`localize` (no-op for paths
     it does not own)."""
@@ -60,11 +91,31 @@ def release(path: str) -> None:
             pass
 
 
-def atomic_write(path: str, payload, binary: bool = False) -> None:
-    """Crash-safe local write: ``path + ".tmp"``, fsync, ``os.replace``."""
+def atomic_write(path: str, payload, binary: bool = False,
+                 chunks: int = 1) -> None:
+    """Crash-safe local write: ``path + ".tmp"``, fsync, ``os.replace``.
+
+    ``chunks > 1`` writes exactly that many slices with a
+    ``snapshot.write`` fault point between two slices (``chunks - 1``
+    calls a write, whatever the payload's length): an injected fault
+    leaves the torn bytes in the ``.tmp`` file and never touches the
+    published name.  A registered remote scheme has no rename and gets
+    a plain streamed write."""
+    from .faults import fault_point
+    opener = _find_opener(path)
+    if opener is not None:
+        with opener(path, "wb" if binary else "w") as f:
+            f.write(payload)
+        return
     tmp = path + ".tmp"
     with open(tmp, "wb" if binary else "w") as f:
-        f.write(payload)
+        bounds = [len(payload) * i // max(chunks, 1)
+                  for i in range(max(chunks, 1) + 1)]
+        for i in range(len(bounds) - 1):
+            if i:
+                f.flush()
+                fault_point("snapshot.write")
+            f.write(payload[bounds[i]:bounds[i + 1]])
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)

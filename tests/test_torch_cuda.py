@@ -763,3 +763,95 @@ def test_cuda_multiclass_trains_and_serves(cuda_device):
     assert prob.shape == (5000, 4)
     np.testing.assert_allclose(prob, bst.predict(X[:5000], device=False),
                                rtol=0, atol=tol("f32_accum_2x"))
+
+
+def _replay_booster(device):
+    """An L2 Booster on ``device`` over numerical, categorical and
+    EFB-bundled columns (``_cat_columns``: column 2 has 30 categories,
+    columns 5-7 bundle, 6 categorical), its label reaching each."""
+    import lightgbm_tpu_torch as tlgb
+    rng = np.random.RandomState(7)
+    X = rng.normal(size=(20000, 8))
+    cats = _cat_columns(X, rng)
+    y = (X[:, 0] + (X[:, 2] % 4) - X[:, 5] + (X[:, 6] % 3)
+         + 0.5 * X[:, 7]).astype(np.float32)
+    ds = tlgb.Dataset(X, label=y, categorical_feature=cats,
+                      params={"max_bin": 63})
+    params = {"objective": "regression", "num_leaves": 31, "max_bin": 63,
+              "min_data_in_leaf": 5, "verbose": -1}
+    return tlgb.Booster(params, ds, device=device), X
+
+
+@pytest.mark.parametrize("dev", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_host_tree_replay_matches_built_tree(dev):
+    """A host tree goes back onto the device as node tables
+    (``boosting/gbdt.py:replay_tables``) and walks the binned rows as
+    the freshly built tree does: the same leaf for every row and the
+    same f32 values, bitwise, with numerical, categorical and
+    EFB-bundled nodes; and so does the tree reloaded from its model text
+    and aligned with the mappers (categories as value bitsets)."""
+    from lightgbm_tpu_torch.boosting.gbdt import replay_tables
+    from lightgbm_tpu_torch.learner.serial import (built_tree_leaves,
+                                                   predict_built_tree)
+    from lightgbm_tpu_torch.models.tree import Tree
+    if dev == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    bst, _ = _replay_booster(dev)
+    g = bst._gbdt
+    ds = g.train_set
+    assert ds.bundle is not None and ds.bundle.is_bundled
+    fmap = {f: i for i, f in enumerate(ds.used_features)}
+    kinds = set()
+    for _ in range(4):
+        g.train_one_iter()
+        bt = g._pending[-1][0]
+        host = g._to_host_tree(bt)
+        depth = host.max_depth
+        loaded = Tree.from_string(host.to_string())
+        loaded.align_with_mappers(ds.mappers, fmap)
+        dd = g.device_data
+        want = built_tree_leaves(bt, dd, depth)
+        for t in (host, loaded):
+            tabs = replay_tables(t, dd.max_bins, dd.device)
+            assert torch.equal(built_tree_leaves(tabs, dd, depth), want)
+            assert torch.equal(g._replay(t, dd),
+                               predict_built_tree(bt, dd, depth))
+        m = host.num_leaves - 1
+        kinds.update(int(ds.mappers[f].bin_type)
+                     for f in host.split_feature[:m])
+        kinds.update("bundled" for f in host.split_feature[:m]
+                     if f in (5, 6, 7))
+    assert kinds == {0, 1, "bundled"}
+
+
+@pytest.mark.cuda
+def test_cuda_kill_and_resume_byte_identical(cuda_device, tmp_path):
+    """A run on the card killed while writing its iteration-8 snapshot
+    resumes from iteration 4 and writes the uninterrupted card run's
+    model text; the digest, scores included, is the same."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.utils import faults
+    rng = np.random.RandomState(8)
+    X = rng.normal(size=(50_000, 8)).astype(np.float32)
+    y = (X[:, 0] * 2 + X[:, 1] + rng.normal(size=50_000) > 0).astype(
+        np.float32)
+
+    def run(prefix, **kw):
+        params = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
+                  "verbose": -1, "snapshot_freq": 4, "bagging_freq": 2,
+                  "bagging_fraction": 0.8, "output_model": str(prefix)}
+        return tlgb.train(params, tlgb.Dataset(X, label=y),
+                          num_boost_round=12, verbose_eval=False,
+                          device=cuda_device, **kw)
+
+    a = run(tmp_path / "A.txt")
+    faults.inject("snapshot.write", times=1, skip=1)
+    try:
+        with pytest.raises(faults.FaultInjected):
+            run(tmp_path / "B.txt")
+    finally:
+        faults.clear()
+    b = run(tmp_path / "B.txt", resume_from=str(tmp_path / "B.txt"))
+    assert b.model_to_string() == a.model_to_string()
+    assert b.digest() == a.digest()

@@ -1,9 +1,12 @@
 """Options the JAX package acts on and lightgbm_tpu_torch does not read
-yet raise, in memory (``lgb.train``) and streamed (``StreamTrainer``),
-instead of training or predicting something else: ``snapshot_freq``
-(the reference writes snapshots), ``pred_early_stop`` (the reference
-predicts with early stopping) and a non-empty ``mesh_shape`` (the
-reference's mesh path)."""
+yet raise, instead of training something else, each naming its ROADMAP
+item: ``input_model`` (continued training from a file, A7),
+``telemetry_output`` (the telemetry trace, A13) and a non-empty
+``mesh_shape`` (the mesh path, A11) in memory (``lgb.train``) and
+streamed (``StreamTrainer``); ``snapshot_freq`` and ``resume_from``
+streamed only (streamed snapshots, A12).  In memory ``snapshot_freq``
+and ``resume_from`` work (``tests/test_torch_snapshot.py``), and so does
+``pred_early_stop`` (``tests/test_torch_model_surface.py``)."""
 import numpy as np
 import pytest
 import torch
@@ -18,25 +21,60 @@ torch.set_num_threads(1)   # tiny tensors: more threads only spin
 BASE = {"objective": "binary", "num_leaves": 7, "verbose": -1}
 
 
-@pytest.mark.parametrize("option,match", [
-    ({"snapshot_freq": 2}, "A6"),
-    ({"pred_early_stop": True}, "A6"),
-    ({"mesh_shape": "2"}, "A11"),
-], ids=["snapshot_freq", "pred_early_stop", "mesh_shape"])
-def test_unported_option_raises(option, match):
+def _data():
     rng = np.random.RandomState(0)
     X = rng.normal(size=(500, 4))
     y = (X[:, 0] > 0).astype(np.float32)
+    return X, y
+
+
+def _stream(params, X, y):
+    cfg = Config.from_params(params)
+    md = Metadata()
+    md.set_field("label", y)
+    return StreamTrainer(cfg, BinnedDataset.from_raw(X, cfg, metadata=md),
+                         device="cpu")
+
+
+@pytest.mark.parametrize("option,match", [
+    ({"input_model": "model.txt"}, "A7"),
+    ({"telemetry_output": "trace.jsonl"}, "A13"),
+    ({"mesh_shape": "2"}, "A11"),
+], ids=["input_model", "telemetry_output", "mesh_shape"])
+def test_unported_option_raises(option, match):
+    X, y = _data()
     params = dict(BASE, **option)
     with pytest.raises(NotImplementedError, match=match):
         tlgb.train(dict(params), tlgb.Dataset(X, label=y),
                    num_boost_round=1, device="cpu")
-    cfg = Config.from_params(params)
-    md = Metadata()
-    md.set_field("label", y)
     with pytest.raises(NotImplementedError, match=match):
-        StreamTrainer(cfg, BinnedDataset.from_raw(X, cfg, metadata=md),
-                      device="cpu")
+        _stream(params, X, y)
     # the defaults stay accepted
     tlgb.train(dict(BASE), tlgb.Dataset(X, label=y), num_boost_round=1,
                device="cpu")
+
+
+@pytest.mark.parametrize("option", [
+    {"snapshot_freq": 2}, {"resume_from": "auto"},
+], ids=["snapshot_freq", "resume_from"])
+def test_stream_snapshot_option_raises(option):
+    """The stream neither writes snapshots nor resumes (the JAX package's
+    plain stream does not snapshot; its barrier snapshots are elastic)."""
+    X, y = _data()
+    with pytest.raises(NotImplementedError, match="A12"):
+        _stream(dict(BASE, **option), X, y)
+
+
+@pytest.mark.parametrize("option", [
+    {"snapshot_freq": 2}, {"pred_early_stop": True},
+], ids=["snapshot_freq", "pred_early_stop"])
+def test_lifted_option_trains_in_memory(option, tmp_path):
+    """The options this package reads since the model surface: training
+    takes them in memory (snapshots under ``output_model``; prediction
+    early stopping at predict time)."""
+    X, y = _data()
+    params = dict(BASE, output_model=str(tmp_path / "m.txt"), **option)
+    bst = tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=2,
+                     device="cpu")
+    assert bst.current_iteration() == 2
+    assert np.isfinite(bst.predict(X)).all()

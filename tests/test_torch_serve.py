@@ -323,9 +323,13 @@ def test_booster_device_default(monkeypatch):
 
 
 def test_pred_contrib_raises():
-    _, tbst = _jax_train(n=600, num_iterations=2)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tbst.predict(np.zeros((2, 6), np.float32), pred_contrib=True)
+    """``pred_contrib`` on a loaded model no longer raises: it takes the
+    host path, as the JAX package's does, and gives its SHAP values."""
+    jbst, tbst = _jax_train(n=600, num_iterations=2)
+    X = np.random.RandomState(1).normal(size=(50, 6)).astype(np.float32)
+    np.testing.assert_allclose(tbst.predict(X, pred_contrib=True),
+                               jbst.predict(X, pred_contrib=True),
+                               rtol=0, atol=tol("f64_chain"))
 
 
 # ---------------------------------------------------------------------------
