@@ -227,7 +227,33 @@ and the script exits non-zero):
    (the same text).  The ms of each snapshot write, of the resume, the
    rollback, ``add_valid``, refit and model IO are logged.
 
-Each of phases 17-22 prints one ``{"phase": ...}`` JSON line.  A path's
+23. entry surface — ``LGBMClassifier`` on phase 4's rows with its
+   parameters (255 leaves, ``max_bin`` 63, lr 0.1, 32 estimators; every
+   default the estimator maps is ``train``'s too) on the card: digest
+   (scores included) == phase 4's, ``predict_proba[:, 1]`` == phase 4's
+   ``Booster.predict`` bitwise, K1-K4 launched and K6 not; an L2
+   ``fobj`` (``score - label``, ones) on the headline's latent against
+   the built-in ``regression``, both without ``boost_from_average``, 8
+   iterations: equal digests (scores included), ms/iter of each; a numpy
+   AUC ``feval`` beside the built-in ``auc`` on phase 5's run for phase
+   5's iterations: within ``FEVAL_AUC_TOL`` at every iteration, the model
+   phase 5's; phase 4's configuration for 16 iterations, then
+   ``init_model=`` its text for 16 more: the first 16 trees are the
+   16-tree model's, the raw prediction the sum of the two parts' within
+   ``CONTINUE_TOL``, the digest printed (it differs from phase 4's: the
+   JAX package's continued training counts ``boost_from_average``
+   twice, ROADMAP C23); phase 5's run with ``learning_rates=[0.1] *
+   100``: phase 5's stop, best iteration and digest, then a decaying
+   schedule (its stop and valid AUC); ``cv`` with phase 5's
+   configuration, 5 stratified folds, seed 0, early stopping 10 (K6 on
+   every fold): every iteration's mean == the mean of five ``lgb.train``
+   runs on the same folds, bitwise; phase 5's rows written as CSV (a
+   header, ``label_column=name:target``, a ``.weight`` side file) and as
+   libsvm, with their valid rows: ``lgb.Dataset(path)`` trains the
+   weighted array model and phase 5's model; the native parser
+   (required) parses a 1,048,576-row x 28 CSV (MB/s, rows/s).
+
+Each of phases 17-23 prints one ``{"phase": ...}`` JSON line.  A path's
 ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
 the per-iteration evaluation included.  The last lines are the kernel
@@ -359,6 +385,23 @@ SURFACE_PES_FREQ = 4
 SURFACE_PES_MARGIN = 4.0
 # early-stopped rows whose sign agrees with the full prediction
 SURFACE_SIGN_SHARE = 0.99
+# the entry surface (phase 23): continued training splits phase 4's run
+# into two halves; a decaying learning-rate schedule on phase 5's run;
+# cv with phase 5's configuration; the native parser's throughput file is
+# the small-data rows' text written 16 times
+ENTRY_FIRST_ITERS = 16
+ENTRY_FOBJ_ITERS = 8
+ENTRY_DECAY = (0.2, 0.97)          # lr = 0.2 * 0.97 ** iteration
+ENTRY_NFOLD = 5
+ENTRY_PARSE_REPEAT = 16            # x 65,536 rows = 1,048,576 rows
+# a numpy AUC against the built-in one: both are exact sums of ranks
+# (half-integers) in float64 and one division, so they agree to the
+# last bits
+FEVAL_AUC_TOL = 1e-12
+# the raw prediction of a continued model against the sum of its two
+# parts' (f32 leaf outputs summed in another order): the registry's
+# f32_accum
+CONTINUE_TOL = 1e-5
 # f32 sums held to an f64 oracle: a sum of m f32 terms (the init score
 # and each tree's output, or a subtraction) carries at most m rounding
 # errors of one half ulp (2^-24) of the running sum's magnitude, which
@@ -3173,19 +3216,376 @@ def model_io_check(lgb, bst, X, tmp: str) -> dict:
     return dict(model_io_ms=io_ms)
 
 
+def counted(counters, fn):
+    """``fn()`` with every launch counter reset just before and read just
+    after: -> ``(result, seconds, launches)``."""
+    import torch
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, {k: c.launches for k, c in
+                                   counters.items()}
+
+
+def add_launches(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def need(launches: dict, kernels, what: str, absent=()) -> None:
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on {what}: {missing}")
+    ran = [k for k in absent if launches[k] != 0]
+    if ran:
+        raise AssertionError(f"kernels launched on {what}: {ran}")
+
+
+def auc_feval(score, dataset):
+    """A numpy AUC as a ``feval``: the rank sum of the positives (average
+    ranks for ties)."""
+    import numpy as np
+    pos = np.asarray(dataset.get_label()) > 0
+    _, inv, counts = np.unique(score, return_inverse=True,
+                               return_counts=True)
+    rank = (np.cumsum(counts) - (counts - 1) / 2.0)[inv]
+    n_pos = int(pos.sum())
+    n_neg = len(pos) - n_pos
+    auc = (rank[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg)
+    return "auc_numpy", float(auc), True
+
+
+def write_libsvm(path: str, X, y) -> None:
+    """Every feature of every row written, ``%.17g`` (exact)."""
+    import numpy as np
+    fmt = "%.17g " + " ".join(f"{j}:%.17g" for j in range(X.shape[1]))
+    np.savetxt(path, np.column_stack([y, X]).astype(np.float64), fmt=fmt)
+
+
+def write_csv(path: str, X, y) -> None:
+    """A header ``target,f0,...``, the label first, ``%.17g`` (exact)."""
+    import numpy as np
+    names = ["target"] + [f"f{j}" for j in range(X.shape[1])]
+    np.savetxt(path, np.column_stack([y, X]).astype(np.float64),
+               fmt="%.17g", delimiter=",", header=",".join(names),
+               comments="")
+
+
+def entry_surface_phase(lgb, counters, ds, X, y, z, ds_small, dv_small,
+                        small_rows, head: dict, small: dict,
+                        card: str) -> dict:
+    """Phase 23: the user entry surface on the card -> launches.
+    ``small_rows`` are phase 5's ``(X, y, X_valid, y_valid)``; ``head``
+    and ``small`` hold phases 4 and 5's results (model text, digests with
+    scores, phase 4's predictions, phase 5's stop and best iteration)."""
+    Xv = small_rows[2]
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.engine import cv_folds
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    out, total = {}, {}
+    head_params = head["params"]
+
+    # 1. LGBMClassifier at the headline's width.  Every default that
+    # LGBMModel._process_params maps (min_child_weight 1e-3,
+    # min_child_samples 20, subsample_for_bin 200,000, the zero
+    # regularizers, no bagging) is train's default too; the headline's
+    # own values go in explicitly
+    clf = lgb.LGBMClassifier(
+        n_estimators=HEADLINE_ITERS, num_leaves=head_params["num_leaves"],
+        max_bin=head_params["max_bin"],
+        learning_rate=head_params["learning_rate"],
+        min_child_samples=head_params["min_data_in_leaf"], verbose=-1,
+        device="cuda")
+    _, secs, launches = counted(counters, lambda: clf.fit(X, y))
+    need(launches, ("route", "route_values", "hist_route", "hist_compact"),
+         "the sklearn headline", ("split_scan",))
+    add_launches(total, launches)
+    if clf.booster_.digest() != head["digest"]:
+        raise AssertionError("LGBMClassifier's digest (scores included) is "
+                             "not phase 4's")
+    proba = clf.predict_proba(X)
+    torch.cuda.synchronize()
+    if not np.array_equal(proba[:, 1], head["pred"]):
+        raise AssertionError("predict_proba[:, 1] is not phase 4's "
+                             "Booster.predict bitwise")
+    if not np.array_equal(proba[:, 0], 1.0 - head["pred"]):
+        raise AssertionError("predict_proba[:, 0] is not 1 - p")
+    out.update(sklearn_fit_s=secs, sklearn_ms_per_iter=1e3 * secs
+               / HEADLINE_ITERS,
+               sklearn_digest=clf.booster_.digest(include_scores=False))
+    log(f"entry surface: LGBMClassifier fit {secs:.3f} s, digest == phase "
+        f"4 (scores included), predict_proba == Booster.predict; launches "
+        f"{launches}")
+    del clf, proba
+
+    # 2. a custom objective: L2 on the latent against the built-in
+    # regression, both without boost_from_average
+    dsz = relabel(ds, np.asarray(z, np.float32))
+
+    def l2(score, dataset):
+        return score - dataset.get_label(), np.ones_like(score)
+
+    rparams = dict(head_params, objective="regression",
+                   boost_from_average=False)
+    ref, ref_s, launches = train_path(lgb, "built-in regression", counters,
+                                      rparams, dsz, ENTRY_FOBJ_ITERS,
+                                      verbose_eval=False)
+    add_launches(total, launches)
+    fparams = dict(head_params, boost_from_average=False)
+    fb, fobj_s, launches = train_path(lgb, "fobj L2", counters, fparams,
+                                      dsz, ENTRY_FOBJ_ITERS, fobj=l2,
+                                      verbose_eval=False)
+    need(launches, ("route", "route_values", "hist_route", "hist_compact"),
+         "the fobj run")
+    add_launches(total, launches)
+    if fb.digest() != ref.digest():
+        raise AssertionError("the fobj L2 model is not the built-in "
+                             "regression's (digest with scores)")
+    out.update(fobj_ms_per_iter=1e3 * fobj_s / ENTRY_FOBJ_ITERS,
+               builtin_l2_ms_per_iter=1e3 * ref_s / ENTRY_FOBJ_ITERS,
+               fobj_digest=fb.digest(include_scores=False))
+    log(f"entry surface: fobj L2 == built-in regression, digest "
+        f"{fb.digest(include_scores=False)[:8]}; "
+        f"{out['fobj_ms_per_iter']:.2f} vs "
+        f"{out['builtin_l2_ms_per_iter']:.2f} ms/iter")
+    del ref, fb, dsz
+
+    # 3. feval: a numpy AUC beside the built-in auc on phase 5's run,
+    # for phase 5's iterations
+    evals = {}
+    fe, fe_s, launches = train_path(
+        lgb, "small-data with feval", counters, TRAIN_CONF, ds_small,
+        small["stop"], valid_sets=[dv_small], valid_names=["valid"],
+        feval=auc_feval, evals_result=evals, verbose_eval=False)
+    add_launches(total, launches)
+    got = np.asarray(evals["valid"]["auc_numpy"])
+    want = np.asarray(evals["valid"]["auc"])
+    gap = float(np.max(np.abs(got - want)))
+    if len(got) != small["stop"] or not gap <= FEVAL_AUC_TOL:
+        raise AssertionError(f"feval AUC differs from the built-in auc by "
+                             f"{gap} (> {FEVAL_AUC_TOL})")
+    if fe.digest() != small["digest"]:
+        raise AssertionError("the feval run's model is not phase 5's")
+    out.update(feval_auc_max_gap=gap,
+               feval_ms_per_iter=1e3 * fe_s / small["stop"])
+    log(f"entry surface: feval AUC within {gap:.3g} of auc at each of "
+        f"{len(got)} iterations; model == phase 5")
+    del fe
+
+    # 4. continued training: phase 4's configuration for 16 iterations,
+    # then init_model= its text for 16 more
+    first, _, launches = train_path(lgb, "headline first half", counters,
+                                    head_params, ds, ENTRY_FIRST_ITERS,
+                                    verbose_eval=False)
+    add_launches(total, launches)
+    first_text = first.model_to_string()
+    cont, cont_s, launches = train_path(
+        lgb, "headline continued", counters, head_params, ds,
+        HEADLINE_ITERS - ENTRY_FIRST_ITERS, init_model=first_text,
+        verbose_eval=False)
+    need(launches, ("route", "route_values", "hist_route", "hist_compact"),
+         "the continued headline")
+    add_launches(total, launches)
+
+    def trees(text):
+        return [t.strip() for t in text.split("feature importances:")[0]
+                .split("Tree=")[1:]]
+    if trees(cont.model_to_string())[:ENTRY_FIRST_ITERS] != \
+            trees(first_text):
+        raise AssertionError("the continued model's first trees are not "
+                             "the init model's")
+    second = lgb.Booster(model_str=cont.model_to_string())
+    second._gbdt.models = second._gbdt.models[ENTRY_FIRST_ITERS:]
+    raw = cont.predict(X, raw_score=True)
+    parts = (first.predict(X, raw_score=True)
+             + second.predict(X, raw_score=True))
+    torch.cuda.synchronize()
+    gap = np.abs(raw - parts)
+    if not np.all(gap <= CONTINUE_TOL * (1.0 + np.abs(parts))):
+        raise AssertionError(f"continued raw prediction differs from the "
+                             f"sum of its parts by {gap.max()}")
+    v = cont._gbdt.init_score_value
+    bias_gap = float(np.mean(cont._gbdt.scores[:, 0].cpu().numpy() - raw))
+    out.update(continued_digest=cont.digest(include_scores=False),
+               continued_ms_per_iter=1e3 * cont_s
+               / (HEADLINE_ITERS - ENTRY_FIRST_ITERS),
+               continued_raw_gap=float(gap.max()),
+               continued_score_minus_raw=bias_gap, boost_from_average=v)
+    log(f"entry surface: continued headline digest "
+        f"{out['continued_digest'][:8]} (phase 4's is "
+        f"{head['digest_trees'][:8]}: the double boost_from_average), raw "
+        f"== parts within {gap.max():.3g}; training scores - raw "
+        f"{bias_gap:.6f} (init score {v:.6f})")
+    del first, cont, second, raw, parts
+
+    # 5. learning_rates: a constant schedule is phase 5's run; then a
+    # decaying one
+    lr_evals = {}
+    lb, lr_s, launches = train_path(
+        lgb, "small-data, constant learning_rates", counters, TRAIN_CONF,
+        ds_small, SMALL_ITERS, valid_sets=[dv_small], valid_names=["valid"],
+        early_stopping_rounds=SMALL_EARLY_STOP, evals_result=lr_evals,
+        verbose_eval=False, learning_rates=[0.1] * SMALL_ITERS)
+    add_launches(total, launches)
+    got = (lb.current_iteration(), lb.best_iteration, lb.digest())
+    if got != (small["stop"], small["best"], small["digest"]):
+        raise AssertionError(f"constant learning_rates (stop, best, "
+                             f"digest) {got} is not phase 5's")
+    a0, r = ENTRY_DECAY
+    db, decay_s, launches = train_path(
+        lgb, "small-data, decaying learning_rates", counters, TRAIN_CONF,
+        ds_small, SMALL_ITERS, valid_sets=[dv_small], valid_names=["valid"],
+        early_stopping_rounds=SMALL_EARLY_STOP, verbose_eval=False,
+        learning_rates=lambda i: a0 * r ** i)
+    need(launches, ("split_scan", "hist_route", "route_values"),
+         "the learning_rates runs")
+    add_launches(total, launches)
+    vauc = binary_auc(dv_small.get_label(), db.predict(Xv))
+    out.update(lr_constant_digest=lb.digest(include_scores=False),
+               lr_decay_stop=db.current_iteration(),
+               lr_decay_best=db.best_iteration, lr_decay_valid_auc=vauc)
+    log(f"entry surface: constant learning_rates == phase 5 (stop "
+        f"{got[0]}, best {got[1]}); decaying stops at "
+        f"{db.current_iteration()}, best {db.best_iteration}, valid auc "
+        f"{vauc:.5f}")
+    del lb, db
+
+    # 6. cv with phase 5's configuration: five stratified folds, each of
+    # about 52,429 training rows (K6 on every fold), early stopping 10
+    res, cv_s, launches = counted(counters, lambda: lgb.cv(
+        dict(TRAIN_CONF), ds_small, num_boost_round=SMALL_ITERS,
+        nfold=ENTRY_NFOLD, stratified=True, seed=0,
+        early_stopping_rounds=SMALL_EARLY_STOP, device="cuda"))
+    need(launches, ("split_scan", "hist_route", "route_values"), "cv")
+    add_launches(total, launches)
+    kept = len(res["auc-mean"])
+    per_fold = []
+    for tr_idx, va_idx in cv_folds(ds_small, TRAIN_CONF, nfold=ENTRY_NFOLD,
+                                   seed=0):
+        ev = {}
+        train_path(lgb, "cv fold through lgb.train", counters, TRAIN_CONF,
+                   ds_small.subset(np.sort(tr_idx)), kept,
+                   valid_sets=[ds_small.subset(np.sort(va_idx))],
+                   valid_names=["valid"], evals_result=ev,
+                   verbose_eval=False)
+        per_fold.append(ev["valid"])
+    for metric in ("binary_logloss", "auc"):
+        want = [float(np.mean(v)) for v in
+                zip(*(f[metric] for f in per_fold))]
+        if res[f"{metric}-mean"] != want:
+            raise AssertionError(f"cv {metric}-mean is not the mean of the "
+                                 f"folds' lgb.train runs")
+    out.update(cv_s=cv_s, cv_kept_iterations=kept,
+               cv_auc_mean=res["auc-mean"][-1],
+               cv_auc_stdv=res["auc-stdv"][-1])
+    log(f"entry surface: cv {cv_s:.3f} s, {kept} iterations kept, auc "
+        f"{res['auc-mean'][-1]:.5f} +- {res['auc-stdv'][-1]:.5f}; every "
+        f"mean == the folds' lgb.train runs")
+
+    # 7. file input: phase 5's rows as CSV (a header, name: columns, a
+    # .weight side file) and as libsvm
+    tmp = tempfile.mkdtemp(prefix="lgbm_files_")
+    try:
+        out.update(file_phase(lgb, counters, total, tmp, small_rows,
+                              small))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_line("entry_surface", card, launches=total, **out)
+    return total
+
+
+def file_phase(lgb, counters, total, tmp, small_rows, small):
+    """Phase 23's file input -> its figures."""
+    import numpy as np
+    from lightgbm_tpu_torch import native
+    out = {}
+    if not native.available():
+        raise AssertionError("the native parser is not available")
+    Xs, ys, Xv, yv = small_rows
+    rng = np.random.RandomState(11)
+    w = rng.uniform(0.5, 2.0, size=len(Xs))
+    t0 = time.time()
+    csv, csv_v = os.path.join(tmp, "train.csv"), os.path.join(tmp, "valid.csv")
+    write_csv(csv, Xs, ys)
+    write_csv(csv_v, Xv, yv)
+    np.savetxt(csv + ".weight", w, fmt="%.17g")
+    svm, svm_v = os.path.join(tmp, "train.svm"), os.path.join(tmp, "valid.svm")
+    write_libsvm(svm, Xs, ys)
+    write_libsvm(svm_v, Xv, yv)
+    log(f"entry surface: files written in {time.time() - t0:.1f} s")
+    kw = dict(valid_names=["valid"], early_stopping_rounds=SMALL_EARLY_STOP,
+              verbose_eval=False)
+    fparams = {"has_header": True, "label_column": "name:target"}
+    dcsv = lgb.Dataset(csv, params=fparams)
+    csv_b, csv_s, launches = train_path(
+        lgb, "small-data from CSV + .weight", counters, TRAIN_CONF, dcsv,
+        SMALL_ITERS, valid_sets=[lgb.Dataset(csv_v, reference=dcsv,
+                                             params=fparams)], **kw)
+    add_launches(total, launches)
+    weighted = lgb.Dataset(Xs, label=ys, weight=np.float32(w),
+                           params={"max_bin": TRAIN_CONF["max_bin"]})
+    arr_b, _, launches = train_path(
+        lgb, "small-data array with the same weights", counters, TRAIN_CONF,
+        weighted, SMALL_ITERS,
+        valid_sets=[lgb.Dataset(Xv, label=yv, reference=weighted)], **kw)
+    add_launches(total, launches)
+    if csv_b.digest() != arr_b.digest():
+        raise AssertionError("the CSV model is not the weighted array "
+                             "model")
+    dsvm = lgb.Dataset(svm)
+    svm_b, svm_s, launches = train_path(
+        lgb, "small-data from libsvm", counters, TRAIN_CONF, dsvm,
+        SMALL_ITERS, valid_sets=[lgb.Dataset(svm_v, reference=dsvm)], **kw)
+    need(launches, ("split_scan", "hist_route", "route_values"),
+         "the file-input runs")
+    add_launches(total, launches)
+    got = (svm_b.current_iteration(), svm_b.best_iteration, svm_b.digest())
+    if got != (small["stop"], small["best"], small["digest"]):
+        raise AssertionError(f"the libsvm model (stop, best, digest) {got} "
+                             f"is not phase 5's")
+    out.update(csv_digest=csv_b.digest(include_scores=False),
+               csv_train_s=csv_s, libsvm_train_s=svm_s)
+    log(f"entry surface: CSV + .weight == weighted array model, digest "
+        f"{out['csv_digest'][:8]}; libsvm == phase 5")
+
+    # the native parser's throughput: 1,048,576 rows x 28 columns
+    big = os.path.join(tmp, "big.csv")
+    body = os.path.join(tmp, "block.csv")
+    np.savetxt(body, Xs.astype(np.float64), fmt="%.17g", delimiter=",")
+    with open(body, "rb") as f:
+        block = f.read()
+    with open(big, "wb") as f:
+        for _ in range(ENTRY_PARSE_REPEAT):
+            f.write(block)
+    nbytes = os.path.getsize(big)
+    t0 = time.time()
+    parsed = native.parse_delimited(big, ",", 0)
+    secs = time.time() - t0
+    rows = len(Xs) * ENTRY_PARSE_REPEAT
+    if parsed is None or parsed.shape != (rows, Xs.shape[1]):
+        raise AssertionError(f"native parse of the big CSV gave "
+                             f"{None if parsed is None else parsed.shape}")
+    if not (np.array_equal(parsed[:len(Xs)], Xs.astype(np.float64))
+            and np.array_equal(parsed[-len(Xs):], Xs.astype(np.float64))):
+        raise AssertionError("the native parse is not the written values")
+    out.update(parse_rows=rows, parse_bytes=nbytes, parse_s=secs,
+               parse_mb_per_s=nbytes / secs / 1e6,
+               parse_rows_per_s=rows / secs)
+    log(f"entry surface: native parse of {rows} x {Xs.shape[1]} "
+        f"({nbytes / 1e6:.1f} MB) in {secs:.3f} s = "
+        f"{out['parse_mb_per_s']:.1f} MB/s, {rows / secs:.0f} rows/s")
+    return out
+
+
 def train_path(lgb, name, counters, params, ds, rounds, **kw):
     """One user-facing ``lgb.train`` with every launch counter reset just
     before and read just after: -> ``(booster, seconds, launches)``."""
-    import torch
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    bst = lgb.train(dict(params), ds, num_boost_round=rounds, device="cuda",
-                    **kw)
-    torch.cuda.synchronize()
-    seconds = time.time() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    bst, seconds, launches = counted(counters, lambda: lgb.train(
+        dict(params), ds, num_boost_round=rounds, device="cuda", **kw))
     log(f"{name}: {bst.current_iteration()} iterations in {seconds:.3f} s "
         f"= {1e3 * seconds / max(1, bst.current_iteration()):.2f} ms/iter "
         f"(setup included); launches {launches}")
@@ -3312,9 +3712,11 @@ def main() -> int:
     bst, _, head = train_path(lgb, "headline", counters, params, ds,
                               HEADLINE_ITERS)
     head_ref = {"params": params, "text": bst.model_to_string(),
-                "digest": bst.digest()}
+                "digest": bst.digest(),
+                "digest_trees": bst.digest(include_scores=False)}
     pred = bst.predict(X)
     torch.cuda.synchronize()
+    head_ref["pred"] = pred
     auc = binary_auc(y, pred)
     log(f"headline: train auc {auc:.5f}; digest "
         f"{bst.digest(include_scores=False)}")
@@ -3454,6 +3856,14 @@ def main() -> int:
         lgb, counters, ds, X, y, ds_small, dv_small, head_ref, small_ref,
         card)
     log(f"phase 22 {time.time() - t0:.1f} s")
+
+    # 23. the entry surface: sklearn, fobj, feval, init_model,
+    # learning_rates, cv, file input
+    t0 = time.time()
+    by_path["entry_surface"] = entry_surface_phase(
+        lgb, counters, ds, X, y, z, ds_small, dv_small, (Xs, ys, Xv, yv),
+        head_ref, small_ref, card)
+    log(f"phase 23 {time.time() - t0:.1f} s")
 
     for e in entries:
         # a categorical entry counts its kernel's launches on the

@@ -13,7 +13,11 @@ given ``device="cpu"`` (or the ``device`` parameter); a ``cuda``
 card unless ``predict`` is given ``device=False``.  The model surface
 follows the JAX package's ``basic.py``: model files, the JSON dump,
 feature importance, rollback, refit, SHAP contributions (on the host),
-copies and pickles (which hold the model text, never tensors).
+copies and pickles (which hold the model text, never tensors).  A
+``Dataset`` made from a path loads a CSV, TSV or libsvm file with its
+side files (``io/loader.py``, through the native parser); custom
+objectives and evaluation functions see host numpy scores, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -50,7 +54,10 @@ def _data_to_numpy(data):
 
 
 class Dataset:
-    """Training data wrapper (numpy arrays or a pandas DataFrame).
+    """Training data wrapper (numpy arrays, a pandas DataFrame, or the
+    path of a CSV, TSV or libsvm file: ``io/loader.py:load_file``, whose
+    ``label_column``, ``has_header`` and the other file parameters come
+    from ``params``).
     ``categorical_feature`` lists column indices or names; ``"auto"``
     takes a DataFrame's ``category`` columns.  ``group`` gives the
     ranking queries: per-query sizes (or boundaries from 0), the rows of
@@ -72,9 +79,19 @@ class Dataset:
         self.params = dict(params or {})
         self.free_raw_data = free_raw_data
         self._constructed: Optional[BinnedDataset] = None
+        self.used_indices: Optional[np.ndarray] = None
 
     def construct(self) -> "Dataset":
         if self._constructed is not None:
+            return self
+        ref = (self.reference.construct()._constructed
+               if self.reference is not None else None)
+        if isinstance(self.data, str):
+            from .io.loader import load_file
+            cfg = Config.from_params(self.params)
+            self._constructed = load_file(self.data, cfg, reference=ref,
+                                          num_machines=cfg.num_machines)
+            self._apply_fields()
             return self
         X, pd_info = _data_to_numpy(self.data)
         names = pd_info["names"] if pd_info is not None else None
@@ -86,20 +103,23 @@ class Dataset:
                    else int(c) for c in self.categorical_feature]
         if isinstance(self.feature_name, (list, tuple)):
             names = list(self.feature_name)
-        ref = (self.reference.construct()._constructed
-               if self.reference is not None else None)
         self._constructed = BinnedDataset.from_raw(
             X, Config.from_params(self.params), categorical_features=cat,
             feature_names=names, reference=ref, metadata=Metadata())
+        self._apply_fields()
+        if self.free_raw_data:
+            self.data = None
+        return self
+
+    def _apply_fields(self) -> None:
+        """The label, weights, groups and init scores given to the
+        constructor override those a file brought."""
         md = self._constructed.metadata
         if self.label is not None:
             md.set_field("label", np.asarray(self.label).reshape(-1))
         for name in ("weight", "group", "init_score"):
             if getattr(self, name) is not None:
                 md.set_field(name, getattr(self, name))
-        if self.free_raw_data:
-            self.data = None
-        return self
 
     def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None, params=None) -> "Dataset":
@@ -108,13 +128,18 @@ class Dataset:
                        group=group, init_score=init_score,
                        params=params or self.params)
 
-    def subset(self, used_indices) -> "Dataset":
-        """The rows ``used_indices`` of this set, binned as this set is."""
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows ``used_indices`` of this set, binned as this set is;
+        ``used_indices`` is kept on the subset, and ``params`` replace
+        its parameters when given."""
         self.construct()
         sub = Dataset.__new__(Dataset)
         sub.__dict__.update(self.__dict__)
         sub._constructed = self._constructed.subset(np.asarray(used_indices))
+        sub.used_indices = np.asarray(used_indices)
         sub.reference = self
+        if params is not None:
+            sub.params = dict(params)
         return sub
 
     def set_field(self, name, data) -> None:
@@ -187,6 +212,8 @@ class Booster:
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
         self._serve_cache: Dict[tuple, Any] = {}
+        self._valid_sets: List[Dataset] = []
+        self._name_valid_sets: List[str] = []
         cfg = Config.from_params(self.params)
         self.device = str(device or cfg.device)
         self._train_dataset = train_set
@@ -213,6 +240,8 @@ class Booster:
                           self.device)
         self._gbdt.load_model_from_string(text, keep_feature_infos=copy)
         self._serve_cache = {}
+        self._valid_sets = []
+        self._name_valid_sets = []
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Score ``data`` (binned with the training set's mappers: make it
@@ -221,11 +250,22 @@ class Booster:
         Booster's device."""
         data.construct()
         self._gbdt.add_valid(data._constructed, name)
+        self._valid_sets.append(data)
+        self._name_valid_sets.append(name)
         return self
 
-    def update(self) -> bool:
-        """One boosting iteration; True when no split was possible."""
-        return self._gbdt.train_one_iter()
+    def update(self, train_set=None, fobj=None) -> bool:
+        """One boosting iteration; True when no split was possible.  With
+        ``fobj(scores, train_dataset) -> (grad, hess)``, or a callable
+        ``objective`` parameter, the gradients come from it
+        (``GBDT.custom_gradients``: host numpy scores, class-major when
+        K > 1).  ``train_set`` is accepted and unused, as in the JAX
+        package."""
+        fobj = fobj or self._gbdt.config.extra.get("fobj")
+        if fobj is None:
+            return self._gbdt.train_one_iter()
+        grad, hess = self._gbdt.custom_gradients(fobj, self._train_dataset)
+        return self._gbdt.train_one_iter(grad, hess)
 
     def rollback_one_iter(self) -> "Booster":
         """Drop the last iteration's trees, and their outputs from the
@@ -234,16 +274,37 @@ class Booster:
         self._serve_cache = {}
         return self
 
-    def eval_train(self):
+    def eval_train(self, feval=None):
         """``[(name, metric, value, higher_is_better)]`` on the training
-        set."""
+        set; then ``feval``'s, when given."""
         name = getattr(self, "_train_data_name", "training")
-        return [(name, m, v, h) for _, m, v, h in self._gbdt.eval_train()]
+        out = [(name, m, v, h) for _, m, v, h in self._gbdt.eval_train()]
+        if feval is not None:
+            out.extend(self._custom_eval(feval, name, self._train_dataset,
+                                         self._gbdt.scores))
+        return out
 
-    def eval_valid(self):
+    def eval_valid(self, feval=None):
         """``[(name, metric, value, higher_is_better)]`` on every valid
-        set."""
-        return self._gbdt.eval_valid()
+        set; then ``feval``'s on each, when given."""
+        out = self._gbdt.eval_valid()
+        if feval is not None:
+            for i, vs in enumerate(self._valid_sets):
+                out.extend(self._custom_eval(
+                    feval, self._name_valid_sets[i], vs,
+                    self._gbdt._valid_scores[i]))
+        return out
+
+    @staticmethod
+    def _custom_eval(feval, name, dataset, scores):
+        """``feval(scores, dataset)`` on host numpy scores (``[n]``, or
+        ``[n, K]`` when K > 1, as the JAX package passes them) -> one
+        ``(metric, value, higher_is_better)`` or a list of them."""
+        s = scores.cpu().numpy()
+        res = feval(s if s.shape[1] > 1 else s[:, 0], dataset)
+        if isinstance(res, tuple):
+            res = [res]
+        return [(name, mn, mv, hib) for mn, mv, hib in res]
 
     def current_iteration(self) -> int:
         return self._gbdt.iter

@@ -162,8 +162,9 @@ def check_unported_options(c: Config, streamed: bool = False) -> None:
     alike, and (``streamed``) the ones only the in-memory loop reads."""
     if c.input_model:
         raise NotImplementedError(
-            f"input_model={c.input_model!r}: continued training from a "
-            f"model file is not ported yet (ROADMAP A7)")
+            f"input_model={c.input_model!r}: the parameter is read by the "
+            f"command-line application, which is not ported yet (ROADMAP "
+            f"A14, second half); pass init_model= to train")
     if c.telemetry_output:
         raise NotImplementedError(
             f"telemetry_output={c.telemetry_output!r}: the telemetry "
@@ -229,11 +230,11 @@ class GBDT:
         self.feature_names = train_set.feature_names
         self.max_feature_idx = train_set.num_total_features - 1
         self.objective = create_objective(c)
-        if self.objective is None:
-            raise NotImplementedError("custom objectives")
-        self.objective.init(train_set.metadata, n, self.device)
-        K = self.num_tree_per_iteration = \
-            self.objective.num_model_per_iteration
+        if self.objective is not None:
+            self.objective.init(train_set.metadata, n, self.device)
+            self.num_tree_per_iteration = \
+                self.objective.num_model_per_iteration
+        K = self.num_tree_per_iteration
         scores = np.zeros((n, K), np.float32)
         ms = train_set.metadata.init_score
         if ms is not None:
@@ -242,7 +243,7 @@ class GBDT:
             # init_score to the f32 score dtype, not an accumulation
             scores = np.asarray(ms, np.float64).reshape(
                 -1, K, order="F").astype(np.float32)
-        elif c.boost_from_average:
+        elif c.boost_from_average and self.objective is not None:
             v = self.objective.boost_from_score()
             if v != 0.0:
                 self.init_score_value = v
@@ -350,11 +351,33 @@ class GBDT:
         """(grad, hess), each ``[n, K]`` (reference Boosting())."""
         return self.objective.get_gradients_k(self.scores)
 
-    def train_one_iter(self) -> bool:
-        """One boosting iteration (reference TrainOneIter).  Returns True
+    def custom_gradients(self, fobj, dataset
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``fobj(scores, dataset) -> (grad, hess)`` on the host, as the
+        JAX package calls it (``gbdt.py:704-716``): the scores come to the
+        host, flattened class-major (``[n * K]``, class k's rows together)
+        when K > 1, ``[n]`` otherwise; a 1-D grad or hess is read
+        class-major the same way, a 2-D one as ``[n, K]``.  Each becomes
+        an f32 ``[n, K]`` tensor on this booster's device in one copy."""
+        K = self.num_tree_per_iteration
+        s = self.scores.cpu().numpy()
+        g, h = fobj(s.reshape(-1, order="F") if K > 1 else s[:, 0], dataset)
+
+        def dev(a):
+            a = np.asarray(a, np.float32)
+            a = a.reshape(-1, K, order="F") if a.ndim == 1 else a.reshape(
+                -1, K)
+            return torch.as_tensor(a, device=self.device)
+        return dev(g), dev(h)
+
+    def train_one_iter(self, grad: Optional[torch.Tensor] = None,
+                       hess: Optional[torch.Tensor] = None) -> bool:
+        """One boosting iteration (reference TrainOneIter), on the
+        objective's gradients or the given ``[n, K]`` ones.  Returns True
         when training should stop: the K trees are all stumps (no split
         meets the requirements), and the iteration is dropped."""
-        grad, hess = self.gradients()
+        if grad is None or hess is None:
+            grad, hess = self.gradients()
         K = self.num_tree_per_iteration
         bag = self._bagging_mask(self.iter)
         trees = []
@@ -391,7 +414,7 @@ class GBDT:
         ``serial_tree_learner.cpp:592-622``): each leaf of the tree takes
         the objective's percentile of its rows' residuals against class
         k's scores."""
-        if not self.objective.need_renew_tree_output:
+        if not self._renews():
             return bt
         L = self.growth.num_leaves
         new = self.objective.renew_tree_output(self.scores[:, k],
@@ -400,6 +423,10 @@ class GBDT:
             torch.arange(L, device=self.device) < bt.num_leaves,
             new.to(torch.float32), bt.leaf_value)
         return bt
+
+    def _renews(self) -> bool:
+        return (self.objective is not None
+                and self.objective.need_renew_tree_output)
 
     def _update_scores(self, bt: BuiltTree, k: int, depth: int) -> None:
         """Add the shrunk kernel-emitted per-row leaf values: one fused
@@ -412,7 +439,7 @@ class GBDT:
         update)."""
         lr = torch.tensor(self.shrinkage_rate, dtype=torch.float32,
                           device=self.device)
-        if self.objective.need_renew_tree_output:
+        if self._renews():
             self.scores[:, k] += lr * bt.leaf_value[bt.row_leaf.long()]
         else:
             self.scores[:, k].add_(bt.row_value, alpha=self.shrinkage_rate)
@@ -426,6 +453,32 @@ class GBDT:
         return predict_built_tree(
             replay_tables(tree, dd.max_bins, self.device), dd,
             tree.max_depth)
+
+    def merge_from(self, other: "GBDT") -> None:
+        """Put deep copies of ``other``'s trees in front of this booster's
+        (reference ``GBDT::MergeFrom``, ``gbdt.h:50-67``; the JAX
+        package's ``merge_from``): iteration numbering continues after
+        them, and each one's replay on the device is added, in tree
+        order, to the training and valid scores.  ``other``'s trees must
+        be bin-aligned to this booster's training set
+        (``Tree.align_with_mappers``).  The scores keep what they held:
+        a booster made with ``boost_from_average`` holds the average
+        already, and the first merged tree carries its own bias too, as
+        in the JAX package (ROADMAP C23)."""
+        import copy
+        if other.num_tree_per_iteration != self.num_tree_per_iteration:
+            raise ValueError("cannot merge boosters with different "
+                             "num_tree_per_iteration")
+        new = [copy.deepcopy(t) for t in other.models]
+        self.models = new + list(self.models)
+        K = max(1, self.num_tree_per_iteration)
+        self.iter = len(self._host_models) // K
+        if self.train_set is None:
+            return
+        for j, tree in enumerate(new):
+            self.scores[:, j % K] += self._replay(tree, self.device_data)
+            for vd, score in zip(self._valid_device, self._valid_scores):
+                score[:, j % K] += self._replay(tree, vd)
 
     def rollback_one_iter(self) -> None:
         """Reference RollbackOneIter (``gbdt.cpp:474-490``): drop the last

@@ -1,5 +1,5 @@
 """Training callbacks (reference python-package/lightgbm/callback.py:49-215):
-print_evaluation, record_evaluation, early_stopping.
+print_evaluation, record_evaluation, reset_parameter, early_stopping.
 
 Copied from the JAX package's ``callback.py`` (which imports no JAX);
 early stopping keeps its state on the booster as the JAX package's
@@ -49,6 +49,32 @@ def record_evaluation(eval_result: Dict) -> Callable:
             eval_result[name].setdefault(metric, [])
             eval_result[name][metric].append(val)
     _callback.order = 20
+    return _callback
+
+
+def reset_parameter(**kwargs) -> Callable:
+    """Reset parameters before each iteration (the JAX package's
+    ``callback.py:50-69``): each value is a list as long as the run (the
+    iteration's entry) or a function of the iteration (counted from the
+    run's first).  A new ``learning_rate`` sets ``GBDT.shrinkage_rate``,
+    which the iteration's trees and score update take; the other keys
+    only update ``env.params``."""
+    def _callback(env: CallbackEnv) -> None:
+        i = env.iteration - env.begin_iteration
+        new_params = {}
+        for key, value in kwargs.items():
+            if isinstance(value, list):
+                if len(value) != env.end_iteration - env.begin_iteration:
+                    raise ValueError(
+                        f"length of list {key!r} must equal num_boost_round")
+                new_params[key] = value[i]
+            elif callable(value):
+                new_params[key] = value(i)
+        if "learning_rate" in new_params:
+            env.model._gbdt.shrinkage_rate = new_params["learning_rate"]
+        env.params.update(new_params)
+    _callback.before_iteration = True
+    _callback.order = 10
     return _callback
 
 

@@ -1,16 +1,36 @@
-"""Text-file helpers of the shard store's ingest (a copy of part of the
-JAX package's ``io/loader.py``): format detection, the raw row count
-and the column plan (label / weight / group / ignore / categorical
-columns).  File input through ``Dataset`` is not ported yet
-(ROADMAP A4).
+"""Text dataset loading: CSV, TSV and libsvm files with their side files
+(a copy of the JAX package's ``io/loader.py``, under its function
+names).
+
+Counterpart of the reference ``DatasetLoader`` + ``Parser``
+(``src/io/dataset_loader.cpp:159-219``, ``src/io/parser.cpp``): format
+detection, ``label_column`` / ``weight_column`` / ``group_column`` /
+``ignore_column`` / ``categorical_column`` (an index ``N`` or
+``name:<column>``, with ``has_header``), the side files ``.weight``,
+``.query`` and ``.init`` (``src/io/metadata.cpp``), the ``.bin.npz``
+binary cache (``BinnedDataset.save_binary`` / ``load_binary``), and
+two-round loading (``use_two_round_loading``: bounded chunks of the
+native parser, binned chunk by chunk, so the raw float64 matrix never
+exists).  Values are parsed into float64 and stay float64 up to
+binning, so a model trained from a file equals one trained from the
+same array.  Parsing runs through the native parser (``native/``);
+without it, through numpy.  The shard store's ingest
+(``io/outofcore.py``) shares the format detection, the row count and
+the column plan.  Distributed loading (``num_machines > 1``) is not
+ported (ROADMAP A11): those arguments are accepted and raise.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import os
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..config import Config
+from ..utils.file_io import localize, release
+from ..utils.log import log_info, log_warning
+from .dataset import BinnedDataset, Metadata, find_mappers_from_sample
 
 
 def detect_format(path: str, has_header: bool) -> str:
@@ -63,7 +83,7 @@ def _parse_multi_spec(spec: str, header_names) -> List[int]:
     return [int(s) for s in spec.replace(";", ",").split(",") if s != ""]
 
 
-def column_plan(ncol: int, config: Config, header_names):
+def _column_plan(ncol: int, config: Config, header_names):
     """Row-independent column bookkeeping of a delimited file: -> (label
     index, weight index, group index, kept columns, feature names,
     categorical columns among the kept ones)."""
@@ -118,3 +138,308 @@ def raw_data_row_count(path: str, skip: int) -> int:
     if pending:
         n += 1                      # an unterminated final line
     return n - skip
+
+
+def _single_machine(num_machines: int) -> None:
+    if num_machines > 1:
+        raise NotImplementedError(
+            f"num_machines={num_machines}: distributed file loading is not "
+            f"ported yet (ROADMAP A11)")
+
+
+def parse_file(path: str, config: Config
+               ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray],
+                          Optional[np.ndarray], List[str], List[int]]:
+    """-> (X float64, label float32, inline weight, inline query ids,
+    feature names, categorical columns among X's)."""
+    return _parse_file(path, config)
+
+
+def _parse_file(path: str, config: Config):
+    path = localize(path)              # a registered scheme -> a temp copy
+    fmt = detect_format(path, config.has_header)
+    header_names: Optional[List[str]] = None
+    skip = 0
+    if config.has_header:
+        with open(path) as f:
+            first = f.readline().rstrip("\n")
+        sep = {"csv": ",", "tsv": "\t", "libsvm": " "}[fmt]
+        header_names = first.split(sep)
+        skip = 1
+
+    weight_inline = None
+    query_inline = None
+    if fmt == "libsvm":
+        got = native.parse_libsvm(path, skip)
+        X, label = got if got is not None else _parse_libsvm(path, skip)
+        feature_names = [f"Column_{i}" for i in range(X.shape[1])]
+        cat_cols: List[int] = []
+    else:
+        sep = "," if fmt == "csv" else "\t"
+        raw = native.parse_delimited(path, sep, skip)
+        if raw is None:
+            raw = np.genfromtxt(path, delimiter=sep, skip_header=skip,
+                                dtype=np.float64)
+        if raw.ndim == 1:
+            raw = raw.reshape(-1, 1)
+        label_idx, weight_idx, query_idx, keep, feature_names, cat_cols = \
+            _column_plan(raw.shape[1], config, header_names)
+        if weight_idx is not None:
+            weight_inline = raw[:, weight_idx].astype(np.float32)
+        if query_idx is not None:
+            query_inline = raw[:, query_idx]
+        label = raw[:, label_idx].astype(np.float32)
+        X = raw[:, keep]
+    release(path)                      # free a localized copy now
+    return X, label, weight_inline, query_inline, feature_names, cat_cols
+
+
+def _parse_libsvm(path: str, skip: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy path of a libsvm file: ``(X [rows, max index + 1]
+    float64, labels float32)``; absent entries are 0."""
+    labels: List[float] = []
+    rows: List[List[Tuple[int, float]]] = []
+    max_idx = -1
+    with open(path) as f:
+        for i, line in enumerate(f):
+            if i < skip:
+                continue
+            line = line.strip()
+            if not line:
+                continue
+            toks = line.split()
+            labels.append(float(toks[0]))
+            feats = []
+            for tok in toks[1:]:
+                if ":" not in tok:
+                    continue
+                k, v = tok.split(":", 1)
+                idx = int(k)
+                feats.append((idx, float(v)))
+                max_idx = max(max_idx, idx)
+            rows.append(feats)
+    X = np.zeros((len(rows), max_idx + 1), np.float64)
+    for r, feats in enumerate(rows):
+        for idx, v in feats:
+            X[r, idx] = v
+    return X, np.asarray(labels, np.float32)
+
+
+def load_file_two_round(path: str, config: Config, rank: int = 0,
+                        num_machines: int = 1,
+                        allgather=None) -> BinnedDataset:
+    """Two-round low-memory ingest (reference ``dataset_loader.cpp:698-742``
+    + ``utils/pipeline_reader.h:26+``) through the native chunk parser:
+    round 1 streams bounded chunks and keeps the bin-finding sample (the
+    row count from a raw scan, so the sample indices are the in-memory
+    path's draw and the mappers are byte-identical); round 2 streams
+    again and bins each chunk straight into the column store.  Peak
+    memory is the binned matrix plus one chunk.  libsvm chunks arrive
+    as ``[rows, 1 + F]``, the label in column 0, so the delimited column
+    plan applies unchanged."""
+    _single_machine(num_machines)
+    path = localize(path)
+    fmt = detect_format(path, config.has_header)
+    header_names = None
+    skip = 1 if config.has_header else 0
+    chunk_bytes = 4 << 20              # about 4 MB of text per chunk
+    if fmt == "libsvm":
+        scanned = native.scan_libsvm(path, skip)
+        if scanned is None:
+            raise ValueError("native libsvm scan failed")
+        n, fcols = scanned
+
+        def chunk_stream():
+            return native.parse_libsvm_chunks(path, skip, fcols,
+                                              chunk_bytes=chunk_bytes)
+    else:
+        sep = {"csv": ",", "tsv": "\t"}[fmt]
+        if config.has_header:
+            with open(path) as f:
+                header_names = f.readline().rstrip("\n").split(sep)
+        n = raw_data_row_count(path, skip)
+
+        def chunk_stream():
+            return native.parse_delimited_chunks(path, sep, skip,
+                                                 chunk_bytes=chunk_bytes)
+    if n <= 0:
+        raise ValueError(f"no data rows in {path!r}")
+    sample_cnt = min(n, config.bin_construct_sample_cnt)
+    rng = np.random.RandomState(config.data_random_seed)
+    sample_idx = (np.arange(n) if sample_cnt >= n
+                  else np.sort(rng.choice(n, sample_cnt, replace=False)))
+
+    # round 1: stream the chunks, keep only the sampled rows
+    sample_rows = []
+    base = 0
+    plan = None
+    for chunk in chunk_stream():
+        if plan is None:
+            plan = _column_plan(chunk.shape[1], config, header_names)
+        lo = np.searchsorted(sample_idx, base)
+        hi = np.searchsorted(sample_idx, base + len(chunk))
+        if hi > lo:
+            sample_rows.append(chunk[sample_idx[lo:hi] - base])
+        base += len(chunk)
+    if base != n:
+        raise ValueError(
+            f"chunked parse saw {base} rows, raw scan counted {n}")
+    label_idx, weight_idx, query_idx, keep, names, cat_cols = plan
+    sample = np.concatenate(sample_rows)[:, keep]
+    mappers = find_mappers_from_sample(sample, config, set(cat_cols))
+    del sample, sample_rows
+    used = [f for f in range(len(keep)) if not mappers[f].is_trivial]
+
+    # round 2: bin each chunk into the column store, in the dtype
+    # _pack_columns would choose, so an unbundled matrix is adopted as is
+    max_nb = max((mappers[f].num_bin for f in used), default=2)
+    prebinned = np.zeros((n, len(used)),
+                         np.uint8 if max_nb <= 256 else np.int32)
+    label = np.zeros(n, np.float32)
+    weight = np.zeros(n, np.float32) if weight_idx is not None else None
+    query = np.zeros(n, np.float64) if query_idx is not None else None
+    base = 0
+    for chunk in chunk_stream():
+        m = len(chunk)
+        label[base:base + m] = chunk[:, label_idx]
+        if weight is not None:
+            weight[base:base + m] = chunk[:, weight_idx]
+        if query is not None:
+            query[base:base + m] = chunk[:, query_idx]
+        for j, f in enumerate(used):
+            prebinned[base:base + m, j] = mappers[f].value_to_bin(
+                chunk[:, keep[f]])
+        base += m
+    release(path)
+
+    md = Metadata()
+    md.set_field("label", label)
+    if weight is not None:
+        md.set_field("weight", weight)
+    if query is not None:
+        md.query_boundaries = _query_boundaries(query)
+    ds = BinnedDataset()
+    ds.config = config
+    ds.num_total_features = len(keep)
+    ds.feature_names = names
+    ds.mappers = mappers
+    ds.used_features = used
+    cols = [prebinned[:, j] for j in range(len(used))]
+    ds = BinnedDataset._finish_from_mappers(
+        ds, np.zeros((n, 0)), config, md, n, len(keep), cols=cols,
+        packed=prebinned)
+    log_info(f"two-round loading: {n} rows streamed, peak holds the "
+             f"binned store only")
+    return ds
+
+
+def _query_boundaries(query_ids: np.ndarray) -> np.ndarray:
+    """A group column: consecutive equal ids form one query."""
+    change = np.nonzero(np.diff(query_ids))[0] + 1
+    return np.concatenate([[0], change, [len(query_ids)]]).astype(np.int32)
+
+
+def load_raw_matrix(path: str, has_header: bool = False
+                    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """A prediction input file -> ``(X, label or None)``, with the
+    training files' format detection and label column (reference
+    ``predictor.hpp:115+`` reuses the training parser, so column 0 or
+    the libsvm label is not a feature)."""
+    cfg = Config.from_params({"has_header": has_header})
+    X, label, _, _, _, _ = parse_file(path, cfg)
+    return X, label
+
+
+def _load_side_file(path: str, dtype=np.float32) -> Optional[np.ndarray]:
+    """A side file's values, flat, or None when there is none."""
+    try:
+        local = localize(path)
+    except FileNotFoundError:
+        return None
+    if not os.path.exists(local):
+        return None
+    try:
+        return np.loadtxt(local, dtype=dtype).reshape(-1)
+    finally:
+        release(local)
+
+
+def load_file(path: str, config: Config,
+              reference: Optional[BinnedDataset] = None,
+              rank: int = 0, num_machines: int = 1,
+              allgather=None) -> BinnedDataset:
+    """A text file -> ``BinnedDataset`` (reference
+    ``DatasetLoader::LoadFromFile``, ``dataset_loader.cpp:159-219``):
+    the binary cache ``<path>.bin.npz`` when it is newer than the file
+    (``enable_load_from_binary_file``), two-round loading when asked
+    for, else a whole parse; then the side files, and binning (with
+    ``reference``'s mappers for a valid set).  ``is_save_binary_file``
+    writes the cache.  ``rank`` / ``num_machines`` / ``allgather`` are
+    the JAX package's distributed arguments: ``num_machines > 1``
+    raises (ROADMAP A11)."""
+    _single_machine(num_machines)
+    return _load_file(path, config, reference)
+
+
+def _side_files(path: str, md: Metadata) -> None:
+    """``.weight``, ``.init`` and ``.query`` beside ``path`` into
+    ``md`` (reference ``metadata.cpp`` LoadWeights / LoadInitialScore /
+    LoadQueryBoundaries)."""
+    w = _load_side_file(path + ".weight")
+    if w is not None:
+        md.set_field("weight", w)
+    init = _load_side_file(path + ".init", np.float64)
+    if init is not None:
+        md.set_field("init_score", init)
+    q = _load_side_file(path + ".query", np.int64)
+    if q is not None:
+        md.set_field("group", q.astype(np.int32))
+
+
+def _load_file(path: str, config: Config,
+               reference: Optional[BinnedDataset]) -> BinnedDataset:
+    bin_path = path + ".bin.npz"
+    is_local = "://" not in path
+    if (config.enable_load_from_binary_file and reference is None
+            and is_local and os.path.exists(bin_path)
+            and os.path.getmtime(bin_path) >= os.path.getmtime(path)):
+        log_info(f"loading binary cache {bin_path}")
+        return BinnedDataset.load_binary(bin_path)
+
+    if config.use_two_round_loading:
+        if reference is not None:
+            log_warning("use_two_round_loading is ignored for aligned "
+                        "valid sets; using the in-memory path")
+        elif native.available():
+            local = localize(path)
+            try:
+                ds = load_file_two_round(local, config)
+            finally:
+                release(local)
+            _side_files(path, ds.metadata)
+            if config.is_save_binary_file and is_local:
+                ds.save_binary(bin_path[:-4])
+                log_info(f"saved binary cache {bin_path}")
+            return ds
+        else:
+            log_warning("use_two_round_loading needs the native parser; "
+                        "falling back to in-memory loading")
+
+    X, label, weight, query_inline, feature_names, cat_cols = \
+        parse_file(path, config)
+    md = Metadata()
+    md.set_field("label", label)
+    if weight is not None:
+        md.set_field("weight", weight)
+    if query_inline is not None:
+        md.query_boundaries = _query_boundaries(query_inline)
+    _side_files(path, md)
+    if reference is not None:
+        return BinnedDataset.from_raw(X, config, reference=reference,
+                                      metadata=md)
+    ds = BinnedDataset.from_raw(X, config, categorical_features=cat_cols,
+                                feature_names=feature_names, metadata=md)
+    if config.is_save_binary_file:
+        ds.save_binary(bin_path[:-4])
+        log_info(f"saved binary cache {bin_path}")
+    return ds

@@ -40,7 +40,7 @@ from ..utils.file_io import atomic_write, localize, release
 from ..utils.log import log_info, log_warning
 from .binning import BIN_NUMERICAL, BinMapper
 from .dataset import BinnedDataset, Metadata, find_mappers_from_sample
-from .loader import column_plan, detect_format, raw_data_row_count
+from .loader import _column_plan, detect_format, raw_data_row_count
 
 STORE_VERSION = 1
 MANIFEST = "manifest.json"
@@ -105,9 +105,9 @@ def _file_plan(path: str, config: Config):
     fmt = detect_format(path, config.has_header)
     if fmt == "libsvm":
         raise ValueError(
-            f"out-of-core ingest of libsvm sources ({path!r}) needs the "
-            "native parser, which lightgbm_tpu_torch does not have: "
-            "convert the file to CSV or TSV")
+            f"out-of-core ingest of libsvm sources ({path!r}) is not "
+            "ported yet (ROADMAP A10): convert the file to CSV or TSV, or "
+            "load it in memory with Dataset(path)")
     sep = {"csv": ",", "tsv": "\t"}[fmt]
     skip = 1 if config.has_header else 0
     header_names = None
@@ -143,7 +143,7 @@ def find_mappers_multi(files: List[str], config: Config
     from ``find_mappers_from_sample``.
 
     -> (mappers, used_features, feature_names, num_total_features,
-        per_file_rows, column_plan)"""
+        per_file_rows, _column_plan)"""
     plans = [_file_plan(p, config) for p in files]
     rows = [pl[3] for pl in plans]
     n = int(sum(rows))
@@ -161,7 +161,7 @@ def find_mappers_multi(files: List[str], config: Config
         seen = 0
         for chunk in stream():
             if plan is None:
-                plan = column_plan(chunk.shape[1], config, header_names)
+                plan = _column_plan(chunk.shape[1], config, header_names)
             lo = np.searchsorted(sample_gidx, base + seen)
             hi = np.searchsorted(sample_gidx, base + seen + len(chunk))
             if hi > lo:

@@ -855,3 +855,53 @@ def test_cuda_kill_and_resume_byte_identical(cuda_device, tmp_path):
     b = run(tmp_path / "B.txt", resume_from=str(tmp_path / "B.txt"))
     assert b.model_to_string() == a.model_to_string()
     assert b.digest() == a.digest()
+
+
+def _entry_data(n=40_000, seed=9):
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, 8)).astype(np.float32)
+    z = (X[:, 0] * 2 + X[:, 1] - X[:, 2] + rng.normal(size=n)).astype(
+        np.float32)
+    return X, z
+
+
+@pytest.mark.cuda
+def test_cuda_sklearn_classifier_is_train(cuda_device):
+    """``LGBMClassifier`` on the card trains ``lgb.train``'s model with the
+    parameters it maps to (digest with scores), and ``predict_proba``'s
+    positive column is ``Booster.predict`` bitwise."""
+    import lightgbm_tpu_torch as tlgb
+    X, z = _entry_data()
+    y = (z > 0).astype(np.float32)
+    launched = t_hist.hist_route_raw.launches
+    clf = tlgb.LGBMClassifier(n_estimators=6, num_leaves=63, max_bin=63,
+                              verbose=-1, device=cuda_device.type).fit(X, y)
+    assert t_hist.hist_route_raw.launches > launched
+    params = {"objective": "binary", "num_leaves": 63, "max_bin": 63,
+              "verbose": -1, "bin_construct_sample_cnt": 200000,
+              "min_sum_hessian_in_leaf": 1e-3, "min_data_in_leaf": 20}
+    ref = tlgb.train(params, tlgb.Dataset(X, label=y), 6,
+                     verbose_eval=False, device=cuda_device)
+    assert clf.booster_.digest() == ref.digest()
+    np.testing.assert_array_equal(clf.predict_proba(X)[:, 1],
+                                  ref.predict(X))
+
+
+@pytest.mark.cuda
+def test_cuda_fobj_l2_is_builtin_regression(cuda_device):
+    """An L2 ``fobj`` on the card trains the built-in ``regression``
+    model bitwise, scores included (both without ``boost_from_average``)."""
+    import lightgbm_tpu_torch as tlgb
+    X, z = _entry_data()
+
+    def l2(score, dataset):
+        return score - dataset.get_label(), np.ones_like(score)
+
+    params = {"num_leaves": 63, "max_bin": 63, "verbose": -1,
+              "boost_from_average": False}
+    a = tlgb.train(dict(params, objective="regression"),
+                   tlgb.Dataset(X, label=z), 6, verbose_eval=False,
+                   device=cuda_device)
+    b = tlgb.train(dict(params), tlgb.Dataset(X, label=z), 6, fobj=l2,
+                   verbose_eval=False, device=cuda_device)
+    assert b.digest() == a.digest()

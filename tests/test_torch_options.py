@@ -1,12 +1,14 @@
 """Options the JAX package acts on and lightgbm_tpu_torch does not read
 yet raise, instead of training something else, each naming its ROADMAP
-item: ``input_model`` (continued training from a file, A7),
-``telemetry_output`` (the telemetry trace, A13) and a non-empty
+item: ``input_model`` (read by the command-line application, A14's
+second half; ``train`` takes ``init_model``), ``telemetry_output`` (the telemetry trace, A13) and a non-empty
 ``mesh_shape`` (the mesh path, A11) in memory (``lgb.train``) and
 streamed (``StreamTrainer``); ``snapshot_freq`` and ``resume_from``
 streamed only (streamed snapshots, A12).  In memory ``snapshot_freq``
 and ``resume_from`` work (``tests/test_torch_snapshot.py``), and so does
-``pred_early_stop`` (``tests/test_torch_model_surface.py``)."""
+``pred_early_stop`` (``tests/test_torch_model_surface.py``).
+``valid_data`` files, which only the command-line application reads,
+raise in ``lgb.train`` (A14's second half)."""
 import numpy as np
 import pytest
 import torch
@@ -37,7 +39,7 @@ def _stream(params, X, y):
 
 
 @pytest.mark.parametrize("option,match", [
-    ({"input_model": "model.txt"}, "A7"),
+    ({"input_model": "model.txt"}, "A14"),
     ({"telemetry_output": "trace.jsonl"}, "A13"),
     ({"mesh_shape": "2"}, "A11"),
 ], ids=["input_model", "telemetry_output", "mesh_shape"])
@@ -78,3 +80,11 @@ def test_lifted_option_trains_in_memory(option, tmp_path):
                      device="cpu")
     assert bst.current_iteration() == 2
     assert np.isfinite(bst.predict(X)).all()
+
+
+def test_valid_data_files_raise():
+    X, y = _data()
+    with pytest.raises(NotImplementedError, match="A14"):
+        tlgb.train(dict(BASE, valid_data="valid.csv"),
+                   tlgb.Dataset(X, label=y), num_boost_round=1,
+                   device="cpu")
