@@ -252,8 +252,39 @@ and the script exits non-zero):
    libsvm, with their valid rows: ``lgb.Dataset(path)`` trains the
    weighted array model and phase 5's model; the native parser
    (required) parses a 1,048,576-row x 28 CSV (MB/s, rows/s).
+24. boosting variants — on phase 4's rows and configuration: GOSS
+   (``top_rate`` 0.2, ``other_rate`` 0.1) 32 iterations; DART
+   (``drop_rate`` 0.1, ``max_drop`` 50, ``skip_drop`` 0.5, LightGBM's
+   defaults) 32 iterations, then the same with ``snapshot_freq`` 8
+   killed in its iteration-16 snapshot and resumed from 8 to 32: the
+   model text byte-identical to the uninterrupted run's, digest (scores
+   included) too; DART in ``xgboost_dart_mode`` 8 iterations; a random
+   forest (``bagging_freq`` 1, ``bagging_fraction`` 0.8) 32 iterations.
+   Each: K1-K4 launched and K6 not, digest, train AUC >= 0.93 (the
+   forest's averaged prediction), steady ms/iter (the host clock between
+   iterations after the first, synchronized), launches per tree, and its
+   prediction through the compiled model on the card (the forest's
+   ``average_output`` division included) within ``VARIANT_PRED_TOL`` of
+   the host walk on 20,000 rows; DART's per-iteration replay of the
+   dropped trees and host-tree conversion are timed.  Then GOSS on phase
+   5's configuration with its valid set and early stopping: K6 launched,
+   valid AUC >= 0.90 at ``best_iteration``;
+25. wide bins and deep trees — phase 4's rows binned at ``max_bin``
+   1023 (int32 bins, more than 256 bins a column): the exact-f32 wide
+   histogram at the 128-slot waves its trees take (a root wave with
+   every row in one slot, a mid-tree wave with bagged-out rows) and at
+   the 1,024-slot waves of a 2,048-leaf tree on the uint8 bins of phase
+   4, each bitwise its plain version on CPU copies (a sequential
+   ``index_add_`` in row order), timed beside an f32 ``index_add_`` of
+   the same cells on the card and its bound; K2 and K4 on int32 bins at
+   a 128-slot wave, bitwise their plain versions, timed as phase 3
+   times them; then ``lgb.train`` at ``max_bin`` 1023 and 255 leaves, 8
+   iterations (the wide histogram, K2 and K4 on int32 bins, no K1/K3),
+   and at 2,048 leaves on phase 4's set, 8 iterations (the wide
+   histogram, K2 and K4 on uint8 bins): train AUC >= 0.93, ms/iter, and
+   the wide model served binned (int32 rows) == raw on 20,000 rows.
 
-Each of phases 17-23 prints one ``{"phase": ...}`` JSON line.  A path's
+Each of phases 17-25 prints one ``{"phase": ...}`` JSON line.  A path's
 ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
 the per-iteration evaluation included.  The last lines are the kernel
@@ -409,6 +440,20 @@ CONTINUE_TOL = 1e-5
 # recursive summation); the card's scores of the same trees are one
 # more rounding (1 ulp) away
 F32_UNIT_ROUNDOFF = 2.0 ** -24
+# the boosting variants (phase 24): LightGBM's documented defaults for
+# GOSS and DART; a forest needs bagging
+VARIANT_GOSS = {"top_rate": 0.2, "other_rate": 0.1}
+VARIANT_DART = {"drop_rate": 0.1, "max_drop": 50, "skip_drop": 0.5}
+VARIANT_RF = {"bagging_freq": 1, "bagging_fraction": 0.8}
+VARIANT_DART_FREQ = 8
+VARIANT_XGB_ITERS = 8
+# the compiled prediction (f64 sums rounded to f32 once, then the link)
+# against the host walk (f64 throughout): a few f32 ulps of a probability
+VARIANT_PRED_TOL = 1e-6
+# wide bins and deep trees (phase 25)
+WIDE_MAX_BIN = 1023
+WIDE_DEEP_LEAVES = 2048
+WIDE_ITERS = 8
 # memory rate of one H100 SXM (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 # float32 rate outside the tensor cores of one H100 SXM (data sheet)
@@ -763,7 +808,8 @@ def moved_sectors(bins_t, leaf2, tabs):
     rl = leaf2[0].long()
     leaf = rl.clamp(min=0)
     rows = torch.nonzero((rl >= 0) & (tabs[T_SEL][leaf] != 0))[:, 0]
-    addr = tabs[T_GROUP][leaf[rows]].long() * n_pad + rows
+    addr = (tabs[T_GROUP][leaf[rows]].long() * n_pad + rows) \
+        * bins_t.element_size()
     return int(rows.numel()), int(torch.unique(addr // 32).numel())
 
 
@@ -828,7 +874,7 @@ def k2_measure(dd, leaf2, tabs, cat, int_rate: float) -> dict:
     import torch
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops.route import (
-        ROUTE_BLOCK, _route_grid, route_plain, route_rows_raw)
+        ROUTE_BLOCK, _route_grid, route_entry, route_plain, route_rows_raw)
     dev = dd.device
     n_pad = dd.n_pad
     L, B = cat.shape
@@ -838,11 +884,11 @@ def k2_measure(dd, leaf2, tabs, cat, int_rate: float) -> dict:
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
         raise AssertionError("route kernel != plain version")
-    lib = cuda_build.library("route")
+    fn = route_entry(cuda_build.library("route"), dd.bins_t, False)
     buf = torch.empty_like(leaf2)
 
     def k2_call(stream=torch.cuda.current_stream(dev).cuda_stream):
-        return lib.lgbm_route_rows(
+        return fn(
             dd.bins_t.data_ptr(), n_pad, leaf2.data_ptr(), buf.data_ptr(),
             tabs.data_ptr(), L, cat.data_ptr(), B, _route_grid(n_pad, dev),
             ROUTE_BLOCK, stream)
@@ -850,7 +896,8 @@ def k2_measure(dd, leaf2, tabs, cat, int_rate: float) -> dict:
     dev2 = graph_ms(lambda: k2_call(current_stream(dev)))
     plain2 = time_ms(lambda: route_plain(dd.bins_t, leaf2, tabs, cat), 5)
     moved_rows, sectors = moved_sectors(dd.bins_t, leaf2, tabs)
-    b2 = bound(16 * n_pad + moved_rows + tab_bytes, n_pad, int_rate)
+    b2 = bound(16 * n_pad + moved_rows * dd.bins_t.element_size()
+               + tab_bytes, n_pad, int_rate)
     sec2 = bound(16 * n_pad + 32 * sectors + tab_bytes, n_pad, int_rate)
     floor = launch_floor(_route_grid(n_pad, dev), ROUTE_BLOCK, dev)
     n_cat = int(tabs[3].sum())
@@ -1076,7 +1123,8 @@ def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
     import torch
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops.route import (
-        ROUTE_BLOCK, _route_grid, route_rows_values_raw, route_values_plain)
+        ROUTE_BLOCK, _route_grid, route_entry, route_rows_values_raw,
+        route_values_plain)
     dev = dd.device
     n_pad = dd.n_pad
     L, B = cat.shape
@@ -1085,12 +1133,12 @@ def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
     torch.cuda.synchronize()
     if not (torch.equal(out, ref) and torch.equal(v, rv)):
         raise AssertionError(f"route-values kernel != plain (L={L}, B={B})")
-    lib = cuda_build.library("route")
+    fn = route_entry(cuda_build.library("route"), dd.bins_t, True)
     buf = torch.empty_like(leaf2)
     vbuf = torch.empty(n_pad, dtype=torch.float32, device=dev)
 
     def call(stream=torch.cuda.current_stream(dev).cuda_stream):
-        return lib.lgbm_route_rows_values(
+        return fn(
             dd.bins_t.data_ptr(), n_pad, leaf2.data_ptr(), buf.data_ptr(),
             tabs.data_ptr(), L, cat.data_ptr(), B, lv.data_ptr(),
             vbuf.data_ptr(), _route_grid(n_pad, dev), ROUTE_BLOCK, stream)
@@ -1100,7 +1148,8 @@ def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
                                             lv), 5)
     moved_rows, sectors = moved_sectors(dd.bins_t, leaf2, tabs)
     tab_bytes = 11 * L * 4 + L * B + 4 * L
-    bd = bound(20 * n_pad + moved_rows + tab_bytes, n_pad, int_rate)
+    bd = bound(20 * n_pad + moved_rows * dd.bins_t.element_size()
+               + tab_bytes, n_pad, int_rate)
     sec = bound(20 * n_pad + 32 * sectors + tab_bytes, n_pad, int_rate)
     floor = launch_floor(_route_grid(n_pad, dev), ROUTE_BLOCK, dev)
     log(f"kernel route_values L={L} B={B} rows={dd.num_data} "
@@ -3581,6 +3630,323 @@ def file_phase(lgb, counters, total, tmp, small_rows, small):
     return out
 
 
+class IterClock:
+    """A callback that synchronizes the card after every iteration and
+    keeps the host clock: ``steady_ms`` is the mean of the iterations
+    after the first (setup and the first tree's warm-up excluded)."""
+
+    def __init__(self):
+        self.t = [time.perf_counter()]
+
+    def __call__(self, env):
+        import torch
+        torch.cuda.synchronize()
+        self.t.append(time.perf_counter())
+
+    @property
+    def steady_ms(self) -> float:
+        d = [b - a for a, b in zip(self.t[1:], self.t[2:])]
+        return 1e3 * sum(d) / max(1, len(d))
+
+
+def per_tree(launches: dict, trees: int) -> dict:
+    return {k: round(v / max(1, trees), 3) for k, v in launches.items() if v}
+
+
+def variant_path(lgb, name, counters, params, ds, X, y, rounds, **kw):
+    """One variant through ``lgb.train`` on the headline rows ->
+    ``(booster, fields)``: K1-K4 launched and K6 not, train AUC (the
+    card's compiled prediction) >= ``AUC_GATE``, the compiled
+    prediction within ``VARIANT_PRED_TOL`` of the host walk."""
+    import numpy as np
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    clock = IterClock()
+    bst, seconds, launches = train_path(lgb, name, counters, params, ds,
+                                        rounds, callbacks=[clock], **kw)
+    need(launches, ("route", "route_values", "hist_route", "hist_compact"),
+         name, absent=("split_scan",))
+    pred = bst.predict(X)
+    if pred.shape != (HEADLINE_ROWS,) or not np.isfinite(pred).all():
+        raise AssertionError(f"{name}: predictions are not finite [n]")
+    auc = binary_auc(y, pred)
+    if not auc >= AUC_GATE:
+        raise AssertionError(f"{name}: train auc {auc} < {AUC_GATE}")
+    host = bst.predict(X[:SERVE_SAMPLE], device=False)
+    gap = float(np.abs(pred[:SERVE_SAMPLE] - host).max())
+    if not gap <= VARIANT_PRED_TOL:
+        raise AssertionError(f"{name}: compiled prediction {gap} from the "
+                             f"host walk")
+    trees = bst.num_trees()
+    fields = dict(iterations=bst.current_iteration(), auc=auc,
+                  digest=bst.digest(include_scores=False),
+                  wall_ms_per_iter=1e3 * seconds / max(1, rounds),
+                  steady_ms_per_iter=clock.steady_ms,
+                  launches_per_tree=per_tree(launches, trees),
+                  served_vs_host=gap, launches=launches)
+    log(f"{name}: auc {auc:.5f}, steady {clock.steady_ms:.2f} ms/iter, "
+        f"digest {fields['digest'][:8]}, per tree "
+        f"{fields['launches_per_tree']}, served - host {gap:.2e}")
+    return bst, fields
+
+
+def variants_phase(lgb, counters, ds, X, y, ds_small, dv_small, small_xy,
+                   params, card: str) -> dict:
+    """Phase 24: GOSS, DART (resumed too), DART in xgboost mode and a
+    random forest on the headline, GOSS on the small-data path ->
+    launches."""
+    import numpy as np
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    total, out = {}, {}
+    goss = dict(params, boosting="goss", **VARIANT_GOSS)
+    _, out["goss"] = variant_path(lgb, "goss", counters, goss, ds, X, y,
+                                  HEADLINE_ITERS)
+    dart = dict(params, boosting="dart", **VARIANT_DART)
+    with CallTimes(GBDT, "_replay_sum") as replay, \
+            CallTimes(GBDT, "_to_host_tree") as to_host:
+        bst, out["dart"] = variant_path(lgb, "dart", counters, dart, ds, X,
+                                        y, HEADLINE_ITERS)
+    out["dart"].update(
+        replay_ms_per_iter=sum(replay.ms) / HEADLINE_ITERS,
+        replay_calls=len(replay.ms),
+        to_host_tree_ms_per_iter=sum(to_host.ms) / HEADLINE_ITERS)
+    log(f"dart: replay of the dropped trees {sum(replay.ms):.1f} ms in "
+        f"{len(replay.ms)} calls, host trees {sum(to_host.ms):.1f} ms "
+        f"over {HEADLINE_ITERS} iterations")
+    text = bst.model_to_string()
+    tmp = tempfile.mkdtemp(prefix="lgbm_dart_")
+    try:
+        sp = dict(dart, snapshot_freq=VARIANT_DART_FREQ,
+                  output_model=os.path.join(tmp, "dart.txt"))
+        rb, both, writes, resume_ms, _ = killed_and_resumed(
+            lgb, "dart", counters, sp, ds, HEADLINE_ITERS, 1,
+            VARIANT_DART_FREQ)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if rb.model_to_string() != text:
+        raise AssertionError("the resumed DART model text is not the "
+                             "uninterrupted run's")
+    if rb.digest() != bst.digest():
+        raise AssertionError("the resumed DART digest (scores included) "
+                             "is not the uninterrupted run's")
+    out["dart"].update(resumed_identical=True, snapshot_write_ms=writes,
+                       resume_ms=resume_ms)
+    add_launches(total, both)
+    log(f"dart: killed at {2 * VARIANT_DART_FREQ}, resumed from "
+        f"{VARIANT_DART_FREQ}: model text byte-identical")
+    xgb = dict(dart, xgboost_dart_mode=True)
+    _, out["dart_xgboost"] = variant_path(lgb, "dart xgboost_dart_mode",
+                                          counters, xgb, ds, X, y,
+                                          VARIANT_XGB_ITERS)
+    rf = dict(params, boosting="rf", **VARIANT_RF)
+    _, out["rf"] = variant_path(lgb, "rf", counters, rf, ds, X, y,
+                                HEADLINE_ITERS)
+    for f in out.values():
+        add_launches(total, f.pop("launches"))
+    evals = {}
+    clock = IterClock()
+    sb, _, small = train_path(
+        lgb, "goss small-data", counters, dict(TRAIN_CONF, boosting="goss",
+                                               **VARIANT_GOSS),
+        ds_small, SMALL_ITERS, valid_sets=[dv_small], valid_names=["valid"],
+        early_stopping_rounds=SMALL_EARLY_STOP, evals_result=evals,
+        verbose_eval=False, callbacks=[clock])
+    need(small, ("split_scan", "hist_route", "route_values"),
+         "goss small-data")
+    _, _, Xv, yv = small_xy
+    vauc = binary_auc(yv, sb.predict(Xv))
+    if not vauc >= VALID_AUC_GATE:
+        raise AssertionError(f"goss small-data valid auc {vauc}")
+    add_launches(total, small)
+    out["goss_small"] = dict(stop=sb.current_iteration(),
+                             best=sb.best_iteration, valid_auc=vauc,
+                             steady_ms_per_iter=clock.steady_ms,
+                             launches_per_tree=per_tree(small,
+                                                        sb.num_trees()))
+    log(f"goss small-data: stop {sb.current_iteration()}, best "
+        f"{sb.best_iteration}, valid auc {vauc:.5f}, steady "
+        f"{clock.steady_ms:.2f} ms/iter")
+    phase_line("variants", card, **out)
+    return total
+
+
+def wide_hist_case(dd, L: int, A: int, gen, skew: bool, bag: float = 0.8):
+    """A wave of the wide histogram on ``dd``: hist leaves over ``2 A``
+    leaves (``skew``: every row in leaf 0, the root wave), bagged-out
+    rows at -1, ``A`` slots two of them -1 (the root wave: one live);
+    gradients over eight decades."""
+    import torch
+    dev = dd.device
+    n, n_pad = dd.num_data, dd.n_pad
+    live = min(L, 2 * A)
+    leaf = (torch.zeros(n, dtype=torch.int32, device=dev) if skew else
+            torch.randint(0, live, (n,), generator=gen, device=dev).int())
+    hl = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+    keep = torch.rand(n, generator=gen, device=dev) < bag
+    hl[:n] = torch.where(keep, leaf, -1)
+    active = torch.full((A,), -1, dtype=torch.int32, device=dev)
+    if skew:
+        active[0] = 0
+    else:
+        active[:A - 2] = torch.randperm(live, generator=gen,
+                                        device=dev)[:A - 2].int()
+    mag = 10.0 ** (torch.rand(n, generator=gen, device=dev) * 8 - 5)
+    g = (torch.randn(n, generator=gen, device=dev) * mag).float()
+    h = (torch.rand(n, generator=gen, device=dev) * mag).float()
+    return g, h, hl, active
+
+
+def wide_hist_measure(dd, L: int, A: int, gen, skew: bool) -> dict:
+    """The wide histogram on one wave: the kernel bitwise its plain
+    version on CPU copies, its time, the plain version's (CPU), an f32
+    ``index_add_`` of the same (cell, column) updates on the card, and
+    the bound: each active row's bins and two values read once, every
+    hist leaf read once, the histogram written once."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (bin_stride, hist_wide_raw,
+                                                  wide_cells)
+    g, h, hl, active = wide_hist_case(dd, L, A, gen, skew)
+    mb = dd.group_max_bins
+    B = bin_stride(mb)
+    G, n_pad = dd.bins_t.shape
+    n = dd.num_data
+    got = hist_wide_raw(dd.bins_t, g, h, hl, active, L, mb)
+    cpu = [t.cpu() for t in (dd.bins_t, g, h, hl, active)]
+    t0 = time.perf_counter()
+    ref = hist_wide_raw(*cpu, L, mb)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    if not torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError(f"wide histogram != plain (A={A}, B={B}, "
+                             f"{dd.bins_t.dtype})")
+    ms = time_ms(lambda: hist_wide_raw(dd.bins_t, g, h, hl, active, L, mb),
+                 10)
+    rows, cells = wide_cells(dd.bins_t, hl, active, n, L, B)
+    vals = torch.stack([g[rows], h[rows], torch.ones_like(g[rows])], -1)
+    vals = vals[:, None, :].expand(-1, G, -1).reshape(-1, 3).contiguous()
+    acc = torch.zeros((A * G * B, 3), dtype=torch.float32, device=dd.device)
+    lib_ms = time_ms(lambda: acc.index_add_(0, cells, vals), 10)
+    r = int(rows.numel())
+    bb = dd.bins_t.element_size()
+    bd = bound(r * (G * bb + 8) + 4 * n_pad + A * G * B * 12,
+               3.0 * r * G, FP32_OPS_PER_S)
+    log(f"kernel hist_wide {dd.bins_t.dtype} A={A} B={B} G={G} "
+        f"({'root' if skew else 'mid-tree'} wave, {r} active rows): "
+        f"bitwise ok, {ms:.4f} ms (plain {plain_ms:.1f} ms on the CPU, "
+        f"index_add_ {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+        f"{bd['bound_by']})")
+    return dict(slots=A, bin_stride=B, bins=str(dd.bins_t.dtype),
+                wave="root" if skew else "mid-tree", active_rows=r, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, **bd)
+
+
+def wide_phase(lgb, counters, X, y, ds, params, card: str,
+               entries: list, dev="cuda") -> dict:
+    """Phase 25: the wide histogram, K2/K4 on int32 bins and K2/K4 at
+    2,048 leaves against their plain versions, then ``lgb.train`` at
+    ``max_bin`` 1023 and at 2,048 leaves -> launches."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.io.device import to_device
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    from lightgbm_tpu_torch.ops import cuda_build
+    from lightgbm_tpu_torch.serve import compile_model
+    t0 = time.time()
+    dsw = lgb.Dataset(X, label=y, params={"max_bin": WIDE_MAX_BIN})
+    dsw.construct()
+    log(f"wide: binning at max_bin {WIDE_MAX_BIN} {time.time() - t0:.1f} s")
+    ddw = to_device(dsw._constructed, dev)
+    if ddw.bins_t.dtype != torch.int32 or ddw.group_max_bins <= 256:
+        raise AssertionError("max_bin 1023 did not give int32 bins past "
+                             "256 bins")
+    dd = to_device(ds._constructed, dev)
+    int_rate = int32_ops_per_s(cuda_build.multiprocessor_count(dd.device))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    rows = [wide_hist_measure(ddw, 255, 128, gen, True),
+            wide_hist_measure(ddw, 255, 128, gen, False),
+            wide_hist_measure(dd, WIDE_DEEP_LEAVES, 1024, gen, True),
+            wide_hist_measure(dd, WIDE_DEEP_LEAVES, 1024, gen, False)]
+    entries.append(_widest(dict(
+        name="hist_wide", route="cuda",
+        source="lightgbm_tpu_torch/csrc/hist_wide.cu",
+        replaces="lightgbm_tpu/ops/pallas_histogram.py:588 (XLA scatter "
+                 "hist_active_scatter; no Pallas kernel)",
+        max_abs_err=0.0), [rows[0], rows[2], rows[3], rows[1]]))
+    leaf2, tabs, cat, _ = wave_inputs(ddw, 127, 64, 128, gen)
+    entries.append(dict(
+        name="route_i32", route="cuda",
+        source="lightgbm_tpu_torch/csrc/route.cu",
+        replaces="lightgbm_tpu/ops/pallas_route.py:360 (route_rows_xla)",
+        max_abs_err=0.0, **k2_measure(ddw, leaf2, tabs, cat, int_rate)))
+    lv = torch.randn(255, generator=gen, device=dev)
+    entries.append(dict(
+        name="route_values_i32", route="cuda",
+        source="lightgbm_tpu_torch/csrc/route.cu",
+        replaces="lightgbm_tpu/ops/pallas_route.py:168",
+        max_abs_err=0.0, **k4_measure(ddw, leaf2, tabs, cat, lv, int_rate)))
+    # K2/K4 on uint8 bins at the deep path's own tables: 2,048 leaves (the
+    # opt-in shared-memory launch past 48 KB), an early wave of 64 splits
+    # and the last wave of 1,024
+    Ld, half = WIDE_DEEP_LEAVES, WIDE_DEEP_LEAVES // 2
+    deep = {"route": [], "route_values": []}
+    for nl in (64, half):
+        leaf2, tabs, cat, _ = wave_inputs(dd, nl, nl, min(nl, half), gen, Ld)
+        deep["route"].append(dict(leaves=Ld, split_leaves=nl, **k2_measure(
+            dd, leaf2, tabs, cat, int_rate)))
+    lv = torch.randn(Ld, generator=gen, device=dev)
+    deep["route_values"].append(dict(leaves=Ld, split_leaves=half,
+                                     **k4_measure(dd, leaf2, tabs, cat, lv,
+                                                  int_rate)))
+    for e in entries:
+        if e["name"] in deep:
+            e["deep"] = deep[e["name"]]
+    log(f"K2/K4 at {Ld} leaves on uint8 bins: bitwise ok")
+    del dd, ddw
+    total, out = {}, {}
+    for name, p, data, need_k, absent in (
+            ("wide", dict(params, max_bin=WIDE_MAX_BIN), dsw,
+             ("hist_wide", "route_i32", "route_values_i32"),
+             ("hist_route", "hist_compact", "route", "route_values")),
+            ("deep", dict(params, num_leaves=WIDE_DEEP_LEAVES), ds,
+             ("hist_wide", "route", "route_values"),
+             ("hist_route", "hist_compact", "route_i32"))):
+        clock = IterClock()
+        bst, seconds, launches = train_path(
+            lgb, f"{name} ({p['max_bin']} bins, {p['num_leaves']} leaves)",
+            counters, p, data, WIDE_ITERS, callbacks=[clock])
+        need(launches, need_k, name, absent=absent)
+        pred = bst.predict(X)
+        auc = binary_auc(y, pred)
+        if not auc >= AUC_GATE or not np.isfinite(pred).all():
+            raise AssertionError(f"{name}: train auc {auc}")
+        nl = max(t.num_leaves for t in bst._gbdt.models)
+        out[name] = dict(auc=auc, steady_ms_per_iter=clock.steady_ms,
+                         wall_ms_per_iter=1e3 * seconds / WIDE_ITERS,
+                         max_leaves=nl,
+                         digest=bst.digest(include_scores=False),
+                         launches_per_tree=per_tree(launches,
+                                                    bst.num_trees()))
+        add_launches(total, launches)
+        log(f"{name}: auc {auc:.5f}, steady {clock.steady_ms:.2f} ms/iter, "
+            f"largest tree {nl} leaves, per tree "
+            f"{out[name]['launches_per_tree']}")
+        if name == "wide":
+            cm = compile_model(bst)
+            Xs = X[:SERVE_SAMPLE]
+            bins = cm.bin_rows(Xs)
+            if bins.dtype != np.int32 or bins.max() <= 255:
+                raise AssertionError("wide serving did not bin to int32")
+            if not (np.array_equal(cm.leaf_indices(bins, binned=True),
+                                   cm.leaf_indices(Xs))
+                    and np.array_equal(cm.predict_raw(bins, binned=True),
+                                       cm.predict_raw(Xs))):
+                raise AssertionError("wide serving: binned != raw")
+        del bst
+    phase_line("wide", card, kernels=rows, deep_routes=deep, **out)
+    return total
+
+
 def train_path(lgb, name, counters, params, ds, rounds, **kw):
     """One user-facing ``lgb.train`` with every launch counter reset just
     before and read just after: -> ``(booster, seconds, launches)``."""
@@ -3618,7 +3984,9 @@ def main() -> int:
                                                   hist_route_float_raw,
                                                   hist_route_raw,
                                                   pack_values_q)
-    from lightgbm_tpu_torch.ops.route import (route_rows_raw,
+    from lightgbm_tpu_torch.ops.histogram import hist_wide_raw
+    from lightgbm_tpu_torch.ops.route import (ROUTE_I32, ROUTE_VALUES_I32,
+                                              route_rows_raw,
                                               route_rows_values_raw)
     from lightgbm_tpu_torch.ops.split_kernel import find_best_splits_kernel
     card = card_line()
@@ -3704,7 +4072,9 @@ def main() -> int:
                 "hist_active": hist_active_raw,
                 "hist_float": hist_active_float_raw,
                 "hist_route_float": hist_route_float_raw,
-                "hist_compact_float": hist_compact_float_raw}
+                "hist_compact_float": hist_compact_float_raw,
+                "hist_wide": hist_wide_raw, "route_i32": ROUTE_I32,
+                "route_values_i32": ROUTE_VALUES_I32}
 
     # 4. the headline path through the user entry points
     params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
@@ -3865,11 +4235,25 @@ def main() -> int:
         head_ref, small_ref, card)
     log(f"phase 23 {time.time() - t0:.1f} s")
 
+    # 24. the boosting variants: GOSS, DART, random forests
+    t0 = time.time()
+    by_path["variants"] = variants_phase(lgb, counters, ds, X, y, ds_small,
+                                         dv_small, (Xs, ys, Xv, yv), params,
+                                         card)
+    log(f"phase 24 {time.time() - t0:.1f} s")
+
+    # 25. wide bins and deep trees
+    t0 = time.time()
+    by_path["wide"] = wide_phase(lgb, counters, X, y, ds, params, card,
+                                 entries)
+    log(f"phase 25 {time.time() - t0:.1f} s")
+
     for e in entries:
         # a categorical entry counts its kernel's launches on the
         # categorical paths only
         key = e.get("counter", e["name"])
-        e["launches_by_path"] = {p: c[key] for p, c in by_path.items()
+        e["launches_by_path"] = {p: c.get(key, 0)
+                                 for p, c in by_path.items()
                                  if "counter" not in e
                                  or p.startswith("cat_")}
         e["launches"] = sum(e["launches_by_path"].values())

@@ -207,7 +207,7 @@ class Booster:
     def __init__(self, params=None, train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
                  model_str: Optional[str] = None, device=None):
-        from .boosting.gbdt import GBDT
+        from .boosting.variants import create_boosting
         self.params = dict(params or {})
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
@@ -220,7 +220,8 @@ class Booster:
         if train_set is not None:
             train_set.params = {**self.params, **train_set.params}
             train_set.construct()
-            self._gbdt = GBDT(cfg, train_set._constructed, self.device)
+            self._gbdt = create_boosting(cfg, train_set._constructed,
+                                         self.device)
             return
         if model_file is not None:
             from .utils.file_io import open_read

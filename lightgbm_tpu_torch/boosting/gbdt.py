@@ -36,7 +36,7 @@ from ..config import Config, canonicalize_params
 from ..io.dataset import BinnedDataset
 from ..io.device import DeviceData, to_device
 from ..learner.serial import (BuiltTree, GrowthParams, build_tree,
-                              predict_built_tree)
+                              predict_built_tree, resolve_backend)
 from ..metric.metrics import (Metric, create_metric,
                               default_metric_for_objective)
 from ..models.tree import (K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, Tree,
@@ -87,6 +87,24 @@ def feature_mask(seed: int, tree_idx: int, F: int, k: int) -> torch.Tensor:
     mask = torch.zeros(F, dtype=torch.bool)
     mask[idx] = True
     return mask
+
+
+def ordered_tree_sum(values: List[torch.Tensor],
+                     block: int = 32) -> torch.Tensor:
+    """Sum per-tree outputs (each ``[n]`` f32) in the order of the JAX
+    package's ``jnp.sum`` over a tree axis padded to a power of two on
+    the CPU: from 0.0 in tree order within blocks of ``block`` trees,
+    then the block totals the same way (recursively).  The zero stumps
+    of the padding add +0.0 to a partial sum that never holds -0.0, so
+    they are skipped; only the block boundaries they fix remain."""
+    if len(values) > block:
+        return ordered_tree_sum([ordered_tree_sum(values[i:i + block], block)
+                                 for i in range(0, len(values), block)],
+                                block)
+    acc = torch.zeros_like(values[0])
+    for v in values:
+        acc = acc + v
+    return acc
 
 
 def early_stop_mask(raw, margin: float):
@@ -149,10 +167,11 @@ def replay_tables(tree: Tree, max_bins: int, device) -> ReplayTables:
 def _check_supported(c: Config) -> None:
     """Options outside this slice raise instead of training something
     else."""
-    if c.boosting_type != "gbdt":
-        raise NotImplementedError(f"boosting={c.boosting_type}")
     if c.tree_learner != "serial" or c.num_machines > 1:
-        raise NotImplementedError(f"tree_learner={c.tree_learner}")
+        raise NotImplementedError(
+            f"tree_learner={c.tree_learner}, num_machines={c.num_machines}: "
+            f"multi-device and multi-process training are not ported yet "
+            f"(ROADMAP A11)")
     check_unported_options(c)
 
 
@@ -184,9 +203,21 @@ def check_unported_options(c: Config, streamed: bool = False) -> None:
 
 
 class GBDT:
-    """Gradient Boosting Decision Tree booster."""
+    """Gradient Boosting Decision Tree booster.
+
+    The boosting variants (``boosting/variants.py``) override the seams
+    of one iteration: :meth:`gradients`, :meth:`_row_sample` (the rows
+    and the gradients a tree sees) and the two class flags below."""
 
     boosting_name = "gbdt"
+    # the score update adds lr * value as one fused multiply-add, as the
+    # JAX package's fused-window loop does; a variant that the JAX
+    # package trains on its per-iteration loop rounds the product first
+    fused_update = True
+    # an iteration whose trees are all stumps is dropped and ends
+    # training (False), or kept and counted before training ends (True;
+    # the trailing stumps go at the end, :meth:`trim_trailing_stumps`)
+    keeps_stump_iterations = False
 
     def __init__(self, config: Config, train_set: Optional[BinnedDataset],
                  device="cuda"):
@@ -223,6 +254,10 @@ class GBDT:
 
     def _init_train(self, train_set: BinnedDataset) -> None:
         c = self.config
+        if c.boosting_type != self.boosting_name:
+            raise ValueError(
+                f"boosting={c.boosting_type} on a {self.boosting_name} "
+                f"booster: make it with boosting.variants.create_boosting")
         _check_supported(c)
         n = train_set.num_data
         self.num_data = n
@@ -253,6 +288,11 @@ class GBDT:
         self.growth = growth_params_from_config(c)
         self.hist_mode = c.hist_mode or None
         self._setup_metrics()
+        if resolve_backend(self.device_data, c.num_leaves) == "scatter":
+            log_info(f"{self.device_data.group_max_bins} bins in a group, "
+                     f"{c.num_leaves} leaves: past the histogram kernels' "
+                     f"domain, every wave takes the exact-f32 wide "
+                     f"histogram (hist_mode does not apply)")
 
     def _setup_metrics(self) -> None:
         c = self.config
@@ -379,7 +419,7 @@ class GBDT:
         if grad is None or hess is None:
             grad, hess = self.gradients()
         K = self.num_tree_per_iteration
-        bag = self._bagging_mask(self.iter)
+        grad, hess, bag = self._row_sample(grad, hess)
         trees = []
         for k in range(K):
             bt = build_tree(self.device_data, grad[:, k].contiguous(),
@@ -395,7 +435,8 @@ class GBDT:
                 # a stump adds nothing (reference gbdt.cpp:435-460)
                 bt.leaf_value = torch.zeros_like(bt.leaf_value)
             trees.append((bt, nl, depth))
-        if all(nl <= 1 for _, nl, _ in trees):
+        stumps = all(nl <= 1 for _, nl, _ in trees)
+        if stumps and not self.keeps_stump_iterations:
             log_warning("stopped training because there are no more leaves "
                         f"that meet the split requirements (iteration "
                         f"{self.iter + 1})")
@@ -407,7 +448,32 @@ class GBDT:
                 "row_value": bt.row_value[:0]}), self.shrinkage_rate,
                 self._first_tree_bias()))
         self.iter += 1
-        return False
+        return stumps
+
+    def _row_sample(self, grad: torch.Tensor, hess: torch.Tensor):
+        """The gradients the iteration's trees see and their bag mask
+        (None: every row): the bagging mask of this iteration here;
+        GOSS samples by gradient instead."""
+        return grad, hess, self._bagging_mask(self.iter)
+
+    def trim_trailing_stumps(self) -> None:
+        """Drop trailing iterations whose trees are all stumps (the JAX
+        package's ``trim_trailing_stumps``, reference
+        ``gbdt.cpp:462-468``): only a booster that
+        :attr:`keeps_stump_iterations` holds any."""
+        if not self.keeps_stump_iterations:
+            return
+        K = self.num_tree_per_iteration
+        models = self.models
+        trimmed = 0
+        while (len(models) >= K
+               and all(t.num_leaves <= 1 for t in models[-K:])):
+            del models[-K:]
+            self.iter -= 1
+            trimmed += 1
+        if trimmed:
+            log_warning(f"dropped {trimmed} trailing iteration(s) with no "
+                        f"splittable leaves")
 
     def _renew_leaves(self, bt: BuiltTree, k: int) -> BuiltTree:
         """The objective's leaf re-fit (RenewTreeOutput,
@@ -441,8 +507,10 @@ class GBDT:
                           device=self.device)
         if self._renews():
             self.scores[:, k] += lr * bt.leaf_value[bt.row_leaf.long()]
-        else:
+        elif self.fused_update:
             self.scores[:, k].add_(bt.row_value, alpha=self.shrinkage_rate)
+        else:
+            self.scores[:, k] += lr * bt.row_value
         for vd, score in zip(self._valid_device, self._valid_scores):
             score[:, k] += lr * predict_built_tree(bt, vd, depth)
 
@@ -453,6 +521,15 @@ class GBDT:
         return predict_built_tree(
             replay_tables(tree, dd.max_bins, self.device), dd,
             tree.max_depth)
+
+    def _replay_sum(self, trees: List[Tree], dd: DeviceData) -> torch.Tensor:
+        """The summed f32 output per row of ``dd`` of several bin-aligned
+        host trees, in the JAX package's order
+        (``_predict_host_trees_binned``: the tree axis padded with zero
+        stumps to a power of two and reduced by XLA; on the CPU that sum
+        runs from 0.0 in tree order within blocks of 32 trees, then over
+        the block totals the same way, :func:`ordered_tree_sum`)."""
+        return ordered_tree_sum([self._replay(t, dd) for t in trees])
 
     def merge_from(self, other: "GBDT") -> None:
         """Put deep copies of ``other``'s trees in front of this booster's
@@ -897,12 +974,18 @@ class GBDT:
         return imp
 
     def save_model_to_string(self, num_iteration: int = -1) -> str:
-        lines = ["tree", f"version={K_MODEL_VERSION}",
+        """The reference text format; the first line names the boosting
+        variant (``tree`` for gbdt), and an averaging model (random
+        forest) carries ``average_output``."""
+        lines = [self.boosting_name if self.boosting_name != "gbdt"
+                 else "tree", f"version={K_MODEL_VERSION}",
                  f"num_class={self.num_class}",
                  f"num_tree_per_iteration={self.num_tree_per_iteration}",
                  "label_index=0", f"max_feature_idx={self.max_feature_idx}"]
         if self.objective is not None:
             lines.append(f"objective={self.objective.to_string()}")
+        if self.average_output:
+            lines.append("average_output")
         lines.append("feature_names=" + " ".join(self.feature_names))
         lines.append("feature_infos=" + " ".join(self._feature_infos()))
         T = self._num_trees(num_iteration)

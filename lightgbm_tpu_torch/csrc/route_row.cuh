@@ -54,9 +54,11 @@ __device__ __forceinline__ int unbundle_bin(int col, int off, int nb,
 // Route one row: -> (row_leaf', hist_leaf').  `tab` is the staged table,
 // `rl`/`hl` the row's current leaves (-1: padding / bagged out).
 // `cat_mask` is [L, Bcat] uint8 (bins going left), read only for
-// categorical splits.
+// categorical splits.  `bins_t` holds uint8 bins, or int32 ones where a
+// group has more than 256 bins.
+template <typename BinT>
 __device__ __forceinline__ int2 route_row(const int* tab, int L,
-                                          const uint8_t* bins_t,
+                                          const BinT* bins_t,
                                           long long n_pad, long long row,
                                           int rl, int hl,
                                           const uint8_t* cat_mask,

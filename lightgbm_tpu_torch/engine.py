@@ -167,6 +167,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
             break
         if snapshot_freq > 0 and (it + 1) % snapshot_freq == 0:
             gbdt.save_snapshot(it + 1)
+    gbdt.trim_trailing_stumps()
     if booster.best_iteration <= 0:
         booster.best_iteration = booster.current_iteration()
     if not keep_training_booster:

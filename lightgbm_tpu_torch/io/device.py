@@ -6,7 +6,9 @@ per-feature metadata tensors, all on one ``torch.device``.  The device
 holds the bins only TRANSPOSED (``bins_t`` ``[G, n_pad]``, rows
 contiguous per column so neighbouring threads read neighbouring bytes),
 which is what every kernel reads; the transpose is made once, on the
-host, here.
+host, here.  The bins stay uint8 unless a group holds more than 256 bins;
+then they are int32, as the reference's ``Dataset`` keeps them, and
+training takes the wide-bin backend (``learner/serial.py``).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ class DeviceData:
     logical features into group columns (`io/dataset.py` BundleInfo
     encoding, offset -1 = identity).
     """
-    bins_t: torch.Tensor         # [G, n_pad] uint8 group columns, padding 0
+    bins_t: torch.Tensor         # [G, n_pad] uint8 (int32 past 256 bins)
     num_data: int                # n real rows (bins_t[:, n:] is padding)
     bin_offsets: torch.Tensor    # [F] int32 offsets into flat bin space
     num_bins: torch.Tensor       # [F] int32 (includes NaN bin)
@@ -121,12 +123,10 @@ def device_data_from_arrays(bins: np.ndarray, meta: dict,
     device = torch.device(device)
     bins = np.ascontiguousarray(bins)
     if bins.dtype != np.uint8:
-        raise NotImplementedError(
-            "the kernels read uint8 bins: groups with more than 256 bins "
-            "are not supported yet")
+        bins = bins.astype(np.int32)
     n, G = bins.shape
     n_pad = round_up(max(n, 1), ROW_TILE)
-    bins_t = np.zeros((G, n_pad), np.uint8)
+    bins_t = np.zeros((G, n_pad), bins.dtype)
     bins_t[:, :n] = bins.T
     tensors = {k: torch.as_tensor(np.asarray(meta[k]), device=device)
                for k in _META_TENSORS}

@@ -40,10 +40,11 @@ from ..io.binning import MISSING_NAN, MISSING_ZERO
 from ..io.device import DeviceData
 from ..ops.compact import (compact_slot_threshold, hist_active_compact,
                            hist_compact_raw)
-from ..ops.histogram import (bin_stride, combine_hist_cols,
+from ..ops.histogram import (WIDE_MAX_SLOTS, bin_stride, combine_hist_cols,
                              hist_active_float_raw, hist_active_raw,
-                             hist_route, is_quantized, pack_values,
-                             pack_values_q, unbundle_grid, value_cols)
+                             hist_route, hist_wide_raw, is_quantized,
+                             pack_values, pack_values_q, unbundle_grid,
+                             value_cols)
 from ..ops.route import route_rows, route_rows_values, unbundle_bin
 from ..ops.split import (SplitParams, SplitResult, find_best_splits,
                          leaf_output, split_scan_chunk_features)
@@ -122,6 +123,12 @@ def _round8(x: int) -> int:
     return -(-x // 8) * 8
 
 
+def wide_wave_slots(L: int) -> int:
+    """Active slots of every wave past the kernels' domain (the
+    reference's scatter plan): ``round8(L / 2)``."""
+    return _round8(max(1, L // 2))
+
+
 def stage_plan(L: int, wave_size: int = 0):
     """Active-slot counts for the staged waves + the tail width (the
     reference's plan: slot counts track the doubling leaf count)."""
@@ -191,21 +198,39 @@ def effective_hist_mode(mode: str, n: int) -> str:
     return mode
 
 
-def _check_kernel_config(group_max_bins: int, num_leaf_slots: int) -> None:
-    if group_max_bins > 256:
-        raise NotImplementedError("more than 256 bins per column")
-    if num_leaf_slots > 1024:
-        raise NotImplementedError("num_leaves > 1024")
+# the reference's Pallas kernels read bins through bf16 (exact up to 256)
+# and hold a leaf one-hot of at most 1,024 leaves
+KERNEL_MAX_BINS = 256
+KERNEL_MAX_LEAVES = 1024
+
+
+def kernels_fit(group_max_bins: int, num_leaf_slots: int) -> bool:
+    """Whether a configuration lies in the histogram kernels' domain (the
+    reference's ``pallas_config_ok``: at most 256 bins a group and 1,024
+    leaves)."""
+    return (group_max_bins <= KERNEL_MAX_BINS
+            and num_leaf_slots <= KERNEL_MAX_LEAVES)
 
 
 def resolve_backend(data: DeviceData, num_leaf_slots: int) -> str:
-    """``"compact"`` when the tree's tail waves are wider than the
+    """The reference's choice of backend (``learner/serial.py:
+    resolve_backend``), by configuration alone: ``"scatter"`` past the
+    kernels' domain (:func:`kernels_fit`), where every wave takes K2 and
+    the exact-f32 wide histogram (:func:`build_tree_wide`); else
+    ``"compact"`` when the tree's tail waves are wider than the
     compaction threshold (fused kernel on shallow waves, route + compact
     kernel on deep ones), else ``"fused"`` (every wave fused) — the
     reference's "compact" backend and its degradation to "pallas".  The
     quantized modes take the int32 K1 and K3, the float modes their
     fixed-order float counterparts."""
-    _check_kernel_config(data.group_max_bins, num_leaf_slots)
+    if not kernels_fit(data.group_max_bins, num_leaf_slots):
+        A = wide_wave_slots(num_leaf_slots)
+        if A > WIDE_MAX_SLOTS:
+            raise NotImplementedError(
+                f"{num_leaf_slots} leaves need {A} slots a wave, more than "
+                f"the wide histogram's {WIDE_MAX_SLOTS} (ROADMAP A, item 1: "
+                f"what is left of A3)")
+        return "scatter"
     _, A_tail = stage_plan(num_leaf_slots)
     return "compact" if A_tail > compact_slot_threshold() else "fused"
 
@@ -252,7 +277,11 @@ def make_hist_fold_fn(data: DeviceData, num_leaf_slots: int,
     mode = effective_hist_mode(hist_mode or default_hist_mode(),
                                data.num_data if num_data is None
                                else num_data)
-    _check_kernel_config(data.group_max_bins, num_leaf_slots)
+    if not kernels_fit(data.group_max_bins, num_leaf_slots):
+        raise NotImplementedError(
+            "streams of groups with more than 256 bins or trees of more "
+            "than 1,024 leaves (the reference's scatter fold) are not "
+            "ported yet (ROADMAP A10)")
     quantized = is_quantized(mode)
     compact = quantized and num_active > compact_slot_threshold()
     mb = data.group_max_bins
@@ -547,8 +576,11 @@ def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
     float32 values (the fixed-order float kernels, ``scales`` None)."""
     n = data.num_data
     L = params.num_leaves
-    mode = effective_hist_mode(hist_mode or default_hist_mode(), n)
     backend = resolve_backend(data, L)
+    if backend == "scatter":
+        return build_tree_wide(data, grad, hess, params, bag_mask,
+                               feature_mask)
+    mode = effective_hist_mode(hist_mode or default_hist_mode(), n)
     plan, A_tail = stage_plan(L, params.wave_size)
     if n <= COMPILE_LEAN_ROWS and params.wave_size != 1:
         plan = []
@@ -592,6 +624,42 @@ def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
         i += 1
 
     # apply the last wave's pending splits and emit each row's leaf value
+    leaf2, row_value = route_rows_values(
+        data.bins_t, s.leaf2, *_pending_tables(data, s, L),
+        final_leaf_values(s, L))
+    return finished_tree(s, L, leaf2[0, :n], row_value[:n])
+
+
+def build_tree_wide(data: DeviceData, grad: torch.Tensor,
+                    hess: torch.Tensor, params: GrowthParams,
+                    bag_mask: Optional[torch.Tensor] = None,
+                    feature_mask: Optional[torch.Tensor] = None
+                    ) -> BuiltTree:
+    """Grow one tree past the kernels' domain, as the reference's scatter
+    backend does (``learner/serial.py:777-889``): no staged plan, every
+    wave ``round8(L / 2)`` slots wide; each wave routes the pending
+    splits (K2, on uint8 or int32 bins) and histograms the active leaves
+    in exact float32 (``hist_wide_raw``: ``hist_mode`` does not apply);
+    the last route emits each row's leaf value (K4) for the score update,
+    bitwise the reference's gather of the leaf values."""
+    n = data.num_data
+    L = params.num_leaves
+    A = wide_wave_slots(L)
+    wave_cap = params.wave_size if params.wave_size > 0 else L
+    g = grad.float().contiguous()
+    h = hess.float().contiguous()
+    s = _init_state(data, grad, hess, params, bag_mask, A)
+
+    def finished(s: _WaveState) -> bool:
+        done, nl = torch.stack([s.done.long(), s.nl]).tolist()
+        return bool(done) or nl >= L
+
+    while not finished(s):
+        leaf2 = route_rows(data.bins_t, s.leaf2, *_pending_tables(data, s, L))
+        new_h = hist_wide_raw(data.bins_t, g, h, leaf2[1].contiguous(),
+                              s.act_small, L, data.group_max_bins)
+        ids, res = rescan_changed(data, params, feature_mask, s, new_h)
+        s = _apply_wave(s, leaf2, ids, res, A, params, wave_cap)
     leaf2, row_value = route_rows_values(
         data.bins_t, s.leaf2, *_pending_tables(data, s, L),
         final_leaf_values(s, L))

@@ -39,6 +39,9 @@ LIBRARIES = {
         "lgbm_route_rows": [_P, _LL, _P, _P, _P, _I, _P, _I, _I, _I, _P],
         "lgbm_route_rows_values": [_P, _LL, _P, _P, _P, _I, _P, _I, _P, _P,
                                    _I, _I, _P],
+        "lgbm_route_rows_i32": [_P, _LL, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+        "lgbm_route_rows_values_i32": [_P, _LL, _P, _P, _P, _I, _P, _I, _P,
+                                       _P, _I, _I, _P],
     },
     "hist_route": {
         "lgbm_hist_route": [_P, _LL, _I, _P, _I, _P, _P, _P, _I, _P, _I,
@@ -68,6 +71,10 @@ LIBRARIES = {
         "lgbm_hist_compact_float": [_P, _LL, _LL, _I, _P, _I, _P, _I, _P,
                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                                     _P, _P, _P, _P, _P],
+    },
+    "hist_wide": {
+        "lgbm_hist_wide": [_P, _I, _LL, _LL, _I, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _P, _P, _P, _I, _P, _P],
     },
     "split": {
         "lgbm_split_scan": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F,

@@ -16,7 +16,10 @@ one fixed order (see ``FLOAT_CHUNK``): the float K5
 folds, and in memory the float K1 (``csrc/hist_route_float.cu``,
 :func:`hist_route_float_raw`) and the float K3
 (``csrc/hist_compact_float.cu`` + ``csrc/hist_float_walk.cuh``,
-``ops/compact.py``).
+``ops/compact.py``).  Past the kernels' domain (groups of more than 256
+bins, more than 1,024 leaves) the exact-f32 wide histogram
+(``csrc/hist_wide.cu``, :func:`hist_wide_raw`) takes the place of the
+reference's XLA scatter, in its row order.
 
 Layout: ``bins_t`` is ``[G, n_pad]`` uint8 (``io/device.py``), ``vals``
 ``[C, n_pad]`` (int8, or float32 on the float modes) with padding rows
@@ -1012,30 +1015,108 @@ def hist_route_float_plain(bins_t, vals, leaf2, tabs, cat_mask, inv, src,
             leaf2_new)
 
 
-def hist_active_scatter(bins, grad, hess, row_leaf, active, *,
-                        max_bins: int, num_leaf_slots: int):
-    """Exact-f32 scatter histogram ``-> [A, F, B, 3]`` from ``[n, F]``
-    bins (port of the reference's XLA oracle; ``-1`` slots and inactive
-    rows add nothing)."""
-    n, F = bins.shape
-    A = active.shape[0]
-    B = bin_stride(max_bins)
+WIDE_CHUNK = 4096        # rows per chunk of the wide kernel's slot sort
+WIDE_SMEM = 96 * 1024    # shared memory of one block of its walk
+# its count and fill kernels keep one int per slot in shared memory
+WIDE_MAX_SLOTS = SMEM_BLOCK_MAX // 4
+
+
+def wide_cells(bins_t, hist_leaf, active, n: int, num_leaf_slots: int,
+               B: int):
+    """The wide histogram's scatter plan: -> ``(rows, idx)``, the real
+    rows whose hist leaf has a slot, in row order, and for each of them
+    and each group (row-major, ``[rows x G]`` flattened) its cell in the
+    flat ``[A * G * B]`` grid."""
+    G = bins_t.shape[0]
     L = num_leaf_slots
-    dev = bins.device
-    key = torch.where(active >= 0, active, torch.full_like(active, L)).long()
-    inv = torch.full((L + 1,), A, dtype=torch.int64, device=dev)
-    inv[key] = torch.arange(A, device=dev)
-    inv[L] = A
-    rl = row_leaf.long()
-    slot = torch.where(rl >= 0, inv[rl.clamp(0, L)], torch.full_like(rl, A))
-    idx = (slot[:, None] * (F * B)
-           + torch.arange(F, device=dev)[None, :] * B + bins.long())
-    vals = torch.stack([grad, hess, torch.ones_like(grad)], -1).float()
-    hist = torch.zeros(((A + 1) * F * B, 3), dtype=torch.float32,
-                       device=dev)
-    hist.index_add_(0, idx.reshape(-1),
-                    vals[:, None, :].expand(n, F, 3).reshape(-1, 3))
-    return hist[:A * F * B].reshape(A, F, B, 3)
+    inv = slot_tables(active, L, collect_unbagged=False)[0]
+    hl = hist_leaf[:n].long()
+    slot = torch.where((hl >= 0) & (hl < L), inv[hl.clamp(0, L)].long(),
+                       torch.full_like(hl, -1))
+    rows = torch.nonzero(slot >= 0)[:, 0]
+    idx = ((slot[rows][:, None] * G
+            + torch.arange(G, device=bins_t.device)[None, :]) * B
+           + bins_t[:, rows].t().long()).reshape(-1)
+    return rows, idx
+
+
+def hist_wide_plain(bins_t, grad, hess, hist_leaf, active,
+                    num_leaf_slots: int, B: int) -> torch.Tensor:
+    """Plain version of :func:`hist_wide_raw`, the reference's XLA
+    scatter oracle (``hist_active_scatter``) on the transposed bins: one
+    sequential ``index_add_`` per value column over the rows in row order
+    (on the CPU it adds in index order, as the XLA scatter does)."""
+    G = bins_t.shape[0]
+    A = active.shape[0]
+    rows, idx = wide_cells(bins_t, hist_leaf, active, grad.shape[0],
+                           num_leaf_slots, B)
+    out = torch.zeros((3, A * G * B), dtype=torch.float32,
+                      device=bins_t.device)
+    for c, v in enumerate((grad, hess, torch.ones_like(grad))):
+        out[c].index_add_(0, idx, v[rows].float()[:, None]
+                          .expand(-1, G).reshape(-1))
+    return out.t().reshape(A, G, B, 3).contiguous()
+
+
+def wide_warps(B: int) -> int:
+    """Warps (one (slot, column) pair each) per block of the walk: as
+    many as :data:`WIDE_SMEM` holds, 1-8."""
+    return max(1, min(8, WIDE_SMEM // ((3 * B + 64) * 4)))
+
+
+def hist_wide_raw(bins_t, grad, hess, hist_leaf, active, num_leaf_slots: int,
+                  max_bins: int) -> torch.Tensor:
+    """Exact-f32 histogram ``[A, G, B, 3]`` of ``(grad, hess, 1)`` over the
+    rows whose hist leaf is in ``active`` (the reference's
+    ``hist_active_scatter``): uint8 or int32 ``bins_t [G, n_pad]``,
+    ``grad``/``hess`` f32 over the ``n`` real rows, ``hist_leaf [n_pad]``
+    int32 (-1: no slot), at up to ``WIDE_MAX_SLOTS`` slots and any bin
+    stride.
+    Each cell is the row-order sum of its rows from +0.0, on the card as
+    in the plain version (``csrc/hist_wide.cu``); slots whose id is -1
+    stay zero.  One count per call (four kernels: count, scan, fill,
+    walk)."""
+    B = bin_stride(max_bins)
+    G, n_pad = bins_t.shape
+    n = grad.shape[0]
+    A = active.shape[0]
+    L = num_leaf_slots
+    dev = bins_t.device
+    if bins_t.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"bins_t: expected uint8 or int32, got "
+                        f"{bins_t.dtype}")
+    _check(grad, "grad", torch.float32, (n,), dev)
+    _check(hess, "hess", torch.float32, (n,), dev)
+    _check(hist_leaf, "hist_leaf", torch.int32, (n_pad,), dev)
+    _check(active, "active", torch.int32, (A,), dev)
+    if not 1 <= A <= WIDE_MAX_SLOTS or n > n_pad:
+        raise ValueError(f"hist_wide: {A} slots (1-{WIDE_MAX_SLOTS}), "
+                         f"{n} rows of {n_pad}")
+    if dev.type == "cpu":
+        hist_wide_raw.plain_calls += 1
+        return hist_wide_plain(bins_t, grad, hess, hist_leaf, active, L, B)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    from .cuda_build import check_launch, library
+    inv = slot_tables(active, L, collect_unbagged=False)[0]
+    nchunks = -(-n // WIDE_CHUNK)
+    counts = torch.empty(max(1, nchunks) * A, dtype=torch.int32, device=dev)
+    start = torch.empty(A + 1, dtype=torch.int32, device=dev)
+    order = torch.empty(max(1, n), dtype=torch.int32, device=dev)
+    out = torch.empty((A, G, B, 3), dtype=torch.float32, device=dev)
+    code = library("hist_wide").lgbm_hist_wide(
+        bins_t.data_ptr(), int(bins_t.dtype == torch.int32), n_pad, n, G,
+        grad.data_ptr(), hess.data_ptr(), hist_leaf.data_ptr(),
+        inv.data_ptr(), L, A, B, WIDE_CHUNK, counts.data_ptr(),
+        start.data_ptr(), order.data_ptr(), wide_warps(B), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(code, "hist_wide")
+    hist_wide_raw.launches += 1
+    return out
+
+
+hist_wide_raw.launches = 0
+hist_wide_raw.plain_calls = 0
 
 
 SUM_BLOCK = 32

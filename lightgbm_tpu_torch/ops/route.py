@@ -13,7 +13,9 @@ reference's ``route_rows_xla``.
 
 Every wrapper runs its kernel for CUDA tensors and its plain version for
 CPU tensors; it counts kernel launches in ``.launches`` and plain calls
-in ``.plain_calls``.
+in ``.plain_calls``.  The bins are uint8, or int32 where a group holds
+more than 256 bins (``io/device.py``); the int32 instantiations of K2
+and K4 count into :data:`ROUTE_I32` and :data:`ROUTE_VALUES_I32`.
 """
 from __future__ import annotations
 
@@ -28,6 +30,20 @@ T_GROUP, T_THR, T_DL, T_ISCAT, T_SEL, T_NEWID = 0, 1, 2, 3, 4, 5
 T_OFF, T_NB, T_DB, T_MT, T_NANB = 6, 7, 8, 9, 10
 ROUTE_TAB_ROWS = 11
 ROUTE_BLOCK = 512
+
+
+class LaunchCount:
+    """The launch and plain-call counts of a kernel instantiation that
+    shares its wrapper with another."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        self.plain_calls = 0
+
+
+ROUTE_I32 = LaunchCount("route_i32")
+ROUTE_VALUES_I32 = LaunchCount("route_values_i32")
 
 
 def leaf_tables(feature, threshold, default_left, is_categorical, cat_mask,
@@ -91,7 +107,10 @@ def _check_route_inputs(bins_t, leaf2, tabs, cat_mask):
     dev = bins_t.device
     n_pad = bins_t.shape[1]
     L = tabs.shape[1]
-    _check(bins_t, "bins_t", torch.uint8)
+    if bins_t.dtype not in (torch.uint8, torch.int32):
+        raise TypeError(f"bins_t: expected uint8 or int32, got "
+                        f"{bins_t.dtype}")
+    _check(bins_t, "bins_t", bins_t.dtype)
     _check(leaf2, "leaf2", torch.int32, (2, n_pad), dev)
     _check(tabs, "tabs", torch.int32, (ROUTE_TAB_ROWS, L), dev)
     _check(cat_mask, "cat_mask", torch.uint8, (L, cat_mask.shape[1]), dev)
@@ -106,24 +125,34 @@ def _route_grid(n_pad: int, dev) -> int:
                       4 * multiprocessor_count(dev)))
 
 
+def route_entry(lib, bins_t, values: bool):
+    """The C entry point of K2 (``values``: K4) in the ``route`` library
+    for the bins' type: ``lgbm_route_rows[_values]`` on uint8 bins, its
+    ``_i32`` instantiation on int32 bins (groups past 256 bins)."""
+    name = "lgbm_route_rows_values" if values else "lgbm_route_rows"
+    return getattr(lib, name + ("_i32" if bins_t.dtype == torch.int32
+                                else ""))
+
+
 def route_rows_raw(bins_t, leaf2, tabs, cat_mask):
     """Route kernel (K2): apply one wave's per-leaf tables to both leaf
     vectors -> leaf2' ``[2, n_pad]`` int32.  Rows whose leaf is
     unselected, bagged out or padding keep their leaves."""
     dev, n_pad, L = _check_route_inputs(bins_t, leaf2, tabs, cat_mask)
+    wide = bins_t.dtype == torch.int32
+    count = ROUTE_I32 if wide else route_rows_raw
     if dev.type == "cpu":
-        route_rows_raw.plain_calls += 1
+        count.plain_calls += 1
         return route_plain(bins_t, leaf2, tabs, cat_mask)
     from .cuda_build import check_launch, library
-    lib = library("route")
     out = torch.empty_like(leaf2)
-    code = lib.lgbm_route_rows(
-        bins_t.data_ptr(), n_pad, leaf2.data_ptr(), out.data_ptr(),
-        tabs.data_ptr(), L, cat_mask.data_ptr(), cat_mask.shape[1],
-        _route_grid(n_pad, dev), ROUTE_BLOCK,
-        torch.cuda.current_stream(dev).cuda_stream)
+    fn = route_entry(library("route"), bins_t, False)
+    code = fn(bins_t.data_ptr(), n_pad, leaf2.data_ptr(), out.data_ptr(),
+              tabs.data_ptr(), L, cat_mask.data_ptr(), cat_mask.shape[1],
+              _route_grid(n_pad, dev), ROUTE_BLOCK,
+              torch.cuda.current_stream(dev).cuda_stream)
     check_launch(code, "route_rows")
-    route_rows_raw.launches += 1
+    count.launches += 1
     return out
 
 
@@ -149,21 +178,23 @@ def route_rows_values_raw(bins_t, leaf2, tabs, cat_mask, leaf_values):
     dev, n_pad, L = _check_route_inputs(bins_t, leaf2, tabs, cat_mask)
     from .histogram import _check
     _check(leaf_values, "leaf_values", torch.float32, (L,), dev)
+    wide = bins_t.dtype == torch.int32
+    count = ROUTE_VALUES_I32 if wide else route_rows_values_raw
     if dev.type == "cpu":
-        route_rows_values_raw.plain_calls += 1
+        count.plain_calls += 1
         return route_values_plain(bins_t, leaf2, tabs, cat_mask,
                                   leaf_values)
     from .cuda_build import check_launch, library
-    lib = library("route")
     out = torch.empty_like(leaf2)
     vals = torch.empty(n_pad, dtype=torch.float32, device=dev)
-    code = lib.lgbm_route_rows_values(
-        bins_t.data_ptr(), n_pad, leaf2.data_ptr(), out.data_ptr(),
-        tabs.data_ptr(), L, cat_mask.data_ptr(), cat_mask.shape[1],
-        leaf_values.data_ptr(), vals.data_ptr(), _route_grid(n_pad, dev),
-        ROUTE_BLOCK, torch.cuda.current_stream(dev).cuda_stream)
+    fn = route_entry(library("route"), bins_t, True)
+    code = fn(bins_t.data_ptr(), n_pad, leaf2.data_ptr(), out.data_ptr(),
+              tabs.data_ptr(), L, cat_mask.data_ptr(), cat_mask.shape[1],
+              leaf_values.data_ptr(), vals.data_ptr(),
+              _route_grid(n_pad, dev), ROUTE_BLOCK,
+              torch.cuda.current_stream(dev).cuda_stream)
     check_launch(code, "route_rows_values")
-    route_rows_values_raw.launches += 1
+    count.launches += 1
     return out, vals
 
 

@@ -117,8 +117,9 @@ class ServePack:
 
 def build_pack(trees: Sequence[Tree], mappers=None,
                used_features: Optional[Sequence[int]] = None,
-               num_class: int = 1, device="cpu") -> ServePack:
-    """Pack host trees into a :class:`ServePack` on ``device``.
+               num_class: int = 1, device="cuda") -> ServePack:
+    """Pack host trees into a :class:`ServePack` on ``device`` (the card
+    unless the caller asks for the CPU).
 
     ``mappers`` (per ORIGINAL feature, with ``used_features`` giving the
     inner-column order) also builds the binned path; trees must then be
@@ -601,10 +602,11 @@ def compile_trees(trees: Sequence[Tree], *, num_class: int = 1,
                   objective=None, average_output: bool = False,
                   base_score: float = 0.0, mappers=None,
                   used_features: Optional[Sequence[int]] = None,
-                  num_features: Optional[int] = None, device="cpu",
+                  num_features: Optional[int] = None, device="cuda",
                   rchunk: Optional[int] = None,
                   min_bucket: int = 256) -> CompiledModel:
-    """Compile a bare tree list (see :func:`compile_model` for boosters)."""
+    """Compile a bare tree list (see :func:`compile_model` for boosters)
+    onto ``device``, the card unless the caller asks for the CPU."""
     pack = build_pack(trees, mappers=mappers, used_features=used_features,
                       num_class=num_class, device=torch.device(device))
     return CompiledModel(pack, objective=objective,

@@ -426,7 +426,7 @@ def test_binned_categorical_serving(monkeypatch):
             np.testing.assert_array_equal(a, b)
     lm = compile_trees(trees, mappers=ds.mappers,
                        used_features=ds.used_features,
-                       num_features=X.shape[1])
+                       num_features=X.shape[1], device="cpu")
     np.testing.assert_array_equal(lm.leaf_indices(bins, binned=True), host)
 
 

@@ -905,3 +905,153 @@ def test_cuda_fobj_l2_is_builtin_regression(cuda_device):
     b = tlgb.train(dict(params), tlgb.Dataset(X, label=z), 6, fobj=l2,
                    verbose_eval=False, device=cuda_device)
     assert b.digest() == a.digest()
+
+
+def _wide_wave(seed, n, G, max_bin, L, A, n_active, int32=True, skew=False):
+    """A wave of the wide-bin / deep-tree backend: random bins (int32 or
+    uint8), gradients over eight decades (where the order of a sum
+    shows), hist leaves with bagged-out (-1) rows, ``A`` slots of which
+    ``n_active`` hold leaves; ``skew`` puts every row in one leaf (the
+    root wave)."""
+    rng = np.random.RandomState(seed)
+    n_pad = -(-n // 2048) * 2048
+    dt = torch.int32 if int32 else torch.uint8
+    bins_t = torch.zeros((G, n_pad), dtype=dt)
+    bins_t[:, :n] = torch.as_tensor(rng.randint(0, max_bin, (G, n))).to(dt)
+    g = torch.as_tensor((rng.randn(n) * 10.0 ** rng.uniform(-5, 3, n))
+                        .astype(np.float32))
+    h = torch.as_tensor((rng.rand(n) * 10.0 ** rng.uniform(-5, 3, n))
+                        .astype(np.float32))
+    leaf = (np.zeros(n, np.int64) if skew
+            else rng.randint(0, min(L, 2 * n_active), n))
+    hl = torch.full((n_pad,), -1, dtype=torch.int32)
+    hl[:n] = torch.as_tensor(np.where(rng.rand(n) < 0.8, leaf, -1))
+    active = torch.full((A,), -1, dtype=torch.int32)
+    active[:n_active] = torch.as_tensor(
+        rng.permutation(min(L, 2 * n_active))[:n_active])
+    return bins_t, g, h, hl, active
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (0, 200_000, 28, 1023, 255, 128, 100, True, False),
+    (1, 200_000, 28, 1023, 255, 128, 1, True, True),
+    (2, 100_000, 8, 63, 2048, 1024, 1000, False, False),
+    (3, 50_000, 5, 300, 31, 16, 16, True, False),
+    (4, 100_000, 6, 63, 6000, 3000, 2900, False, False)],
+    ids=["wide", "wide-root", "deep", "small", "deeper"])
+def test_hist_wide_kernel_bitwise(cuda_device, case):
+    """The exact-f32 wide histogram on the card equals its plain version
+    on CPU copies bit for bit (the row order of each cell is kept);
+    one launch count per call, on the card only."""
+    seed, n, G, mb, L, A, n_act, int32, skew = case
+    bins_t, g, h, hl, active = _wide_wave(seed, n, G, mb, L, A, n_act,
+                                          int32, skew)
+    ref = t_hist.hist_wide_raw(bins_t, g, h, hl, active, L, mb)
+    before = t_hist.hist_wide_raw.launches
+    got = t_hist.hist_wide_raw(*[t.to(cuda_device) for t in
+                                 (bins_t, g, h, hl, active)], L, mb)
+    torch.cuda.synchronize()
+    assert t_hist.hist_wide_raw.launches == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+    assert ref[:, :, :, 2].sum() > 0
+
+
+@pytest.mark.cuda
+def test_route_kernels_int32_bitwise(cuda_device):
+    """K2 and K4 on int32 bins (a group of more than 256 bins) equal their
+    plain versions, and count into the int32 instantiations."""
+    dd, leaf2, tabs, cat, _, _ = _inputs(seed=9, max_bin=1023)
+    assert dd.bins_t.dtype == torch.int32 and dd.group_max_bins > 256
+    lv = torch.randn(L)
+    cu = [t.to(cuda_device) for t in (dd.bins_t, leaf2, tabs, cat, lv)]
+    before = (t_route.ROUTE_I32.launches, t_route.ROUTE_VALUES_I32.launches,
+              t_route.route_rows_raw.launches)
+    out = t_route.route_rows_raw(*cu[:4])
+    l2, vals = t_route.route_rows_values_raw(*cu)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), t_route.route_plain(dd.bins_t, leaf2, tabs,
+                                                      cat))
+    rl2, rv = t_route.route_values_plain(dd.bins_t, leaf2, tabs, cat, lv)
+    assert torch.equal(l2.cpu(), rl2) and torch.equal(vals.cpu(), rv)
+    assert (t_route.ROUTE_I32.launches, t_route.ROUTE_VALUES_I32.launches,
+            t_route.route_rows_raw.launches) == (before[0] + 1,
+                                                 before[1] + 1, before[2])
+
+
+@pytest.mark.cuda
+def test_route_kernels_deep_tables_bitwise(cuda_device):
+    """K2 and K4 past the leaves whose tables fit a block's shared memory
+    (6,000 leaves: read from global memory) equal their plain versions."""
+    rng = np.random.RandomState(4)
+    n, G, Ld = 50_000, 6, 6000
+    n_pad = 51_200
+    bins_t = torch.zeros((G, n_pad), dtype=torch.uint8)
+    bins_t[:, :n] = torch.as_tensor(rng.randint(0, 63, (G, n)))
+    leaf2 = torch.full((2, n_pad), -1, dtype=torch.int32)
+    leaf2[0, :n] = torch.as_tensor(rng.randint(0, 3000, n))
+    leaf2[1, :n] = torch.where(torch.as_tensor(rng.rand(n) < 0.8),
+                               leaf2[0, :n], -1)
+    sel = torch.as_tensor(rng.rand(Ld) < 0.5) & (torch.arange(Ld) < 3000)
+    zeros = torch.zeros(G, dtype=torch.int32)
+    tabs, cat = t_route.leaf_tables(
+        torch.as_tensor(rng.randint(0, G, Ld)).int(),
+        torch.as_tensor(rng.randint(0, 60, Ld)).int(),
+        torch.as_tensor(rng.rand(Ld) < 0.5), torch.zeros(Ld, dtype=torch.bool),
+        torch.zeros((Ld, 64), dtype=torch.bool), sel,
+        torch.where(sel, 3000 + torch.cumsum(sel.int(), 0) - 1, 0).int(),
+        zeros, torch.full((G,), -1, dtype=torch.int32), zeros,
+        torch.arange(G, dtype=torch.int32),
+        torch.full((G,), -1, dtype=torch.int32),
+        torch.full((G,), 63, dtype=torch.int32))
+    lv = torch.randn(Ld)
+    cu = [t.to(cuda_device) for t in (bins_t, leaf2, tabs, cat, lv)]
+    out = t_route.route_rows_raw(*cu[:4])
+    l2, vals = t_route.route_rows_values_raw(*cu)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), t_route.route_plain(bins_t, leaf2, tabs,
+                                                      cat))
+    rl2, rv = t_route.route_values_plain(bins_t, leaf2, tabs, cat, lv)
+    assert torch.equal(l2.cpu(), rl2) and torch.equal(vals.cpu(), rv)
+    assert (rl2[0, :n] != leaf2[0, :n]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [
+    {"max_bin": 511, "num_leaves": 63},
+    {"max_bin": 63, "num_leaves": 1100, "min_data_in_leaf": 2},
+    {"max_bin": 63, "num_leaves": 6000, "min_data_in_leaf": 2}],
+    ids=["wide", "deep", "deeper"])
+def test_cuda_wide_and_deep_train_as_cpu(cuda_device, params):
+    """L2 models past the kernels' domain train on the card through the
+    wide histogram and K2/K4, and equal the CPU's (plain versions) in
+    every tree and score: the wide histogram adds in the CPU's order."""
+    import lightgbm_tpu_torch as tlgb
+    X, z = _entry_data()
+    p = {"objective": "regression", "verbose": -1, **params}
+    launched = t_hist.hist_wide_raw.launches
+    a = tlgb.train(dict(p), tlgb.Dataset(X, label=z), 3, verbose_eval=False,
+                   device=cuda_device)
+    assert t_hist.hist_wide_raw.launches > launched
+    b = tlgb.train(dict(p), tlgb.Dataset(X, label=z), 3, verbose_eval=False,
+                   device="cpu")
+    assert a.digest() == b.digest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boosting", ["goss", "dart", "rf"])
+def test_cuda_variants_train_as_cpu(cuda_device, boosting):
+    """L2 GOSS, DART and random forests on the card equal the CPU's runs
+    (digest with scores): the keyed draws, the replay sum's order and the
+    kernels are the same on both."""
+    import lightgbm_tpu_torch as tlgb
+    X, z = _entry_data()
+    p = {"objective": "regression", "num_leaves": 63, "max_bin": 63,
+         "verbose": -1, "boosting": boosting, "drop_rate": 0.5,
+         "skip_drop": 0.1, "bagging_freq": 1, "bagging_fraction": 0.8}
+    a = tlgb.train(dict(p), tlgb.Dataset(X, label=z), 8, verbose_eval=False,
+                   device=cuda_device)
+    b = tlgb.train(dict(p), tlgb.Dataset(X, label=z), 8, verbose_eval=False,
+                   device="cpu")
+    assert a.model_to_string() == b.model_to_string()
+    assert a.digest() == b.digest()

@@ -256,8 +256,9 @@ def test_hist_compact_bitwise(A, n_neg, cat):
 
 
 def test_hist_active_scatter_matches():
-    """The float32 scatter oracle: same cells, sums to f32 accumulation
-    order, counts exact."""
+    """The float32 scatter oracle, now the wide histogram's plain version
+    on the transposed bins (``hist_wide_raw`` on CPU tensors): same
+    cells, counts exact, and the sums bitwise (both add in row order)."""
     ds = _dataset(False)
     rng = np.random.RandomState(31)
     n = ds.bins.shape[0]
@@ -270,13 +271,18 @@ def test_hist_active_scatter_matches():
         jnp.asarray(ds.bins), jnp.asarray(g), jnp.asarray(h),
         jnp.asarray(row_leaf), jnp.asarray(active), max_bins=mb,
         num_leaf_slots=L))
-    got = t_hist.hist_active_scatter(
-        torch.as_tensor(ds.bins), torch.as_tensor(g), torch.as_tensor(h),
-        torch.as_tensor(row_leaf), torch.as_tensor(active), max_bins=mb,
-        num_leaf_slots=L).numpy()
+    n_pad = -(-n // 2048) * 2048
+    bins_t = torch.zeros((ds.bins.shape[1], n_pad), dtype=torch.uint8)
+    bins_t[:, :n] = torch.as_tensor(ds.bins.T)
+    hist_leaf = torch.full((n_pad,), -1, dtype=torch.int32)
+    hist_leaf[:n] = torch.as_tensor(row_leaf)
+    got = t_hist.hist_wide_raw(
+        bins_t, torch.as_tensor(g), torch.as_tensor(h), hist_leaf,
+        torch.as_tensor(active), L, mb).numpy()
     np.testing.assert_array_equal(got[..., 2], ref[..., 2])
     np.testing.assert_allclose(got, ref, rtol=tol("f32_accum"),
                                atol=tol("f32_accum"))
+    np.testing.assert_array_equal(got, ref)
 
 
 # -- K5 and seeded K3: two blocks of a stream through one carry ----------

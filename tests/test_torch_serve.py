@@ -166,7 +166,7 @@ def test_seeded_forest_routing(seed):
     assert any(t.num_leaves == 1 for t in trees)
     assert any(t.num_cat for t in trees)
     X = forest_rows(trees, 2000, seed + 100)
-    cm = compile_trees(trees, num_class=3)
+    cm = compile_trees(trees, num_class=3, device="cpu")
     got = cm.leaf_indices(X)
     assert np.array_equal(got, predict_leaf(trees, X))
     _assert_ulp(cm.predict_raw(X), _oracle(trees, X, 3))
@@ -185,18 +185,33 @@ def test_stump_forest_and_class_padding():
     t2 = Tree(2)
     t2.leaf_value[0] = -1.0 / 3.0
     X = np.random.RandomState(0).normal(size=(64, 3)).astype(np.float32)
-    cm = compile_trees([t1, t2])
+    cm = compile_trees([t1, t2], device="cpu")
     assert np.array_equal(cm.leaf_indices(X), np.zeros((64, 2), np.int32))
     _assert_ulp(cm.predict_raw(X), _oracle([t1, t2], X))
     trees = random_forest(4, num_class=2, iters=3)[:5]
     X = forest_rows(trees, 300, 9)
-    cm = compile_trees(trees, num_class=2)
+    cm = compile_trees(trees, num_class=2, device="cpu")
     assert cm.leaf_indices(X).shape == (300, 5)
     _assert_ulp(cm.predict_raw(X), _oracle(trees, X, 2))
 
 
+def test_serve_entry_points_default_to_the_card():
+    """``build_pack`` and ``compile_trees`` pack onto the card unless
+    asked for the CPU (here there is no card: the default raises)."""
+    import inspect
+    from lightgbm_tpu_torch.serve import build_pack
+    for fn in (build_pack, compile_trees):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    trees = random_forest(2, num_class=1, iters=2)
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            compile_trees(trees)
+    assert build_pack(trees, device="cpu").leaf_value.device.type == "cpu"
+    assert compile_trees(trees, device="cpu").device.type == "cpu"
+
+
 def test_empty_forest_predicts_base_score():
-    cm = compile_trees([], base_score=0.25)
+    cm = compile_trees([], base_score=0.25, device="cpu")
     out = cm.predict_raw(np.zeros((3, 2), np.float32))
     assert np.array_equal(out, np.full(3, 0.25, np.float32))
     assert cm.leaf_indices(np.zeros((3, 2), np.float32)).shape == (3, 0)
