@@ -274,9 +274,12 @@ and the script exits non-zero):
    histogram at the 128-slot waves its trees take (a root wave with
    every row in one slot, a mid-tree wave with bagged-out rows) and at
    the 1,024-slot waves of a 2,048-leaf tree on the uint8 bins of phase
-   4, each bitwise its plain version on CPU copies (a sequential
-   ``index_add_`` in row order), timed beside an f32 ``index_add_`` of
-   the same cells on the card and its bound; K2 and K4 on int32 bins at
+   4, the 65,536-slot mid-tree wave of a 131,072-leaf tree on those
+   bins, and a mid-tree wave of 8 slots at ``max_bin`` 65535 (synthetic
+   int32 bins, a 65,536-bin stride, phase 4's row count), each bitwise
+   its plain version on CPU copies (a sequential ``index_add_`` in row
+   order), timed beside an f32 ``index_add_`` of the same cells on the
+   card and its bound; K2 and K4 on int32 bins at
    a 128-slot wave, bitwise their plain versions, timed as phase 3
    times them; then ``lgb.train`` at ``max_bin`` 1023 and 255 leaves, 8
    iterations (the wide histogram, K2 and K4 on int32 bins, no K1/K3),
@@ -302,10 +305,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HEADLINE_ROWS = 1_000_000
 HEADLINE_FEATURES = 28
 HEADLINE_ITERS = 32
+HEADLINE_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
+                   "learning_rate": 0.1, "min_data_in_leaf": 20,
+                   "verbose": -1}
 AUC_GATE = 0.93
 SMALL_ROWS = 65_536              # the most rows the split kernel takes
 SMALL_VALID = SMALL_ROWS // 5    # as bench.py valid_leg
@@ -454,6 +461,8 @@ VARIANT_PRED_TOL = 1e-6
 WIDE_MAX_BIN = 1023
 WIDE_DEEP_LEAVES = 2048
 WIDE_ITERS = 8
+WIDEST_LEAVES = 131072      # LightGBM's largest num_leaves: 65,536 slots
+WIDEST_MAX_BIN = 65535      # a 65,536-bin stride (synthetic int32 bins)
 # memory rate of one H100 SXM (NVIDIA data sheet)
 PEAK_BYTES_PER_S = 3.35e12
 # float32 rate outside the tensor cores of one H100 SXM (data sheet)
@@ -3796,6 +3805,21 @@ def wide_hist_case(dd, L: int, A: int, gen, skew: bool, bag: float = 0.8):
     return g, h, hl, active
 
 
+def synthetic_bins(dd, max_bin: int, gen):
+    """``dd``'s rows with uniform int32 bins in ``[0, max_bin)`` in each of
+    its columns (binning real data to ``max_bin`` 65535 would cost most
+    of the phase), as the fields :func:`wide_hist_measure` reads."""
+    import torch
+    bins_t = torch.zeros(dd.bins_t.shape, dtype=torch.int32,
+                         device=dd.device)
+    bins_t[:, :dd.num_data] = torch.randint(
+        0, max_bin, (bins_t.shape[0], dd.num_data), generator=gen,
+        device=dd.device, dtype=torch.int32)
+    return types.SimpleNamespace(bins_t=bins_t, group_max_bins=max_bin,
+                                 num_data=dd.num_data, n_pad=dd.n_pad,
+                                 device=dd.device)
+
+
 def wide_hist_measure(dd, L: int, A: int, gen, skew: bool) -> dict:
     """The wide histogram on one wave: the kernel bitwise its plain
     version on CPU copies, its time, the plain version's (CPU), an f32
@@ -3803,7 +3827,9 @@ def wide_hist_measure(dd, L: int, A: int, gen, skew: bool) -> dict:
     the bound: each active row's bins and two values read once, every
     hist leaf read once, the histogram written once."""
     import torch
-    from lightgbm_tpu_torch.ops.histogram import (bin_stride, hist_wide_raw,
+    from lightgbm_tpu_torch.ops.histogram import (bin_stride,
+                                                  hist_wide_launch,
+                                                  hist_wide_raw, slot_tables,
                                                   wide_cells)
     g, h, hl, active = wide_hist_case(dd, L, A, gen, skew)
     mb = dd.group_max_bins
@@ -3821,6 +3847,11 @@ def wide_hist_measure(dd, L: int, A: int, gen, skew: bool) -> dict:
                              f"{dd.bins_t.dtype})")
     ms = time_ms(lambda: hist_wide_raw(dd.bins_t, g, h, hl, active, L, mb),
                  10)
+    out = torch.empty_like(got)
+    inv = slot_tables(active, L, collect_unbagged=False)[0]
+    gms = graph_ms(lambda: hist_wide_launch(dd.bins_t, g, h, hl, inv, L, B,
+                                            out), 10, 3)
+    del got, ref, out
     rows, cells = wide_cells(dd.bins_t, hl, active, n, L, B)
     vals = torch.stack([g[rows], h[rows], torch.ones_like(g[rows])], -1)
     vals = vals[:, None, :].expand(-1, G, -1).reshape(-1, 3).contiguous()
@@ -3832,12 +3863,13 @@ def wide_hist_measure(dd, L: int, A: int, gen, skew: bool) -> dict:
                3.0 * r * G, FP32_OPS_PER_S)
     log(f"kernel hist_wide {dd.bins_t.dtype} A={A} B={B} G={G} "
         f"({'root' if skew else 'mid-tree'} wave, {r} active rows): "
-        f"bitwise ok, {ms:.4f} ms (plain {plain_ms:.1f} ms on the CPU, "
+        f"bitwise ok, {ms:.4f} ms, in a graph {gms:.4f} ms (plain "
+        f"{plain_ms:.1f} ms on the CPU, "
         f"index_add_ {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
         f"{bd['bound_by']})")
     return dict(slots=A, bin_stride=B, bins=str(dd.bins_t.dtype),
                 wave="root" if skew else "mid-tree", active_rows=r, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, **bd)
+                graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
 
 
 def wide_phase(lgb, counters, X, y, ds, params, card: str,
@@ -3866,13 +3898,18 @@ def wide_phase(lgb, counters, X, y, ds, params, card: str,
     rows = [wide_hist_measure(ddw, 255, 128, gen, True),
             wide_hist_measure(ddw, 255, 128, gen, False),
             wide_hist_measure(dd, WIDE_DEEP_LEAVES, 1024, gen, True),
-            wide_hist_measure(dd, WIDE_DEEP_LEAVES, 1024, gen, False)]
+            wide_hist_measure(dd, WIDE_DEEP_LEAVES, 1024, gen, False),
+            wide_hist_measure(synthetic_bins(dd, WIDEST_MAX_BIN, gen), 15,
+                              8, gen, False),
+            wide_hist_measure(dd, WIDEST_LEAVES, WIDEST_LEAVES // 2, gen,
+                              False)]
     entries.append(_widest(dict(
         name="hist_wide", route="cuda",
         source="lightgbm_tpu_torch/csrc/hist_wide.cu",
         replaces="lightgbm_tpu/ops/pallas_histogram.py:588 (XLA scatter "
                  "hist_active_scatter; no Pallas kernel)",
-        max_abs_err=0.0), [rows[0], rows[2], rows[3], rows[1]]))
+        max_abs_err=0.0),
+        [rows[0], rows[2], rows[3], rows[1], rows[4], rows[5]]))
     leaf2, tabs, cat, _ = wave_inputs(ddw, 127, 64, 128, gen)
     entries.append(dict(
         name="route_i32", route="cuda",
@@ -4077,8 +4114,7 @@ def main() -> int:
                 "route_values_i32": ROUTE_VALUES_I32}
 
     # 4. the headline path through the user entry points
-    params = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
-              "learning_rate": 0.1, "min_data_in_leaf": 20, "verbose": -1}
+    params = dict(HEADLINE_PARAMS)
     bst, _, head = train_path(lgb, "headline", counters, params, ds,
                               HEADLINE_ITERS)
     head_ref = {"params": params, "text": bst.model_to_string(),

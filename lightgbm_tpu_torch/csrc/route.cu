@@ -81,9 +81,12 @@ static int launch_route(const void* bins_t, long long n_pad,
         (const float*)leaf_values, (float*)values_out);
     return (int)cudaGetLastError();
   }
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(route_kernel<VALUES, BinT, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        route_kernel<VALUES, BinT, true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   route_kernel<VALUES, BinT, true><<<grid, block, smem,
                                      (cudaStream_t)stream>>>(
       (const BinT*)bins_t, n_pad, (const int*)leaf2_in, (int*)leaf2_out,

@@ -40,9 +40,10 @@ from ..io.binning import MISSING_NAN, MISSING_ZERO
 from ..io.device import DeviceData
 from ..ops.compact import (compact_slot_threshold, hist_active_compact,
                            hist_compact_raw)
-from ..ops.histogram import (WIDE_MAX_SLOTS, bin_stride, combine_hist_cols,
+from ..ops.histogram import (bin_stride, combine_hist_cols,
                              hist_active_float_raw, hist_active_raw,
-                             hist_route, hist_wide_raw, is_quantized,
+                             hist_route, hist_wide_raw,
+                             hist_wide_scratch_bytes, is_quantized,
                              pack_values, pack_values_q, unbundle_grid,
                              value_cols)
 from ..ops.route import route_rows, route_rows_values, unbundle_bin
@@ -212,6 +213,33 @@ def kernels_fit(group_max_bins: int, num_leaf_slots: int) -> bool:
             and num_leaf_slots <= KERNEL_MAX_LEAVES)
 
 
+def wide_hist_bytes(num_leaves: int, G: int, B: int) -> int:
+    """Bytes of histograms the scatter backend holds on its device: the
+    per-leaf state ``[L + 1, G, B, 3]`` f32 and one wave's grids (the new
+    histogram, the parents', the siblings' and both children's together:
+    six grids of ``round8(L / 2)`` slots)."""
+    return (num_leaves + 1 + 6 * wide_wave_slots(num_leaves)) * G * B * 12
+
+
+def _check_wide_fits(data: DeviceData, num_leaves: int) -> None:
+    """Refuse at setup a scatter configuration whose histograms and one
+    wave's kernel scratch exceed the card's memory (on the CPU the host's
+    allocator decides)."""
+    if data.device.type != "cuda":
+        return
+    G, Bh = data.num_groups, bin_stride(data.group_max_bins)
+    hist = wide_hist_bytes(num_leaves, G, Bh)
+    scratch = hist_wide_scratch_bytes(data.num_data, G,
+                                      wide_wave_slots(num_leaves), Bh)
+    have = torch.cuda.get_device_properties(data.device).total_memory
+    if hist + scratch > have:
+        raise NotImplementedError(
+            f"{num_leaves} leaves over {G} columns at a {Bh}-bin stride "
+            f"need {hist / 2**30:.1f} GiB of histograms and "
+            f"{scratch / 2**30:.1f} GiB of a wave's kernel scratch, more "
+            f"than the card's {have / 2**30:.1f} GiB")
+
+
 def resolve_backend(data: DeviceData, num_leaf_slots: int) -> str:
     """The reference's choice of backend (``learner/serial.py:
     resolve_backend``), by configuration alone: ``"scatter"`` past the
@@ -224,12 +252,7 @@ def resolve_backend(data: DeviceData, num_leaf_slots: int) -> str:
     quantized modes take the int32 K1 and K3, the float modes their
     fixed-order float counterparts."""
     if not kernels_fit(data.group_max_bins, num_leaf_slots):
-        A = wide_wave_slots(num_leaf_slots)
-        if A > WIDE_MAX_SLOTS:
-            raise NotImplementedError(
-                f"{num_leaf_slots} leaves need {A} slots a wave, more than "
-                f"the wide histogram's {WIDE_MAX_SLOTS} (ROADMAP A, item 1: "
-                f"what is left of A3)")
+        _check_wide_fits(data, num_leaf_slots)
         return "scatter"
     _, A_tail = stage_plan(num_leaf_slots)
     return "compact" if A_tail > compact_slot_threshold() else "fused"

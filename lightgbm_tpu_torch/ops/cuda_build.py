@@ -74,7 +74,8 @@ LIBRARIES = {
     },
     "hist_wide": {
         "lgbm_hist_wide": [_P, _I, _LL, _LL, _I, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _P, _P, _P, _I, _P, _P],
+                           _P, _P, _P],
+        "lgbm_hist_wide_scratch": [_LL, _I, _I, _I],
     },
     "split": {
         "lgbm_split_scan": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _F,

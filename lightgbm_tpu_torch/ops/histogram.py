@@ -1015,12 +1015,6 @@ def hist_route_float_plain(bins_t, vals, leaf2, tabs, cat_mask, inv, src,
             leaf2_new)
 
 
-WIDE_CHUNK = 4096        # rows per chunk of the wide kernel's slot sort
-WIDE_SMEM = 96 * 1024    # shared memory of one block of its walk
-# its count and fill kernels keep one int per slot in shared memory
-WIDE_MAX_SLOTS = SMEM_BLOCK_MAX // 4
-
-
 def wide_cells(bins_t, hist_leaf, active, n: int, num_leaf_slots: int,
                B: int):
     """The wide histogram's scatter plan: -> ``(rows, idx)``, the real
@@ -1058,24 +1052,17 @@ def hist_wide_plain(bins_t, grad, hess, hist_leaf, active,
     return out.t().reshape(A, G, B, 3).contiguous()
 
 
-def wide_warps(B: int) -> int:
-    """Warps (one (slot, column) pair each) per block of the walk: as
-    many as :data:`WIDE_SMEM` holds, 1-8."""
-    return max(1, min(8, WIDE_SMEM // ((3 * B + 64) * 4)))
-
-
 def hist_wide_raw(bins_t, grad, hess, hist_leaf, active, num_leaf_slots: int,
                   max_bins: int) -> torch.Tensor:
     """Exact-f32 histogram ``[A, G, B, 3]`` of ``(grad, hess, 1)`` over the
     rows whose hist leaf is in ``active`` (the reference's
     ``hist_active_scatter``): uint8 or int32 ``bins_t [G, n_pad]``,
     ``grad``/``hess`` f32 over the ``n`` real rows, ``hist_leaf [n_pad]``
-    int32 (-1: no slot), at up to ``WIDE_MAX_SLOTS`` slots and any bin
-    stride.
+    int32 (-1: no slot), at any number of slots and any bin stride.
     Each cell is the row-order sum of its rows from +0.0, on the card as
     in the plain version (``csrc/hist_wide.cu``); slots whose id is -1
-    stay zero.  One count per call (four kernels: count, scan, fill,
-    walk)."""
+    stay zero.  One count per call (a slot sort, a plan, a zero pass and
+    the walk)."""
     B = bin_stride(max_bins)
     G, n_pad = bins_t.shape
     n = grad.shape[0]
@@ -1089,34 +1076,50 @@ def hist_wide_raw(bins_t, grad, hess, hist_leaf, active, num_leaf_slots: int,
     _check(hess, "hess", torch.float32, (n,), dev)
     _check(hist_leaf, "hist_leaf", torch.int32, (n_pad,), dev)
     _check(active, "active", torch.int32, (A,), dev)
-    if not 1 <= A <= WIDE_MAX_SLOTS or n > n_pad:
-        raise ValueError(f"hist_wide: {A} slots (1-{WIDE_MAX_SLOTS}), "
-                         f"{n} rows of {n_pad}")
+    if A < 1 or n > n_pad:
+        raise ValueError(f"hist_wide: {A} slots, {n} rows of {n_pad}")
     if dev.type == "cpu":
         hist_wide_raw.plain_calls += 1
         return hist_wide_plain(bins_t, grad, hess, hist_leaf, active, L, B)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    from .cuda_build import check_launch, library
+    from .cuda_build import check_launch
     inv = slot_tables(active, L, collect_unbagged=False)[0]
-    nchunks = -(-n // WIDE_CHUNK)
-    counts = torch.empty(max(1, nchunks) * A, dtype=torch.int32, device=dev)
-    start = torch.empty(A + 1, dtype=torch.int32, device=dev)
-    order = torch.empty(max(1, n), dtype=torch.int32, device=dev)
     out = torch.empty((A, G, B, 3), dtype=torch.float32, device=dev)
-    code = library("hist_wide").lgbm_hist_wide(
-        bins_t.data_ptr(), int(bins_t.dtype == torch.int32), n_pad, n, G,
-        grad.data_ptr(), hess.data_ptr(), hist_leaf.data_ptr(),
-        inv.data_ptr(), L, A, B, WIDE_CHUNK, counts.data_ptr(),
-        start.data_ptr(), order.data_ptr(), wide_warps(B), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(code, "hist_wide")
+    check_launch(hist_wide_launch(bins_t, grad, hess, hist_leaf, inv, L, B,
+                                  out), "hist_wide")
     hist_wide_raw.launches += 1
     return out
 
 
 hist_wide_raw.launches = 0
 hist_wide_raw.plain_calls = 0
+
+
+def hist_wide_scratch_bytes(n: int, G: int, A: int, B: int) -> int:
+    """Bytes of device scratch the wide histogram's kernels take for one
+    wave of ``n`` rows, ``G`` columns, ``A`` slots and a ``B``-bin stride,
+    as the kernel counts them (builds its library on first use)."""
+    from .cuda_build import library
+    return 256 * library("hist_wide").lgbm_hist_wide_scratch(n, G, A, B)
+
+
+def hist_wide_launch(bins_t, grad, hess, hist_leaf, inv, L: int, B: int,
+                     out) -> int:
+    """Launch the wide histogram's kernels into ``out [A, G, B, 3]`` on the
+    current stream (``inv``: the leaves' slots, :func:`slot_tables`),
+    with the scratch the kernel asks for allocated here: -> the CUDA
+    error code (0: launched)."""
+    from .cuda_build import library
+    G, n_pad = bins_t.shape
+    n, A, dev = grad.shape[0], out.shape[0], bins_t.device
+    scratch = torch.empty(hist_wide_scratch_bytes(n, G, A, B),
+                          dtype=torch.uint8, device=dev)
+    return library("hist_wide").lgbm_hist_wide(
+        bins_t.data_ptr(), int(bins_t.dtype == torch.int32), n_pad, n, G,
+        grad.data_ptr(), hess.data_ptr(), hist_leaf.data_ptr(),
+        inv.data_ptr(), L, A, B, scratch.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
 
 
 SUM_BLOCK = 32

@@ -907,17 +907,22 @@ def test_cuda_fobj_l2_is_builtin_regression(cuda_device):
     assert b.digest() == a.digest()
 
 
-def _wide_wave(seed, n, G, max_bin, L, A, n_active, int32=True, skew=False):
+def _wide_wave(seed, n, G, max_bin, L, A, n_active, int32=True, skew=False,
+               one_bin=False, live_slot=0, spread=False):
     """A wave of the wide-bin / deep-tree backend: random bins (int32 or
     uint8), gradients over eight decades (where the order of a sum
     shows), hist leaves with bagged-out (-1) rows, ``A`` slots of which
-    ``n_active`` hold leaves; ``skew`` puts every row in one leaf (the
-    root wave)."""
+    ``n_active`` hold leaves (the first ones, or with ``spread`` slots
+    drawn from all ``A``); ``skew`` puts every row in leaf 0, held by
+    slot ``live_slot`` alone (the root wave); ``one_bin`` puts every row
+    of column 1 in one bin (one chain holds the whole slot)."""
     rng = np.random.RandomState(seed)
     n_pad = -(-n // 2048) * 2048
     dt = torch.int32 if int32 else torch.uint8
     bins_t = torch.zeros((G, n_pad), dtype=dt)
     bins_t[:, :n] = torch.as_tensor(rng.randint(0, max_bin, (G, n))).to(dt)
+    if one_bin:
+        bins_t[1, :n] = max_bin // 2
     g = torch.as_tensor((rng.randn(n) * 10.0 ** rng.uniform(-5, 3, n))
                         .astype(np.float32))
     h = torch.as_tensor((rng.rand(n) * 10.0 ** rng.uniform(-5, 3, n))
@@ -927,26 +932,44 @@ def _wide_wave(seed, n, G, max_bin, L, A, n_active, int32=True, skew=False):
     hl = torch.full((n_pad,), -1, dtype=torch.int32)
     hl[:n] = torch.as_tensor(np.where(rng.rand(n) < 0.8, leaf, -1))
     active = torch.full((A,), -1, dtype=torch.int32)
-    active[:n_active] = torch.as_tensor(
-        rng.permutation(min(L, 2 * n_active))[:n_active])
+    if skew:
+        active[live_slot] = 0
+    else:
+        leaves = torch.as_tensor(
+            rng.permutation(min(L, 2 * n_active))[:n_active], dtype=torch.int32)
+        if spread:
+            active[torch.as_tensor(rng.permutation(A)[:n_active])] = leaves
+        else:
+            active[:n_active] = leaves
     return bins_t, g, h, hl, active
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
-    (0, 200_000, 28, 1023, 255, 128, 100, True, False),
-    (1, 200_000, 28, 1023, 255, 128, 1, True, True),
-    (2, 100_000, 8, 63, 2048, 1024, 1000, False, False),
-    (3, 50_000, 5, 300, 31, 16, 16, True, False),
-    (4, 100_000, 6, 63, 6000, 3000, 2900, False, False)],
-    ids=["wide", "wide-root", "deep", "small", "deeper"])
+    (0, 200_000, 28, 1023, 255, 128, 100, {}),
+    (1, 200_000, 28, 1023, 255, 128, 1, {"skew": True}),
+    (2, 100_000, 8, 63, 2048, 1024, 1000, {"int32": False}),
+    (3, 50_000, 5, 300, 31, 16, 16, {}),
+    (4, 100_000, 6, 63, 6000, 3000, 2900, {"int32": False}),
+    (5, 4_000, 3, 15, 131072, 65536, 3000, {"int32": False}),
+    (6, 60_000, 3, 65535, 15, 8, 8, {}),
+    (7, 60_000, 3, 63, 15, 8, 1, {"int32": False, "skew": True,
+                                  "one_bin": True}),
+    (8, 100_000, 28, 63, 2048, 1024, 1, {"int32": False, "skew": True,
+                                         "live_slot": 517}),
+    (9, 4_000, 3, 15, 131088, 65544, 3000, {"int32": False, "spread": True}),
+    (10, 60_000, 3, 70000, 15, 8, 8, {})],
+    ids=["wide", "wide-root", "deep", "small", "deeper", "slots65536",
+         "maxbin65535", "one-bin-column", "root-among-1024", "slots65544",
+         "maxbin70000"])
 def test_hist_wide_kernel_bitwise(cuda_device, case):
     """The exact-f32 wide histogram on the card equals its plain version
-    on CPU copies bit for bit (the row order of each cell is kept);
-    one launch count per call, on the card only."""
-    seed, n, G, mb, L, A, n_act, int32, skew = case
-    bins_t, g, h, hl, active = _wide_wave(seed, n, G, mb, L, A, n_act,
-                                          int32, skew)
+    on CPU copies bit for bit (the row order of each cell is kept), at
+    65,536 slots and a 65,536-bin stride, and past both (a third digit
+    pass of the slot sort; bins staged as int32); one launch count per
+    call, on the card only."""
+    seed, n, G, mb, L, A, n_act, kw = case
+    bins_t, g, h, hl, active = _wide_wave(seed, n, G, mb, L, A, n_act, **kw)
     ref = t_hist.hist_wide_raw(bins_t, g, h, hl, active, L, mb)
     before = t_hist.hist_wide_raw.launches
     got = t_hist.hist_wide_raw(*[t.to(cuda_device) for t in
@@ -1016,18 +1039,51 @@ def test_route_kernels_deep_tables_bitwise(cuda_device):
     assert (rl2[0, :n] != leaf2[0, :n]).any()
 
 
+def _distinct_data(n=70_000, seed=11):
+    """Rows whose first column has a distinct value each: at ``max_bin``
+    65535 (``min_data_in_bin`` 3) its group holds more than 16,384 bins,
+    past the earlier wide kernel's 32,768-bin-stride limit; at 210,000
+    rows and ``max_bin`` 70000 more than 65,536, a 131,072-bin stride."""
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, 3)).astype(np.float32)
+    X[:, 0] = rng.permutation(n).astype(np.float32)
+    z = (X[:, 1] * 2 + (X[:, 0] / n) - X[:, 2] + rng.normal(size=n)).astype(
+        np.float32)
+    return X, z
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("params", [
     {"max_bin": 511, "num_leaves": 63},
     {"max_bin": 63, "num_leaves": 1100, "min_data_in_leaf": 2},
-    {"max_bin": 63, "num_leaves": 6000, "min_data_in_leaf": 2}],
-    ids=["wide", "deep", "deeper"])
+    {"max_bin": 63, "num_leaves": 6000, "min_data_in_leaf": 2},
+    {"max_bin": 15, "num_leaves": 131072, "min_data_in_leaf": 1,
+     "min_sum_hessian_in_leaf": 0.0},
+    {"max_bin": 65535, "num_leaves": 31},
+    {"max_bin": 70000, "num_leaves": 31}],
+    ids=["wide", "deep", "deeper", "leaves131072", "maxbin65535",
+         "maxbin70000"])
 def test_cuda_wide_and_deep_train_as_cpu(cuda_device, params):
     """L2 models past the kernels' domain train on the card through the
     wide histogram and K2/K4, and equal the CPU's (plain versions) in
-    every tree and score: the wide histogram adds in the CPU's order."""
+    every tree and score: the wide histogram adds in the CPU's order.
+    LightGBM's largest ``num_leaves`` (65,536 slots a wave) and
+    ``max_bin`` 65535 with more than 16,384 bins in a group train too, and
+    ``max_bin`` 70000 with more than 65,536."""
     import lightgbm_tpu_torch as tlgb
-    X, z = _entry_data()
+    from lightgbm_tpu_torch.io.device import to_device
+    if params["num_leaves"] == 131072:
+        X, z = _entry_data(n=300)
+        X = X[:, :3]
+    elif params["max_bin"] >= 65535:
+        mb = params["max_bin"]
+        X, z = _distinct_data(70_000 if mb == 65535 else 210_000)
+        ds = tlgb.Dataset(X, label=z, params={"max_bin": mb}).construct()
+        dd = to_device(ds._constructed, "cpu")
+        assert dd.bins_t.dtype == torch.int32
+        assert dd.group_max_bins > (16384 if mb == 65535 else 65536)
+    else:
+        X, z = _entry_data()
     p = {"objective": "regression", "verbose": -1, **params}
     launched = t_hist.hist_wide_raw.launches
     a = tlgb.train(dict(p), tlgb.Dataset(X, label=z), 3, verbose_eval=False,
@@ -1036,6 +1092,8 @@ def test_cuda_wide_and_deep_train_as_cpu(cuda_device, params):
     b = tlgb.train(dict(p), tlgb.Dataset(X, label=z), 3, verbose_eval=False,
                    device="cpu")
     assert a.digest() == b.digest()
+    if params["num_leaves"] == 131072:
+        assert max(t.num_leaves for t in a._gbdt.models) > 256
 
 
 @pytest.mark.cuda

@@ -9,8 +9,9 @@ against the kernels of a parent tree.
 ``--quick``: print what ``ptxas -v`` reports for every kernel source of
 this tree (registers, shared memory, spills) and what ``cuobjdump -sass``
 finds in each library (shared atomics by opcode, float atomics of any
-space, fused multiply-adds; the float K1 and K3 must hold no float
-atomic; the split scan must hold no more FFMAs than its build with
+space, fused multiply-adds; the float K1 and K3 and the wide histogram
+must hold no float atomic; the split scan must hold no more FFMAs than its
+build with
 ``-fmad=false``: its sums are held bitwise to the reference's rounded
 adds and products), then run the kernel phases of
 ``chip_smoke.py`` (every kernel once at its path's shapes, held bitwise
@@ -25,7 +26,9 @@ phase 2b with each of several walk budgets
 ``nvcc`` into a temporary directory and loaded with this tree's C
 interface, or, for the float K1 and K3 of a parent without
 ``hist_float_walk.cuh``, with theirs before it (``WHOLE_CALL_FLOAT``),
-launched the way that parent's wrappers launched them; the parent's
+and for a wide histogram whose entry point still takes the warps of its
+walk, with that one (``WARPS_CALL_WIDE``), launched the way that
+parent's wrappers launched them; the parent's
 split kernel takes blocks of at most ``PARENT_SPLIT_THREADS`` threads.
 At the shapes ``chip_smoke.py`` uses (the float K1 and K3 at every wave
 of its phase 2b), each kernel of both trees runs once on the same
@@ -36,9 +39,15 @@ as launches captured in a CUDA graph).  Then the small-data path of
 early stopping), its 20,000,000-row hhilo stream and those rows trained
 in memory with the headline's 255 leaves (the float K1 and K3) train
 with the parent's kernels and with this tree's, in the same order, and
-the four digests of each must be equal.  Prints a summary and, with
-``--out``, writes the results as one JSON object; times are means over
-back-to-back launches (warm), on the card named in the output.
+the four digests of each must be equal.  The wide histogram (the exact-
+f32 kernel past the histogram kernels' domain) runs both trees at
+``chip_smoke.py``'s phase-25 waves (``max_bin`` 1023 at 128 slots and
+2,048 leaves at 1,024, a root and a mid-tree wave each), bitwise equal
+and timed in turns, and the ``max_bin``-1023 and 2,048-leaf paths of
+that phase train with each tree's kernels (four equal digests each).
+Prints a summary and, with ``--out``, writes the results as one JSON
+object; times are means over back-to-back launches (warm), on the card
+named in the output.
 """
 from __future__ import annotations
 
@@ -80,6 +89,15 @@ WHOLE_CALL_FLOAT = {
                                     _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]},
 }
 WHOLE_CALL_K3_MAX_WARPS = 12
+# the wide histogram before its redesign: one call with per-chunk slot
+# counts, slot starts, a row order and the warps of its walk
+WARPS_CALL_WIDE = {
+    "hist_wide": {
+        "lgbm_hist_wide": [_P, _I, _LL, _LL, _I, _P, _P, _P, _P, _I, _I, _I,
+                           _I, _P, _P, _P, _I, _P, _P]},
+}
+WARPS_CALL_CHUNK = 4096
+WARPS_CALL_SMEM = 96 * 1024
 
 
 def _sass(so: str) -> str:
@@ -132,27 +150,44 @@ def ptxas_report() -> tuple:
                  f"{ffma['split-nofma.so']} with -fmad=false: "
                  f"{'nothing contracted' if ok else 'CONTRACTED'}")
     floats = {n: fatom[f"{n}.so"] for n in ("hist_route_float",
-                                            "hist_compact_float")}
-    lines.append(f"float K1/K3 float atomics: {floats}")
+                                            "hist_compact_float",
+                                            "hist_wide")}
+    lines.append(f"float K1/K3 and wide histogram float atomics: {floats}")
     return "\n".join(lines), ok and not any(floats.values())
+
+
+def takes_walk_warps(csrc: str) -> bool:
+    """Whether a tree's wide histogram has the entry point that takes the
+    warps of its walk (``WARPS_CALL_WIDE``)."""
+    path = os.path.join(csrc, "hist_wide.cu")
+    return os.path.exists(path) and re.search(
+        r"lgbm_hist_wide\([^)]*\bint warps\b", open(path).read()) is not None
 
 
 def build_parent(parent: str, out_dir: str) -> tuple:
     """Build the parent's kernel sources: -> (name -> library, whether
-    its float K1 and K3 take the whole-call interface).  Libraries are
-    loaded with this tree's C interface or that one.  A library the
-    parent does not have yet is left out (both sides then launch this
-    tree's)."""
+    its float K1 and K3 take the whole-call interface, whether its wide
+    histogram takes the warps call).
+    Libraries are loaded with this tree's C interface or those.  A
+    library the parent does not have yet is left out (both sides then
+    launch this tree's)."""
     csrc = os.path.join(parent, "lightgbm_tpu_torch", "csrc")
     whole = not os.path.exists(os.path.join(csrc, "hist_float_walk.cuh"))
+    warps = takes_walk_warps(csrc)
     interfaces = dict(cuda_build.LIBRARIES,
-                      **(WHOLE_CALL_FLOAT if whole else {}))
+                      **(WHOLE_CALL_FLOAT if whole else {}),
+                      **(WARPS_CALL_WIDE if warps else {}))
     procs = []
     for name in cuda_build.LIBRARIES:
         if not os.path.exists(os.path.join(csrc, f"{name}.cu")):
             continue
         path = os.path.join(out_dir, f"lib{name}-parent.so")
-        cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", csrc,
+        # -fno-gnu-unique: the static locals of the sources' inline host
+        # functions (shared-memory opt-ins, a side stream) are otherwise
+        # one object across both trees' libraries in this process, so
+        # the parent's kernels would skip their own opt-ins
+        cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
+               "-Xcompiler", "-fno-gnu-unique", "-I", csrc,
                "-o", path, os.path.join(csrc, f"{name}.cu")]
         procs.append((name, path, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
@@ -167,25 +202,35 @@ def build_parent(parent: str, out_dir: str) -> tuple:
             f.argtypes = argtypes
             f.restype = ctypes.c_int
         libs[name] = lib
-    return libs, whole
+    return libs, whole, warps
 
 
 @contextlib.contextmanager
-def kernels_of(libs: dict, split_threads: int, whole_float: bool = False):
+def kernels_of(libs: dict, split_threads: int, whole_float: bool = False,
+               wide_warps: bool = False):
     """Launch through ``libs`` (name -> library) in place of the loaded
     ones, the split scan with blocks of at most ``split_threads``; with
     ``whole_float`` the float K1 and K3 through the wrappers of the
-    whole-call interface."""
+    whole-call interface, with ``wide_warps`` the wide histogram through
+    the warps call (and its scratch counted as its wrapper allocated it
+    in the learner's setup check)."""
+    from lightgbm_tpu_torch.learner import serial
     from lightgbm_tpu_torch.ops import compact, histogram, split_kernel
     saved = dict(cuda_build._loaded)
     launch = split_kernel.split_scan_launch
     k1, k3 = histogram.hist_route_float_raw, compact.hist_compact_float_raw
+    wide, wide_scratch = (histogram.hist_wide_launch,
+                          serial.hist_wide_scratch_bytes)
     cuda_build._loaded.update(libs)
     split_kernel.split_scan_launch = functools.partial(launch,
                                                        threads=split_threads)
     if whole_float:
         histogram.hist_route_float_raw = functools.partial(whole_k1_raw, k1)
         compact.hist_compact_float_raw = functools.partial(whole_k3_raw, k3)
+    if wide_warps:
+        histogram.hist_wide_launch = functools.partial(warps_call_wide,
+                                                       libs["hist_wide"])
+        serial.hist_wide_scratch_bytes = warps_call_scratch
     try:
         yield
     finally:
@@ -194,6 +239,34 @@ def kernels_of(libs: dict, split_threads: int, whole_float: bool = False):
         split_kernel.split_scan_launch = launch
         histogram.hist_route_float_raw = k1
         compact.hist_compact_float_raw = k3
+        histogram.hist_wide_launch = wide
+        serial.hist_wide_scratch_bytes = wide_scratch
+
+
+def warps_call_scratch(n: int, G: int, A: int, B: int) -> int:
+    """Bytes the warps call's wrapper allocated beside its histogram
+    (the slot sort's counts, starts and order)."""
+    return 4 * (max(1, -(-n // WARPS_CALL_CHUNK)) * A + A + 1 + max(1, n))
+
+
+def warps_call_wide(lib, bins_t, grad, hess, hist_leaf, inv, L, B, out):
+    """The wide histogram through the warps call, launched as its wrapper
+    launched it (slot sort chunks of ``WARPS_CALL_CHUNK`` rows, 1-8 warps
+    a block in ``WARPS_CALL_SMEM``): -> the CUDA error code."""
+    import torch
+    G, n_pad = bins_t.shape
+    n, A, dev = grad.shape[0], out.shape[0], bins_t.device
+    nchunks = -(-n // WARPS_CALL_CHUNK)
+    counts = torch.empty(max(1, nchunks) * A, dtype=torch.int32, device=dev)
+    start = torch.empty(A + 1, dtype=torch.int32, device=dev)
+    order = torch.empty(max(1, n), dtype=torch.int32, device=dev)
+    warps = max(1, min(8, WARPS_CALL_SMEM // ((3 * B + 64) * 4)))
+    return lib.lgbm_hist_wide(
+        bins_t.data_ptr(), int(bins_t.dtype == torch.int32), n_pad, n, G,
+        grad.data_ptr(), hess.data_ptr(), hist_leaf.data_ptr(),
+        inv.data_ptr(), L, A, B, WARPS_CALL_CHUNK, counts.data_ptr(),
+        start.data_ptr(), order.data_ptr(), warps, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
 
 
 def whole_k1_windows(lib, bins_t, vals, leaf2, inv, src, L, B, acc,
@@ -305,13 +378,16 @@ class Sides:
     """The parent's and this tree's libraries, and the split scan's
     block size in each."""
 
-    def __init__(self, plibs, whole_float: bool = False):
+    def __init__(self, plibs, whole_float: bool = False,
+                 wide_warps: bool = False):
         self.plibs = plibs
         self.whole_float = whole_float
+        self.wide_warps = wide_warps
         self.mine = {n: cuda_build.library(n) for n in cuda_build.LIBRARIES}
 
     def parent(self):
-        return kernels_of(self.plibs, PARENT_SPLIT_THREADS, self.whole_float)
+        return kernels_of(self.plibs, PARENT_SPLIT_THREADS, self.whole_float,
+                          self.wide_warps)
 
     def change(self):
         from lightgbm_tpu_torch.ops.split_kernel import SPLIT_THREADS
@@ -453,6 +529,107 @@ def float_k3_case(sides, dd, vals, hl, inv, src, L, B):
         torch.cuda.synchronize()
         return cs.bits_equal(p_out, c_out)
     return parent, change, equal
+
+
+def wide_case(sides, bins_t, grad, hess, hl, active, L, B):
+    """The wide histogram of both trees on the same inputs, each launch
+    under its own tree's kernels: -> (parent, change, equal)."""
+    import torch
+    from lightgbm_tpu_torch.ops import histogram
+    shape = (active.shape[0], bins_t.shape[0], B, 3)
+    inv = histogram.slot_tables(active, L, collect_unbagged=False)[0]
+    outs = {}
+
+    def side(which):
+        out = outs[which] = torch.empty(shape, device=bins_t.device)
+
+        def launch():
+            with getattr(sides, which)():
+                return histogram.hist_wide_launch(bins_t, grad, hess, hl,
+                                                  inv, L, B, out)
+        return launch
+    parent, change = side("parent"), side("change")
+
+    def equal():
+        if parent() or change():
+            raise RuntimeError("launch failed")
+        torch.cuda.synchronize()
+        return torch.equal(outs["parent"].view(torch.int32),
+                           outs["change"].view(torch.int32))
+    return parent, change, equal
+
+
+def wide_kernel_ab(sides) -> list:
+    """The wide histogram of both trees at ``chip_smoke.py``'s phase-25
+    waves: ``max_bin`` 1023 (int32 bins) at 128 slots and 2,048 leaves
+    (uint8 bins) at 1,024, a root and a mid-tree wave each."""
+    import torch
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.io.device import to_device
+    from lightgbm_tpu_torch.ops.histogram import bin_stride
+    X, y = cs.headline_data()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    rows = []
+    for max_bin, L, A in ((cs.WIDE_MAX_BIN, 255, 128),
+                          (63, cs.WIDE_DEEP_LEAVES, 1024)):
+        ds = lgb.Dataset(X, label=y, params={"max_bin": max_bin}).construct()
+        dd = to_device(ds._constructed, "cuda")
+        B = bin_stride(dd.group_max_bins)
+        for skew in (True, False):
+            g, h, hl, active = cs.wide_hist_case(dd, L, A, gen, skew)
+            name = (f"{dd.bins_t.dtype} A={A} B={B} "
+                    f"{'root' if skew else 'mid-tree'}")
+            parent, change, equal = wide_case(sides, dd.bins_t, g, h, hl,
+                                              active, L, B)
+            if not equal():
+                raise AssertionError(f"wide histogram {name}: parent != "
+                                     f"change")
+            r = dict(kernel="hist_wide", shape=name,
+                     **turns(parent, change, 10))
+            cs.log(f"hist_wide {name}: parent {r['parent_ms']} change "
+                   f"{r['change_ms']} ms, ratio {r['ratio']:.3f}, bitwise "
+                   f"equal")
+            rows.append(r)
+        del dd, ds
+    return rows
+
+
+def wide_path_ab(sides) -> dict:
+    """Phase 25's ``max_bin``-1023 and 2,048-leaf paths, each trained with
+    the parent's kernels and with this tree's in turns: walls and
+    digests (scores included), which must be equal."""
+    import torch
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.ops.histogram import hist_wide_raw
+    X, y = cs.headline_data()
+    result = {}
+    for name, params in (
+            ("wide", dict(cs.HEADLINE_PARAMS, max_bin=cs.WIDE_MAX_BIN)),
+            ("deep", dict(cs.HEADLINE_PARAMS,
+                          num_leaves=cs.WIDE_DEEP_LEAVES))):
+        ds = lgb.Dataset(X, label=y, params={"max_bin": params["max_bin"]})
+        ds.construct()
+        runs = []
+        for which in ("parent", "change", "change", "parent"):
+            n0 = hist_wide_raw.launches
+            with getattr(sides, which)():
+                t0 = time.time()
+                bst = lgb.train(dict(params), ds,
+                                num_boost_round=cs.WIDE_ITERS, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            r = dict(which=which, wall_s=wall, digest=bst.digest(),
+                     launches=hist_wide_raw.launches - n0)
+            cs.log(f"{name} ab {which}: {r}")
+            runs.append(r)
+        if any(r["launches"] == 0 for r in runs):
+            raise AssertionError(f"{name}: a run did not take the wide "
+                                 f"histogram")
+        if len({r["digest"] for r in runs}) != 1:
+            raise AssertionError(f"{name}: parent and change digests differ")
+        result[name] = runs
+    return result
 
 
 def split_case(sides, B: int, gen):
@@ -801,9 +978,16 @@ def main() -> int:
         cs.log(report)
         if not no_fma:
             raise AssertionError("nvcc contracted a multiply-add in the "
-                                 "split scan, or a float K1/K3 library holds "
-                                 "a float atomic")
-        cs.log(f"build_s {cuda_build.build_all():.2f}")
+                                 "split scan, or a float K1/K3 or wide "
+                                 "histogram library holds a float atomic")
+        # the kernel phases time K2/K4 beside the launch floor's kernel
+        floor_dir = tempfile.mkdtemp(prefix="hist_ab_floor_")
+        try:
+            floor_build = cs.start_launch_floor_build(floor_dir)
+            cs.log(f"build_s {cuda_build.build_all():.2f}")
+            cs.load_launch_floor(*floor_build)
+        finally:
+            shutil.rmtree(floor_dir, ignore_errors=True)
         import lightgbm_tpu_torch as lgb
         from lightgbm_tpu_torch.io.device import to_device
         from lightgbm_tpu_torch.ops.histogram import pack_values_q
@@ -837,8 +1021,9 @@ def main() -> int:
         tmp = tempfile.mkdtemp(prefix="hist_ab_")
         try:
             sides = Sides(*build_parent(args.parent, tmp))
-            result["kernels"] = kernel_ab(sides)
-            result["paths"] = path_ab(sides, tmp)
+            result["kernels"] = kernel_ab(sides) + wide_kernel_ab(sides)
+            result["paths"] = dict(path_ab(sides, tmp),
+                                   **wide_path_ab(sides))
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
     if args.out:
