@@ -9,8 +9,8 @@ and the script exits non-zero):
 1. build — compile the CUDA kernels from ``lightgbm_tpu_torch/csrc``
    (one ``nvcc`` per source, in parallel) into
    ``lightgbm_tpu_torch/_build/``, and beside them the empty kernel of
-   the launch floor (``tools/launch_floor.cu``) into a temporary
-   directory;
+   the launch floor (``tools/launch_floor.cu``) and the route's gather
+   floor (``tools/gather_floor.cu``) into a temporary directory;
 2. kernels — at the headline shapes (1,000,000 rows x 28 columns,
    63 bins, 255 leaves, int8h values) run each kernel and its plain
    PyTorch version on the same CUDA inputs, at every wave width the
@@ -279,11 +279,13 @@ and the script exits non-zero):
    int32 bins, a 65,536-bin stride, phase 4's row count), each bitwise
    its plain version on CPU copies (a sequential ``index_add_`` in row
    order), timed beside an f32 ``index_add_`` of the same cells on the
-   card and its bound; K2 and K4 on int32 bins at
-   a 128-slot wave, bitwise their plain versions, timed as phase 3
-   times them; then ``lgb.train`` at ``max_bin`` 1023 and 255 leaves, 8
-   iterations (the wide histogram, K2 and K4 on int32 bins, no K1/K3),
-   and at 2,048 leaves on phase 4's set, 8 iterations (the wide
+   card and its bound; K2 and K4 on int32 bins at a 128-slot wave, and
+   on phase 4's uint8 bins at 2,048-leaf tables (64 and 1,024 splits)
+   and at the last wave of a 131,072-leaf tree (65,536 splits), bitwise
+   their plain versions, timed as phase 3 times them (K2 also beside
+   its gather floor); then ``lgb.train`` at ``max_bin`` 1023 and 255
+   leaves, 8 iterations (the wide histogram, K2 and K4 on int32 bins,
+   no K1/K3), and at 2,048 leaves on phase 4's set, 8 iterations (the wide
    histogram, K2 and K4 on uint8 bins): train AUC >= 0.93, ms/iter, and
    the wide model served binned (int32 rows) == raw on 20,000 rows.
 
@@ -690,49 +692,81 @@ def graph_ms(fn, n: int = 100, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * n)
 
 
-# the empty kernel of the launch floor: on no path, so built here from
-# tools/ and not from the package's csrc/
-LAUNCH_FLOOR_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "tools", "launch_floor.cu")
-_launch_floor_lib = []
+# the empty kernel of the launch floor and the route's gather floor: on
+# no path, so built here from tools/ and not from the package's csrc/
+TOOLS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+FLOOR_SOURCES = ("launch_floor", "gather_floor")
+_floor_libs = {}
 
 
 def start_launch_floor_build(out_dir: str):
-    """Start ``nvcc`` on ``tools/launch_floor.cu`` with the package's
-    flags -> ``(process, library path)``; it compiles while the
-    package's kernels do."""
+    """Start one ``nvcc`` with the package's flags on each of
+    ``tools/launch_floor.cu`` and ``tools/gather_floor.cu`` -> ``[(name,
+    process, library path)]``; they compile while the package's kernels
+    do."""
     from lightgbm_tpu_torch.ops import cuda_build
-    path = os.path.join(out_dir, "liblaunch_floor.so")
-    cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", path,
-           LAUNCH_FLOOR_SRC]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT), path
+    builds = []
+    for name in FLOOR_SOURCES:
+        path = os.path.join(out_dir, f"lib{name}.so")
+        cmd = [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", path,
+               os.path.join(TOOLS_DIR, f"{name}.cu")]
+        builds.append((name, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), path))
+    return builds
 
 
-def load_launch_floor(proc, path: str) -> None:
-    """Wait for the launch-floor build and load its library."""
+def load_launch_floor(builds) -> None:
+    """Wait for the floor kernels' builds and load their libraries."""
     import ctypes
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed on tools/launch_floor.cu:\n"
-                           + out.decode(errors="replace"))
-    lib = ctypes.CDLL(path)
-    lib.lgbm_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.lgbm_empty.restype = ctypes.c_int
-    _launch_floor_lib.append(lib)
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    argtypes = {"lgbm_empty": [I, I, P],
+                "lgbm_gather_floor": [P, I, LL, P, P, P, I, P]}
+    for name, proc, path in builds:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on tools/{name}.cu:\n"
+                               + out.decode(errors="replace"))
+        lib = ctypes.CDLL(path)
+        for fn, at in argtypes.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = at
+                getattr(lib, fn).restype = ctypes.c_int
+        _floor_libs[name] = lib
 
 
 def launch_floor(grid: int, block: int, dev) -> dict:
     """An empty kernel's time at a ``grid`` x ``block`` launch, back to
     back and in a CUDA graph (``tools/launch_floor.cu``): the floor under
     a kernel of that launch shape."""
-    lib = _launch_floor_lib[0]
+    lib = _floor_libs["launch_floor"]
 
     def call(stream=current_stream(dev)):
         return lib.lgbm_empty(grid, block, stream)
     return dict(launch_floor_ms=time_ms(call, 200),
                 launch_floor_graph_ms=graph_ms(
                     lambda: call(current_stream(dev))))
+
+
+def gather_floor(bins_t, leaf2, tabs) -> float:
+    """The route's gather floor on one wave, in a CUDA graph
+    (``tools/gather_floor.cu``): each row's leaves read and written, and
+    the bin K2 reads for a row of a split leaf, with no decision."""
+    import torch
+    from lightgbm_tpu_torch.ops.route import T_GROUP, T_SEL
+    lib = _floor_libs["gather_floor"]
+    dev = bins_t.device
+    group = torch.where(tabs[T_SEL] != 0, tabs[T_GROUP], -1).int()
+    out = torch.empty_like(leaf2)
+
+    def call():
+        return lib.lgbm_gather_floor(
+            bins_t.data_ptr(), int(bins_t.dtype == torch.int32),
+            bins_t.shape[1], leaf2.data_ptr(), out.data_ptr(),
+            group.data_ptr(), -1, current_stream(dev))
+    ms = graph_ms(call)
+    if not torch.equal(out, leaf2):
+        raise AssertionError("the gather floor changed the leaves")
+    return ms
 
 
 def bound(nbytes: float, ops: float, ops_rate: float) -> dict:
@@ -830,8 +864,6 @@ def kernel_phase(dd, vals, entries):
     from lightgbm_tpu_torch.ops.compact import hist_compact_raw
     from lightgbm_tpu_torch.ops.histogram import (
         bin_stride, hist_launcher, hist_plain, hist_plan, hist_slab, slot_tables)
-    from lightgbm_tpu_torch.ops.route import (
-        ROUTE_BLOCK, _route_grid, route_plain, route_rows_raw)
     dev = dd.device
     sms = cuda_build.multiprocessor_count(dev)
     int_rate = int32_ops_per_s(sms)
@@ -876,50 +908,80 @@ def kernel_phase(dd, vals, entries):
         k3_rows))
 
 
-def k2_measure(dd, leaf2, tabs, cat, int_rate: float) -> dict:
-    """K2 (route) on one wave's tables: kernel vs plain version bitwise,
-    times back to back and in a CUDA graph, the bound, the sector bound
-    and the launch floor of its grid."""
+def route_table_bytes(tabs, B: int, values: bool) -> int:
+    """Bytes of a wave's tables that K2 (``values``: K4) must read: every
+    leaf's selection flag (and leaf value), the other ten fields of each
+    split leaf and the mask row of each categorical split."""
+    from lightgbm_tpu_torch.ops.route import T_ISCAT, T_SEL
+    L = tabs.shape[1]
+    sel = tabs[T_SEL] != 0
+    n_sel = int(sel.sum())
+    n_cat = int((sel & (tabs[T_ISCAT] != 0)).sum())
+    return 4 * L * (2 if values else 1) + 40 * n_sel + B * n_cat
+
+
+def route_timer(bins_t, leaf2, tabs, cat, lv=None):
+    """One bound K2 (with ``lv``: K4) launch on a wave, into buffers and
+    scratch allocated once, for :func:`time_ms` and :func:`graph_ms`:
+    -> ``(call, grid, block)``."""
     import torch
     from lightgbm_tpu_torch.ops import cuda_build
-    from lightgbm_tpu_torch.ops.route import (
-        ROUTE_BLOCK, _route_grid, route_entry, route_plain, route_rows_raw)
+    from lightgbm_tpu_torch.ops.route import (route_grid, route_launch,
+                                              route_plan)
+    dev = bins_t.device
+    n_pad, L = bins_t.shape[1], tabs.shape[1]
+    plan = route_plan(cuda_build.library("route"), dev, L, lv is not None,
+                      bins_t.dtype == torch.int32)
+    scratch = (torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                           device=dev) if plan.scratch_bytes else None)
+    buf = torch.empty_like(leaf2)
+    vbuf = (torch.empty(n_pad, dtype=torch.float32, device=dev)
+            if lv is not None else None)
+
+    def call():
+        return route_launch(bins_t, leaf2, buf, tabs, cat, lv, vbuf,
+                            scratch)
+    return call, route_grid(n_pad, plan), plan.threads
+
+
+def k2_measure(dd, leaf2, tabs, cat, int_rate: float) -> dict:
+    """K2 (route) on one wave's tables: kernel vs plain version bitwise,
+    times back to back and in a CUDA graph, the bound, the sector bound,
+    the launch floor of its grid and the gather floor of its wave."""
+    import torch
+    from lightgbm_tpu_torch.ops.route import route_plain, route_rows_raw
     dev = dd.device
     n_pad = dd.n_pad
     L, B = cat.shape
-    tab_bytes = 11 * L * 4 + L * B
+    tab_bytes = route_table_bytes(tabs, B, False)
     out = route_rows_raw(dd.bins_t, leaf2, tabs, cat)
     ref = route_plain(dd.bins_t, leaf2, tabs, cat)
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
         raise AssertionError("route kernel != plain version")
-    fn = route_entry(cuda_build.library("route"), dd.bins_t, False)
-    buf = torch.empty_like(leaf2)
-
-    def k2_call(stream=torch.cuda.current_stream(dev).cuda_stream):
-        return fn(
-            dd.bins_t.data_ptr(), n_pad, leaf2.data_ptr(), buf.data_ptr(),
-            tabs.data_ptr(), L, cat.data_ptr(), B, _route_grid(n_pad, dev),
-            ROUTE_BLOCK, stream)
+    k2_call, grid, block = route_timer(dd.bins_t, leaf2, tabs, cat)
     ms2 = time_ms(k2_call, 50)
-    dev2 = graph_ms(lambda: k2_call(current_stream(dev)))
+    dev2 = graph_ms(k2_call)
     plain2 = time_ms(lambda: route_plain(dd.bins_t, leaf2, tabs, cat), 5)
     moved_rows, sectors = moved_sectors(dd.bins_t, leaf2, tabs)
     b2 = bound(16 * n_pad + moved_rows * dd.bins_t.element_size()
                + tab_bytes, n_pad, int_rate)
     sec2 = bound(16 * n_pad + 32 * sectors + tab_bytes, n_pad, int_rate)
-    floor = launch_floor(_route_grid(n_pad, dev), ROUTE_BLOCK, dev)
+    floor = launch_floor(grid, block, dev)
+    gather = gather_floor(dd.bins_t, leaf2, tabs)
     n_cat = int(tabs[3].sum())
-    log(f"kernel route ({n_cat} categorical splits) rows={dd.num_data}: "
-        f"bitwise ok, {ms2:.4f} ms back to back, {dev2:.4f} "
-        f"ms in a graph (plain {plain2:.3f} ms, bound {b2['bound_ms']:.4f} "
-        f"ms; {moved_rows} moved rows touch {sectors} sectors: sector "
-        f"bound {sec2['bound_ms']:.4f} ms; an empty kernel of its grid "
+    log(f"kernel route L={L} ({n_cat} categorical splits) "
+        f"rows={dd.num_data}: bitwise ok, {ms2:.4f} ms back to back, "
+        f"{dev2:.4f} ms in a graph (plain {plain2:.3f} ms, bound "
+        f"{b2['bound_ms']:.4f} ms; {moved_rows} moved rows touch {sectors} "
+        f"sectors: sector bound {sec2['bound_ms']:.4f} ms; gather floor "
+        f"{gather:.4f} ms in a graph; an empty kernel of its grid "
         f"{floor['launch_floor_ms']:.4f} ms back to back, "
         f"{floor['launch_floor_graph_ms']:.4f} ms in a graph)")
     return dict(ms=ms2, graph_ms=dev2, plain_ms=plain2, library_ms=None,
                 moved_rows=moved_rows, sectors=sectors,
-                sector_bound_ms=sec2["bound_ms"], **floor, **b2)
+                sector_bound_ms=sec2["bound_ms"], gather_floor_ms=gather,
+                **floor, **b2)
 
 
 def k3_measure(dd, vals, A: int, gen, L: int, int_rate: float,
@@ -1130,10 +1192,8 @@ def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
     """K4 (route + per-row leaf value, the last pass of a tree) on one
     wave's tables: kernel vs plain version bitwise, times and bound."""
     import torch
-    from lightgbm_tpu_torch.ops import cuda_build
-    from lightgbm_tpu_torch.ops.route import (
-        ROUTE_BLOCK, _route_grid, route_entry, route_rows_values_raw,
-        route_values_plain)
+    from lightgbm_tpu_torch.ops.route import (route_rows_values_raw,
+                                              route_values_plain)
     dev = dd.device
     n_pad = dd.n_pad
     L, B = cat.shape
@@ -1142,25 +1202,17 @@ def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
     torch.cuda.synchronize()
     if not (torch.equal(out, ref) and torch.equal(v, rv)):
         raise AssertionError(f"route-values kernel != plain (L={L}, B={B})")
-    fn = route_entry(cuda_build.library("route"), dd.bins_t, True)
-    buf = torch.empty_like(leaf2)
-    vbuf = torch.empty(n_pad, dtype=torch.float32, device=dev)
-
-    def call(stream=torch.cuda.current_stream(dev).cuda_stream):
-        return fn(
-            dd.bins_t.data_ptr(), n_pad, leaf2.data_ptr(), buf.data_ptr(),
-            tabs.data_ptr(), L, cat.data_ptr(), B, lv.data_ptr(),
-            vbuf.data_ptr(), _route_grid(n_pad, dev), ROUTE_BLOCK, stream)
+    call, grid, block = route_timer(dd.bins_t, leaf2, tabs, cat, lv)
     ms = time_ms(call, 50)
-    gms = graph_ms(lambda: call(current_stream(dev)))
+    gms = graph_ms(call)
     pl = time_ms(lambda: route_values_plain(dd.bins_t, leaf2, tabs, cat,
                                             lv), 5)
     moved_rows, sectors = moved_sectors(dd.bins_t, leaf2, tabs)
-    tab_bytes = 11 * L * 4 + L * B + 4 * L
+    tab_bytes = route_table_bytes(tabs, B, True)
     bd = bound(20 * n_pad + moved_rows * dd.bins_t.element_size()
                + tab_bytes, n_pad, int_rate)
     sec = bound(20 * n_pad + 32 * sectors + tab_bytes, n_pad, int_rate)
-    floor = launch_floor(_route_grid(n_pad, dev), ROUTE_BLOCK, dev)
+    floor = launch_floor(grid, block, dev)
     log(f"kernel route_values L={L} B={B} rows={dd.num_data} "
         f"({int(tabs[3].sum())} categorical splits): bitwise ok, "
         f"{ms:.4f} ms back to back, {gms:.4f} ms in a graph (plain "
@@ -3923,22 +3975,25 @@ def wide_phase(lgb, counters, X, y, ds, params, card: str,
         replaces="lightgbm_tpu/ops/pallas_route.py:168",
         max_abs_err=0.0, **k4_measure(ddw, leaf2, tabs, cat, lv, int_rate)))
     # K2/K4 on uint8 bins at the deep path's own tables: 2,048 leaves (the
-    # opt-in shared-memory launch past 48 KB), an early wave of 64 splits
-    # and the last wave of 1,024
+    # staged layout past 48 KB of shared memory), an early wave of 64
+    # splits and the last wave of 1,024; and the last wave of a
+    # 131,072-leaf tree, 65,536 splits (the global layout)
     Ld, half = WIDE_DEEP_LEAVES, WIDE_DEEP_LEAVES // 2
+    Lw, half_w = WIDEST_LEAVES, WIDEST_LEAVES // 2
     deep = {"route": [], "route_values": []}
-    for nl in (64, half):
-        leaf2, tabs, cat, _ = wave_inputs(dd, nl, nl, min(nl, half), gen, Ld)
-        deep["route"].append(dict(leaves=Ld, split_leaves=nl, **k2_measure(
+    for L, nl in ((Ld, 64), (Ld, half), (Lw, half_w)):
+        leaf2, tabs, cat, _ = wave_inputs(dd, nl, nl, min(nl, half), gen, L)
+        deep["route"].append(dict(leaves=L, split_leaves=nl, **k2_measure(
             dd, leaf2, tabs, cat, int_rate)))
-    lv = torch.randn(Ld, generator=gen, device=dev)
-    deep["route_values"].append(dict(leaves=Ld, split_leaves=half,
-                                     **k4_measure(dd, leaf2, tabs, cat, lv,
-                                                  int_rate)))
+        if nl > 64:
+            lv = torch.randn(L, generator=gen, device=dev)
+            deep["route_values"].append(dict(
+                leaves=L, split_leaves=nl,
+                **k4_measure(dd, leaf2, tabs, cat, lv, int_rate)))
     for e in entries:
         if e["name"] in deep:
             e["deep"] = deep[e["name"]]
-    log(f"K2/K4 at {Ld} leaves on uint8 bins: bitwise ok")
+    log(f"K2/K4 at {Ld} and {Lw} leaves on uint8 bins: bitwise ok")
     del dd, ddw
     total, out = {}, {}
     for name, p, data, need_k, absent in (
@@ -4034,7 +4089,7 @@ def main() -> int:
     try:
         floor_build = start_launch_floor_build(floor_dir)
         build_s = cuda_build.build_all()
-        load_launch_floor(*floor_build)
+        load_launch_floor(floor_build)
     finally:
         shutil.rmtree(floor_dir, ignore_errors=True)
     log(f"build_s {build_s:.2f}")

@@ -36,12 +36,15 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
 LIBRARIES = {
     "route": {
-        "lgbm_route_rows": [_P, _LL, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+        "lgbm_route_plan": [_I, _I, _I, _P],
+        "lgbm_route_rows": [_P, _LL, _P, _P, _P, _I, _P, _I, _P, _I, _I,
+                            _P],
         "lgbm_route_rows_values": [_P, _LL, _P, _P, _P, _I, _P, _I, _P, _P,
-                                   _I, _I, _P],
-        "lgbm_route_rows_i32": [_P, _LL, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+                                   _P, _I, _I, _P],
+        "lgbm_route_rows_i32": [_P, _LL, _P, _P, _P, _I, _P, _I, _P, _I, _I,
+                                _P],
         "lgbm_route_rows_values_i32": [_P, _LL, _P, _P, _P, _I, _P, _I, _P,
-                                       _P, _I, _I, _P],
+                                       _P, _P, _I, _I, _P],
     },
     "hist_route": {
         "lgbm_hist_route": [_P, _LL, _I, _P, _I, _P, _P, _P, _I, _P, _I,

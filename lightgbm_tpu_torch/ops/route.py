@@ -7,9 +7,11 @@ default direction, EFB layout, missing metadata), reads its bin in that
 column, and moves to the right child when it goes right.  Two leaf
 vectors ride together in ``leaf2 [2, n_pad]`` int32: row 0 is the leaf of
 every row, row 1 the hist leaf with bagged-out rows parked at -1;
-padding rows are -1 in both.  The kernels are ``csrc/route.cu`` (one
-thread per row, ``csrc/route_row.cuh``); the plain version mirrors the
-reference's ``route_rows_xla``.
+padding rows are -1 in both.  The kernels are ``csrc/route.cu`` (a
+selection bit, then one 32-byte record per row of a split leaf, staged in
+shared memory by a persistent grid or, past what shared memory holds,
+packed once into scratch; ``csrc/route_row.cuh``); the plain version
+mirrors the reference's ``route_rows_xla``.
 
 Every wrapper runs its kernel for CUDA tensors and its plain version for
 CPU tensors; it counts kernel launches in ``.launches`` and plain calls
@@ -19,7 +21,8 @@ and K4 count into :data:`ROUTE_I32` and :data:`ROUTE_VALUES_I32`.
 """
 from __future__ import annotations
 
-import math
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,7 +32,6 @@ from ..io.binning import MISSING_NAN, MISSING_ZERO
 T_GROUP, T_THR, T_DL, T_ISCAT, T_SEL, T_NEWID = 0, 1, 2, 3, 4, 5
 T_OFF, T_NB, T_DB, T_MT, T_NANB = 6, 7, 8, 9, 10
 ROUTE_TAB_ROWS = 11
-ROUTE_BLOCK = 512
 
 
 class LaunchCount:
@@ -102,6 +104,62 @@ def route_plain(bins_t, leaf2, tabs, cat_mask):
     return torch.stack([rl2, hl2])
 
 
+# flags of a leaf record (csrc/route_row.cuh REC_*)
+REC_CAT, REC_DEFAULT_LEFT, REC_MT_SHIFT = 1, 2, 2
+
+
+def route_records(tabs):
+    """Plain form of the per-leaf layout K2 and K4 route by
+    (``csrc/route_row.cuh`` ``RecordLeaf``): -> ``(records [L, 8] int32,
+    sel_bits [ceil(L / 32)] int32)``.  A record holds the leaf's group,
+    threshold, right child, flags, EFB offset, bin count, default bin
+    and NaN bin, each at full width; the flags hold the categorical and
+    default-left bits and, from bit ``REC_MT_SHIFT``, the missing type
+    (NaN or zero; any other value as 0).  Leaf ``i`` is bit ``i % 32`` of
+    word ``i // 32`` of the selection map.  The kernels write the records
+    of selected leaves only (the others are never read); here those rows
+    are 0."""
+    L = tabs.shape[1]
+    mt = tabs[T_MT]
+    kind = torch.where((mt == MISSING_NAN) | (mt == MISSING_ZERO), mt, 0)
+    flags = (torch.where(tabs[T_ISCAT] != 0, REC_CAT, 0)
+             | torch.where(tabs[T_DL] != 0, REC_DEFAULT_LEFT, 0)
+             | (kind << REC_MT_SHIFT))
+    rec = torch.stack([tabs[T_GROUP], tabs[T_THR], tabs[T_NEWID], flags,
+                       tabs[T_OFF], tabs[T_NB], tabs[T_DB], tabs[T_NANB]], 1)
+    sel = tabs[T_SEL] != 0
+    rec = torch.where(sel[:, None], rec, 0).to(torch.int32)
+    W = -(-L // 32)
+    bits = torch.zeros(W * 32, dtype=torch.int64, device=tabs.device)
+    bits[:L] = sel.long()
+    words = (bits.view(W, 32) << torch.arange(32, device=tabs.device)).sum(1)
+    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+    return rec, words.to(torch.int32)
+
+
+def route_by_records(bins_t, leaf2, records, sel_bits, cat_mask):
+    """Plain form of K2's per-row route over :func:`route_records`' layout
+    (a selection bit, then one record per row of a split leaf): ->
+    leaf2'; equal to :func:`route_plain`."""
+    rl, hl = leaf2[0], leaf2[1]
+    safe = rl.clamp(min=0).long()
+    moves = (rl >= 0) & (((sel_bits.long()[safe >> 5] >> (safe & 31)) & 1)
+                         != 0)
+    r = records[safe].t()                               # [8, n_pad]
+    c = bins_t.gather(0, r[0].long()[None, :])[0].int()
+    db = r[6]
+    b = unbundle_bin(c, r[4], r[5], db)
+    mt = r[3] >> REC_MT_SHIFT
+    missing = (((mt == MISSING_NAN) & (b == r[7]))
+               | ((mt == MISSING_ZERO) & (b == db)))
+    num_left = torch.where(missing, (r[3] & REC_DEFAULT_LEFT) != 0, b <= r[1])
+    Bcat = cat_mask.shape[1]
+    cat_left = (cat_mask[safe, b.clamp(0, Bcat - 1).long()] != 0) & (b < Bcat)
+    go_left = torch.where((r[3] & REC_CAT) != 0, cat_left, num_left)
+    rl2 = torch.where(moves & ~go_left, r[2], rl)
+    return torch.stack([rl2, torch.where(hl >= 0, rl2, hl)])
+
+
 def _check_route_inputs(bins_t, leaf2, tabs, cat_mask):
     from .histogram import _check
     dev = bins_t.device
@@ -119,10 +177,38 @@ def _check_route_inputs(bins_t, leaf2, tabs, cat_mask):
     return dev, n_pad, L
 
 
-def _route_grid(n_pad: int, dev) -> int:
-    from .cuda_build import multiprocessor_count
-    return max(1, min(math.ceil(n_pad / ROUTE_BLOCK),
-                      4 * multiprocessor_count(dev)))
+class RoutePlan(NamedTuple):
+    """How K2/K4 launch at one table size (``csrc/route.cu``)."""
+    scratch_bytes: int      # 0: the tables stage in shared memory
+    threads: int            # a block
+    max_grid: int           # blocks resident at once on the device
+
+
+_PLANS = {}
+
+
+def route_plan(lib, dev, L: int, values: bool, i32: bool) -> RoutePlan:
+    """K2's (``values``: K4's) launch plan at ``L`` leaves on ``dev``, as
+    the ``route`` library ``lib`` reports it; kept per library, device
+    and shape."""
+    key = (id(lib), dev.index, L, values, i32)
+    plan = _PLANS.get(key)
+    if plan is None:
+        from .cuda_build import check_launch, multiprocessor_count
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(dev):
+            check_launch(lib.lgbm_route_plan(L, int(values), int(i32), out),
+                         "route plan")
+        plan = _PLANS[key] = RoutePlan(
+            out[1], out[2], max(1, out[0]) * multiprocessor_count(dev))
+    return plan
+
+
+def route_grid(n_pad: int, plan: RoutePlan) -> int:
+    """Blocks of a route launch: one a block's worth of rows, at most
+    those resident at once (the grid is persistent, each thread then
+    takes several rows)."""
+    return max(1, min(-(-n_pad // plan.threads), plan.max_grid))
 
 
 def route_entry(lib, bins_t, values: bool):
@@ -132,6 +218,32 @@ def route_entry(lib, bins_t, values: bool):
     name = "lgbm_route_rows_values" if values else "lgbm_route_rows"
     return getattr(lib, name + ("_i32" if bins_t.dtype == torch.int32
                                 else ""))
+
+
+def route_launch(bins_t, leaf2, out, tabs, cat_mask, leaf_values=None,
+                 values_out=None, scratch=None, lib=None) -> int:
+    """Launch K2 into ``out`` (with ``leaf_values``: K4, also into
+    ``values_out``) on the current stream, with the scratch the plan asks
+    for allocated here unless ``scratch`` is given, through ``lib`` (by
+    default the loaded ``route`` library): -> the CUDA error code (0:
+    launched).  What the wrappers, the smoke and the A/B time."""
+    if lib is None:
+        from .cuda_build import library
+        lib = library("route")
+    dev = bins_t.device
+    n_pad, L = bins_t.shape[1], tabs.shape[1]
+    values = leaf_values is not None
+    plan = route_plan(lib, dev, L, values, bins_t.dtype == torch.int32)
+    if scratch is None and plan.scratch_bytes:
+        scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8,
+                              device=dev)
+    extra = (leaf_values.data_ptr(), values_out.data_ptr()) if values else ()
+    return route_entry(lib, bins_t, values)(
+        bins_t.data_ptr(), n_pad, leaf2.data_ptr(), out.data_ptr(),
+        tabs.data_ptr(), L, cat_mask.data_ptr(), cat_mask.shape[1], *extra,
+        None if scratch is None else scratch.data_ptr(),
+        route_grid(n_pad, plan), plan.threads,
+        torch.cuda.current_stream(dev).cuda_stream)
 
 
 def route_rows_raw(bins_t, leaf2, tabs, cat_mask):
@@ -144,14 +256,10 @@ def route_rows_raw(bins_t, leaf2, tabs, cat_mask):
     if dev.type == "cpu":
         count.plain_calls += 1
         return route_plain(bins_t, leaf2, tabs, cat_mask)
-    from .cuda_build import check_launch, library
+    from .cuda_build import check_launch
     out = torch.empty_like(leaf2)
-    fn = route_entry(library("route"), bins_t, False)
-    code = fn(bins_t.data_ptr(), n_pad, leaf2.data_ptr(), out.data_ptr(),
-              tabs.data_ptr(), L, cat_mask.data_ptr(), cat_mask.shape[1],
-              _route_grid(n_pad, dev), ROUTE_BLOCK,
-              torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(code, "route_rows")
+    check_launch(route_launch(bins_t, leaf2, out, tabs, cat_mask),
+                 "route_rows")
     count.launches += 1
     return out
 
@@ -184,16 +292,11 @@ def route_rows_values_raw(bins_t, leaf2, tabs, cat_mask, leaf_values):
         count.plain_calls += 1
         return route_values_plain(bins_t, leaf2, tabs, cat_mask,
                                   leaf_values)
-    from .cuda_build import check_launch, library
+    from .cuda_build import check_launch
     out = torch.empty_like(leaf2)
     vals = torch.empty(n_pad, dtype=torch.float32, device=dev)
-    fn = route_entry(library("route"), bins_t, True)
-    code = fn(bins_t.data_ptr(), n_pad, leaf2.data_ptr(), out.data_ptr(),
-              tabs.data_ptr(), L, cat_mask.data_ptr(), cat_mask.shape[1],
-              leaf_values.data_ptr(), vals.data_ptr(),
-              _route_grid(n_pad, dev), ROUTE_BLOCK,
-              torch.cuda.current_stream(dev).cuda_stream)
-    check_launch(code, "route_rows_values")
+    check_launch(route_launch(bins_t, leaf2, out, tabs, cat_mask,
+                              leaf_values, vals), "route_rows_values")
     count.launches += 1
     return out, vals
 

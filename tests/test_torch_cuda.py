@@ -1004,8 +1004,9 @@ def test_route_kernels_int32_bitwise(cuda_device):
 
 @pytest.mark.cuda
 def test_route_kernels_deep_tables_bitwise(cuda_device):
-    """K2 and K4 past the leaves whose tables fit a block's shared memory
-    (6,000 leaves: read from global memory) equal their plain versions."""
+    """K2 and K4 past the leaves whose records stage in shared memory
+    (6,000 leaves: records packed into global memory) equal their plain
+    versions."""
     rng = np.random.RandomState(4)
     n, G, Ld = 50_000, 6, 6000
     n_pad = 51_200
@@ -1037,6 +1038,49 @@ def test_route_kernels_deep_tables_bitwise(cuda_device):
     rl2, rv = t_route.route_values_plain(bins_t, leaf2, tabs, cat, lv)
     assert torch.equal(l2.cpu(), rl2) and torch.equal(vals.cpu(), rv)
     assert (rl2[0, :n] != leaf2[0, :n]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["2048-64", "2048-1024-efb-cat",
+                                  "131072-efb-cat", "131072-wide-fields",
+                                  "maxbin70000"])
+def test_route_kernels_deep_waves_bitwise(cuda_device, case):
+    """K2 and K4 equal their plain versions on CPU copies at deep-tree
+    waves (``tests/route_waves.py``, 20x the CPU tests' rows: several
+    batches a thread): 2,048-leaf tables with 64 and 1,024 splits (the
+    staged layout), a third of them categorical and EFB-bundled; the
+    last wave of a 131,072-leaf tree, 65,536 splits (the global layout);
+    int32 bins past 70,000 with group ids past 255 and right children
+    past 65,535, and at ``max_bin`` 70000; bagged-out and padding rows
+    in each.  One launch count per call, on the card only."""
+    from tests.route_waves import CASES, deep_wave
+    kw = dict(CASES[case], n=20 * CASES[case]["n"])
+    bins_t, leaf2, tables, metas = deep_wave(**kw)
+    order = ("feature", "threshold", "default_left", "is_categorical",
+             "cat_mask", "sel", "new_id")
+    meta = ("missing_types", "nan_bins", "default_bins", "feat_group",
+            "feat_offset", "num_bins")
+    tabs, cat = t_route.leaf_tables(
+        *[torch.as_tensor(tables[k]) for k in order],
+        *[torch.as_tensor(metas[k]) for k in meta])
+    bt, l2 = torch.as_tensor(bins_t), torch.as_tensor(leaf2)
+    lv = torch.as_tensor(np.random.RandomState(kw["seed"]).normal(
+        size=kw["L"]).astype(np.float32))
+    cu = [t.to(cuda_device) for t in (bt, l2, tabs, cat, lv)]
+    k2 = t_route.ROUTE_I32 if kw.get("int32") else t_route.route_rows_raw
+    k4 = (t_route.ROUTE_VALUES_I32 if kw.get("int32")
+          else t_route.route_rows_values_raw)
+    before = (k2.launches, k4.launches)
+    out = t_route.route_rows_raw(*cu[:4])
+    l2o, vals = t_route.route_rows_values_raw(*cu)
+    torch.cuda.synchronize()
+    assert (k2.launches, k4.launches) == (before[0] + 1, before[1] + 1)
+    ref = t_route.route_rows_raw(bt, l2, tabs, cat)
+    rl2, rv = t_route.route_rows_values_raw(bt, l2, tabs, cat, lv)
+    assert torch.equal(out.cpu(), ref) and torch.equal(l2o.cpu(), rl2)
+    assert torch.equal(vals.cpu().view(torch.int32), rv.view(torch.int32))
+    n = kw["n"]
+    assert (ref[0, :n] != l2[0, :n]).any() and (ref[:, n:] == -1).all()
 
 
 def _distinct_data(n=70_000, seed=11):

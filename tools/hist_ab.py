@@ -45,6 +45,14 @@ f32 kernel past the histogram kernels' domain) runs both trees at
 2,048 leaves at 1,024, a root and a mid-tree wave each), bitwise equal
 and timed in turns, and the ``max_bin``-1023 and 2,048-leaf paths of
 that phase train with each tree's kernels (four equal digests each).
+K2 and K4 of both trees (a parent without ``lgbm_route_plan`` through
+its grid call, ``GRID_CALL_ROUTE``, launched as its wrapper launched
+them) run on the same waves, bitwise equal and equal to their plain
+versions, timed in turns back to back and in a CUDA graph: the
+headline, its categorical data, the small-data path's last pass, the
+ranking shape, 2,048-leaf tables at 64 and 1,024 splits, a 131,072-leaf
+wave at 65,536 and int32 bins at ``max_bin`` 1023.  It also reports
+whether the K1 and float-K1 libraries hold the parent's instructions.
 Prints a summary and, with ``--out``, writes the results as one JSON
 object; times are means over back-to-back launches (warm), on the card
 named in the output.
@@ -98,12 +106,41 @@ WARPS_CALL_WIDE = {
 }
 WARPS_CALL_CHUNK = 4096
 WARPS_CALL_SMEM = 96 * 1024
+# K2/K4 before their redesign: no launch plan and no scratch, a grid of
+# at most four 512-thread blocks an SM, one row a thread at a time
+GRID_CALL_ROUTE = {
+    "route": {
+        "lgbm_route_rows": [_P, _LL, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+        "lgbm_route_rows_values": [_P, _LL, _P, _P, _P, _I, _P, _I, _P, _P,
+                                   _I, _I, _P],
+        "lgbm_route_rows_i32": [_P, _LL, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+        "lgbm_route_rows_values_i32": [_P, _LL, _P, _P, _P, _I, _P, _I, _P,
+                                       _P, _I, _I, _P]},
+}
+GRID_CALL_BLOCK = 512
+GRID_CALL_BLOCKS_PER_SM = 4
 
 
 def _sass(so: str) -> str:
     return subprocess.run(
         [os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump"),
          "-sass", so], capture_output=True, text=True).stdout
+
+
+def same_sass(name: str, parent_so: str) -> bool:
+    """Whether library ``name`` of this tree and the parent's hold the
+    same instructions (addresses, encodings and branch targets aside):
+    a kernel whose code did not change keeps its time."""
+    def code(so):
+        text = re.sub(r"/\*[0-9a-f]{4}\*/|/\* 0x[0-9a-f]+ \*/", "",
+                      _sass(so))
+        return [ln.strip() for ln in text.splitlines()
+                if ln.strip() and not re.search(r"\b(BRA|BSSY|CALL)\b", ln)
+                and ln.strip().split()[0] not in ("Fatbin", "code",
+                                                  "Function", "arch",
+                                                  "host", "compressed")
+                and not ln.strip().startswith((".", "="))]
+    return code(str(cuda_build._library_path(name))) == code(parent_so)
 
 
 def ptxas_report() -> tuple:
@@ -164,19 +201,29 @@ def takes_walk_warps(csrc: str) -> bool:
         r"lgbm_hist_wide\([^)]*\bint warps\b", open(path).read()) is not None
 
 
+def takes_route_grid(csrc: str) -> bool:
+    """Whether a tree's K2/K4 take the grid call (``GRID_CALL_ROUTE``:
+    no ``lgbm_route_plan``)."""
+    path = os.path.join(csrc, "route.cu")
+    return os.path.exists(path) and "lgbm_route_plan" not in open(path).read()
+
+
 def build_parent(parent: str, out_dir: str) -> tuple:
     """Build the parent's kernel sources: -> (name -> library, whether
     its float K1 and K3 take the whole-call interface, whether its wide
-    histogram takes the warps call).
+    histogram takes the warps call, whether its K2/K4 take the grid
+    call).
     Libraries are loaded with this tree's C interface or those.  A
     library the parent does not have yet is left out (both sides then
     launch this tree's)."""
     csrc = os.path.join(parent, "lightgbm_tpu_torch", "csrc")
     whole = not os.path.exists(os.path.join(csrc, "hist_float_walk.cuh"))
     warps = takes_walk_warps(csrc)
+    grid = takes_route_grid(csrc)
     interfaces = dict(cuda_build.LIBRARIES,
                       **(WHOLE_CALL_FLOAT if whole else {}),
-                      **(WARPS_CALL_WIDE if warps else {}))
+                      **(WARPS_CALL_WIDE if warps else {}),
+                      **(GRID_CALL_ROUTE if grid else {}))
     procs = []
     for name in cuda_build.LIBRARIES:
         if not os.path.exists(os.path.join(csrc, f"{name}.cu")):
@@ -202,26 +249,31 @@ def build_parent(parent: str, out_dir: str) -> tuple:
             f.argtypes = argtypes
             f.restype = ctypes.c_int
         libs[name] = lib
-    return libs, whole, warps
+    return libs, whole, warps, grid
 
 
 @contextlib.contextmanager
 def kernels_of(libs: dict, split_threads: int, whole_float: bool = False,
-               wide_warps: bool = False):
+               wide_warps: bool = False, route_grid: bool = False):
     """Launch through ``libs`` (name -> library) in place of the loaded
     ones, the split scan with blocks of at most ``split_threads``; with
     ``whole_float`` the float K1 and K3 through the wrappers of the
     whole-call interface, with ``wide_warps`` the wide histogram through
     the warps call (and its scratch counted as its wrapper allocated it
-    in the learner's setup check)."""
+    in the learner's setup check), with ``route_grid`` K2/K4 through the
+    grid call."""
     from lightgbm_tpu_torch.learner import serial
-    from lightgbm_tpu_torch.ops import compact, histogram, split_kernel
+    from lightgbm_tpu_torch.ops import compact, histogram, route, split_kernel
     saved = dict(cuda_build._loaded)
     launch = split_kernel.split_scan_launch
     k1, k3 = histogram.hist_route_float_raw, compact.hist_compact_float_raw
     wide, wide_scratch = (histogram.hist_wide_launch,
                           serial.hist_wide_scratch_bytes)
+    route_launch = route.route_launch
     cuda_build._loaded.update(libs)
+    if route_grid:
+        route.route_launch = functools.partial(grid_call_route,
+                                               libs["route"])
     split_kernel.split_scan_launch = functools.partial(launch,
                                                        threads=split_threads)
     if whole_float:
@@ -241,6 +293,27 @@ def kernels_of(libs: dict, split_threads: int, whole_float: bool = False,
         compact.hist_compact_float_raw = k3
         histogram.hist_wide_launch = wide
         serial.hist_wide_scratch_bytes = wide_scratch
+        route.route_launch = route_launch
+
+
+def grid_call_route(plib, bins_t, leaf2, out, tabs, cat_mask,
+                    leaf_values=None, values_out=None, scratch=None,
+                    lib=None):
+    """K2 (with ``leaf_values``: K4) through the grid call of ``lib``
+    (default ``plib``), launched as its wrapper launched it: -> the CUDA
+    error code.  ``scratch`` is not taken."""
+    import torch
+    from lightgbm_tpu_torch.ops.route import route_entry
+    dev = bins_t.device
+    n_pad, L = bins_t.shape[1], tabs.shape[1]
+    values = leaf_values is not None
+    grid = max(1, min(-(-n_pad // GRID_CALL_BLOCK), GRID_CALL_BLOCKS_PER_SM
+                      * cuda_build.multiprocessor_count(dev)))
+    extra = (leaf_values.data_ptr(), values_out.data_ptr()) if values else ()
+    return route_entry(lib or plib, bins_t, values)(
+        bins_t.data_ptr(), n_pad, leaf2.data_ptr(), out.data_ptr(),
+        tabs.data_ptr(), L, cat_mask.data_ptr(), cat_mask.shape[1], *extra,
+        grid, GRID_CALL_BLOCK, torch.cuda.current_stream(dev).cuda_stream)
 
 
 def warps_call_scratch(n: int, G: int, A: int, B: int) -> int:
@@ -379,15 +452,16 @@ class Sides:
     block size in each."""
 
     def __init__(self, plibs, whole_float: bool = False,
-                 wide_warps: bool = False):
+                 wide_warps: bool = False, route_grid: bool = False):
         self.plibs = plibs
         self.whole_float = whole_float
         self.wide_warps = wide_warps
+        self.route_grid = route_grid
         self.mine = {n: cuda_build.library(n) for n in cuda_build.LIBRARIES}
 
     def parent(self):
         return kernels_of(self.plibs, PARENT_SPLIT_THREADS, self.whole_float,
-                          self.wide_warps)
+                          self.wide_warps, self.route_grid)
 
     def change(self):
         from lightgbm_tpu_torch.ops.split_kernel import SPLIT_THREADS
@@ -557,6 +631,127 @@ def wide_case(sides, bins_t, grad, hess, hl, active, L, B):
         return torch.equal(outs["parent"].view(torch.int32),
                            outs["change"].view(torch.int32))
     return parent, change, equal
+
+
+def route_case(sides, bins_t, leaf2, tabs, cat, lv=None):
+    """K2 (with ``lv``: K4) of both trees on the same wave, each bound to
+    its own library with its buffers and scratch allocated once: ->
+    (parent, change, equal); equal also holds both to the plain
+    version."""
+    import torch
+    from lightgbm_tpu_torch.ops import route
+    dev = bins_t.device
+    n_pad, L = bins_t.shape[1], tabs.shape[1]
+    outs = {w: (torch.empty_like(leaf2),
+                None if lv is None else torch.empty(n_pad, device=dev))
+            for w in ("parent", "change")}
+    launch = route.route_launch   # this tree's, whatever a context swaps
+
+    def bind(which, lib, grid_call):
+        out, vout = outs[which]
+        if grid_call:
+            return lambda: grid_call_route(lib, bins_t, leaf2, out, tabs,
+                                           cat, lv, vout)
+        nscratch = route.route_plan(lib, dev, L, lv is not None,
+                                    bins_t.dtype == torch.int32).scratch_bytes
+        scratch = (torch.empty(nscratch, dtype=torch.uint8, device=dev)
+                   if nscratch else None)
+        return lambda: launch(bins_t, leaf2, out, tabs, cat, lv, vout,
+                              scratch, lib)
+    parent = bind("parent", sides.plibs["route"], sides.route_grid)
+    change = bind("change", sides.mine["route"], False)
+
+    def equal():
+        if parent() or change():
+            raise RuntimeError("launch failed")
+        torch.cuda.synchronize()
+        if lv is None:
+            ref = (route.route_plain(bins_t, leaf2, tabs, cat),)
+        else:
+            ref = route.route_values_plain(bins_t, leaf2, tabs, cat, lv)
+        return all(torch.equal(outs[w][i], r) for w in outs
+                   for i, r in enumerate(ref))
+    return parent, change, equal
+
+
+def route_kernel_ab(sides) -> list:
+    """K2 and K4 of both trees, bitwise equal (and equal to their plain
+    versions), timed in turns back to back and in a CUDA graph, at the
+    waves ``chip_smoke.py`` measures: the headline (127 leaves of 255, 64
+    split), its categorical data (a third of the splits categorical), the
+    small-data path's last pass (63 leaves, 256-bin stride, bagged), the
+    ranking shape (2.27M x 136), 2,048-leaf tables with 64 and 1,024
+    splits, a 131,072-leaf wave with 65,536 splits, and int32 bins at
+    ``max_bin`` 1023."""
+    import torch
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.io.device import to_device
+    rows = []
+
+    def measure(shape, dd, leaf2, tabs, cat, L):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(L)
+        lv = torch.randn(L, generator=gen, device="cuda")
+        for name, v in (("K2 route", None), ("K4 route_values", lv)):
+            parent, change, equal = route_case(sides, dd.bins_t, leaf2, tabs,
+                                               cat, v)
+            if not equal():
+                raise AssertionError(f"{name} {shape}: parent != change or "
+                                     f"plain")
+            r = dict(kernel=name, shape=shape,
+                     **turns(parent, change, 50, graph=True))
+            cs.log(f"{name} {shape}: parent {r['parent_ms']} change "
+                   f"{r['change_ms']} ms, ratio {r['ratio']:.3f}; in a graph "
+                   f"parent {r['graph_parent_ms']} change "
+                   f"{r['graph_change_ms']} ms, ratio "
+                   f"{r['graph_ratio']:.3f}, bitwise equal")
+            rows.append(r)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    X, y = cs.headline_data()
+    ds = lgb.Dataset(X, label=y, params={"max_bin": 63}).construct()
+    dd = to_device(ds._constructed, "cuda")
+    measure("headline", dd, *cs.wave_inputs(dd, 127, 64, 128, gen)[:3], 255)
+    Ld, Lw = cs.WIDE_DEEP_LEAVES, cs.WIDEST_LEAVES
+    for nl in (64, Ld // 2):
+        measure(f"{Ld} leaves, {nl} splits", dd,
+                *cs.wave_inputs(dd, nl, nl, 8, gen, Ld)[:3], Ld)
+    measure(f"{Lw} leaves, {Lw // 2} splits", dd,
+            *cs.wave_inputs(dd, Lw // 2, Lw // 2, 8, gen, Lw)[:3], Lw)
+    del dd, ds
+    Xc = cs.categorize(X.copy(), 1)
+    dsc = lgb.Dataset(Xc, label=y, params={"max_bin": 63},
+                      categorical_feature=cs.CAT_COLUMNS).construct()
+    ddc = to_device(dsc._constructed, "cuda")
+    measure("headline categorical", ddc, *cs.wave_inputs(
+        ddc, 127, 64, 128, gen, cat_share=cs.CAT_SHARE,
+        cat_features=cs.CAT_COLUMNS)[:3], 255)
+    del ddc, dsc, Xc
+    dsw = lgb.Dataset(X, label=y,
+                      params={"max_bin": cs.WIDE_MAX_BIN}).construct()
+    ddw = to_device(dsw._constructed, "cuda")
+    measure("int32 bins (max_bin 1023)", ddw,
+            *cs.wave_inputs(ddw, 127, 64, 128, gen)[:3], 255)
+    del ddw, dsw, X, y
+    Xs, ys, _, _ = cs.small_data()
+    dss = lgb.Dataset(Xs, label=ys,
+                      params={"max_bin": cs.TRAIN_CONF["max_bin"]}).construct()
+    dds = to_device(dss._constructed, "cuda")
+    Ls = cs.TRAIN_CONF["num_leaves"]
+    measure("small-data last pass", dds, *cs.wave_inputs(
+        dds, 32, 31, 32, gen, Ls, cs.TRAIN_CONF["bagging_fraction"])[:3], Ls)
+    del dds, dss
+    Xr, rel, sizes = cs.rank_data()
+    dsr = lgb.Dataset(Xr, label=rel, group=sizes,
+                      params={"max_bin": cs.RANK_PARAMS["max_bin"]})
+    dsr.construct()
+    ddr = to_device(dsr._constructed, "cuda")
+    measure("ranking (2.27M x 136)", ddr,
+            *cs.wave_inputs(ddr, 127, 64, 128, gen,
+                            cs.RANK_PARAMS["num_leaves"])[:3],
+            cs.RANK_PARAMS["num_leaves"])
+    return rows
 
 
 def wide_kernel_ab(sides) -> list:
@@ -985,7 +1180,7 @@ def main() -> int:
         try:
             floor_build = cs.start_launch_floor_build(floor_dir)
             cs.log(f"build_s {cuda_build.build_all():.2f}")
-            cs.load_launch_floor(*floor_build)
+            cs.load_launch_floor(floor_build)
         finally:
             shutil.rmtree(floor_dir, ignore_errors=True)
         import lightgbm_tpu_torch as lgb
@@ -1021,7 +1216,14 @@ def main() -> int:
         tmp = tempfile.mkdtemp(prefix="hist_ab_")
         try:
             sides = Sides(*build_parent(args.parent, tmp))
-            result["kernels"] = kernel_ab(sides) + wide_kernel_ab(sides)
+            # K1 and the float K1 share route_row.cuh with K2/K4
+            result["same_sass"] = {
+                n: same_sass(n, os.path.join(tmp, f"lib{n}-parent.so"))
+                for n in ("hist_route", "hist_route_float")}
+            cs.log(f"same instructions as the parent: "
+                   f"{result['same_sass']}")
+            result["kernels"] = (kernel_ab(sides) + route_kernel_ab(sides)
+                                 + wide_kernel_ab(sides))
             result["paths"] = dict(path_ab(sides, tmp),
                                    **wide_path_ab(sides))
         finally:
