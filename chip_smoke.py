@@ -288,8 +288,35 @@ and the script exits non-zero):
    no K1/K3), and at 2,048 leaves on phase 4's set, 8 iterations (the wide
    histogram, K2 and K4 on uint8 bins): train AUC >= 0.93, ms/iter, and
    the wide model served binned (int32 rows) == raw on 20,000 rows.
+26. wide and deep streams — the seeded wide histogram (a carry a
+   previous block's rows left, this block's rows added into it) at
+   ``max_bin`` 1023 on int32 bins at 128 slots, at 1,024 slots of a
+   2,048-leaf tree on phase 4's uint8 bins and at the 8-slot ``max_bin``
+   65535 wave, each bitwise its plain version on CPU copies, timed in a
+   CUDA graph beside the unseeded kernel and beside a seeded f32
+   ``index_add_``, with its bound (the carry read and written);
+   ``ingest_synthetic`` stores of 2,097,152 x 28 rows (two 1,048,576-row
+   blocks) at ``max_bin`` 1023 (int32 bins) and 63, streamed by
+   ``lgb.train_streaming`` at 255 and 2,048 leaves, 2 iterations: each
+   digest (scores included) == in-memory training on
+   ``store.to_binned_dataset``, the seeded wide histogram, K2 and K4
+   launched and no K1, K3, K5 or unseeded wide histogram, the first
+   with the telemetry trace on (every ``stream.*`` span and counter in
+   it); the ``max_bin`` 1023 stream again at 8,388,608 rows: its peak
+   device memory within 5% of the 2,097,152-row run's; 262,144 rows of
+   the headline generator (seed 26) as a libsvm file with a quarter of
+   the values zero and left out: ``train_streaming([path])`` (the store
+   placed by ``LGBM_TPU_STREAM_CACHE``), again with
+   ``LGBM_TPU_STREAM_ROWS=131072`` and ``LGBM_TPU_STREAM_PIPELINE=0``,
+   both == ``lgb.train(Dataset(path))``; the headline ``lgb.train``
+   with telemetry off and on (``telemetry_output``) in turns, twice
+   each: every digest phase 4's (``25aa16f3...``), the trace parsed with
+   its ``gbdt.*`` and ``tree.*`` spans, the steady ms/iter of each run
+   logged.
+   Rows x iterations/s, walls and peak memory are logged beside the
+   card's name and power limit; the temporary stores are removed.
 
-Each of phases 17-25 prints one ``{"phase": ...}`` JSON line.  A path's
+Each of phases 17-26 prints one ``{"phase": ...}`` JSON line.  A path's
 ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
 the per-iteration evaluation included.  The last lines are the kernel
@@ -466,6 +493,23 @@ WIDE_ITERS = 8
 WIDEST_LEAVES = 131072      # LightGBM's largest num_leaves: 65,536 slots
 WIDEST_MAX_BIN = 65535      # a 65,536-bin stride (synthetic int32 bins)
 # memory rate of one H100 SXM (NVIDIA data sheet)
+# phase 26: wide and deep streams (two 1,048,576-row blocks, then the
+# memory check at four times the rows), a libsvm stream, telemetry
+WS_ROWS = 2_097_152
+WS_BIG_ROWS = 8_388_608
+WS_ITERS = 2
+WS_PEAK_SHARE = 0.05         # 8M peak within 5% of the 2M peak
+WS_LIBSVM_ROWS = 262_144
+WS_LIBSVM_ZERO = 0.25        # share of values zeroed and left out
+WS_LIBSVM_BLOCK = 131_072
+TELEMETRY_SPANS = ("engine.train", "gbdt.train", "gbdt.iteration",
+                   "gbdt.eval", "tree.init", "tree.route", "tree.hist",
+                   "tree.split_find", "tree.update")
+STREAM_SPANS = ("stream.train", "stream.gradients", "stream.prefetch",
+                "stream.upload", "stream.fold")
+STREAM_COUNTERS = ("stream.waves", "stream.trees",
+                   "stream.pipeline.overlap_s")
+HEADLINE_DIGEST = "25aa16f3"  # the headline's trees (PERF.md)
 PEAK_BYTES_PER_S = 3.35e12
 # float32 rate outside the tensor cores of one H100 SXM (data sheet)
 FP32_OPS_PER_S = 67e12
@@ -3924,21 +3968,26 @@ def wide_hist_measure(dd, L: int, A: int, gen, skew: bool) -> dict:
                 graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
 
 
-def wide_phase(lgb, counters, X, y, ds, params, card: str,
+def wide_dataset(lgb, X, y):
+    """The headline rows binned at ``WIDE_MAX_BIN`` (phases 25 and 26)."""
+    t0 = time.time()
+    dsw = lgb.Dataset(X, label=y, params={"max_bin": WIDE_MAX_BIN})
+    dsw.construct()
+    log(f"wide: binning at max_bin {WIDE_MAX_BIN} {time.time() - t0:.1f} s")
+    return dsw
+
+
+def wide_phase(lgb, counters, X, y, ds, dsw, params, card: str,
                entries: list, dev="cuda") -> dict:
     """Phase 25: the wide histogram, K2/K4 on int32 bins and K2/K4 at
     2,048 leaves against their plain versions, then ``lgb.train`` at
-    ``max_bin`` 1023 and at 2,048 leaves -> launches."""
+    ``max_bin`` 1023 (``dsw``) and at 2,048 leaves -> launches."""
     import numpy as np
     import torch
     from lightgbm_tpu_torch.io.device import to_device
     from lightgbm_tpu_torch.metric.metrics import binary_auc
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.serve import compile_model
-    t0 = time.time()
-    dsw = lgb.Dataset(X, label=y, params={"max_bin": WIDE_MAX_BIN})
-    dsw.construct()
-    log(f"wide: binning at max_bin {WIDE_MAX_BIN} {time.time() - t0:.1f} s")
     ddw = to_device(dsw._constructed, dev)
     if ddw.bins_t.dtype != torch.int32 or ddw.group_max_bins <= 256:
         raise AssertionError("max_bin 1023 did not give int32 bins past "
@@ -4039,6 +4088,308 @@ def wide_phase(lgb, counters, X, y, ds, params, card: str,
     return total
 
 
+def wide_seeded_measure(dd, L: int, A: int, gen) -> dict:
+    """The seeded wide histogram on one wave: a previous block's rows
+    make the carry (the unseeded kernel), this block's rows add into it;
+    bitwise its plain version on CPU copies (bit patterns), timed back to
+    back, in a CUDA graph beside the unseeded launch, beside a seeded f32
+    ``index_add_`` of the same updates, and its bound: the unseeded
+    traffic with the carry read and written once."""
+    import torch
+    from lightgbm_tpu_torch.ops.histogram import (bin_stride,
+                                                  hist_wide_launch,
+                                                  hist_wide_raw, slot_tables,
+                                                  wide_cells)
+    g0, h0, hl0, active = wide_hist_case(dd, L, A, gen, False)
+    g, h, hl, _ = wide_hist_case(dd, L, A, gen, False)
+    mb = dd.group_max_bins
+    B = bin_stride(mb)
+    G, n_pad = dd.bins_t.shape
+    n = dd.num_data
+    carry = hist_wide_raw(dd.bins_t, g0, h0, hl0, active, L, mb)
+    if not bool((carry != 0).any()):
+        raise AssertionError("the carry of the seeded check is zero")
+    got = hist_wide_raw(dd.bins_t, g, h, hl, active, L, mb,
+                        acc=carry.clone())
+    cpu = [t.cpu() for t in (dd.bins_t, g, h, hl, active)]
+    t0 = time.perf_counter()
+    ref = hist_wide_raw(*cpu, L, mb, acc=carry.cpu())
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    if not bits_equal(got.cpu(), ref):
+        raise AssertionError(f"seeded wide histogram != plain (A={A}, "
+                             f"B={B}, {dd.bins_t.dtype})")
+    acc = carry.clone()
+    ms = time_ms(lambda: hist_wide_raw(dd.bins_t, g, h, hl, active, L, mb,
+                                       acc=acc), 10)
+    inv = slot_tables(active, L, collect_unbagged=False)[0]
+    gms = graph_ms(lambda: hist_wide_launch(dd.bins_t, g, h, hl, inv, L, B,
+                                            acc, seeded=True), 10, 3)
+    out = torch.empty_like(carry)
+    unseeded_gms = graph_ms(lambda: hist_wide_launch(
+        dd.bins_t, g, h, hl, inv, L, B, out), 10, 3)
+    del got, ref, out
+    rows, cells = wide_cells(dd.bins_t, hl, active, n, L, B)
+    vals = torch.stack([g[rows], h[rows], torch.ones_like(g[rows])], -1)
+    vals = vals[:, None, :].expand(-1, G, -1).reshape(-1, 3).contiguous()
+    flat = carry.reshape(A * G * B, 3).clone()
+    lib_ms = time_ms(lambda: flat.index_add_(0, cells, vals), 10)
+    r = int(rows.numel())
+    bb = dd.bins_t.element_size()
+    bd = bound(r * (G * bb + 8) + 4 * n_pad + 2 * A * G * B * 12,
+               3.0 * r * G, FP32_OPS_PER_S)
+    log(f"kernel hist_wide seeded {dd.bins_t.dtype} A={A} B={B} G={G} "
+        f"({r} active rows, nonzero carry): bitwise ok, {ms:.4f} ms, in a "
+        f"graph {gms:.4f} ms (unseeded {unseeded_gms:.4f} ms; plain "
+        f"{plain_ms:.1f} ms on the CPU, seeded index_add_ {lib_ms:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']})")
+    return dict(slots=A, bin_stride=B, bins=str(dd.bins_t.dtype),
+                active_rows=r, ms=ms, graph_ms=gms,
+                unseeded_graph_ms=unseeded_gms, plain_ms=plain_ms,
+                library_ms=lib_ms, max_abs_err=0.0, **bd)
+
+
+def sparse_libsvm(path: str, X, y, zero: float, seed: int):
+    """``X`` with a ``zero`` share of its values set to 0 and those left
+    out of the file, ``%.17g`` (exact): -> the matrix written."""
+    import numpy as np
+    X = X.copy()
+    X[np.random.RandomState(seed).uniform(size=X.shape) < zero] = 0.0
+    with open(path, "w") as f:
+        # Python floats' repr is the shortest string that reads back
+        # exactly
+        for yi, row in zip(y.tolist(), X.tolist()):
+            f.write(repr(yi) + " " + " ".join(
+                f"{j}:{v!r}" for j, v in enumerate(row) if v != 0.0)
+                + "\n")
+    return X
+
+
+def trace_records(path: str) -> list:
+    """The JSONL trace at ``path``, every record checked for the schema's
+    keys."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    for r in recs:
+        for k in ("ts", "kind", "name", "rank"):
+            if k not in r:
+                raise AssertionError(f"trace record without {k}: {r}")
+        if r["kind"] == "span" and not (r["dur_s"] >= 0 and "parent" in r
+                                        and r["depth"] >= 0):
+            raise AssertionError(f"bad span record: {r}")
+    return recs
+
+
+def wide_stream_phase(lgb, counters, ds, dsw, head_ref, card: str,
+                      entries: list) -> dict:
+    """Phase 26: the seeded wide histogram at three shapes, the wide and
+    deep streams against in memory, rows-independent memory, a libsvm
+    stream and the stream seams, telemetry on the headline and a wide
+    stream -> launches per path."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.io.device import to_device
+    dd = to_device(ds._constructed, "cuda")
+    ddw = to_device(dsw._constructed, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    seeded = [wide_seeded_measure(ddw, 255, 128, gen),
+              wide_seeded_measure(dd, WIDE_DEEP_LEAVES, 1024, gen),
+              wide_seeded_measure(synthetic_bins(dd, WIDEST_MAX_BIN, gen),
+                                  15, 8, gen)]
+    for e in entries:
+        if e["name"] == "hist_wide":
+            e["seeded"] = _widest(dict(
+                name="hist_wide_seeded", route="cuda",
+                source="lightgbm_tpu_torch/csrc/hist_wide.cu",
+                replaces="lightgbm_tpu/boosting/streaming.py:420 (the "
+                         "seeded XLA scatter StreamTrainer._hist_into; no "
+                         "Pallas kernel)"), seeded)
+    del dd, ddw
+    torch.cuda.empty_cache()
+
+    oc = lgb.outofcore
+    tmp = tempfile.mkdtemp(prefix="lgbm_wide_stream_")
+    launches, out = {}, {}
+    try:
+        def stream(name, params, store, trace=None, **kw):
+            p = dict(params, telemetry_output=trace) if trace else params
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            bst, wall, got = counted(counters, lambda: lgb.train_streaming(
+                p, store, num_boost_round=WS_ITERS, device="cuda", **kw))
+            peak = torch.cuda.max_memory_allocated()
+            rate = store.n * WS_ITERS / wall
+            log(f"{name}: {store.n} rows x {WS_ITERS} iterations in "
+                f"{wall:.3f} s = {rate:.4g} rows x iterations/s, peak "
+                f"device memory {peak / 2**20:.1f} MiB; launches {got} "
+                f"[{card}]")
+            add_launches(launches, got)
+            out[name] = dict(rows=store.n, wall_s=wall,
+                             rows_iter_per_s=rate, peak_bytes=peak,
+                             digest=bst.digest())
+            return bst, got
+
+        def in_memory(store, params):
+            cfg = Config.from_params(params)
+            mem = GBDT(cfg, store.to_binned_dataset(cfg), "cuda")
+            for _ in range(WS_ITERS):
+                mem.train_one_iter()
+            torch.cuda.synchronize()
+            return mem.digest()
+
+        wide_p = dict(HEADLINE_PARAMS, max_bin=WIDE_MAX_BIN)
+        deep_p = dict(HEADLINE_PARAMS, num_leaves=WIDE_DEEP_LEAVES)
+        trace = os.path.join(tmp, "stream_trace.jsonl")
+        for name, p, k2 in (("wide", wide_p, ("route_i32",
+                                              "route_values_i32")),
+                            ("deep", deep_p, ("route", "route_values"))):
+            t0 = time.time()
+            store = oc.ingest_synthetic(
+                os.path.join(tmp, name), WS_ROWS, STREAM_FEATURES,
+                Config.from_params(p), seed=26, shard_rows=WS_ROWS)
+            nb = max(m.num_bin for m in store.mappers)
+            log(f"{name} stream: ingest {time.time() - t0:.1f} s, "
+                f"{store.dtype} bins, {nb} bins a column at most")
+            bst, got = stream(f"{name} stream", p, store,
+                              trace=trace if name == "wide" else None)
+            if name == "wide":
+                obs.reset()
+            need(got, ("hist_wide_seeded",) + k2, f"the {name} stream",
+                 absent=("hist_route", "hist_compact", "hist_active",
+                         "hist_float", "hist_wide"))
+            d_mem = in_memory(store, p)
+            log(f"{name} stream: streamed {bst.digest()} in memory {d_mem}")
+            if bst.digest() != d_mem:
+                raise AssertionError(f"{name} stream digest != in memory")
+            del bst
+            if name == "wide":
+                recs = trace_records(trace)
+                names = {r["name"] for r in recs}
+                lost = [k for k in STREAM_SPANS + STREAM_COUNTERS
+                        if k not in names]
+                if lost:
+                    raise AssertionError(f"stream trace lacks {lost}")
+                small = out["wide stream"]["peak_bytes"]
+                store = oc.ingest_synthetic(
+                    os.path.join(tmp, "wide_big"), WS_BIG_ROWS,
+                    STREAM_FEATURES, Config.from_params(p), seed=27,
+                    shard_rows=WS_BIG_ROWS // 4)
+                stream("wide stream 8M", p, store)
+                big = out["wide stream 8M"]["peak_bytes"]
+                log(f"wide stream peak memory: {big / 2**20:.1f} MiB at "
+                    f"{WS_BIG_ROWS} rows, {small / 2**20:.1f} MiB at "
+                    f"{WS_ROWS}")
+                if abs(big - small) > WS_PEAK_SHARE * small:
+                    raise AssertionError("the wide stream's peak memory "
+                                         "grew with its rows")
+            shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
+        shutil.rmtree(os.path.join(tmp, "wide_big"), ignore_errors=True)
+
+        # a libsvm file of the headline generator, a quarter of the
+        # values zero and left out: streamed == lgb.train(Dataset(path)),
+        # and the same with the seams set
+        X, z = headline_latent(seed=26)
+        X, y = X[:WS_LIBSVM_ROWS], (z[:WS_LIBSVM_ROWS] > 0).astype(
+            np.float32)
+        path = os.path.join(tmp, "train.svm")
+        t0 = time.time()
+        sparse_libsvm(path, X, y, WS_LIBSVM_ZERO, 26)
+        log(f"libsvm: {WS_LIBSVM_ROWS} rows written in "
+            f"{time.time() - t0:.1f} s")
+        bst, _, got = counted(counters, lambda: lgb.train(
+            dict(STREAM_PARAMS), lgb.Dataset(path),
+            num_boost_round=WS_ITERS, device="cuda"))
+        d_file = bst.digest()
+        cache = os.path.join(tmp, "svm_cache")
+        digests = {}
+        for name, env in (("libsvm stream", {}),
+                          ("libsvm stream, seams",
+                           {"LGBM_TPU_STREAM_ROWS": str(WS_LIBSVM_BLOCK),
+                            "LGBM_TPU_STREAM_PIPELINE": "0"})):
+            saved = {k: os.environ.get(k) for k in
+                     ("LGBM_TPU_STREAM_ROWS", "LGBM_TPU_STREAM_PIPELINE",
+                      "LGBM_TPU_STREAM_CACHE")}
+            os.environ.update(env, LGBM_TPU_STREAM_CACHE=cache)
+            try:
+                t0 = time.time()
+                b, got = counted(counters, lambda: lgb.train_streaming(
+                    dict(STREAM_PARAMS), [path], num_boost_round=WS_ITERS,
+                    device="cuda"))[0::2]
+                wall = time.time() - t0
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            digests[name] = b.digest()
+            add_launches(launches, got)
+            log(f"{name}: {wall:.3f} s (ingest included on the first), "
+                f"digest {digests[name]}; launches {got}")
+        if not os.path.exists(os.path.join(cache, oc.MANIFEST)):
+            raise AssertionError("LGBM_TPU_STREAM_CACHE did not place the "
+                                 "store")
+        log(f"libsvm: lgb.train(Dataset(path)) {d_file}")
+        if set(digests.values()) != {d_file}:
+            raise AssertionError(f"libsvm stream digests {digests} != "
+                                 f"in memory {d_file}")
+        out["libsvm"] = dict(digest=d_file, **digests)
+        del bst, b
+
+        # telemetry on the headline: off and on in turns, in one call
+        # (the host clock's spread between runs is milliseconds an
+        # iteration)
+        steady, head_trace = {}, os.path.join(tmp, "head_trace.jsonl")
+        for name in ("off", "on", "off again", "on again"):
+            clock = IterClock()
+            p = dict(head_ref["params"])
+            if name.startswith("on"):
+                p["telemetry_output"] = head_trace
+            bst, _, got = train_path(lgb, f"headline, telemetry {name}",
+                                     counters, p, ds, HEADLINE_ITERS,
+                                     callbacks=[clock])
+            steady[name] = clock.steady_ms
+            d = bst.digest(include_scores=False)
+            if bst.digest() != head_ref["digest"]:
+                raise AssertionError(f"headline digest, telemetry {name}: "
+                                     f"{d} != phase 4's")
+            if not d.startswith(HEADLINE_DIGEST):
+                raise AssertionError(f"headline digest {d} is not "
+                                     f"{HEADLINE_DIGEST}...")
+            if name == "on":
+                bst.model_to_string()      # the host trees, traced too
+                obs.reset()
+                recs = trace_records(head_trace)
+                names = {r["name"] for r in recs if r["kind"] == "span"}
+                lost = [k for k in TELEMETRY_SPANS if k not in names]
+                if lost:
+                    raise AssertionError(f"headline trace lacks {lost}")
+                out["headline_trace_records"] = len(recs)
+                os.remove(head_trace)
+            obs.reset()
+            del bst
+        off = (steady["off"], steady["off again"])
+        on = (steady["on"], steady["on again"])
+        spread = max(off) - min(off)
+        overhead = sum(on) / 2 - sum(off) / 2
+        log(f"headline steady ms/iter: telemetry off {off[0]:.2f} / "
+            f"{off[1]:.2f} (spread {spread:.2f}), on {on[0]:.2f} / "
+            f"{on[1]:.2f} (mean overhead {overhead:.2f} ms/iter); "
+            f"{out['headline_trace_records']} trace records [{card}]")
+        out["headline_steady_ms"] = dict(steady, off_spread=spread,
+                                         on_spread=max(on) - min(on),
+                                         overhead=overhead)
+    finally:
+        obs.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_line("wide_stream", card, seeded=seeded, **out)
+    return launches
+
+
 def train_path(lgb, name, counters, params, ds, rounds, **kw):
     """One user-facing ``lgb.train`` with every launch counter reset just
     before and read just after: -> ``(booster, seconds, launches)``."""
@@ -4076,7 +4427,8 @@ def main() -> int:
                                                   hist_route_float_raw,
                                                   hist_route_raw,
                                                   pack_values_q)
-    from lightgbm_tpu_torch.ops.histogram import hist_wide_raw
+    from lightgbm_tpu_torch.ops.histogram import (HIST_WIDE_SEEDED,
+                                                  hist_wide_raw)
     from lightgbm_tpu_torch.ops.route import (ROUTE_I32, ROUTE_VALUES_I32,
                                               route_rows_raw,
                                               route_rows_values_raw)
@@ -4165,7 +4517,9 @@ def main() -> int:
                 "hist_float": hist_active_float_raw,
                 "hist_route_float": hist_route_float_raw,
                 "hist_compact_float": hist_compact_float_raw,
-                "hist_wide": hist_wide_raw, "route_i32": ROUTE_I32,
+                "hist_wide": hist_wide_raw,
+                "hist_wide_seeded": HIST_WIDE_SEEDED,
+                "route_i32": ROUTE_I32,
                 "route_values_i32": ROUTE_VALUES_I32}
 
     # 4. the headline path through the user entry points
@@ -4335,9 +4689,17 @@ def main() -> int:
 
     # 25. wide bins and deep trees
     t0 = time.time()
-    by_path["wide"] = wide_phase(lgb, counters, X, y, ds, params, card,
+    dsw = wide_dataset(lgb, X, y)
+    by_path["wide"] = wide_phase(lgb, counters, X, y, ds, dsw, params, card,
                                  entries)
     log(f"phase 25 {time.time() - t0:.1f} s")
+
+    # 26. wide and deep streams, libsvm and the seams, telemetry
+    t0 = time.time()
+    by_path["wide_stream"] = wide_stream_phase(lgb, counters, ds, dsw,
+                                               head_ref, card, entries)
+    del dsw
+    log(f"phase 26 {time.time() - t0:.1f} s")
 
     for e in entries:
         # a categorical entry counts its kernel's launches on the
@@ -4348,6 +4710,11 @@ def main() -> int:
                                  if "counter" not in e
                                  or p.startswith("cat_")}
         e["launches"] = sum(e["launches_by_path"].values())
+        if "seeded" in e:
+            e["seeded"]["launches_by_path"] = {
+                p: c.get("hist_wide_seeded", 0) for p, c in by_path.items()}
+            e["seeded"]["launches"] = sum(
+                e["seeded"]["launches_by_path"].values())
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,20 +19,23 @@ model onto its device and ``lgb.serve.PredictionServer`` micro-batches
 requests through it; a ``cuda`` Booster's ``bst.predict(X)`` takes that
 path.  Snapshots: ``snapshot_freq`` with ``output_model`` writes atomic
 snapshots during ``lgb.train`` and ``lgb.train(..., resume_from=)``
-continues a run from the latest valid one, bit for bit.
+continues a run from the latest valid one, bit for bit.  Telemetry:
+``telemetry_output`` in the parameters, ``LGBM_TPU_TRACE=<path>`` or the
+``lgb.telemetry`` callback write a JSONL trace of spans, counters and
+events (``lgb.obs``).
 """
-from . import serve
+from . import obs, serve
 from .basic import Booster, Dataset
 from .boosting.streaming import train_streaming
 from .callback import (EarlyStopException, early_stopping, print_evaluation,
-                       record_evaluation, reset_parameter)
+                       record_evaluation, reset_parameter, telemetry)
 from .engine import cv, predict, train
 from .io import outofcore
 
 __all__ = [
     "Dataset", "Booster", "train", "cv", "predict", "serve",
     "early_stopping", "print_evaluation", "record_evaluation",
-    "reset_parameter", "EarlyStopException",
+    "reset_parameter", "EarlyStopException", "telemetry", "obs",
     "LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
     "plot_importance", "plot_metric", "plot_tree", "create_tree_digraph",
     "train_streaming", "outofcore",

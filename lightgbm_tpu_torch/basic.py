@@ -67,7 +67,9 @@ class Dataset:
                  weight=None, group=None, init_score=None,
                  feature_name="auto", categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
-                 free_raw_data: bool = True):
+                 free_raw_data: bool = True, silent: bool = False):
+        # ``silent`` is accepted and ignored, as in the JAX package and
+        # LightGBM 2.1's Python package
         self.data = data
         self.label = label
         self.reference = reference
@@ -206,7 +208,9 @@ class Booster:
 
     def __init__(self, params=None, train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
-                 model_str: Optional[str] = None, device=None):
+                 model_str: Optional[str] = None, device=None,
+                 silent: bool = False):
+        # ``silent`` is accepted and ignored, as in the JAX package
         from .boosting.variants import create_boosting
         self.params = dict(params or {})
         self.best_iteration = -1
@@ -399,7 +403,9 @@ class Booster:
     def model_to_string(self, num_iteration: int = -1) -> str:
         return self._gbdt.save_model_to_string(num_iteration or -1)
 
-    def model_from_string(self, model_str: str) -> "Booster":
+    def model_from_string(self, model_str: str,
+                          verbose: bool = True) -> "Booster":
+        # ``verbose`` is accepted and ignored, as in the JAX package
         self._init_from_string(model_str)
         self._train_dataset = None
         return self

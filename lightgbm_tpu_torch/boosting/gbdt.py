@@ -43,6 +43,7 @@ from ..models.tree import (K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, Tree,
                            _construct_bitset, predict_leaf)
 from ..objective.objectives import (ObjectiveFunction, create_objective,
                                     load_objective)
+from ..obs import span as obs_span
 from ..ops.split import SplitParams
 from ..utils import random as keyed
 from ..utils.file_io import open_read, open_write
@@ -184,10 +185,6 @@ def check_unported_options(c: Config, streamed: bool = False) -> None:
             f"input_model={c.input_model!r}: the parameter is read by the "
             f"command-line application, which is not ported yet (ROADMAP "
             f"A14, second half); pass init_model= to train")
-    if c.telemetry_output:
-        raise NotImplementedError(
-            f"telemetry_output={c.telemetry_output!r}: the telemetry "
-            f"trace is not ported yet (ROADMAP A13)")
     if streamed and c.snapshot_freq > 0:
         raise NotImplementedError(
             f"snapshot_freq={c.snapshot_freq}: streamed snapshots are not "
@@ -361,13 +358,16 @@ class GBDT:
     @property
     def models(self) -> List[Tree]:
         """Host tree list; converts pending device trees on access."""
-        for bt, lr, bias in self._pending:
-            host = self._to_host_tree(bt)
-            host.shrinkage(lr)
-            if bias:
-                host.add_bias(bias)   # init score: each class's first tree
-            self._host_models.append(host)
-        self._pending = []
+        if self._pending:
+            with obs_span("gbdt.to_host_trees"):
+                for bt, lr, bias in self._pending:
+                    host = self._to_host_tree(bt)
+                    host.shrinkage(lr)
+                    if bias:
+                        # init score: each class's first tree
+                        host.add_bias(bias)
+                    self._host_models.append(host)
+            self._pending = []
         return self._host_models
 
     @models.setter

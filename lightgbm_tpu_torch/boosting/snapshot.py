@@ -26,8 +26,10 @@ snapshot written by either package validates and resumes in the other::
     <prefix>.snapshot_iter_<N>.manifest.json   commit marker + checksums
 
 The port trains on one device: ``world_size`` is 1.  The elastic
-barrier snapshots and the snapshot spans and counters are not ported
-(ROADMAP A12, A13).
+barrier snapshots are not ported (ROADMAP A12).  Telemetry: the spans
+``snapshot.write`` (with the bytes written), ``snapshot.prune`` and
+``snapshot.validate``, the counters ``snapshot.writes`` and
+``snapshot.bytes_written`` (``obs/telemetry.py``).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs import counter_add, span
 from ..utils.file_io import atomic_write
 from ..utils.log import log_info, log_warning
 
@@ -87,43 +90,51 @@ def write_snapshot(gbdt, iteration: int) -> str:
     prefix = c.output_model
     model_path, state_path, manifest_path = snapshot_paths(prefix, iteration)
 
-    model_text = gbdt.save_model_to_string(-1)
-    # two chunks: the `snapshot.write` fault point sits between them
-    atomic_write(model_path, model_text, chunks=2)
+    with span("snapshot.write", iteration=int(iteration)) as sp:
+        model_text = gbdt.save_model_to_string(-1)
+        # two chunks: the `snapshot.write` fault point sits between them
+        atomic_write(model_path, model_text, chunks=2)
 
-    state = {}
-    if gbdt.train_set is not None:
-        state["scores"] = gbdt.scores.cpu().numpy()
-        for i, vs in enumerate(gbdt._valid_scores):
-            state[f"valid_scores_{i}"] = vs.cpu().numpy()
-    if state:
-        buf = io.BytesIO()
-        np.savez(buf, **state)
-        atomic_write(state_path, buf.getvalue(), binary=True)
+        state = {}
+        state_bytes = 0
+        if gbdt.train_set is not None:
+            state["scores"] = gbdt.scores.cpu().numpy()
+            for i, vs in enumerate(gbdt._valid_scores):
+                state[f"valid_scores_{i}"] = vs.cpu().numpy()
+        if state:
+            buf = io.BytesIO()
+            np.savez(buf, **state)
+            state_bytes = len(buf.getvalue())
+            atomic_write(state_path, buf.getvalue(), binary=True)
 
-    es = gbdt._es_state
-    manifest = {
-        "version": MANIFEST_VERSION,
-        "iteration": int(iteration),
-        "world_size": 1,
-        "num_trees": int(gbdt.num_trees()),
-        "num_tree_per_iteration": int(max(1, gbdt.num_tree_per_iteration)),
-        "init_score_value": float(gbdt.init_score_value),
-        "config_hash": config_hash(c),
-        "model_file": os.path.basename(model_path),
-        "model_size": len(model_text.encode()),
-        "model_sha256": _sha256_bytes(model_text.encode()),
-        "state_file": os.path.basename(state_path) if state else "",
-        "state_sha256": _sha256_file(state_path) if state else "",
-        "best_scores": dict(es["best_scores"]),
-        "best_iter": {k: int(v) for k, v in es["best_iter"].items()},
-        "key_order": list(es["key_order"]),
-        "extra_state": gbdt.snapshot_extra_state(),
-    }
-    # the manifest last: its appearance commits the snapshot
-    atomic_write(manifest_path, json.dumps(manifest, indent=1))
+        es = gbdt._es_state
+        manifest = {
+            "version": MANIFEST_VERSION,
+            "iteration": int(iteration),
+            "world_size": 1,
+            "num_trees": int(gbdt.num_trees()),
+            "num_tree_per_iteration": int(max(1, gbdt.num_tree_per_iteration)),
+            "init_score_value": float(gbdt.init_score_value),
+            "config_hash": config_hash(c),
+            "model_file": os.path.basename(model_path),
+            "model_size": len(model_text.encode()),
+            "model_sha256": _sha256_bytes(model_text.encode()),
+            "state_file": os.path.basename(state_path) if state else "",
+            "state_sha256": _sha256_file(state_path) if state else "",
+            "best_scores": dict(es["best_scores"]),
+            "best_iter": {k: int(v) for k, v in es["best_iter"].items()},
+            "key_order": list(es["key_order"]),
+            "extra_state": gbdt.snapshot_extra_state(),
+        }
+        # the manifest last: its appearance commits the snapshot
+        atomic_write(manifest_path, json.dumps(manifest, indent=1))
+        total_bytes = manifest["model_size"] + state_bytes
+        sp["bytes"] = total_bytes
+        counter_add("snapshot.writes")
+        counter_add("snapshot.bytes_written", total_bytes)
     log_info(f"saved snapshot to {model_path} (iteration {iteration})")
-    prune_snapshots(prefix, c.snapshot_keep)
+    with span("snapshot.prune"):
+        prune_snapshots(prefix, c.snapshot_keep)
     return model_path
 
 
@@ -157,6 +168,11 @@ def validate_snapshot(manifest_path: str) -> Optional[Dict]:
     missing file, truncation, a checksum mismatch, unparsable JSON).  A
     state sidecar that fails its checksum only empties ``state_path``:
     resume then replays the trees."""
+    with span("snapshot.validate"):
+        return _validate_snapshot(manifest_path)
+
+
+def _validate_snapshot(manifest_path: str) -> Optional[Dict]:
     try:
         with open(manifest_path) as f:
             manifest = json.load(f)

@@ -6,8 +6,13 @@ the device: per tree, row blocks stream host -> device once per wave;
 each block is routed through the partial tree (the route kernel K2) and
 its active-leaf histograms fold into one carried accumulator (the
 seeded wide kernel K5, or the seeded leaf-compacted kernel K3 on
-quantized waves wider than 32 slots), unpacked once per wave.  Device
-memory follows the block size, never the row count: only the gradients,
+quantized waves wider than 32 slots), unpacked once per wave.  Past the
+kernels' domain (groups of more than 256 bins, trees of more than 1,024
+leaves) the carry is the exact-f32 ``[A, G, B, 3]`` grid that the seeded
+wide histogram adds each block into (``hist_wide_raw(..., acc=)``), and
+every wave takes ``build_tree_wide``'s plan, ``round8(L / 2)`` slots;
+the bins stream as the store holds them, uint8 or int32.  Device memory
+follows the block size, never the row count: only the gradients,
 hessians, scores and each block's two leaf vectors live on the host.
 
 The streamed model equals the in-memory one (``lgb.train`` on the same
@@ -35,7 +40,22 @@ thread reads block k+1 from the store into a pinned host buffer while
 block k folds, and block k+1's host -> device copy runs on its own
 stream, issued before block k's fold is awaited.  The fold order never
 changes, so ``pipeline=False`` (stage and copy each block after the
-previous one is done) builds the same model.
+previous one is done) builds the same model.  Each copy is issued under
+the shared retry policy behind the ``stream.upload`` fault point, before
+any kernel reads the block, so a retried upload never tears a fold.
+
+**The JAX package's seams**: ``LGBM_TPU_STREAM_ROWS`` is the block size
+when the caller passes none (rounded up to whole ``STREAM_CHUNK``
+chunks; 1,048,576 rows when unset), ``LGBM_TPU_STREAM_PIPELINE=0``
+(``off``, ``false``) is ``pipeline=False``.  Neither changes the model.
+
+**Telemetry** (``obs/telemetry.py``): the spans ``stream.train``,
+``stream.gradients``, ``stream.prefetch`` (the staging thread's read),
+``stream.upload`` and ``stream.fold``; the counters ``stream.waves``,
+``stream.trees`` and ``stream.pipeline.overlap_s`` (the host time spent
+waiting for block k+1's staging and issuing its copy after block k's
+kernels were launched).  Spans are host wall clock and add no device
+synchronization.
 
 Supported: gbdt boosting with the row-wise objectives (the regression,
 binary, multiclass and cross-entropy families: a block's gradients are
@@ -52,6 +72,8 @@ EFB-bundled resident sources, and the data-parallel stream
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
@@ -62,18 +84,40 @@ from ..config import Config, canonicalize_params
 from ..io.dataset import BinnedDataset, Metadata
 from ..io.device import device_data_from_arrays, feature_meta_np
 from ..learner.serial import (STREAM_CHUNK, _apply_wave, _pending_tables,
-                              final_leaf_values, finished_tree,
+                              final_leaf_values, finished_tree, kernels_fit,
                               make_hist_fold_fn, reduce_chunk_sums,
                               rescan_changed, root_chunk_sums, root_state,
-                              stage_plan)
+                              stage_plan, wide_hist_bytes, wide_wave_slots)
+from ..obs import counter_add, span
 from ..objective.objectives import create_objective
+from ..ops.histogram import bin_stride, hist_wide_scratch_bytes
 from ..ops.route import route_rows, route_rows_values
+from ..utils.faults import fault_point
 from ..utils.log import log_info, log_warning
+from ..utils.retry import retry_call
 from .gbdt import (GBDT, check_unported_options, feature_mask,
                    growth_params_from_config)
 
 _SCALE_CHUNK = 1 << 24
 DEFAULT_BLOCK_ROWS = 1 << 20
+
+
+def stream_rows() -> int:
+    """The block size of ``LGBM_TPU_STREAM_ROWS``, rounded up to a
+    multiple of ``STREAM_CHUNK`` (block boundaries must fall on the root
+    statistics' chunk boundaries), or 0 when unset (the JAX package's
+    ``stream_rows``)."""
+    r = int(os.environ.get("LGBM_TPU_STREAM_ROWS", "0"))
+    if r <= 0:
+        return 0
+    return -(-r // STREAM_CHUNK) * STREAM_CHUNK
+
+
+def stream_pipeline_env() -> bool:
+    """False when ``LGBM_TPU_STREAM_PIPELINE`` is ``0``, ``off`` or
+    ``false`` (the serial escape), else True."""
+    return os.environ.get("LGBM_TPU_STREAM_PIPELINE", "1").strip().lower() \
+        not in ("0", "off", "false")
 
 
 def _fold_scales(grad: np.ndarray, hess: np.ndarray) -> np.ndarray:
@@ -118,6 +162,12 @@ class _Source:
     def num_features(self) -> int:
         return (self._store.num_features if self._store is not None
                 else self._ds.num_features)
+
+    @property
+    def dtype(self) -> np.dtype:
+        """The bins' type: uint8, or int32 past 256 bins a group."""
+        return np.dtype(self._store.dtype if self._store is not None
+                        else self._ds.bins.dtype)
 
     def read_rows(self, start: int, stop: int):
         """-> (bins [m, G], label [m], weight [m] or None)."""
@@ -191,8 +241,9 @@ def _check_streamable(config: Config, objective, src: _Source) -> None:
 
 class _BlockUploader:
     """Host staging and host -> device copies of row blocks: ``(bins_t
-    [G, R] uint8, grad [R], hess [R])`` on the device, every block
-    padded to ``R`` rows (padding rows: bin 0, zero values).
+    [G, R], grad [R], hess [R])`` on the device, the bins of the
+    source's type (uint8, or int32), every block padded to ``R`` rows
+    (padding rows: bin 0, zero values).
 
     On the GPU two pinned host buffers and two device buffers alternate,
     and the copies run on their own stream; ``get(i)`` makes the current
@@ -211,9 +262,12 @@ class _BlockUploader:
                                         thread_name_prefix="stream-stage")
                      if pipelined and len(blocks) > 1 else None)
         G = src.num_features
+        self.dtype = src.dtype
         if self.cuda:
+            tdtype = torch.from_numpy(np.empty(0, self.dtype)).dtype
+
             def bufs(**kw):
-                return (torch.empty((R, G), dtype=torch.uint8, **kw),
+                return (torch.empty((R, G), dtype=tdtype, **kw),
                         torch.empty(R, dtype=torch.float32, **kw),
                         torch.empty(R, dtype=torch.float32, **kw))
             self.host = [bufs(pin_memory=True) for _ in range(2)]
@@ -229,21 +283,30 @@ class _BlockUploader:
 
     def _stage(self, i: int, grad: np.ndarray, hess: np.ndarray):
         start, stop, m = self.blocks[i]
-        bins, _, _ = self.src.read_rows(start, stop)
-        if self.cuda:
-            hb, hg, hh = (t.numpy() for t in self.host[i % 2])
-        else:
-            hb = np.empty((self.R, bins.shape[1]), np.uint8)
-            hg = np.empty(self.R, np.float32)
-            hh = np.empty(self.R, np.float32)
-        hb[:m] = bins
-        hb[m:] = 0
-        for dst, arr in ((hg, grad), (hh, hess)):
-            dst[:m] = arr[start:stop]
-            dst[m:] = 0.0
+        with span("stream.prefetch", rows=m):
+            bins, _, _ = self.src.read_rows(start, stop)
+            if self.cuda:
+                hb, hg, hh = (t.numpy() for t in self.host[i % 2])
+            else:
+                hb = np.empty((self.R, bins.shape[1]), self.dtype)
+                hg = np.empty(self.R, np.float32)
+                hh = np.empty(self.R, np.float32)
+            hb[:m] = bins
+            hb[m:] = 0
+            for dst, arr in ((hg, grad), (hh, hess)):
+                dst[:m] = arr[start:stop]
+                dst[m:] = 0.0
         return hb, hg, hh
 
     def _upload(self, i: int, staged) -> None:
+        """Issue block ``i``'s copy behind the ``stream.upload`` fault
+        point and the shared retry policy: a transient fault retries
+        before the copy is issued, never under a fold."""
+        with span("stream.upload", rows=self.R):
+            retry_call(self._put, i, staged, what="stream.upload")
+
+    def _put(self, i: int, staged) -> None:
+        fault_point("stream.upload")
         if not self.cuda:
             self.staged[i] = tuple(torch.from_numpy(a) for a in staged)
             return
@@ -282,7 +345,7 @@ class StreamTrainer:
     train scores are the streamed host score state."""
 
     def __init__(self, config: Config, source,
-                 block_rows: int = DEFAULT_BLOCK_ROWS, device=None,
+                 block_rows: Optional[int] = None, device=None,
                  pipeline: bool = True):
         self.config = config
         self.src = _Source(source, config)
@@ -296,12 +359,14 @@ class StreamTrainer:
         self.device = torch.device(device or config.device)
         # blocks are whole root-statistic chunks (the chunk-sum contract)
         # and no longer than the padded stream
+        if not block_rows:
+            block_rows = stream_rows() or DEFAULT_BLOCK_ROWS
         R = -(-max(1, int(block_rows)) // STREAM_CHUNK) * STREAM_CHUNK
         self.R = min(R, -(-n // STREAM_CHUNK) * STREAM_CHUNK)
         self.blocks: List[Tuple[int, int, int]] = [
             (lo, min(lo + self.R, n), min(lo + self.R, n) - lo)
             for lo in range(0, n, self.R)]
-        self.pipeline = pipeline
+        self.pipeline = pipeline and stream_pipeline_env()
 
         light = self.src.light_dataset()
         booster = GBDT(config, None, self.device)
@@ -323,13 +388,42 @@ class StreamTrainer:
             device_data_from_arrays(light.bins[:0], meta, self.device),
             num_data=n)
         booster.device_data = self.dd
-        _, self.A = stage_plan(self.L, self.growth.wave_size)
+        # the in-memory plan: the staged tail width in the kernels'
+        # domain, build_tree_wide's round8(L / 2) slots past it
+        self.A = (stage_plan(self.L, self.growth.wave_size)[1]
+                  if kernels_fit(self.dd.group_max_bins, self.L)
+                  else wide_wave_slots(self.L))
         self.fold = make_hist_fold_fn(self.dd, self.L, self.A,
                                       hist_mode=config.hist_mode or None,
                                       num_data=n)
+        if self.fold.backend == "scatter":
+            self._check_fits()
         self.scores = np.zeros((n, self.K), np.float32)
         self._init_scores()
         self._up: Optional[_BlockUploader] = None
+
+    def _check_fits(self) -> None:
+        """Refuse, before any upload, a scatter stream whose per-leaf
+        histograms, one wave's grids and carry, two device blocks (each
+        with its transposed bins) and a block's histogram scratch exceed
+        the card's memory: every term follows the block size, the leaves
+        and the bins, never the row count (on the CPU the host's
+        allocator decides)."""
+        if self.device.type != "cuda":
+            return
+        dd, R, L, A = self.dd, self.R, self.L, self.A
+        G, Bh = dd.num_groups, bin_stride(dd.group_max_bins)
+        hist = wide_hist_bytes(L, G, Bh) + A * G * Bh * 12
+        blocks = 2 * R * (2 * G * self.src.dtype.itemsize + 8)
+        scratch = hist_wide_scratch_bytes(R, G, A, Bh)
+        have = torch.cuda.get_device_properties(self.device).total_memory
+        if hist + blocks + scratch > have:
+            raise NotImplementedError(
+                f"a stream of {L} leaves over {G} columns at a {Bh}-bin "
+                f"stride in {R}-row blocks needs {hist / 2**30:.1f} GiB of "
+                f"histograms, {blocks / 2**30:.1f} GiB of blocks and "
+                f"{scratch / 2**30:.1f} GiB of kernel scratch, more than "
+                f"the card's {have / 2**30:.1f} GiB")
 
     def _init_scores(self) -> None:
         obj = self.objective
@@ -392,9 +486,10 @@ class StreamTrainer:
         self._up = _BlockUploader(self.src, self.blocks, self.R, self.device,
                                   self.pipeline)
         try:
-            for it in range(self.booster.iter, iters):
-                if self._train_one_iter(it):
-                    break
+            with span("stream.train", rows=self.n, block=self.R, shards=1):
+                for it in range(self.booster.iter, iters):
+                    if self._train_one_iter(it):
+                        break
         finally:
             self._up.close()
         self.booster.scores = torch.from_numpy(self.scores)
@@ -402,7 +497,8 @@ class StreamTrainer:
 
     def _train_one_iter(self, it: int) -> bool:
         c, K, b = self.config, self.K, self.booster
-        grad, hess, cs = self._gradients()
+        with span("stream.gradients", it=it):
+            grad, hess, cs = self._gradients()
         stumps = 0
         for k in range(K):
             fmask = None
@@ -439,9 +535,15 @@ class StreamTrainer:
         for bi in range(nb):
             ahead = (up.start(bi + 1, grad, hess)
                      if self.pipeline and bi + 1 < nb else None)
-            out = body(bi, torch.from_numpy(leaf2[bi]).to(self.device))
+            with span("stream.fold", block=bi):
+                out = body(bi, torch.from_numpy(leaf2[bi]).to(self.device))
             if ahead is not None:
+                # block i+1's staging wait and copy, after block i's
+                # kernels were launched and before they are awaited
+                t0 = time.perf_counter()
                 up.finish(bi + 1, ahead)
+                counter_add("stream.pipeline.overlap_s",
+                            time.perf_counter() - t0)
             store(bi, out)
             if not self.pipeline and bi + 1 < nb:
                 up.finish(bi + 1, up.start(bi + 1, grad, hess))
@@ -489,6 +591,7 @@ class StreamTrainer:
             s = _apply_wave(s, s.leaf2, ids, res, self.A, growth,
                             wave_cap)
             wave += 1
+            counter_add("stream.waves")
 
         # the last wave's splits, each row's leaf value, the scores
         tabs = _pending_tables(self.dd, s, L)
@@ -506,23 +609,30 @@ class StreamTrainer:
             start, stop, m = self.blocks[bi]
             self.scores[start:stop, k] = sc[:m].cpu().numpy()
         self._stream_blocks(grad, hess, leaf2, final, store_scores)
+        counter_add("stream.trees")
         empty = torch.zeros(0, dtype=torch.int32, device=dev)
         return finished_tree(s, L, empty, empty.float())
 
 
 def train_streaming(params, source, num_boost_round: Optional[int] = None,
                     cache_dir: Optional[str] = None,
-                    block_rows: int = DEFAULT_BLOCK_ROWS, device=None,
+                    block_rows: Optional[int] = None, device=None,
                     pipeline: bool = True) -> GBDT:
     """Train out-of-core on ``device`` (default: the ``device`` parameter,
-    ``cuda`` unless set).  ``source`` is a ShardStore, a list of CSV/TSV
-    files (ingested into ``cache_dir`` first, by default a
-    ``.lgbm_shards`` directory beside the first file), or a resident
-    BinnedDataset.  Returns a GBDT booster (``save_model_to_string``,
-    ``predict``, ``digest``)."""
+    ``cuda`` unless set).  ``source`` is a ShardStore, a list of CSV, TSV
+    or libsvm files (ingested into ``cache_dir`` first, by default
+    ``LGBM_TPU_STREAM_CACHE`` or a ``.lgbm_shards`` directory beside the
+    first file), or a resident BinnedDataset.  ``block_rows`` defaults to
+    ``LGBM_TPU_STREAM_ROWS``, else 1,048,576; ``LGBM_TPU_STREAM_PIPELINE=0``
+    turns the upload pipeline off.  ``telemetry_output`` enables the
+    trace for the run.  Returns a GBDT booster
+    (``save_model_to_string``, ``predict``, ``digest``)."""
     from ..io.outofcore import default_cache_dir, ingest
     config = Config.from_params(canonicalize_params(dict(params)))
     config.check()
+    if config.telemetry_output:
+        from .. import obs
+        obs.enable(trace_path=str(config.telemetry_output))
     if isinstance(source, (list, tuple)):
         cdir = cache_dir or default_cache_dir(list(source))
         source = ingest(list(source), config, cdir)

@@ -1,5 +1,6 @@
 """Training callbacks (reference python-package/lightgbm/callback.py:49-215):
-print_evaluation, record_evaluation, reset_parameter, early_stopping.
+print_evaluation, record_evaluation, reset_parameter, early_stopping, and
+the JAX package's telemetry callback.
 
 Copied from the JAX package's ``callback.py`` (which imports no JAX);
 early stopping keeps its state on the booster as the JAX package's
@@ -8,16 +9,20 @@ training loop does, so that snapshots carry it.
 from __future__ import annotations
 
 import collections
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from .utils.log import log_info
 
 
 class EarlyStopException(Exception):
-    def __init__(self, best_iteration, best_score):
+    """``stalled``: the ``"<set>:<metric>"`` key that stopped the run
+    (None when the run reached its last round)."""
+
+    def __init__(self, best_iteration, best_score, stalled=None):
         super().__init__()
         self.best_iteration = best_iteration
         self.best_score = best_score
+        self.stalled = stalled
 
 
 CallbackEnv = collections.namedtuple(
@@ -78,6 +83,29 @@ def reset_parameter(**kwargs) -> Callable:
     return _callback
 
 
+def telemetry(record: Optional[Dict] = None,
+              trace_path: Optional[str] = None) -> Callable:
+    """Per-iteration telemetry callback (the JAX package's, see
+    ``obs/telemetry.py``): enables telemetry (streaming the JSONL trace
+    to ``trace_path`` when given), emits a ``train:iteration`` event each
+    round carrying the evaluation results, and keeps
+    ``record["summary"]`` refreshed with the live run summary when
+    ``record`` is given.  ``telemetry_output`` in the parameters (or
+    ``LGBM_TPU_TRACE``) traces a run without a callback."""
+    from . import obs
+    obs.enable(trace_path=trace_path)
+
+    def _callback(env: CallbackEnv) -> None:
+        fields = {"it": env.iteration}
+        for name, metric, val, _ in (env.evaluation_result_list or []):
+            fields[f"{name}:{metric}"] = float(val)
+        obs.event("train", "iteration", **fields)
+        if record is not None:
+            record["summary"] = obs.summary()
+    _callback.order = 25
+    return _callback
+
+
 def early_stopping(stopping_rounds: int, verbose: bool = True) -> Callable:
     """Stop when a valid metric has not improved for ``stopping_rounds``
     rounds (reference ``callback.py:142-215``; the rule of the JAX
@@ -94,13 +122,16 @@ def early_stopping(stopping_rounds: int, verbose: bool = True) -> Callable:
     where the uninterrupted one would, with the same best scores
     (``best_score``: each valid metric's best value)."""
 
-    def _stop(state, key, why):
+    def _stop(state, key, stalled):
         if verbose:
+            why = "Early stopping" if stalled else \
+                "Did not meet early stopping"
             log_info(f"{why}, best iteration is:\n"
                      f"[{state['best_iter'][key]}]")
         best = [(*k.split(":", 1), v, None)
                 for k, v in state["best_scores"].items()]
-        raise EarlyStopException(state["best_iter"][key] - 1, best)
+        raise EarlyStopException(state["best_iter"][key] - 1, best,
+                                 key if stalled else None)
 
     def _callback(env: CallbackEnv) -> None:
         if not env.evaluation_result_list:
@@ -124,9 +155,8 @@ def early_stopping(stopping_rounds: int, verbose: bool = True) -> Callable:
                 state["best_iter"][key] = it
         for key in state["key_order"]:
             if it - state["best_iter"][key] >= stopping_rounds:
-                _stop(state, key, "Early stopping")
+                _stop(state, key, True)
         if env.iteration == env.end_iteration - 1 and state["key_order"]:
-            _stop(state, state["key_order"][0],
-                  "Did not meet early stopping")
+            _stop(state, state["key_order"][0], False)
     _callback.order = 30
     return _callback

@@ -49,6 +49,19 @@
 //  5. Slots without rows (id -1 included) are zeroed by a float4 pass at
 //     bandwidth; an item writes all 3R floats of its range once.
 //
+// Seeded (lgbm_hist_wide_seeded, a streamed wave's carry): `out` comes in
+// holding the previous blocks' histogram, and each cell's running sum
+// starts at its value instead of +0.0, so that the block's rows add into
+// it in row order: (((seed + r1) + r2) + ...), the JAX package's seeded
+// scatter (`acc.at[idx].add(vals)`).  The count starts at the seed's
+// count (an integer-valued float of at most 2^24, as every carry holds)
+// and writes min(seed + k, 2^24), which is what f32 adds of 1.0 give.
+// No zero pass runs: slots without rows in this block keep their seed.
+// The seed enters where a cell's first add happens: an item's running
+// sums (block and warp items) and the gather's registers; the rounds
+// that the walk sorts apart for the gather add nothing.  The unseeded
+// instantiations (SEED false) are the code measured before.
+//
 // What bounds it: the bytes are each active row's bins and two values,
 // the hist leaves, and the [A, G, B, 3] histogram written once.  A cell's
 // chain is serial (one add after another), so a bin holding most of a
@@ -504,7 +517,7 @@ __device__ __forceinline__ void block_sort_round(
 // The walk's first kernel: persistent blocks take, in turn, the rounds
 // of the two-round-kind slots (sorted by bin, written out with each
 // bin's first position), block items, then warp by warp warp items.
-template <typename SBinT>
+template <typename SBinT, bool SEED>
 __global__ void __launch_bounds__(WALK_THREADS, 2)
 wide_walk(const SBinT* __restrict__ sbin, long long n, int G,
           const float2* __restrict__ sgh, const int* __restrict__ start,
@@ -602,10 +615,20 @@ wide_walk(const SBinT* __restrict__ sbin, long long n, int G,
       const int R = B / k;
       const int rbits = 31 - __clz(R);     // R is a power of two
       const int b0 = (int)(local % k) * R;
-      for (int j = tid; j < R; j += WALK_THREADS) {
-        acc_g[j] = 0.0f;
-        acc_h[j] = 0.0f;
-        acc_n[j] = 0;
+      if (SEED) {                          // the running sums start at the carry
+        const float* seed =
+            out + ((long long)s * G + g) * B * 3 + (long long)b0 * 3;
+        for (int j = tid; j < R; j += WALK_THREADS) {
+          acc_g[j] = seed[3 * j];
+          acc_h[j] = seed[3 * j + 1];
+          acc_n[j] = (int)seed[3 * j + 2];
+        }
+      } else {
+        for (int j = tid; j < R; j += WALK_THREADS) {
+          acc_g[j] = 0.0f;
+          acc_h[j] = 0.0f;
+          acc_n[j] = 0;
+        }
       }
       const SBinT* col = sbin + g * n;
       const int r0 = start[s], r1 = start[s + 1];
@@ -682,10 +705,19 @@ wide_walk(const SBinT* __restrict__ sbin, long long n, int G,
       if (it >= total) break;
       const int s = find_slot(first, A, it, lane);
       const int g = (int)(it - first[s]);
-      for (int j = lane; j < R; j += 32) {
-        wg[j] = 0.0f;
-        wh[j] = 0.0f;
-        wn[j] = 0;
+      if (SEED) {                          // the running sums start at the carry
+        const float* seed = out + ((long long)s * G + g) * B * 3;
+        for (int j = lane; j < R; j += 32) {
+          wg[j] = seed[3 * j];
+          wh[j] = seed[3 * j + 1];
+          wn[j] = (int)seed[3 * j + 2];
+        }
+      } else {
+        for (int j = lane; j < R; j += 32) {
+          wg[j] = 0.0f;
+          wh[j] = 0.0f;
+          wn[j] = 0;
+        }
       }
       const SBinT* col = sbin + g * n;
       const int r0 = start[s], r1 = start[s + 1];
@@ -812,6 +844,7 @@ static size_t gather_smem(int B) {
   return (size_t)GATHER_RING * (WALK_TILE * sizeof(float2)
                                 + (B + 1) * sizeof(int));
 }
+template <bool SEED>
 __global__ void __launch_bounds__(WALK_THREADS)
 wide_gather(const float2* __restrict__ srt_out, const int* __restrict__ offs,
             long long n, int G, const int* __restrict__ start,
@@ -868,6 +901,19 @@ wide_gather(const float2* __restrict__ srt_out, const int* __restrict__ offs,
       a[m] = 0.0f;
       h[m] = 0.0f;
       c[m] = 0;
+    }
+    if (SEED) {                            // the sums start at the carry
+      const float* seed =
+          out + ((long long)s * G + g) * B * 3 + (long long)j0 * 3;
+#pragma unroll
+      for (int m = 0; m < GATHER_BINS; ++m) {
+        const int j = m * WALK_THREADS + tid;
+        if (j < part) {
+          a[m] = seed[3 * j];
+          h[m] = seed[3 * j + 1];
+          c[m] = (int)seed[3 * j + 2];
+        }
+      }
     }
     for (int r = 0; r < GATHER_RING - 1; ++r) fetch(r);
     for (int r = 0; r < rounds; ++r) {
@@ -1035,14 +1081,15 @@ extern "C" int lgbm_hist_wide_scratch(long long n, int G, int A, int B) {
   return units < 0x7fffffff ? (int)units : 0x7fffffff;
 }
 
-// The whole wave into `out` [A, G, B, 3] f32 (every cell written), with
-// `scratch` of lgbm_hist_wide_scratch x 256 bytes.
-extern "C" int lgbm_hist_wide(const void* bins_t, int bins_int32,
-                              long long n_pad, long long n, int G,
-                              const void* grad, const void* hess,
-                              const void* hist_leaf, const void* inv, int L,
-                              int A, int B, void* scratch, void* out,
-                              void* stream) {
+// The whole wave into `out` [A, G, B, 3] f32, with `scratch` of
+// lgbm_hist_wide_scratch x 256 bytes: every cell written from +0.0, or
+// (SEED) every cell of a slot with rows added into from its value.
+template <bool SEED>
+static int hist_wide_run(const void* bins_t, int bins_int32, long long n_pad,
+                         long long n, int G, const void* grad,
+                         const void* hess, const void* hist_leaf,
+                         const void* inv, int L, int A, int B, void* scratch,
+                         void* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Scratch sc;
   carve((char*)scratch, n, G, A, B, &sc);
@@ -1114,35 +1161,61 @@ extern "C" int lgbm_hist_wide(const void* bins_t, int bins_int32,
                                        rw > 0 ? WARP_MAX_ROWS : 0, sc.kslot,
                                        sc.items, next_item);
   TRY(cudaGetLastError());
-  const long long slot_f4 = (long long)G * B * 3 / 4;
-  wide_zero<<<1024, 256, 0, st>>>(sc.start, slot_f4, slot_f4 * A,
-                                   (float4*)out);
-  TRY(cudaGetLastError());
+  if (!SEED) {                           // a seed stays where no row adds
+    const long long slot_f4 = (long long)G * B * 3 / 4;
+    wide_zero<<<1024, 256, 0, st>>>(sc.start, slot_f4, slot_f4 * A,
+                                     (float4*)out);
+    TRY(cudaGetLastError());
+  }
   const size_t smem = walk_smem(rmax, rw);
   int grid = 0;
   int code;
   if (B > 65536) {
-    code = persistent_grid(wide_walk<int>, WALK_THREADS, smem, &grid);
+    code = persistent_grid(wide_walk<int, SEED>, WALK_THREADS, smem, &grid);
     if (code) return code;
-    wide_walk<int><<<grid, WALK_THREADS, smem, st>>>(
+    wide_walk<int, SEED><<<grid, WALK_THREADS, smem, st>>>(
         (const int*)sc.sbin, n, G, sc.sgh, sc.start, sc.kslot, sc.items, A,
         B, rmax, next_item, sc.srt, sc.offs, (float*)out);
   } else {
-    code = persistent_grid(wide_walk<uint16_t>, WALK_THREADS, smem, &grid);
+    code = persistent_grid(wide_walk<uint16_t, SEED>, WALK_THREADS, smem,
+                           &grid);
     if (code) return code;
-    wide_walk<uint16_t><<<grid, WALK_THREADS, smem, st>>>(
+    wide_walk<uint16_t, SEED><<<grid, WALK_THREADS, smem, st>>>(
         (const uint16_t*)sc.sbin, n, G, sc.sgh, sc.start, sc.kslot,
         sc.items, A, B, rmax, next_item, sc.srt, sc.offs, (float*)out);
   }
   TRY(cudaGetLastError());
   if (kbase == 1) {
     const size_t gsmem = gather_smem(B);
-    code = persistent_grid(wide_gather, WALK_THREADS, gsmem, &grid);
+    code = persistent_grid(wide_gather<SEED>, WALK_THREADS, gsmem, &grid);
     if (code) return code;
-    wide_gather<<<grid, WALK_THREADS, gsmem, st>>>(
+    wide_gather<SEED><<<grid, WALK_THREADS, gsmem, st>>>(
         sc.srt, sc.offs, n, G, sc.start, sc.items, A, B, next_item,
         (float*)out);
     TRY(cudaGetLastError());
   }
   return 0;
+}
+
+// The whole wave into `out` [A, G, B, 3] f32 (every cell written).
+extern "C" int lgbm_hist_wide(const void* bins_t, int bins_int32,
+                              long long n_pad, long long n, int G,
+                              const void* grad, const void* hess,
+                              const void* hist_leaf, const void* inv, int L,
+                              int A, int B, void* scratch, void* out,
+                              void* stream) {
+  return hist_wide_run<false>(bins_t, bins_int32, n_pad, n, G, grad, hess,
+                              hist_leaf, inv, L, A, B, scratch, out, stream);
+}
+
+// The wave added into the carry `out` [A, G, B, 3] f32 in place, each
+// cell's adds in row order from its value (a streamed block's fold).
+extern "C" int lgbm_hist_wide_seeded(const void* bins_t, int bins_int32,
+                                     long long n_pad, long long n, int G,
+                                     const void* grad, const void* hess,
+                                     const void* hist_leaf, const void* inv,
+                                     int L, int A, int B, void* scratch,
+                                     void* out, void* stream) {
+  return hist_wide_run<true>(bins_t, bins_int32, n_pad, n, G, grad, hess,
+                             hist_leaf, inv, L, A, B, scratch, out, stream);
 }

@@ -18,6 +18,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 from . import callback as callback_mod
+from . import obs
 from .basic import Booster, Dataset
 from .config import canonicalize_params
 from .utils.log import log_info
@@ -68,8 +69,27 @@ def train(params: Dict[str, Any], train_set: Dataset,
     or ``"auto"``/``"latest"`` for this run's ``output_model`` prefix.
     The valid sets attach first, and training continues from the
     restored iteration toward ``num_boost_round`` in total, bit for bit
-    where the snapshot carries its score state."""
+    where the snapshot carries its score state.
+
+    ``telemetry_output=<path>`` (or ``LGBM_TPU_TRACE``) enables the
+    telemetry of ``obs/telemetry.py`` and streams its JSONL trace there;
+    the run summary is ``lgb.obs.summary()`` either way."""
     params = canonicalize_params(dict(params or {}))
+    if params.get("telemetry_output"):
+        obs.enable(trace_path=str(params["telemetry_output"]))
+    with obs.span("engine.train"):
+        return _train(params, train_set, num_boost_round, valid_sets,
+                      valid_names, fobj, feval, init_model, feature_name,
+                      categorical_feature, early_stopping_rounds,
+                      evals_result, verbose_eval, learning_rates,
+                      keep_training_booster, callbacks, resume_from, device)
+
+
+def _train(params, train_set, num_boost_round, valid_sets, valid_names,
+           fobj, feval, init_model, feature_name, categorical_feature,
+           early_stopping_rounds, evals_result, verbose_eval,
+           learning_rates, keep_training_booster, callbacks, resume_from,
+           device) -> Booster:
     if resume_from is None and params.get("resume_from"):
         resume_from = str(params["resume_from"])
     if "num_iterations" in params:
@@ -113,7 +133,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
         target = resume_from
         if target in ("auto", "latest"):
             target = gbdt.config.output_model
-        gbdt.resume_from_snapshot(target)
+        with obs.span("snapshot.resume"):
+            gbdt.resume_from_snapshot(target)
         booster._serve_cache = {}
     start_iter = gbdt.iter if resume_from else 0
     snapshot_freq = gbdt.config.snapshot_freq
@@ -139,8 +160,27 @@ def train(params: Dict[str, Any], train_set: Dataset,
     cbs_after = sorted(
         (cb for cb in cbs if not getattr(cb, "before_iteration", False)),
         key=lambda cb: getattr(cb, "order", 0))
-    train_metric = bool(params.get("is_training_metric"))
 
+    with obs.span("gbdt.train"):
+        _boost(booster, params, fobj, feval, start_iter, num_boost_round,
+               cbs_before, cbs_after, snapshot_freq)
+    gbdt.trim_trailing_stumps()
+    if booster.best_iteration <= 0:
+        booster.best_iteration = booster.current_iteration()
+    if not keep_training_booster:
+        booster.free_dataset()
+    return booster
+
+
+def _boost(booster: Booster, params, fobj, feval, start_iter: int,
+           num_boost_round: int, cbs_before, cbs_after,
+           snapshot_freq: int) -> None:
+    """The per-iteration loop: update, evaluation, callbacks, snapshots;
+    the ``gbdt.iteration`` and ``gbdt.eval`` spans, the ``train_stop``
+    and ``early_stop`` events and the ``gbdt.iterations`` and
+    ``gbdt.num_trees`` gauges of the JAX package's loop."""
+    gbdt = booster._gbdt
+    train_metric = bool(params.get("is_training_metric"))
     for it in range(start_iter, num_boost_round):
         env = callback_mod.CallbackEnv(
             model=booster, params=params, iteration=it,
@@ -148,14 +188,18 @@ def train(params: Dict[str, Any], train_set: Dataset,
             evaluation_result_list=None)
         for cb in cbs_before:
             cb(env)
-        if booster.update(fobj=fobj):
+        with obs.span("gbdt.iteration", it=it):
+            stop = booster.update(fobj=fobj)
+        if stop:
             log_info(f"training stopped at iteration {it + 1}: no further "
                      f"splits possible")
+            obs.event("train_stop", "no_more_splits", iteration=gbdt.iter)
             break
         results = []
-        if train_metric:
-            results.extend(booster.eval_train(feval))
-        results.extend(booster.eval_valid(feval))
+        with obs.span("gbdt.eval", it=it):
+            if train_metric:
+                results.extend(booster.eval_train(feval))
+            results.extend(booster.eval_valid(feval))
         env = env._replace(evaluation_result_list=results)
         try:
             for cb in cbs_after:
@@ -164,15 +208,14 @@ def train(params: Dict[str, Any], train_set: Dataset,
             booster.best_iteration = e.best_iteration + 1
             for name, metric, val, _ in (e.best_score or []):
                 booster.best_score.setdefault(name, {})[metric] = val
+            if e.stalled is not None:
+                obs.event("early_stop", e.stalled, iteration=it,
+                          best_iteration=booster.best_iteration)
             break
         if snapshot_freq > 0 and (it + 1) % snapshot_freq == 0:
             gbdt.save_snapshot(it + 1)
-    gbdt.trim_trailing_stumps()
-    if booster.best_iteration <= 0:
-        booster.best_iteration = booster.current_iteration()
-    if not keep_training_booster:
-        booster.free_dataset()
-    return booster
+    obs.gauge_set("gbdt.iterations", int(gbdt.iter))
+    obs.gauge_set("gbdt.num_trees", int(gbdt._num_models()))
 
 
 def _model_text(init_model) -> str:

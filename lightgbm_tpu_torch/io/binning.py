@@ -223,9 +223,11 @@ class BinMapper:
         ``total_sample_cnt - len(values)``, matching the reference's sparse
         sampling contract).
         """
-        self._find_bin(values, total_sample_cnt, max_bin,
-                       min_data_in_bin, min_split_data, bin_type,
-                       use_missing, zero_as_missing)
+        from ..obs import span
+        with span("io.find_bin"):
+            self._find_bin(values, total_sample_cnt, max_bin,
+                           min_data_in_bin, min_split_data, bin_type,
+                           use_missing, zero_as_missing)
 
     def _find_bin(self, values, total_sample_cnt, max_bin, min_data_in_bin,
                   min_split_data, bin_type, use_missing,

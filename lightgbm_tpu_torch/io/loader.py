@@ -152,11 +152,23 @@ def parse_file(path: str, config: Config
                           Optional[np.ndarray], List[str], List[int]]:
     """-> (X float64, label float32, inline weight, inline query ids,
     feature names, categorical columns among X's)."""
-    return _parse_file(path, config)
+    from ..obs import span
+    with span("io.parse_file", path=os.path.basename(path)):
+        return _parse_file(path, config)
 
 
 def _parse_file(path: str, config: Config):
-    path = localize(path)              # a registered scheme -> a temp copy
+    from ..utils.faults import fault_point
+    from ..utils.retry import retry_call
+
+    def _localize(p):
+        # the ``loader.read`` fault point and a retried fetch: a flaky
+        # remote filesystem read is a transient, not a lost run
+        fault_point("loader.read")
+        return localize(p)
+
+    # a registered scheme -> a temp copy
+    path = retry_call(_localize, path, what="loader.read")
     fmt = detect_format(path, config.has_header)
     header_names: Optional[List[str]] = None
     skip = 0
@@ -378,7 +390,9 @@ def load_file(path: str, config: Config,
     the JAX package's distributed arguments: ``num_machines > 1``
     raises (ROADMAP A11)."""
     _single_machine(num_machines)
-    return _load_file(path, config, reference)
+    from ..obs import span
+    with span("io.load_file", path=os.path.basename(path)):
+        return _load_file(path, config, reference)
 
 
 def _side_files(path: str, md: Metadata) -> None:

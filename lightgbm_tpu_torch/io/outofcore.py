@@ -21,9 +21,13 @@ is what makes training beyond RAM practical.  The store is both:
 
 The store is keyed on source fingerprints and the binning knobs
 (:func:`cache_key`): :func:`load_store` refuses a stale store.  CSV and
-TSV sources parse through a pure-Python chunk parser; libsvm sources
-(which need the JAX package's native parser) raise.  Training against
-the store is ``boosting/streaming.py``.
+TSV sources parse through a pure-Python chunk parser, libsvm sources
+through the port's native parser (``native/``: a bounded scan, then
+bounded chunks), as the JAX package's do.  ``LGBM_TPU_STREAM_CACHE``
+places the store of a file list (:func:`default_cache_dir`).  Telemetry:
+the spans ``ingest.find_bins`` and ``ingest.shard``, the counters
+``ingest.shards`` and ``ingest.rows``.  Training against the store is
+``boosting/streaming.py``.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import Config
+from ..obs import counter_add, span
 from ..utils.file_io import atomic_write, localize, release
 from ..utils.log import log_info, log_warning
 from .binning import BIN_NUMERICAL, BinMapper
@@ -101,15 +106,26 @@ def shard_sources(sources: List[str], rank: int, num_ranks: int
 # chunked parse of delimited files
 # ---------------------------------------------------------------------------
 def _file_plan(path: str, config: Config):
-    """-> (separator, header names, chunk stream, data row count)."""
+    """-> (separator, header names, chunk stream, data row count).  A
+    libsvm source streams ``[rows, 1 + columns]`` chunks, the label in
+    column 0, from the native parser (the JAX package's plan)."""
     fmt = detect_format(path, config.has_header)
-    if fmt == "libsvm":
-        raise ValueError(
-            f"out-of-core ingest of libsvm sources ({path!r}) is not "
-            "ported yet (ROADMAP A10): convert the file to CSV or TSV, or "
-            "load it in memory with Dataset(path)")
-    sep = {"csv": ",", "tsv": "\t"}[fmt]
     skip = 1 if config.has_header else 0
+    if fmt == "libsvm":
+        from .. import native
+        scanned = (native.scan_libsvm(path, skip) if native.available()
+                   else None)
+        if scanned is None:
+            raise ValueError(
+                "out-of-core ingest needs the native parser for libsvm "
+                f"sources ({path!r})")
+        n, fcols = scanned
+
+        def libsvm_stream():
+            return native.parse_libsvm_chunks(path, skip, fcols,
+                                              chunk_bytes=_CHUNK_BYTES)
+        return " ", None, libsvm_stream, int(n)
+    sep = {"csv": ",", "tsv": "\t"}[fmt]
     header_names = None
     if config.has_header:
         with open(path) as f:
@@ -344,12 +360,24 @@ def _ingest_one_shard(k: int, path: str, config: Config, cache_dir: str,
     """Parse one source file chunk by chunk into the store: blobs under
     ``.tmp`` names, published with ``os.replace``, the sidecar (the
     shard's validity marker) last."""
-    label_idx, weight_idx, _, keep, _, _ = plan
     p = _shard_paths(cache_dir, k)
     local = localize(path)
     _, _, stream, n_f = _file_plan(local, config)
     source = _source_fingerprint(local)
     source["path"] = os.path.basename(path)
+    with span("ingest.shard", shard=k, rows=n_f):
+        sc = _write_shard(path, p, stream, n_f, mappers, used, plan, key,
+                          dtype, source)
+    counter_add("ingest.shards")
+    counter_add("ingest.rows", sc["rows"])
+    if local != path:
+        release(local)
+    return sc
+
+
+def _write_shard(path: str, p: Dict[str, str], stream, n_f: int, mappers,
+                 used, plan, key: str, dtype, source: Dict) -> Dict:
+    label_idx, weight_idx, _, keep, _, _ = plan
     sha = hashlib.sha256()
     rows = 0
     has_weight = weight_idx is not None
@@ -388,8 +416,6 @@ def _ingest_one_shard(k: int, path: str, config: Config, cache_dir: str,
     sc = {"key": key, "rows": rows, "sha256": sha.hexdigest(),
           "source": source, "has_weight": has_weight, "name": p["name"]}
     atomic_write(p["sidecar"], json.dumps(sc, indent=1))
-    if local != path:
-        release(local)
     return sc
 
 
@@ -436,8 +462,9 @@ def ingest(sources: List[str], config: Config, cache_dir: str,
                  f"{len(files)} shards)")
         return hit
     key = cache_key(files, config)
-    mappers, used, names, num_total, _, plan = find_mappers_multi(files,
-                                                                  config)
+    with span("ingest.find_bins", files=len(files)):
+        mappers, used, names, num_total, _, plan = find_mappers_multi(
+            files, config)
     max_nb = max((mappers[f].num_bin for f in used), default=2)
     dtype = np.dtype(np.uint8 if max_nb <= 256 else np.int32)
     itemsize = dtype.itemsize * len(used)
@@ -476,7 +503,11 @@ def ingest(sources: List[str], config: Config, cache_dir: str,
 
 
 def default_cache_dir(sources: List[str]) -> str:
-    """A ``.lgbm_shards`` directory next to the first source."""
+    """``LGBM_TPU_STREAM_CACHE`` when set, else a ``.lgbm_shards``
+    directory next to the first source."""
+    override = os.environ.get("LGBM_TPU_STREAM_CACHE")
+    if override:
+        return override
     first = sources[0]
     base = os.path.dirname(first) if "://" not in first else "."
     return os.path.join(base or ".", ".lgbm_shards")

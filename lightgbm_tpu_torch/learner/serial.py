@@ -38,6 +38,7 @@ import torch
 
 from ..io.binning import MISSING_NAN, MISSING_ZERO
 from ..io.device import DeviceData
+from ..obs import span as obs_span
 from ..ops.compact import (compact_slot_threshold, hist_active_compact,
                            hist_compact_raw)
 from ..ops.histogram import (bin_stride, combine_hist_cols,
@@ -272,8 +273,9 @@ class HistFold(NamedTuple):
     C]``, int32 on the quantized modes, float32 on the float ones) and
     returns it; ``init_acc()`` makes the zero carry; ``unpack(acc,
     scales)`` turns the finished chain into the ``[A, G, B, 3]`` f32 grid
-    the split scan reads.  ``backend`` is the kernel: "wide" (K5) or
-    "compact" (K3)."""
+    the split scan reads.  ``backend`` is the kernel: "wide" (K5),
+    "compact" (K3) or "scatter" (the seeded exact-f32 wide histogram,
+    past the kernels' domain)."""
     fold: Callable
     init_acc: Callable
     unpack: Callable
@@ -296,21 +298,38 @@ def make_hist_fold_fn(data: DeviceData, num_leaf_slots: int,
     K3, every other wave the seeded K5; a float wave takes K5 at any
     width (float compact folds drop to the wide kernel, as the
     reference's do).  Both kernels sum each cell in an order that does
-    not depend on the block size."""
+    not depend on the block size.
+
+    Past the kernels' domain (:func:`kernels_fit`) the fold is the
+    reference's carried-f32 scatter: ``[A, G, B, 3]`` f32 zeros, each
+    block added into the carry by the seeded exact-f32 wide histogram
+    (``hist_wide_raw(..., acc=)``: every cell's adds in row order, across
+    blocks too, so the chain is the in-memory wave's sum bitwise), the
+    carry unpacked as is.  It is not quantized, whatever the hist mode
+    (as :func:`build_tree_wide`)."""
     mode = effective_hist_mode(hist_mode or default_hist_mode(),
                                data.num_data if num_data is None
                                else num_data)
-    if not kernels_fit(data.group_max_bins, num_leaf_slots):
-        raise NotImplementedError(
-            "streams of groups with more than 256 bins or trees of more "
-            "than 1,024 leaves (the reference's scatter fold) are not "
-            "ported yet (ROADMAP A10)")
+    mb = data.group_max_bins
+    dev = data.device
+    if not kernels_fit(mb, num_leaf_slots):
+        shape = (num_active, data.num_groups, bin_stride(mb), 3)
+
+        def init_scatter():
+            return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+        def fold_scatter(bins_t, grad, hess, hist_leaf, active, acc,
+                         scales=None):
+            return hist_wide_raw(bins_t, grad, hess, hist_leaf, active,
+                                 num_leaf_slots, mb, acc=acc)
+
+        return HistFold(fold_scatter, init_scatter,
+                        lambda acc, scales=None: acc, "scatter", mode,
+                        False)
     quantized = is_quantized(mode)
     compact = quantized and num_active > compact_slot_threshold()
-    mb = data.group_max_bins
     shape = (num_active, data.num_groups, bin_stride(mb), value_cols(mode))
     dtype = torch.int32 if quantized else torch.float32
-    dev = data.device
 
     def init_acc():
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -616,20 +635,24 @@ def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
     def body(s: _WaveState, A_out: int) -> _WaveState:
         tabs = _pending_tables(data, s, L)
         if wave_uses_compact(backend, s.act_small.shape[0]):
-            leaf2 = route_rows(data.bins_t, s.leaf2, *tabs)
-            new_h = hist_active_compact(
-                data.bins_t, vals, leaf2[1].contiguous(), s.act_small,
-                scales, num_leaf_slots=L, max_bins=data.group_max_bins,
-                mode=mode)
+            with obs_span("tree.route"):
+                leaf2 = route_rows(data.bins_t, s.leaf2, *tabs)
+            with obs_span("tree.hist"):
+                new_h = hist_active_compact(
+                    data.bins_t, vals, leaf2[1].contiguous(), s.act_small,
+                    scales, num_leaf_slots=L, max_bins=data.group_max_bins,
+                    mode=mode)
         else:
-            new_h, leaf2 = hist_route(
-                data.bins_t, vals, s.leaf2, s.act_small, *tabs, scales,
-                max_bins=data.group_max_bins, mode=mode)
-        ids, res = rescan_changed(data, params, feature_mask, s, new_h)
-        return _apply_wave(s, leaf2, ids, res, A_out, params, wave_cap)
+            with obs_span("tree.hist"):      # the route rides K1
+                new_h, leaf2 = hist_route(
+                    data.bins_t, vals, s.leaf2, s.act_small, *tabs, scales,
+                    max_bins=data.group_max_bins, mode=mode)
+        return _scan_and_apply(data, params, feature_mask, s, leaf2, new_h,
+                               A_out, wave_cap)
 
-    s = _init_state(data, grad, hess, params, bag_mask,
-                    plan[0] if plan else A_tail)
+    with obs_span("tree.init"):
+        s = _init_state(data, grad, hess, params, bag_mask,
+                        plan[0] if plan else A_tail)
 
     def finished(s: _WaveState) -> bool:
         done, nl = torch.stack([s.done.long(), s.nl]).tolist()
@@ -647,10 +670,7 @@ def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
         i += 1
 
     # apply the last wave's pending splits and emit each row's leaf value
-    leaf2, row_value = route_rows_values(
-        data.bins_t, s.leaf2, *_pending_tables(data, s, L),
-        final_leaf_values(s, L))
-    return finished_tree(s, L, leaf2[0, :n], row_value[:n])
+    return _final_route(data, s, L)
 
 
 def build_tree_wide(data: DeviceData, grad: torch.Tensor,
@@ -665,27 +685,49 @@ def build_tree_wide(data: DeviceData, grad: torch.Tensor,
     in exact float32 (``hist_wide_raw``: ``hist_mode`` does not apply);
     the last route emits each row's leaf value (K4) for the score update,
     bitwise the reference's gather of the leaf values."""
-    n = data.num_data
     L = params.num_leaves
     A = wide_wave_slots(L)
     wave_cap = params.wave_size if params.wave_size > 0 else L
     g = grad.float().contiguous()
     h = hess.float().contiguous()
-    s = _init_state(data, grad, hess, params, bag_mask, A)
+    with obs_span("tree.init"):
+        s = _init_state(data, grad, hess, params, bag_mask, A)
 
     def finished(s: _WaveState) -> bool:
         done, nl = torch.stack([s.done.long(), s.nl]).tolist()
         return bool(done) or nl >= L
 
     while not finished(s):
-        leaf2 = route_rows(data.bins_t, s.leaf2, *_pending_tables(data, s, L))
-        new_h = hist_wide_raw(data.bins_t, g, h, leaf2[1].contiguous(),
-                              s.act_small, L, data.group_max_bins)
+        with obs_span("tree.route"):
+            leaf2 = route_rows(data.bins_t, s.leaf2,
+                               *_pending_tables(data, s, L))
+        with obs_span("tree.hist"):
+            new_h = hist_wide_raw(data.bins_t, g, h, leaf2[1].contiguous(),
+                                  s.act_small, L, data.group_max_bins)
+        s = _scan_and_apply(data, params, feature_mask, s, leaf2, new_h, A,
+                            wave_cap)
+    return _final_route(data, s, L)
+
+
+def _scan_and_apply(data: DeviceData, params: GrowthParams, feature_mask,
+                    s: _WaveState, leaf2, new_h, A_out: int,
+                    wave_cap: int) -> _WaveState:
+    """A wave's split scan and its bookkeeping, under the learner's
+    ``tree.split_find`` and ``tree.update`` spans."""
+    with obs_span("tree.split_find"):
         ids, res = rescan_changed(data, params, feature_mask, s, new_h)
-        s = _apply_wave(s, leaf2, ids, res, A, params, wave_cap)
-    leaf2, row_value = route_rows_values(
-        data.bins_t, s.leaf2, *_pending_tables(data, s, L),
-        final_leaf_values(s, L))
+    with obs_span("tree.update"):
+        return _apply_wave(s, leaf2, ids, res, A_out, params, wave_cap)
+
+
+def _final_route(data: DeviceData, s: _WaveState, L: int) -> BuiltTree:
+    """The last route (K4): the last wave's splits applied, each row's
+    leaf value emitted for the score update."""
+    n = data.num_data
+    with obs_span("tree.route"):
+        leaf2, row_value = route_rows_values(
+            data.bins_t, s.leaf2, *_pending_tables(data, s, L),
+            final_leaf_values(s, L))
     return finished_tree(s, L, leaf2[0, :n], row_value[:n])
 
 

@@ -38,7 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .route import leaf_tables
+from .route import LaunchCount, leaf_tables
 
 # shared memory one block may use on sm_90 (227 KB), and what one
 # multiprocessor holds for all its resident blocks (each reserves 1 KB)
@@ -1035,25 +1035,33 @@ def wide_cells(bins_t, hist_leaf, active, n: int, num_leaf_slots: int,
 
 
 def hist_wide_plain(bins_t, grad, hess, hist_leaf, active,
-                    num_leaf_slots: int, B: int) -> torch.Tensor:
+                    num_leaf_slots: int, B: int, acc=None) -> torch.Tensor:
     """Plain version of :func:`hist_wide_raw`, the reference's XLA
     scatter oracle (``hist_active_scatter``) on the transposed bins: one
     sequential ``index_add_`` per value column over the rows in row order
-    (on the CPU it adds in index order, as the XLA scatter does)."""
+    (on the CPU it adds in index order, as the XLA scatter does).  With
+    ``acc`` the adds start from its cells and land in it in place (the
+    reference stream's seeded scatter, ``acc.at[idx].add(vals)``)."""
     G = bins_t.shape[0]
     A = active.shape[0]
     rows, idx = wide_cells(bins_t, hist_leaf, active, grad.shape[0],
                            num_leaf_slots, B)
-    out = torch.zeros((3, A * G * B), dtype=torch.float32,
-                      device=bins_t.device)
+    if acc is None:
+        out = torch.zeros((3, A * G * B), dtype=torch.float32,
+                          device=bins_t.device)
+    else:
+        out = acc.reshape(A * G * B, 3).t().contiguous()
     for c, v in enumerate((grad, hess, torch.ones_like(grad))):
         out[c].index_add_(0, idx, v[rows].float()[:, None]
                           .expand(-1, G).reshape(-1))
-    return out.t().reshape(A, G, B, 3).contiguous()
+    out = out.t().reshape(A, G, B, 3)
+    if acc is None:
+        return out.contiguous()
+    return acc.copy_(out)
 
 
 def hist_wide_raw(bins_t, grad, hess, hist_leaf, active, num_leaf_slots: int,
-                  max_bins: int) -> torch.Tensor:
+                  max_bins: int, acc=None) -> torch.Tensor:
     """Exact-f32 histogram ``[A, G, B, 3]`` of ``(grad, hess, 1)`` over the
     rows whose hist leaf is in ``active`` (the reference's
     ``hist_active_scatter``): uint8 or int32 ``bins_t [G, n_pad]``,
@@ -1062,7 +1070,16 @@ def hist_wide_raw(bins_t, grad, hess, hist_leaf, active, num_leaf_slots: int,
     Each cell is the row-order sum of its rows from +0.0, on the card as
     in the plain version (``csrc/hist_wide.cu``); slots whose id is -1
     stay zero.  One count per call (a slot sort, a plan, a zero pass and
-    the walk)."""
+    the walk).
+
+    Seeded (``acc``, an ``[A, G, B, 3]`` f32 carry, contiguous on the
+    bins' device): the rows add into ``acc`` in place, each cell's sum
+    starting at its value, ``(((seed + r1) + r2) + ...)``; a count starts
+    at its seed (an integer-valued float of at most 2^24, as a carry
+    holds) and ends at ``min(seed + k, 2^24)``; slots with no row in this
+    call (id -1 included) keep their seed.  -> ``acc``.  The seeded
+    kernel counts into :data:`HIST_WIDE_SEEDED`, the unseeded one into
+    ``hist_wide_raw.launches``."""
     B = bin_stride(max_bins)
     G, n_pad = bins_t.shape
     n = grad.shape[0]
@@ -1076,24 +1093,30 @@ def hist_wide_raw(bins_t, grad, hess, hist_leaf, active, num_leaf_slots: int,
     _check(hess, "hess", torch.float32, (n,), dev)
     _check(hist_leaf, "hist_leaf", torch.int32, (n_pad,), dev)
     _check(active, "active", torch.int32, (A,), dev)
+    if acc is not None:
+        _check(acc, "acc", torch.float32, (A, G, B, 3), dev)
     if A < 1 or n > n_pad:
         raise ValueError(f"hist_wide: {A} slots, {n} rows of {n_pad}")
+    count = hist_wide_raw if acc is None else HIST_WIDE_SEEDED
     if dev.type == "cpu":
-        hist_wide_raw.plain_calls += 1
-        return hist_wide_plain(bins_t, grad, hess, hist_leaf, active, L, B)
+        count.plain_calls += 1
+        return hist_wide_plain(bins_t, grad, hess, hist_leaf, active, L, B,
+                               acc)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from .cuda_build import check_launch
     inv = slot_tables(active, L, collect_unbagged=False)[0]
-    out = torch.empty((A, G, B, 3), dtype=torch.float32, device=dev)
+    out = (torch.empty((A, G, B, 3), dtype=torch.float32, device=dev)
+           if acc is None else acc)
     check_launch(hist_wide_launch(bins_t, grad, hess, hist_leaf, inv, L, B,
-                                  out), "hist_wide")
-    hist_wide_raw.launches += 1
+                                  out, seeded=acc is not None), "hist_wide")
+    count.launches += 1
     return out
 
 
 hist_wide_raw.launches = 0
 hist_wide_raw.plain_calls = 0
+HIST_WIDE_SEEDED = LaunchCount("hist_wide_seeded")
 
 
 def hist_wide_scratch_bytes(n: int, G: int, A: int, B: int) -> int:
@@ -1105,17 +1128,19 @@ def hist_wide_scratch_bytes(n: int, G: int, A: int, B: int) -> int:
 
 
 def hist_wide_launch(bins_t, grad, hess, hist_leaf, inv, L: int, B: int,
-                     out) -> int:
+                     out, seeded: bool = False) -> int:
     """Launch the wide histogram's kernels into ``out [A, G, B, 3]`` on the
-    current stream (``inv``: the leaves' slots, :func:`slot_tables`),
-    with the scratch the kernel asks for allocated here: -> the CUDA
-    error code (0: launched)."""
+    current stream (``inv``: the leaves' slots, :func:`slot_tables`;
+    ``seeded``: add into ``out``'s values), with the scratch the kernel
+    asks for allocated here: -> the CUDA error code (0: launched)."""
     from .cuda_build import library
     G, n_pad = bins_t.shape
     n, A, dev = grad.shape[0], out.shape[0], bins_t.device
     scratch = torch.empty(hist_wide_scratch_bytes(n, G, A, B),
                           dtype=torch.uint8, device=dev)
-    return library("hist_wide").lgbm_hist_wide(
+    lib = library("hist_wide")
+    entry = lib.lgbm_hist_wide_seeded if seeded else lib.lgbm_hist_wide
+    return entry(
         bins_t.data_ptr(), int(bins_t.dtype == torch.int32), n_pad, n, G,
         grad.data_ptr(), hess.data_ptr(), hist_leaf.data_ptr(),
         inv.data_ptr(), L, A, B, scratch.data_ptr(), out.data_ptr(),

@@ -8,7 +8,12 @@ A copy of the JAX package's ``utils/faults.py`` for the port's seams:
 * ``serve.score`` — the serving harness's batched device scoring
   (``serve/server.py``); retried by the shared policy
   (``utils/retry.py``), and the delivery contract (exactly once per
-  request) must hold across the retry.
+  request) must hold across the retry;
+* ``loader.read`` — opening a data file (``io/loader.py``: a flaky
+  remote filesystem); retried by the shared policy;
+* ``stream.upload`` — a streamed block's host -> device copy
+  (``boosting/streaming.py``), before the copy is issued; retried by
+  the shared policy, so a retried upload never tears a fold.
 
 Each point is a single ``fault_point(name)`` call that is a no-op unless
 armed.  Tests arm points programmatically (:func:`inject`, :func:`clear`);
@@ -21,8 +26,9 @@ first ``skip`` calls).  Injected failures raise :class:`FaultInjected`,
 whose message carries the ``UNAVAILABLE`` transient marker so the retry
 layer classifies it like a real RPC fault; arm with ``!`` after the
 count (``name:1!``) for a NON-transient fault that must pass straight
-through the retry layer.  The JAX package's fault telemetry (counters
-and events) waits for ROADMAP A13.
+through the retry layer.  A fired point counts into
+``faults.<name>.fired`` and emits a ``fault:<name>`` event
+(``obs/telemetry.py``).
 """
 from __future__ import annotations
 
@@ -134,5 +140,8 @@ def fault_point(name: str) -> None:
         arm.times -= 1
         _fired[name] = _fired.get(name, 0) + 1
         transient = arm.transient
+    from ..obs import counter_add, event
+    counter_add(f"faults.{name}.fired")
+    event("fault", name, transient=transient)
     raise FaultInjected(name, transient=transient)
 

@@ -1,15 +1,18 @@
 """Shared retry policy: exponential backoff and a deadline.
 
-A copy of the JAX package's ``utils/retry.py`` for the port's serving
-path (``serve/server.py`` scores each coalesced batch through
-:func:`retry_call`).  Faults are classified by marker: RPC-flavoured
-messages (and the fault harness's ``UNAVAILABLE``) are transient, and
-``RESOURCE_EXHAUSTED`` is deliberately absent, so a deterministic
-out-of-memory fails fast.
+A copy of the JAX package's ``utils/retry.py`` for the port's seams:
+serving (``serve/server.py`` scores each coalesced batch through
+:func:`retry_call`), file loading (``loader.read``) and the streamed
+block upload (``stream.upload``).  Faults are classified by marker:
+RPC-flavoured messages (and the fault harness's ``UNAVAILABLE``) are
+transient, and ``RESOURCE_EXHAUSTED`` is deliberately absent, so a
+deterministic out-of-memory fails fast.
 
-The JAX package's per-site telemetry counters (``retry.<site>.*``) and
-its flight-recorder dump on exhaustion wait for the port's observability
-layer (ROADMAP A13); every retry is still logged at WARNING.
+Every attempt counts into the per-site telemetry counters
+(``retry.<site>.attempts`` / ``.retries`` / ``.backoff_s`` and a final
+``.recovered`` or ``.exhausted``, ``obs/telemetry.py``), and every retry
+is logged at WARNING.  The JAX package's flight-recorder dump on
+exhaustion waits for ROADMAP A13.
 
 Environment knobs (all optional)::
 
@@ -27,6 +30,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
+from ..obs import counter_add
 from .log import log_warning
 
 # NOTE: no RESOURCE_EXHAUSTED — see module docstring
@@ -100,8 +104,12 @@ def retry_call(fn: Callable, *args,
     t0 = time.monotonic()
     last: Optional[BaseException] = None
     for attempt in range(max(1, p.attempts)):
+        counter_add(f"retry.{what}.attempts")
         try:
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            if attempt > 0:
+                counter_add(f"retry.{what}.recovered")
+            return out
         except Exception as exc:        # noqa: BLE001 - filtered below
             if not retryable(exc):
                 raise
@@ -121,5 +129,8 @@ def retry_call(fn: Callable, *args,
                     f"transient failure in {what} (attempt "
                     f"{attempt + 1}/{p.attempts}), retrying in "
                     f"{s:.1f}s: {str(exc)[:200]}")
+                counter_add(f"retry.{what}.retries")
+                counter_add(f"retry.{what}.backoff_s", s)
                 _sleep(s)
+    counter_add(f"retry.{what}.exhausted")
     raise last

@@ -981,6 +981,44 @@ def test_hist_wide_kernel_bitwise(cuda_device, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (20, 200_000, 28, 1023, 255, 128, 100, {}),
+    (21, 200_000, 28, 1023, 255, 128, 1, {"skew": True}),
+    (22, 100_000, 8, 63, 2048, 1024, 1000, {"int32": False}),
+    (23, 60_000, 3, 65535, 15, 8, 8, {}),
+    (24, 100_000, 28, 63, 2048, 1024, 1, {"int32": False, "skew": True,
+                                          "live_slot": 517}),
+    (25, 4_000, 3, 15, 131072, 65536, 3000, {"int32": False})],
+    ids=["wide", "wide-root", "deep", "maxbin65535", "root-among-1024",
+         "slots65536"])
+def test_hist_wide_seeded_kernel_bitwise(cuda_device, case):
+    """The seeded wide histogram on the card equals its plain version on
+    CPU copies bit for bit: the carry of a previous block (large, so a
+    seed added at the end would show), this block's rows added into it
+    in row order, on every kind of item (warp, block, and the root's
+    rounds summed in order); slots without rows keep their carry; one
+    count in ``HIST_WIDE_SEEDED`` per call."""
+    seed, n, G, mb, L, A, n_act, kw = case
+    bins_t, g, h, hl, active = _wide_wave(seed, n, G, mb, L, A, n_act, **kw)
+    b0, g0, h0, hl0, _ = _wide_wave(seed + 100, n, G, mb, L, A, n_act, **kw)
+    carry = t_hist.hist_wide_raw(b0, g0 * 1048576.0, h0, hl0, active, L, mb)
+    carry[A - 1] = 3.0                 # a slot no row of this block reaches
+    ref = t_hist.hist_wide_raw(bins_t, g, h, hl, active, L, mb,
+                               acc=carry.clone())
+    before = (t_hist.HIST_WIDE_SEEDED.launches, t_hist.hist_wide_raw.launches)
+    acc = carry.to(cuda_device)
+    got = t_hist.hist_wide_raw(*[t.to(cuda_device) for t in
+                                 (bins_t, g, h, hl, active)], L, mb, acc=acc)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == acc.data_ptr()
+    assert (t_hist.HIST_WIDE_SEEDED.launches,
+            t_hist.hist_wide_raw.launches) == (before[0] + 1, before[1])
+    assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32))
+    if active[A - 1] < 0:
+        assert torch.equal(got[A - 1].cpu(), carry[A - 1])
+
+
+@pytest.mark.cuda
 def test_route_kernels_int32_bitwise(cuda_device):
     """K2 and K4 on int32 bins (a group of more than 256 bins) equal their
     plain versions, and count into the int32 instantiations."""
@@ -1157,3 +1195,29 @@ def test_cuda_variants_train_as_cpu(cuda_device, boosting):
                    device="cpu")
     assert a.model_to_string() == b.model_to_string()
     assert a.digest() == b.digest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", [
+    {"max_bin": 511, "num_leaves": 63},
+    {"max_bin": 63, "num_leaves": 1100, "min_data_in_leaf": 2}],
+    ids=["wide", "deep"])
+def test_cuda_wide_and_deep_stream_as_cpu(cuda_device, params):
+    """Streams past the kernels' domain train on the card through the
+    seeded wide histogram and K2/K4 in two blocks, and equal the CPU's
+    stream and the card's in-memory model, scores included."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch.boosting.streaming import StreamTrainer
+    X, z = _entry_data()
+    p = {"objective": "regression", "verbose": -1, **params}
+    cfg = Config.from_params(p)
+    ds = tlgb.Dataset(X, label=z, params={"max_bin": p["max_bin"]}).construct()
+    seeded = t_hist.HIST_WIDE_SEEDED.launches
+    a = StreamTrainer(cfg, ds._constructed, block_rows=32768,
+                      device=cuda_device).train(3)
+    assert t_hist.HIST_WIDE_SEEDED.launches > seeded
+    b = StreamTrainer(cfg, ds._constructed, block_rows=32768,
+                      device="cpu").train(3)
+    c = tlgb.train(dict(p), tlgb.Dataset(X, label=z), 3, verbose_eval=False,
+                   device=cuda_device)
+    assert a.digest() == b.digest() == c.digest()

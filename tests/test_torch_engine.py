@@ -483,3 +483,28 @@ def test_package_exports():
         assert getattr(tlgb, name) is not None, name
     with pytest.raises(AttributeError):
         tlgb.not_a_name
+
+
+def test_silent_and_verbose_keywords_match_reference():
+    """ROADMAP C25: ``Dataset(silent=)``, ``Booster(silent=)`` and
+    ``Booster.model_from_string(model_str, verbose=)`` are accepted and
+    ignored, as in the JAX package (and LightGBM 2.1): the same calls
+    build the JAX package's model (``Booster.update`` is its per-iteration
+    loop, C3: equal digests or a near tie), and ``model_from_string``
+    with ``verbose`` reads back what ``Booster(model_str=)`` reads."""
+    X, y = _binary()
+    out = {}
+    for name, lib, extra in (("jax", jlgb, {}),
+                             ("port", tlgb, {"device": "cpu"})):
+        ds = lib.Dataset(X, label=y, silent=False)
+        bst = lib.Booster(params=dict(PARAMS, objective="binary"),
+                          train_set=ds, silent=False, **extra)
+        for _ in range(4):
+            bst.update()
+        text = bst.model_to_string()
+        loaded = lib.Booster(model_str=text, **extra).model_from_string(
+            text, verbose=True)
+        assert loaded.model_to_string() == lib.Booster(
+            model_str=text, **extra).model_to_string()
+        out[name] = bst
+    _same_model(out["jax"], out["port"])

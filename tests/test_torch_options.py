@@ -1,12 +1,14 @@
 """Options the JAX package acts on and lightgbm_tpu_torch does not read
 yet raise, instead of training something else, each naming its ROADMAP
 item: ``input_model`` (read by the command-line application, A14's
-second half; ``train`` takes ``init_model``), ``telemetry_output`` (the telemetry trace, A13) and a non-empty
+second half; ``train`` takes ``init_model``) and a non-empty
 ``mesh_shape`` (the mesh path, A11) in memory (``lgb.train``) and
 streamed (``StreamTrainer``); ``snapshot_freq`` and ``resume_from``
 streamed only (streamed snapshots, A12).  In memory ``snapshot_freq``
 and ``resume_from`` work (``tests/test_torch_snapshot.py``), and so does
-``pred_early_stop`` (``tests/test_torch_model_surface.py``).
+``pred_early_stop`` (``tests/test_torch_model_surface.py``);
+``telemetry_output`` writes the trace in memory and streamed
+(``tests/test_torch_telemetry.py``).
 ``valid_data`` files, which only the command-line application reads,
 raise in ``lgb.train`` (A14's second half)."""
 import numpy as np
@@ -40,9 +42,8 @@ def _stream(params, X, y):
 
 @pytest.mark.parametrize("option,match", [
     ({"input_model": "model.txt"}, "A14"),
-    ({"telemetry_output": "trace.jsonl"}, "A13"),
     ({"mesh_shape": "2"}, "A11"),
-], ids=["input_model", "telemetry_output", "mesh_shape"])
+], ids=["input_model", "mesh_shape"])
 def test_unported_option_raises(option, match):
     X, y = _data()
     params = dict(BASE, **option)
@@ -69,15 +70,27 @@ def test_stream_snapshot_option_raises(option):
 
 @pytest.mark.parametrize("option", [
     {"snapshot_freq": 2}, {"pred_early_stop": True},
-], ids=["snapshot_freq", "pred_early_stop"])
+    {"telemetry_output": "trace.jsonl"},
+], ids=["snapshot_freq", "pred_early_stop", "telemetry_output"])
 def test_lifted_option_trains_in_memory(option, tmp_path):
     """The options this package reads since the model surface: training
     takes them in memory (snapshots under ``output_model``; prediction
-    early stopping at predict time)."""
+    early stopping at predict time); ``telemetry_output`` (since the
+    telemetry port) in memory, writing its trace, and in a stream."""
+    from lightgbm_tpu_torch import obs
     X, y = _data()
+    option = {k: str(tmp_path / v) if k == "telemetry_output" else v
+              for k, v in option.items()}
     params = dict(BASE, output_model=str(tmp_path / "m.txt"), **option)
-    bst = tlgb.train(params, tlgb.Dataset(X, label=y), num_boost_round=2,
-                     device="cpu")
+    try:
+        bst = tlgb.train(params, tlgb.Dataset(X, label=y),
+                         num_boost_round=2, device="cpu")
+        if "telemetry_output" in option:
+            obs.reset()
+            assert (tmp_path / "trace.jsonl").stat().st_size > 0
+            _stream(dict(BASE, **option), X, y).train(1)
+    finally:
+        obs.reset()
     assert bst.current_iteration() == 2
     assert np.isfinite(bst.predict(X)).all()
 

@@ -2,12 +2,15 @@
 
 Both packages read and write the same on-disk store (manifest, per-shard
 JSON sidecars, ``.bins``/``.label``/``.weight`` blobs).  The port's
-ingest of CSV files and its synthetic store are bitwise the JAX
-package's (mapper digest, shard sha256s, manifest key, rows); the port
+ingest of CSV and libsvm files (libsvm through the native parser) and
+its synthetic store are bitwise the JAX package's (mapper digest, shard
+sha256s, manifest key, rows; for libsvm every file byte); the port
 opens a store the JAX package wrote and streams it to the JAX package's
 streamed model; an ingest whose manifest was deleted reuses the
-finished shards; and ``train_streaming`` over a CSV list trains end to
-end on the CPU.  The JAX side streams with its wide kernel fold in
+finished shards; ``train_streaming`` over a CSV list trains end to end
+on the CPU, and over a libsvm file (its store placed by
+``LGBM_TPU_STREAM_CACHE``) to the JAX package's streamed model and the
+port's in-memory model of the file; the ingest's spans and counters.  The JAX side streams with its wide kernel fold in
 Pallas interpret mode (``LGBM_TPU_HIST_BACKEND=pallas``,
 ``LGBM_TPU_SPLIT_INTERPRET=1``).
 """
@@ -165,9 +168,86 @@ def test_train_streaming_csv_end_to_end(tmp_path):
                                atol=tol("f32_tight"))
 
 
+def _libsvm(tmp_path, n=N, cut=5000, seed=7, zero=0.25):
+    """Two libsvm files (label, then ``index:value`` pairs) with a
+    ``zero`` share of the values zero and left out."""
+    rng = np.random.RandomState(seed)
+    X = rng.normal(size=(n, F))
+    X[rng.uniform(size=X.shape) < zero] = 0.0
+    y = (X[:, 0] + 0.5 * X[:, 1] + rng.normal(scale=0.3, size=n) > 0
+         ).astype(int)
+    paths = []
+    for i, (a, b) in enumerate([(0, cut), (cut, n)]):
+        p = os.path.join(str(tmp_path), f"part{i}.svm")
+        with open(p, "w") as f:
+            # a Python float's repr reads back exactly
+            for yi, row in zip(y[a:b].tolist(), X[a:b].tolist()):
+                f.write(f"{yi} " + " ".join(
+                    f"{j}:{v!r}" for j, v in enumerate(row) if v != 0.0)
+                    + "\n")
+        paths.append(p)
+    return paths
+
+
 def test_libsvm_source_raises(tmp_path):
-    p = tmp_path / "a.svm"
-    p.write_text("1 1:0.5 3:1.0\n0 2:0.25\n")
-    with pytest.raises(ValueError, match="libsvm"):
-        t_oc.ingest([str(p)], Config.from_params(PARAMS),
-                    str(tmp_path / "c"))
+    """(The name is kept from when a libsvm source raised.)  A libsvm
+    file list ingests through the native parser into the JAX package's
+    store, bitwise: the manifest, every sidecar and every blob."""
+    from lightgbm_tpu_torch import native
+    if not native.available():
+        pytest.skip("the native parser does not build here")
+    paths = _libsvm(tmp_path)
+    ref = j_oc.ingest(paths, JConfig.from_params(PARAMS),
+                      str(tmp_path / "jax"))
+    got = t_oc.ingest(paths, Config.from_params(PARAMS),
+                      str(tmp_path / "port"))
+    _same_store(got, ref)
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == sorted(os.listdir(tmp_path / "port"))
+    assert {"manifest.json", "shard-0001.json", "shard-0001.bins",
+            "shard-0001.label"} <= set(names)
+    for name in names:
+        with open(tmp_path / "jax" / name, "rb") as a, \
+                open(tmp_path / "port" / name, "rb") as b:
+            assert a.read() == b.read(), name
+
+
+def test_libsvm_stream_matches_reference(tmp_path, monkeypatch):
+    """``train_streaming`` over a libsvm file, its store placed by
+    ``LGBM_TPU_STREAM_CACHE``: the JAX package's streamed model of the
+    same store and the port's in-memory ``lgb.train(Dataset(path))``."""
+    from lightgbm_tpu_torch import native
+    if not native.available():
+        pytest.skip("the native parser does not build here")
+    path = _libsvm(tmp_path, cut=N)[0]
+    cdir = str(tmp_path / "cache")
+    monkeypatch.setenv("LGBM_TPU_STREAM_CACHE", cdir)
+    assert t_oc.default_cache_dir([path]) == cdir
+    bst = tlgb.train_streaming(PARAMS, [path], num_boost_round=ITERS,
+                               block_rows=STREAM_CHUNK, device="cpu")
+    store = t_oc.load_store(cdir, [path], Config.from_params(PARAMS))
+    assert store is not None and store.n == N
+    jstore = j_oc.load_store(cdir, [path], JConfig.from_params(PARAMS))
+    assert bst.digest() == _jax_digest(monkeypatch, jstore, PARAMS)
+    mem = tlgb.train(dict(PARAMS), tlgb.Dataset(path),
+                     num_boost_round=ITERS, device="cpu")
+    assert mem.digest() == bst.digest()
+    monkeypatch.delenv("LGBM_TPU_STREAM_CACHE")
+    assert t_oc.default_cache_dir([path]) == os.path.join(
+        str(tmp_path), ".lgbm_shards")
+
+
+def test_ingest_telemetry(tmp_path):
+    from lightgbm_tpu_torch import obs
+    paths = _csvs(tmp_path)
+    obs.reset()
+    obs.enable()
+    try:
+        t_oc.ingest(paths, Config.from_params(PARAMS), str(tmp_path / "c"))
+        s = obs.summary()
+    finally:
+        obs.reset()
+    assert s["spans"]["ingest.find_bins"]["count"] == 1
+    assert s["spans"]["ingest.shard"]["count"] == 2
+    assert s["counters"]["ingest.shards"] == 2
+    assert s["counters"]["ingest.rows"] == N

@@ -169,6 +169,41 @@ def test_pipeline_off_same_model():
     assert on == off
 
 
+@pytest.mark.parametrize("rows,blocks", [(None, 1), ("5000", 2),
+                                         ("8192", 2), ("8193", 1)],
+                         ids=["unset", "5000", "8192", "8193"])
+def test_stream_rows_env_sets_the_block_size(monkeypatch, rows, blocks):
+    """``LGBM_TPU_STREAM_ROWS`` is the block size when the caller passes
+    none, rounded up to whole ``STREAM_CHUNK`` chunks (1,048,576 rows when
+    unset); it changes the block count and not the model."""
+    X, y, _ = _data(seed=3)
+    if rows is None:
+        monkeypatch.delenv("LGBM_TPU_STREAM_ROWS", raising=False)
+    else:
+        monkeypatch.setenv("LGBM_TPU_STREAM_ROWS", rows)
+    cfg, res = _resident(X, y, None, BASE)
+    tr = StreamTrainer(cfg, res, device="cpu")
+    assert len(tr.blocks) == blocks
+    assert tr.R % STREAM_CHUNK == 0
+    # an explicit block size wins over the variable
+    assert len(StreamTrainer(cfg, res, block_rows=STREAM_CHUNK,
+                             device="cpu").blocks) == 2
+    assert tr.train(ITERS).digest() == _stream(BASE, X, y)[1].digest()
+
+
+@pytest.mark.parametrize("value,on", [("0", False), ("off", False),
+                                      ("FALSE", False), ("1", True)])
+def test_stream_pipeline_env(monkeypatch, value, on):
+    """``LGBM_TPU_STREAM_PIPELINE=0`` (``off``, ``false``) is
+    ``pipeline=False``, the serial escape; the model is the same."""
+    X, y, _ = _data(seed=3)
+    monkeypatch.setenv("LGBM_TPU_STREAM_PIPELINE", value)
+    tr, st = _stream(BASE, X, y)
+    assert tr.pipeline is on
+    monkeypatch.delenv("LGBM_TPU_STREAM_PIPELINE")
+    assert st.digest() == _stream(BASE, X, y, pipeline=not on)[1].digest()
+
+
 # leaves per float mode: 15 runs every wave through the float K1 (the
 # 8-slot tail), 127 through the float K3 (at <= 65,536 rows every wave
 # has the 64-slot tail width)

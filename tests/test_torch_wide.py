@@ -103,8 +103,15 @@ def test_backend_choice():
     assert tserial.resolve_backend(dd, 1100) == "scatter"
     assert tserial.resolve_backend(dd, 1024) == "compact"
     assert tserial.resolve_backend(dd, 31) == "fused"
-    with pytest.raises(NotImplementedError, match="A10"):
-        tserial.make_hist_fold_fn(dd, 1100, 8)
+    # a stream past the kernels' domain folds through the seeded wide
+    # histogram: exact f32 whatever the hist mode, the carry unpacked as is
+    A = tserial.wide_wave_slots(1100)
+    fold = tserial.make_hist_fold_fn(dd, 1100, A, hist_mode="int8h")
+    assert (fold.backend, fold.quantized) == ("scatter", False)
+    acc = fold.init_acc()
+    assert acc.shape == (A, dd.num_groups, 64, 3)
+    assert acc.dtype == torch.float32 and not bool(acc.any())
+    assert fold.unpack(acc) is acc
 
 
 def test_leaves_131072_match_reference():
