@@ -329,7 +329,9 @@ from __future__ import annotations
 import gc
 import json
 import os
+import random
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -519,6 +521,13 @@ FP32_OPS_PER_S = 67e12
 # in the histograms.  No shared-atomic rate is published, so each atomic
 # counts as one int32 add and the bound is a lower one.
 INT32_ADDS_PER_CLOCK_PER_SM = 64
+
+
+# what phase 27 reuses of the earlier phases: the trees' digests of the
+# DART (24) and max_bin 1023 (25) paths, and phase 12's compiled model,
+# request pool and sweep
+PATH_DIGESTS = {}
+SERVE_STATE = {}
 
 
 def log(msg: str) -> None:
@@ -905,20 +914,13 @@ def kernel_phase(dd, vals, entries):
     times and bounds; appends one dict per kernel to ``entries``."""
     import torch
     from lightgbm_tpu_torch.ops import cuda_build
-    from lightgbm_tpu_torch.ops.compact import hist_compact_raw
-    from lightgbm_tpu_torch.ops.histogram import (
-        bin_stride, hist_launcher, hist_plain, hist_plan, hist_slab, slot_tables)
     dev = dd.device
     sms = cuda_build.multiprocessor_count(dev)
     int_rate = int32_ops_per_s(sms)
     log(f"int32 add rate {int_rate:.4g}/s ({sms} SMs)")
-    G, n_pad = dd.bins_t.shape
-    C = vals.shape[0]
     L = 255
-    B = bin_stride(dd.group_max_bins)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    tab_bytes = 11 * L * 4 + L * B
 
     # -- K2 / K4: route and route-values at the 128-slot tail state ------
     leaf2, tabs, cat, _ = wave_inputs(dd, 127, 64, 128, gen)
@@ -952,18 +954,6 @@ def kernel_phase(dd, vals, entries):
         k3_rows))
 
 
-def route_table_bytes(tabs, B: int, values: bool) -> int:
-    """Bytes of a wave's tables that K2 (``values``: K4) must read: every
-    leaf's selection flag (and leaf value), the other ten fields of each
-    split leaf and the mask row of each categorical split."""
-    from lightgbm_tpu_torch.ops.route import T_ISCAT, T_SEL
-    L = tabs.shape[1]
-    sel = tabs[T_SEL] != 0
-    n_sel = int(sel.sum())
-    n_cat = int((sel & (tabs[T_ISCAT] != 0)).sum())
-    return 4 * L * (2 if values else 1) + 40 * n_sel + B * n_cat
-
-
 def route_timer(bins_t, leaf2, tabs, cat, lv=None):
     """One bound K2 (with ``lv``: K4) launch on a wave, into buffers and
     scratch allocated once, for :func:`time_ms` and :func:`graph_ms`:
@@ -993,11 +983,10 @@ def k2_measure(dd, leaf2, tabs, cat, int_rate: float) -> dict:
     times back to back and in a CUDA graph, the bound, the sector bound,
     the launch floor of its grid and the gather floor of its wave."""
     import torch
-    from lightgbm_tpu_torch.ops.route import route_plain, route_rows_raw
+    from lightgbm_tpu_torch.ops.route import (route_cost, route_plain,
+                                              route_rows_raw)
     dev = dd.device
-    n_pad = dd.n_pad
-    L, B = cat.shape
-    tab_bytes = route_table_bytes(tabs, B, False)
+    L = cat.shape[0]
     out = route_rows_raw(dd.bins_t, leaf2, tabs, cat)
     ref = route_plain(dd.bins_t, leaf2, tabs, cat)
     torch.cuda.synchronize()
@@ -1008,9 +997,12 @@ def k2_measure(dd, leaf2, tabs, cat, int_rate: float) -> dict:
     dev2 = graph_ms(k2_call)
     plain2 = time_ms(lambda: route_plain(dd.bins_t, leaf2, tabs, cat), 5)
     moved_rows, sectors = moved_sectors(dd.bins_t, leaf2, tabs)
-    b2 = bound(16 * n_pad + moved_rows * dd.bins_t.element_size()
-               + tab_bytes, n_pad, int_rate)
-    sec2 = bound(16 * n_pad + 32 * sectors + tab_bytes, n_pad, int_rate)
+    nbytes, ops, _ = route_cost(dd.bins_t, leaf2, tabs, cat, False)
+    nbytes = float(nbytes)
+    b2 = bound(nbytes, ops, int_rate)
+    # the moved rows' bins as whole 32-byte sectors
+    sec2 = bound(nbytes - moved_rows * dd.bins_t.element_size()
+                 + 32 * sectors, ops, int_rate)
     floor = launch_floor(grid, block, dev)
     gather = gather_floor(dd.bins_t, leaf2, tabs)
     n_cat = int(tabs[3].sum())
@@ -1038,8 +1030,8 @@ def k3_measure(dd, vals, A: int, gen, L: int, int_rate: float,
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops.compact import hist_compact_raw
     from lightgbm_tpu_torch.ops.histogram import (
-        bin_stride, hist_launcher, hist_plain, hist_plan, hist_slab,
-        slot_tables)
+        bin_stride, hist_cost, hist_launcher, hist_plain, hist_plan,
+        hist_slab, slot_tables)
     from lightgbm_tpu_torch.ops.route import route_plain, route_rows_raw
     dev = dd.device
     G, n_pad = dd.bins_t.shape
@@ -1066,8 +1058,8 @@ def k3_measure(dd, vals, A: int, gen, L: int, int_rate: float,
                                inv, src, L, B, plan, slab, obuf), 20)
     pl = time_ms(lambda: hist_plain(dd.bins_t, vals, hleaf, inv, src, B), 3)
     n_active, lib_ms = index_add_ms(dd, vals, hleaf, inv, A, L, B)
-    bd = bound(4 * n_pad + (G + C) * n_active + raw.numel() * 4
-               + (L + 1 + A) * 4, G * C * n_active, int_rate)
+    nbytes, ops, _ = hist_cost(G, C, n_pad, A, L, raw, n_active)
+    bd = bound(nbytes, ops, int_rate)
     log(f"kernel hist_compact A={A} ({int(tabs[3].sum())} categorical "
         f"splits routed by K2): bitwise ok, {ms:.4f} ms (plain "
         f"{pl:.3f} ms, index_add_ {lib_ms:.4f} ms, bound "
@@ -1236,10 +1228,10 @@ def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
     """K4 (route + per-row leaf value, the last pass of a tree) on one
     wave's tables: kernel vs plain version bitwise, times and bound."""
     import torch
-    from lightgbm_tpu_torch.ops.route import (route_rows_values_raw,
+    from lightgbm_tpu_torch.ops.route import (route_cost,
+                                              route_rows_values_raw,
                                               route_values_plain)
     dev = dd.device
-    n_pad = dd.n_pad
     L, B = cat.shape
     out, v = route_rows_values_raw(dd.bins_t, leaf2, tabs, cat, lv)
     ref, rv = route_values_plain(dd.bins_t, leaf2, tabs, cat, lv)
@@ -1252,10 +1244,11 @@ def k4_measure(dd, leaf2, tabs, cat, lv, int_rate: float) -> dict:
     pl = time_ms(lambda: route_values_plain(dd.bins_t, leaf2, tabs, cat,
                                             lv), 5)
     moved_rows, sectors = moved_sectors(dd.bins_t, leaf2, tabs)
-    tab_bytes = route_table_bytes(tabs, B, True)
-    bd = bound(20 * n_pad + moved_rows * dd.bins_t.element_size()
-               + tab_bytes, n_pad, int_rate)
-    sec = bound(20 * n_pad + 32 * sectors + tab_bytes, n_pad, int_rate)
+    nbytes, ops, _ = route_cost(dd.bins_t, leaf2, tabs, cat, True)
+    nbytes = float(nbytes)
+    bd = bound(nbytes, ops, int_rate)
+    sec = bound(nbytes - moved_rows * dd.bins_t.element_size()
+                + 32 * sectors, ops, int_rate)
     floor = launch_floor(grid, block, dev)
     log(f"kernel route_values L={L} B={B} rows={dd.num_data} "
         f"({int(tabs[3].sum())} categorical splits): bitwise ok, "
@@ -1280,13 +1273,12 @@ def k1_measure(dd, vals, A: int, n_sel: int, gen, L: int,
     import torch
     from lightgbm_tpu_torch.ops import cuda_build
     from lightgbm_tpu_torch.ops.histogram import (
-        bin_stride, hist_launcher, hist_plan, hist_route_plain, hist_route_raw,
-        hist_slab, slot_tables)
+        bin_stride, hist_launcher, hist_plan, hist_route_cost,
+        hist_route_plain, hist_route_raw, hist_slab, slot_tables)
     dev = dd.device
     G, n_pad = dd.bins_t.shape
     C = vals.shape[0]
     B = bin_stride(dd.group_max_bins)
-    tab_bytes = 11 * L * 4 + L * B
     leaf2, tabs, cat, active = wave_inputs(dd, A, n_sel, A, gen, L, bag,
                                            **cat)
     raw, l2n = hist_route_raw(dd.bins_t, vals, leaf2, active, tabs, cat,
@@ -1316,10 +1308,9 @@ def k1_measure(dd, vals, A: int, n_sel: int, gen, L: int,
     pl = time_ms(lambda: hist_route_plain(dd.bins_t, vals, leaf2, tabs,
                                           cat, inv, src, B), 3)
     n_active, lib_ms = index_add_ms(dd, vals, ref_l2[1], inv, A, L, B)
-    moved_rows = int((tabs[4][leaf2[0].clamp(min=0).long()] != 0).sum())
-    bd = bound(16 * n_pad + moved_rows + (G + C) * n_active
-               + raw.numel() * 4 + tab_bytes + (L + 1 + A) * 4,
-               G * C * n_active, int_rate)
+    nbytes, ops, _ = hist_route_cost(dd.bins_t, vals, leaf2, ref_l2, inv,
+                                     tabs, cat, raw, L)
+    bd = bound(float(nbytes), float(ops), int_rate)
     log(f"kernel hist_route A={A} B={B} rows={dd.num_data} "
         f"({int(tabs[3].sum())} categorical splits): bitwise ok, "
         f"{ms:.4f} ms (plain {pl:.3f} ms, index_add_ {lib_ms:.4f} ms, "
@@ -2311,6 +2302,7 @@ def serve_phase(lgb, counters, card: str) -> dict:
         log(f"serve sweep ({card}): {json.dumps(r)}")
     for r in alone:
         log(f"serve sweep, generator alone ({card}): {json.dumps(r)}")
+    SERVE_STATE.update(model=cm, pool=pool, table=table)
     return launches
 
 
@@ -3750,8 +3742,12 @@ class IterClock:
 
     @property
     def steady_ms(self) -> float:
-        d = [b - a for a, b in zip(self.t[1:], self.t[2:])]
-        return 1e3 * sum(d) / max(1, len(d))
+        d = self.iter_ms()[1:]
+        return sum(d) / max(1, len(d))
+
+    def iter_ms(self) -> list:
+        """Each iteration's milliseconds, the first included."""
+        return [1e3 * (b - a) for a, b in zip(self.t, self.t[1:])]
 
 
 def per_tree(launches: dict, trees: int) -> dict:
@@ -3872,6 +3868,7 @@ def variants_phase(lgb, counters, ds, X, y, ds_small, dv_small, small_xy,
         f"{sb.best_iteration}, valid auc {vauc:.5f}, steady "
         f"{clock.steady_ms:.2f} ms/iter")
     phase_line("variants", card, **out)
+    PATH_DIGESTS["dart"] = out["dart"]["digest"]
     return total
 
 
@@ -3924,13 +3921,14 @@ def wide_hist_measure(dd, L: int, A: int, gen, skew: bool) -> dict:
     hist leaf read once, the histogram written once."""
     import torch
     from lightgbm_tpu_torch.ops.histogram import (bin_stride,
+                                                  hist_wide_cost,
                                                   hist_wide_launch,
                                                   hist_wide_raw, slot_tables,
                                                   wide_cells)
     g, h, hl, active = wide_hist_case(dd, L, A, gen, skew)
     mb = dd.group_max_bins
     B = bin_stride(mb)
-    G, n_pad = dd.bins_t.shape
+    G = dd.bins_t.shape[0]
     n = dd.num_data
     got = hist_wide_raw(dd.bins_t, g, h, hl, active, L, mb)
     cpu = [t.cpu() for t in (dd.bins_t, g, h, hl, active)]
@@ -3954,9 +3952,8 @@ def wide_hist_measure(dd, L: int, A: int, gen, skew: bool) -> dict:
     acc = torch.zeros((A * G * B, 3), dtype=torch.float32, device=dd.device)
     lib_ms = time_ms(lambda: acc.index_add_(0, cells, vals), 10)
     r = int(rows.numel())
-    bb = dd.bins_t.element_size()
-    bd = bound(r * (G * bb + 8) + 4 * n_pad + A * G * B * 12,
-               3.0 * r * G, FP32_OPS_PER_S)
+    bd = bound(*hist_wide_cost(dd.bins_t, A, B, r, False)[:2],
+               FP32_OPS_PER_S)
     log(f"kernel hist_wide {dd.bins_t.dtype} A={A} B={B} G={G} "
         f"({'root' if skew else 'mid-tree'} wave, {r} active rows): "
         f"bitwise ok, {ms:.4f} ms, in a graph {gms:.4f} ms (plain "
@@ -4085,6 +4082,7 @@ def wide_phase(lgb, counters, X, y, ds, dsw, params, card: str,
                 raise AssertionError("wide serving: binned != raw")
         del bst
     phase_line("wide", card, kernels=rows, deep_routes=deep, **out)
+    PATH_DIGESTS["wide"] = out["wide"]["digest"]
     return total
 
 
@@ -4097,6 +4095,7 @@ def wide_seeded_measure(dd, L: int, A: int, gen) -> dict:
     traffic with the carry read and written once."""
     import torch
     from lightgbm_tpu_torch.ops.histogram import (bin_stride,
+                                                  hist_wide_cost,
                                                   hist_wide_launch,
                                                   hist_wide_raw, slot_tables,
                                                   wide_cells)
@@ -4104,7 +4103,7 @@ def wide_seeded_measure(dd, L: int, A: int, gen) -> dict:
     g, h, hl, _ = wide_hist_case(dd, L, A, gen, False)
     mb = dd.group_max_bins
     B = bin_stride(mb)
-    G, n_pad = dd.bins_t.shape
+    G = dd.bins_t.shape[0]
     n = dd.num_data
     carry = hist_wide_raw(dd.bins_t, g0, h0, hl0, active, L, mb)
     if not bool((carry != 0).any()):
@@ -4135,9 +4134,8 @@ def wide_seeded_measure(dd, L: int, A: int, gen) -> dict:
     flat = carry.reshape(A * G * B, 3).clone()
     lib_ms = time_ms(lambda: flat.index_add_(0, cells, vals), 10)
     r = int(rows.numel())
-    bb = dd.bins_t.element_size()
-    bd = bound(r * (G * bb + 8) + 4 * n_pad + 2 * A * G * B * 12,
-               3.0 * r * G, FP32_OPS_PER_S)
+    bd = bound(*hist_wide_cost(dd.bins_t, A, B, r, True)[:2],
+               FP32_OPS_PER_S)
     log(f"kernel hist_wide seeded {dd.bins_t.dtype} A={A} B={B} G={G} "
         f"({r} active rows, nonzero carry): bitwise ok, {ms:.4f} ms, in a "
         f"graph {gms:.4f} ms (unseeded {unseeded_gms:.4f} ms; plain "
@@ -4388,6 +4386,488 @@ def wide_stream_phase(lgb, counters, ds, dsw, head_ref, card: str,
         shutil.rmtree(tmp, ignore_errors=True)
     phase_line("wide_stream", card, seeded=seeded, **out)
     return launches
+
+
+# phase 27: the runtime contracts and the live health plane
+OBS_PROFILE = {"LGBM_TPU_PROFILE_WINDOWS": "2", "LGBM_TPU_PROFILE_ITERS": "4"}
+OBS_FAULT_ITERS = 8
+OBS_STALL_S = "2"
+OBS_DART_DRIFT = {"boosting": "dart", "drop_rate": 0.5, "skip_drop": 0.0}
+OBS_QPS = 5_000.0
+OBS_COST_RUNS = 6            # plane-toggled headline runs: 90 pairs
+OBS_COST_BOUND_MS = 2.0      # the held median of on - off, ms/iter
+# every switch of the contracts: unset before and after each run
+OBS_SWITCHES = ("LGBM_TPU_PROFILE", "LGBM_TPU_PROFILE_WINDOWS",
+                "LGBM_TPU_PROFILE_ITERS", "LGBM_TPU_WATCHDOG_S",
+                "LGBM_TPU_SENTINELS", "LGBM_TPU_OPS_PORT",
+                "LGBM_TPU_MEM_CONTRACT", "LGBM_TPU_TRACE_CONTRACT",
+                "LGBM_TPU_NUM_CONTRACT", "LGBM_TPU_DETERMINISM",
+                "LGBM_TPU_FORENSIC")
+
+
+class obs_env:
+    """``with obs_env(LGBM_TPU_...="1"):`` — exactly these switches set,
+    every other contract switch unset; the health plane, ops plane,
+    faults and telemetry are reset on the way in and out."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def _clean(self):
+        from lightgbm_tpu_torch import obs
+        from lightgbm_tpu_torch.obs import health, ops_plane
+        from lightgbm_tpu_torch.utils import faults
+        faults.clear()
+        ops_plane.shutdown()
+        health._set_active(False)
+        obs.reset()
+        for k in OBS_SWITCHES:
+            os.environ.pop(k, None)
+
+    def __enter__(self):
+        self._clean()
+        os.environ.update({k: str(v) for k, v in self.env.items()})
+        return self
+
+    def __exit__(self, *exc):
+        self._clean()
+        return False
+
+
+def http_get(port: int, path: str):
+    """-> ``(status, body)`` of a GET on the local ops plane."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def profiled_path(lgb, name, counters, params, ds, rounds, ref: str,
+                  include_scores: bool, total: dict) -> dict:
+    """One path under ``LGBM_TPU_PROFILE`` (a warmup iteration, then 2
+    windows of 4): its digest must be ``ref``, its report must carry no
+    error and attribute a port kernel to a ``tree.*`` span.  The same
+    path runs first unprofiled under :class:`IterClock`: the idle share
+    is one less the profiled device time (the profiler's own
+    ``profile.cost`` work left out) over that run's wall of the same
+    iterations; the profiled window's share, stretched by the
+    profiler's host work, is an upper bound beside it."""
+    from lightgbm_tpu_torch import obs
+    with obs_env():
+        clock = IterClock()
+        bst, _, launches = train_path(lgb, f"{name} unprofiled", counters,
+                                      params, ds, rounds, callbacks=[clock])
+    add_launches(total, launches)
+    if bst.digest(include_scores=include_scores) != ref:
+        raise AssertionError(f"{name}: the unprofiled run is another model")
+    windows = (int(OBS_PROFILE["LGBM_TPU_PROFILE_WINDOWS"])
+               * int(OBS_PROFILE["LGBM_TPU_PROFILE_ITERS"]))
+    captured = clock.iter_ms()[1:1 + windows]     # after the warmup one
+    tmp = tempfile.mkdtemp(prefix="lgbm_profile_")
+    try:
+        with obs_env(LGBM_TPU_PROFILE=tmp, **OBS_PROFILE):
+            bst, seconds, launches = train_path(lgb, f"{name} profiled",
+                                                counters, params, ds, rounds)
+            rep = obs.summary().get("device_attribution") or {
+                "error": "no device_attribution section"}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    add_launches(total, launches)
+    if rep.get("error"):
+        raise AssertionError(f"{name}: device attribution: {rep['error']}")
+    digest = bst.digest(include_scores=include_scores)
+    if digest != ref:
+        raise AssertionError(f"{name}: the profiled digest {digest[:8]} is "
+                             f"not the unprofiled {ref[:8]}")
+    kspans = rep["kernel_spans"]
+    on_tree = sorted(k for k, sp in kspans.items()
+                     if any(s and s.startswith("tree.") for s in sp))
+    if not on_tree:
+        raise AssertionError(f"{name}: no port kernel attributed to a "
+                             f"tree.* span: {kspans}")
+    kernels = [{k: r.get(k) for k in ("kernel", "launches", "device_s",
+                                      "bytes_accessed", "flops",
+                                      "pct_peak_bw", "pct_peak_flops",
+                                      "bound")}
+               for r in rep["cost_model"]["kernels"]]
+    share = (rep["host_gap_s"] / rep["window_wall_s"]
+             if rep["window_wall_s"] else None)
+    profile_cost_s = rep["spans"].get("profile.cost", {}).get("device_s",
+                                                               0.0)
+    work_s = rep["device_busy_s"] - profile_cost_s
+    unprofiled_s = 1e-3 * sum(captured)
+    idle = 1.0 - work_s / unprofiled_s
+    out = dict(digest=digest[:8], wall_s=seconds,
+               device_time_s=rep["device_time_s"],
+               device_busy_s=rep["device_busy_s"],
+               profile_cost_device_s=profile_cost_s,
+               captured_iterations=len(captured),
+               unprofiled_wall_s=unprofiled_s, idle_share=idle,
+               capture_wall_s=rep["capture_wall_s"],
+               window_wall_s=rep["window_wall_s"],
+               host_gap_s=rep["host_gap_s"],
+               profiled_idle_share_bound=share,
+               coverage=rep["coverage"],
+               spans={k: v["device_s"] for k, v in rep["spans"].items()},
+               kernels=kernels, kernel_spans=kspans,
+               top_programs=rep["top_programs"],
+               peaks=rep["cost_model"]["peaks"])
+    log(f"{name} profiled: digest held, device {rep['device_time_s']:.4f} s "
+        f"({work_s:.4f} s without the profiler's own) against "
+        f"{unprofiled_s:.4f} s unprofiled over the same "
+        f"{len(captured)} iterations: idle {100 * idle:.1f}% (profiled "
+        f"window {rep['window_wall_s']:.4f} s, host gap "
+        f"{rep['host_gap_s']:.4f} s, {100 * (share or 0):.1f}%); spans "
+        f"{out['spans']}; kernels {kernels}")
+    return out
+
+
+def contracts_path(lgb, counters, ds, head_ref, total: dict) -> dict:
+    """The headline with every contract on, twice: no memory violation,
+    no steady compile event, the digest held, equal digest ledgers."""
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs import determinism, health, ops_plane
+    params = dict(HEADLINE_PARAMS)
+    on = dict(LGBM_TPU_OPS_PORT="0", LGBM_TPU_MEM_CONTRACT="1",
+              LGBM_TPU_TRACE_CONTRACT="1", LGBM_TPU_NUM_CONTRACT="1",
+              LGBM_TPU_DETERMINISM="1")
+    runs = []
+    for turn in range(2):
+        with obs_env(**on):
+            bst, seconds, launches = train_path(
+                lgb, f"headline, every contract on ({turn + 1})", counters,
+                params, ds, HEADLINE_ITERS)
+            add_launches(total, launches)
+            s = obs.summary()
+            code, body = http_get(ops_plane.plane().port, "/healthz")
+            runs.append(dict(
+                digest=bst.digest(), seconds=seconds, summary=s,
+                healthz=(code, json.loads(body)["state"]),
+                state=health.state()["state"]))
+    for r in runs:
+        s = r["summary"]
+        mem, tc = s["mem_contract"], s["trace_contract"]
+        if r["digest"] != head_ref["digest"]:
+            raise AssertionError("the headline with the contracts on is "
+                                 "another model")
+        if mem["violation_count"] or not mem["inplace_ok"]:
+            raise AssertionError(f"memory contract: {mem}")
+        if tc["compiles_steady"]:
+            raise AssertionError(f"trace contract: {tc}")
+        if r["healthz"] != (200, "ready") or s["numerics"]["trips"]:
+            raise AssertionError(f"health {r['healthz']}, numerics "
+                                 f"{s['numerics']['trips']}")
+    l1 = runs[0]["summary"]["determinism"]["digests"]
+    l2 = runs[1]["summary"]["determinism"]["digests"]
+    div = determinism.first_divergence(l1, l2)
+    if div is not None or len(l1) != HEADLINE_ITERS:
+        raise AssertionError(f"window-digest ledgers differ at {div}")
+    s = runs[0]["summary"]
+    drifts = [d for _, d, _ in s["numerics"]["windows"]]
+    out = dict(digest=runs[0]["digest"][:8],
+               seconds=[r["seconds"] for r in runs],
+               mem_violations=0, mem_source=s["mem_contract"]["source"],
+               mem_baseline_bytes=s["mem_contract"]["baseline_bytes"],
+               mem_max_bytes=s["mem_contract"]["max_bytes"],
+               inplace_checked=s["mem_contract"]["inplace_checked"],
+               compiles_warmup=s["trace_contract"]["compiles_warmup"],
+               compiles_steady=0, ledger_windows=len(l1),
+               ledgers_equal=True, max_drift_ulps=max(drifts),
+               sentinel_checks=s["counters"].get("health.sentinel_checks"),
+               healthz=list(runs[0]["healthz"]))
+    log(f"contracts: digest held, 0 memory violations "
+        f"({out['mem_source']}, baseline {out['mem_baseline_bytes']} B, "
+        f"max {out['mem_max_bytes']} B), {out['compiles_warmup']} warmup "
+        f"and 0 steady compile events, {len(l1)} equal ledger windows, "
+        f"largest drift {max(drifts)} ulp")
+    return out
+
+
+def faults_path(lgb, counters, ds_small, total: dict) -> dict:
+    """The silent faults on the small-data path (K6): each caught and
+    named."""
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.boosting import gbdt
+    from lightgbm_tpu_torch.obs import determinism, health, ops_plane
+    from lightgbm_tpu_torch.utils import faults
+    p = dict(TRAIN_CONF)
+    out = {}
+
+    def run(name, params=p, rounds=OBS_FAULT_ITERS):
+        bst, seconds, launches = train_path(lgb, name, counters, params,
+                                            ds_small, rounds)
+        need(launches, ("split_scan",), name)
+        add_launches(total, launches)
+        return bst
+    with obs_env(LGBM_TPU_SENTINELS="1", LGBM_TPU_OPS_PORT="0"):
+        faults.inject("health.nan_grad", times=1, skip=2)
+        bst = run("small-data, health.nan_grad")
+        st = health.state()
+        code, body = http_get(ops_plane.plane().port, "/healthz")
+        ev = obs.summary()["events"].get("health:nonfinite", 0)
+    if (st["state"], st["detail"].get("window"), code, ev) != \
+            ("degraded", 2, 503, 1):
+        raise AssertionError(f"nan_grad: {st}, /healthz {code}, {ev}")
+    out["nan_grad"] = dict(state=st["state"], window=st["detail"]["window"],
+                           what=st["detail"].get("what"), healthz=code,
+                           stopped_at=bst.current_iteration())
+    tmp = tempfile.mkdtemp(prefix="lgbm_stall_")
+    try:
+        trace = os.path.join(tmp, "trace.jsonl")
+        with obs_env(LGBM_TPU_WATCHDOG_S=OBS_STALL_S):
+            faults.inject("watchdog.stall", times=1, skip=1)
+            run("small-data, watchdog.stall",
+                dict(p, telemetry_output=trace), 4)
+            ev = obs.summary()["events"].get("health:stall", 0)
+            st = health.state()
+        dump = json.load(open(trace + ".forensic.json"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if ev != 1 or dump["span"] != "gbdt.iteration" \
+            or "Thread" not in dump["stacks"] or st["state"] != "stalled":
+        raise AssertionError(f"stall: {ev} events, {st}, {dump['span']}")
+    out["watchdog_stall"] = dict(span=dump["span"], it=dump["attrs"]["it"],
+                                 deadline_s=dump["deadline_s"],
+                                 stack_bytes=len(dump["stacks"]),
+                                 state=st["state"])
+    with obs_env(LGBM_TPU_MEM_CONTRACT="1"):
+        faults.inject("mem.leak", times=1000)
+        try:
+            run("small-data, mem.leak")
+        finally:
+            gbdt._MEM_LEAK_SINK.clear()
+        mem = obs.summary()["mem_contract"]
+    if not mem["violation_count"] \
+            or mem["violations"][0]["span"] != "gbdt.iteration":
+        raise AssertionError(f"mem.leak not caught: {mem}")
+    out["mem_leak"] = dict(violations=mem["violation_count"],
+                           span=mem["violations"][0]["span"],
+                           grew_bytes=mem["violations"][0]["grew_bytes"],
+                           source=mem["source"])
+    dart = dict(p, **OBS_DART_DRIFT)
+    ledgers = []
+    for drift in (False, True):
+        with obs_env(LGBM_TPU_DETERMINISM="1"):
+            if drift:
+                faults.inject("det.rng_drift", times=1, skip=2)
+            run(f"small-data DART{', det.rng_drift' if drift else ''}",
+                dart)
+            ledgers.append(determinism.section()["digests"])
+    div = determinism.first_divergence(*ledgers)
+    if div is None:
+        raise AssertionError("det.rng_drift: no divergent window")
+    out["rng_drift"] = dict(first_divergent_window=div[0])
+    log(f"faults: nan_grad degraded at window 2 (/healthz 503); stall named "
+        f"{dump['span']} with {len(dump['stacks'])} B of stacks; mem.leak "
+        f"{mem['violation_count']} violations at gbdt.iteration; rng_drift "
+        f"first divergent window {div[0]}")
+    return out
+
+
+def serve_plane_path(card: str) -> dict:
+    """Phase 12's model in a server with the plane mounted, the watchdog
+    armed and the memory and trace contracts on: scraped during a
+    5k-QPS step, drained over ``/drain``."""
+    import threading
+    import numpy as np
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs import ops_plane
+    from lightgbm_tpu_torch.serve import PredictionServer
+    from tools.load_harness import sweep
+    cm, pool = SERVE_STATE["model"], SERVE_STATE["pool"]
+    ref = next(r for r in SERVE_STATE["table"]
+               if r["offered_qps"] == OBS_QPS)
+    scrapes = []
+    with obs_env(LGBM_TPU_OPS_PORT="0", LGBM_TPU_WATCHDOG_S="30",
+                 LGBM_TPU_MEM_CONTRACT="1", LGBM_TPU_TRACE_CONTRACT="1"):
+        srv = PredictionServer(cm, max_batch=max(SERVE_BUCKETS),
+                               max_wait_ms=1.0, buckets=SERVE_BUCKETS,
+                               min_bucket=SERVE_BUCKETS[0], raw_score=True)
+        port = ops_plane.plane().port
+        stop = threading.Event()
+
+        def scrape():
+            while not stop.is_set():
+                m = http_get(port, "/metrics")
+                h = http_get(port, "/healthz")
+                scrapes.append((m[0], h[0], json.loads(h[1])["state"],
+                                "lgbm_tpu_serve_requests_total" in m[1]))
+                time.sleep(0.1)
+        th = threading.Thread(target=scrape, daemon=True)
+        # one request answered before the first scrape: every scrape
+        # then must show the serving counters
+        srv.predict(pool[:1])
+        gc.collect()
+        gc.freeze()
+        try:
+            th.start()
+            table = sweep(srv, pool, (OBS_QPS,), SERVE_QPS_S,
+                          rows_per_request=1, seed=13)
+        finally:
+            stop.set()
+            th.join(30)
+            gc.unfreeze()
+        code, body = http_get(port, "/drain")
+        drain = json.loads(body)
+        st = srv.stats()
+        s = obs.summary()
+    rep = drain["reports"][0] if drain["reports"] else {}
+    tc, mem = s.get("serve_trace_contract", {}), s.get("serve_mem_contract",
+                                                       {})
+    row = table[0]
+    if not scrapes or any(m != 200 or h != 200 or not seen
+                          for m, h, _, seen in scrapes):
+        raise AssertionError(f"scrapes during the sweep: {scrapes[:5]}")
+    if code != 200 or not rep.get("drained") or rep.get("pending") \
+            or rep.get("failed") or row["failures"]:
+        raise AssertionError(f"/drain: {code} {drain}")
+    if st["steady_captures"] or tc.get("compiles_steady", 1) \
+            or mem.get("violation_count", 1):
+        raise AssertionError(f"serve contracts: captures "
+                             f"{st['steady_captures']}, trace {tc}, "
+                             f"memory {mem}")
+    out = dict(scrapes=len(scrapes),
+               states=sorted({x for _, _, x, _ in scrapes}),
+               drain_code=code, drained=rep["resolved"],
+               steady_captures=0, compiles_steady=0,
+               compiles_warmup=tc["compiles_warmup"], mem_violations=0,
+               mem_batches=mem["windows_sampled"],
+               watchdog_arms=s["counters"].get("watchdog.arms"),
+               p50_ms=row["p50_ms"], p99_ms=row["p99_ms"],
+               achieved_qps=row["achieved_qps"],
+               phase12_p50_ms=ref["p50_ms"], phase12_p99_ms=ref["p99_ms"])
+    log(f"serve plane ({card}): {len(scrapes)} scrapes of /metrics and "
+        f"/healthz during {OBS_QPS:.0f} QPS, all 200; /drain resolved "
+        f"{rep['resolved']}; 0 steady captures and compile events, 0 "
+        f"memory violations over {mem['windows_sampled']} batches; p50 "
+        f"{row['p50_ms']} / p99 {row['p99_ms']} ms (phase 12: "
+        f"{ref['p50_ms']} / {ref['p99_ms']})")
+    return out
+
+
+class PlaneToggle:
+    """A before-iteration callback of a run with the ops plane mounted:
+    after the first iteration, iterations go in pairs, one with the
+    plane's live work on and one with it off, the order in each pair
+    drawn from ``seed`` (so no period in the iterations' own times
+    lines up with it); ``flags[i]`` says whether iteration ``i`` had it
+    on.  The live work is ``pieces``: telemetry with the registry as
+    its sink, the sentinels, the health marks; a piece not named stays
+    off throughout.  The plane's HTTP thread runs throughout."""
+
+    PIECES = ("telemetry", "sentinels", "health")
+    before_iteration = True
+
+    def __init__(self, iters: int, seed: int, pieces=PIECES):
+        rng = random.Random(seed)
+        self.flags = [True] * iters
+        for i in range(1, iters - 1, 2):
+            first = bool(rng.getrandbits(1))
+            self.flags[i], self.flags[i + 1] = first, not first
+        self.pieces = pieces
+        self.registry = None
+
+    def __call__(self, env):
+        from lightgbm_tpu_torch.obs import health, ops_plane, telemetry
+        if self.registry is None:
+            self.registry = ops_plane.plane().registry
+        on = self.flags[env.iteration]
+        sentinels = on and "sentinels" in self.pieces
+        os.environ["LGBM_TPU_SENTINELS"] = "1" if sentinels else "0"
+        health._set_active(on and "health" in self.pieces)
+        if on and "telemetry" in self.pieces:
+            telemetry.enable()
+            telemetry.set_sink(self.registry)
+        else:
+            telemetry.set_sink(None)
+            telemetry.disable()
+
+    def pair_diffs(self, iter_ms: list) -> list:
+        """Each whole pair's on - off milliseconds."""
+        return [(iter_ms[i] - iter_ms[i + 1]) * (1 if self.flags[i] else -1)
+                for i in range(1, len(iter_ms) - 1, 2)]
+
+
+def plane_cost_path(lgb, counters, ds, head_ref, total: dict,
+                    runs: int = OBS_COST_RUNS, hold: bool = True) -> dict:
+    """What the ops plane and the sentinels cost the headline's steady
+    iteration, paired inside each run (:class:`PlaneToggle`, timed by
+    :class:`IterClock`), so that neighbouring iterations share the
+    host's state: the median of the pairs' on - off differences over
+    ``runs`` runs is held within ``OBS_COST_BOUND_MS`` (unless not
+    ``hold``: ``tools/plane_cost.py`` reports it).  Each run must
+    give the headline's model, with one sentinel check and one sketched
+    ``gbdt.iteration`` for each iteration that had the plane on."""
+    from lightgbm_tpu_torch import obs
+    params = dict(HEADLINE_PARAMS)
+    diffs, on_ms, off_ms = [], [], []
+    for run in range(runs):
+        with obs_env(LGBM_TPU_OPS_PORT="0"):
+            clock = IterClock()
+            toggle = PlaneToggle(HEADLINE_ITERS, seed=run)
+            bst, _, launches = train_path(
+                lgb, f"headline, plane toggled ({run + 1})", counters,
+                params, ds, HEADLINE_ITERS, callbacks=[toggle, clock])
+            checks = obs.summary()["counters"].get("health.sentinel_checks")
+            sketched = toggle.registry.spans["gbdt.iteration"].count
+        add_launches(total, launches)
+        if bst.digest() != head_ref["digest"]:
+            raise AssertionError("plane toggled: another model")
+        n_on = sum(toggle.flags)
+        if checks != n_on or sketched != n_on:
+            raise AssertionError(f"plane toggled: {checks} sentinel checks "
+                                 f"and {sketched} sketched iterations, "
+                                 f"{n_on} iterations had the plane on")
+        ms = clock.iter_ms()
+        diffs += toggle.pair_diffs(ms)
+        on_ms += [m for i, m in enumerate(ms) if i and toggle.flags[i]]
+        off_ms += [m for i, m in enumerate(ms) if not toggle.flags[i]]
+    median = statistics.median(diffs)
+    log(f"plane cost: {len(diffs)} pairs, median on - off {median:.3f} "
+        f"ms/iter (bound {OBS_COST_BOUND_MS}); on iterations median "
+        f"{statistics.median(on_ms):.3f}, off {statistics.median(off_ms):.3f}")
+    if hold and median > OBS_COST_BOUND_MS:
+        raise AssertionError(f"the plane costs {median:.3f} ms/iter, past "
+                             f"{OBS_COST_BOUND_MS}")
+    return dict(pairs=len(diffs), median_diff_ms=median,
+                bound_ms=OBS_COST_BOUND_MS, diffs_ms=diffs,
+                on_median_ms=statistics.median(on_ms),
+                off_median_ms=statistics.median(off_ms))
+
+
+def observability_phase(lgb, counters, ds, dsw, ds_small, head_ref,
+                        card: str) -> dict:
+    """Phase 27: the profiler on the headline, DART and ``max_bin`` 1023
+    paths; the headline with every contract on; the silent faults on the
+    small-data path; the serving plane; the plane's cost -> launches."""
+    total, out = {}, {}
+    t0 = time.time()
+    params = dict(HEADLINE_PARAMS)
+    out["profile"] = {
+        "headline": profiled_path(lgb, "headline", counters, params, ds,
+                                  HEADLINE_ITERS, head_ref["digest"], True,
+                                  total),
+        "dart": profiled_path(lgb, "dart", counters,
+                              dict(params, boosting="dart", **VARIANT_DART),
+                              ds, HEADLINE_ITERS, PATH_DIGESTS["dart"],
+                              False, total),
+        "wide": profiled_path(lgb, "wide", counters,
+                              dict(params, max_bin=WIDE_MAX_BIN), dsw,
+                              WIDE_ITERS, PATH_DIGESTS["wide"], False,
+                              total)}
+    out["profile_s"] = time.time() - t0
+    out["contracts"] = contracts_path(lgb, counters, ds, head_ref, total)
+    out["faults"] = faults_path(lgb, counters, ds_small, total)
+    out["serve"] = serve_plane_path(card)
+    out["cost"] = plane_cost_path(lgb, counters, ds, head_ref, total)
+    out["seconds"] = time.time() - t0
+    print(json.dumps({"phase": 27, "name": "observability", "card": card,
+                      **out}), flush=True)
+    return total
 
 
 def train_path(lgb, name, counters, params, ds, rounds, **kw):
@@ -4698,8 +5178,15 @@ def main() -> int:
     t0 = time.time()
     by_path["wide_stream"] = wide_stream_phase(lgb, counters, ds, dsw,
                                                head_ref, card, entries)
-    del dsw
     log(f"phase 26 {time.time() - t0:.1f} s")
+
+    # 27. the runtime contracts and the live health plane
+    t0 = time.time()
+    by_path["observability"] = observability_phase(
+        lgb, counters, ds, dsw, ds_small, head_ref, card)
+    del dsw
+    SERVE_STATE.clear()
+    log(f"phase 27 {time.time() - t0:.1f} s")
 
     for e in entries:
         # a categorical entry counts its kernel's launches on the

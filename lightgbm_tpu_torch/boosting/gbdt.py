@@ -27,6 +27,7 @@ that replay.  Snapshots and exact resume: ``boosting/snapshot.py``.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -50,6 +51,24 @@ from ..utils.file_io import open_read, open_write
 from ..utils.log import log_info, log_warning
 
 K_MODEL_VERSION = "v2"     # reference gbdt_model_text.cpp:13
+
+# mem.leak fault sink: while the fault point is armed, the training loop
+# keeps one fresh device tensor an iteration here, a module-lifetime leak
+# the memory watermark contract (obs/mem_contract.py) must catch and name
+_MEM_LEAK_SINK: List[torch.Tensor] = []
+# elements leaked an iteration (float32): past the contract's default
+# 1 MiB tolerance, so one armed iteration shows above it
+_MEM_LEAK_ELEMS = int(os.environ.get("LGBM_TPU_MEM_LEAK_ELEMS", 1 << 19))
+
+
+def mem_leak_fault(it: int, device) -> None:
+    """The ``mem.leak`` fault seam: while armed, one fresh device tensor
+    an iteration goes into :data:`_MEM_LEAK_SINK`."""
+    from ..utils import faults
+    if faults.armed() and faults.fault_flag("mem.leak"):
+        _MEM_LEAK_SINK.append(torch.full((_MEM_LEAK_ELEMS,), float(it),
+                                         dtype=torch.float32,
+                                         device=device))
 
 
 def split_params_from_config(c: Config) -> SplitParams:
@@ -215,6 +234,10 @@ class GBDT:
     # training (False), or kept and counted before training ends (True;
     # the trailing stumps go at the end, :meth:`trim_trailing_stumps`)
     keeps_stump_iterations = False
+    # live tensors of the score state's shape, dtype and device at an
+    # iteration boundary: the scores themselves, updated in place
+    # (obs/mem_contract.py)
+    score_state_tensors = 1
 
     def __init__(self, config: Config, train_set: Optional[BinnedDataset],
                  device="cuda"):
@@ -337,6 +360,8 @@ class GBDT:
         if c.bagging_freq <= 0 or c.bagging_fraction >= 1.0:
             return None
         epoch = it // c.bagging_freq
+        from ..obs import determinism
+        determinism.rng_site("gbdt.bag_mask", "bagging_seed/epoch")
         if self._bag is None or self._bag[0] != epoch:
             self._bag = (epoch, bag_mask(c.bagging_seed, epoch,
                                          self.num_data, c.bagging_fraction,
@@ -351,6 +376,9 @@ class GBDT:
             return None
         F = self.device_data.num_features
         k = max(1, int(c.feature_fraction * F))
+        from ..obs import determinism
+        determinism.rng_site("gbdt.feature_mask",
+                             "feature_fraction_seed/tree_idx")
         return feature_mask(c.feature_fraction_seed, tree_idx, F,
                             k).to(self.device)
 
@@ -388,8 +416,17 @@ class GBDT:
         return 0.0
 
     def gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(grad, hess), each ``[n, K]`` (reference Boosting())."""
-        return self.objective.get_gradients_k(self.scores)
+        """(grad, hess), each ``[n, K]`` (reference Boosting()).
+
+        The ``health.nan_grad`` fault seam: while armed, one gradient
+        element becomes NaN, which the numerics sentinels
+        (``obs/health.py``) must catch at the right iteration."""
+        g, h = self.objective.get_gradients_k(self.scores)
+        from ..utils import faults
+        if faults.armed() and faults.fault_flag("health.nan_grad"):
+            g = g.clone()
+            g[0, 0] = float("nan")
+        return g, h
 
     def custom_gradients(self, fobj, dataset
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -421,6 +458,7 @@ class GBDT:
         K = self.num_tree_per_iteration
         grad, hess, bag = self._row_sample(grad, hess)
         trees = []
+        raw_leaf_values = []
         for k in range(K):
             bt = build_tree(self.device_data, grad[:, k].contiguous(),
                             hess[:, k].contiguous(), self.growth,
@@ -431,11 +469,21 @@ class GBDT:
             bt = self._renew_leaves(bt, k)
             nl, depth = torch.stack([bt.num_leaves,
                                      bt.leaf_depth.max()]).tolist()
+            # the values before a stump's zeroing: a non-finite gradient
+            # makes a stump with a non-finite root value, which the
+            # zeroing below would hide from every later check
+            raw_leaf_values.append(bt.leaf_value)
             if nl <= 1:
                 # a stump adds nothing (reference gbdt.cpp:435-460)
                 bt.leaf_value = torch.zeros_like(bt.leaf_value)
             trees.append((bt, nl, depth))
         stumps = all(nl <= 1 for _, nl, _ in trees)
+        if stumps:
+            from ..obs import health
+            if health.sentinels_enabled():
+                health.check_leaf_values(
+                    [v.cpu().numpy() for v in raw_leaf_values],
+                    window=self.iter)
         if stumps and not self.keeps_stump_iterations:
             log_warning("stopped training because there are no more leaves "
                         f"that meet the split requirements (iteration "
@@ -443,10 +491,12 @@ class GBDT:
             return True
         for k, (bt, _, depth) in enumerate(trees):
             self._update_scores(bt, k, depth)
+            # empty tensors, not [:0] views: a view would keep the [n]
+            # per-row storage of every pending tree alive
             self._pending.append((BuiltTree(**{
-                **bt.__dict__, "row_leaf": bt.row_leaf[:0],
-                "row_value": bt.row_value[:0]}), self.shrinkage_rate,
-                self._first_tree_bias()))
+                **bt.__dict__, "row_leaf": bt.row_leaf.new_empty(0),
+                "row_value": bt.row_value.new_empty(0)}),
+                self.shrinkage_rate, self._first_tree_bias()))
         self.iter += 1
         return stumps
 

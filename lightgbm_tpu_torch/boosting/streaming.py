@@ -344,6 +344,8 @@ class StreamTrainer:
     (model text, ``digest()``, prediction through the mappers) whose
     train scores are the streamed host score state."""
 
+    _wd = None                  # the stall watchdog, live inside train()
+
     def __init__(self, config: Config, source,
                  block_rows: Optional[int] = None, device=None,
                  pipeline: bool = True):
@@ -482,20 +484,56 @@ class StreamTrainer:
 
     # -- training ---------------------------------------------------------
     def train(self, num_iterations: Optional[int] = None) -> GBDT:
+        """Boost to ``num_iterations``.  The ops plane is mounted
+        (``LGBM_TPU_OPS_PORT``), the health plane marks the run
+        (``warming`` until the first iteration, then ``ready``), the stall
+        watchdog (``LGBM_TPU_WATCHDOG_S``) is armed around each streamed
+        tree, and every iteration boundary feeds the determinism and ulp
+        contracts from the host scores (:meth:`_window_contracts`)."""
+        from ..obs import determinism, health, num_contract, ops_plane
         iters = num_iterations or self.config.num_iterations
+        if self.booster.iter == 0:
+            if determinism.enabled():
+                determinism.reset()
+            if num_contract.enabled():
+                num_contract.reset()
+        ops_plane.mount("train")
+        self._wd = health.Watchdog.maybe("stream")
+        health.mark_warming("stream")
         self._up = _BlockUploader(self.src, self.blocks, self.R, self.device,
                                   self.pipeline)
         try:
             with span("stream.train", rows=self.n, block=self.R, shards=1):
                 for it in range(self.booster.iter, iters):
-                    if self._train_one_iter(it):
+                    stop = self._train_one_iter(it)
+                    health.mark_ready()
+                    self._window_contracts(it + 1)
+                    if stop:
                         break
         finally:
             self._up.close()
+            if self._wd is not None:
+                self._wd.stop()
+                self._wd = None
         self.booster.scores = torch.from_numpy(self.scores)
         return self.booster
 
+    def _window_contracts(self, it: int) -> None:
+        """Iteration-boundary sampling for the determinism digest ledger
+        (``LGBM_TPU_DETERMINISM=1``) and the ulp ledger
+        (``LGBM_TPU_NUM_CONTRACT=1``) over the host score state; nothing
+        when neither is on."""
+        from ..obs import determinism, num_contract
+        if not (determinism.enabled() or num_contract.enabled()):
+            return
+        self.booster.scores = torch.from_numpy(self.scores)
+        if determinism.enabled():
+            determinism.window_digest(self.booster, int(it))
+        if num_contract.enabled():
+            num_contract.window_check(self.scores, it=int(it))
+
     def _train_one_iter(self, it: int) -> bool:
+        from ..obs import health
         c, K, b = self.config, self.K, self.booster
         with span("stream.gradients", it=it):
             grad, hess, cs = self._gradients()
@@ -507,9 +545,17 @@ class StreamTrainer:
                 fmask = feature_mask(c.feature_fraction_seed, it * K + k, F,
                                      max(1, int(c.feature_fraction * F))
                                      ).to(self.device)
-            bt = self._build_tree(np.ascontiguousarray(grad[:, k]),
-                                  np.ascontiguousarray(hess[:, k]), cs[k],
-                                  fmask, k)
+            wd = self._wd
+            if wd is not None:
+                wd.arm("stream.tree", it=it, k=k)
+                health.stall_fault(wd)
+            try:
+                bt = self._build_tree(np.ascontiguousarray(grad[:, k]),
+                                      np.ascontiguousarray(hess[:, k]),
+                                      cs[k], fmask, k)
+            finally:
+                if wd is not None:
+                    wd.disarm()
             if int(bt.num_leaves) <= 1:
                 stumps += 1
                 bt.leaf_value = torch.zeros_like(bt.leaf_value)

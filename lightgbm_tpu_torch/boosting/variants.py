@@ -11,8 +11,11 @@ the seams of one iteration:
   dropped trees and patches the training and valid scores.  The draws
   are pure in ``(drop_seed, iteration)`` on the keyed threefry
   (``utils/random.py``), so a resumed run draws what the uninterrupted
-  one drew.  The dropped set's output is one replay of its trees on the
-  device, summed in the JAX package's order (``GBDT._replay_sum``).
+  one drew.  ``LGBM_TPU_DART_HOST_RNG=1`` takes the JAX package's legacy
+  stateful stream instead (``np.random.RandomState(drop_seed)``, drawn
+  in sequence; not stable across a resume).  The dropped set's output is
+  one replay of its trees on the device, summed in the JAX package's
+  order (``GBDT._replay_sum``).
 * **GOSS** keeps the rows of the largest ``sum_k |g*h|`` (``top_rate``),
   samples ``other_rate`` of the rest and scales their gradients by ``(1
   - a) / b``; the kept rows are the tree's bag.
@@ -34,6 +37,13 @@ import torch
 from ..config import Config
 from ..utils import random as keyed
 from .gbdt import GBDT
+
+
+def _dart_host_rng() -> bool:
+    """``LGBM_TPU_DART_HOST_RNG=1``: the legacy stateful drop stream,
+    kept for A/B against the keyed draws (the JAX package's escape
+    hatch, the same stream)."""
+    return os.environ.get("LGBM_TPU_DART_HOST_RNG", "0") == "1"
 
 
 def _drop_uniforms(drop_seed: int, it: int):
@@ -59,12 +69,11 @@ class DART(GBDT):
     fused_update = False
 
     def __init__(self, config: Config, train_set, device="cuda"):
-        if os.environ.get("LGBM_TPU_DART_HOST_RNG", "0") == "1":
-            raise NotImplementedError(
-                "LGBM_TPU_DART_HOST_RNG=1: the JAX package's legacy stateful "
-                "drop stream is an A/B seam of its determinism contract, "
-                "not ported (ROADMAP A13); unset it for the keyed draws")
         super().__init__(config, train_set, device)
+        self._rng_drop = None
+        if _dart_host_rng():
+            # the legacy stateful stream: not replay- or rank-stable
+            self._rng_drop = np.random.RandomState(config.drop_seed)
         self._tree_weights: List[float] = []   # per-iteration weight
         self._sum_weight = 0.0
 
@@ -151,12 +160,22 @@ class DART(GBDT):
 
     def _select_drop(self) -> np.ndarray:
         """The iterations to drop (reference ``DroppingTrees``,
-        ``dart.hpp:85-125``), from :func:`_drop_uniforms`."""
+        ``dart.hpp:85-125``), from :func:`_drop_uniforms` (or the legacy
+        stream, :meth:`_select_drop_host`).  The ``det.rng_drift`` fault
+        draws the next iteration's uniforms instead."""
         c = self.config
         iters = self.iter
+        if self._rng_drop is not None:
+            return self._select_drop_host(iters)
         if iters == 0:
             return np.zeros(0, np.int64)
+        from ..obs import determinism
+        determinism.rng_site("dart.drop", "drop_seed/iteration")
         u_skip, u = _drop_uniforms(c.drop_seed, iters)
+        from ..utils import faults
+        if faults.armed() and faults.fault_flag("det.rng_drift"):
+            u_skip, u = _drop_uniforms(c.drop_seed, iters + 1)
+            u = u[:iters]
         if u_skip < c.skip_drop:
             return np.zeros(0, np.int64)
         return self._drop_from_uniforms(u, iters)
@@ -182,6 +201,36 @@ class DART(GBDT):
                 rate = min(rate, c.max_drop / max(1.0, float(iters)))
             for i in range(iters):
                 if u[i] < rate:
+                    out.append(i)
+                    if c.max_drop > 0 and len(out) >= c.max_drop:
+                        break
+        return np.asarray(out, np.int64)
+
+    def _select_drop_host(self, iters: int) -> np.ndarray:
+        """The legacy stream, verbatim (the JAX package's
+        ``_select_drop_host``): sequential ``RandomState`` draws, the early
+        ``max_drop`` break included, which stops consuming draws."""
+        c = self.config
+        if iters == 0 or self._rng_drop.rand() < c.skip_drop:
+            return np.zeros(0, np.int64)
+        out = []
+        if not c.uniform_drop and self._sum_weight > 0:
+            inv_avg = len(self._tree_weights) / self._sum_weight
+            rate = c.drop_rate
+            if c.max_drop > 0:
+                rate = min(rate, c.max_drop * inv_avg / self._sum_weight)
+            for i in range(iters):
+                if (self._rng_drop.rand()
+                        < rate * self._tree_weights[i] * inv_avg):
+                    out.append(i)
+                    if c.max_drop > 0 and len(out) >= c.max_drop:
+                        break
+        else:
+            rate = c.drop_rate
+            if c.max_drop > 0:
+                rate = min(rate, c.max_drop / max(1.0, float(iters)))
+            for i in range(iters):
+                if self._rng_drop.rand() < rate:
                     out.append(i)
                     if c.max_drop > 0 and len(out) >= c.max_drop:
                         break
@@ -226,6 +275,8 @@ class GOSS(GBDT):
 
     def _row_sample(self, grad, hess):
         c = self.config
+        from ..obs import determinism
+        determinism.rng_site("goss.sample", "bagging_seed/iteration")
         return goss_sample(grad, hess, self.iter, c.top_rate, c.other_rate,
                            c.bagging_seed)
 
@@ -240,6 +291,8 @@ class RF(GBDT):
 
     boosting_name = "rf"
     fused_update = False
+    # the scores and the base score the gradients are taken at
+    score_state_tensors = 2
 
     def __init__(self, config: Config, train_set, device="cuda"):
         super().__init__(config, train_set, device)

@@ -13,6 +13,7 @@ prediction entry point."""
 from __future__ import annotations
 
 import collections
+import time
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -178,9 +179,64 @@ def _boost(booster: Booster, params, fobj, feval, start_iter: int,
     """The per-iteration loop: update, evaluation, callbacks, snapshots;
     the ``gbdt.iteration`` and ``gbdt.eval`` spans, the ``train_stop``
     and ``early_stop`` events and the ``gbdt.iterations`` and
-    ``gbdt.num_trees`` gauges of the JAX package's loop."""
+    ``gbdt.num_trees`` gauges of the JAX package's loop.
+
+    The runtime contracts and the health plane ride the JAX package's
+    seams (its ``GBDT.train`` and ``_train``), an iteration in place of
+    its fused window: the ops plane mounted and the stall watchdog armed
+    around each update (``obs/ops_plane.py``, ``obs/health.py``), the
+    trace contract's steady mark after the first iteration
+    (``obs/trace_contract.py``), a memory sample
+    (``obs/mem_contract.py``), a digest (``obs/determinism.py``) and the
+    scores checked by the sentinels and the ulp contract
+    (``obs/num_contract.py``; one host copy for both when the latter is
+    on) at every iteration boundary, the windowed
+    profile (``obs/profiler.py``), and the ``gbdt.dispatch_gap_s``
+    counter: host time between one update's return and the next
+    update."""
+    from .obs import determinism, health, num_contract, ops_plane
+    from .obs.mem_contract import maybe_watermark
+    from .obs.profiler import maybe_profile
+    from .obs.trace_contract import maybe_track
+    gbdt = booster._gbdt
+    resumed = start_iter > 0
+    if determinism.enabled() and not resumed:
+        determinism.reset()
+    if num_contract.enabled() and not resumed:
+        num_contract.reset()
+    ops_plane.mount("train")
+    wd = health.Watchdog.maybe("train")
+    # LGBM_TPU_SENTINELS=1 turns the health plane on without a mount
+    health.sentinels_enabled()
+    health.mark_warming("train")
+    try:
+        with maybe_track() as tracker, \
+                maybe_watermark("gbdt", device=gbdt.device) as wm, \
+                maybe_profile("gbdt", device=gbdt.device) as prof:
+            _iterations(booster, params, fobj, feval, start_iter,
+                        num_boost_round, cbs_before, cbs_after,
+                        snapshot_freq, wd, tracker, wm, prof)
+    finally:
+        if wd is not None:
+            wd.stop()
+    obs.gauge_set("gbdt.iterations", int(gbdt.iter))
+    obs.gauge_set("gbdt.num_trees", int(gbdt._num_models()))
+    if obs.enabled():
+        c = obs.summary()["counters"]
+        gaps = c.get("gbdt.dispatch_gaps", 0)
+        if gaps:
+            obs.gauge_set("gbdt.dispatch_gap_mean_s",
+                          c.get("gbdt.dispatch_gap_s", 0.0) / gaps)
+
+
+def _iterations(booster: Booster, params, fobj, feval, start_iter: int,
+                num_boost_round: int, cbs_before, cbs_after,
+                snapshot_freq: int, wd, tracker, wm, prof) -> None:
+    from .boosting.gbdt import mem_leak_fault
+    from .obs import determinism, health, num_contract
     gbdt = booster._gbdt
     train_metric = bool(params.get("is_training_metric"))
+    t_ret = None                        # the last update's return
     for it in range(start_iter, num_boost_round):
         env = callback_mod.CallbackEnv(
             model=booster, params=params, iteration=it,
@@ -188,8 +244,45 @@ def _boost(booster: Booster, params, fobj, feval, start_iter: int,
             evaluation_result_list=None)
         for cb in cbs_before:
             cb(env)
-        with obs.span("gbdt.iteration", it=it):
-            stop = booster.update(fobj=fobj)
+        if t_ret is not None and obs.enabled():
+            obs.counter_add("gbdt.dispatch_gap_s",
+                            time.perf_counter() - t_ret)
+            obs.counter_add("gbdt.dispatch_gaps")
+        if wd is not None:
+            wd.arm("gbdt.iteration", it=it, window=1)
+            health.stall_fault(wd)
+        try:
+            with obs.span("gbdt.iteration", it=it):
+                stop = booster.update(fobj=fobj)
+        finally:
+            if wd is not None:
+                wd.disarm()
+        t_ret = time.perf_counter()
+        # the first iteration done == warmup over (idempotent)
+        tracker.mark_steady()
+        health.mark_ready()
+        if prof is not None and prof.window(it=gbdt.iter):
+            t_ret = None                # profiler work is not host gap
+        mem_leak_fault(gbdt.iter, gbdt.device)
+        if wm is not None:
+            wm.sample("gbdt.iteration", it=gbdt.iter)
+            if gbdt.iter & (gbdt.iter - 1) == 0:
+                # at power-of-two iterations: the probe walks the heap
+                wm.check_inplace(gbdt.scores.shape, gbdt.scores.dtype,
+                                 gbdt.device, gbdt.score_state_tensors)
+        if determinism.enabled():
+            determinism.window_digest(gbdt, gbdt.iter)
+        sentinels = health.sentinels_enabled()
+        if num_contract.enabled():
+            # one host copy for both consumers
+            s_np = gbdt.scores.cpu().numpy()
+            if sentinels:
+                health.check_scores(s_np, window=gbdt.iter)
+            num_contract.window_check(s_np, it=gbdt.iter)
+        elif sentinels:
+            # the sentinel alone checks on the scores' device: a host
+            # copy only when a value is not finite
+            health.check_scores(gbdt.scores, window=gbdt.iter)
         if stop:
             log_info(f"training stopped at iteration {it + 1}: no further "
                      f"splits possible")
@@ -200,6 +293,8 @@ def _boost(booster: Booster, params, fobj, feval, start_iter: int,
             if train_metric:
                 results.extend(booster.eval_train(feval))
             results.extend(booster.eval_valid(feval))
+        if results and health.sentinels_enabled():
+            health.check_metrics(results, window=gbdt.iter)
         env = env._replace(evaluation_result_list=results)
         try:
             for cb in cbs_after:
@@ -214,8 +309,6 @@ def _boost(booster: Booster, params, fobj, feval, start_iter: int,
             break
         if snapshot_freq > 0 and (it + 1) % snapshot_freq == 0:
             gbdt.save_snapshot(it + 1)
-    obs.gauge_set("gbdt.iterations", int(gbdt.iter))
-    obs.gauge_set("gbdt.num_trees", int(gbdt._num_models()))
 
 
 def _model_text(init_model) -> str:
@@ -309,6 +402,8 @@ def cv_folds(train_set: Dataset, params: Dict[str, Any], folds=None,
     whole queries dealt to folds when the set has groups; else
     stratified by label for the classification objectives; else a
     shuffled deal of the rows."""
+    from .obs import determinism
+    determinism.rng_site("engine.cv_folds", "seed/salt")
     n = train_set.num_data()
     label = np.asarray(train_set.get_label())
     if folds is not None:

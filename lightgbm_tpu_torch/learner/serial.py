@@ -39,6 +39,7 @@ import torch
 from ..io.binning import MISSING_NAN, MISSING_ZERO
 from ..io.device import DeviceData
 from ..obs import span as obs_span
+from ..utils import faults
 from ..ops.compact import (compact_slot_threshold, hist_active_compact,
                            hist_compact_raw)
 from ..ops.histogram import (bin_stride, combine_hist_cols,
@@ -181,7 +182,15 @@ def reduce_chunk_sums(cs: torch.Tensor):
 
 def root_stats(grad, hess, bag):
     """Root ``(sum_g, sum_h, cnt)`` via the canonical chunked pairwise
-    reduction (bitwise the reference's ``root_stats``)."""
+    reduction (bitwise the reference's ``root_stats``).
+
+    The ``num.reassoc`` fault (``utils/faults.py``, as in the JAX package)
+    swaps it for a plain ``torch.sum``, whose order is torch's: the
+    reassociation the ulp contract (``obs/num_contract.py``) must see.
+    Unarmed, the check is two module-attribute reads."""
+    if faults.armed() and faults.fault_flag("num.reassoc"):
+        b = bag.to(grad.dtype)
+        return torch.sum(grad * b), torch.sum(hess * b), torch.sum(b)
     return reduce_chunk_sums(root_chunk_sums(grad, hess, bag))
 
 

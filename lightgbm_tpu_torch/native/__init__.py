@@ -68,6 +68,8 @@ def _build() -> None:
         subprocess.check_call(cmd, stdout=subprocess.DEVNULL,
                               stderr=subprocess.DEVNULL)
     os.replace(tmp, LIB)
+    from ..obs.trace_contract import compile_event
+    compile_event("native", LIB.name)
 
 
 def _load() -> Optional[ctypes.CDLL]:

@@ -40,10 +40,14 @@ Unlike the JAX module's line-buffered trace, records go through a
 per record cost the traced headline about 20 ms an iteration, a
 buffered one nothing measurable (PERF.md; ``tools/telemetry_cost.py``).
 
-The JAX package's profiler annotator, flight recorder, health state and
-fleet clock have no counterpart here yet (ROADMAP A13); the rank comes
-from ``torch.distributed`` when a process group is initialized, or from
-:func:`set_rank`.
+While a device-time capture is live (``obs/profiler.py``) every span
+also enters the installed annotator (:func:`set_annotator`:
+``torch.profiler.record_function``), so the capture attributes device
+time to the span tree.  :func:`merged_summary` lifts each rank's health
+state (``obs/health.py``); the collective flight recorder's section and
+its cross-rank check come with the collectives that feed it (ROADMAP
+A11).  The rank comes from ``torch.distributed`` when a
+process group is initialized, or from :func:`set_rank`.
 """
 from __future__ import annotations
 
@@ -58,11 +62,19 @@ from typing import Any, Dict, IO, Optional
 __all__ = [
     "enabled", "enable", "disable", "reset", "span", "counter_add",
     "gauge_set", "event", "summary", "merged_summary", "write_summary",
-    "trace_path", "set_section", "set_sink", "set_clock_offset",
-    "set_rank", "hold_trace", "release_trace",
+    "trace_path", "set_section", "set_annotator", "set_sink",
+    "get_sink", "set_clock_offset", "set_rank", "hold_trace",
+    "release_trace",
 ]
 
-_lock = threading.RLock()
+
+def _named_rlock(name: str):
+    # lazy: lock_contract imports only the stdlib, so this is cycle-free
+    from . import lock_contract
+    return lock_contract.named_rlock(name)
+
+
+_lock = _named_rlock("telemetry")
 _tls = threading.local()            # per-thread span stack
 
 # -- state (module-level flags keep the disabled path one attribute read)
@@ -82,6 +94,9 @@ _events: Dict[str, int] = {}
 # named summary sections: one structured result per run, stored even
 # while telemetry is off (their producers gate themselves)
 _sections: Dict[str, Any] = {}
+# span annotator (obs/profiler.py): while a device-time capture is live,
+# every span also enters ``fn(name)``; None costs one attribute read
+_annotator = None
 # live-metrics sink (counter/gauge/event/span callbacks); None costs one
 # attribute read on the enabled path
 _sink = None
@@ -104,6 +119,19 @@ def set_rank(rank: int, world: int) -> None:
     stamps, per-rank trace-file suffixes and summaries."""
     global _rank_override
     _rank_override = (int(rank), max(int(world), 1))
+
+
+def set_annotator(fn) -> None:
+    """Install or remove the per-span annotation factory (``fn(name)`` ->
+    context manager).  Owned by ``obs/profiler.py``."""
+    global _annotator
+    _annotator = fn
+
+
+def get_sink():
+    """The installed sink or None: a lock-free attribute read
+    (``obs/lock_contract.py`` calls it from inside lock wrappers)."""
+    return _sink
 
 
 def set_sink(sink) -> None:
@@ -164,12 +192,14 @@ def disable() -> None:
 
 
 def reset() -> None:
-    """Clear the run summary and forget any requested trace."""
-    global _trace_requested, _held, _clk_off, _rank_override
+    """Clear the run summary and forget any requested trace; also
+    rewinds the profiler's state and the health state machine (a fresh run inherits none of the previous one's)."""
+    global _trace_requested, _held, _annotator, _clk_off, _rank_override
     with _lock:
         disable()
         _trace_requested = None
         _held = None
+        _annotator = None
         _clk_off = None
         _rank_override = None
         _spans.clear()
@@ -179,6 +209,10 @@ def reset() -> None:
         _sections.clear()
         if getattr(_tls, "stack", None):
             _tls.stack = []
+    from . import profiler
+    profiler.reset()
+    from . import health
+    health.reset()
 
 
 def trace_path() -> Optional[str]:
@@ -284,7 +318,7 @@ _NOOP_SPAN = _NoopSpan()
 
 
 class _Span:
-    __slots__ = ("name", "attrs", "t0", "ts", "depth")
+    __slots__ = ("name", "attrs", "t0", "ts", "depth", "ann")
 
     def __init__(self, name: str, attrs: Dict[str, Any]):
         self.name = name
@@ -296,12 +330,27 @@ class _Span:
             stack = _tls.stack = []
         self.depth = len(stack)
         stack.append(self.name)
+        ann = _annotator
+        if ann is not None:
+            try:
+                self.ann = ann(self.name)
+                self.ann.__enter__()
+            except Exception:           # noqa: BLE001 - a profiler
+                self.ann = None         # hiccup must not stop the span
+        else:
+            self.ann = None
         self.ts = time.time()
         self.t0 = time.perf_counter()
         return self.attrs
 
     def __exit__(self, *exc):
         dur = time.perf_counter() - self.t0
+        if self.ann is not None:
+            try:
+                self.ann.__exit__(*exc)
+            except Exception:           # noqa: BLE001 - best effort
+                pass
+            self.ann = None
         stack = _tls.stack
         parent = ""
         if stack and stack[-1] is self.name:
@@ -422,7 +471,8 @@ def merged_summary(allgather) -> Dict[str, Any]:
     """Every rank's summary merged into one dict (identical on all ranks).
     ``allgather(obj) -> [obj of rank 0, ...]`` is the host collective;
     ``ranks`` keeps each rank's full summary, ``counters`` and ``events``
-    sum and ``spans`` combine across ranks."""
+    sum and ``spans`` combine across ranks, and each rank's health state
+    is lifted into ``health``."""
     locals_ = allgather(summary())
     merged: Dict[str, Any] = {
         "process_count": len(locals_),
@@ -442,6 +492,14 @@ def merged_summary(allgather) -> Dict[str, Any]:
             agg["count"] += v["count"]
             agg["total_s"] += v["total_s"]
             agg["max_s"] = max(agg["max_s"], v["max_s"])
+    hs = [(s.get("health") or {}).get("state") for s in locals_]
+    if any(hs):
+        order = ("ready", "warming", "draining", "degraded", "stalled")
+        known = [h for h in hs if h in order]
+        merged["health"] = {
+            "ranks": hs,
+            "worst": (max(known, key=order.index) if known else None),
+        }
     return merged
 
 

@@ -20,11 +20,13 @@ from __future__ import annotations
 
 import torch
 
+from ..obs import profiler
 from .histogram import (FloatWalkScratch, _check_active_inputs,
                         _check_vector_rows, bin_stride, combine_hist_cols,
                         float_walk_launches, float_walk_plan,
                         hist_float_plain, hist_launcher, hist_plain,
-                        hist_plan, hist_slab, slot_tables)
+                        hist_cost, hist_plan, hist_slab, slot_tables,
+                        slotted_rows)
 
 # leaf slots per group in the reference's compacted kernel; waves wider
 # than this take K3 (the reference's dispatch threshold)
@@ -49,16 +51,22 @@ def hist_compact_raw(bins_t, vals, hist_leaf, active, num_leaf_slots: int,
     C, A, L = vals.shape[0], active.shape[0], num_leaf_slots
     dev = bins_t.device
     inv, src = slot_tables(active, L, collect_unbagged=False)
+
+    def cost(_):
+        return hist_cost(G, C, n_pad, A, L, acc,
+                         slotted_rows(inv, hist_leaf, L))
     if dev.type == "cpu":
         hist_compact_raw.plain_calls += 1
-        return acc.add_(hist_plain(bins_t, vals, hist_leaf, inv, src, B))
+        return profiler.launch("hist_compact", lambda: acc.add_(hist_plain(
+            bins_t, vals, hist_leaf, inv, src, B)), cost)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from .cuda_build import check_launch, multiprocessor_count
     _check_vector_rows(n_pad, bins_t, vals, hist_leaf, acc)
     plan = hist_plan(n_pad, G, A, B, C, multiprocessor_count(dev), L, False)
-    code = hist_launcher("hist_compact", bins_t, vals, hist_leaf, inv, src,
-                         L, B, plan, hist_slab(plan, A, G, B, C, dev), acc)()
+    code = profiler.launch("hist_compact", hist_launcher(
+        "hist_compact", bins_t, vals, hist_leaf, inv, src, L, B, plan,
+        hist_slab(plan, A, G, B, C, dev), acc), cost)
     check_launch(code, "hist_compact")
     hist_compact_raw.launches += 1
     return acc

@@ -114,6 +114,13 @@ def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def compile_event(kind: str, name: str) -> None:
+    """A build or load into the trace contract's trackers
+    (``obs/trace_contract.py``)."""
+    from ..obs.trace_contract import compile_event as event
+    event(kind, name)
+
+
 def build_all(names: List[str] = None) -> float:
     """Compile every (or the named) library that is not built yet, one
     ``nvcc`` process per source, all started together.  -> seconds."""
@@ -139,6 +146,7 @@ def build_all(names: List[str] = None) -> float:
             failures.append(f"{name}.cu:\n{out.decode(errors='replace')}")
             continue
         os.replace(tmp, path)
+        compile_event("nvcc", name)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return time.time() - t0
@@ -153,6 +161,7 @@ def library(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_all([name])
     lib = ctypes.CDLL(str(path))
+    compile_event("load", name)
     for fn, argtypes in LIBRARIES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes

@@ -38,7 +38,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .route import LaunchCount, leaf_tables
+from ..obs import profiler
+from .route import LaunchCount, leaf_tables, moved_rows
 
 # shared memory one block may use on sm_90 (227 KB), and what one
 # multiprocessor holds for all its resident blocks (each reserves 1 KB)
@@ -409,6 +410,47 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def slotted_rows(inv, hist_leaf, L: int):
+    """Rows whose hist leaf (-1 as leaf ``L``) has a slot: a 0-d tensor."""
+    return (inv.long()[torch.where(hist_leaf >= 0, hist_leaf.long(), L)]
+            >= 0).sum()
+
+
+def hist_cost(G: int, C: int, n_pad: int, A: int, L: int, out, n_active,
+              extra=0):
+    """One int32 histogram launch's traffic and operations, the numbers
+    of its bound: the hist leaves read, each active row's bins and values
+    read once, the histogram written once, the slot tables read; ``G *
+    C`` adds an active row.  ``extra``: K1's route traffic.  -> ``(bytes,
+    ops, "int32")``."""
+    nbytes = 4 * n_pad + (G + C) * n_active + out.numel() * 4 \
+        + (L + 1 + A) * 4 + extra
+    return nbytes, G * C * n_active, "int32"
+
+
+def hist_route_cost(bins_t, vals, leaf2, leaf2_out, inv, tabs, cat_mask,
+                    out, L: int):
+    """K1's traffic and operations (:func:`hist_cost`, plus the route's:
+    both leaves read and written, the moved rows' bins, the tables)."""
+    G, n_pad = bins_t.shape
+    tab_bytes = 11 * L * 4 + L * cat_mask.shape[1]
+    return hist_cost(G, vals.shape[0], n_pad, out.shape[0],
+                     L, out, slotted_rows(inv, leaf2_out[1], L),
+                     12 * n_pad + moved_rows(leaf2, tabs)
+                     * bins_t.element_size() + tab_bytes)
+
+
+def hist_wide_cost(bins_t, A: int, B: int, rows, seeded: bool):
+    """One wide-histogram launch's traffic and operations: each of the
+    ``rows`` active rows' bins and two values read once, every hist leaf
+    read, the histogram written once (seeded: the carry also read); 3
+    f32 adds a row and column.  -> ``(bytes, ops, "f32")``."""
+    G, n_pad = bins_t.shape
+    nbytes = rows * (G * bins_t.element_size() + 8) + 4 * n_pad \
+        + (2 if seeded else 1) * A * G * B * 12
+    return nbytes, 3 * rows * G, "f32"
+
+
 def hist_route_raw(bins_t, vals, leaf2, active, tabs, cat_mask,
                    num_leaf_slots: int, max_bins: int):
     """Fused route + active-leaf histogram (K1): apply the per-leaf
@@ -435,8 +477,11 @@ def hist_route_raw(bins_t, vals, leaf2, active, tabs, cat_mask,
     inv, src = slot_tables(active, L, collect_unbagged=True)
     if dev.type == "cpu":
         hist_route_raw.plain_calls += 1
-        return hist_route_plain(bins_t, vals, leaf2, tabs, cat_mask, inv,
-                                src, B)
+        return profiler.launch(
+            "hist_route", lambda: hist_route_plain(
+                bins_t, vals, leaf2, tabs, cat_mask, inv, src, B),
+            lambda r: hist_route_cost(bins_t, vals, leaf2, r[1], inv, tabs,
+                                      cat_mask, r[0], L))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from .cuda_build import check_launch, multiprocessor_count
@@ -444,9 +489,13 @@ def hist_route_raw(bins_t, vals, leaf2, active, tabs, cat_mask,
     out = torch.zeros((A, G, B, C), dtype=torch.int32, device=dev)
     leaf2_out = torch.empty_like(leaf2)
     plan = hist_plan(n_pad, G, A, B, C, multiprocessor_count(dev), L, True)
-    code = hist_launcher("hist_route", bins_t, vals, leaf2, inv, src, L, B,
-                         plan, hist_slab(plan, A, G, B, C, dev), out,
-                         leaf2_out, tabs, cat_mask)()
+    code = profiler.launch(
+        "hist_route", hist_launcher(
+            "hist_route", bins_t, vals, leaf2, inv, src, L, B, plan,
+            hist_slab(plan, A, G, B, C, dev), out, leaf2_out, tabs,
+            cat_mask),
+        lambda _: hist_route_cost(bins_t, vals, leaf2, leaf2_out, inv, tabs,
+                                  cat_mask, out, L))
     check_launch(code, "hist_route")
     hist_route_raw.launches += 1
     return out, leaf2_out
@@ -1098,18 +1147,25 @@ def hist_wide_raw(bins_t, grad, hess, hist_leaf, active, num_leaf_slots: int,
     if A < 1 or n > n_pad:
         raise ValueError(f"hist_wide: {A} slots, {n} rows of {n_pad}")
     count = hist_wide_raw if acc is None else HIST_WIDE_SEEDED
+    name = "hist_wide" if acc is None else "hist_wide_seeded"
+
+    def cost(_):
+        r = slotted_rows(slot_tables(active, L, collect_unbagged=False)[0],
+                         hist_leaf, L)
+        return hist_wide_cost(bins_t, A, B, r, acc is not None)
     if dev.type == "cpu":
         count.plain_calls += 1
-        return hist_wide_plain(bins_t, grad, hess, hist_leaf, active, L, B,
-                               acc)
+        return profiler.launch(name, lambda: hist_wide_plain(
+            bins_t, grad, hess, hist_leaf, active, L, B, acc), cost)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from .cuda_build import check_launch
     inv = slot_tables(active, L, collect_unbagged=False)[0]
     out = (torch.empty((A, G, B, 3), dtype=torch.float32, device=dev)
            if acc is None else acc)
-    check_launch(hist_wide_launch(bins_t, grad, hess, hist_leaf, inv, L, B,
-                                  out, seeded=acc is not None), "hist_wide")
+    check_launch(profiler.launch(name, lambda: hist_wide_launch(
+        bins_t, grad, hess, hist_leaf, inv, L, B, out,
+        seeded=acc is not None), cost), "hist_wide")
     count.launches += 1
     return out
 

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from ..io.binning import MISSING_NAN, MISSING_ZERO
+from ..obs import profiler
 
 # row order of the [ROUTE_TAB_ROWS, L] int32 table (csrc/route_row.cuh)
 T_GROUP, T_THR, T_DL, T_ISCAT, T_SEL, T_NEWID = 0, 1, 2, 3, 4, 5
@@ -246,6 +247,30 @@ def route_launch(bins_t, leaf2, out, tabs, cat_mask, leaf_values=None,
         torch.cuda.current_stream(dev).cuda_stream)
 
 
+def moved_rows(leaf2, tabs):
+    """Rows of a route wave in a split leaf (their bins are read): a 0-d
+    tensor."""
+    rl = leaf2[0]
+    return ((rl >= 0) & (tabs[T_SEL][rl.clamp(min=0).long()] != 0)).sum()
+
+
+def route_cost(bins_t, leaf2, tabs, cat_mask, values: bool):
+    """One K2 (``values``: K4) launch's traffic and operations, the
+    numbers of its bound: each row's two leaves read and written (and its
+    value written), the bins of the rows in split leaves, every leaf's
+    selection flag (and value), the other fields of each split leaf and
+    the mask row of each categorical one; one decision a row.
+    -> ``(bytes, ops, "int32")``, bytes as a 0-d tensor."""
+    n_pad, L = bins_t.shape[1], tabs.shape[1]
+    sel = tabs[T_SEL] != 0
+    n_cat = (sel & (tabs[T_ISCAT] != 0)).sum()
+    tab_bytes = 4 * L * (2 if values else 1) + 40 * sel.sum() \
+        + cat_mask.shape[1] * n_cat
+    nbytes = (20 if values else 16) * n_pad \
+        + moved_rows(leaf2, tabs) * bins_t.element_size() + tab_bytes
+    return nbytes, n_pad, "int32"
+
+
 def route_rows_raw(bins_t, leaf2, tabs, cat_mask):
     """Route kernel (K2): apply one wave's per-leaf tables to both leaf
     vectors -> leaf2' ``[2, n_pad]`` int32.  Rows whose leaf is
@@ -253,13 +278,18 @@ def route_rows_raw(bins_t, leaf2, tabs, cat_mask):
     dev, n_pad, L = _check_route_inputs(bins_t, leaf2, tabs, cat_mask)
     wide = bins_t.dtype == torch.int32
     count = ROUTE_I32 if wide else route_rows_raw
+    def cost(_):
+        return route_cost(bins_t, leaf2, tabs, cat_mask, False)
     if dev.type == "cpu":
         count.plain_calls += 1
-        return route_plain(bins_t, leaf2, tabs, cat_mask)
+        return profiler.launch(
+            "route", lambda: route_plain(bins_t, leaf2, tabs, cat_mask),
+            cost)
     from .cuda_build import check_launch
     out = torch.empty_like(leaf2)
-    check_launch(route_launch(bins_t, leaf2, out, tabs, cat_mask),
-                 "route_rows")
+    check_launch(profiler.launch(
+        "route", lambda: route_launch(bins_t, leaf2, out, tabs, cat_mask),
+        cost), "route_rows")
     count.launches += 1
     return out
 
@@ -288,15 +318,20 @@ def route_rows_values_raw(bins_t, leaf2, tabs, cat_mask, leaf_values):
     _check(leaf_values, "leaf_values", torch.float32, (L,), dev)
     wide = bins_t.dtype == torch.int32
     count = ROUTE_VALUES_I32 if wide else route_rows_values_raw
+    def cost(_):
+        return route_cost(bins_t, leaf2, tabs, cat_mask, True)
     if dev.type == "cpu":
         count.plain_calls += 1
-        return route_values_plain(bins_t, leaf2, tabs, cat_mask,
-                                  leaf_values)
+        return profiler.launch(
+            "route_values", lambda: route_values_plain(
+                bins_t, leaf2, tabs, cat_mask, leaf_values), cost)
     from .cuda_build import check_launch
     out = torch.empty_like(leaf2)
     vals = torch.empty(n_pad, dtype=torch.float32, device=dev)
-    check_launch(route_launch(bins_t, leaf2, out, tabs, cat_mask,
-                              leaf_values, vals), "route_rows_values")
+    check_launch(profiler.launch(
+        "route_values", lambda: route_launch(
+            bins_t, leaf2, out, tabs, cat_mask, leaf_values, vals), cost),
+        "route_rows_values")
     count.launches += 1
     return out, vals
 

@@ -55,6 +55,7 @@ import torch
 from ..io.binning import MISSING_NAN, MISSING_ZERO
 from ..models.tree import (K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK,
                            _K_ZERO_THRESHOLD, Tree)
+from ..obs.trace_contract import compile_event
 from ..utils.log import log_info
 
 
@@ -596,6 +597,8 @@ class CompiledModel:
             with self._lock:
                 self.captures += 1
                 self._graphs[(b, binned)] = _Graph(rows, graph, out)
+            compile_event("graph_capture",
+                          f"{'binned' if binned else 'raw'}{b}")
 
 
 def compile_trees(trees: Sequence[Tree], *, num_class: int = 1,

@@ -22,9 +22,22 @@ shutdown are scored before the worker exits.  Per-bucket request
 latency accumulates into bounded rolling quantile sketches
 (``obs/ops_plane.RollingQuantiles``).
 
-The JAX package's spans, counters, stall watchdog, ops plane, memory
-watermark and trace contract wait for the port's observability layer
-(ROADMAP A13).
+Telemetry (the JAX package's names): the ``serve.batch`` span (one per
+coalesced batch, with rows/bucket/requests), the counters
+``serve.requests``, ``serve.batches``, ``serve.rows_batched``,
+``serve.padded_rows``, ``serve.oversize_batches`` and
+``serve.dispatch_gap_s`` / ``serve.dispatch_gaps`` (host time between one
+batch's return and the next batch).  The runtime contracts: with
+``LGBM_TPU_OPS_PORT`` set the server mounts ``/metrics`` and
+``/healthz`` (``obs/ops_plane.py``) and wires ``/drain`` to itself (stop
+accepting, flush every queued request, report); ``LGBM_TPU_WATCHDOG_S``
+arms the stall watchdog around each coalesced batch
+(``obs/health.py``); ``LGBM_TPU_MEM_CONTRACT=1`` samples device memory
+once a batch (the ``serve_mem_contract`` section);
+``LGBM_TPU_TRACE_CONTRACT=1`` runs the server under a compile tracker
+whose steady mark follows ``warm()`` (the ``serve_trace_contract``
+section on :meth:`close`); each batch is a profiler step
+(``obs/profiler.py``).
 """
 from __future__ import annotations
 
@@ -37,7 +50,14 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..obs import counter_add, event, set_section, span
+from ..obs import health as obs_health
+from ..obs import ops_plane as obs_ops
+from ..obs import profiler as obs_profiler
+from ..obs.lock_contract import named_lock
+from ..obs.mem_contract import maybe_watermark
 from ..obs.ops_plane import RollingQuantiles
+from ..obs.trace_contract import CompileTracker, contract_enabled
 from ..utils.faults import fault_point
 from ..utils.log import log_info, log_warning
 from ..utils.retry import RetryPolicy, retry_call
@@ -91,7 +111,7 @@ class PredictionServer:
             else _default_buckets(self.max_batch, self.min_bucket)
         self._retry = retry_policy
         self._q: "queue.Queue" = queue.Queue()
-        self._lock = threading.Lock()
+        self._lock = named_lock("serve")
         self._closed = False
         self._n_submitted = 0
         self._n_resolved = 0
@@ -101,8 +121,28 @@ class PredictionServer:
         self._n_padded = 0
         self._latency: Dict[int, RollingQuantiles] = {}
         self._carry: List[_Request] = []    # worker-only: batch overflow
+        # worker-only: the previous batch's return, for the dispatch gap
+        self._t_last_dispatch: Optional[float] = None
+        # the compile tracker (track_threads=False: the worker's graph
+        # captures are the contract here)
+        self._tracker: Optional[CompileTracker] = None
+        if contract_enabled():
+            self._tracker = CompileTracker(track_threads=False).__enter__()
+        # sampled once a batch on the worker; warmup 2: the first batches
+        # still allocate bucket result buffers
+        self._mem_wm = maybe_watermark("serve", "serve_mem_contract",
+                                       warmup=2,
+                                       device=model.device).__enter__()
+        self._ops = obs_ops.mount("serve")
+        if self._ops is not None:
+            self._ops.register_drain(self._drain_report)
+        self._wd = obs_health.Watchdog.maybe("serve")
+        obs_health.mark_warming("serve")
         if warmup:
             self.warm()
+        if self._tracker is not None:
+            self._tracker.mark_steady()
+        obs_health.mark_ready()
         self._captures0 = model.captures
         self._eager0 = model.eager_calls
         self._thread = threading.Thread(
@@ -121,10 +161,44 @@ class PredictionServer:
             if self._closed:
                 return
             self._closed = True
+        obs_health.mark_draining(plane="serve")
         self._q.put(_SENTINEL)
         self._thread.join(timeout)
+        if self._wd is not None:
+            self._wd.stop()
+            self._wd = None
+        if self._tracker is not None:
+            self._tracker.__exit__(None, None, None)
+            rep = self._tracker.report()
+            set_section("serve_trace_contract", rep)
+            if not rep["steady_ok"]:
+                event("contract", "serve_recompile_after_warmup",
+                      count=rep["compiles_steady"],
+                      names=rep["steady_names"])
+                log_warning(
+                    f"serve trace contract violated: "
+                    f"{rep['compiles_steady']} compile event(s) after "
+                    f"warmup ({', '.join(rep['steady_names'][:5])})")
+            self._tracker = None
+        if self._mem_wm is not None:
+            rep = self._mem_wm.finalize("serve_mem_contract")
+            self._mem_wm = None
+            if not rep["steady_ok"]:
+                log_warning(
+                    f"serve mem contract violated: "
+                    f"{rep['violation_count']} watermark crossing(s) — "
+                    f"a per-batch leak in the serving path")
         log_info(f"serve: drained ({self._n_resolved} resolved, "
                  f"{self._n_failed} failed, {self._n_batches} batches)")
+
+    def _drain_report(self) -> Dict:
+        """The ops plane's ``/drain`` hook: stop accepting, flush every
+        queued request (exactly-once delivery holds through the drain)
+        and report the final stats."""
+        self.close()
+        rep = self.stats()
+        rep["drained"] = True
+        return rep
 
     def __enter__(self) -> "PredictionServer":
         return self
@@ -149,6 +223,7 @@ class PredictionServer:
             # the same lock before posting the drain sentinel, so every
             # admitted request is queued ahead of the drain
             self._q.put(req)
+        counter_add("serve.requests")
         return req.future
 
     def predict(self, x: np.ndarray, timeout: Optional[float] = 60.0):
@@ -213,6 +288,7 @@ class PredictionServer:
         for b in self.buckets:
             if n <= b:
                 return b
+        counter_add("serve.oversize_batches")
         return next_bucket(n, self.min_bucket)
 
     def _score(self, X: np.ndarray) -> np.ndarray:
@@ -228,24 +304,49 @@ class PredictionServer:
         if bucket != n:
             X = np.concatenate(
                 [X, np.zeros((bucket - n,) + X.shape[1:], X.dtype)])
+        t_prev = self._t_last_dispatch
+        if t_prev is not None:
+            counter_add("serve.dispatch_gap_s",
+                        time.perf_counter() - t_prev)
+            counter_add("serve.dispatch_gaps")
+        if self._wd is not None:
+            self._wd.arm("serve.batch", batch=self._n_batches,
+                         bucket=bucket)
+            obs_health.stall_fault(self._wd)
         try:
-            out = retry_call(self._score, X, policy=self._retry,
-                             what="serve.score")
-        except Exception as exc:  # noqa: BLE001 - delivered into futures
-            log_warning(f"serve: batch of {len(batch)} request(s) failed "
-                        f"after retries: {exc}")
-            with self._lock:
-                self._n_failed += len(batch)
-            for r in batch:
-                r.future.set_exception(exc)
-            return
+            with span("serve.batch") as s, \
+                    obs_profiler.step("serve.batch", self._n_batches):
+                s["rows"] = n
+                s["bucket"] = bucket
+                s["requests"] = len(batch)
+                try:
+                    out = retry_call(self._score, X, policy=self._retry,
+                                     what="serve.score")
+                except Exception as exc:  # noqa: BLE001 - into futures
+                    log_warning(f"serve: batch of {len(batch)} "
+                                f"request(s) failed after retries: {exc}")
+                    with self._lock:
+                        self._n_failed += len(batch)
+                    for r in batch:
+                        r.future.set_exception(exc)
+                    return
+        finally:
+            if self._wd is not None:
+                self._wd.disarm()
         out = np.asarray(out)[:n]
         now = time.perf_counter()
+        self._t_last_dispatch = now
         with self._lock:
             self._n_batches += 1
             self._n_rows += n
             self._n_padded += bucket - n
             lat = self._latency.setdefault(bucket, RollingQuantiles())
+        counter_add("serve.batches")
+        counter_add("serve.rows_batched", n)
+        counter_add("serve.padded_rows", bucket - n)
+        if self._mem_wm is not None:
+            # only the worker samples it
+            self._mem_wm.sample("serve.batch", bucket=bucket)
         off = 0
         for r in batch:
             k = r.rows.shape[0]

@@ -15,6 +15,24 @@ A copy of the JAX package's ``utils/faults.py`` for the port's seams:
   (``boosting/streaming.py``), before the copy is issued; retried by
   the shared policy, so a retried upload never tears a fold.
 
+Silent faults are read through :func:`fault_flag`, which never raises:
+
+* ``det.rng_drift`` — DART's keyed drop derivation consumes the next
+  iteration's draws (``boosting/variants.py``): the RNG drift the
+  determinism contract (``obs/determinism.py``) must localize;
+* ``watchdog.stall`` — the iteration or serve batch armed on the stall
+  watchdog sleeps past its deadline (``obs/health.stall_fault``);
+* ``health.nan_grad`` — one gradient element becomes NaN
+  (``GBDT.gradients``), for the numerics sentinels (``obs/health.py``);
+* ``mem.leak`` — the training loop keeps one fresh device tensor an
+  iteration in a module-level sink (``boosting/gbdt.py``), for the
+  memory contract (``obs/mem_contract.py``);
+* ``lock.slow_hold`` — a contract-named lock is held 50 ms longer
+  (``obs/lock_contract.py``);
+* ``num.reassoc`` — the canonical chunked root reduction of
+  ``learner/serial.py:root_stats`` becomes a plain ``torch.sum``, for
+  the ulp contract (``obs/num_contract.py``).
+
 Each point is a single ``fault_point(name)`` call that is a no-op unless
 armed.  Tests arm points programmatically (:func:`inject`, :func:`clear`);
 operators can arm them from the environment for chaos runs::
@@ -33,7 +51,6 @@ through the retry layer.  A fired point counts into
 from __future__ import annotations
 
 import os
-import threading
 from typing import Dict, Optional
 
 
@@ -58,7 +75,14 @@ class _Arm:
         self.transient = transient
 
 
-_lock = threading.Lock()
+def _named_lock(name: str):
+    # lazy: lock_contract imports only the stdlib, so this module at the
+    # bottom of the import graph can take a contract-named lock
+    from ..obs.lock_contract import named_lock
+    return named_lock(name)
+
+
+_lock = _named_lock("faults")
 _arms: Dict[str, _Arm] = {}
 _fired: Dict[str, int] = {}
 _calls: Dict[str, int] = {}
@@ -144,4 +168,26 @@ def fault_point(name: str) -> None:
     counter_add(f"faults.{name}.fired")
     event("fault", name, transient=transient)
     raise FaultInjected(name, transient=transient)
+
+
+
+def fault_flag(name: str) -> bool:
+    """Non-raising form of :func:`fault_point` for silent faults: True
+    when the armed point fires (consuming one shot, with the same
+    counters and event), False otherwise."""
+    try:
+        fault_point(name)
+    except FaultInjected:
+        return True
+    return False
+
+
+def armed() -> bool:
+    """Whether any point is armed (one dict read: the hot-path guard of
+    points that are otherwise never reached)."""
+    if not _env_loaded:
+        with _lock:
+            if not _env_loaded:
+                _load_env()
+    return bool(_arms)
 

@@ -12,7 +12,8 @@ Every attempt counts into the per-site telemetry counters
 (``retry.<site>.attempts`` / ``.retries`` / ``.backoff_s`` and a final
 ``.recovered`` or ``.exhausted``, ``obs/telemetry.py``), and every retry
 is logged at WARNING.  The JAX package's flight-recorder dump on
-exhaustion waits for ROADMAP A13.
+exhaustion comes with the collectives that feed the recorder (ROADMAP
+A11).
 
 Environment knobs (all optional)::
 

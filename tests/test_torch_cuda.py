@@ -1221,3 +1221,99 @@ def test_cuda_wide_and_deep_stream_as_cpu(cuda_device, params):
     c = tlgb.train(dict(p), tlgb.Dataset(X, label=z), 3, verbose_eval=False,
                    device=cuda_device)
     assert a.digest() == b.digest() == c.digest()
+
+
+@pytest.mark.cuda
+def test_cuda_profiled_train_attributes_kernels(cuda_device, tmp_path,
+                                                monkeypatch):
+    """``LGBM_TPU_PROFILE`` on the card: the capture's device ops are the
+    port's kernels, joined by their launches to the ``tree.*`` spans,
+    with a cost-model row each against the H100 peaks; the profiled
+    model equals the unprofiled one."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch import obs
+    X, z = _entry_data(n=80_000)
+    p = {"objective": "regression", "num_leaves": 255, "max_bin": 63,
+         "verbose": -1}
+    plain = tlgb.train(dict(p), tlgb.Dataset(X, label=z), 6,
+                       verbose_eval=False, device=cuda_device)
+    obs.reset()
+    monkeypatch.setenv("LGBM_TPU_PROFILE", str(tmp_path))
+    monkeypatch.setenv("LGBM_TPU_PROFILE_ITERS", "2")
+    bst = tlgb.train(dict(p), tlgb.Dataset(X, label=z), 6,
+                     verbose_eval=False, device=cuda_device)
+    monkeypatch.delenv("LGBM_TPU_PROFILE")
+    rep = obs.summary()["device_attribution"]
+    obs.reset()
+    assert bst.digest() == plain.digest()
+    assert "error" not in rep, rep.get("error")
+    assert rep["op_source"] == "device" and rep["device_time_s"] > 0
+    kernels = {r["kernel"]: r for r in rep["cost_model"]["kernels"]}
+    assert {"hist_route", "route", "hist_compact", "route_values"} <= \
+        set(kernels)
+    for name, row in kernels.items():
+        assert row["device_s"] and row["device_s"] > 0, name
+        assert row["pct_peak_bw"] is not None, name
+        spans = rep["kernel_spans"][name]
+        assert spans and all(s and s.startswith("tree.") for s in spans), \
+            (name, spans)
+    assert "H100" in rep["cost_model"]["device_kind"] or \
+        rep["cost_model"]["peaks"].get("hbm_bytes_per_s") is None
+
+
+@pytest.mark.cuda
+def test_cuda_mem_contract_catches_a_leak(cuda_device, monkeypatch):
+    """On the card the watermark samples ``torch.cuda.memory_allocated``:
+    a clean run has no violation, ``mem.leak`` is caught and named."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.boosting import gbdt
+    from lightgbm_tpu_torch.utils import faults
+    monkeypatch.setenv("LGBM_TPU_MEM_CONTRACT", "1")
+    X, z = _entry_data()
+    p = {"objective": "regression", "num_leaves": 63, "verbose": -1}
+    obs.reset()
+    obs.enable()
+    tlgb.train(dict(p), tlgb.Dataset(X, label=z), 6, verbose_eval=False,
+               device=cuda_device)
+    rep = obs.summary()["mem_contract"]
+    assert rep["source"] == "memory_allocated" and rep["steady_ok"]
+    assert rep["inplace_checked"] and rep["inplace_ok"]
+    obs.reset()
+    obs.enable()
+    faults.inject("mem.leak", times=100)
+    try:
+        tlgb.train(dict(p), tlgb.Dataset(X, label=z), 6, verbose_eval=False,
+                   device=cuda_device)
+    finally:
+        faults.clear()
+        gbdt._MEM_LEAK_SINK.clear()
+    rep = obs.summary()["mem_contract"]
+    obs.reset()
+    assert rep["violation_count"] >= 1
+    assert rep["violations"][0]["span"] == "gbdt.iteration"
+
+
+@pytest.mark.cuda
+def test_cuda_no_steady_compile_events_after_warm(cuda_device, monkeypatch):
+    """Under the trace contract a server's graph captures all fall before
+    ``warm()``'s steady mark: zero steady compile events and captures."""
+    from chip_smoke import forest_rows, random_forest
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.serve import PredictionServer, compile_trees
+    monkeypatch.setenv("LGBM_TPU_TRACE_CONTRACT", "1")
+    trees = random_forest(0)
+    X = forest_rows(trees, 3000, 100)
+    cm = compile_trees(trees, num_class=3, device=cuda_device)
+    obs.reset()
+    with PredictionServer(cm, max_batch=1024, max_wait_ms=1.0,
+                          buckets=(256, 1024), raw_score=True) as srv:
+        futs = [srv.submit(X[i:i + k]) for i, k in
+                enumerate((1, 17, 300, 1024, 5))]
+        for fu in futs:
+            fu.result(60)
+        st = srv.stats()
+    rep = obs.summary()["serve_trace_contract"]
+    obs.reset()
+    assert rep["compiles_warmup"] == 2 and rep["compiles_steady"] == 0
+    assert rep["steady_ok"] and st["steady_captures"] == 0
