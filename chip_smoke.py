@@ -316,7 +316,26 @@ and the script exits non-zero):
    Rows x iterations/s, walls and peak memory are logged beside the
    card's name and power limit; the temporary stores are removed.
 
-Each of phases 17-26 prints one ``{"phase": ...}`` JSON line.  A path's
+28. multiple GPUs — a world of two ranks, each a process of this script
+   (``chip_smoke.py --multi-gpu-rank``), joins through
+   ``parallel/mesh.py:init_distributed`` (NCCL with a card a rank,
+   gloo with both ranks on card 0) and trains through ``lgb.train``:
+   (a) data-parallel on phase 4's headline, each rank its contiguous
+   half of the rows: the ranks' models byte-identical, a second run and
+   the overlapped reduction (``LGBM_TPU_OVERLAP=1``) give the same
+   digest, train AUC >= 0.93, K2, K5, K3 and the last route's K4
+   launched on every rank (no K1), steady ms/iter printed beside phase
+   4's; (b) feature-parallel: phase 4's digest;
+   (c) voting-parallel (``top_k`` 20): identical ranks, the AUC gate;
+   (d) a CSV of 200,000 headline rows loaded with ``num_machines`` 2
+   (mod-rank rows, distributed bin finding): identical mappers on both
+   ranks, then data-parallel training to one model; (e) after a
+   data-parallel run, the ``spmd.skip_record`` fault on rank 1 drops the
+   record of the middle one of three host gathers: the merged summary
+   holds both ranks, their collective skew and a
+   ``flight_recorder_check`` naming the skipped site and rank 1.  A rank's failure fails the phase.
+
+Each of phases 17-28 prints one ``{"phase": ...}`` JSON line.  A path's
 ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
 the per-iteration evaluation included.  The last lines are the kernel
@@ -4889,6 +4908,302 @@ def _widest(entry: dict, by_width: list) -> dict:
     return entry
 
 
+# phase 28: multiple GPUs
+MG_WORLD = 2
+MG_TOP_K = 20
+MG_LOAD_ROWS = 200_000
+MG_LOAD_ITERS = 8
+MG_DESYNC_ITERS = 4
+MG_TIMEOUT_S = 420
+
+
+def mg_counters():
+    """The launch counters a rank reads: the wrappers the in-memory
+    distributed build reaches (K2, K5, K3, the last route's K4) and the
+    fused one it must not (K1)."""
+    from lightgbm_tpu_torch.ops.compact import hist_compact_raw
+    from lightgbm_tpu_torch.ops.histogram import (hist_active_raw,
+                                                  hist_route_raw)
+    from lightgbm_tpu_torch.ops.route import (route_rows_raw,
+                                              route_rows_values_raw)
+    from lightgbm_tpu_torch.ops.split_kernel import find_best_splits_kernel
+    return {"route": route_rows_raw, "route_values": route_rows_values_raw,
+            "hist_route": hist_route_raw, "hist_compact": hist_compact_raw,
+            "hist_active": hist_active_raw,
+            "split_scan": find_best_splits_kernel}
+
+
+def mg_train(lgb, counters, params, ds, rounds) -> dict:
+    """One ``lgb.train`` of a rank: its model, digest (trees), wall,
+    steady ms/iter (the median gap between iteration ends after the
+    first) and launches."""
+    import numpy as np
+    import torch
+    ends = []
+
+    def mark(env):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lgb.train(dict(params), ds, num_boost_round=rounds, device="cuda",
+                    callbacks=[mark])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gaps = np.diff(ends)[1:] if len(ends) > 2 else np.diff([t0] + ends)
+    return {"model": bst.model_to_string(),
+            "digest": bst.digest(include_scores=False),
+            "iterations": bst.current_iteration(), "seconds": wall,
+            "steady_ms": 1e3 * float(np.median(gaps)),
+            "launches": {k: c.launches for k, c in counters.items()}}
+
+
+def mg_rank(job_path: str, rank: int, world: int, port: int) -> int:
+    """One rank of phase 28 (``chip_smoke.py --multi-gpu-rank JOB RANK
+    WORLD PORT``): every part in order, its results into
+    ``<job dir>/rank<r>.json``; the process group is left on every exit
+    path."""
+    import hashlib
+    import traceback
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.io.dataset import BinnedDataset
+    from lightgbm_tpu_torch.parallel import mesh
+    from lightgbm_tpu_torch.utils import faults
+    with open(job_path) as f:
+        job = json.load(f)
+    out = {"rank": rank}
+    try:
+        out["backend"] = mesh.init_distributed(
+            f"127.0.0.1:{port}", world, rank, local_rank=rank,
+            local_world=world, timeout_s=240.0)
+        dev = torch.cuda.current_device()
+        out["device"] = f"cuda:{dev} {torch.cuda.get_device_name(dev)}"
+        counters = mg_counters()
+        full = lgb.Dataset(None)
+        full._constructed = BinnedDataset.load_binary(job["bin"])
+        n = full._constructed.num_data
+        per = -(-n // world)
+        mine = full.subset(np.arange(rank * per, min(n, (rank + 1) * per)))
+        params = dict(job["params"])
+        iters = job["iters"]
+        data = dict(params, tree_learner="data")
+        out["data"] = mg_train(lgb, counters, data, mine, iters)
+        out["data_again"] = mg_train(lgb, counters, data, mine, iters)
+        os.environ["LGBM_TPU_OVERLAP"] = "1"
+        try:
+            out["data_overlap"] = mg_train(lgb, counters, data, mine, iters)
+        finally:
+            os.environ.pop("LGBM_TPU_OVERLAP", None)
+        out["feature"] = mg_train(lgb, counters,
+                                  dict(params, tree_learner="feature"), full,
+                                  iters)
+        out["voting"] = mg_train(lgb, counters,
+                                 dict(params, tree_learner="voting",
+                                      top_k=MG_TOP_K), mine, iters)
+        load = lgb.Dataset(job["csv"], params=dict(
+            params, tree_learner="data", num_machines=world)).construct()
+        b = load._constructed
+        out["load"] = {
+            "rows": int(b.num_data),
+            "mappers": hashlib.sha256(json.dumps(
+                [m.to_dict() for m in b.mappers],
+                default=str).encode()).hexdigest(),
+            **mg_train(lgb, counters, dict(params, tree_learner="data",
+                                           num_machines=world), load,
+                       job["load_iters"])}
+        obs.reset()
+        obs.enable()
+        mg_train(lgb, counters, data, mine, job["desync_iters"])
+        # rank 1 skips the record of the middle one of three host
+        # gathers, as a rank-conditional branch around it would
+        from lightgbm_tpu_torch.io.distributed import process_allgather
+        for step in range(3):
+            if rank == 1 and step == 1:
+                faults.inject("spmd.skip_record", times=1)
+            try:
+                process_allgather({"step": step, "rank": rank})
+            finally:
+                faults.clear()
+        merged = obs.merged_summary()
+        out["desync"] = {
+            "ranks": [r.get("rank") for r in merged["ranks"]],
+            "check": merged.get("flight_recorder_check"),
+            "skew": merged.get("collective_skew")}
+        obs.reset()
+    except Exception:                 # noqa: BLE001 - the parent reports it
+        out["error"] = traceback.format_exc()
+    finally:
+        mesh.destroy()
+        with open(os.path.join(os.path.dirname(job_path),
+                               f"rank{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+    return 1 if "error" in out else 0
+
+
+def first_line_diff(a: str, b: str) -> str:
+    for i, (x, y) in enumerate(zip(a.splitlines(), b.splitlines())):
+        if x != y:
+            return f"line {i}: {x[:160]!r} != {y[:160]!r}"
+    return "lengths differ"
+
+
+def multi_gpu_phase(lgb, ds, X, y, head_ref, head_ms: float, card: str
+                    ) -> dict:
+    """Phase 28 in the parent: the rank processes' inputs, the world,
+    the checks -> the data-parallel run's launches summed over ranks."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    from lightgbm_tpu_torch.parallel.mesh import free_port
+    tmp = tempfile.mkdtemp(prefix="lgbm_multi_gpu_")
+    procs = []
+    try:
+        t0 = time.time()
+        ds._constructed.save_binary(os.path.join(tmp, "headline"))
+        csv = os.path.join(tmp, "headline.csv")
+        np.savetxt(csv, np.column_stack([y[:MG_LOAD_ROWS],
+                                         X[:MG_LOAD_ROWS]]),
+                   fmt="%.9g", delimiter=",")
+        job = os.path.join(tmp, "job.json")
+        with open(job, "w") as f:
+            json.dump({"bin": os.path.join(tmp, "headline.npz"), "csv": csv,
+                       "params": HEADLINE_PARAMS, "iters": HEADLINE_ITERS,
+                       "load_iters": MG_LOAD_ITERS,
+                       "desync_iters": MG_DESYNC_ITERS}, f)
+        log(f"multi-gpu inputs {time.time() - t0:.1f} s")
+        port = free_port()
+        for r in range(MG_WORLD):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--multi-gpu-rank", job, str(r), str(MG_WORLD), str(port)],
+                env={**{k: v for k, v in os.environ.items()
+                        if not k.startswith("LGBM_TPU_")},
+                     "LOCAL_RANK": str(r),
+                     "LOCAL_WORLD_SIZE": str(MG_WORLD)}))
+        deadline = time.time() + MG_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+        ranks = []
+        for r in range(MG_WORLD):
+            path = os.path.join(tmp, f"rank{r}.json")
+            if not os.path.exists(path):
+                raise AssertionError(f"multi-gpu rank {r} wrote no result "
+                                     f"(exit {procs[r].returncode})")
+            with open(path) as f:
+                ranks.append(json.load(f))
+        for r, res in enumerate(ranks):
+            if "error" in res or procs[r].returncode != 0:
+                raise AssertionError(f"multi-gpu rank {r} failed:\n"
+                                     f"{res.get('error')}")
+        seconds = time.time() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def same(part):
+        models = [r[part]["model"] for r in ranks]
+        if any(m != models[0] for m in models):
+            raise AssertionError(f"multi-gpu {part}: the ranks' models "
+                                 f"differ: {first_line_diff(*models[:2])}")
+        return ranks[0][part]
+
+    def auc_of(part):
+        bst = lgb.Booster(model_str=same(part)["model"], device="cuda")
+        pred = bst.predict(X)
+        if pred.shape != (len(y),) or not np.isfinite(pred).all():
+            raise AssertionError(f"multi-gpu {part}: predictions are not "
+                                 f"finite [n] values")
+        return float(binary_auc(y, pred))
+
+    a = same("data")
+    for part in ("data_again", "data_overlap"):
+        if same(part)["digest"] != a["digest"]:
+            raise AssertionError(f"multi-gpu {part}: digest "
+                                 f"{same(part)['digest']} != {a['digest']}")
+    auc_data = auc_of("data")
+    if not auc_data >= AUC_GATE:
+        raise AssertionError(f"multi-gpu data-parallel auc {auc_data} < "
+                             f"{AUC_GATE}")
+    for r in ranks:
+        la = r["data"]["launches"]
+        need(la, ("route", "hist_active", "hist_compact", "route_values"),
+             f"the data-parallel headline, rank {r['rank']}",
+             absent=("hist_route",))
+    feat = same("feature")
+    if feat["digest"] != head_ref["digest_trees"]:
+        raise AssertionError(
+            f"multi-gpu feature-parallel digest {feat['digest']} != "
+            f"phase 4's {head_ref['digest_trees']}: "
+            f"{first_line_diff(feat['model'], head_ref['text'])}")
+    auc_voting = auc_of("voting")
+    if not auc_voting >= AUC_GATE:
+        raise AssertionError(f"multi-gpu voting auc {auc_voting} < "
+                             f"{AUC_GATE}")
+    load = same("load")
+    if len({r["load"]["mappers"] for r in ranks}) != 1:
+        raise AssertionError("multi-gpu load: the ranks' bin mappers differ")
+    if sum(r["load"]["rows"] for r in ranks) != MG_LOAD_ROWS:
+        raise AssertionError("multi-gpu load: the ranks' rows do not add "
+                             "up to the file's")
+    for r in ranks:
+        d = r["desync"]
+        check = d["check"] or {}
+        div = check.get("first_divergence") or {}
+        if (d["ranks"] != list(range(MG_WORLD)) or check.get("ok") is not False
+                or div.get("rank") != 1
+                or div.get("site") != "io.distributed.process_allgather"
+                or not d["skew"]):
+            raise AssertionError(f"multi-gpu desync not localized on rank "
+                                 f"{r['rank']}: {d}")
+    launches = {}
+    for r in ranks:
+        add_launches(launches, r["data"]["launches"])
+    torch.cuda.synchronize()
+    out = {
+        "phase": 28, "name": "multi_gpu", "card": card,
+        "world": MG_WORLD, "backend": ranks[0]["backend"],
+        "devices": [r["device"] for r in ranks],
+        "shares_one_card": len({r["device"] for r in ranks}) < MG_WORLD,
+        "data": {"digest": a["digest"], "auc": auc_data,
+                 "steady_ms_per_iter": [r["data"]["steady_ms"]
+                                        for r in ranks],
+                 "ms_per_iter_with_setup": [
+                     1e3 * r["data"]["seconds"] / HEADLINE_ITERS
+                     for r in ranks],
+                 "overlap_steady_ms": [r["data_overlap"]["steady_ms"]
+                                       for r in ranks],
+                 "phase4_ms_per_iter_with_setup": head_ms,
+                 "launches": [r["data"]["launches"] for r in ranks]},
+        "feature": {"digest": feat["digest"],
+                    "equals_phase4": True,
+                    "steady_ms_per_iter": [r["feature"]["steady_ms"]
+                                           for r in ranks]},
+        "voting": {"digest": same("voting")["digest"], "auc": auc_voting,
+                   "steady_ms_per_iter": [r["voting"]["steady_ms"]
+                                          for r in ranks]},
+        "load": {"rows": [r["load"]["rows"] for r in ranks],
+                 "mappers": load["mappers"], "digest": load["digest"]},
+        "desync": {"site": ranks[0]["desync"]["check"]["first_divergence"][
+            "site"], "rank": 1,
+            "skew_sites": sorted(ranks[0]["desync"]["skew"])},
+        "seconds": seconds}
+    print(json.dumps(out), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5004,8 +5319,8 @@ def main() -> int:
 
     # 4. the headline path through the user entry points
     params = dict(HEADLINE_PARAMS)
-    bst, _, head = train_path(lgb, "headline", counters, params, ds,
-                              HEADLINE_ITERS)
+    bst, head_s, head = train_path(lgb, "headline", counters, params, ds,
+                                   HEADLINE_ITERS)
     head_ref = {"params": params, "text": bst.model_to_string(),
                 "digest": bst.digest(),
                 "digest_trees": bst.digest(include_scores=False)}
@@ -5188,6 +5503,12 @@ def main() -> int:
     SERVE_STATE.clear()
     log(f"phase 27 {time.time() - t0:.1f} s")
 
+    # 28. multiple GPUs: data-, feature- and voting-parallel, loading
+    t0 = time.time()
+    by_path["multi_gpu"] = multi_gpu_phase(
+        lgb, ds, X, y, head_ref, 1e3 * head_s / HEADLINE_ITERS, card)
+    log(f"phase 28 {time.time() - t0:.1f} s")
+
     for e in entries:
         # a categorical entry counts its kernel's launches on the
         # categorical paths only
@@ -5211,4 +5532,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 6 and sys.argv[1] == "--multi-gpu-rank":
+        sys.exit(mg_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                         int(sys.argv[5])))
     sys.exit(main())

@@ -91,8 +91,19 @@ class Dataset:
         if isinstance(self.data, str):
             from .io.loader import load_file
             cfg = Config.from_params(self.params)
+            rank, world, ag = 0, 1, None
+            if (cfg.num_machines > 1 and ref is None
+                    and cfg.tree_learner in ("data", "voting")):
+                # inside a process group, the row-splitting learners load
+                # their mod-rank rows with distributed bin finding;
+                # feature-parallel and serial keep every row
+                from .parallel.mesh import rank_world
+                rank, world = rank_world()
+                if world > 1:
+                    from .io.distributed import process_allgather as ag
             self._constructed = load_file(self.data, cfg, reference=ref,
-                                          num_machines=cfg.num_machines)
+                                          rank=rank, num_machines=world,
+                                          allgather=ag)
             self._apply_fields()
             return self
         X, pd_info = _data_to_numpy(self.data)

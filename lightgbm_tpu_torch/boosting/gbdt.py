@@ -24,6 +24,13 @@ access.  A host tree goes back onto the card as node tables
 (``learner/serial.py:built_tree_leaves``): rollback, resume without a
 score sidecar, ``add_valid`` after training started and refit rest on
 that replay.  Snapshots and exact resume: ``boosting/snapshot.py``.
+
+Inside a process group of more than one rank, ``tree_learner`` data,
+feature or voting builds each tree through ``parallel/learners.py``
+(the JAX package's distributed setup, ``gbdt.py:281-330``): a
+data/voting rank holds its own rows (``ProcessRows``), draws its block
+of the global bagging mask, and takes the init score and the
+objective's dataset-level statistics over every rank's rows.
 """
 from __future__ import annotations
 
@@ -185,13 +192,8 @@ def replay_tables(tree: Tree, max_bins: int, device) -> ReplayTables:
 
 
 def _check_supported(c: Config) -> None:
-    """Options outside this slice raise instead of training something
+    """Options outside the port raise instead of training something
     else."""
-    if c.tree_learner != "serial" or c.num_machines > 1:
-        raise NotImplementedError(
-            f"tree_learner={c.tree_learner}, num_machines={c.num_machines}: "
-            f"multi-device and multi-process training are not ported yet "
-            f"(ROADMAP A11)")
     check_unported_options(c)
 
 
@@ -212,10 +214,10 @@ def check_unported_options(c: Config, streamed: bool = False) -> None:
         raise NotImplementedError(
             f"resume_from={c.resume_from!r}: a streamed run does not "
             f"resume yet (ROADMAP A12)")
-    if c.mesh_shape:
+    if len(tuple(c.mesh_shape)) > 1:
         raise NotImplementedError(
-            f"mesh_shape={c.mesh_shape}: the device mesh is not ported yet "
-            f"(ROADMAP A11)")
+            f"mesh_shape={tuple(c.mesh_shape)}: a 2-D (data x feature) mesh "
+            f"is not ported (ROADMAP A11, remainder)")
 
 
 class GBDT:
@@ -242,6 +244,10 @@ class GBDT:
     def __init__(self, config: Config, train_set: Optional[BinnedDataset],
                  device="cuda"):
         self.config = config
+        # the process group's view and this rank's row block (set by
+        # _setup_mesh in a distributed run)
+        self.mesh_ctx = None
+        self._pr = None
         self.train_set = train_set
         self.device = torch.device(device)
         self.objective: Optional[ObjectiveFunction] = None
@@ -281,7 +287,10 @@ class GBDT:
         _check_supported(c)
         n = train_set.num_data
         self.num_data = n
+        self._setup_mesh(n)
         self.device_data = to_device(train_set, self.device)
+        if self.mesh_ctx is not None:
+            self.device_data = self.mesh_ctx.place_data(self.device_data)
         self.feature_names = train_set.feature_names
         self.max_feature_idx = train_set.num_total_features - 1
         self.objective = create_objective(c)
@@ -289,6 +298,16 @@ class GBDT:
             self.objective.init(train_set.metadata, n, self.device)
             self.num_tree_per_iteration = \
                 self.objective.num_model_per_iteration
+            if self._pr is not None:
+                # dataset-level statistics over every rank's rows
+                from ..io.distributed import process_allgather
+                self.objective.globalize_rows(process_allgather)
+                if self.objective.need_renew_tree_output:
+                    raise NotImplementedError(
+                        f"objective={c.objective} re-fits leaves from "
+                        f"percentiles over all rows, which a data- or "
+                        f"voting-parallel rank does not hold (ROADMAP A11, "
+                        f"remainder); use tree_learner=feature")
         K = self.num_tree_per_iteration
         scores = np.zeros((n, K), np.float32)
         ms = train_set.metadata.init_score
@@ -299,7 +318,13 @@ class GBDT:
             scores = np.asarray(ms, np.float64).reshape(
                 -1, K, order="F").astype(np.float32)
         elif c.boost_from_average and self.objective is not None:
-            v = self.objective.boost_from_score()
+            if self._pr is not None:
+                # the init score from every rank's labels (ranks would
+                # diverge on their own shards')
+                from ..io.distributed import process_allgather
+                v = self.objective.boost_from_score_global(process_allgather)
+            else:
+                v = self.objective.boost_from_score()
             if v != 0.0:
                 self.init_score_value = v
                 scores = np.full_like(scores, v)
@@ -313,6 +338,53 @@ class GBDT:
                      f"{c.num_leaves} leaves: past the histogram kernels' "
                      f"domain, every wave takes the exact-f32 wide "
                      f"histogram (hist_mode does not apply)")
+
+    def _setup_mesh(self, n: int) -> None:
+        """The distributed setup of the JAX package's ``_init_train``
+        (``gbdt.py:281-330``): with ``tree_learner`` data, feature or
+        voting inside a process group of more than one rank, the group's
+        ``MeshContext``, and for data/voting this rank's block of the
+        global row axis (``ProcessRows``; every rank passes its own rows).
+        With one rank the reference's warning, and serial training."""
+        c = self.config
+        self.mesh_ctx = None
+        self._pr = None
+        if c.tree_learner == "serial":
+            return
+        from ..parallel.mesh import MeshContext, ProcessRows, rank_world
+        if rank_world()[1] > 1 or c.mesh_shape:
+            self.mesh_ctx = MeshContext(c, self.device)
+        if self.mesh_ctx is None or self.mesh_ctx.world == 1:
+            self.mesh_ctx = None
+            log_warning(f"tree_learner={c.tree_learner} requested but "
+                        f"only one device is visible; running serial")
+            return
+        if c.tree_learner in ("data", "voting"):
+            if self.boosting_name == "dart":
+                raise NotImplementedError(
+                    "boosting=dart is not supported with "
+                    "multi-process training (documented "
+                    "descope: per-tree drop/renormalize "
+                    "score patching assumes addressable "
+                    "scores); use gbdt/goss/rf, or "
+                    "single-process multi-device meshes")
+            self._pr = ProcessRows(self.mesh_ctx, n)
+
+    def _build(self, grad: torch.Tensor, hess: torch.Tensor, bag,
+               fmask) -> BuiltTree:
+        """One tree: the serial learner, or this rank's part of the
+        distributed build (``parallel/learners.py``)."""
+        if self.mesh_ctx is None:
+            return build_tree(self.device_data, grad, hess, self.growth,
+                              bag_mask=bag, feature_mask=fmask,
+                              hist_mode=self.hist_mode)
+        from ..ops.overlap import overlap_enabled
+        from ..parallel.learners import build_tree_distributed
+        return build_tree_distributed(
+            self.mesh_ctx, self.config.tree_learner, self.device_data, grad,
+            hess, self.growth, bag_mask=bag, feature_mask=fmask,
+            top_k=self.config.top_k, hist_mode=self.hist_mode,
+            overlap=overlap_enabled())
 
     def _setup_metrics(self) -> None:
         c = self.config
@@ -363,9 +435,17 @@ class GBDT:
         from ..obs import determinism
         determinism.rng_site("gbdt.bag_mask", "bagging_seed/epoch")
         if self._bag is None or self._bag[0] != epoch:
-            self._bag = (epoch, bag_mask(c.bagging_seed, epoch,
-                                         self.num_data, c.bagging_fraction,
-                                         self.device))
+            if self._pr is not None:
+                # the mask over the global padded row axis, pure in
+                # (seed, epoch): this rank keeps its block's real rows
+                pr = self._pr
+                full = bag_mask(c.bagging_seed, epoch, pr.n_pad,
+                                c.bagging_fraction, self.device)
+                mask = full[pr.offset:pr.offset + pr.n_local].contiguous()
+            else:
+                mask = bag_mask(c.bagging_seed, epoch, self.num_data,
+                                c.bagging_fraction, self.device)
+            self._bag = (epoch, mask)
         return self._bag[1]
 
     def _feature_mask(self, tree_idx: int) -> Optional[torch.Tensor]:
@@ -460,12 +540,9 @@ class GBDT:
         trees = []
         raw_leaf_values = []
         for k in range(K):
-            bt = build_tree(self.device_data, grad[:, k].contiguous(),
-                            hess[:, k].contiguous(), self.growth,
-                            bag_mask=bag,
-                            feature_mask=self._feature_mask(
-                                self.iter * K + k),
-                            hist_mode=self.hist_mode)
+            bt = self._build(grad[:, k].contiguous(),
+                             hess[:, k].contiguous(), bag,
+                             self._feature_mask(self.iter * K + k))
             bt = self._renew_leaves(bt, k)
             nl, depth = torch.stack([bt.num_leaves,
                                      bt.leaf_depth.max()]).tolist()

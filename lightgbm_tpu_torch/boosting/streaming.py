@@ -10,7 +10,7 @@ quantized waves wider than 32 slots), unpacked once per wave.  Past the
 kernels' domain (groups of more than 256 bins, trees of more than 1,024
 leaves) the carry is the exact-f32 ``[A, G, B, 3]`` grid that the seeded
 wide histogram adds each block into (``hist_wide_raw(..., acc=)``), and
-every wave takes ``build_tree_wide``'s plan, ``round8(L / 2)`` slots;
+every wave takes ``build_tree_unfused``'s plan, ``round8(L / 2)`` slots;
 the bins stream as the store holds them, uint8 or int32.  Device memory
 follows the block size, never the row count: only the gradients,
 hessians, scores and each block's two leaf vectors live on the host.
@@ -66,8 +66,9 @@ one shard.  These raise, as in the JAX package: leaf-renewal objectives
 (L1, quantile, MAPE re-fit leaves from every row's score), ranking (row
 blocks would split queries), bagging (its ``[n]`` device mask breaks
 the memory contract), ``boosting != gbdt``, custom objectives,
-EFB-bundled resident sources, and the data-parallel stream
-(``tree_learner=data``, S > 1; ROADMAP A11/A12).
+EFB-bundled resident sources, and the distributed stream
+(``tree_learner`` other than serial, S > 1 shards; ROADMAP A11's
+remainder).
 """
 from __future__ import annotations
 
@@ -223,7 +224,7 @@ def _check_streamable(config: Config, objective, src: _Source) -> None:
     elif config.tree_learner != "serial" or config.num_machines > 1:
         bad = (f"tree_learner={config.tree_learner} (the data-parallel "
                "stream over several shards is not ported yet: ROADMAP "
-               "A11/A12)")
+               "A11, remainder)")
     elif objective is None:
         bad = "objective=none / custom fobj"
     elif objective.need_renew_tree_output:
@@ -391,7 +392,7 @@ class StreamTrainer:
             num_data=n)
         booster.device_data = self.dd
         # the in-memory plan: the staged tail width in the kernels'
-        # domain, build_tree_wide's round8(L / 2) slots past it
+        # domain, build_tree_unfused's round8(L / 2) slots past it
         self.A = (stage_plan(self.L, self.growth.wave_size)[1]
                   if kernels_fit(self.dd.group_max_bins, self.L)
                   else wide_wave_slots(self.L))

@@ -277,8 +277,49 @@ class GOSS(GBDT):
         c = self.config
         from ..obs import determinism
         determinism.rng_site("goss.sample", "bagging_seed/iteration")
+        if self._pr is not None:
+            return goss_sample_mp(grad, hess, self.iter, c.top_rate,
+                                  c.other_rate, c.bagging_seed,
+                                  self.mesh_ctx, self._pr)
         return goss_sample(grad, hess, self.iter, c.top_rate, c.other_rate,
                            c.bagging_seed)
+
+
+def goss_sample_mp(grad: torch.Tensor, hess: torch.Tensor, it: int,
+                   top_rate: float, other_rate: float, seed: int, comm, pr):
+    """Multi-process GOSS from global gradients (the JAX package's
+    ``_goss_mp_sample``, ``boosting/variants.py:257-315``): the top-rate
+    threshold over every rank's importances (each rank's padded block,
+    padding at -1, all-gathered), ``top_k`` counting real rows only, and
+    the uniforms drawn over the original row order of the mod-rank
+    layout (row ``i * world + rank`` of the global order is this rank's
+    ``i``-th), so that each rank draws its rows' numbers of one global
+    draw."""
+    from ..obs.flight_recorder import record as fr_record
+    n, K = grad.shape
+    a, b = top_rate, other_rate
+    top_k = max(1, int(pr.n_global * a))
+    gh = (grad * hess).abs()
+    imp = torch.zeros_like(gh[:, 0])
+    for k in range(K):
+        imp = imp + gh[:, k]
+    block = torch.full((pr.per,), -1.0, dtype=torch.float32,
+                       device=grad.device)
+    block[:n] = imp
+    fr_record("boosting.goss.importance_gather", "all_gather",
+              comm.data_axis, block)
+    everyone = comm.all_gather(block).reshape(-1)
+    threshold = torch.sort(everyone).values[everyone.shape[0] - top_k]
+    is_top = imp >= threshold
+    rnd = keyed.uniform(keyed.fold_in(keyed.PRNGKey(seed), it),
+                        (pr.n_global,), grad.device)
+    orig = torch.arange(n, device=grad.device) * pr.world + pr.rank
+    rnd = rnd[orig.clamp(max=pr.n_global - 1)]
+    f32 = dict(dtype=torch.float32, device=grad.device)
+    is_other = ~is_top & (rnd < torch.tensor(b / max(1e-12, 1.0 - a), **f32))
+    mult = torch.tensor((1.0 - a) / max(b, 1e-12), **f32)
+    scale = torch.where(is_other, mult, torch.ones((), **f32))[:, None]
+    return grad * scale, hess * scale, is_top | is_other
 
 
 class RF(GBDT):
@@ -299,6 +340,8 @@ class RF(GBDT):
         self.shrinkage_rate = 1.0
         self.average_output = True
         if train_set is not None:
+            # this rank's rows at the (global, in a multi-process run)
+            # init score, as the live scores
             self._base_score = torch.full(
                 (self.num_data, self.num_tree_per_iteration),
                 self.init_score_value, dtype=torch.float32,

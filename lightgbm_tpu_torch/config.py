@@ -11,9 +11,10 @@ hyper-parameter; `ParameterAlias`-style canonicalisation
 
 The JAX package's mesh extensions (`mesh_shape`, `data_axis_name`,
 `feature_axis_name`, `hist_dtype`) are kept as accepted keys so the two
-packages read the same parameter dictionaries; this package trains on
-one device, and a non-empty `mesh_shape` raises at training
-(`boosting/gbdt.py:check_unported_options`).
+packages read the same parameter dictionaries.  This package runs one
+process per rank (`parallel/mesh.py`): a 1-D `mesh_shape` must equal the
+process group's world size, and a 2-D (data x feature) one raises
+(`boosting/gbdt.py:check_unported_options`, ROADMAP A11's remainder).
 """
 from __future__ import annotations
 

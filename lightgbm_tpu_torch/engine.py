@@ -130,6 +130,12 @@ def _train(params, train_set, num_boost_round, valid_sets, valid_names,
         booster.add_valid(vs, name)
 
     gbdt = booster._gbdt
+    if gbdt.mesh_ctx is not None and (gbdt.config.snapshot_freq > 0
+                                      or resume_from):
+        raise NotImplementedError(
+            "snapshot_freq / resume_from in a multi-process run: the "
+            "cross-rank commit barrier of the snapshots is not ported "
+            "yet (ROADMAP A12)")
     if resume_from:
         target = resume_from
         if target in ("auto", "latest"):
@@ -293,6 +299,8 @@ def _iterations(booster: Booster, params, fobj, feval, start_iter: int,
             if train_metric:
                 results.extend(booster.eval_train(feval))
             results.extend(booster.eval_valid(feval))
+        if gbdt._pr is not None and results:
+            results = _sync_window(results, gbdt.iter)
         if results and health.sentinels_enabled():
             health.check_metrics(results, window=gbdt.iter)
         env = env._replace(evaluation_result_list=results)
@@ -309,6 +317,27 @@ def _iterations(booster: Booster, params, fobj, feval, start_iter: int,
             break
         if snapshot_freq > 0 and (it + 1) % snapshot_freq == 0:
             gbdt.save_snapshot(it + 1)
+
+
+def _sync_window(results, it: int):
+    """Rank-identical stop decisions in a multi-process run (the JAX
+    package's eval-window sync, ``boosting/gbdt.py:1876-1900``): the
+    metric values differ across ranks (the training metric is each
+    rank's own rows), so every rank adopts rank 0's before the callbacks
+    decide.  The collective flight recorder's and the determinism
+    contract's fingerprints ride the same gather, and are cross-checked
+    there (a mismatch takes a second gather to localize the first
+    diverging site and rank)."""
+    from .io.distributed import process_allgather
+    from .obs import determinism, flight_recorder
+    gathered = process_allgather({"vals": [float(r[2]) for r in results],
+                                  "fr": flight_recorder.fingerprint(),
+                                  "det": determinism.fingerprint()})
+    flight_recorder.window_check([g["fr"] for g in gathered],
+                                 allgather=process_allgather)
+    determinism.window_check([g["det"] for g in gathered], it=it)
+    return [(n, m, float(v), h) for (n, m, _, h), v
+            in zip(results, gathered[0]["vals"])]
 
 
 def _model_text(init_model) -> str:

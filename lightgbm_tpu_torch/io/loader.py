@@ -16,8 +16,12 @@ binning, so a model trained from a file equals one trained from the
 same array.  Parsing runs through the native parser (``native/``);
 without it, through numpy.  The shard store's ingest
 (``io/outofcore.py``) shares the format detection, the row count and
-the column plan.  Distributed loading (``num_machines > 1``) is not
-ported (ROADMAP A11): those arguments are accepted and raise.
+the column plan.  Distributed loading (``num_machines > 1`` with an
+``allgather`` collective, ``io/distributed.py``): each rank keeps its
+mod-rank rows (every row under ``is_pre_partition``, where each rank
+reads its own file), and the bin mappers are found feature-sharded over
+the ranks' local rows and allgathered, so every rank bins identically
+(reference ``dataset_loader.cpp:639-742``, ``:816-880``).
 """
 from __future__ import annotations
 
@@ -140,13 +144,6 @@ def raw_data_row_count(path: str, skip: int) -> int:
     return n - skip
 
 
-def _single_machine(num_machines: int) -> None:
-    if num_machines > 1:
-        raise NotImplementedError(
-            f"num_machines={num_machines}: distributed file loading is not "
-            f"ported yet (ROADMAP A11)")
-
-
 def parse_file(path: str, config: Config
                ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray],
                           Optional[np.ndarray], List[str], List[int]]:
@@ -248,9 +245,18 @@ def load_file_two_round(path: str, config: Config, rank: int = 0,
     again and bins each chunk straight into the column store.  Peak
     memory is the binned matrix plus one chunk.  libsvm chunks arrive
     as ``[rows, 1 + F]``, the label in column 0, so the delimited column
-    plan applies unchanged."""
-    _single_machine(num_machines)
+    plan applies unchanged.
+
+    Distributed (``num_machines > 1``): this rank keeps global rows
+    ``r = rank (mod num_machines)`` of the same chunk stream (all rows
+    under ``is_pre_partition``), the bin-finding sample is drawn over the
+    local rows with the per-rank RNG of :func:`find_bins_distributed`,
+    and the sampled rows feed its feature-sharded mapper allgather, so
+    every rank bins identically."""
     path = localize(path)
+    S = max(1, num_machines)
+    # pre-partition: each rank has its own file, and keeps every row
+    stride = 1 if (S > 1 and config.is_pre_partition) else S
     fmt = detect_format(path, config.has_header)
     header_names = None
     skip = 1 if config.has_header else 0
@@ -260,6 +266,9 @@ def load_file_two_round(path: str, config: Config, rank: int = 0,
         if scanned is None:
             raise ValueError("native libsvm scan failed")
         n, fcols = scanned
+        if S > 1:
+            # every rank bins against the same column count
+            fcols = max(int(c) for c in allgather(int(fcols)))
 
         def chunk_stream():
             return native.parse_libsvm_chunks(path, skip, fcols,
@@ -276,10 +285,25 @@ def load_file_two_round(path: str, config: Config, rank: int = 0,
                                                  chunk_bytes=chunk_bytes)
     if n <= 0:
         raise ValueError(f"no data rows in {path!r}")
-    sample_cnt = min(n, config.bin_construct_sample_cnt)
-    rng = np.random.RandomState(config.data_random_seed)
-    sample_idx = (np.arange(n) if sample_cnt >= n
-                  else np.sort(rng.choice(n, sample_cnt, replace=False)))
+    n_full = n
+    if config.group_column and stride > 1:
+        raise ValueError(_SPLIT_QUERIES)
+    # this rank's rows: global rows rank, rank + stride, ...
+    local_n = len(range(rank % stride if stride > 1 else 0, n, stride))
+    if S == 1:
+        sample_cnt = min(n, config.bin_construct_sample_cnt)
+        rng = np.random.RandomState(config.data_random_seed)
+        sample_idx = (np.arange(n) if sample_cnt >= n
+                      else np.sort(rng.choice(n, sample_cnt, replace=False)))
+    else:
+        # find_bins_distributed's own draw over the local rows
+        sample_cnt = min(local_n, config.bin_construct_sample_cnt)
+        rng = np.random.RandomState(config.data_random_seed + rank)
+        local_sample = (np.arange(local_n) if sample_cnt >= local_n
+                        else np.sort(rng.choice(local_n, sample_cnt,
+                                                replace=False)))
+        sample_idx = (local_sample if stride == 1
+                      else rank + local_sample * stride)
 
     # round 1: stream the chunks, keep only the sampled rows
     sample_rows = []
@@ -297,31 +321,54 @@ def load_file_two_round(path: str, config: Config, rank: int = 0,
         raise ValueError(
             f"chunked parse saw {base} rows, raw scan counted {n}")
     label_idx, weight_idx, query_idx, keep, names, cat_cols = plan
+    if query_idx is not None and stride > 1:
+        raise ValueError(_SPLIT_QUERIES)
     sample = np.concatenate(sample_rows)[:, keep]
-    mappers = find_mappers_from_sample(sample, config, set(cat_cols))
+    if S > 1:
+        from .distributed import find_bins_distributed
+        mappers = find_bins_distributed(sample, config, rank, S, allgather,
+                                        cat_cols)
+        if len(mappers) < sample.shape[1]:
+            keep = keep[:len(mappers)]
+            names = names[:len(mappers)]
+            cat_cols = [c for c in cat_cols if c < len(mappers)]
+    else:
+        mappers = find_mappers_from_sample(sample, config, set(cat_cols))
     del sample, sample_rows
     used = [f for f in range(len(keep)) if not mappers[f].is_trivial]
 
     # round 2: bin each chunk into the column store, in the dtype
     # _pack_columns would choose, so an unbundled matrix is adopted as is
     max_nb = max((mappers[f].num_bin for f in used), default=2)
-    prebinned = np.zeros((n, len(used)),
+    prebinned = np.zeros((local_n, len(used)),
                          np.uint8 if max_nb <= 256 else np.int32)
-    label = np.zeros(n, np.float32)
-    weight = np.zeros(n, np.float32) if weight_idx is not None else None
-    query = np.zeros(n, np.float64) if query_idx is not None else None
-    base = 0
+    label = np.zeros(local_n, np.float32)
+    weight = (np.zeros(local_n, np.float32) if weight_idx is not None
+              else None)
+    query = np.zeros(local_n, np.float64) if query_idx is not None else None
+    base = 0       # global row index at the chunk's start
+    lbase = 0      # this rank's rows written so far
     for chunk in chunk_stream():
-        m = len(chunk)
-        label[base:base + m] = chunk[:, label_idx]
+        if stride > 1:
+            chunk_loc = chunk[np.arange(-(base - rank) % stride, len(chunk),
+                                        stride)]
+        else:
+            chunk_loc = chunk
+        m = len(chunk_loc)
+        label[lbase:lbase + m] = chunk_loc[:, label_idx]
         if weight is not None:
-            weight[base:base + m] = chunk[:, weight_idx]
+            weight[lbase:lbase + m] = chunk_loc[:, weight_idx]
         if query is not None:
-            query[base:base + m] = chunk[:, query_idx]
+            query[lbase:lbase + m] = chunk_loc[:, query_idx]
         for j, f in enumerate(used):
-            prebinned[base:base + m, j] = mappers[f].value_to_bin(
-                chunk[:, keep[f]])
-        base += m
+            prebinned[lbase:lbase + m, j] = mappers[f].value_to_bin(
+                chunk_loc[:, keep[f]])
+        base += len(chunk)
+        lbase += m
+    if lbase != local_n:
+        raise ValueError(f"sharded chunk stream yielded {lbase} rows, "
+                         f"expected {local_n}")
+    n = local_n
     release(path)
 
     md = Metadata()
@@ -339,9 +386,12 @@ def load_file_two_round(path: str, config: Config, rank: int = 0,
     cols = [prebinned[:, j] for j in range(len(used))]
     ds = BinnedDataset._finish_from_mappers(
         ds, np.zeros((n, 0)), config, md, n, len(keep), cols=cols,
-        packed=prebinned)
-    log_info(f"two-round loading: {n} rows streamed, peak holds the "
-             f"binned store only")
+        packed=prebinned, allow_bundle=(S == 1 or allgather is not None),
+        bundle_allgather=(allgather if S > 1 else None), rank=rank)
+    ds._global_rows = n_full    # the row count before sharding
+    log_info(f"two-round loading: {n} rows streamed"
+             + (f" (rank {rank}/{S})" if S > 1 else "")
+             + ", peak holds the binned store only")
     return ds
 
 
@@ -386,13 +436,16 @@ def load_file(path: str, config: Config,
     (``enable_load_from_binary_file``), two-round loading when asked
     for, else a whole parse; then the side files, and binning (with
     ``reference``'s mappers for a valid set).  ``is_save_binary_file``
-    writes the cache.  ``rank`` / ``num_machines`` / ``allgather`` are
-    the JAX package's distributed arguments: ``num_machines > 1``
-    raises (ROADMAP A11)."""
-    _single_machine(num_machines)
+    writes the cache.  With ``num_machines > 1`` and an ``allgather``
+    collective (``io/distributed.py``), this rank keeps its mod-rank rows
+    (every row under ``is_pre_partition``) and bin finding runs
+    distributed: feature-sharded over the ranks' local rows, the mappers
+    allgathered so every rank bins identically (``dataset_loader.cpp:
+    816-880``)."""
     from ..obs import span
     with span("io.load_file", path=os.path.basename(path)):
-        return _load_file(path, config, reference)
+        return _load_file(path, config, reference, rank, num_machines,
+                          allgather)
 
 
 def _side_files(path: str, md: Metadata) -> None:
@@ -410,27 +463,63 @@ def _side_files(path: str, md: Metadata) -> None:
         md.set_field("group", q.astype(np.int32))
 
 
+_SPLIT_QUERIES = ("mod-rank row sharding would split ranking queries; use "
+                  "is_pre_partition=true with per-rank files (reference "
+                  "dataset_loader.cpp:639-742 contract)")
+
+
+def _shard_side_files(path: str, md: Metadata, n_full: int, rank: int,
+                      num_machines: int) -> None:
+    """The side files of a mod-rank shard: ``.weight`` and ``.init``
+    (class-major ``[n_full * K]``) sliced to this rank's rows; a
+    ``.query`` file raises (sharding would split queries)."""
+    sel = np.arange(rank, n_full, num_machines)
+    w = _load_side_file(path + ".weight")
+    if w is not None:
+        md.set_field("weight", w[sel])
+    init = _load_side_file(path + ".init", np.float64)
+    if init is not None:
+        K = max(1, len(init) // n_full)
+        md.set_field("init_score", np.concatenate(
+            [init[k * n_full + sel] for k in range(K)]))
+    if _load_side_file(path + ".query", np.int64) is not None:
+        raise ValueError(_SPLIT_QUERIES)
+
+
 def _load_file(path: str, config: Config,
-               reference: Optional[BinnedDataset]) -> BinnedDataset:
+               reference: Optional[BinnedDataset], rank: int = 0,
+               num_machines: int = 1, allgather=None) -> BinnedDataset:
     bin_path = path + ".bin.npz"
     is_local = "://" not in path
+    distributed = num_machines > 1 and allgather is not None
+    # the cache holds what one process binned: single machine only
     if (config.enable_load_from_binary_file and reference is None
-            and is_local and os.path.exists(bin_path)
+            and num_machines == 1 and is_local and os.path.exists(bin_path)
             and os.path.getmtime(bin_path) >= os.path.getmtime(path)):
         log_info(f"loading binary cache {bin_path}")
         return BinnedDataset.load_binary(bin_path)
+    # mod-rank rows (pre-partition: this rank's own file, every row);
+    # without a collective the mappers come from the local rows alone
+    sharded = num_machines > 1 and not config.is_pre_partition
 
     if config.use_two_round_loading:
-        if reference is not None:
+        if reference is not None or (num_machines > 1 and allgather is None):
             log_warning("use_two_round_loading is ignored for aligned "
-                        "valid sets; using the in-memory path")
+                        "valid sets (and distributed loading without a "
+                        "collective); using the in-memory path")
         elif native.available():
             local = localize(path)
             try:
-                ds = load_file_two_round(local, config)
+                ds = load_file_two_round(local, config, rank=rank,
+                                         num_machines=num_machines,
+                                         allgather=allgather)
             finally:
                 release(local)
-            _side_files(path, ds.metadata)
+            if sharded:
+                _shard_side_files(path, ds.metadata, ds._global_rows, rank,
+                                  num_machines)
+            else:
+                _side_files(path, ds.metadata)
             if config.is_save_binary_file and is_local:
                 ds.save_binary(bin_path[:-4])
                 log_info(f"saved binary cache {bin_path}")
@@ -442,17 +531,41 @@ def _load_file(path: str, config: Config,
     X, label, weight, query_inline, feature_names, cat_cols = \
         parse_file(path, config)
     md = Metadata()
+    if sharded:
+        if query_inline is not None:
+            raise ValueError(_SPLIT_QUERIES)
+        n_full = len(X)
+        sel = np.arange(rank, n_full, num_machines)
+        X, label = X[sel], label[sel]
+        weight = weight[sel] if weight is not None else None
     md.set_field("label", label)
     if weight is not None:
         md.set_field("weight", weight)
     if query_inline is not None:
         md.query_boundaries = _query_boundaries(query_inline)
-    _side_files(path, md)
+    if sharded:
+        _shard_side_files(path, md, n_full, rank, num_machines)
+    else:
+        _side_files(path, md)
     if reference is not None:
         return BinnedDataset.from_raw(X, config, reference=reference,
                                       metadata=md)
+    mappers = None
+    if distributed:
+        from .distributed import find_bins_distributed
+        mappers = find_bins_distributed(X, config, rank, num_machines,
+                                        allgather, cat_cols)
+        if len(mappers) < X.shape[1]:
+            # the feature count synced down to the ranks' minimum
+            X = X[:, :len(mappers)]
+            feature_names = feature_names[:len(mappers)]
+            cat_cols = [c for c in cat_cols if c < len(mappers)]
     ds = BinnedDataset.from_raw(X, config, categorical_features=cat_cols,
-                                feature_names=feature_names, metadata=md)
+                                feature_names=feature_names, metadata=md,
+                                mappers=mappers,
+                                bundle_allgather=(allgather if distributed
+                                                  else None),
+                                rank=rank)
     if config.is_save_binary_file:
         ds.save_binary(bin_path[:-4])
         log_info(f"saved binary cache {bin_path}")

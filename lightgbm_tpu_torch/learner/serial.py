@@ -254,7 +254,7 @@ def resolve_backend(data: DeviceData, num_leaf_slots: int) -> str:
     """The reference's choice of backend (``learner/serial.py:
     resolve_backend``), by configuration alone: ``"scatter"`` past the
     kernels' domain (:func:`kernels_fit`), where every wave takes K2 and
-    the exact-f32 wide histogram (:func:`build_tree_wide`); else
+    the exact-f32 wide histogram (:func:`build_tree_unfused`); else
     ``"compact"`` when the tree's tail waves are wider than the
     compaction threshold (fused kernel on shallow waves, route + compact
     kernel on deep ones), else ``"fused"`` (every wave fused) — the
@@ -315,7 +315,7 @@ def make_hist_fold_fn(data: DeviceData, num_leaf_slots: int,
     (``hist_wide_raw(..., acc=)``: every cell's adds in row order, across
     blocks too, so the chain is the in-memory wave's sum bitwise), the
     carry unpacked as is.  It is not quantized, whatever the hist mode
-    (as :func:`build_tree_wide`)."""
+    (as :func:`build_tree_unfused` past the domain)."""
     mode = effective_hist_mode(hist_mode or default_hist_mode(),
                                data.num_data if num_data is None
                                else num_data)
@@ -442,8 +442,13 @@ def _empty_best(L: int, B: int, dev) -> SplitResult:
 
 
 def _init_state(data: DeviceData, grad, hess, params: GrowthParams,
-                bag_mask, A0: int) -> _WaveState:
-    """Empty tree, root leaf statistics, root-wave active set."""
+                bag_mask, A0: int, psum_fn=None,
+                num_hist_features: Optional[int] = None) -> _WaveState:
+    """Empty tree, root leaf statistics, root-wave active set.  With
+    ``psum_fn`` the root statistics are summed over the ranks after the
+    canonical chunked sums (the data- and voting-parallel root); the
+    histogram state is ``num_hist_features`` columns wide when given (a
+    feature-parallel rank keeps its own columns only)."""
     n = data.num_data
     leaf2 = torch.full((2, data.n_pad), -1, dtype=torch.int32,
                        device=data.device)
@@ -454,11 +459,15 @@ def _init_state(data: DeviceData, grad, hess, params: GrowthParams,
         leaf2[1, :n] = 0
     bag = leaf2[1, :n] == 0
     sum_g, sum_h, cnt = root_stats(grad, hess, bag)
-    return root_state(data, leaf2, sum_g, sum_h, cnt, params, A0)
+    if psum_fn is not None:
+        sum_g, sum_h, cnt = psum_fn((sum_g, sum_h, cnt))
+    return root_state(data, leaf2, sum_g, sum_h, cnt, params, A0,
+                      num_hist_features)
 
 
 def root_state(data: DeviceData, leaf2, sum_g, sum_h, cnt,
-               params: GrowthParams, A0: int) -> _WaveState:
+               params: GrowthParams, A0: int,
+               num_hist_features: Optional[int] = None) -> _WaveState:
     """The one-leaf tree from the root statistics, with the root-wave
     active set (``leaf2`` as given: a streamed tree keeps its leaf
     vectors per block, outside the state)."""
@@ -467,7 +476,7 @@ def root_state(data: DeviceData, leaf2, sum_g, sum_h, cnt,
     Lm = max(L - 1, 1)
     B = bin_stride(data.max_bins)
     Bh = bin_stride(data.group_max_bins)
-    G = data.num_groups
+    G = data.num_groups if num_hist_features is None else num_hist_features
 
     def i32(shape, fill=0):
         return torch.full(shape, fill, dtype=torch.int32, device=dev)
@@ -619,18 +628,33 @@ def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
                params: GrowthParams,
                bag_mask: Optional[torch.Tensor] = None,
                feature_mask: Optional[torch.Tensor] = None,
-               hist_mode: Optional[str] = None) -> BuiltTree:
+               hist_mode: Optional[str] = None,
+               strategy=None, psum_fn=None, psum_axis=None,
+               num_hist_features: Optional[int] = None) -> BuiltTree:
     """Grow one tree with the per-wave kernel dispatch of the reference:
     fused route+histogram on waves of <= 32 slots, route then the
     leaf-compacted histogram above that, route-values at the end.  The
     quantized modes pack int8 values (int32 kernels), the float modes
-    float32 values (the fixed-order float kernels, ``scales`` None)."""
+    float32 values (the fixed-order float kernels, ``scales`` None).
+
+    The distributed learners' seams (the reference's
+    ``learner/serial.py:build_tree``; ``parallel/learners.py``):
+    ``psum_fn`` sums a tensor, or a tuple of them, over the ranks (the
+    root statistics, and each wave's histograms unless ``psum_axis``, the
+    group's ``MeshContext``, routes them through the overlapped reduction
+    of ``ops/overlap.py``); ``strategy`` replaces a wave's histogram and
+    scan (:func:`make_serial_strategy`'s contract); ``num_hist_features``
+    is the width of the histogram state.  With ``strategy`` or
+    ``psum_fn`` set, or past the kernels' domain, the build takes
+    :func:`build_tree_unfused`."""
     n = data.num_data
     L = params.num_leaves
     backend = resolve_backend(data, L)
-    if backend == "scatter":
-        return build_tree_wide(data, grad, hess, params, bag_mask,
-                               feature_mask)
+    if (strategy is not None or psum_fn is not None
+            or backend == "scatter"):
+        return build_tree_unfused(data, grad, hess, params, bag_mask,
+                                  feature_mask, hist_mode, strategy,
+                                  psum_fn, psum_axis, num_hist_features)
     mode = effective_hist_mode(hist_mode or default_hist_mode(), n)
     plan, A_tail = stage_plan(L, params.wave_size)
     if n <= COMPILE_LEAN_ROWS and params.wave_size != 1:
@@ -682,39 +706,133 @@ def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
     return _final_route(data, s, L)
 
 
-def build_tree_wide(data: DeviceData, grad: torch.Tensor,
-                    hess: torch.Tensor, params: GrowthParams,
-                    bag_mask: Optional[torch.Tensor] = None,
-                    feature_mask: Optional[torch.Tensor] = None
-                    ) -> BuiltTree:
-    """Grow one tree past the kernels' domain, as the reference's scatter
-    backend does (``learner/serial.py:777-889``): no staged plan, every
-    wave ``round8(L / 2)`` slots wide; each wave routes the pending
-    splits (K2, on uint8 or int32 bins) and histograms the active leaves
-    in exact float32 (``hist_wide_raw``: ``hist_mode`` does not apply);
-    the last route emits each row's leaf value (K4) for the score update,
-    bitwise the reference's gather of the leaf values."""
+def make_hist_fn(data: DeviceData, grad, hess, num_leaf_slots: int,
+                 hist_mode: Optional[str] = None):
+    """The per-wave active-leaf histogram ``(hist_leaf, active) -> [A, G,
+    B, 3]`` f32 over routed hist leaves (the reference's
+    ``make_hist_fn``): the wide kernel (K5) on waves up to the
+    compaction threshold, the leaf-compacted kernel (K3) above it on the
+    "compact" backend, the exact-f32 wide histogram past the kernels'
+    domain.  The values are packed once, from these rows' gradients (a
+    data-parallel rank quantizes with its own scales, as the reference's
+    shard does), and the quantized modes' row bound
+    (:func:`effective_hist_mode`) holds against these rows too: a rank's
+    int32 histogram sums its own rows only, as the reference's shard
+    sees its ``bins.shape[0]``."""
+    L = num_leaf_slots
+    mb = data.group_max_bins
+    backend = resolve_backend(data, L)
+    if backend == "scatter":
+        g = grad.float().contiguous()
+        h = hess.float().contiguous()
+
+        def hist_scatter(hist_leaf, active):
+            return hist_wide_raw(data.bins_t, g, h, hist_leaf, active, L, mb)
+        return hist_scatter
+    mode = effective_hist_mode(hist_mode or default_hist_mode(),
+                               data.num_data)
+    if is_quantized(mode):
+        vals, scales = pack_values_q(grad, hess, mode, data.n_pad)
+        wide = hist_active_raw
+    else:
+        vals, scales = pack_values(grad, hess, mode, data.n_pad), None
+        wide = hist_active_float_raw
+
+    def hist_fn(hist_leaf, active):
+        if wave_uses_compact(backend, active.shape[0]):
+            return hist_active_compact(data.bins_t, vals, hist_leaf, active,
+                                       scales, num_leaf_slots=L,
+                                       max_bins=mb, mode=mode)
+        raw = wide(data.bins_t, vals, hist_leaf, active, L, mb)
+        return combine_hist_cols(raw, mode, scales)
+    return hist_fn
+
+
+def make_serial_strategy(data: DeviceData, grad, hess, params: GrowthParams,
+                         feature_mask, psum_fn=None,
+                         hist_mode: Optional[str] = None, psum_axis=None):
+    """The serial (and, with ``psum_fn``, data-parallel) wave strategy
+    ``wave(s, hist_leaf) -> (ids, SplitResult)``: histogram the active
+    leaves, sum them over the ranks, subtract siblings (``s.hist_state``
+    in place), rescan the changed leaves.  ``psum_axis`` (the group's
+    ``MeshContext``) issues the sum as the overlapped chunked reduction
+    (``ops/overlap.py``), bitwise the same."""
     L = params.num_leaves
-    A = wide_wave_slots(L)
+    hist_fn = make_hist_fn(data, grad, hess, L, hist_mode)
+
+    def wave(s: _WaveState, hist_leaf):
+        with obs_span("tree.hist"):
+            new_h = hist_fn(hist_leaf, s.act_small)
+            if psum_axis is not None:
+                from ..ops.overlap import reduce_apply_overlapped
+                ids, grid = reduce_apply_overlapped(
+                    s.hist_state, new_h, s.act_small, s.act_parent,
+                    s.act_sibling, L, psum_axis)
+            else:
+                if psum_fn is not None:
+                    new_h = psum_fn(new_h)
+                ids, grid = apply_hist_wave(s.hist_state, new_h, s.act_small,
+                                            s.act_parent, s.act_sibling, L)
+        with obs_span("tree.split_find"):
+            return ids, scan_grid(data, params, feature_mask, ids, grid,
+                                  s.leaf_sum_grad, s.leaf_sum_hess,
+                                  s.leaf_count)
+    return wave
+
+
+def build_tree_unfused(data: DeviceData, grad: torch.Tensor,
+                       hess: torch.Tensor, params: GrowthParams,
+                       bag_mask: Optional[torch.Tensor] = None,
+                       feature_mask: Optional[torch.Tensor] = None,
+                       hist_mode: Optional[str] = None, strategy=None,
+                       psum_fn=None, psum_axis=None,
+                       num_hist_features: Optional[int] = None
+                       ) -> BuiltTree:
+    """Grow one tree through a wave strategy, with the fused kernels off
+    (the reference's ``build_tree`` with ``psum_fn`` or ``strategy`` set,
+    and its scatter backend past the kernels' domain,
+    ``learner/serial.py:777-889``): every wave routes the pending splits
+    (K2, on uint8 or int32 bins) and hands the hist leaves to
+    ``strategy`` (default :func:`make_serial_strategy`); the last route
+    emits each row's leaf value (K4), bitwise the reference's gather of
+    the leaf values by ``row_leaf``.  The wave plan is the reference's
+    for the backend: staged on the kernels, every wave ``round8(L / 2)``
+    slots past their domain (where ``hist_mode`` does not apply)."""
+    n = data.num_data
+    L = params.num_leaves
+    if resolve_backend(data, L) == "scatter":
+        plan, A_tail = [], wide_wave_slots(L)
+    else:
+        plan, A_tail = stage_plan(L, params.wave_size)
+        if n <= COMPILE_LEAN_ROWS and params.wave_size != 1:
+            plan = []
     wave_cap = params.wave_size if params.wave_size > 0 else L
-    g = grad.float().contiguous()
-    h = hess.float().contiguous()
+    if strategy is None:
+        strategy = make_serial_strategy(data, grad, hess, params,
+                                        feature_mask, psum_fn, hist_mode,
+                                        psum_axis)
     with obs_span("tree.init"):
-        s = _init_state(data, grad, hess, params, bag_mask, A)
+        s = _init_state(data, grad, hess, params, bag_mask,
+                        plan[0] if plan else A_tail, psum_fn,
+                        num_hist_features)
 
     def finished(s: _WaveState) -> bool:
         done, nl = torch.stack([s.done.long(), s.nl]).tolist()
         return bool(done) or nl >= L
 
+    i = 0
     while not finished(s):
+        if i < len(plan):
+            A_out = plan[i + 1] if i + 1 < len(plan) else A_tail
+        else:
+            A_out = A_tail
         with obs_span("tree.route"):
             leaf2 = route_rows(data.bins_t, s.leaf2,
                                *_pending_tables(data, s, L))
-        with obs_span("tree.hist"):
-            new_h = hist_wide_raw(data.bins_t, g, h, leaf2[1].contiguous(),
-                                  s.act_small, L, data.group_max_bins)
-        s = _scan_and_apply(data, params, feature_mask, s, leaf2, new_h, A,
-                            wave_cap)
+        ids, res = strategy(s, leaf2[1].contiguous())
+        with obs_span("tree.update"):
+            s = _apply_wave(s, leaf2, ids, res, A_out, params, wave_cap)
+        i += 1
     return _final_route(data, s, L)
 
 

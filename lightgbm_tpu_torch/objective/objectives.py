@@ -99,6 +99,39 @@ class ObjectiveFunction:
             return float((y * w).sum() / w.sum())
         return float(y.mean())
 
+    # True when boost_from_score keys on the weighted label mean
+    # (xentlambda uses the plain one): multi-process init picks the
+    # global statistic by it
+    boost_mean_weighted = True
+
+    def globalize_rows(self, allgather) -> None:
+        """Multi-process training (the JAX package's ``globalize_rows``):
+        recompute dataset-level statistics over every rank's rows.  Each
+        rank's per-row state stays its own rows (the port's ranks hold
+        no global arrays).  ``allgather(obj) -> per-rank list``.
+        Subclasses with dataset-level scalars override (and call
+        super)."""
+
+    def boost_from_score_global(self, allgather) -> float:
+        """Cross-process ``BoostFromScore``: the init score of every
+        objective here is a function of the (weighted) label mean, so the
+        mean's sufficient statistics are allgathered (float64 sums) and
+        the objective's own link evaluated on a one-row stand-in."""
+        y = np.asarray(self._label_np, np.float64)
+        use_w = self.boost_mean_weighted and self._weight_np is not None
+        w = (np.asarray(self._weight_np, np.float64) if use_w
+             else np.ones_like(y))
+        sums = allgather([float((y * w).sum()), float(w.sum())])
+        gmean = (sum(s[0] for s in sums)
+                 / max(sum(s[1] for s in sums), 1e-30))
+        saved = (self._label_np, self._weight_np)
+        try:
+            self._label_np = np.array([gmean], np.float64)
+            self._weight_np = None
+            return self.boost_from_score()
+        finally:
+            self._label_np, self._weight_np = saved
+
     def _check_label(self) -> None:
         pass
 
@@ -319,6 +352,7 @@ class BinaryLogloss(ObjectiveFunction):
         super().init(metadata, num_data, device)
         cnt_pos = float((self._label_np > 0).sum())
         cnt_neg = float(num_data - cnt_pos)
+        self._cnt_pos, self._cnt_neg = cnt_pos, cnt_neg
         if self.is_unbalance and cnt_pos > 0 and cnt_neg > 0:
             if cnt_pos > cnt_neg:
                 self.label_weights = (1.0, cnt_pos / cnt_neg)
@@ -326,6 +360,20 @@ class BinaryLogloss(ObjectiveFunction):
                 self.label_weights = (cnt_neg / cnt_pos, 1.0)
         else:
             self.label_weights = (1.0, self.scale_pos_weight)
+
+    def globalize_rows(self, allgather):
+        super().globalize_rows(allgather)
+        if self.is_unbalance:
+            # class counts are a global statistic: per-rank counts would
+            # weight the ranks' gradients differently
+            counts = allgather([self._cnt_pos, self._cnt_neg])
+            cnt_pos = sum(c[0] for c in counts)
+            cnt_neg = sum(c[1] for c in counts)
+            self._cnt_pos, self._cnt_neg = cnt_pos, cnt_neg
+            if cnt_pos > 0 and cnt_neg > 0:
+                self.label_weights = ((1.0, cnt_pos / cnt_neg)
+                                      if cnt_pos > cnt_neg
+                                      else (cnt_neg / cnt_pos, 1.0))
 
     def get_gradients(self, score):
         y = self.label
@@ -450,6 +498,7 @@ class CrossEntropy(ObjectiveFunction):
 
 class CrossEntropyLambda(ObjectiveFunction):
     name = "xentlambda"
+    boost_mean_weighted = False   # boost_from_score uses the plain mean
 
     def get_gradients(self, score):
         # intensity parameterisation: p = 1 - exp(-w * exp(score))
@@ -498,6 +547,14 @@ class LambdarankNDCG(ObjectiveFunction):
         if not gains:
             gains = tuple(float((1 << i) - 1) for i in range(31))
         self.label_gain = np.asarray(gains, np.float64)
+
+    def globalize_rows(self, allgather):
+        raise NotImplementedError(
+            "lambdarank is not supported with MULTI-PROCESS training "
+            "(documented descope, as in the JAX package): its per-query "
+            "pair structures address rows by position, which the "
+            "cross-process row-block layout breaks; use "
+            "tree_learner=feature, whose ranks hold every row")
 
     def init(self, metadata, num_data, device="cpu"):
         super().init(metadata, num_data, device)

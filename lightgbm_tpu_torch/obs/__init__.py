@@ -10,7 +10,8 @@ The import seam for the rest of the package::
 The runtime contracts and the live health plane are modules of this
 package: ``lock_contract``, ``determinism``,
 ``health``, ``ops_plane``, ``num_contract``, ``mem_contract``,
-``trace_contract``, ``chip_specs`` and ``profiler``
+``trace_contract``, ``chip_specs``, ``profiler``, and for the
+collectives ``flight_recorder`` and ``fleet``
 (``from ..obs import health, ops_plane``).
 """
 from .telemetry import (counter_add, disable, enable, enabled, event,

@@ -1,9 +1,8 @@
 """Runtime reproducibility contract (``LGBM_TPU_DETERMINISM=1``).
 
 A copy of the JAX package's ``obs/determinism.py``: training is a pure
-function of (data, config, seeds), and two instruments show it at run
-time (the JAX module's third, the cross-rank window check, comes with
-the collectives that carry it, ROADMAP A11):
+function of (data, config, seeds), and three instruments show it at run
+time:
 
 * **Canonical digests** — :func:`model_digest` hashes every host tree's
   canonical fields plus the float32 score state (sha256).  Under the
@@ -16,6 +15,12 @@ the collectives that carry it, ROADMAP A11):
   with its ``(site, key path)``; the counts land in the ``determinism``
   summary section, so a replayed run can show that its derivation
   traffic matched too.
+* **Cross-rank window check** — in a multi-process run the latest
+  window digest (:func:`fingerprint`; trees only, since each rank's
+  scores are its own rows) rides the eval-window metric allgather
+  (``engine.py``), and :func:`window_check` names the first rank whose
+  model differs from rank 0's: the model is replicated state, so any
+  mismatch is a determinism bug.
 
 The ``det.rng_drift`` fault (``utils/faults.py``) makes DART draw the
 next iteration's uniforms, and the ledger names the first window that
@@ -37,10 +42,12 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .telemetry import event as obs_event
 from .telemetry import set_section
 
 __all__ = ["enabled", "reset", "rng_site", "model_digest", "tree_digest",
-           "window_digest", "section", "first_divergence"]
+           "window_digest", "fingerprint", "window_check", "section",
+           "first_divergence"]
 
 
 def enabled() -> bool:
@@ -99,11 +106,37 @@ def model_digest(gbdt, include_scores: bool = True) -> str:
 
 def window_digest(gbdt, it: int) -> str:
     """Sample the digest at an iteration boundary into the run ledger and
-    refresh the ``determinism`` summary section."""
-    d = model_digest(gbdt)
+    refresh the ``determinism`` summary section (a multi-process booster,
+    ``gbdt._pr`` set, digests its trees only)."""
+    d = model_digest(gbdt, include_scores=getattr(gbdt, "_pr", None) is None)
     _DIGESTS.append((int(it), d))
     set_section("determinism", section())
     return d
+
+
+def fingerprint() -> str:
+    """The latest sampled digest (rides the multi-process eval-window
+    allgather: no collective of its own)."""
+    return _DIGESTS[-1][1] if _DIGESTS else ""
+
+
+def window_check(fingerprints: List[str], it: int) -> bool:
+    """Cross-rank digest comparison at a window boundary.  True when
+    every rank's digest is rank 0's; on a mismatch a
+    ``det:digest_mismatch`` event names the window and the first
+    diverging rank."""
+    if not fingerprints or all(f == fingerprints[0] for f in fingerprints):
+        return True
+    bad = next(i for i, f in enumerate(fingerprints)
+               if f != fingerprints[0])
+    obs_event("det", "digest_mismatch", window_it=int(it),
+              first_diverging_rank=bad,
+              digests=[f[:12] for f in fingerprints])
+    from ..utils.log import log_warning
+    log_warning(f"determinism contract violation at window it={it}: "
+                f"rank {bad} model digest {fingerprints[bad][:12]} != "
+                f"rank 0 {fingerprints[0][:12]}")
+    return False
 
 
 def section() -> Dict:

@@ -200,9 +200,10 @@ def _thread_stacks() -> str:
 
 def build_forensic(span: str, plane: str, deadline_s: float,
                    attrs: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """The forensic record: who stalled, every thread's stack, and the
-    run counters/events so far (the JAX record's collective ring comes
-    with the collectives that feed it, ROADMAP A11)."""
+    """The forensic record: who stalled, every thread's stack, the run
+    counters/events so far, and the collective flight recorder's last-K
+    ring (a stall in a collective names the site this rank was in)."""
+    from . import flight_recorder
     from .telemetry import _rank_world, summary
     rank, world = _rank_world()
     s = summary()
@@ -219,6 +220,7 @@ def build_forensic(span: str, plane: str, deadline_s: float,
         "stacks": _thread_stacks(),
         "counters": s.get("counters", {}),
         "events": s.get("events", {}),
+        "flight_recorder": flight_recorder.snapshot(),
     }
 
 

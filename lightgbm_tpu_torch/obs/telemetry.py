@@ -44,10 +44,13 @@ While a device-time capture is live (``obs/profiler.py``) every span
 also enters the installed annotator (:func:`set_annotator`:
 ``torch.profiler.record_function``), so the capture attributes device
 time to the span tree.  :func:`merged_summary` lifts each rank's health
-state (``obs/health.py``); the collective flight recorder's section and
-its cross-rank check come with the collectives that feed it (ROADMAP
-A11).  The rank comes from ``torch.distributed`` when a
-process group is initialized, or from :func:`set_rank`.
+state (``obs/health.py``), cross-checks the ranks' collective flight
+recorders (``obs/flight_recorder.py``) and merges their collective wait
+accounting (``obs/fleet.py``).  The rank comes from
+``torch.distributed`` when a process group is initialized, or from
+:func:`set_rank`; ``parallel/mesh.py:init_distributed`` holds the trace
+(:func:`hold_trace`) until the rendezvous has told the process its
+rank.
 """
 from __future__ import annotations
 
@@ -193,7 +196,9 @@ def disable() -> None:
 
 def reset() -> None:
     """Clear the run summary and forget any requested trace; also
-    rewinds the profiler's state and the health state machine (a fresh run inherits none of the previous one's)."""
+    rewinds the profiler's state, the health state machine, the
+    collective flight recorder and the collective wait accounting (a
+    fresh run inherits none of the previous one's)."""
     global _trace_requested, _held, _annotator, _clk_off, _rank_override
     with _lock:
         disable()
@@ -209,10 +214,11 @@ def reset() -> None:
         _sections.clear()
         if getattr(_tls, "stack", None):
             _tls.stack = []
-    from . import profiler
+    from . import fleet, flight_recorder, health, profiler
     profiler.reset()
-    from . import health
     health.reset()
+    flight_recorder.reset()
+    fleet.reset()
 
 
 def trace_path() -> Optional[str]:
@@ -451,8 +457,14 @@ def set_section(name: str, data: Any) -> None:
 
 
 def summary() -> Dict[str, Any]:
-    """The in-memory run summary as a plain (JSON-serializable) dict."""
+    """The in-memory run summary as a plain (JSON-serializable) dict,
+    with this rank's collective flight-recorder state (``flight_recorder``:
+    ring and rolling digest) and its collective wait accounting
+    (``collective_skew``) once a collective has run."""
     rank, world = _rank_world()
+    from . import fleet, flight_recorder
+    fr = flight_recorder.snapshot()
+    sk = fleet.skew_snapshot()
     with _lock:
         out = {
             "rank": rank,
@@ -463,16 +475,27 @@ def summary() -> Dict[str, Any]:
             "gauges": dict(_gauges),
             "events": dict(_events),
         }
+        if fr["count"]:
+            out["flight_recorder"] = fr
+        if sk is not None:
+            out["collective_skew"] = sk
         out.update(_sections)
         return out
 
 
-def merged_summary(allgather) -> Dict[str, Any]:
+def merged_summary(allgather=None) -> Dict[str, Any]:
     """Every rank's summary merged into one dict (identical on all ranks).
-    ``allgather(obj) -> [obj of rank 0, ...]`` is the host collective;
+    ``allgather(obj) -> [obj of rank 0, ...]`` is the host collective
+    (default: the process group's, ``io/distributed.py:process_allgather``);
     ``ranks`` keeps each rank's full summary, ``counters`` and ``events``
-    sum and ``spans`` combine across ranks, and each rank's health state
-    is lifted into ``health``."""
+    sum and ``spans`` combine across ranks.  The ranks'
+    ``flight_recorder`` sections are cross-checked into
+    ``flight_recorder_check`` (a desync names the first diverging site
+    and rank), their ``collective_skew`` sections become the fleet table
+    of the same name, and each rank's health state is lifted into
+    ``health``."""
+    if allgather is None:
+        from ..io.distributed import process_allgather as allgather
     locals_ = allgather(summary())
     merged: Dict[str, Any] = {
         "process_count": len(locals_),
@@ -492,6 +515,13 @@ def merged_summary(allgather) -> Dict[str, Any]:
             agg["count"] += v["count"]
             agg["total_s"] += v["total_s"]
             agg["max_s"] = max(agg["max_s"], v["max_s"])
+    from . import fleet, flight_recorder
+    check = flight_recorder.cross_check_summaries(locals_)
+    if check is not None:
+        merged["flight_recorder_check"] = check
+    skew = fleet.merge_skew(locals_)
+    if skew is not None:
+        merged["collective_skew"] = skew
     hs = [(s.get("health") or {}).get("state") for s in locals_]
     if any(hs):
         order = ("ready", "warming", "draining", "degraded", "stalled")

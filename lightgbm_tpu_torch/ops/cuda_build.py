@@ -123,14 +123,28 @@ def compile_event(kind: str, name: str) -> None:
 
 def build_all(names: List[str] = None) -> float:
     """Compile every (or the named) library that is not built yet, one
-    ``nvcc`` process per source, all started together.  -> seconds."""
+    ``nvcc`` process per source, all started together.  -> seconds.
+
+    Processes that build at once (the ranks of a distributed run) take
+    turns on an exclusive lock in the build directory; a process that
+    waited finds the libraries built and compiles nothing."""
     t0 = time.time()
     names = list(LIBRARIES) if names is None else list(names)
+    if all(_library_path(n).exists() for n in names):
+        return 0.0
+    import fcntl
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build(names)
+    return time.time() - t0
+
+
+def _build(names: List[str]) -> None:
     todo = [(n, _library_path(n)) for n in names]
     todo = [(n, p) for n, p in todo if not p.exists()]
     if not todo:
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        return
     nvcc = nvcc_path()
     procs = []
     for name, path in todo:
@@ -149,7 +163,6 @@ def build_all(names: List[str] = None) -> float:
         compile_event("nvcc", name)
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-    return time.time() - t0
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -155,7 +155,10 @@ def find_best_splits(hist: torch.Tensor, leaf_sum_grad, leaf_sum_hess,
     search statically, as the reference does for all-numerical data.
     ``feature_chunk`` scans the feature axis in chunks whose winners
     merge with the argmax's first-max tie-break (chunked == unchunked
-    bitwise)."""
+    bitwise).  The per-feature tables (``num_bins``, ``missing_types``,
+    ``default_bins``, ``is_categorical``) are ``[F]``, or ``[L, F]`` when
+    each leaf scans its own features (the voting learner's winners: the
+    JAX package's per-leaf ``vmap`` of this scan)."""
     F = hist.shape[1]
     l1, l2 = params.lambda_l1, params.lambda_l2
     parent_gain = leaf_split_gain(leaf_sum_grad, leaf_sum_hess, l1, l2)
@@ -163,12 +166,12 @@ def find_best_splits(hist: torch.Tensor, leaf_sum_grad, leaf_sum_hess,
 
     def block(s, e):
         fm = feature_mask[s:e] if feature_mask is not None else None
-        ic = (is_categorical[s:e] if any_categorical
+        ic = (is_categorical[..., s:e] if any_categorical
               and is_categorical is not None else None)
         return _find_best_splits_block(
             hist[:, s:e], leaf_sum_grad, leaf_sum_hess, leaf_count,
-            num_bins[s:e], missing_types[s:e], default_bins[s:e], params,
-            fm, any_missing, ic)
+            num_bins[..., s:e], missing_types[..., s:e],
+            default_bins[..., s:e], params, fm, any_missing, ic)
 
     if feature_chunk is None or feature_chunk >= F:
         res = block(0, F)
@@ -194,8 +197,14 @@ def _find_best_splits_block(hist, leaf_sum_grad, leaf_sum_hess, leaf_count,
                             any_missing: bool,
                             is_categorical=None) -> SplitResult:
     """One feature block: the winner per leaf with its RAW gain
-    (``is_categorical`` None: no categorical search)."""
+    (``is_categorical`` None: no categorical search).  The per-feature
+    tables are ``[F]`` or ``[L, F]``; both are read as ``[L', F]``."""
     L, F, B, _ = hist.shape
+    num_bins, missing_types, default_bins = (
+        t if t.dim() == 2 else t[None]
+        for t in (num_bins, missing_types, default_bins))
+    if is_categorical is not None and is_categorical.dim() == 1:
+        is_categorical = is_categorical[None]
     dev = hist.device
     g = hist[..., 0]
     h = hist[..., 1]
@@ -212,7 +221,7 @@ def _find_best_splits_block(hist, leaf_sum_grad, leaf_sum_hess, leaf_count,
     min_d = params.min_data_in_leaf * 1.0
     min_h = params.min_sum_hessian_in_leaf + K_EPSILON
 
-    valid_bin = bin_ids[None, :] < num_bins[:, None]                 # [F, B]
+    valid_bin = bin_ids < num_bins[..., None]                      # [L', F, B]
     has_nan = missing_types == MISSING_NAN
     is_zero_missing = missing_types == MISSING_ZERO
     minus1 = torch.full_like(num_bins, -1)
@@ -220,23 +229,23 @@ def _find_best_splits_block(hist, leaf_sum_grad, leaf_sum_hess, leaf_count,
     miss_bin = torch.where(has_nan, nan_bin,
                            torch.where(is_zero_missing, default_bins,
                                        minus1))
-    is_miss_cell = bin_ids[None, :] == miss_bin[:, None]             # [F, B]
+    is_miss_cell = bin_ids == miss_bin[..., None]                  # [L', F, B]
     has_missing = miss_bin >= 0
 
-    vb = (valid_bin & ~is_miss_cell)[None]
+    vb = valid_bin & ~is_miss_cell
     g_scan = torch.where(vb, g, zero)
     h_scan = torch.where(vb, h, zero)
     c_scan = torch.where(vb, c, zero)
     # single-nonzero selection of the missing cell: exact in any order
-    miss_g = torch.where(is_miss_cell[None], g, zero).sum(-1)
-    miss_h = torch.where(is_miss_cell[None], h, zero).sum(-1)
-    miss_c = torch.where(is_miss_cell[None], c, zero).sum(-1)
+    miss_g = torch.where(is_miss_cell, g, zero).sum(-1)
+    miss_h = torch.where(is_miss_cell, h, zero).sum(-1)
+    miss_c = torch.where(is_miss_cell, c, zero).sum(-1)
 
     cl = prefix_sum(torch.stack([g_scan, h_scan, c_scan]))
     cl_g, cl_h, cl_c = cl[0], cl[1], cl[2]
 
     max_t = torch.where(has_nan, num_bins - 2, num_bins - 1)
-    t_ok = bin_ids[None, :] < max_t[:, None]                         # [F, B]
+    t_ok = bin_ids < max_t[..., None]                              # [L', F, B]
 
     if not any_missing:
         lg, lh, lc = cl_g, cl_h, cl_c
@@ -245,7 +254,7 @@ def _find_best_splits_block(hist, leaf_sum_grad, leaf_sum_hess, leaf_count,
         rc = tc[:, :, None] - lc
         num_gain = _split_gain(lg, lh, rg, rh, l1, l2)
         ok = ((lc >= min_d) & (rc >= min_d) & (lh >= min_h) & (rh >= min_h))
-        ok &= t_ok[None]
+        ok &= t_ok
         num_gain = torch.where(ok, num_gain, min_score)
         best_bin = torch.argmax(num_gain, dim=-1)                    # [L, F]
         num_best_gain = _take_last(num_gain, best_bin)
@@ -263,10 +272,10 @@ def _find_best_splits_block(hist, leaf_sum_grad, leaf_sum_hess, leaf_count,
         rc = tc[None, :, :, None] - lc
         num_gain = _split_gain(lg, lh, rg, rh, l1, l2)
         ok = ((lc >= min_d) & (rc >= min_d) & (lh >= min_h) & (rh >= min_h))
-        ok &= t_ok[None, None]
+        ok &= t_ok[None]
         ok &= torch.stack([torch.ones_like(has_missing),
-                           has_missing])[:, None, :, None]
-        ok &= ~(is_miss_cell & is_zero_missing[:, None])[None, None]
+                           has_missing])[..., None]
+        ok &= ~(is_miss_cell & is_zero_missing[..., None])[None]
         num_gain = torch.where(ok, num_gain, min_score)
         var_best = torch.argmax(num_gain, dim=0)                     # [L, F, B]
         num_gain_b = num_gain.max(dim=0).values
@@ -285,7 +294,7 @@ def _find_best_splits_block(hist, leaf_sum_grad, leaf_sum_hess, leaf_count,
     if is_categorical is not None:
         cat_gain, cat_mask_lr, cat_lg, cat_lh, cat_lc = _categorical_splits(
             g, h, c, tg, th, tc, num_bins, valid_bin, params)
-        use_cat = is_categorical[None, :]                            # [1, F]
+        use_cat = is_categorical                                     # [L', F]
         feat_gain = torch.where(use_cat, cat_gain, num_best_gain)    # [L, F]
     else:
         feat_gain = num_best_gain
@@ -298,7 +307,7 @@ def _find_best_splits_block(hist, leaf_sum_grad, leaf_sum_hess, leaf_count,
     b_lc = _take_last(num_lc, best_feat)
     dl = _take_last(num_default_left, best_feat)
     if is_categorical is not None:
-        bf_cat = is_categorical[best_feat]
+        bf_cat = _take_last(is_categorical.expand(L, F), best_feat)
         b_lg = torch.where(bf_cat, _take_last(cat_lg, best_feat), b_lg)
         b_lh = torch.where(bf_cat, _take_last(cat_lh, best_feat), b_lh)
         b_lc = torch.where(bf_cat, _take_last(cat_lc, best_feat), b_lc)
@@ -356,7 +365,7 @@ def _categorical_splits(g, h, c, tg, th, tc, num_bins, valid_bin,
     min_score = torch.full((), K_MIN_SCORE, dtype=torch.float32, device=dev)
     tg3, th3, tc3 = tg[..., None], th[..., None], tc[..., None]  # [L, 1, 1]
 
-    occupied = valid_bin[None] & (c > 0)                             # [L, F, B]
+    occupied = valid_bin & (c > 0)                                   # [L, F, B]
 
     # --- one-vs-rest: left = the single category k ----------------------
     oh_gain = _split_gain(g, h, tg3 - g, th3 - h, l1, l2)
@@ -409,7 +418,7 @@ def _categorical_splits(g, h, c, tg, th, tc, num_bins, valid_bin,
     mv_mask = torch.where(use_bw[..., None], in_bw, in_fw) & occupied
 
     # --- one-hot below max_cat_to_onehot bins, else many-vs-many --------
-    use_onehot = (num_bins <= params.max_cat_to_onehot)[None, :]     # [1, F]
+    use_onehot = num_bins <= params.max_cat_to_onehot                # [L', F]
     bin_ids = torch.arange(B, device=dev)
     oh_mask = bin_ids[None, None, :] == oh_best[..., None]
     return (torch.where(use_onehot, oh_best_gain, mv_gain),

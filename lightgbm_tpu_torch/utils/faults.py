@@ -13,7 +13,16 @@ A copy of the JAX package's ``utils/faults.py`` for the port's seams:
   remote filesystem); retried by the shared policy;
 * ``stream.upload`` — a streamed block's host -> device copy
   (``boosting/streaming.py``), before the copy is issued; retried by
-  the shared policy, so a retried upload never tears a fold.
+  the shared policy, so a retried upload never tears a fold;
+* ``rendezvous.connect`` — the process-group handshake
+  (``parallel/mesh.py:init_distributed``): a coordinator that is not up
+  yet; retried by the shared policy;
+* ``collective.allgather`` — a host allgather
+  (``io/distributed.py``), before it touches any rank-synchronization
+  state; retried by the shared policy;
+* ``spmd.skip_record`` — drops one collective flight-recorder record
+  (``obs/flight_recorder.py``): the rank-divergent schedule the
+  cross-rank check must localize.
 
 Silent faults are read through :func:`fault_flag`, which never raises:
 
@@ -32,6 +41,9 @@ Silent faults are read through :func:`fault_flag`, which never raises:
 * ``num.reassoc`` — the canonical chunked root reduction of
   ``learner/serial.py:root_stats`` becomes a plain ``torch.sum``, for
   the ulp contract (``obs/num_contract.py``).
+* ``collective.hang`` — a host collective under a deadline sleeps past
+  it (``io/distributed.py:deadline_call``), so the deadline raises
+  ``RankLostError``.
 
 Each point is a single ``fault_point(name)`` call that is a no-op unless
 armed.  Tests arm points programmatically (:func:`inject`, :func:`clear`);

@@ -11,9 +11,12 @@ deterministic out-of-memory fails fast.
 Every attempt counts into the per-site telemetry counters
 (``retry.<site>.attempts`` / ``.retries`` / ``.backoff_s`` and a final
 ``.recovered`` or ``.exhausted``, ``obs/telemetry.py``), and every retry
-is logged at WARNING.  The JAX package's flight-recorder dump on
-exhaustion comes with the collectives that feed the recorder (ROADMAP
-A11).
+is logged at WARNING.  On exhaustion the collective flight recorder's
+last-K schedule lands in the summary as ``flight_recorder_dump``
+(``obs/flight_recorder.py``): a collective that never recovers usually
+has a desynced peer, and the dump names what this rank had issued.
+The rendezvous (``rendezvous.connect``) and the host allgathers
+(``collective.allgather``) retry through this layer.
 
 Environment knobs (all optional)::
 
@@ -134,4 +137,19 @@ def retry_call(fn: Callable, *args,
                 counter_add(f"retry.{what}.backoff_s", s)
                 _sleep(s)
     counter_add(f"retry.{what}.exhausted")
+    from ..obs.flight_recorder import dump_to_summary
+    dump_to_summary(f"retry.{what}.exhausted")
     raise last
+
+
+def retrying(fn: Callable, policy: Optional[RetryPolicy] = None,
+             retryable: Callable[[BaseException], bool] = is_transient,
+             what: Optional[str] = None) -> Callable:
+    """Wrap ``fn`` so every call goes through :func:`retry_call`."""
+    label = what or getattr(fn, "__name__", "operation")
+
+    def wrapped(*args, **kwargs):
+        return retry_call(fn, *args, policy=policy, retryable=retryable,
+                          what=label, **kwargs)
+    wrapped.__name__ = getattr(fn, "__name__", "wrapped")
+    return wrapped

@@ -16,7 +16,9 @@ launch counters must move on CUDA only.  The categorical branch of the
 route kernels runs on waves with categorical splits (a bundled
 categorical column included).  The compiled predictor (``serve/``, no
 kernel of its own) is held to the host oracle on the card, binned
-categorical rows included.
+categorical rows included.  Two ranks train data-parallel on the card
+(``tests/torch_dist_worker.py``: gloo on one card, NCCL with a card a
+rank) to one model, and K5 histograms their waves.
 """
 import numpy as np
 import pytest
@@ -1317,3 +1319,26 @@ def test_cuda_no_steady_compile_events_after_warm(cuda_device, monkeypatch):
     obs.reset()
     assert rep["compiles_warmup"] == 2 and rep["compiles_steady"] == 0
     assert rep["steady_ok"] and st["steady_captures"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_data_parallel_two_ranks(cuda_device, tmp_path):
+    """A world of two ranks on the card (both on card 0 over gloo on a
+    one-card machine): ``lgb.train(tree_learner="data")`` gives both ranks
+    one model, and the in-memory K5 launches on each."""
+    from tests.torch_dist_worker import run_world
+    rng = np.random.RandomState(1)
+    X = rng.normal(size=(20000, 8))
+    y = ((X[:, 0] + 0.5 * X[:, 1] + 0.3 * rng.normal(size=20000)) > 0
+         ).astype(np.float32)
+    path = str(tmp_path / "xy.npz")
+    np.savez(path, X=X, y=y)
+    params = {"objective": "binary", "num_leaves": 15, "max_bin": 63,
+              "tree_learner": "data", "verbose": -1}
+    res = run_world([dict(name="dp", kind="train", input=path, params=params,
+                          rounds=3)], 2, str(tmp_path / "out"),
+                    device="cuda")
+    (_, a), (_, b) = res["dp"]
+    assert "error" not in a and "error" not in b, a.get("traceback")
+    assert a["model"] == b["model"] and a["iterations"] == 3
+    assert a["k5_launches"] > 0 and b["k5_launches"] > 0

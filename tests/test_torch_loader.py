@@ -296,10 +296,17 @@ def test_valid_set_from_file_and_raw_matrix(tmp_path):
 
 
 def test_distributed_loading_raises(tmp_path):
+    """``num_machines=2`` loads (it raised before distributed loading was
+    ported): without a collective the loader keeps rank 0's mod-rank rows,
+    as the JAX package's does, and a ``Dataset`` outside a process group
+    keeps every row (the distributed cases:
+    ``tests/test_torch_distributed_io.py``)."""
     X, y = _data(n=100)
     path = str(tmp_path / "d.csv")
     _write_delimited(path, X, y, ",", False)
-    with pytest.raises(NotImplementedError, match="A11"):
-        loader.load_file(path, Config.from_params({}), num_machines=2)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tlgb.Dataset(path, params={"num_machines": 2}).construct()
+    sharded = loader.load_file(path, Config.from_params({}), num_machines=2)
+    ref = j_loader.load_file(path, JConfig.from_params({}), num_machines=2)
+    assert sharded.num_data == ref.num_data == 50
+    np.testing.assert_array_equal(sharded.bins, ref.bins)
+    whole = tlgb.Dataset(path, params={"num_machines": 2}).construct()
+    assert whole._constructed.num_data == 100

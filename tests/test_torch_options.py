@@ -1,8 +1,9 @@
 """Options the JAX package acts on and lightgbm_tpu_torch does not read
 yet raise, instead of training something else, each naming its ROADMAP
 item: ``input_model`` (read by the command-line application, A14's
-second half; ``train`` takes ``init_model``) and a non-empty
-``mesh_shape`` (the mesh path, A11) in memory (``lgb.train``) and
+second half; ``train`` takes ``init_model``) and a 2-D ``mesh_shape``
+(the data x feature mesh, A11's remainder; a 1-D one trains,
+``tests/test_torch_multiprocess.py``) in memory (``lgb.train``) and
 streamed (``StreamTrainer``); ``snapshot_freq`` and ``resume_from``
 streamed only (streamed snapshots, A12).  In memory ``snapshot_freq``
 and ``resume_from`` work (``tests/test_torch_snapshot.py``), and so does
@@ -42,7 +43,7 @@ def _stream(params, X, y):
 
 @pytest.mark.parametrize("option,match", [
     ({"input_model": "model.txt"}, "A14"),
-    ({"mesh_shape": "2"}, "A11"),
+    ({"mesh_shape": "2,2"}, "A11"),
 ], ids=["input_model", "mesh_shape"])
 def test_unported_option_raises(option, match):
     X, y = _data()

@@ -282,9 +282,13 @@ def test_unported_options_raise(monkeypatch):
     with pytest.raises(ValueError, match="bagging"):
         tlgb.train({**p, "boosting": "rf"}, tlgb.Dataset(X, label=y), 2,
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tlgb.train({**p, "boosting": "goss", "num_machines": 2},
-                   tlgb.Dataset(X, label=y), 2, device="cpu")
+    # num_machines > 1 trains now: outside a process group it is the
+    # serial model (multi-process GOSS: tests/test_torch_multiprocess.py)
+    goss = tlgb.train({**p, "boosting": "goss"}, tlgb.Dataset(X, label=y),
+                      2, device="cpu")
+    goss2 = tlgb.train({**p, "boosting": "goss", "num_machines": 2},
+                       tlgb.Dataset(X, label=y), 2, device="cpu")
+    assert goss2.digest() == goss.digest()
 
 
 def test_dart_learning_rates_bitwise():
