@@ -334,8 +334,29 @@ and the script exits non-zero):
    record of the middle one of three host gathers: the merged summary
    holds both ranks, their collective skew and a
    ``flight_recorder_check`` naming the skipped site and rank 1.  A rank's failure fails the phase.
+29. elastic training — the bench's stream cell (``bench.py:1209-1218``:
+   28 features, ``max_bin`` 63, 63 leaves, int8h, lr 0.1, binary,
+   1,048,576-row blocks) on 4,194,304 synthetic rows ingested once into a
+   shard store under a temporary directory, in S = 2 protocol shards (two
+   blocks a shard), 8 iterations, a barrier snapshot every iteration:
+   the single-process ``StreamTrainer(num_shards=2)`` oracle on the card
+   (train AUC >= 0.93; K5, K2, K4 launched, no K1 or K6); then
+   ``tools/chaos_torch.run_chaos`` hosts the elastic coordinator here and
+   starts two workers on card 0 (``chip_smoke.py --elastic-worker SPEC
+   MEMBER``, ``train_elastic`` over the mmapped store, the kernels this
+   process built): a control run, a shrink (worker-1 SIGKILLed when its
+   heartbeat reports iteration 3) and a regrow (the same kill and a
+   joiner); every worker's model sha256 and ``digest()`` == the oracle's,
+   every worker launched K5, K2 and K4 and no K1 or K6, each recovery's
+   phases sum to its ``mttr_s``, and the survivor's ``/healthz`` walked
+   ready -> recovering -> ready.  Then phase 28's two ranks train the
+   data-parallel headline with ``snapshot_freq`` 16 and resume at W = 2
+   from iteration 16: the resumed digest (and each rank's scores) == the
+   uninterrupted run's == phase 28's, and a one-process resume from that
+   snapshot refuses.  Walls, MTTR and its phases, and launches are in the
+   phase line; every coordinator, worker and rank is gone when it ends.
 
-Each of phases 17-28 prints one ``{"phase": ...}`` JSON line.  A path's
+Each of phases 17-29 prints one ``{"phase": ...}`` JSON line.  A path's
 ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
 the per-iteration evaluation included.  The last lines are the kernel
@@ -4961,12 +4982,66 @@ def mg_train(lgb, counters, params, ds, rounds) -> dict:
             "launches": {k: c.launches for k, c in counters.items()}}
 
 
+def mg_parts(lgb, counters, job, full, mine, rank: int, world: int,
+             out: dict) -> None:
+    """Phase 28's parts on one rank, in order, into ``out``."""
+    import hashlib
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.utils import faults
+    params = dict(job["params"])
+    iters = job["iters"]
+    data = dict(params, tree_learner="data")
+    out["data"] = mg_train(lgb, counters, data, mine, iters)
+    out["data_again"] = mg_train(lgb, counters, data, mine, iters)
+    os.environ["LGBM_TPU_OVERLAP"] = "1"
+    try:
+        out["data_overlap"] = mg_train(lgb, counters, data, mine, iters)
+    finally:
+        os.environ.pop("LGBM_TPU_OVERLAP", None)
+    out["feature"] = mg_train(lgb, counters,
+                              dict(params, tree_learner="feature"), full,
+                              iters)
+    out["voting"] = mg_train(lgb, counters,
+                             dict(params, tree_learner="voting",
+                                  top_k=MG_TOP_K), mine, iters)
+    load = lgb.Dataset(job["csv"], params=dict(
+        params, tree_learner="data", num_machines=world)).construct()
+    b = load._constructed
+    out["load"] = {
+        "rows": int(b.num_data),
+        "mappers": hashlib.sha256(json.dumps(
+            [m.to_dict() for m in b.mappers],
+            default=str).encode()).hexdigest(),
+        **mg_train(lgb, counters, dict(params, tree_learner="data",
+                                       num_machines=world), load,
+                   job["load_iters"])}
+    obs.reset()
+    obs.enable()
+    mg_train(lgb, counters, data, mine, job["desync_iters"])
+    # rank 1 skips the record of the middle one of three host
+    # gathers, as a rank-conditional branch around it would
+    from lightgbm_tpu_torch.io.distributed import process_allgather
+    for step in range(3):
+        if rank == 1 and step == 1:
+            faults.inject("spmd.skip_record", times=1)
+        try:
+            process_allgather({"step": step, "rank": rank})
+        finally:
+            faults.clear()
+    merged = obs.merged_summary()
+    out["desync"] = {
+        "ranks": [r.get("rank") for r in merged["ranks"]],
+        "check": merged.get("flight_recorder_check"),
+        "skew": merged.get("collective_skew")}
+    obs.reset()
+
+
 def mg_rank(job_path: str, rank: int, world: int, port: int) -> int:
     """One rank of phase 28 (``chip_smoke.py --multi-gpu-rank JOB RANK
     WORLD PORT``): every part in order, its results into
     ``<job dir>/rank<r>.json``; the process group is left on every exit
-    path."""
-    import hashlib
+    path.  A job with ``barrier`` runs phase 29's snapshot-barrier part
+    (:func:`el_barrier_rank`) instead."""
     import traceback
     import numpy as np
     import torch
@@ -4975,10 +5050,8 @@ def mg_rank(job_path: str, rank: int, world: int, port: int) -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import lightgbm_tpu_torch as lgb
-    from lightgbm_tpu_torch import obs
     from lightgbm_tpu_torch.io.dataset import BinnedDataset
     from lightgbm_tpu_torch.parallel import mesh
-    from lightgbm_tpu_torch.utils import faults
     with open(job_path) as f:
         job = json.load(f)
     out = {"rank": rank}
@@ -4994,52 +5067,10 @@ def mg_rank(job_path: str, rank: int, world: int, port: int) -> int:
         n = full._constructed.num_data
         per = -(-n // world)
         mine = full.subset(np.arange(rank * per, min(n, (rank + 1) * per)))
-        params = dict(job["params"])
-        iters = job["iters"]
-        data = dict(params, tree_learner="data")
-        out["data"] = mg_train(lgb, counters, data, mine, iters)
-        out["data_again"] = mg_train(lgb, counters, data, mine, iters)
-        os.environ["LGBM_TPU_OVERLAP"] = "1"
-        try:
-            out["data_overlap"] = mg_train(lgb, counters, data, mine, iters)
-        finally:
-            os.environ.pop("LGBM_TPU_OVERLAP", None)
-        out["feature"] = mg_train(lgb, counters,
-                                  dict(params, tree_learner="feature"), full,
-                                  iters)
-        out["voting"] = mg_train(lgb, counters,
-                                 dict(params, tree_learner="voting",
-                                      top_k=MG_TOP_K), mine, iters)
-        load = lgb.Dataset(job["csv"], params=dict(
-            params, tree_learner="data", num_machines=world)).construct()
-        b = load._constructed
-        out["load"] = {
-            "rows": int(b.num_data),
-            "mappers": hashlib.sha256(json.dumps(
-                [m.to_dict() for m in b.mappers],
-                default=str).encode()).hexdigest(),
-            **mg_train(lgb, counters, dict(params, tree_learner="data",
-                                           num_machines=world), load,
-                       job["load_iters"])}
-        obs.reset()
-        obs.enable()
-        mg_train(lgb, counters, data, mine, job["desync_iters"])
-        # rank 1 skips the record of the middle one of three host
-        # gathers, as a rank-conditional branch around it would
-        from lightgbm_tpu_torch.io.distributed import process_allgather
-        for step in range(3):
-            if rank == 1 and step == 1:
-                faults.inject("spmd.skip_record", times=1)
-            try:
-                process_allgather({"step": step, "rank": rank})
-            finally:
-                faults.clear()
-        merged = obs.merged_summary()
-        out["desync"] = {
-            "ranks": [r.get("rank") for r in merged["ranks"]],
-            "check": merged.get("flight_recorder_check"),
-            "skew": merged.get("collective_skew")}
-        obs.reset()
+        if job.get("barrier"):
+            out["barrier"] = el_barrier_rank(lgb, job, mine)
+        else:
+            mg_parts(lgb, counters, job, full, mine, rank, world, out)
     except Exception:                 # noqa: BLE001 - the parent reports it
         out["error"] = traceback.format_exc()
     finally:
@@ -5129,6 +5160,7 @@ def multi_gpu_phase(lgb, ds, X, y, head_ref, head_ms: float, card: str
         return float(binary_auc(y, pred))
 
     a = same("data")
+    PATH_DIGESTS["multi_gpu_data"] = a["digest"]
     for part in ("data_again", "data_overlap"):
         if same(part)["digest"] != a["digest"]:
             raise AssertionError(f"multi-gpu {part}: digest "
@@ -5201,6 +5233,274 @@ def multi_gpu_phase(lgb, ds, X, y, head_ref, head_ms: float, card: str
             "skew_sites": sorted(ranks[0]["desync"]["skew"])},
         "seconds": seconds}
     print(json.dumps(out), flush=True)
+    return launches
+
+
+# phase 29: elastic training (the bench's stream cell, bench.py:1209-1218,
+# over two protocol shards)
+EL_ROWS = 4_194_304
+EL_SHARDS = 2
+EL_WORKERS = 2
+EL_ITERS = 8
+EL_KILL_ITER = 3
+EL_PARAMS = dict(STREAM_PARAMS, num_iterations=EL_ITERS, snapshot_freq=1,
+                 snapshot_keep=2)
+# the regrow's survivor waits this long an iteration, so that the joiner
+# (a fresh process: imports, CUDA context, the store) arrives while it
+# still trains; the sleep changes no byte
+EL_REGROW_SLEEP_S = "1.5"
+EL_TIMEOUT_S = 240
+EL_BARRIER_FREQ = 16
+EL_BARRIER_TIMEOUT_S = 300
+EL_DEVICE = "cuda"
+
+
+def el_barrier_rank(lgb, job, mine) -> dict:
+    """Phase 29's multi-process snapshot barrier on one rank of phase
+    28's world: the data-parallel headline with ``snapshot_freq`` 16, then
+    a resume at W = 2 from iteration 16 (each rank's own scores)."""
+    params = dict(job["params"], tree_learner="data",
+                  output_model=job["prefix"], snapshot_freq=EL_BARRIER_FREQ,
+                  snapshot_keep=4)
+    iters = job["iters"]
+    t0 = time.perf_counter()
+    full = lgb.train(dict(params), mine, num_boost_round=iters,
+                     device="cuda")
+    t1 = time.perf_counter()
+    res = lgb.train(dict(params), mine, num_boost_round=iters,
+                    device="cuda", resume_from=job["resume_from"])
+    t2 = time.perf_counter()
+    return {"digest": full.digest(include_scores=False),
+            "digest_scores": full.digest(),
+            "resumed_digest": res.digest(include_scores=False),
+            "resumed_digest_scores": res.digest(),
+            "seconds": t1 - t0, "resume_seconds": t2 - t1}
+
+
+def el_barrier_part(lgb, ds, tmp: str) -> dict:
+    """Phase 28's two ranks train the data-parallel headline with
+    snapshots every 16 iterations and resume at W = 2 from iteration 16;
+    this process (W = 1) must refuse that snapshot."""
+    from lightgbm_tpu_torch.boosting import snapshot as snap
+    from lightgbm_tpu_torch.parallel.mesh import free_port
+    prefix = os.path.join(tmp, "barrier", "headline.txt")
+    os.makedirs(os.path.dirname(prefix))
+    ds._constructed.save_binary(os.path.join(tmp, "headline"))
+    manifest = snap.snapshot_paths(prefix, EL_BARRIER_FREQ)[2]
+    job = os.path.join(tmp, "barrier-job.json")
+    with open(job, "w") as f:
+        json.dump({"bin": os.path.join(tmp, "headline.npz"), "barrier": True,
+                   "params": HEADLINE_PARAMS, "iters": HEADLINE_ITERS,
+                   "prefix": prefix, "resume_from": manifest}, f)
+    port = free_port()
+    procs = []
+    t0 = time.time()
+    try:
+        for r in range(MG_WORLD):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--multi-gpu-rank", job, str(r), str(MG_WORLD), str(port)],
+                env={**{k: v for k, v in os.environ.items()
+                        if not k.startswith("LGBM_TPU_")},
+                     "LOCAL_RANK": str(r),
+                     "LOCAL_WORLD_SIZE": str(MG_WORLD)}))
+        deadline = time.time() + EL_BARRIER_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = []
+    for r in range(MG_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            res = json.load(f)
+        if "error" in res or procs[r].returncode != 0:
+            raise AssertionError(f"elastic barrier rank {r} failed:\n"
+                                 f"{res.get('error')}")
+        ranks.append(res["barrier"])
+    want = PATH_DIGESTS.get("multi_gpu_data", ranks[0]["digest"])
+    for r, b in enumerate(ranks):
+        if b["digest"] != want or b["resumed_digest"] != want:
+            raise AssertionError(
+                f"elastic barrier rank {r}: uninterrupted {b['digest']}, "
+                f"resumed {b['resumed_digest']}, phase 28 {want}")
+        if b["resumed_digest_scores"] != b["digest_scores"]:
+            raise AssertionError(f"elastic barrier rank {r}: the resumed "
+                                 f"scores differ from the uninterrupted")
+    man = snap.resolve_snapshot(manifest)
+    if man is None or man["world_size"] != MG_WORLD \
+            or sorted(man["rank_state_paths"]) != list(range(MG_WORLD)):
+        raise AssertionError(f"elastic barrier: the snapshot at iteration "
+                             f"{EL_BARRIER_FREQ} is not a committed "
+                             f"{MG_WORLD}-rank snapshot: {man}")
+    try:
+        lgb.train(dict(HEADLINE_PARAMS, output_model=prefix), ds,
+                  num_boost_round=HEADLINE_ITERS, device="cuda",
+                  resume_from=manifest)
+    except ValueError as exc:
+        refusal = str(exc)
+    else:
+        raise AssertionError("elastic barrier: a one-process run resumed a "
+                             "two-rank snapshot")
+    if f"{MG_WORLD}-process mesh" not in refusal:
+        raise AssertionError(f"elastic barrier: another refusal: {refusal}")
+    return {"digest": want, "resumed_at": EL_BARRIER_FREQ,
+            "w1_refused": True, "seconds": time.time() - t0,
+            "train_s": [b["seconds"] for b in ranks],
+            "resume_s": [b["resume_seconds"] for b in ranks]}
+
+
+def elastic_worker(spec_path: str, member: str) -> int:
+    """One elastic worker of phase 29 (``chip_smoke.py --elastic-worker
+    SPEC MEMBER``): ``train_elastic`` on card 0 against the coordinator
+    the parent hosts (``tools/chaos_torch.py``'s worker, which fails
+    without a card when the spec names ``cuda``)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tools import chaos_torch
+    return chaos_torch.worker_main(spec_path, member)
+
+
+def walked(walk, states) -> bool:
+    """Whether ``states`` occur in ``walk`` in this order."""
+    it = iter(walk)
+    return all(any(w == s for w in it) for s in states)
+
+
+def elastic_phase(lgb, ds, card: str) -> dict:
+    """Phase 29: the bench's stream cell (28 features, ``max_bin`` 63, 63
+    leaves, int8h, 1,048,576-row blocks) on 4,194,304 rows in two
+    protocol shards, ingested once into a shard store the workers mmap;
+    the single-process oracle on the card, then two ``train_elastic``
+    workers on card 0 against a coordinator in this process: a control
+    run, a SIGKILL of worker-1 at iteration 3 (shrink), the same kill
+    with a joiner (regrow), each worker's bytes == the oracle's; then
+    phase 28's two ranks through the multi-process snapshot barrier.
+    -> the workers' launches, summed."""
+    import numpy as np
+    import torch
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    from tools import chaos_torch
+    tmp = tempfile.mkdtemp(prefix="lgbm_elastic_")
+    counters = chaos_torch.counters()
+    saved = os.environ.get("LGBM_TPU_CHAOS_ITER_SLEEP_S")
+    try:
+        t0 = time.time()
+        store = lgb.outofcore.ingest_synthetic(
+            os.path.join(tmp, "store"), EL_ROWS, STREAM_FEATURES,
+            Config.from_params(EL_PARAMS), seed=29, shard_rows=EL_ROWS)
+        ingest_s = time.time() - t0
+        spec = {"store": store.cache_dir, "shards": EL_SHARDS,
+                "device": EL_DEVICE, "block_rows": STREAM_BLOCK,
+                "params": dict(EL_PARAMS, output_model="")}
+
+        # the oracle: StreamTrainer(num_shards=2) in this process
+        for c in counters.values():
+            c.launches = 0
+        bst, oracle_s = chaos_torch.train_oracle(spec)
+        oracle_launches = {k: c.launches for k, c in counters.items()}
+        need(oracle_launches, ("hist_active", "route", "route_values"),
+             "the elastic oracle", absent=("hist_route", "split_scan"))
+        scores = bst.scores.numpy()[:, 0]
+        auc = float(binary_auc(store.labels_array(), scores))
+        if not np.isfinite(scores).all() or not auc >= AUC_GATE:
+            raise AssertionError(f"elastic oracle: train auc {auc} < "
+                                 f"{AUC_GATE} or non-finite scores")
+        want = chaos_torch.model_identity(bst)
+        log(f"elastic oracle: {EL_ROWS} rows x {EL_ITERS} iterations at "
+            f"S = {EL_SHARDS} in {oracle_s:.3f} s; auc {auc:.5f}; digest "
+            f"{want['digest']}; launches {oracle_launches}")
+        del bst
+
+        worker_cmd = [sys.executable, os.path.abspath(__file__),
+                      "--elastic-worker"]
+        runs, launches = {}, {}
+        for name, kill, respawn, sleep in (
+                ("control", None, False, "0"),
+                ("shrink", EL_KILL_ITER, False, "0"),
+                ("regrow", EL_KILL_ITER, True, EL_REGROW_SLEEP_S)):
+            os.environ["LGBM_TPU_CHAOS_ITER_SLEEP_S"] = sleep
+            rundir = os.path.join(tmp, name)
+            os.makedirs(rundir)
+            v = chaos_torch.run_chaos(
+                workers=EL_WORKERS, kill_iter=kill, respawn=respawn,
+                rundir=rundir, timeout_s=EL_TIMEOUT_S,
+                spec=dict(spec, params=dict(spec["params"], output_model=
+                                            os.path.join(rundir, "m.txt"))),
+                oracle=want, worker_cmd=worker_cmd)
+            if not v["ok"]:
+                logs = "".join(
+                    open(os.path.join(rundir, n)).read()[-3000:]
+                    for n in sorted(os.listdir(rundir))
+                    if n.startswith("log-"))
+                raise AssertionError(f"elastic {name}: {v['errors']}\n{logs}")
+            members = sorted(r["member"] for r in v["results"])
+            expect = {"control": ["worker-0", "worker-1"],
+                      "shrink": ["worker-0"],
+                      "regrow": ["joiner-0", "worker-0"]}[name]
+            if members != expect:
+                raise AssertionError(f"elastic {name}: results from "
+                                     f"{members}, expected {expect}")
+            for r in v["results"]:
+                need(r["launches"], ("hist_active", "route", "route_values"),
+                     f"elastic {name}, {r['member']}",
+                     absent=("hist_route", "split_scan"))
+                add_launches(launches, r["launches"])
+            if kill is not None:
+                rec = v["recovery"]
+                if abs(sum(rec["phases"].values()) - rec["mttr_s"]) > 1e-9:
+                    raise AssertionError(f"elastic {name}: recovery phases "
+                                         f"do not sum to mttr: {rec}")
+                surv = next(r for r in v["results"]
+                            if r["member"] == "worker-0")
+                if not walked(surv["health_walk"],
+                              ("ready", "recovering", "ready")):
+                    raise AssertionError(
+                        f"elastic {name}: /healthz walked "
+                        f"{surv['health_walk']}, not ready -> recovering "
+                        f"-> ready")
+            runs[name] = {
+                "seconds": v["seconds"],
+                "worker_s": {r["member"]: r["seconds"]
+                             for r in v["results"]},
+                "killed": v["killed"], "respawned": v["respawned"],
+                "mttr_s": v.get("mttr_s"),
+                "recovery": v.get("recovery"),
+                "episodes": {r["member"]: r["episodes"]
+                             for r in v["results"]},
+                "health_walk": {r["member"]: r["health_walk"]
+                                for r in v["results"]},
+                "launches": {r["member"]: r["launches"]
+                             for r in v["results"]},
+                "counters": {r["member"]: r["counters"]
+                             for r in v["results"]},
+                "bytes_sent_per_wave": {
+                    r["member"]: r["counters"].get(
+                        "elastic.bytes_exchanged", 0)
+                    / max(1, r["counters"].get("stream.waves", 0))
+                    for r in v["results"]},
+                "collective_skew": {r["member"]: r["collective_skew"]
+                                    for r in v["results"]}}
+            log(f"elastic {name}: {v['seconds']:.1f} s; workers "
+                f"{runs[name]['worker_s']}; mttr {v.get('mttr_s')}; "
+                f"phases {(v.get('recovery') or {}).get('phases')}; bytes "
+                f"sent a wave {runs[name]['bytes_sent_per_wave']}")
+        barrier = el_barrier_part(lgb, ds, tmp)
+        log(f"elastic barrier: {barrier}")
+    finally:
+        if saved is None:
+            os.environ.pop("LGBM_TPU_CHAOS_ITER_SLEEP_S", None)
+        else:
+            os.environ["LGBM_TPU_CHAOS_ITER_SLEEP_S"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    phase_line("29_elastic", card, rows=EL_ROWS, shards=EL_SHARDS,
+               workers=EL_WORKERS, iterations=EL_ITERS, ingest_s=ingest_s,
+               oracle={"seconds": oracle_s, "auc": auc, **want,
+                       "launches": oracle_launches},
+               runs=runs, barrier=barrier)
     return launches
 
 
@@ -5509,6 +5809,12 @@ def main() -> int:
         lgb, ds, X, y, head_ref, 1e3 * head_s / HEADLINE_ITERS, card)
     log(f"phase 28 {time.time() - t0:.1f} s")
 
+    # 29. elastic training: the S-shard stream over a world of processes
+    # that die and join, barrier snapshots, the multi-process barrier
+    t0 = time.time()
+    by_path["elastic"] = elastic_phase(lgb, ds, card)
+    log(f"phase 29 {time.time() - t0:.1f} s")
+
     for e in entries:
         # a categorical entry counts its kernel's launches on the
         # categorical paths only
@@ -5535,4 +5841,6 @@ if __name__ == "__main__":
     if len(sys.argv) == 6 and sys.argv[1] == "--multi-gpu-rank":
         sys.exit(mg_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
                          int(sys.argv[5])))
+    if len(sys.argv) == 4 and sys.argv[1] == "--elastic-worker":
+        sys.exit(elastic_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

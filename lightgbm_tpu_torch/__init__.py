@@ -10,7 +10,9 @@ the scikit-learn estimators and ``lgb.plot_importance`` and its siblings
 the plots (both imported on first use).
 Out of core: ``lgb.train_streaming(params, files_or_store,
 block_rows=1 << 20)`` streams row blocks of a shard store
-(``lgb.outofcore``) through the device.  Training runs on ``cuda``
+(``lgb.outofcore``) through the device; ``lgb.train_elastic`` trains
+such a stream over an elastic world of processes that may die, leave
+and join (``parallel/elastic.py``).  Training runs on ``cuda``
 unless the caller passes ``device="cpu"``; on the card the learner's hot
 path runs hand-written CUDA kernels (``csrc/``), on the CPU their plain
 PyTorch versions.  Importing the package loads no CUDA code: kernels
@@ -38,12 +40,16 @@ __all__ = [
     "reset_parameter", "EarlyStopException", "telemetry", "obs",
     "LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
     "plot_importance", "plot_metric", "plot_tree", "create_tree_digraph",
-    "train_streaming", "outofcore",
+    "train_streaming", "train_elastic", "outofcore",
 ]
 
 
 def __getattr__(name):
-    # the estimators and the plots are imported on first use
+    # the estimators, the plots and elastic training are imported on
+    # first use
+    if name == "train_elastic":
+        from .boosting.streaming import train_elastic
+        return train_elastic
     if name in ("LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker"):
         from . import sklearn as _sk
         return getattr(_sk, name)

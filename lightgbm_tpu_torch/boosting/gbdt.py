@@ -197,23 +197,15 @@ def _check_supported(c: Config) -> None:
     check_unported_options(c)
 
 
-def check_unported_options(c: Config, streamed: bool = False) -> None:
+def check_unported_options(c: Config) -> None:
     """Options the reference acts on and the port does not read yet
-    raise rather than train something else: in memory and streamed
-    alike, and (``streamed``) the ones only the in-memory loop reads."""
+    raise rather than train something else, in memory and streamed
+    alike."""
     if c.input_model:
         raise NotImplementedError(
             f"input_model={c.input_model!r}: the parameter is read by the "
             f"command-line application, which is not ported yet (ROADMAP "
             f"A14, second half); pass init_model= to train")
-    if streamed and c.snapshot_freq > 0:
-        raise NotImplementedError(
-            f"snapshot_freq={c.snapshot_freq}: streamed snapshots are not "
-            f"ported yet (ROADMAP A12)")
-    if streamed and c.resume_from:
-        raise NotImplementedError(
-            f"resume_from={c.resume_from!r}: a streamed run does not "
-            f"resume yet (ROADMAP A12)")
     if len(tuple(c.mesh_shape)) > 1:
         raise NotImplementedError(
             f"mesh_shape={tuple(c.mesh_shape)}: a 2-D (data x feature) mesh "
@@ -793,13 +785,54 @@ class GBDT:
         self.scores = scores
 
     # -- snapshots and exact resume -----------------------------------------
-    def save_snapshot(self, iteration: Optional[int] = None) -> str:
+    def save_snapshot(self, iteration: Optional[int] = None
+                      ) -> Optional[str]:
         """Write an atomic snapshot (model, f32 score state, manifest)
         under the ``output_model`` prefix and prune to ``snapshot_keep``
-        (``boosting/snapshot.py``)."""
+        (``boosting/snapshot.py``); returns the model path (None on the
+        ranks other than 0 of a multi-process run).
+
+        In a multi-process run every rank calls it at the same iteration
+        and the write goes through a cross-rank commit barrier (the JAX
+        package's): the ranks first gather ``(iteration, digest of the
+        trees)`` and the write goes ahead only when every rank reports the
+        same pair; rank 0 then writes the model and the manifest, and a
+        second gather keeps the other ranks from running past a snapshot
+        that is not on disk yet.  Each rank's own scores go to its rank
+        state file before the first gather."""
+        it = self.iter if iteration is None else iteration
+        if self.mesh_ctx is not None:
+            return self._snapshot_barrier(it, self.mesh_ctx.all_gather_object,
+                                          self.mesh_ctx.rank)
         from .snapshot import write_snapshot
-        return write_snapshot(self, self.iter if iteration is None
-                              else iteration)
+        return write_snapshot(self, it)
+
+    def _snapshot_barrier(self, iteration: int, allgather,
+                          rank: int) -> Optional[str]:
+        """The commit barrier over ``allgather(obj) -> [obj of each
+        rank]``."""
+        from ..obs import event
+        from .snapshot import write_rank_state, write_snapshot
+        digest = self.digest(include_scores=False)
+        sha = write_rank_state(self, iteration, rank)
+        acks = allgather({"iteration": int(iteration), "digest": digest,
+                          "state_sha256": sha})
+        heads = [(a["iteration"], a["digest"]) for a in acks]
+        if any(h != heads[0] for h in heads[1:]):
+            event("elastic", "barrier_mismatch", iteration=int(iteration),
+                  acks=len(acks))
+            raise RuntimeError(
+                f"snapshot commit barrier at iteration {iteration} "
+                f"refused: ranks disagree on (iteration, digest): {heads}")
+        path = None
+        if rank == 0:
+            path = write_snapshot(self, iteration,
+                                  rank_states=[a["state_sha256"]
+                                               for a in acks])
+        # commit confirmation: no rank goes on (or treats the snapshot as
+        # durable) before rank 0's manifest is on disk
+        allgather({"committed": int(iteration)})
+        return path
 
     def resume_from_snapshot(self, path_or_dir: str) -> int:
         """Restore trees, scores and early-stopping state from the latest
@@ -821,11 +854,20 @@ class GBDT:
             log_warning("resuming with a DIFFERENT config than the "
                         "snapshot was written with; the continued run "
                         "will not match an uninterrupted one")
-        world = manifest.get("world_size")
-        if world is not None and int(world) != 1:
+        # the world must match: another world has another row layout
+        snap_world = manifest.get("world_size")
+        live_world = self.mesh_ctx.world if self.mesh_ctx is not None else 1
+        if snap_world is None:
+            if live_world > 1:
+                log_warning("snapshot manifest predates world-size "
+                            "tracking; cannot verify it matches this "
+                            f"{live_world}-process mesh")
+        elif int(snap_world) != live_world:
             raise ValueError(
-                f"cannot resume: the snapshot was written by "
-                f"{int(world)} processes and this run has one")
+                f"cannot resume: snapshot was written on a "
+                f"{int(snap_world)}-process mesh, this run has "
+                f"{live_world} process(es); re-shard via elastic "
+                f"training (parallel/elastic.py) or restart training")
         with open_read(manifest["model_path"]) as f:
             text = f.read()
         donor = GBDT(self.config, None, self.device)
@@ -865,8 +907,13 @@ class GBDT:
         otherwise."""
         K = max(1, self.num_tree_per_iteration)
         state = None
-        if manifest.get("state_path"):
-            state = np.load(manifest["state_path"])
+        path = manifest.get("state_path")
+        if self.mesh_ctx is not None:
+            # a multi-process snapshot: this rank's own rows
+            path = (manifest.get("rank_state_paths") or {}).get(
+                self.mesh_ctx.rank, "")
+        if path:
+            state = np.load(path)
             s = state.get("scores")
             want = (self.num_data, K)
             if s is None or s.shape != want:

@@ -25,11 +25,33 @@ snapshot written by either package validates and resumes in the other::
     <prefix>.snapshot_iter_<N>.state.npz       f32 scores (train + valids)
     <prefix>.snapshot_iter_<N>.manifest.json   commit marker + checksums
 
-The port trains on one device: ``world_size`` is 1.  The elastic
-barrier snapshots are not ported (ROADMAP A12).  Telemetry: the spans
-``snapshot.write`` (with the bytes written), ``snapshot.prune`` and
-``snapshot.validate``, the counters ``snapshot.writes`` and
-``snapshot.bytes_written`` (``obs/telemetry.py``).
+The manifest records the live ``world_size``; a resume on another world
+refuses (``GBDT.resume_from_snapshot``).  In a multi-process run
+(``GBDT.save_snapshot``'s commit barrier) each rank writes its own f32
+scores to ``<base>.state.rank<r>.npz`` and rank 0's manifest lists them
+under ``rank_states`` (file and sha256) in place of the one sidecar, so
+every rank of a resumed world takes its own rows' scores back bit for
+bit; the JAX package writes no sidecar there and replays the trees.
+
+**Barrier snapshots** (elastic training, ``parallel/elastic.py``; the
+JAX package's layout)::
+
+    <prefix>.barrier_iter_<N>               model text        (rank 0)
+    <prefix>.barrier_iter_<N>.shard<k>.npz  shard k's scores  (its owner)
+    <prefix>.barrier_iter_<N>.manifest.json commit marker     (rank 0, last)
+
+Every rank writes its owned protocol shards' scores, the ranks agree on
+``(iteration, model digest)`` and collect the shards' sha256s, and
+rank 0 writes the model text and then the manifest.  A barrier is valid
+only when its manifest exists and every file it names verifies, so a
+SIGKILL anywhere in the sequence leaves a complete barrier or a torn
+one that validation skips.
+
+Telemetry: the spans ``snapshot.write`` (with the bytes written),
+``snapshot.barrier``, ``snapshot.prune`` and ``snapshot.validate``, the
+counters ``snapshot.writes``, ``snapshot.bytes_written``,
+``snapshot.barrier_shards`` and ``snapshot.barrier_commits``
+(``obs/telemetry.py``).
 """
 from __future__ import annotations
 
@@ -48,6 +70,7 @@ from ..utils.log import log_info, log_warning
 
 MANIFEST_VERSION = 1
 _SNAP_RE = re.compile(r"\.snapshot_iter_(\d+)\.manifest\.json$")
+_BARRIER_RE = re.compile(r"\.barrier_iter_(\d+)\.manifest\.json$")
 
 
 def snapshot_paths(prefix: str, iteration: int) -> Tuple[str, str, str]:
@@ -81,11 +104,43 @@ def config_hash(config) -> str:
     return _sha256_bytes(payload.encode())
 
 
-def write_snapshot(gbdt, iteration: int) -> str:
+def rank_state_path(prefix: str, iteration: int, rank: int) -> str:
+    """A rank's score state of a multi-process snapshot."""
+    return f"{prefix}.snapshot_iter_{iteration}.state.rank{rank}.npz"
+
+
+def _score_state(gbdt) -> bytes:
+    """The f32 training scores (and each valid set's) as ``.npz`` bytes;
+    empty when the booster has no training set."""
+    if gbdt.train_set is None:
+        return b""
+    state = {"scores": gbdt.scores.cpu().numpy()}
+    for i, vs in enumerate(gbdt._valid_scores):
+        state[f"valid_scores_{i}"] = vs.cpu().numpy()
+    buf = io.BytesIO()
+    np.savez(buf, **state)
+    return buf.getvalue()
+
+
+def write_rank_state(gbdt, iteration: int, rank: int) -> str:
+    """Publish one rank's score state for a pending multi-process
+    snapshot; returns its sha256 (the commit gather carries it into rank
+    0's manifest)."""
+    payload = _score_state(gbdt)
+    atomic_write(rank_state_path(gbdt.config.output_model, iteration, rank),
+                 payload, binary=True)
+    return _sha256_bytes(payload)
+
+
+def write_snapshot(gbdt, iteration: int,
+                   rank_states: Optional[List[str]] = None) -> str:
     """Write one snapshot of ``gbdt`` at ``iteration`` under its
     ``output_model`` prefix and prune to its ``snapshot_keep``; returns
-    the model path.  A failed write raises: its torn bytes stay in
-    ``.tmp`` files that never shadow a valid snapshot."""
+    the model path.  ``rank_states`` (a multi-process run's, the sha256
+    of each rank's :func:`write_rank_state` file in rank order; its
+    length is the world size) replaces the one score sidecar.  A failed
+    write raises: its torn bytes stay in ``.tmp`` files that never
+    shadow a valid snapshot."""
     c = gbdt.config
     prefix = c.output_model
     model_path, state_path, manifest_path = snapshot_paths(prefix, iteration)
@@ -95,23 +150,15 @@ def write_snapshot(gbdt, iteration: int) -> str:
         # two chunks: the `snapshot.write` fault point sits between them
         atomic_write(model_path, model_text, chunks=2)
 
-        state = {}
-        state_bytes = 0
-        if gbdt.train_set is not None:
-            state["scores"] = gbdt.scores.cpu().numpy()
-            for i, vs in enumerate(gbdt._valid_scores):
-                state[f"valid_scores_{i}"] = vs.cpu().numpy()
-        if state:
-            buf = io.BytesIO()
-            np.savez(buf, **state)
-            state_bytes = len(buf.getvalue())
-            atomic_write(state_path, buf.getvalue(), binary=True)
+        payload = b"" if rank_states is not None else _score_state(gbdt)
+        if payload:
+            atomic_write(state_path, payload, binary=True)
 
         es = gbdt._es_state
         manifest = {
             "version": MANIFEST_VERSION,
             "iteration": int(iteration),
-            "world_size": 1,
+            "world_size": len(rank_states) if rank_states else 1,
             "num_trees": int(gbdt.num_trees()),
             "num_tree_per_iteration": int(max(1, gbdt.num_tree_per_iteration)),
             "init_score_value": float(gbdt.init_score_value),
@@ -119,13 +166,19 @@ def write_snapshot(gbdt, iteration: int) -> str:
             "model_file": os.path.basename(model_path),
             "model_size": len(model_text.encode()),
             "model_sha256": _sha256_bytes(model_text.encode()),
-            "state_file": os.path.basename(state_path) if state else "",
-            "state_sha256": _sha256_file(state_path) if state else "",
+            "state_file": os.path.basename(state_path) if payload else "",
+            "state_sha256": _sha256_bytes(payload) if payload else "",
             "best_scores": dict(es["best_scores"]),
             "best_iter": {k: int(v) for k, v in es["best_iter"].items()},
             "key_order": list(es["key_order"]),
             "extra_state": gbdt.snapshot_extra_state(),
         }
+        state_bytes = len(payload)
+        if rank_states is not None:
+            manifest["rank_states"] = {
+                str(r): {"file": os.path.basename(
+                    rank_state_path(prefix, iteration, r)), "sha256": sha}
+                for r, sha in enumerate(rank_states)}
         # the manifest last: its appearance commits the snapshot
         atomic_write(manifest_path, json.dumps(manifest, indent=1))
         total_bytes = manifest["model_size"] + state_bytes
@@ -201,6 +254,14 @@ def _validate_snapshot(manifest_path: str) -> Optional[Dict]:
         except OSError:
             log_warning(f"snapshot state {state_path} is missing; "
                         f"resume will replay trees instead")
+    manifest["rank_state_paths"] = {}
+    for r, ent in (manifest.get("rank_states") or {}).items():
+        path = os.path.join(directory, ent.get("file", ""))
+        try:
+            if _sha256_file(path) == ent.get("sha256"):
+                manifest["rank_state_paths"][int(r)] = path
+        except OSError:
+            pass
     return manifest
 
 
@@ -233,10 +294,188 @@ def prune_snapshots(prefix: str, keep: int) -> None:
         return
     for _, manifest_path in list_snapshots(prefix)[keep:]:
         base = manifest_path[:-len(".manifest.json")]
-        for path in (base, base + ".state.npz", manifest_path,
-                     base + ".tmp", base + ".state.npz.tmp",
-                     manifest_path + ".tmp"):
+        _unlink([base, base + ".state.npz", manifest_path, base + ".tmp",
+                 base + ".state.npz.tmp", manifest_path + ".tmp"]
+                + _siblings(base + ".state.rank"))
+
+
+def _siblings(stem: str) -> List[str]:
+    """Every file whose path starts with ``stem``."""
+    directory = os.path.dirname(stem) or "."
+    try:
+        return [os.path.join(directory, name)
+                for name in os.listdir(directory)
+                if os.path.join(directory, name).startswith(stem)]
+    except OSError:
+        return []
+
+
+def _unlink(paths: List[str]) -> None:
+    for path in paths:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+
+
+# ---------------------------------------------------------------------------
+# barrier snapshots (elastic training)
+# ---------------------------------------------------------------------------
+def barrier_paths(prefix: str, iteration: int) -> Tuple[str, str]:
+    base = f"{prefix}.barrier_iter_{iteration}"
+    return base, base + ".manifest.json"
+
+
+def barrier_shard_path(prefix: str, iteration: int, shard: int) -> str:
+    return f"{prefix}.barrier_iter_{iteration}.shard{shard}.npz"
+
+
+def write_barrier_shard(prefix: str, iteration: int, shard: int,
+                        scores: np.ndarray) -> str:
+    """Publish one shard's f32 score rows for a pending barrier; returns
+    the payload's sha256 (the commit gather carries it into rank 0's
+    manifest)."""
+    buf = io.BytesIO()
+    np.savez(buf, scores=np.asarray(scores, np.float32))
+    payload = buf.getvalue()
+    atomic_write(barrier_shard_path(prefix, iteration, shard), payload,
+                 binary=True)
+    counter_add("snapshot.barrier_shards")
+    return _sha256_bytes(payload)
+
+
+def commit_barrier(prefix: str, iteration: int, model_text: str,
+                   shard_shas: Dict[int, str], meta: Dict,
+                   keep: int = 2) -> str:
+    """Rank 0's half of the barrier commit: the model text, then the
+    manifest last (its appearance is the global commit marker; it names
+    every shard file's sha256, and every shard file exists by then: the
+    commit gather collected the shas from their writers).  Prunes to the
+    newest ``keep`` barriers."""
+    model_path, manifest_path = barrier_paths(prefix, iteration)
+    with span("snapshot.barrier", iteration=int(iteration)) as sp:
+        atomic_write(model_path, model_text, chunks=2)
+        manifest = {
+            "version": MANIFEST_VERSION,
+            "kind": "barrier",
+            "iteration": int(iteration),
+            "model_file": os.path.basename(model_path),
+            "model_size": len(model_text.encode()),
+            "model_sha256": _sha256_bytes(model_text.encode()),
+            "shards": {str(s): sha
+                       for s, sha in sorted(shard_shas.items())},
+            **meta,
+        }
+        atomic_write(manifest_path, json.dumps(manifest, indent=1))
+        sp["bytes"] = manifest["model_size"]
+        counter_add("snapshot.barrier_commits")
+    log_info(f"committed barrier snapshot at iteration {iteration} "
+             f"({len(shard_shas)} shards): {model_path}")
+    prune_barriers(prefix, keep)
+    return model_path
+
+
+def list_barriers(prefix: str) -> List[Tuple[int, str]]:
+    """Every barrier manifest of a prefix as ``(iteration, path)``, newest
+    first."""
+    directory = os.path.dirname(prefix) or "."
+    stem = os.path.basename(prefix)
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return []
+    out = []
+    for name in names:
+        m = _BARRIER_RE.search(name)
+        if m is None or not name.startswith(stem + ".barrier_iter_"):
+            continue
+        out.append((int(m.group(1)), os.path.join(directory, name)))
+    out.sort(key=lambda t: -t[0])
+    return out
+
+
+def validate_barrier(manifest_path: str) -> Optional[Dict]:
+    """Parse and verify one barrier: the manifest, the model text and
+    every shard file against its sha256.  None when anything is missing
+    or torn: a barrier is all or nothing."""
+    with span("snapshot.validate"):
+        try:
+            with open(manifest_path) as f:
+                manifest = json.load(f)
+        except (OSError, ValueError):
+            return None
+        directory = os.path.dirname(manifest_path) or "."
+        model_path = os.path.join(directory,
+                                  manifest.get("model_file", ""))
+        try:
+            if os.path.getsize(model_path) != manifest["model_size"]:
+                return None
+            if _sha256_file(model_path) != manifest["model_sha256"]:
+                return None
+        except (OSError, KeyError):
+            return None
+        base = manifest_path[:-len(".manifest.json")]
+        shard_paths = {}
+        for s, sha in manifest.get("shards", {}).items():
+            path = f"{base}.shard{int(s)}.npz"
             try:
-                os.unlink(path)
+                if _sha256_file(path) != sha:
+                    return None
             except OSError:
-                pass
+                return None
+            shard_paths[int(s)] = path
+        manifest["model_path"] = model_path
+        manifest["shard_paths"] = shard_paths
+        return manifest
+
+
+def latest_valid_barrier(prefix: str,
+                         num_shards: Optional[int] = None) -> Optional[Dict]:
+    """The newest barrier that validates in full and, when ``num_shards``
+    is given, was written for that protocol shard count (another shard
+    count is another model, never resumed)."""
+    for it, manifest_path in list_barriers(prefix):
+        manifest = validate_barrier(manifest_path)
+        if manifest is None:
+            log_warning(f"barrier snapshot at iteration {it} is torn "
+                        f"({manifest_path}); trying the previous one")
+            continue
+        if num_shards is not None \
+                and int(manifest.get("num_shards", -1)) != int(num_shards):
+            log_warning(
+                f"barrier snapshot at iteration {it} was written for "
+                f"{manifest.get('num_shards')} protocol shards, this "
+                f"run uses {num_shards}; skipping it")
+            continue
+        return manifest
+    return None
+
+
+def barrier_candidates(prefix: str,
+                       num_shards: Optional[int] = None) -> Dict[int, str]:
+    """``{iteration: model_sha256}`` of every barrier that validates in
+    full on this rank's view of the shared storage.  The elastic restore
+    gathers these and adopts the newest barrier every member sees, so a
+    lagging file system or a concurrent prune never lets ranks resume at
+    different iterations."""
+    out: Dict[int, str] = {}
+    for _, manifest_path in list_barriers(prefix):
+        manifest = validate_barrier(manifest_path)
+        if manifest is None:
+            continue
+        if num_shards is not None \
+                and int(manifest.get("num_shards", -1)) != int(num_shards):
+            continue
+        out[int(manifest["iteration"])] = manifest["model_sha256"]
+    return out
+
+
+def prune_barriers(prefix: str, keep: int) -> None:
+    """Keep the newest ``keep`` committed barriers; the shard files of
+    the dropped iterations go with them."""
+    if keep <= 0:
+        return
+    for _, manifest_path in list_barriers(prefix)[keep:]:
+        base = manifest_path[:-len(".manifest.json")]
+        _unlink([base, manifest_path, base + ".tmp", manifest_path + ".tmp"]
+                + _siblings(base + ".shard"))

@@ -1,5 +1,5 @@
-"""Streamed out-of-core training (a port of the JAX package's
-``boosting/streaming.py`` for one shard).
+"""Streamed out-of-core training and elastic training (a port of the JAX
+package's ``boosting/streaming.py``).
 
 Rows live in the mmap-able shard store (``io/outofcore.py``), not on
 the device: per tree, row blocks stream host -> device once per wave;
@@ -15,12 +15,14 @@ the bins stream as the store holds them, uint8 or int32.  Device memory
 follows the block size, never the row count: only the gradients,
 hessians, scores and each block's two leaf vectors live on the host.
 
-The streamed model equals the in-memory one (``lgb.train`` on the same
-rows) bitwise on the quantized modes, scores included:
+With one protocol shard the streamed model equals the in-memory one
+(``lgb.train`` on the same rows) bitwise on the quantized modes, scores
+included:
 
 1. **Carried folds.**  The quantized kernels add int32 values, exact in
    any order, and every block of a tree quantizes with one scale pair,
-   the host absmax over all rows (:func:`_fold_scales`), bitwise the
+   the host absmax over all rows of its shard (:func:`_fold_scales`),
+   bitwise the
    device absmax the in-memory pack computes.  The float modes (taken
    past 16,909,320 rows, where int8 cells could overflow int32) sum in a
    fixed order that does not depend on the block size
@@ -57,18 +59,45 @@ waiting for block k+1's staging and issuing its copy after block k's
 kernels were launched).  Spans are host wall clock and add no device
 synchronization.
 
+**Protocol shards.**  The rows split into ``S`` contiguous shards
+(``parallel/mesh.py:shard_row_ranges``; ``S`` is ``num_shards``, else
+the elastic run's, else ``mesh_shape[0]`` under ``tree_learner=data``,
+else 1: a stream trains on one device).  Blocks subdivide each shard's
+range and never straddle two.  Each shard keeps its own root chunk sums,
+reduced per shard, its own quantization scales (the absmax over its
+rows) and its own histogram carry, unpacked per shard; the shards'
+partials then combine in shard order, elementwise adds.  With ``S = 1``
+this is the one-shard stream above; with ``S > 1`` it is the JAX
+package's ``StreamTrainer(num_shards=S)``, bit for bit.
+
+**Elastic training** (:func:`train_elastic`) rides these shards, because
+all of its communication is an explicit host combination of per-shard
+partials.  ``S`` is fixed for the run's lifetime
+(:func:`elastic_shards`); each rank owns the shards ``s % world ==
+rank``, folds only their blocks, and the per-shard partials (root
+statistics, each wave's histograms) are gathered through the elastic
+coordinator (``parallel/elastic.py``) and combined in shard order.  The
+model is therefore a function of ``(data, config, S)`` only: any world
+size, any membership history and any recovery from a committed barrier
+snapshot (``boosting/snapshot.py``) give the same bytes.  On a
+``RankLostError``, ``GenerationChanged`` or ``EvictedError`` survivors
+re-rendezvous, own the shards again at the new world size, and resume
+from the newest barrier every member can read.  A plain stream with
+``snapshot_freq`` writes the same barriers (a world of one), and
+``train_streaming(..., resume_from=)`` restores the newest one.
+
 Supported: gbdt boosting with the row-wise objectives (the regression,
 binary, multiclass and cross-entropy families: a block's gradients are
 its rows' gradients), K trees an iteration for the multiclass ones (one
 set of gradients an iteration, each class's tree streamed in turn, its
 feature mask keyed on ``iter * K + k``), weights, ``feature_fraction``,
-one shard.  These raise, as in the JAX package: leaf-renewal objectives
-(L1, quantile, MAPE re-fit leaves from every row's score), ranking (row
-blocks would split queries), bagging (its ``[n]`` device mask breaks
-the memory contract), ``boosting != gbdt``, custom objectives,
-EFB-bundled resident sources, and the distributed stream
-(``tree_learner`` other than serial, S > 1 shards; ROADMAP A11's
-remainder).
+``tree_learner`` serial or data.  These raise, as in the JAX package:
+leaf-renewal objectives (L1, quantile, MAPE re-fit leaves from every
+row's score), ranking (row blocks would split queries), bagging (its
+``[n]`` device mask breaks the memory contract), ``boosting != gbdt``,
+custom objectives, EFB-bundled resident sources, ``tree_learner``
+feature or voting, and ``num_machines > 1`` (a stream over several
+processes is :func:`train_elastic`).
 """
 from __future__ import annotations
 
@@ -89,7 +118,7 @@ from ..learner.serial import (STREAM_CHUNK, _apply_wave, _pending_tables,
                               make_hist_fold_fn, reduce_chunk_sums,
                               rescan_changed, root_chunk_sums, root_state,
                               stage_plan, wide_hist_bytes, wide_wave_slots)
-from ..obs import counter_add, span
+from ..obs import counter_add, event, span
 from ..objective.objectives import create_objective
 from ..ops.histogram import bin_stride, hist_wide_scratch_bytes
 from ..ops.route import route_rows, route_rows_values
@@ -214,17 +243,20 @@ class _Source:
 
 
 def _check_streamable(config: Config, objective, src: _Source) -> None:
-    check_unported_options(config, streamed=True)
+    check_unported_options(config)
     bad = None
     if config.boosting_type != "gbdt":
         bad = f"boosting={config.boosting_type} (host score patching)"
     elif config.bagging_freq > 0 and config.bagging_fraction < 1.0:
         bad = ("bagging (the [n]-shaped device mask breaks the "
                "block-memory contract)")
-    elif config.tree_learner != "serial" or config.num_machines > 1:
-        bad = (f"tree_learner={config.tree_learner} (the data-parallel "
-               "stream over several shards is not ported yet: ROADMAP "
-               "A11, remainder)")
+    elif config.tree_learner not in ("serial", "data"):
+        bad = (f"tree_learner={config.tree_learner} (a stream composes "
+               "with data-parallel row shards only)")
+    elif config.num_machines > 1:
+        bad = (f"num_machines={config.num_machines} (a stream over several "
+               "processes is train_elastic, whose ranks own whole "
+               "protocol shards)")
     elif objective is None:
         bad = "objective=none / custom fobj"
     elif objective.need_renew_tree_output:
@@ -238,6 +270,17 @@ def _check_streamable(config: Config, objective, src: _Source) -> None:
         raise ValueError(f"streaming training does not support {bad}; "
                          "train in memory, or see README \"Out-of-core "
                          "training\" for the supported envelope")
+
+
+def _num_shards(config: Config) -> int:
+    """The protocol shard count of a stream given neither ``num_shards``
+    nor an elastic run: ``mesh_shape[0]`` under ``tree_learner=data``,
+    else 1 (a stream trains on one device; the JAX package takes its
+    device count there)."""
+    if config.tree_learner != "data":
+        return 1
+    shape = tuple(config.mesh_shape)
+    return max(1, int(shape[0])) if shape else 1
 
 
 class _BlockUploader:
@@ -343,13 +386,17 @@ class StreamTrainer:
 
     Produces a regular :class:`~lightgbm_tpu_torch.boosting.gbdt.GBDT`
     (model text, ``digest()``, prediction through the mappers) whose
-    train scores are the streamed host score state."""
+    train scores are the streamed host score state.  ``num_shards`` sets
+    the protocol shard count; ``elastic`` (an
+    :class:`~lightgbm_tpu_torch.parallel.elastic.ElasticRun`) makes this
+    trainer one rank of an elastic world, folding only its own shards."""
 
     _wd = None                  # the stall watchdog, live inside train()
 
     def __init__(self, config: Config, source,
                  block_rows: Optional[int] = None, device=None,
-                 pipeline: bool = True):
+                 pipeline: bool = True, num_shards: int = 0, elastic=None):
+        from ..parallel.mesh import shard_row_ranges
         self.config = config
         self.src = _Source(source, config)
         self.objective = create_objective(config)
@@ -360,15 +407,34 @@ class StreamTrainer:
             raise ValueError("empty stream source")
         self.n = n
         self.device = torch.device(device or config.device)
-        # blocks are whole root-statistic chunks (the chunk-sum contract)
-        # and no longer than the padded stream
+        # the protocol shard count: explicit, else the elastic run's, else
+        # the mesh shape's; fixed for an elastic run's lifetime, whatever
+        # the world size
+        self.elastic = elastic
+        self.S = (int(num_shards)
+                  or (int(elastic.num_shards) if elastic is not None else 0)
+                  or _num_shards(config))
+        self.owned = (elastic.owned_shards() if elastic is not None
+                      else tuple(range(self.S)))
+        self.ranges = [(lo, min(hi, n))
+                       for lo, hi in shard_row_ranges(n, self.S)]
+        self.per = -(-n // self.S)
+        # blocks are whole root-statistic chunks (the chunk-sum contract),
+        # subdivide each shard's range, and are no longer than a shard
         if not block_rows:
             block_rows = stream_rows() or DEFAULT_BLOCK_ROWS
         R = -(-max(1, int(block_rows)) // STREAM_CHUNK) * STREAM_CHUNK
-        self.R = min(R, -(-n // STREAM_CHUNK) * STREAM_CHUNK)
-        self.blocks: List[Tuple[int, int, int]] = [
-            (lo, min(lo + self.R, n), min(lo + self.R, n) - lo)
-            for lo in range(0, n, self.R)]
+        self.R = min(R, -(-self.per // STREAM_CHUNK) * STREAM_CHUNK)
+        # this rank's blocks (every block when not elastic) and the shard
+        # of each
+        self.blocks: List[Tuple[int, int, int]] = []
+        self.block_shard: List[int] = []
+        for s in self.owned:
+            lo, hi = self.ranges[s]
+            for start in range(lo, hi, self.R):
+                stop = min(start + self.R, hi)
+                self.blocks.append((start, stop, stop - start))
+                self.block_shard.append(s)
         self.pipeline = pipeline and stream_pipeline_env()
 
         light = self.src.light_dataset()
@@ -404,19 +470,28 @@ class StreamTrainer:
         self.scores = np.zeros((n, self.K), np.float32)
         self._init_scores()
         self._up: Optional[_BlockUploader] = None
+        # an open recovery episode handed over by train_elastic: train()
+        # closes it (phase `retrain`) once boosting is back at the
+        # iteration the failure interrupted
+        self.recovery_episode = None
+
+    @property
+    def _exchange(self) -> bool:
+        """Whether the shard partials travel between ranks."""
+        return self.elastic is not None and self.elastic.world > 1
 
     def _check_fits(self) -> None:
         """Refuse, before any upload, a scatter stream whose per-leaf
-        histograms, one wave's grids and carry, two device blocks (each
-        with its transposed bins) and a block's histogram scratch exceed
-        the card's memory: every term follows the block size, the leaves
-        and the bins, never the row count (on the CPU the host's
-        allocator decides)."""
+        histograms, one wave's grids and carries (one a shard), two device
+        blocks (each with its transposed bins) and a block's histogram
+        scratch exceed the card's memory: every term follows the block
+        size, the shards, the leaves and the bins, never the row count (on
+        the CPU the host's allocator decides)."""
         if self.device.type != "cuda":
             return
         dd, R, L, A = self.dd, self.R, self.L, self.A
         G, Bh = dd.num_groups, bin_stride(dd.group_max_bins)
-        hist = wide_hist_bytes(L, G, Bh) + A * G * Bh * 12
+        hist = wide_hist_bytes(L, G, Bh) + self.S * A * G * Bh * 12
         blocks = 2 * R * (2 * G * self.src.dtype.itemsize + 8)
         scratch = hist_wide_scratch_bytes(R, G, A, Bh)
         have = torch.cuda.get_device_properties(self.device).total_memory
@@ -455,15 +530,16 @@ class StreamTrainer:
         return torch.from_numpy(out).to(self.device)
 
     def _gradients(self):
-        """-> host (grad [n, K], hess [n, K]) and each class's root chunk
-        sums ``[3, m]``: each block's gradients on the device from its
-        scores, labels and weights (the objectives are row-wise, so a
-        block's slice equals the in-memory rows)."""
+        """-> host (grad [n, K], hess [n, K]; rows of this rank's blocks)
+        and, per class and shard, the blocks' root chunk sums ``[3, m]``:
+        each block's gradients on the device from its scores, labels and
+        weights (the objectives are row-wise, so a block's slice equals
+        the in-memory rows)."""
         obj, K = self.objective, self.K
         grad = np.empty((self.n, K), np.float32)
         hess = np.empty((self.n, K), np.float32)
-        sums = [[] for _ in range(K)]
-        for start, stop, m in self.blocks:
+        sums = [[[] for _ in range(self.S)] for _ in range(K)]
+        for (start, stop, m), sh in zip(self.blocks, self.block_shard):
             _, label, weight = self.src.read_rows(start, stop)
             sc = self._pad(self.scores[start:stop], m)
             obj.label = self._pad(np.asarray(label, np.float32), m)
@@ -475,13 +551,31 @@ class StreamTrainer:
                 obj.label = obj.weight = None
             mask = torch.arange(self.R, device=self.device) < m
             for k in range(K):
-                sums[k].append(root_chunk_sums(g[:, k].contiguous(),
-                                               h[:, k].contiguous(), mask))
+                sums[k][sh].append(root_chunk_sums(g[:, k].contiguous(),
+                                                   h[:, k].contiguous(),
+                                                   mask))
             grad[start:stop] = g[:m].cpu().numpy()
             hess[start:stop] = h[:m].cpu().numpy()
-        m_chunks = -(-self.n // STREAM_CHUNK)
-        cs = [torch.cat(sk, dim=1)[:, :m_chunks] for sk in sums]
-        return grad, hess, cs
+        return grad, hess, sums
+
+    def _root_sums(self, shard_cs):
+        """Root ``(sum_g, sum_h, cnt)`` from each shard's block chunk sums:
+        each shard reduces its ``ceil(per / STREAM_CHUNK)`` chunks (the
+        rows past its end are zero chunks) by the fixed pairwise tree, and
+        the shards' ``[3]`` partials add in shard order (gathered from
+        their owners in an elastic world).  With one shard these are the
+        in-memory root statistics."""
+        m_chunks = -(-self.per // STREAM_CHUNK)
+        parts = {}
+        for s in self.owned:
+            cs = (torch.cat(shard_cs[s], dim=1) if shard_cs[s] else
+                  torch.zeros((3, 0), dtype=torch.float32,
+                              device=self.device))
+            if cs.shape[1] < m_chunks:
+                cs = torch.nn.functional.pad(cs, (0, m_chunks - cs.shape[1]))
+            parts[s] = torch.stack(reduce_chunk_sums(cs[:, :m_chunks]))
+        tot = self._shard_sum(parts, "elastic.root_stats")
+        return reduce_chunk_sums(tot[:, None])   # [3, 1]: the identity
 
     # -- training ---------------------------------------------------------
     def train(self, num_iterations: Optional[int] = None) -> GBDT:
@@ -490,7 +584,10 @@ class StreamTrainer:
         (``warming`` until the first iteration, then ``ready``), the stall
         watchdog (``LGBM_TPU_WATCHDOG_S``) is armed around each streamed
         tree, and every iteration boundary feeds the determinism and ulp
-        contracts from the host scores (:meth:`_window_contracts`)."""
+        contracts from the host scores (:meth:`_window_contracts`).  Every
+        ``snapshot_freq`` iterations a barrier snapshot is committed
+        (:meth:`_barrier_snapshot`); an elastic rank reports its iteration
+        on its heartbeats and gathers every shard's scores at the end."""
         from ..obs import determinism, health, num_contract, ops_plane
         iters = num_iterations or self.config.num_iterations
         if self.booster.iter == 0:
@@ -500,32 +597,62 @@ class StreamTrainer:
                 num_contract.reset()
         ops_plane.mount("train")
         self._wd = health.Watchdog.maybe("stream")
-        health.mark_warming("stream")
+        if self.booster.iter < iters:
+            # (a run restored at its last iteration has nothing to warm)
+            health.mark_warming("stream")
         self._up = _BlockUploader(self.src, self.blocks, self.R, self.device,
                                   self.pipeline)
         try:
-            with span("stream.train", rows=self.n, block=self.R, shards=1):
+            with span("stream.train", rows=self.n, block=self.R,
+                      shards=self.S):
+                self._finish_recovery()
                 for it in range(self.booster.iter, iters):
                     stop = self._train_one_iter(it)
                     health.mark_ready()
+                    self._finish_recovery()
                     self._window_contracts(it + 1)
                     if stop:
                         break
+                    if self.elastic is not None:
+                        # progress rides the heartbeats (the chaos
+                        # launcher's kill schedule reads it)
+                        self.elastic.client.set_status(iteration=it + 1)
+                    self._maybe_barrier(it + 1)
         finally:
             self._up.close()
             if self._wd is not None:
                 self._wd.stop()
                 self._wd = None
+        ep = self.recovery_episode
+        if ep is not None:
+            # stopped early, before the interrupted iteration came back
+            self.recovery_episode = None
+            ep.finish(iteration=int(self.booster.iter), truncated=True)
+        if self._exchange:
+            self._sync_scores()
         self.booster.scores = torch.from_numpy(self.scores)
         return self.booster
+
+    def _finish_recovery(self) -> None:
+        """Close the open recovery episode once boosting is back at the
+        iteration the failure interrupted: `retrain` ends at full
+        recovery, not at the rendezvous."""
+        ep = self.recovery_episode
+        if ep is not None and self.booster.iter >= ep.target_iter:
+            self.recovery_episode = None
+            ep.finish(iteration=int(self.booster.iter))
 
     def _window_contracts(self, it: int) -> None:
         """Iteration-boundary sampling for the determinism digest ledger
         (``LGBM_TPU_DETERMINISM=1``) and the ulp ledger
         (``LGBM_TPU_NUM_CONTRACT=1``) over the host score state; nothing
-        when neither is on."""
+        when neither is on, nor mid-run on an elastic rank of a world
+        larger than one (the shards it does not own hold stale scores
+        until the final gather)."""
         from ..obs import determinism, num_contract
         if not (determinism.enabled() or num_contract.enabled()):
+            return
+        if self._exchange:
             return
         self.booster.scores = torch.from_numpy(self.scores)
         if determinism.enabled():
@@ -578,6 +705,8 @@ class StreamTrainer:
         before block i is awaited; otherwise block i+1 is staged and
         copied after."""
         nb, up = len(self.blocks), self._up
+        if not nb:
+            return
         up.finish(0, up.start(0, grad, hess))
         for bi in range(nb):
             ahead = (up.start(bi + 1, grad, hess)
@@ -596,16 +725,19 @@ class StreamTrainer:
                 up.finish(bi + 1, up.start(bi + 1, grad, hess))
 
     def _build_tree(self, grad: np.ndarray, hess: np.ndarray,
-                    cs: torch.Tensor, fmask, k: int):
+                    shard_cs, fmask, k: int):
         L, dev, fold = self.L, self.device, self.fold
         growth = self.growth
         wave_cap = growth.wave_size if growth.wave_size > 0 else L
-        sum_g, sum_h, cnt = reduce_chunk_sums(cs)
+        sum_g, sum_h, cnt = self._root_sums(shard_cs)
         s = root_state(self.dd, torch.empty((2, 0), dtype=torch.int32,
                                             device=dev),
                        sum_g, sum_h, cnt, growth, self.A)
-        scales = (torch.as_tensor(_fold_scales(grad, hess), device=dev)
-                  if fold.quantized else None)
+        # each owned shard's quantization scales, over its own rows
+        scales = ({sh: torch.as_tensor(
+                      _fold_scales(grad[lo:hi], hess[lo:hi]), device=dev)
+                   for sh, (lo, hi) in enumerate(self.ranges)
+                   if sh in self.owned} if fold.quantized else {})
         # each block's (row leaf, hist leaf) between waves; padding rows
         # are -1 in both, as in memory
         leaf2 = []
@@ -620,20 +752,23 @@ class StreamTrainer:
             if done or nl >= L:
                 break
             tabs = _pending_tables(self.dd, s, L)
-            acc = fold.init_acc()
+            accs = {sh: fold.init_acc() for sh in self.owned}
 
             def block(bi, l2):
+                sh = self.block_shard[bi]
                 bins_t, g, h = up.get(bi)
                 if wave:
                     l2 = route_rows(bins_t, l2, *tabs)
                 fold.fold(bins_t, g, h, l2[1].contiguous(), s.act_small,
-                          acc, scales)                # into acc
+                          accs[sh], scales.get(sh))   # into the carry
                 return l2
 
             def store(bi, l2):
                 leaf2[bi] = l2.cpu().numpy()
             self._stream_blocks(grad, hess, leaf2, block, store)
-            new_h = fold.unpack(acc, scales)
+            new_h = self._shard_sum(
+                {sh: fold.unpack(accs[sh], scales.get(sh))
+                 for sh in self.owned}, "elastic.wave_hist")
             ids, res = rescan_changed(self.dd, growth, fmask, s, new_h)
             s = _apply_wave(s, s.leaf2, ids, res, self.A, growth,
                             wave_cap)
@@ -660,20 +795,197 @@ class StreamTrainer:
         empty = torch.zeros(0, dtype=torch.int32, device=dev)
         return finished_tree(s, L, empty, empty.float())
 
+    def _shard_sum(self, parts, site: str):
+        """Every shard's partial (this rank's ``{shard: tensor}``; in an
+        elastic world the others' gathered from their owners at ``site``)
+        added in shard order: the elementwise adds whichever rank computed
+        which shard."""
+        if self._exchange:
+            merged = self._exchange_arrays(
+                {str(s): p.cpu().numpy() for s, p in parts.items()},
+                site=site)
+            parts = {s: torch.as_tensor(a, device=self.device)
+                     for s, a in merged.items()}
+        out = parts[0]
+        for s in range(1, self.S):
+            out = out + parts[s]
+        return out
 
-def train_streaming(params, source, num_boost_round: Optional[int] = None,
-                    cache_dir: Optional[str] = None,
-                    block_rows: Optional[int] = None, device=None,
-                    pipeline: bool = True) -> GBDT:
-    """Train out-of-core on ``device`` (default: the ``device`` parameter,
-    ``cuda`` unless set).  ``source`` is a ShardStore, a list of CSV, TSV
-    or libsvm files (ingested into ``cache_dir`` first, by default
-    ``LGBM_TPU_STREAM_CACHE`` or a ``.lgbm_shards`` directory beside the
-    first file), or a resident BinnedDataset.  ``block_rows`` defaults to
-    ``LGBM_TPU_STREAM_ROWS``, else 1,048,576; ``LGBM_TPU_STREAM_PIPELINE=0``
-    turns the upload pipeline off.  ``telemetry_output`` enables the
-    trace for the run.  Returns a GBDT booster
-    (``save_model_to_string``, ``predict``, ``digest``)."""
+    # -- the elastic protocol ---------------------------------------------
+    def _exchange_arrays(self, payload, site: str = "elastic.exchange"
+                         ) -> dict:
+        """Allgather ``{shard: array}`` contributions and return the full
+        ``{shard: array}`` map; every protocol shard must be covered (the
+        ownership rule guarantees it: a hole is a protocol desync, not a
+        recoverable fault).  ``site`` names the call point on the
+        collective's span, so root-statistic, wave-histogram and score
+        skew attribute apart.  The ``elastic.bytes_exchanged`` counter
+        adds this rank's encoded payload."""
+        from ..parallel.elastic import decode_array, encode_array
+        enc = {s: encode_array(a) for s, a in payload.items()}
+        counter_add("elastic.bytes_exchanged",
+                    sum(len(v) for v in enc.values()))
+        gathered = self.elastic.allgather(enc, site=site)
+        merged = {}
+        for part in gathered:
+            merged.update(part or {})
+        out = {}
+        for s in range(self.S):
+            text = merged.get(str(s))
+            if text is None:
+                raise RuntimeError(
+                    f"elastic exchange is missing shard {s} of {self.S} "
+                    f"(world {self.elastic.world}): ranks disagree on "
+                    "the shard protocol")
+            out[s] = decode_array(text)
+        return out
+
+    def _maybe_barrier(self, iteration: int) -> None:
+        freq = int(self.config.snapshot_freq or 0)
+        if freq <= 0 or iteration % freq != 0:
+            return
+        self._barrier_snapshot(iteration)
+
+    def _barrier_snapshot(self, iteration: int) -> None:
+        """The coordinated snapshot commit: this rank's shard states
+        first, then a commit gather of ``(iteration, model digest, shard
+        shas)`` on which every rank must agree, then rank 0 publishes the
+        model text and the manifest (the manifest last: its appearance is
+        the global commit marker), then a barrier.  A SIGKILL anywhere in
+        the sequence leaves a complete barrier or a torn one that
+        validation skips.  Outside an elastic run the world is this one
+        process."""
+        from .snapshot import (_sha256_bytes, commit_barrier, config_hash,
+                               write_barrier_shard)
+        run = self.elastic
+        prefix = self.config.output_model
+        shard_shas = {}
+        for s in self.owned:
+            lo, hi = self.ranges[s]
+            shard_shas[s] = write_barrier_shard(prefix, iteration, s,
+                                                self.scores[lo:hi])
+        model_text = self.booster.save_model_to_string(-1)
+        ack = {"iteration": int(iteration),
+               "digest": _sha256_bytes(model_text.encode()),
+               "shards": {str(s): sha for s, sha in shard_shas.items()}}
+        acks = ([ack] if run is None else
+                run.allgather(ack, site="elastic.barrier_commit"))
+        head = (acks[0]["iteration"], acks[0]["digest"])
+        for a in acks[1:]:
+            if (a["iteration"], a["digest"]) != head:
+                event("elastic", "barrier_mismatch",
+                      iteration=int(iteration))
+                raise RuntimeError(
+                    f"barrier commit mismatch at iteration {iteration}: "
+                    f"ranks disagree on (iteration, model digest) "
+                    f"{[(a['iteration'], a['digest'][:12]) for a in acks]}"
+                    "; refusing to publish a snapshot that is not "
+                    "globally valid")
+        if run is None or run.rank == 0:
+            merged = {}
+            for a in acks:
+                merged.update({int(s): sha
+                               for s, sha in a["shards"].items()})
+            meta = {
+                "num_shards": int(self.S),
+                "world_size": int(run.world) if run is not None else 1,
+                "generation": int(run.generation) if run is not None else 0,
+                "config_hash": config_hash(self.config),
+                "init_score_value": float(self.booster.init_score_value),
+                "num_tree_per_iteration": int(self.K),
+            }
+            commit_barrier(prefix, iteration, model_text, merged, meta,
+                           keep=max(int(self.config.snapshot_keep), 1))
+        if run is not None:
+            # every rank outlives the publish: a rank that ran ahead into
+            # the next window could otherwise see a half-written commit
+            run.barrier(f"barrier-committed-{iteration}")
+        counter_add("elastic.barriers")
+
+    def restore_barrier(self, prefix: Optional[str] = None,
+                        iteration: Optional[int] = None,
+                        model_sha: Optional[str] = None) -> int:
+        """Adopt the newest committed barrier under ``prefix`` (default
+        ``output_model``): the trees from its model text, the scores from
+        its shard files; returns the restored iteration, 0 when there is
+        nothing to restore.  Independent of the rank: every rank reads the
+        same manifest, and shard files are keyed by protocol shard, not
+        by the rank that wrote them.
+
+        ``iteration`` and ``model_sha`` pin the barrier the elastic world
+        agreed on (the protocol gather of ``train_elastic``): a rank that
+        can no longer validate that barrier fails here instead of
+        resuming another iteration than its peers."""
+        from .snapshot import (barrier_paths, config_hash,
+                               latest_valid_barrier, validate_barrier)
+        prefix = prefix or self.config.output_model
+        if iteration is None:
+            man = latest_valid_barrier(prefix, num_shards=self.S)
+            if man is None:
+                return 0
+        else:
+            man = validate_barrier(barrier_paths(prefix, int(iteration))[1])
+            if man is None \
+                    or int(man.get("num_shards", -1)) != self.S \
+                    or (model_sha is not None
+                        and man.get("model_sha256") != model_sha):
+                raise RuntimeError(
+                    f"agreed barrier snapshot (iteration {iteration}) "
+                    "is no longer restorable on this rank: it validated "
+                    "during the restore gather but is now missing, torn, "
+                    "or another model; refusing to resume from another "
+                    "iteration than the rest of the world")
+        if man.get("config_hash") and \
+                man["config_hash"] != config_hash(self.config):
+            raise ValueError(
+                "cannot resume from barrier snapshot: the training "
+                "config changed (it would train a different model under "
+                "the same prefix); clear the barrier files or keep the "
+                "config")
+        if int(man.get("num_tree_per_iteration", self.K)) != self.K:
+            raise ValueError("barrier snapshot objective shape does not "
+                             "match this run")
+        with open(man["model_path"]) as f:
+            donor = GBDT(self.config, None, self.device)
+            donor.load_model_from_string(f.read())
+        light = self.booster.train_set
+        fmap = {f: i for i, f in enumerate(light.used_features)}
+        for t in donor.models:
+            t.align_with_mappers(light.mappers, fmap)
+        self.booster.models = list(donor.models)
+        self.booster.iter = int(man["iteration"])
+        self.booster.init_score_value = float(
+            man.get("init_score_value", self.booster.init_score_value))
+        for s, path in man["shard_paths"].items():
+            lo, hi = self.ranges[int(s)]
+            arr = np.load(path)["scores"]
+            if arr.shape != (hi - lo, self.K):
+                raise ValueError(
+                    f"barrier shard {s} carries scores of shape "
+                    f"{arr.shape}, expected {(hi - lo, self.K)}: the "
+                    "data or the shard protocol changed under the prefix")
+            self.scores[lo:hi] = arr
+        counter_add("snapshot.barrier_resumes")
+        log_info(f"restored barrier snapshot: iteration "
+                 f"{self.booster.iter}, {len(man['shard_paths'])} shard "
+                 f"states ({prefix})")
+        return self.booster.iter
+
+    def _sync_scores(self) -> None:
+        """The end of an elastic run: every rank gathers the shards it
+        does not own, so the returned booster's ``digest()`` covers every
+        row on every rank."""
+        payload = {str(s): self.scores[lo:hi]
+                   for s, (lo, hi) in enumerate(self.ranges)
+                   if s in self.owned}
+        merged = self._exchange_arrays(payload, site="elastic.score_sync")
+        for s, (lo, hi) in enumerate(self.ranges):
+            self.scores[lo:hi] = merged[s]
+
+
+def _config_and_source(params, source, cache_dir):
+    """The parsed, checked config (with ``telemetry_output`` enabling the
+    trace) and the stream source, files ingested into ``cache_dir``."""
     from ..io.outofcore import default_cache_dir, ingest
     config = Config.from_params(canonicalize_params(dict(params)))
     config.check()
@@ -683,6 +995,239 @@ def train_streaming(params, source, num_boost_round: Optional[int] = None,
     if isinstance(source, (list, tuple)):
         cdir = cache_dir or default_cache_dir(list(source))
         source = ingest(list(source), config, cdir)
+    return config, source
+
+
+def train_streaming(params, source, num_boost_round: Optional[int] = None,
+                    cache_dir: Optional[str] = None,
+                    block_rows: Optional[int] = None, device=None,
+                    pipeline: bool = True, num_shards: int = 0) -> GBDT:
+    """Train out-of-core on ``device`` (default: the ``device`` parameter,
+    ``cuda`` unless set).  ``source`` is a ShardStore, a list of CSV, TSV
+    or libsvm files (ingested into ``cache_dir`` first, by default
+    ``LGBM_TPU_STREAM_CACHE`` or a ``.lgbm_shards`` directory beside the
+    first file), or a resident BinnedDataset.  ``block_rows`` defaults to
+    ``LGBM_TPU_STREAM_ROWS``, else 1,048,576; ``LGBM_TPU_STREAM_PIPELINE=0``
+    turns the upload pipeline off.  ``num_shards`` (default:
+    ``mesh_shape[0]`` under ``tree_learner=data``, else 1) sets the
+    protocol shards.  ``telemetry_output`` enables the trace for the run.
+    ``snapshot_freq`` commits a barrier snapshot under ``output_model``
+    every that many iterations, and ``resume_from`` (a prefix, or
+    ``"auto"``/``"latest"`` for ``output_model``) continues from the
+    newest committed one of the same shard count, bit for bit.  Returns a
+    GBDT booster (``save_model_to_string``, ``predict``, ``digest``)."""
+    config, source = _config_and_source(params, source, cache_dir)
     trainer = StreamTrainer(config, source, block_rows=block_rows,
-                            device=device, pipeline=pipeline)
+                            device=device, pipeline=pipeline,
+                            num_shards=num_shards)
+    if config.resume_from:
+        prefix = config.resume_from
+        if prefix in ("auto", "latest"):
+            prefix = config.output_model
+        with span("snapshot.resume"):
+            if not trainer.restore_barrier(prefix):
+                log_warning(f"resume_from={config.resume_from!r}: no "
+                            f"committed barrier snapshot of "
+                            f"{trainer.S} shards under {prefix!r}; "
+                            "training from the start")
     return trainer.train(num_boost_round)
+
+
+def elastic_shards(world: int, explicit: int = 0) -> int:
+    """The run-lifetime protocol shard count: the explicit argument, else
+    ``LGBM_TPU_ELASTIC_SHARDS``, else the initial world size.  Fixing S
+    while the world varies is what lands every membership history on the
+    same bytes (the model is a function of ``(data, config, S)``)."""
+    s = int(explicit) or int(os.environ.get("LGBM_TPU_ELASTIC_SHARDS",
+                                            "0") or 0)
+    return s if s > 0 else max(int(world), 1)
+
+
+def _write_elastic_summary(run) -> None:
+    """The merged telemetry summary at the end of an elastic run, over the
+    elastic allgather (elastic workers form no torch.distributed world):
+    rank 0 writes ``<trace>.summary.json`` beside its trace file.  The
+    gather is decided on shared state only (``run.world``), so every rank
+    joins it or none does; whether a rank traces is decided after it.  A
+    peer lost between the end of training and here must not restart the
+    recovery over a summary, so elastic interrupts are swallowed (the
+    model is already trained on every rank)."""
+    import re
+    from ..obs import merged_summary, telemetry, write_summary
+    from ..parallel.elastic import ELASTIC_INTERRUPTS
+    try:
+        merged = (merged_summary(
+                      lambda obj: run.allgather(obj, site="elastic.summary"))
+                  if run.world > 1 else None)
+    except ELASTIC_INTERRUPTS:
+        return
+    path = telemetry.trace_path()
+    if not path or (run.world > 1 and run.rank != 0):
+        return
+    base = re.sub(r"\.rank\d+$", "", path)
+    try:
+        write_summary(base + ".summary.json", merged)
+    except OSError:
+        log_warning("elastic: failed to write merged summary "
+                    f"({base}.summary.json)")
+
+
+def train_elastic(params, source, num_boost_round: Optional[int] = None,
+                  coordinator: Optional[str] = None,
+                  cache_dir: Optional[str] = None,
+                  block_rows: Optional[int] = None, num_shards: int = 0,
+                  min_world: int = 1, client=None, max_recoveries: int = 64,
+                  device=None) -> GBDT:
+    """Train under the elastic protocol (``parallel/elastic.py``):
+    rendezvous with the coordinator, stream-train the owned shards,
+    commit a cross-rank barrier snapshot every ``snapshot_freq``
+    iterations, and on any elastic interrupt (a lost rank, a membership
+    change, an eviction) re-rendezvous at the new world size, own the
+    shards again and resume from the newest barrier every member can
+    read.  The recovered model is byte-identical to the uninterrupted run
+    at any world size (``tools/chaos_torch.py`` is the gate).
+
+    ``source`` follows :func:`train_streaming` (every member must see the
+    same data and params: the protocol gather checks the config hash and
+    the shard count).  ``coordinator`` defaults to ``LGBM_TPU_ELASTIC``;
+    ``num_shards`` to :func:`elastic_shards`; ``device`` to the ``device``
+    parameter (``cuda`` unless set).
+
+    Recovery accounting (``obs/fleet.py``): each recovery is a
+    :class:`~lightgbm_tpu_torch.obs.fleet.RecoveryEpisode` whose phases
+    ``detect`` (from the moment the failed collective started), ``resync``,
+    ``reshard``, ``restore`` and ``retrain`` (until boosting is back at
+    the interrupted iteration) sum to its ``mttr_s``; ``/healthz`` walks
+    ready -> recovering -> ready.  Telemetry: the ``elastic.rendezvous``,
+    ``elastic.reshard`` and ``elastic.recover`` spans, the ``elastic.*``
+    counters and the ``elastic:joined``, ``elastic:rank_lost`` and
+    ``elastic:recover`` events."""
+    from ..obs import fleet, health
+    from ..obs.telemetry import hold_trace, release_trace, set_rank
+    from ..parallel.elastic import (ELASTIC_INTERRUPTS, ElasticClient,
+                                    ElasticRun, EvictedError,
+                                    elastic_address)
+    from .snapshot import barrier_candidates, config_hash
+    config, source = _config_and_source(params, source, cache_dir)
+    own_client = client is None
+    if client is None:
+        addr = coordinator or elastic_address()
+        if addr is None:
+            raise ValueError(
+                "elastic training needs a coordinator: pass "
+                "coordinator='host:port' or set LGBM_TPU_ELASTIC")
+        client = ElasticClient(addr)
+    episode = None           # the open recovery episode
+    trainer = None
+    try:
+        # records of the rendezvous must not open the trace file before
+        # this process knows its elastic rank: the coordinator's rank and
+        # world are the trace identity
+        hold_trace()
+        try:
+            world, _, _ = client.join_world(min_world=min_world)
+            set_rank(client.rank, client.world)
+        finally:
+            release_trace()
+        S = elastic_shards(world, num_shards)
+        chash = config_hash(config)
+        recoveries = 0
+        while True:
+            try:
+                run = ElasticRun(client, S)
+                # protocol agreement before any work: every member of this
+                # generation trains the same config with the same shard
+                # count.  The same gather carries each rank's view of the
+                # committed barriers, so the world agrees on one restore
+                # point up front
+                cands = barrier_candidates(config.output_model,
+                                           num_shards=S)
+                views = run.allgather({
+                    "shards": S, "config": chash,
+                    "barriers": {str(i): sha for i, sha in cands.items()}},
+                    site="elastic.protocol")
+                proto = [{k: v for k, v in view.items() if k != "barriers"}
+                         for view in views]
+                for v in proto[1:]:
+                    if v != proto[0]:
+                        raise RuntimeError(
+                            "elastic members disagree on the protocol "
+                            f"({proto}); every member must train the "
+                            "same params with the same shard count")
+                common = set(views[0].get("barriers", {}).items())
+                for v in views[1:]:
+                    common &= set(v.get("barriers", {}).items())
+                agreed = (max(common, key=lambda kv: int(kv[0]))
+                          if common else None)
+                with span("elastic.reshard", world=run.world,
+                          generation=run.generation, shards=S):
+                    trainer = StreamTrainer(config, source,
+                                            block_rows=block_rows,
+                                            device=device, num_shards=S,
+                                            elastic=run)
+                    if episode is not None:
+                        episode.mark("reshard")
+                    it0 = (trainer.restore_barrier(
+                               iteration=int(agreed[0]),
+                               model_sha=agreed[1])
+                           if agreed else 0)
+                    if episode is not None:
+                        episode.mark("restore")
+                if it0:
+                    log_info(f"elastic: resuming from barrier iteration "
+                             f"{it0} as rank {run.rank}/{run.world} "
+                             f"(generation {run.generation})")
+                if episode is not None:
+                    # the trainer closes it (phase `retrain`) when boosting
+                    # is back at the interrupted iteration
+                    trainer.recovery_episode = episode
+                    episode = None
+                health.mark_ready()
+                booster = trainer.train(num_boost_round)
+                _write_elastic_summary(run)
+                return booster
+            except ELASTIC_INTERRUPTS as exc:
+                recoveries += 1
+                if recoveries > max_recoveries:
+                    raise
+                counter_add("elastic.recoveries")
+                # a new episode opens when the failed collective started
+                # to stall (the consumed client.op_started): the deadline
+                # wait is the `detect` phase.  A repeated interrupt
+                # subsumes any episode still open
+                stall = client.op_started
+                client.op_started = None
+                if episode is not None:
+                    episode.abandon()
+                if trainer is not None \
+                        and trainer.recovery_episode is not None:
+                    trainer.recovery_episode.abandon()
+                    trainer.recovery_episode = None
+                episode = fleet.RecoveryEpisode(
+                    error=type(exc).__name__,
+                    generation=int(client.generation),
+                    target_iter=(trainer.booster.iter
+                                 if trainer is not None else 0),
+                    stall_started=stall)
+                episode.mark("detect")
+                health.mark_recovering(reason=type(exc).__name__)
+                with span("elastic.recover", error=type(exc).__name__):
+                    event("elastic", "recover", error=type(exc).__name__,
+                          generation=int(client.generation))
+                    if isinstance(exc, EvictedError):
+                        # an evicted member comes back as a fresh member
+                        client.join_world(min_world=1)
+                    else:
+                        try:
+                            client.resync()
+                        except ELASTIC_INTERRUPTS:
+                            client.join_world(min_world=1)
+                set_rank(client.rank, client.world)
+                episode.mark("resync")
+                continue
+    finally:
+        if own_client:
+            try:
+                client.leave()
+            finally:
+                client.close()

@@ -70,7 +70,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
     or ``"auto"``/``"latest"`` for this run's ``output_model`` prefix.
     The valid sets attach first, and training continues from the
     restored iteration toward ``num_boost_round`` in total, bit for bit
-    where the snapshot carries its score state.
+    where the snapshot carries its score state.  In a multi-process run
+    every rank writes through the commit barrier of
+    ``GBDT.save_snapshot`` (each rank's scores in its own state file)
+    and resumes its own rows; a snapshot resumes only on a world of the
+    size that wrote it.
 
     ``telemetry_output=<path>`` (or ``LGBM_TPU_TRACE``) enables the
     telemetry of ``obs/telemetry.py`` and streams its JSONL trace there;
@@ -130,12 +134,6 @@ def _train(params, train_set, num_boost_round, valid_sets, valid_names,
         booster.add_valid(vs, name)
 
     gbdt = booster._gbdt
-    if gbdt.mesh_ctx is not None and (gbdt.config.snapshot_freq > 0
-                                      or resume_from):
-        raise NotImplementedError(
-            "snapshot_freq / resume_from in a multi-process run: the "
-            "cross-rank commit barrier of the snapshots is not ported "
-            "yet (ROADMAP A12)")
     if resume_from:
         target = resume_from
         if target in ("auto", "latest"):

@@ -40,8 +40,9 @@ AllgatherFn = Callable[[object], List[object]]
 class RankLostError(RuntimeError):
     """A host collective blew its deadline: some rank stopped
     participating (dead, or wedged past ``LGBM_TPU_COLLECTIVE_DEADLINE_S``).
-    Typed so that a caller (the elastic recovery loop of ROADMAP A12)
-    can re-rendezvous instead of the whole job blocking forever.  Not
+    Typed so that the elastic recovery loop
+    (``boosting/streaming.py:train_elastic``) can re-rendezvous instead
+    of the whole job blocking forever.  Not
     transient for the retry layer: retrying into the same dead world
     just burns another deadline."""
 

@@ -459,12 +459,15 @@ def set_section(name: str, data: Any) -> None:
 def summary() -> Dict[str, Any]:
     """The in-memory run summary as a plain (JSON-serializable) dict,
     with this rank's collective flight-recorder state (``flight_recorder``:
-    ring and rolling digest) and its collective wait accounting
-    (``collective_skew``) once a collective has run."""
+    ring and rolling digest), its collective wait accounting
+    (``collective_skew``) once a collective has run, and its
+    coordinator-clock offset (``clock``) once the elastic client set
+    one."""
     rank, world = _rank_world()
     from . import fleet, flight_recorder
     fr = flight_recorder.snapshot()
     sk = fleet.skew_snapshot()
+    ck = fleet.clock()
     with _lock:
         out = {
             "rank": rank,
@@ -479,6 +482,8 @@ def summary() -> Dict[str, Any]:
             out["flight_recorder"] = fr
         if sk is not None:
             out["collective_skew"] = sk
+        if ck.get("offset_s") is not None:
+            out["clock"] = ck
         out.update(_sections)
         return out
 

@@ -21,7 +21,8 @@ over a device mesh; the port runs one process per rank, PyTorch's idiom:
   device, backend, the partition rules of ``parallel/partition.py``) and
   its collective seam: ``all_reduce_sum`` (in place, optionally async),
   ``all_gather``, ``all_gather_object`` and ``broadcast``;
-* :class:`ProcessRows` is a rank's block of the global row axis.
+* :class:`ProcessRows` is a rank's block of the global row axis, and
+  :func:`shard_row_ranges` the protocol shards of a stream.
 """
 from __future__ import annotations
 
@@ -353,3 +354,17 @@ class ProcessRows:
     def offset(self) -> int:
         """This rank's first row in the global padded row space."""
         return self.rank * self.per
+
+
+def shard_row_ranges(n: int, num_shards: int) -> List[Tuple[int, int]]:
+    """The row partition of ``num_shards`` protocol shards as global
+    ``[(lo, hi), ...]`` ranges (the JAX package's ``shard_row_ranges``):
+    contiguous blocks of ``per = ceil(n / num_shards)`` rows, shard ``d``
+    owning ``[d * per, (d + 1) * per)``; the last range may run past
+    ``n`` (its rows beyond ``n`` are padding).  The streamed trainer
+    (``boosting/streaming.py``) cuts each shard's range into blocks and
+    folds each shard apart, which is what lets a rank of an elastic run
+    own whole shards."""
+    d = max(1, int(num_shards))
+    per = (int(n) + d - 1) // d
+    return [(i * per, (i + 1) * per) for i in range(d)]

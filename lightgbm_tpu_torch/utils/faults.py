@@ -42,8 +42,19 @@ Silent faults are read through :func:`fault_flag`, which never raises:
   ``learner/serial.py:root_stats`` becomes a plain ``torch.sum``, for
   the ulp contract (``obs/num_contract.py``).
 * ``collective.hang`` — a host collective under a deadline sleeps past
-  it (``io/distributed.py:deadline_call``), so the deadline raises
-  ``RankLostError``.
+  it (``io/distributed.py:deadline_call``, the elastic client's
+  allgathers), so the deadline raises ``RankLostError``;
+* ``rendezvous.drop_rank`` — the elastic coordinator's monitor
+  (``parallel/elastic.py``) evicts its newest member as if its
+  heartbeats had stopped: a lost rank without killing a process, so
+  in-process tests drive generation bumps and recovery;
+* ``heartbeat.miss`` — the elastic client's heartbeat thread skips a
+  beat while armed; enough armed shots and the coordinator evicts the
+  member (the dead-rank signal), a few and it survives;
+* ``collective.slow`` — the elastic client sleeps
+  ``LGBM_TPU_COLLECTIVE_SLOW`` seconds (default 0.25, clamped below the
+  collective deadline) before it enters an allgather: a straggler
+  without a failure, which the fleet's wait accounting must name.
 
 Each point is a single ``fault_point(name)`` call that is a no-op unless
 armed.  Tests arm points programmatically (:func:`inject`, :func:`clear`);

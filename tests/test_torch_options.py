@@ -4,9 +4,10 @@ item: ``input_model`` (read by the command-line application, A14's
 second half; ``train`` takes ``init_model``) and a 2-D ``mesh_shape``
 (the data x feature mesh, A11's remainder; a 1-D one trains,
 ``tests/test_torch_multiprocess.py``) in memory (``lgb.train``) and
-streamed (``StreamTrainer``); ``snapshot_freq`` and ``resume_from``
-streamed only (streamed snapshots, A12).  In memory ``snapshot_freq``
-and ``resume_from`` work (``tests/test_torch_snapshot.py``), and so does
+streamed (``StreamTrainer``).  ``snapshot_freq`` and ``resume_from``
+work in memory (``tests/test_torch_snapshot.py``, and across processes
+``tests/test_torch_elastic_mp.py``) and streamed (barrier snapshots,
+``tests/test_torch_elastic_train.py``), and so does
 ``pred_early_stop`` (``tests/test_torch_model_surface.py``);
 ``telemetry_output`` writes the trace in memory and streamed
 (``tests/test_torch_telemetry.py``).
@@ -61,12 +62,27 @@ def test_unported_option_raises(option, match):
 @pytest.mark.parametrize("option", [
     {"snapshot_freq": 2}, {"resume_from": "auto"},
 ], ids=["snapshot_freq", "resume_from"])
-def test_stream_snapshot_option_raises(option):
-    """The stream neither writes snapshots nor resumes (the JAX package's
-    plain stream does not snapshot; its barrier snapshots are elastic)."""
+def test_stream_snapshot_option_raises(option, tmp_path):
+    """The stream takes both since elastic training: ``snapshot_freq``
+    commits barrier snapshots under ``output_model`` and ``resume_from``
+    continues from the newest one, ending on the uninterrupted model."""
+    from lightgbm_tpu_torch.boosting import snapshot as snap
     X, y = _data()
-    with pytest.raises(NotImplementedError, match="A12"):
-        _stream(dict(BASE, **option), X, y)
+    prefix = str(tmp_path / "m.txt")
+    params = dict(BASE, output_model=prefix)
+    ds = _stream(params, X, y).src._ds
+    full = tlgb.train_streaming(params, ds, num_boost_round=4, device="cpu")
+    if "snapshot_freq" in option:
+        bst = tlgb.train_streaming(dict(params, **option), ds,
+                                   num_boost_round=4, device="cpu")
+        assert [it for it, _ in snap.list_barriers(prefix)] == [4, 2]
+    else:
+        tlgb.train_streaming(dict(params, snapshot_freq=2), ds,
+                             num_boost_round=2, device="cpu")
+        bst = tlgb.train_streaming(dict(params, **option), ds,
+                                   num_boost_round=4, device="cpu")
+    assert bst.iter == 4
+    assert bst.digest() == full.digest()
 
 
 @pytest.mark.parametrize("option", [

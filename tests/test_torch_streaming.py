@@ -234,8 +234,10 @@ def test_float_mode_in_memory_matches_stream(mode):
     ({"boosting": "dart"}, "boosting"),
     ({"boosting": "goss"}, "boosting"),
     ({"objective": "lambdarank"}, "rank"),
-    ({"tree_learner": "data"}, "tree_learner"),
-], ids=["bagging", "dart", "goss", "ranking", "data_parallel"])
+    ({"tree_learner": "data", "num_machines": 2}, "num_machines"),
+    ({"tree_learner": "feature"}, "tree_learner"),
+], ids=["bagging", "dart", "goss", "ranking", "data_parallel",
+        "feature_parallel"])
 def test_descoped_configs_raise(extra, match):
     X, y, _ = _data(n=STREAM_CHUNK)
     cfg, res = _resident(X, y, None, dict(BASE, **extra))

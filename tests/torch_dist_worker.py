@@ -20,7 +20,11 @@ Kinds:
   with distributed bin finding, then ``lgb.train``;
 * ``desync`` — a train, then three host gathers with the
   ``spmd.skip_record`` fault on rank 1 at the middle one, and the merged
-  summary.
+  summary;
+* ``snapshot`` — a data-parallel ``lgb.train`` with ``snapshot_freq``
+  under ``prefix`` (the multi-process commit barrier), a resume from the
+  snapshot at ``resume_at`` in the same world, and a run whose rank 1
+  reports another digest at the barrier.
 
 A case that raises writes its error instead; the rank goes on with the
 next case, and leaves the process group on every exit path.
@@ -169,6 +173,48 @@ def run_desync(case, rank, world):
     return arrays, info
 
 
+def run_snapshot(case, rank, world, device="cpu"):
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.boosting import snapshot as snap
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    ds, params, _ = _train_set(case, rank, world)
+    params = dict(params, output_model=case["prefix"],
+                  snapshot_freq=case["freq"], snapshot_keep=8)
+    rounds = case["rounds"]
+    full = lgb.train(dict(params), ds, rounds, verbose_eval=False,
+                     device=device)
+    manifest = snap.snapshot_paths(case["prefix"], case["resume_at"])[2]
+    res = lgb.train(dict(params), ds, rounds, verbose_eval=False,
+                    device=device, resume_from=manifest)
+    info = {"digest": full.digest(include_scores=False),
+            "digest_scores": full.digest(),
+            "resumed_digest": res.digest(include_scores=False),
+            "resumed_digest_scores": res.digest(),
+            "model": full.model_to_string(),
+            "resumed_model": res.model_to_string()}
+    # rank 1 reports another digest at the barrier: both ranks refuse
+    obs.reset()
+    obs.enable()
+    digest = GBDT.digest
+    if rank == 1:
+        GBDT.digest = lambda self, include_scores=True: "rank1-differs"
+    try:
+        lgb.train(dict(params, output_model=case["prefix"] + ".bad"), ds,
+                  case["freq"], verbose_eval=False, device=device)
+        info["mismatch_error"] = None
+    except RuntimeError as exc:
+        info["mismatch_error"] = str(exc)
+    finally:
+        GBDT.digest = digest
+    info["mismatch_events"] = obs.summary()["events"].get(
+        "elastic:barrier_mismatch", 0)
+    info["bad_manifests"] = len(snap.list_snapshots(
+        case["prefix"] + ".bad"))
+    obs.reset()
+    return {"scores": res._gbdt.scores.cpu().numpy()}, info
+
+
 def run_world(cases, world, out_dir, timeout=240.0, device="cpu"):
     """Start ``world`` ranks of this script over ``cases`` (a free port,
     the ``spawn``-clean way: fresh interpreters) and wait for them; ->
@@ -224,7 +270,7 @@ def run_world(cases, world, out_dir, timeout=240.0, device="cpu"):
 
 
 KINDS = {"learner": run_learner, "train": run_train, "load": run_load,
-         "desync": run_desync}
+         "desync": run_desync, "snapshot": run_snapshot}
 
 
 def main():
@@ -250,7 +296,8 @@ def main():
             for k, v in case.get("env", {}).items():
                 os.environ[k] = v
             try:
-                kw = {"device": device} if case["kind"] == "train" else {}
+                kw = ({"device": device}
+                      if case["kind"] in ("train", "snapshot") else {})
                 arrays, info = KINDS[case["kind"]](case, rank, world, **kw)
             except Exception as exc:  # noqa: BLE001 - reported to the test
                 arrays, info = {}, {"error": f"{type(exc).__name__}: {exc}",
