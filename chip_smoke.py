@@ -356,7 +356,32 @@ and the script exits non-zero):
    snapshot refuses.  Walls, MTTR and its phases, and launches are in the
    phase line; every coordinator, worker and rank is gone when it ends.
 
-Each of phases 17-29 prints one ``{"phase": ...}`` JSON line.  A path's
+30. the command-line application and the C API — (a) phase 4's rows
+   written as raw float32 files, ``tools/capi_train.cpp`` built against
+   the port's C library (``lightgbm_tpu_torch/capi/build.py``, g++ at
+   first use) trains ``HEADLINE_PARAMS`` for 32 iterations on the card
+   through ``LGBM_DatasetCreateFromMat`` -> ``LGBM_BoosterCreate`` ->
+   ``LGBM_BoosterUpdateOneIter`` (the launch counters reset and read in
+   the library's embedded interpreter): the saved model text and the
+   digests are phase 4's, K1-K4 launched and K6 not, and
+   ``LGBM_BoosterPredictForMat`` on 100,000 rows is phase 4's
+   ``Booster.predict`` bitwise; the C host's wall and ms/iter are
+   printed.  (b) Phase 5's rows as CSV files and a ``train.conf`` of
+   ``TRAIN_CONF`` with ``valid_data=`` and ``early_stopping_round`` 10:
+   ``python -m lightgbm_tpu_torch config=train.conf`` (run as ``-m``
+   runs it, in a child ``chip_smoke.py --app-child``) gives phase 5's
+   stop, best iteration and digest with K6 launched; on its model
+   ``task=predict`` is phase 5's ``Booster.predict`` as ``%.9g`` text,
+   ``task=convert_model`` compiled with g++ is within 1e-5 of
+   ``predict(raw_score=True)`` on 1,000 rows, and ``task=refit`` on the
+   training file is the in-process refit's model text (but for
+   ``feature_infos``).  (c) Two CLI ranks on card 0 (gloo) over a
+   loopback ``machines=`` list with ``num_machines`` 2 on phase 28's
+   200,000-row CSV and parameters: byte-identical models, rank 0's
+   saved file the same, K5 launched on each rank, the digest phase
+   28's load's.  Every child is gone when the phase ends.
+
+Each of phases 17-30 prints one ``{"phase": ...}`` JSON line.  A path's
 ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
 the per-iteration evaluation included.  The last lines are the kernel
@@ -2452,7 +2477,8 @@ def cat_valid_phase(lgb, counters):
         f"category; {sum(t.num_cat for t in bst._gbdt.models)} categorical "
         f"nodes); digest {bst.digest(include_scores=False)}")
     small_ref = {"stop": bst.current_iteration(),
-                 "best": bst.best_iteration, "digest": bst.digest()}
+                 "best": bst.best_iteration, "digest": bst.digest(),
+                 "pred": pred}
     if pred.shape != (SMALL_VALID,) or not np.isfinite(pred).all():
         raise AssertionError("valid predictions are not finite [n] values")
     if not vauc >= VALID_AUC_GATE:
@@ -5185,6 +5211,7 @@ def multi_gpu_phase(lgb, ds, X, y, head_ref, head_ms: float, card: str
         raise AssertionError(f"multi-gpu voting auc {auc_voting} < "
                              f"{AUC_GATE}")
     load = same("load")
+    PATH_DIGESTS["multi_gpu_load"] = load["digest"]
     if len({r["load"]["mappers"] for r in ranks}) != 1:
         raise AssertionError("multi-gpu load: the ranks' bin mappers differ")
     if sum(r["load"]["rows"] for r in ranks) != MG_LOAD_ROWS:
@@ -5504,6 +5531,424 @@ def elastic_phase(lgb, ds, card: str) -> dict:
     return launches
 
 
+# phase 30: the command-line application and the C API
+APP_PRED_ROWS = 100_000        # the C API's prediction rows (phase 4's)
+APP_CONVERT_ROWS = 1_000       # rows the converted model scores
+APP_CONVERT_TOL = 1e-5         # the reference CI's gate (.travis/test.sh)
+APP_TIMEOUT_S = 420
+APP_BEFORE = ("import chip_smoke as cs\n"
+              "for c in cs.launch_counters().values():\n"
+              "    c.launches = 0\n")
+APP_AFTER = ("import json, torch, chip_smoke as cs\n"
+             "from lightgbm_tpu_torch import capi_bridge as cb\n"
+             "torch.cuda.synchronize()\n"
+             "b = [h for h in cb._handles.values() if hasattr(h, 'digest')]\n"
+             "report = {'launches': {k: c.launches for k, c in\n"
+             "                       cs.launch_counters().items()},\n"
+             "          'digest': b[-1].digest(include_scores=False),\n"
+             "          'digest_scores': b[-1].digest()}\n"
+             "with open(REPORT, 'w') as f:\n"
+             "    json.dump(report, f)\n")
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, by the name the kernel table
+    and the phases use."""
+    from lightgbm_tpu_torch.ops.compact import (hist_compact_float_raw,
+                                                hist_compact_raw)
+    from lightgbm_tpu_torch.ops.histogram import (HIST_WIDE_SEEDED,
+                                                  hist_active_float_raw,
+                                                  hist_active_raw,
+                                                  hist_route_float_raw,
+                                                  hist_route_raw,
+                                                  hist_wide_raw)
+    from lightgbm_tpu_torch.ops.route import (ROUTE_I32, ROUTE_VALUES_I32,
+                                              route_rows_raw,
+                                              route_rows_values_raw)
+    from lightgbm_tpu_torch.ops.split_kernel import find_best_splits_kernel
+    return {"route": route_rows_raw, "route_values": route_rows_values_raw,
+            "hist_route": hist_route_raw, "hist_compact": hist_compact_raw,
+            "split_scan": find_best_splits_kernel,
+            "hist_active": hist_active_raw,
+            "hist_float": hist_active_float_raw,
+            "hist_route_float": hist_route_float_raw,
+            "hist_compact_float": hist_compact_float_raw,
+            "hist_wide": hist_wide_raw,
+            "hist_wide_seeded": HIST_WIDE_SEEDED,
+            "route_i32": ROUTE_I32,
+            "route_values_i32": ROUTE_VALUES_I32}
+
+
+def app_run(cmd, what: str) -> str:
+    """Run a child to its end (killed past ``APP_TIMEOUT_S``); its output,
+    or an error with its tail."""
+    from lightgbm_tpu_torch.capi.build import host_env
+    res = subprocess.run(cmd, env=host_env(), capture_output=True, text=True,
+                         timeout=APP_TIMEOUT_S)
+    if res.returncode != 0:
+        raise AssertionError(f"{what} exited {res.returncode}:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def app_child(out_path: str, runs_path: str) -> int:
+    """A child of phase 30 (``chip_smoke.py --app-child OUT RUNS``): each
+    argument list of ``RUNS`` (JSON) run as ``python -m
+    lightgbm_tpu_torch <arguments>`` runs it (``runpy.run_module`` of the
+    package's ``__main__``), one after another in this process, every
+    launch counter reset just before each and read just after; the
+    Booster a training run builds is kept (``engine.train`` wrapped) for
+    its model text, stop, best iteration and digests.  The results go to
+    ``OUT`` (JSON)."""
+    import runpy
+    import traceback
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from lightgbm_tpu_torch import engine
+    with open(runs_path) as f:
+        runs = json.load(f)
+    counters = launch_counters()
+    kept = []
+    real_train = engine.train
+
+    def train(*args, **kw):
+        kept.append(real_train(*args, **kw))
+        return kept[-1]
+
+    engine.train = train
+    results = []
+    try:
+        for argv in runs:
+            kept.clear()
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            sys.argv = ["lightgbm_tpu_torch"] + list(argv)
+            t0 = time.time()
+            try:
+                runpy.run_module("lightgbm_tpu_torch", run_name="__main__",
+                                 alter_sys=True)
+                rc = 0
+            except SystemExit as exc:
+                rc = exc.code if isinstance(exc.code, int) else int(
+                    exc.code is not None)
+            torch.cuda.synchronize()
+            res = {"argv": argv, "rc": rc, "seconds": time.time() - t0,
+                   "launches": {k: c.launches for k, c in counters.items()}}
+            if kept:
+                b = kept[0]
+                res.update(model=b.model_to_string(),
+                           stop=b.current_iteration(),
+                           best=b.best_iteration, digest=b.digest(),
+                           digest_trees=b.digest(include_scores=False))
+            results.append(res)
+            if rc != 0:
+                break
+    except Exception:                 # noqa: BLE001 - the parent reports it
+        results.append({"error": traceback.format_exc()})
+    finally:
+        engine.train = real_train
+        with open(out_path, "w") as f:
+            json.dump(results, f)
+    return 0 if all(r.get("rc") == 0 for r in results) else 1
+
+
+def app_children(tmp: str, runs_by_child, what: str):
+    """Start one ``--app-child`` per entry of ``runs_by_child`` at once,
+    wait for all (every one is killed on the way out), -> their results."""
+    from lightgbm_tpu_torch.capi.build import host_env
+    procs, outs = [], []
+    try:
+        for i, runs in enumerate(runs_by_child):
+            spec = os.path.join(tmp, f"{what}{i}.runs.json")
+            outs.append(os.path.join(tmp, f"{what}{i}.out.json"))
+            with open(spec, "w") as f:
+                json.dump(runs, f)
+            log_path = os.path.join(tmp, f"{what}{i}.log")
+            with open(log_path, "w") as log_f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--app-child", outs[-1], spec],
+                    env=host_env(), stdout=log_f, stderr=subprocess.STDOUT))
+        deadline = time.time() + APP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        res = []
+        if os.path.exists(out):
+            with open(out) as f:
+                res = json.load(f)
+        bad = [r for r in res if "error" in r or r.get("rc") != 0]
+        if p.returncode != 0 or bad or len(res) != len(runs_by_child[i]):
+            with open(os.path.join(tmp, f"{what}{i}.log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"{what} child {i} failed (exit "
+                                 f"{p.returncode}): {bad}\n{tail}")
+        results.append(res)
+    return results
+
+
+def write_conf(path: str, params: dict) -> str:
+    """A ``key = value`` configuration file (``train.conf``)."""
+    with open(path, "w") as f:
+        for k, v in params.items():
+            v = str(v).lower() if isinstance(v, bool) else v
+            f.write(f"{k} = {v}\n")
+    return path
+
+
+def build_capi_host(tmp: str) -> str:
+    """The port's C library (``capi/build.py``) and ``tools/capi_train.cpp``
+    linked against it."""
+    import sysconfig
+    from lightgbm_tpu_torch.capi import build as capi_build
+    lib = capi_build.build()
+    exe = os.path.join(tmp, "capi_train")
+    app_run(["g++", "-O2", os.path.join(TOOLS_DIR, "capi_train.cpp"),
+             f"-I{sysconfig.get_path('include')}", "-o", exe]
+            + capi_build.link_args(lib), "building the C API host")
+    return exe
+
+
+def capi_part(X, y, head_ref: dict, tmp: str, exe: str) -> tuple:
+    """Phase 30 (a): phase 4's headline through the C API."""
+    import numpy as np
+    rows, labels = os.path.join(tmp, "rows.f32"), os.path.join(tmp, "y.f32")
+    np.ascontiguousarray(X, np.float32).tofile(rows)
+    np.ascontiguousarray(y, np.float32).tofile(labels)
+    model, preds = os.path.join(tmp, "capi.txt"), os.path.join(tmp, "p.f64")
+    report = os.path.join(tmp, "capi.json")
+    bparams = " ".join(f"{k}={v}" for k, v in HEADLINE_PARAMS.items())
+    t0 = time.time()
+    stdout = app_run([exe, rows, labels, str(len(X)), str(X.shape[1]),
+                      str(HEADLINE_ITERS), f"max_bin={HEADLINE_PARAMS['max_bin']}",
+                      bparams, model, preds, str(APP_PRED_ROWS), APP_BEFORE,
+                      APP_AFTER.replace("REPORT", repr(report))],
+                     "the C API host")
+    wall = time.time() - t0
+    if "CAPI_TRAIN_OK" not in stdout:
+        raise AssertionError(f"the C API host: {stdout[-2000:]}")
+    fields = dict(kv.split("=", 1) for ln in stdout.splitlines()
+                  for kv in ln.split() if "=" in kv)
+    with open(report) as f:
+        rep = json.load(f)
+    with open(model) as f:
+        text = f.read()
+    if text != head_ref["text"]:
+        raise AssertionError(f"the C API's model is not phase 4's: "
+                             f"{first_line_diff(text, head_ref['text'])}")
+    if (rep["digest"] != head_ref["digest_trees"]
+            or rep["digest_scores"] != head_ref["digest"]
+            or not rep["digest"].startswith(HEADLINE_DIGEST)):
+        raise AssertionError(f"the C API's digests {rep['digest'][:16]} / "
+                             f"{rep['digest_scores'][:16]} are not phase 4's")
+    need(rep["launches"], ("route", "route_values", "hist_route",
+                           "hist_compact"), "the C API headline",
+         absent=("split_scan",))
+    pred = np.fromfile(preds, np.float64)
+    want = np.asarray(head_ref["pred_capi"], np.float64)
+    if pred.shape != want.shape or not np.array_equal(pred, want):
+        raise AssertionError("LGBM_BoosterPredictForMat is not phase 4's "
+                             "Booster.predict bitwise")
+    # the same rows inside phase 4's 1M-row batch: another walk shape
+    whole = np.asarray(head_ref["pred"][:APP_PRED_ROWS], np.float64)
+    batch_diff = {"rows": int(np.sum(pred != whole)),
+                  "max_abs": float(np.max(np.abs(pred - whole)))}
+    out = {"digest": rep["digest"], "equals_phase4": True,
+           "iterations": int(fields["iterations"]),
+           "train_s": float(fields["train_s"]),
+           "ms_per_iter": float(fields["ms_per_iter"]),
+           "predict_rows": APP_PRED_ROWS,
+           "predict_s": float(fields["predict_s"]),
+           "shim_call_us": float(fields["call_us"]),
+           "host_wall_s": wall, "vs_1m_row_batch": batch_diff,
+           "launches": rep["launches"],
+           "launches_per_tree": per_tree(rep["launches"], HEADLINE_ITERS)}
+    log(f"phase 30 C API: {HEADLINE_ITERS} iterations in "
+        f"{out['train_s']:.3f} s = {out['ms_per_iter']:.2f} ms/iter "
+        f"(setup included), C host wall {wall:.1f} s, "
+        f"{out['shim_call_us']:.2f} us a shim call; model == phase 4's, "
+        f"predictions bitwise; launches {rep['launches']}")
+    return out, rep["launches"]
+
+
+def cli_part(lgb, small_rows, small_ref: dict, tmp: str) -> tuple:
+    """Phase 30 (b): phase 5's configuration through ``python -m
+    lightgbm_tpu_torch``, then ``predict``, ``convert_model`` and
+    ``refit`` on its model."""
+    import ctypes
+    import numpy as np
+    Xs, ys, Xv, yv = small_rows
+    t0 = time.time()
+    train, valid = os.path.join(tmp, "train.csv"), os.path.join(tmp, "v.csv")
+    np.savetxt(train, np.column_stack([ys, Xs]).astype(np.float64),
+               fmt="%.17g", delimiter=",")
+    np.savetxt(valid, np.column_stack([yv, Xv]).astype(np.float64),
+               fmt="%.17g", delimiter=",")
+    files_s = time.time() - t0
+    model = os.path.join(tmp, "model.txt")
+    conf = write_conf(os.path.join(tmp, "train.conf"), dict(
+        TRAIN_CONF, task="train", num_iterations=SMALL_ITERS,
+        early_stopping_round=SMALL_EARLY_STOP, data=train, valid_data=valid,
+        output_model=model))
+    pred, code = os.path.join(tmp, "pred.tsv"), os.path.join(tmp, "m.cpp")
+    refit = os.path.join(tmp, "refit.txt")
+    tr, pr, cv, rf = app_children(tmp, [[
+        [f"config={conf}"],
+        ["task=predict", f"data={valid}", f"input_model={model}",
+         f"output_result={pred}", "verbose=-1"],
+        ["task=convert_model", f"input_model={model}",
+         f"convert_model={code}", "verbose=-1"],
+        ["task=refit", f"data={train}", f"input_model={model}",
+         f"output_model={refit}", "verbose=-1"]]], "cli")[0]
+    got = (tr["stop"], tr["best"], tr["digest"])
+    if got != (small_ref["stop"], small_ref["best"], small_ref["digest"]):
+        raise AssertionError(f"the CLI's (stop, best, digest) {got} is not "
+                             f"phase 5's")
+    need(tr["launches"], ("split_scan", "hist_route", "route_values"),
+         "the CLI's small-data run")
+    want = os.path.join(tmp, "want.tsv")
+    np.savetxt(want, np.asarray(small_ref["pred"])[:, None], delimiter="\t",
+               fmt="%.9g")
+    with open(pred) as f, open(want) as g:
+        if f.read() != g.read():
+            raise AssertionError("task=predict is not phase 5's "
+                                 "Booster.predict as %.9g text")
+    bst = lgb.Booster(model_file=model, device="cuda")
+    Xc = np.asarray(Xv[:APP_CONVERT_ROWS], np.float64)
+    raw = bst.predict(Xc, raw_score=True)
+    lib = os.path.join(tmp, "model.so")
+    t0 = time.time()
+    app_run(["g++", "-O1", "-shared", "-fPIC", "-o", lib, code],
+            "compiling the converted model")
+    compile_s = time.time() - t0
+    so = ctypes.CDLL(lib)
+    so.Predict.argtypes = [ctypes.POINTER(ctypes.c_double)] * 2
+    got = np.zeros(len(Xc))
+    outv = np.zeros(1)
+    for i in range(len(Xc)):
+        row = np.ascontiguousarray(Xc[i])
+        so.Predict(row.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                   outv.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+        got[i] = outv[0]
+    convert_err = float(np.max(np.abs(got - raw)))
+    if not convert_err <= APP_CONVERT_TOL:
+        raise AssertionError(f"the converted model is {convert_err} off "
+                             f"predict(raw_score=True)")
+    # refit in this process: the CLI's text but for feature_infos (the
+    # CLI writes the data file's, a refitted Booster a loaded model's)
+    mine = bst.refit(Xs, ys, decay_rate=0.9).model_to_string()
+    with open(refit) as f:
+        theirs = f.read()
+    keep = [ln for ln in theirs.splitlines()
+            if not ln.startswith("feature_infos=")]
+    if keep != [ln for ln in mine.splitlines()
+                if not ln.startswith("feature_infos=")]:
+        raise AssertionError(f"task=refit is not the in-process refit: "
+                             f"{first_line_diff(theirs, mine)}")
+    launches = {}
+    for r in (tr, pr, cv, rf):
+        add_launches(launches, r["launches"])
+    out = {"stop": tr["stop"], "best": tr["best"],
+           "digest": tr["digest_trees"], "equals_phase5": True,
+           "train_s": tr["seconds"],
+           "ms_per_iter": 1e3 * tr["seconds"] / max(1, tr["stop"]),
+           "predict_s": pr["seconds"], "convert_s": cv["seconds"],
+           "convert_compile_s": compile_s, "convert_max_abs_err": convert_err,
+           "refit_s": rf["seconds"], "files_s": files_s,
+           "launches": tr["launches"],
+           "launches_per_tree": per_tree(tr["launches"], tr["stop"])}
+    log(f"phase 30 CLI: stop {tr['stop']}, best {tr['best']}, digest "
+        f"{tr['digest_trees'][:8]} == phase 5; train {tr['seconds']:.2f} s, "
+        f"predict {pr['seconds']:.2f} s (== phase 5 as text), convert "
+        f"{cv['seconds']:.2f} s (max err {convert_err:.2e}), refit "
+        f"{rf['seconds']:.2f} s (== in process)")
+    return out, launches
+
+
+def cli_ranks_part(X, y, tmp: str) -> tuple:
+    """Phase 30 (c): two CLI ranks on card 0 (gloo) over a loopback
+    machine list, on phase 28's 200,000-row CSV and parameters."""
+    import numpy as np
+    from lightgbm_tpu_torch.parallel.mesh import free_port
+    csv = os.path.join(tmp, "headline.csv")
+    np.savetxt(csv, np.column_stack([y[:MG_LOAD_ROWS], X[:MG_LOAD_ROWS]]),
+               fmt="%.9g", delimiter=",")
+    ports = [free_port() for _ in range(MG_WORLD)]
+    conf = write_conf(os.path.join(tmp, "dist.conf"), dict(
+        HEADLINE_PARAMS, task="train", tree_learner="data",
+        num_machines=MG_WORLD, num_iterations=MG_LOAD_ITERS, data=csv,
+        machines=",".join(f"127.0.0.1:{p}" for p in ports),
+        output_model=os.path.join(tmp, "dist.txt")))
+    t0 = time.time()
+    ranks = [r[0] for r in app_children(
+        tmp, [[[f"config={conf}", f"local_listen_port={p}"]] for p in ports],
+        "rank")]
+    seconds = time.time() - t0
+    models = [r["model"] for r in ranks]
+    if any(m != models[0] for m in models):
+        raise AssertionError(f"the CLI ranks' models differ: "
+                             f"{first_line_diff(*models[:2])}")
+    with open(os.path.join(tmp, "dist.txt")) as f:
+        if f.read() != models[0]:
+            raise AssertionError("rank 0 did not save the ranks' model")
+    launches = {}
+    for i, r in enumerate(ranks):
+        need(r["launches"], ("hist_active", "route"),
+             f"CLI rank {i}", absent=("hist_route",))
+        add_launches(launches, r["launches"])
+    digest = ranks[0]["digest_trees"]
+    phase28 = PATH_DIGESTS.get("multi_gpu_load")
+    if digest != phase28:
+        raise AssertionError(f"the CLI ranks' digest {digest[:16]} is not "
+                             f"phase 28's load {str(phase28)[:16]}")
+    out = {"world": MG_WORLD, "digest": digest, "phase28_load_digest": phase28,
+           "seconds": seconds, "rank_seconds": [r["seconds"] for r in ranks],
+           "launches": [r["launches"] for r in ranks],
+           "launches_per_tree": [per_tree(r["launches"], MG_LOAD_ITERS)
+                                 for r in ranks]}
+    log(f"phase 30 CLI ranks: identical models, digest {digest[:8]} == "
+        f"phase 28's load, {seconds:.1f} s")
+    return out, launches
+
+
+def app_phase(lgb, X, y, small_rows, head_ref: dict, small_ref: dict,
+              card: str) -> dict:
+    """Phase 30 -> launches by part (``app_capi``, ``app_cli``,
+    ``app_ranks``)."""
+    tmp = tempfile.mkdtemp(prefix="lgbm_app_")
+    out = {"phase": 30, "name": "app", "card": card}
+    by_part = {}
+    try:
+        t0 = time.time()
+        exe = build_capi_host(tmp)
+        out["build_s"] = time.time() - t0
+        t0 = time.time()
+        out["capi"], by_part["app_capi"] = capi_part(X, y, head_ref, tmp,
+                                                      exe)
+        out["capi"]["part_s"] = time.time() - t0
+        t0 = time.time()
+        out["cli"], by_part["app_cli"] = cli_part(lgb, small_rows, small_ref,
+                                                  tmp)
+        out["cli"]["part_s"] = time.time() - t0
+        t0 = time.time()
+        out["cli_ranks"], by_part["app_ranks"] = cli_ranks_part(X, y, tmp)
+        out["cli_ranks"]["part_s"] = time.time() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps(out), flush=True)
+    return by_part
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5515,19 +5960,7 @@ def main() -> int:
     from lightgbm_tpu_torch.io.device import to_device
     from lightgbm_tpu_torch.metric.metrics import binary_auc
     from lightgbm_tpu_torch.ops import cuda_build
-    from lightgbm_tpu_torch.ops.compact import (hist_compact_float_raw,
-                                                hist_compact_raw)
-    from lightgbm_tpu_torch.ops.histogram import (hist_active_float_raw,
-                                                  hist_active_raw,
-                                                  hist_route_float_raw,
-                                                  hist_route_raw,
-                                                  pack_values_q)
-    from lightgbm_tpu_torch.ops.histogram import (HIST_WIDE_SEEDED,
-                                                  hist_wide_raw)
-    from lightgbm_tpu_torch.ops.route import (ROUTE_I32, ROUTE_VALUES_I32,
-                                              route_rows_raw,
-                                              route_rows_values_raw)
-    from lightgbm_tpu_torch.ops.split_kernel import find_best_splits_kernel
+    from lightgbm_tpu_torch.ops.histogram import pack_values_q
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; {card}")
 
@@ -5605,17 +6038,7 @@ def main() -> int:
     log(f"small categorical kernel phase {time.time() - t0:.1f} s")
     del ddsc, ddsb, dsc, dsb
 
-    counters = {"route": route_rows_raw, "route_values": route_rows_values_raw,
-                "hist_route": hist_route_raw, "hist_compact": hist_compact_raw,
-                "split_scan": find_best_splits_kernel,
-                "hist_active": hist_active_raw,
-                "hist_float": hist_active_float_raw,
-                "hist_route_float": hist_route_float_raw,
-                "hist_compact_float": hist_compact_float_raw,
-                "hist_wide": hist_wide_raw,
-                "hist_wide_seeded": HIST_WIDE_SEEDED,
-                "route_i32": ROUTE_I32,
-                "route_values_i32": ROUTE_VALUES_I32}
+    counters = launch_counters()
 
     # 4. the headline path through the user entry points
     params = dict(HEADLINE_PARAMS)
@@ -5625,6 +6048,10 @@ def main() -> int:
                 "digest": bst.digest(),
                 "digest_trees": bst.digest(include_scores=False)}
     pred = bst.predict(X)
+    # phase 30's C API predicts these rows: the compiled walk sums each
+    # row's trees in an order that follows the batch's shape, so it is
+    # compared with a prediction of the same batch
+    head_ref["pred_capi"] = bst.predict(X[:APP_PRED_ROWS])
     torch.cuda.synchronize()
     head_ref["pred"] = pred
     auc = binary_auc(y, pred)
@@ -5658,7 +6085,8 @@ def main() -> int:
         f"{evals['training']['auc'][-1]:.5f}; digest "
         f"{bst.digest(include_scores=False)}")
     small_ref = {"stop": bst.current_iteration(),
-                 "best": bst.best_iteration, "digest": bst.digest()}
+                 "best": bst.best_iteration, "digest": bst.digest(),
+                 "pred": pred}
     if pred.shape != (SMALL_VALID,) or not np.isfinite(pred).all():
         raise AssertionError("valid predictions are not finite [n] values")
     if not vauc >= VALID_AUC_GATE:
@@ -5815,6 +6243,12 @@ def main() -> int:
     by_path["elastic"] = elastic_phase(lgb, ds, card)
     log(f"phase 29 {time.time() - t0:.1f} s")
 
+    # 30. the command-line application and the C API
+    t0 = time.time()
+    by_path.update(app_phase(lgb, X, y, (Xs, ys, Xv, yv), head_ref,
+                             small_ref, card))
+    log(f"phase 30 {time.time() - t0:.1f} s")
+
     for e in entries:
         # a categorical entry counts its kernel's launches on the
         # categorical paths only
@@ -5843,4 +6277,6 @@ if __name__ == "__main__":
                          int(sys.argv[5])))
     if len(sys.argv) == 4 and sys.argv[1] == "--elastic-worker":
         sys.exit(elastic_worker(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--app-child":
+        sys.exit(app_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -56,6 +56,7 @@ from ..ops.split import SplitParams
 from ..utils import random as keyed
 from ..utils.file_io import open_read, open_write
 from ..utils.log import log_info, log_warning
+from ..utils.timetag import tag
 
 K_MODEL_VERSION = "v2"     # reference gbdt_model_text.cpp:13
 
@@ -191,6 +192,19 @@ def replay_tables(tree: Tree, max_bins: int, device) -> ReplayTables:
         leaf_value=dev(tree.leaf_value[:max(nl, 1)], np.float32))
 
 
+def feature_infos(mappers) -> List[str]:
+    """The model text's ``feature_infos`` of a dataset's bin mappers."""
+    infos = []
+    for m in mappers:
+        if m.is_trivial:
+            infos.append("none")
+        elif m.bin_type == 1:
+            infos.append(":".join(str(c) for c in m.bin_2_categorical))
+        else:
+            infos.append(f"[{m.min_val!r}:{m.max_val!r}]")
+    return infos
+
+
 def _check_supported(c: Config) -> None:
     """Options outside the port raise instead of training something
     else."""
@@ -201,11 +215,6 @@ def check_unported_options(c: Config) -> None:
     """Options the reference acts on and the port does not read yet
     raise rather than train something else, in memory and streamed
     alike."""
-    if c.input_model:
-        raise NotImplementedError(
-            f"input_model={c.input_model!r}: the parameter is read by the "
-            f"command-line application, which is not ported yet (ROADMAP "
-            f"A14, second half); pass init_model= to train")
     if len(tuple(c.mesh_shape)) > 1:
         raise NotImplementedError(
             f"mesh_shape={tuple(c.mesh_shape)}: a 2-D (data x feature) mesh "
@@ -459,7 +468,7 @@ class GBDT:
     def models(self) -> List[Tree]:
         """Host tree list; converts pending device trees on access."""
         if self._pending:
-            with obs_span("gbdt.to_host_trees"):
+            with obs_span("gbdt.to_host_trees"), tag("to_host_tree"):
                 for bt, lr, bias in self._pending:
                     host = self._to_host_tree(bt)
                     host.shrinkage(lr)
@@ -525,19 +534,23 @@ class GBDT:
         objective's gradients or the given ``[n, K]`` ones.  Returns True
         when training should stop: the K trees are all stumps (no split
         meets the requirements), and the iteration is dropped."""
-        if grad is None or hess is None:
-            grad, hess = self.gradients()
+        dev = self.device
+        with tag("boosting(grad)", dev):
+            if grad is None or hess is None:
+                grad, hess = self.gradients()
         K = self.num_tree_per_iteration
         grad, hess, bag = self._row_sample(grad, hess)
         trees = []
         raw_leaf_values = []
         for k in range(K):
-            bt = self._build(grad[:, k].contiguous(),
-                             hess[:, k].contiguous(), bag,
-                             self._feature_mask(self.iter * K + k))
+            with tag("tree", dev):
+                bt = self._build(grad[:, k].contiguous(),
+                                 hess[:, k].contiguous(), bag,
+                                 self._feature_mask(self.iter * K + k))
             bt = self._renew_leaves(bt, k)
-            nl, depth = torch.stack([bt.num_leaves,
-                                     bt.leaf_depth.max()]).tolist()
+            with tag("stump_check", dev):
+                nl, depth = torch.stack([bt.num_leaves,
+                                         bt.leaf_depth.max()]).tolist()
             # the values before a stump's zeroing: a non-finite gradient
             # makes a stump with a non-finite root value, which the
             # zeroing below would hide from every later check
@@ -559,7 +572,8 @@ class GBDT:
                         f"{self.iter + 1})")
             return True
         for k, (bt, _, depth) in enumerate(trees):
-            self._update_scores(bt, k, depth)
+            with tag("score", dev):
+                self._update_scores(bt, k, depth)
             # empty tensors, not [:0] views: a view would keep the [n]
             # per-row storage of every pending tree alive
             self._pending.append((BuiltTree(**{
@@ -1223,12 +1237,4 @@ class GBDT:
         if self.train_set is None:
             return (self._loaded_feature_infos
                     or ["none"] * (self.max_feature_idx + 1))
-        infos = []
-        for m in self.train_set.mappers:
-            if m.is_trivial:
-                infos.append("none")
-            elif m.bin_type == 1:
-                infos.append(":".join(str(c) for c in m.bin_2_categorical))
-            else:
-                infos.append(f"[{m.min_val!r}:{m.max_val!r}]")
-        return infos
+        return feature_infos(self.train_set.mappers)

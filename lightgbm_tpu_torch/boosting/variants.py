@@ -378,5 +378,14 @@ BOOSTERS = {"gbdt": GBDT, "dart": DART, "goss": GOSS, "rf": RF}
 
 def create_boosting(config: Config, train_set=None, device="cuda") -> GBDT:
     """The booster of ``config.boosting_type`` (reference
-    ``Boosting::CreateBoosting``, ``boosting.cpp:30-63``)."""
-    return BOOSTERS[config.boosting_type](config, train_set, device)
+    ``Boosting::CreateBoosting``, ``boosting.cpp:30-63``).  With
+    ``input_model`` set, the booster loads that model's trees, as the JAX
+    package's ``create_boosting`` does: a training booster then grows its
+    new trees after them, its training scores untouched by them
+    (ROADMAP C33)."""
+    booster = BOOSTERS[config.boosting_type](config, train_set, device)
+    if config.input_model:
+        from ..utils.file_io import open_read
+        with open_read(config.input_model) as f:
+            booster.load_model_from_string(f.read())
+    return booster

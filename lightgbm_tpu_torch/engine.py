@@ -103,11 +103,6 @@ def _train(params, train_set, num_boost_round, valid_sets, valid_names,
     if early_stopping_rounds is None and params.get("early_stopping_round"):
         early_stopping_rounds = int(params["early_stopping_round"])
     params.pop("early_stopping_round", None)
-    if params.get("valid_data"):
-        raise NotImplementedError(
-            "valid_data files are read by the command-line application, "
-            "which is not ported yet (ROADMAP A14, second half): pass "
-            "Dataset objects as valid_sets")
     if resume_from and init_model is not None:
         raise ValueError("resume_from and init_model are mutually "
                          "exclusive: a resumed run continues its own "

@@ -17,8 +17,9 @@ threads, for tests) or :func:`process_allgather` (the process group of
 ``jax_process_allgather``).  Host collectives run under a deadline
 (``LGBM_TPU_COLLECTIVE_DEADLINE_S``, :func:`deadline_call`): a rank that
 stops participating raises :class:`RankLostError` instead of hanging the
-job.  The ``ExternalCollectives`` C-function backend of the JAX package
-has one caller, the C API, and comes with it (ROADMAP A14).
+job.  :class:`ExternalCollectives` wraps a host application's own C
+allgather (``LGBM_NetworkInitWithFunctions`` of the C API); the loader
+takes it when it loads with ``num_machines > 1`` and no collective.
 """
 from __future__ import annotations
 
@@ -198,6 +199,89 @@ def process_allgather(obj) -> List[object]:
                                   max(dur - wait, 0.0), -1,
                                   straggler == rank)
     return [p["o"] for p in parts]
+
+
+class ExternalCollectives:
+    """C-function-pointer collective backend — the direct analog of
+    ``LGBM_NetworkInitWithFunctions`` (``c_api.h:760``, ``network.h:96``):
+    a host app embeds the framework and supplies its OWN reduce-scatter
+    and allgather implementations.
+
+    Function signatures match the reference's ``ReduceScatterFunction`` /
+    ``AllgatherFunction`` (``include/LightGBM/meta.h:48-56``)::
+
+        void allgather(char* input, int input_size, const int* block_start,
+                       const int* block_len, int num_block, char* output,
+                       int output_size);
+        void reduce_scatter(char* input, int input_size, int type_size,
+                            const int* block_start, const int* block_len,
+                            int num_block, char* output, int output_size,
+                            const ReduceFunction reducer);
+
+    The wrapped allgather is exposed in the :data:`AllgatherFn` shape used
+    by :func:`find_bins_distributed`, so an embedded host can drive
+    distributed ingest through its own transport.  As in the JAX package,
+    only the allgather is wrapped: the reduce-scatter's address is kept
+    and never called (no host collective of the port reduces)."""
+
+    def __init__(self, num_machines: int, rank: int,
+                 reduce_scatter_addr: int, allgather_addr: int):
+        import ctypes
+        self.num_machines = int(num_machines)
+        self.rank = int(rank)
+        proto_ag = ctypes.CFUNCTYPE(
+            None, ctypes.c_char_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_int, ctypes.c_char_p, ctypes.c_int)
+        self._c_allgather = (proto_ag(int(allgather_addr))
+                             if allgather_addr else None)
+        self._reduce_scatter_addr = int(reduce_scatter_addr)
+
+    def allgather(self, obj) -> List[object]:
+        """JSON-object allgather over the injected C function.  Blocks are
+        padded to a synced max size (the reference's fixed-size mapper
+        allgather does the same, ``dataset_loader.cpp:858-880``)."""
+        payload = json.dumps(obj).encode()
+        # round 1: sync sizes (8-byte blocks)
+        sizes = self._raw_allgather(
+            len(payload).to_bytes(8, "little"), 8)
+        lens = [int.from_bytes(sizes[r * 8:(r + 1) * 8], "little")
+                for r in range(self.num_machines)]
+        cap = max(lens)
+        # round 2: the padded payloads
+        out = self._raw_allgather(payload.ljust(cap, b"\0"), cap)
+        return [json.loads(out[r * cap:r * cap + lens[r]].decode())
+                for r in range(self.num_machines)]
+
+    def _raw_allgather(self, block: bytes, block_size: int) -> bytes:
+        import ctypes
+        if self._c_allgather is None:
+            raise RuntimeError("no allgather function installed")
+        world = self.num_machines
+        inp = ctypes.create_string_buffer(block, block_size)
+        outp = ctypes.create_string_buffer(block_size * world)
+        starts = (ctypes.c_int * world)(
+            *[r * block_size for r in range(world)])
+        lens = (ctypes.c_int * world)(*([block_size] * world))
+        self._c_allgather(ctypes.cast(inp, ctypes.c_char_p), block_size,
+                          starts, lens, world,
+                          ctypes.cast(outp, ctypes.c_char_p),
+                          block_size * world)
+        return outp.raw
+
+
+_external: List[Optional[ExternalCollectives]] = [None]
+
+
+def install_external_collectives(num_machines: int, rank: int,
+                                 reduce_scatter_addr: int,
+                                 allgather_addr: int) -> None:
+    _external[0] = ExternalCollectives(num_machines, rank,
+                                       reduce_scatter_addr, allgather_addr)
+
+
+def external_collectives() -> Optional[ExternalCollectives]:
+    return _external[0]
 
 
 def find_bins_distributed(X_local: np.ndarray,

@@ -491,6 +491,15 @@ def _load_file(path: str, config: Config,
                num_machines: int = 1, allgather=None) -> BinnedDataset:
     bin_path = path + ".bin.npz"
     is_local = "://" not in path
+    if num_machines > 1 and allgather is None:
+        # a host application may have installed its own collective
+        # (LGBM_NetworkInitWithFunctions of the C API); Dataset.construct
+        # passes num_machines > 1 only with a collective of its own, so
+        # this serves direct callers only, as in the JAX package (C34)
+        from .distributed import external_collectives
+        ext = external_collectives()
+        if ext is not None:
+            allgather = ext.allgather
     distributed = num_machines > 1 and allgather is not None
     # the cache holds what one process binned: single machine only
     if (config.enable_load_from_binary_file and reference is None

@@ -31,6 +31,7 @@ is updated in place.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, NamedTuple, Optional
 
@@ -52,6 +53,7 @@ from ..ops.route import route_rows, route_rows_values, unbundle_bin
 from ..ops.split import (SplitParams, SplitResult, find_best_splits,
                          leaf_output, split_scan_chunk_features)
 from ..ops.split_kernel import find_best_splits_kernel, split_kernel_ok
+from ..utils.timetag import phases_enabled, timed
 
 NEG_INF = -1e30
 
@@ -624,6 +626,23 @@ def _pending_tables(data: DeviceData, s: _WaveState, L: int):
             data.feat_group, data.feat_offset, data.num_bins)
 
 
+def tree_phase(name: str, device):
+    """A phase of the tree learner: its ``tree.*`` telemetry span and,
+    under ``LGBM_TPU_TIMETAG=phases``, its timetag on ``device`` under
+    the JAX package's ``tree:*`` name (else the span alone: this runs
+    several times a wave)."""
+    if not phases_enabled():
+        return obs_span(name)
+    return _tagged_span(name, "tree:scan" if name == "tree.split_find"
+                        else name.replace(".", ":"), device)
+
+
+@contextmanager
+def _tagged_span(name: str, tag: str, device):
+    with obs_span(name), timed(tag, device):
+        yield
+
+
 def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
                params: GrowthParams,
                bag_mask: Optional[torch.Tensor] = None,
@@ -668,22 +687,22 @@ def build_tree(data: DeviceData, grad: torch.Tensor, hess: torch.Tensor,
     def body(s: _WaveState, A_out: int) -> _WaveState:
         tabs = _pending_tables(data, s, L)
         if wave_uses_compact(backend, s.act_small.shape[0]):
-            with obs_span("tree.route"):
+            with tree_phase("tree.route", data.device):
                 leaf2 = route_rows(data.bins_t, s.leaf2, *tabs)
-            with obs_span("tree.hist"):
+            with tree_phase("tree.hist", data.device):
                 new_h = hist_active_compact(
                     data.bins_t, vals, leaf2[1].contiguous(), s.act_small,
                     scales, num_leaf_slots=L, max_bins=data.group_max_bins,
                     mode=mode)
         else:
-            with obs_span("tree.hist"):      # the route rides K1
+            with tree_phase("tree.hist", data.device):  # the route rides K1
                 new_h, leaf2 = hist_route(
                     data.bins_t, vals, s.leaf2, s.act_small, *tabs, scales,
                     max_bins=data.group_max_bins, mode=mode)
         return _scan_and_apply(data, params, feature_mask, s, leaf2, new_h,
                                A_out, wave_cap)
 
-    with obs_span("tree.init"):
+    with tree_phase("tree.init", data.device):
         s = _init_state(data, grad, hess, params, bag_mask,
                         plan[0] if plan else A_tail)
 
@@ -761,7 +780,7 @@ def make_serial_strategy(data: DeviceData, grad, hess, params: GrowthParams,
     hist_fn = make_hist_fn(data, grad, hess, L, hist_mode)
 
     def wave(s: _WaveState, hist_leaf):
-        with obs_span("tree.hist"):
+        with tree_phase("tree.hist", data.device):
             new_h = hist_fn(hist_leaf, s.act_small)
             if psum_axis is not None:
                 from ..ops.overlap import reduce_apply_overlapped
@@ -773,7 +792,7 @@ def make_serial_strategy(data: DeviceData, grad, hess, params: GrowthParams,
                     new_h = psum_fn(new_h)
                 ids, grid = apply_hist_wave(s.hist_state, new_h, s.act_small,
                                             s.act_parent, s.act_sibling, L)
-        with obs_span("tree.split_find"):
+        with tree_phase("tree.split_find", data.device):
             return ids, scan_grid(data, params, feature_mask, ids, grid,
                                   s.leaf_sum_grad, s.leaf_sum_hess,
                                   s.leaf_count)
@@ -811,7 +830,7 @@ def build_tree_unfused(data: DeviceData, grad: torch.Tensor,
         strategy = make_serial_strategy(data, grad, hess, params,
                                         feature_mask, psum_fn, hist_mode,
                                         psum_axis)
-    with obs_span("tree.init"):
+    with tree_phase("tree.init", data.device):
         s = _init_state(data, grad, hess, params, bag_mask,
                         plan[0] if plan else A_tail, psum_fn,
                         num_hist_features)
@@ -826,11 +845,11 @@ def build_tree_unfused(data: DeviceData, grad: torch.Tensor,
             A_out = plan[i + 1] if i + 1 < len(plan) else A_tail
         else:
             A_out = A_tail
-        with obs_span("tree.route"):
+        with tree_phase("tree.route", data.device):
             leaf2 = route_rows(data.bins_t, s.leaf2,
                                *_pending_tables(data, s, L))
         ids, res = strategy(s, leaf2[1].contiguous())
-        with obs_span("tree.update"):
+        with tree_phase("tree.update", data.device):
             s = _apply_wave(s, leaf2, ids, res, A_out, params, wave_cap)
         i += 1
     return _final_route(data, s, L)
@@ -841,9 +860,9 @@ def _scan_and_apply(data: DeviceData, params: GrowthParams, feature_mask,
                     wave_cap: int) -> _WaveState:
     """A wave's split scan and its bookkeeping, under the learner's
     ``tree.split_find`` and ``tree.update`` spans."""
-    with obs_span("tree.split_find"):
+    with tree_phase("tree.split_find", data.device):
         ids, res = rescan_changed(data, params, feature_mask, s, new_h)
-    with obs_span("tree.update"):
+    with tree_phase("tree.update", data.device):
         return _apply_wave(s, leaf2, ids, res, A_out, params, wave_cap)
 
 
@@ -851,7 +870,7 @@ def _final_route(data: DeviceData, s: _WaveState, L: int) -> BuiltTree:
     """The last route (K4): the last wave's splits applied, each row's
     leaf value emitted for the score update."""
     n = data.num_data
-    with obs_span("tree.route"):
+    with tree_phase("tree.route", data.device):
         leaf2, row_value = route_rows_values(
             data.bins_t, s.leaf2, *_pending_tables(data, s, L),
             final_leaf_values(s, L))

@@ -47,7 +47,7 @@ import torch
 
 from ..io.device import DeviceData
 from ..learner.serial import (BuiltTree, GrowthParams, apply_hist_wave,
-                              build_tree, make_hist_fn)
+                              build_tree, make_hist_fn, tree_phase)
 from ..obs import span as obs_span
 from ..obs.flight_recorder import record as _fr_record
 from ..ops.histogram import bin_stride, unbundle_grid
@@ -152,11 +152,11 @@ def make_feature_parallel_strategy(data: DeviceData, grad, hess,
     B = bin_stride(data.max_bins)
 
     def wave(s, hist_leaf):
-        with obs_span("tree.hist"):
+        with tree_phase("tree.hist", data.device):
             new_h = hist_fn(hist_leaf, s.act_small)
             ids, grid = apply_hist_wave(s.hist_state, new_h, s.act_small,
                                         s.act_parent, s.act_sibling, L)
-        with obs_span("tree.split_find"):
+        with tree_phase("tree.split_find", data.device):
             safe = ids.clamp(0, L - 1).long()
             lsg, lsh, lc = (s.leaf_sum_grad[safe], s.leaf_sum_hess[safe],
                             s.leaf_count[safe])
@@ -209,11 +209,11 @@ def make_voting_parallel_strategy(data: DeviceData, grad, hess,
     B = bin_stride(data.max_bins)
 
     def wave(s, hist_leaf):
-        with obs_span("tree.hist"):
+        with tree_phase("tree.hist", data.device):
             new_h = hist_fn(hist_leaf, s.act_small)
             ids, grid = apply_hist_wave(s.hist_state, new_h, s.act_small,
                                         s.act_parent, s.act_sibling, L)
-        with obs_span("tree.split_find"):
+        with tree_phase("tree.split_find", data.device):
             safe = ids.clamp(0, L - 1).long()
             # local leaf totals: column 0's bins hold every in-bag local
             # row once

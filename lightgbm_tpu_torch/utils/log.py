@@ -48,6 +48,20 @@ def log_debug(msg: str) -> None:
     _logger.debug(msg)
 
 
+def set_verbosity(verbose: int) -> None:
+    """The reference's ``verbose``: < 0 fatal only, 0 warnings, 1 info,
+    > 1 debug (the command-line application sets it from its
+    configuration)."""
+    if verbose < 0:
+        _logger.setLevel(logging.CRITICAL)
+    elif verbose == 0:
+        _logger.setLevel(logging.WARNING)
+    elif verbose == 1:
+        _logger.setLevel(logging.INFO)
+    else:
+        _logger.setLevel(logging.DEBUG)
+
+
 def log_once(key: str, msg: str, level: str = "warning") -> bool:
     """Log ``msg`` at ``level`` the first time ``key`` is seen in this
     process; later calls with the same key are dropped.  -> whether the

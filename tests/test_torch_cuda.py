@@ -18,7 +18,9 @@ categorical column included).  The compiled predictor (``serve/``, no
 kernel of its own) is held to the host oracle on the card, binned
 categorical rows included.  Two ranks train data-parallel on the card
 (``tests/torch_dist_worker.py``: gloo on one card, NCCL with a card a
-rank) to one model, and K5 histograms their waves.
+rank) to one model, and K5 histograms their waves.  A C host
+(``tools/capi_train.cpp``) trains through the port's C library on the
+card to ``lgb.train``'s model and predicts as ``Booster.predict``.
 """
 import numpy as np
 import pytest
@@ -1342,3 +1344,48 @@ def test_cuda_data_parallel_two_ranks(cuda_device, tmp_path):
     assert "error" not in a and "error" not in b, a.get("traceback")
     assert a["model"] == b["model"] and a["iterations"] == 3
     assert a["k5_launches"] > 0 and b["k5_launches"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_capi_host_trains_on_the_card(cuda_device, tmp_path):
+    """``tools/capi_train.cpp`` through the port's C library, with no
+    device request (so on the card): the model is ``lgb.train``'s on the
+    card, and its ``LGBM_BoosterPredictForMat`` predictions are
+    ``Booster.predict``'s on the card, bitwise."""
+    import os
+    import subprocess
+    import sysconfig
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.capi import build as capi_build
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rng = np.random.RandomState(0)
+    n, f, iters = 20000, 8, 6
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] + rng.normal(size=n) > 0).astype(np.float32)
+    rows, labels = tmp_path / "rows.f32", tmp_path / "y.f32"
+    X.tofile(rows)
+    y.tofile(labels)
+    lib = capi_build.build()
+    exe = tmp_path / "capi_train"
+    subprocess.run(["g++", "-O2", os.path.join(repo, "tools",
+                                               "capi_train.cpp"),
+                    f"-I{sysconfig.get_path('include')}", "-o", str(exe)]
+                   + capi_build.link_args(lib), check=True, timeout=300)
+    params = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+              "verbose": -1}
+    model, preds = tmp_path / "model.txt", tmp_path / "pred.f64"
+    out = subprocess.run(
+        [str(exe), str(rows), str(labels), str(n), str(f), str(iters),
+         "max_bin=63", " ".join(f"{k}={v}" for k, v in params.items()),
+         str(model), str(preds), str(n)],
+        env=capi_build.host_env(), capture_output=True, text=True,
+        timeout=600)
+    assert out.returncode == 0, (out.stdout[-2000:], out.stderr[-2000:])
+    assert "CAPI_TRAIN_OK" in out.stdout
+    want = lgb.train(dict(params),
+                     lgb.Dataset(X, label=y, params={"max_bin": 63}), iters,
+                     device="cuda")
+    assert model.read_text() == want.model_to_string()
+    loaded = lgb.Booster(model_file=str(model), device="cuda")
+    np.testing.assert_array_equal(np.fromfile(preds, np.float64),
+                                  loaded.predict(X).astype(np.float64))

@@ -5,7 +5,7 @@ contracts around it:
 
 * ``tree_learner="data"`` gives the JAX package's model (digest and
   model text) on both ranks, each rank training on its contiguous half
-  of the rows; ``feature`` and ``voting`` give rank-identical models, the
+  of the rows, also when the halves differ by a row (ROADMAP C28); ``feature`` and ``voting`` give rank-identical models, the
   feature-parallel one the serial model's decisions;
 * early stopping decides the same iteration on every rank (the JAX
   package's ``tests/test_multihost.py:95``): the ranks adopt rank 0's
@@ -72,6 +72,11 @@ CASES = [
          params=dict(BASE, tree_learner="data", boosting="dart"), rounds=2),
     dict(name="desync", kind="desync",
          params=dict(BASE, tree_learner="data"), rounds=3),
+    # ranks of 2,001 and 2,000 rows (ROADMAP C28)
+    dict(name="uneven", kind="train", n=N + 1,
+         params=dict(BASE, objective="regression", tree_learner="data",
+                     boost_from_average=False, bagging_fraction=0.7,
+                     bagging_freq=1), rounds=6),
 ]
 
 
@@ -84,8 +89,12 @@ def world(tmp_path_factory):
     np.savez(plain, X=X, y=y)
     with_valid = str(d / "xyv.npz")
     np.savez(with_valid, X=X, y=y, Xv=Xv, yv=yv)
-    cases = [dict({k: v for k, v in c.items() if k != "valid"},
-                  input=with_valid if c.get("valid") else plain)
+    X1, y1 = _data(N + 1)
+    uneven = str(d / "xy_uneven.npz")
+    np.savez(uneven, X=X1, y=y1)
+    cases = [dict({k: v for k, v in c.items() if k not in ("valid", "n")},
+                  input=(with_valid if c.get("valid")
+                         else uneven if c.get("n") else plain))
              for c in CASES]
     return run_world(cases, 2, str(d / "out"))
 
@@ -104,8 +113,8 @@ def compact(monkeypatch):
     monkeypatch.setenv("LGBM_TPU_SPLIT_INTERPRET", "1")
 
 
-def _jax_mesh(params, rounds, n_devices=2):
-    X, y = _data()
+def _jax_mesh(params, rounds, n_devices=2, n=N):
+    X, y = _data(n)
     return jlgb.train(dict(params, mesh_shape=str(n_devices)),
                       jlgb.Dataset(X, label=y), rounds)
 
@@ -121,6 +130,25 @@ def test_data_parallel_train_equals_jax_mesh(world, compact, name):
     assert a["init_score"] == b["init_score"]
     assert a["digest"] == b["digest"] == jb.digest(include_scores=False)
     assert a["model"] == jb.model_to_string()
+
+
+def test_uneven_ranks_equal_jax_mesh(world, compact):
+    """Ranks of 2,001 and 2,000 rows (n = 4,001, int8h, bagging): the
+    JAX package's 2-device mesh pads its second device with one
+    bagged-out row of zero gradient and hessian, which could have moved
+    that device's int8 quantization scales (ROADMAP C28); the port's
+    rank holds its 2,000 rows alone.  The models are bitwise equal: the
+    padding row moves no scale.  The objective is L2, whose gradients
+    are exact: the binary objective's sigmoid on the CPU is not bitwise
+    the JAX package's on every row (``tests/test_torch_objectives.py``
+    holds it within ``f32_eps_few``), and at these shard lengths its
+    last-bit differences reach a root's raw sums (one internal value
+    an ulp apart), though not the quantized histograms."""
+    case = next(c for c in CASES if c["name"] == "uneven")
+    jb = _jax_mesh(case["params"], case["rounds"], n=case["n"])
+    (_, a), (_, b) = _ok(world, "uneven")
+    assert a["model"] == b["model"] == jb.model_to_string()
+    assert a["digest"] == jb.digest(include_scores=False)
 
 
 def test_data_parallel_init_score_is_jax_multiprocess_one(world):

@@ -1,21 +1,25 @@
-"""Options the JAX package acts on and lightgbm_tpu_torch does not read
-yet raise, instead of training something else, each naming its ROADMAP
-item: ``input_model`` (read by the command-line application, A14's
-second half; ``train`` takes ``init_model``) and a 2-D ``mesh_shape``
-(the data x feature mesh, A11's remainder; a 1-D one trains,
-``tests/test_torch_multiprocess.py``) in memory (``lgb.train``) and
-streamed (``StreamTrainer``).  ``snapshot_freq`` and ``resume_from``
-work in memory (``tests/test_torch_snapshot.py``, and across processes
+"""Options of the JAX package in lightgbm_tpu_torch.
+
+A 2-D ``mesh_shape`` (the data x feature mesh, ROADMAP A11's remainder;
+a 1-D one trains, ``tests/test_torch_multiprocess.py``) raises, instead
+of training something else, in memory (``lgb.train``) and streamed
+(``StreamTrainer``).  ``input_model`` in ``lgb.train``'s parameters
+loads that model into the booster, as the JAX package's
+``create_boosting`` does (its trees first, the training scores without
+them, ROADMAP C33), and ``valid_data`` files, which only the
+command-line application reads, are ignored by ``lgb.train`` as by the
+JAX package's: both held to the JAX package here (its kernels in Pallas
+interpret mode).  ``snapshot_freq`` and ``resume_from`` work in memory
+(``tests/test_torch_snapshot.py``, and across processes
 ``tests/test_torch_elastic_mp.py``) and streamed (barrier snapshots,
-``tests/test_torch_elastic_train.py``), and so does
-``pred_early_stop`` (``tests/test_torch_model_surface.py``);
-``telemetry_output`` writes the trace in memory and streamed
-(``tests/test_torch_telemetry.py``).
-``valid_data`` files, which only the command-line application reads,
-raise in ``lgb.train`` (A14's second half)."""
+``tests/test_torch_elastic_train.py``), and so does ``pred_early_stop``
+(``tests/test_torch_model_surface.py``); ``telemetry_output`` writes the
+trace in memory and streamed (``tests/test_torch_telemetry.py``)."""
 import numpy as np
 import pytest
 import torch
+
+import lightgbm_tpu as jlgb
 
 import lightgbm_tpu_torch as tlgb
 from lightgbm_tpu_torch.boosting.streaming import StreamTrainer
@@ -43,9 +47,8 @@ def _stream(params, X, y):
 
 
 @pytest.mark.parametrize("option,match", [
-    ({"input_model": "model.txt"}, "A14"),
     ({"mesh_shape": "2,2"}, "A11"),
-], ids=["input_model", "mesh_shape"])
+], ids=["mesh_shape"])
 def test_unported_option_raises(option, match):
     X, y = _data()
     params = dict(BASE, **option)
@@ -112,9 +115,71 @@ def test_lifted_option_trains_in_memory(option, tmp_path):
     assert np.isfinite(bst.predict(X)).all()
 
 
-def test_valid_data_files_raise():
-    X, y = _data()
-    with pytest.raises(NotImplementedError, match="A14"):
-        tlgb.train(dict(BASE, valid_data="valid.csv"),
-                   tlgb.Dataset(X, label=y), num_boost_round=1,
-                   device="cpu")
+# the JAX package's kernels and the port's agree bitwise on these
+# (tests/test_torch_engine.py's configuration)
+PARITY = {"num_leaves": 15, "max_bin": 63, "learning_rate": 0.1,
+          "min_data_in_leaf": 20, "verbose": -1}
+
+
+def _parity_data():
+    rng = np.random.RandomState(0)
+    X = rng.normal(size=(2000, 6)).astype(np.float32)
+    z = X[:, 0] * 2 + X[:, 1] - X[:, 2] + rng.normal(size=2000)
+    return X, z.astype(np.float32)
+
+
+@pytest.fixture
+def reference_kernels(monkeypatch):
+    monkeypatch.setenv("LGBM_TPU_HIST_BACKEND", "compact")
+    monkeypatch.setenv("LGBM_TPU_SPLIT_INTERPRET", "1")
+
+
+@pytest.mark.parametrize("objective", ["binary", "regression"])
+def test_input_model_in_params_matches_reference(objective, tmp_path,
+                                                 reference_kernels):
+    """``input_model`` in the parameters: the booster starts from the
+    file's trees (iterations counted on from them) and grows the new
+    ones on training scores that hold the init score only, as the JAX
+    package's (ROADMAP C33): the model text, digest and training scores
+    bitwise the JAX package's."""
+    X, z = _parity_data()
+    y = (z > 0).astype(np.float32) if objective == "binary" else z
+    params = dict(PARITY, objective=objective)
+    path = str(tmp_path / "first.txt")
+    tlgb.train(dict(params), tlgb.Dataset(X, label=y), num_boost_round=2,
+               device="cpu").save_model(path)
+    p = dict(params, input_model=path)
+    jb = jlgb.train(dict(p), jlgb.Dataset(X, label=y), num_boost_round=3)
+    tb = tlgb.train(dict(p), tlgb.Dataset(X, label=y), num_boost_round=3,
+                    device="cpu")
+    assert tb.current_iteration() == jb.current_iteration == 5
+    assert tb.model_to_string() == jb.model_to_string()
+    assert tb.digest() == jb.digest()
+    np.testing.assert_array_equal(tb._gbdt.scores.numpy(),
+                                  np.asarray(jb._gbdt.scores))
+    # the loaded trees come first, unchanged
+    first = tlgb.Booster(model_file=path, device="cpu").model_to_string()
+    assert _trees(tb.model_to_string())[:2] == _trees(first)
+
+
+def _trees(text):
+    return [t.strip() for t in
+            text.split("feature importances:")[0].split("Tree=")[1:]]
+
+
+def test_valid_data_ignored_by_train(tmp_path, reference_kernels):
+    """``valid_data`` in ``lgb.train``'s parameters changes nothing (a
+    path that does not exist is not read), as in the JAX package: both
+    give the model trained without it."""
+    X, z = _parity_data()
+    y = (z > 0).astype(np.float32)
+    params = dict(PARITY, objective="binary")
+    p = dict(params, valid_data=str(tmp_path / "absent.csv"))
+    jb = jlgb.train(dict(p), jlgb.Dataset(X, label=y), num_boost_round=3)
+    tb = tlgb.train(dict(p), tlgb.Dataset(X, label=y), num_boost_round=3,
+                    device="cpu")
+    plain = tlgb.train(dict(params), tlgb.Dataset(X, label=y),
+                       num_boost_round=3, device="cpu")
+    assert tb.digest() == plain.digest()
+    assert tb.model_to_string() == jb.model_to_string()
+    assert tb.digest() == jb.digest()
