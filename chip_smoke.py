@@ -122,6 +122,11 @@ and the script exits non-zero):
    (rows/s beside an eager run and the host numpy walk): routing raw ==
    binned on every row and == the host ``predict_leaf`` on 20,000 rows,
    scores raw == binned and within 1 f32 ulp of the f64 host sum there;
+   100,000 of those rows scored alone, inside the 1,048,576-row batch
+   (raw and binned), through each server bucket (256, 1024, 4096) and
+   through ``predict_raw_early_stop`` with a margin no row reaches are
+   bitwise alike and == the host walk's f64 sum rounded once (ROADMAP
+   C35);
    a seeded 3-class forest with categorical, NaN- and zero-missing nodes
    and stumps held to the host the same way; 300 mixed requests through
    ``PredictionServer`` (buckets 256/1024/4096), each resolved exactly
@@ -151,9 +156,9 @@ and the script exits non-zero):
    of its rows with unseen, negative and NaN categories scored raw and
    binned: routing raw == binned == the host ``predict_leaf``, scores
    raw == binned and within 1 f32 ulp of the f64 host sum;
-16. categorical stream — 262,144 rows of the categorical headline data
+16. categorical stream — 131,072 rows of the categorical headline data
    written as CSV into a temporary directory, ingested with
-   ``categorical_column`` and streamed (63 leaves, blocks of 131,072
+   ``categorical_column`` and streamed (63 leaves, blocks of 65,536
    rows, 2 iterations): K5, K2 and K4 must launch, the model must hold
    categorical nodes, and its digest (scores included) must be that of
    in-memory training on ``store.to_binned_dataset``;
@@ -169,12 +174,13 @@ and the script exits non-zero):
 18. multiclass small-data — upstream's
    ``examples/multiclass_classification/train.conf`` (5 classes,
    ``multi_logloss`` and ``multi_error`` on both sets, 31 leaves, lr
-   0.05, ``max_bin`` 255, early stopping 10, at most 100 rounds) on the
-   small-data rows with 5-class labels: the split kernel on every class
-   tree, valid ``multi_logloss`` at ``best_iteration`` at most 85% of
-   ln 5;
+   0.05, ``max_bin`` 255, early stopping 10, at most 50 rounds, cut
+   from 100) on the small-data rows with 5-class labels: the split
+   kernel on every class tree, valid ``multi_logloss`` at
+   ``best_iteration`` at most 85% of ln 5;
 19. ranking — the bench's MS LTR-shaped set (``bench.py ranking_leg``:
-   19,000 queries of log-normal sizes, about 2.27M docs x 136 features,
+   its 19,000 queries of log-normal sizes cut to 4,750, about 562,000
+   docs x 136 features,
    relevance 0-4) with its configuration (``lambdarank``, 255 leaves,
    lr 0.1, ``min_data_in_leaf`` 0, ``min_sum_hessian_in_leaf`` 100,
    ``max_bin`` 255), 8 iterations: each iteration's gradient time (the
@@ -245,13 +251,13 @@ and the script exits non-zero):
    twice, ROADMAP C23); phase 5's run with ``learning_rates=[0.1] *
    100``: phase 5's stop, best iteration and digest, then a decaying
    schedule (its stop and valid AUC); ``cv`` with phase 5's
-   configuration, 5 stratified folds, seed 0, early stopping 10 (K6 on
-   every fold): every iteration's mean == the mean of five ``lgb.train``
+   configuration, 3 stratified folds, seed 0, early stopping 10 (K6 on
+   every fold): every iteration's mean == the mean of three ``lgb.train``
    runs on the same folds, bitwise; phase 5's rows written as CSV (a
    header, ``label_column=name:target``, a ``.weight`` side file) and as
    libsvm, with their valid rows: ``lgb.Dataset(path)`` trains the
    weighted array model and phase 5's model; the native parser
-   (required) parses a 1,048,576-row x 28 CSV (MB/s, rows/s).
+   (required) parses a 262,144-row x 28 CSV (MB/s, rows/s).
 24. boosting variants — on phase 4's rows and configuration: GOSS
    (``top_rate`` 0.2, ``other_rate`` 0.1) 32 iterations; DART
    (``drop_rate`` 0.1, ``max_drop`` 50, ``skip_drop`` 0.5, LightGBM's
@@ -303,11 +309,11 @@ and the script exits non-zero):
    launched and no K1, K3, K5 or unseeded wide histogram, the first
    with the telemetry trace on (every ``stream.*`` span and counter in
    it); the ``max_bin`` 1023 stream again at 8,388,608 rows: its peak
-   device memory within 5% of the 2,097,152-row run's; 262,144 rows of
+   device memory within 5% of the 2,097,152-row run's; 131,072 rows of
    the headline generator (seed 26) as a libsvm file with a quarter of
    the values zero and left out: ``train_streaming([path])`` (the store
    placed by ``LGBM_TPU_STREAM_CACHE``), again with
-   ``LGBM_TPU_STREAM_ROWS=131072`` and ``LGBM_TPU_STREAM_PIPELINE=0``,
+   ``LGBM_TPU_STREAM_ROWS=65536`` and ``LGBM_TPU_STREAM_PIPELINE=0``,
    both == ``lgb.train(Dataset(path))``; the headline ``lgb.train``
    with telemetry off and on (``telemetry_output``) in turns, twice
    each: every digest phase 4's (``25aa16f3...``), the trace parsed with
@@ -320,20 +326,32 @@ and the script exits non-zero):
    (``chip_smoke.py --multi-gpu-rank``), joins through
    ``parallel/mesh.py:init_distributed`` (NCCL with a card a rank,
    gloo with both ranks on card 0) and trains through ``lgb.train``:
-   (a) data-parallel on phase 4's headline, each rank its contiguous
-   half of the rows: the ranks' models byte-identical, a second run and
-   the overlapped reduction (``LGBM_TPU_OVERLAP=1``) give the same
-   digest, train AUC >= 0.93, K2, K5, K3 and the last route's K4
-   launched on every rank (no K1), steady ms/iter printed beside phase
-   4's; (b) feature-parallel: phase 4's digest;
-   (c) voting-parallel (``top_k`` 20): identical ranks, the AUC gate;
+   every world trains ``MG_ITERS`` (8) iterations of phase 4's
+   configuration (32 before the 2-D mesh joined the phase): (a)
+   data-parallel on phase 4's
+   headline, each rank its contiguous half of the rows: the ranks'
+   models byte-identical, a second run and the overlapped reduction
+   (``LGBM_TPU_OVERLAP=1``) give the same digest, train AUC >= 0.93,
+   K2, K5, K3 and the last route's K4 launched on every rank (no K1),
+   steady ms/iter printed beside phase 4's; (b) feature-parallel: the
+   digest of phase 4's configuration trained serially for as many
+   iterations; (c) voting-parallel (``top_k`` 20): identical ranks, the
+   AUC gate; (c2) leaf renewal: phase 20's L1, quantile 0.9 and MAPE
+   (on seeded weights) data-parallel and L1 voting-parallel, 255
+   leaves, 2 iterations: identical ranks, and every renewed leaf of each
+   tree == the percentile over both ranks' rows (L1 and quantile phase
+   20's host percentile, weighted MAPE the port's plain CPU renewal);
    (d) a CSV of 200,000 headline rows loaded with ``num_machines`` 2
    (mod-rank rows, distributed bin finding): identical mappers on both
    ranks, then data-parallel training to one model; (e) after a
    data-parallel run, the ``spmd.skip_record`` fault on rank 1 drops the
    record of the middle one of three host gathers: the merged summary
    holds both ranks, their collective skew and a
-   ``flight_recorder_check`` naming the skipped site and rank 1.  A rank's failure fails the phase.
+   ``flight_recorder_check`` naming the skipped site and rank 1; (f) a
+   world of four ranks on card 0 with ``mesh_shape`` [2, 2]
+   (``MG_MESH``): data-, feature- and voting-parallel, the four ranks'
+   models byte-identical and each digest == the two-rank run's of
+   (a)-(c).  A rank's failure fails the phase.
 29. elastic training — the bench's stream cell (``bench.py:1209-1218``:
    28 features, ``max_bin`` 63, 63 leaves, int8h, lr 0.1, binary,
    1,048,576-row blocks) on 4,194,304 synthetic rows ingested once into a
@@ -350,8 +368,8 @@ and the script exits non-zero):
    every worker launched K5, K2 and K4 and no K1 or K6, each recovery's
    phases sum to its ``mttr_s``, and the survivor's ``/healthz`` walked
    ready -> recovering -> ready.  Then phase 28's two ranks train the
-   data-parallel headline with ``snapshot_freq`` 16 and resume at W = 2
-   from iteration 16: the resumed digest (and each rank's scores) == the
+   data-parallel headline (``MG_ITERS``) with a snapshot halfway and
+   resume at W = 2 from it: the resumed digest (and each rank's scores) == the
    uninterrupted run's == phase 28's, and a one-process resume from that
    snapshot refuses.  Walls, MTTR and its phases, and launches are in the
    phase line; every coordinator, worker and rank is gone when it ends.
@@ -364,8 +382,8 @@ and the script exits non-zero):
    ``LGBM_BoosterUpdateOneIter`` (the launch counters reset and read in
    the library's embedded interpreter): the saved model text and the
    digests are phase 4's, K1-K4 launched and K6 not, and
-   ``LGBM_BoosterPredictForMat`` on 100,000 rows is phase 4's
-   ``Booster.predict`` bitwise; the C host's wall and ms/iter are
+   ``LGBM_BoosterPredictForMat`` on 100,000 rows is bitwise those rows
+   of phase 4's ``Booster.predict`` of all 1,000,000; the C host's wall and ms/iter are
    printed.  (b) Phase 5's rows as CSV files and a ``train.conf`` of
    ``TRAIN_CONF`` with ``valid_data=`` and ``early_stopping_round`` 10:
    ``python -m lightgbm_tpu_torch config=train.conf`` (run as ``-m``
@@ -391,6 +409,7 @@ kernel on phases 13-16 only), the card's name and power limit, and
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -436,8 +455,8 @@ HEAD20_PARAMS = dict(STREAM_PARAMS, num_leaves=255, min_data_in_leaf=20)
 # in-memory float runs at 20M rows: the kernels' scratch must not grow
 # with rows x slots
 INMEM_PEAK_LIMIT = 4 << 30
-CAT_STREAM_ROWS = 262_144
-CAT_STREAM_BLOCK = 131_072
+CAT_STREAM_ROWS = 131_072       # two blocks (262,144 cut to hold the wall)
+CAT_STREAM_BLOCK = 65_536
 FLOAT_ITERS = 8
 # the bench's serving legs (bench.py:680-795 serve_leg, :797-855
 # serve_load_leg): 28 features, 200,000 training rows from seed 11, 63
@@ -457,6 +476,7 @@ SERVE_SIZES = (1, 3, 17, 100, 240, 900)
 SERVE_REQUESTS = 300
 SERVE_QPS = (1_000.0, 5_000.0, 20_000.0)
 SERVE_QPS_S = 2.0
+SERVE_SAME_ROWS = 100_000   # scored alike in every batch shape (ROADMAP C35)
 # multiclass headline (phase 17): 5 classes from the quantiles of the
 # headline's latent, the headline's tree, 8 iterations (40 trees); the
 # train multi_logloss must end at most this share of ln 5 (uniform)
@@ -471,9 +491,11 @@ MC_TRAIN_CONF = {"objective": "multiclass", "num_class": MC_CLASSES,
                  "metric": "multi_logloss,multi_error", "metric_freq": 1,
                  "is_training_metric": True, "max_bin": 255,
                  "learning_rate": 0.05, "num_leaves": 31, "verbose": -1}
+MC_SMALL_ITERS = 50     # its rounds on the small-data rows (100, cut)
 # the bench's ranking leg (bench.py ranking_leg, MS LTR shape): its data
-# and configuration, its NDCG@10 gate; 8 iterations
-RANK_QUERIES = 19_000
+# and configuration, its NDCG@10 gate; 8 iterations; its 19,000 queries
+# (about 2.27M docs) cut to 4,750 to hold the smoke's wall
+RANK_QUERIES = 4_750
 RANK_FEATURES = 136
 RANK_ITERS = 8
 RANK_NDCG_GATE = 0.60
@@ -491,6 +513,8 @@ RANK_PARAMS = {"objective": "lambdarank", "num_leaves": 255,
 # (tests/test_torch_objectives.py: test_gamma_first_tree_diverges_as_in_
 # reference, test_int8h_heavy_tailed_gradients_match_reference)
 REG_ITERS = 2
+REG_PARAMS = {"num_leaves": 255, "max_bin": 63, "learning_rate": 0.1,
+              "min_data_in_leaf": 20, "verbose": -1}
 REG_FAMILY = (("regression_l1", "z", {}), ("huber", "z", {}),
               ("fair", "z", {}), ("quantile", "z", {"alpha": 0.9}),
               ("poisson", "exp", {}), ("gamma", "exp8", {}),
@@ -519,15 +543,18 @@ SURFACE_PES_FREQ = 4
 SURFACE_PES_MARGIN = 4.0
 # early-stopped rows whose sign agrees with the full prediction
 SURFACE_SIGN_SHARE = 0.99
+SHAP_ROWS = 10_000          # pred_contrib of phase 12's model, natively
+SHAP_SMALL_ROWS = 200       # native against the Python recursion ...
+SHAP_SMALL_ITERS = 5        # ... on the first trees
 # the entry surface (phase 23): continued training splits phase 4's run
 # into two halves; a decaying learning-rate schedule on phase 5's run;
 # cv with phase 5's configuration; the native parser's throughput file is
-# the small-data rows' text written 16 times
+# the small-data rows' text written 4 times (16, cut to hold the wall)
 ENTRY_FIRST_ITERS = 16
 ENTRY_FOBJ_ITERS = 8
 ENTRY_DECAY = (0.2, 0.97)          # lr = 0.2 * 0.97 ** iteration
-ENTRY_NFOLD = 5
-ENTRY_PARSE_REPEAT = 16            # x 65,536 rows = 1,048,576 rows
+ENTRY_NFOLD = 3                    # 5, cut to hold the wall
+ENTRY_PARSE_REPEAT = 4             # x 65,536 rows = 262,144 rows
 # a numpy AUC against the built-in one: both are exact sums of ranks
 # (half-integers) in float64 and one division, so they agree to the
 # last bits
@@ -561,14 +588,16 @@ WIDEST_LEAVES = 131072      # LightGBM's largest num_leaves: 65,536 slots
 WIDEST_MAX_BIN = 65535      # a 65,536-bin stride (synthetic int32 bins)
 # memory rate of one H100 SXM (NVIDIA data sheet)
 # phase 26: wide and deep streams (two 1,048,576-row blocks, then the
-# memory check at four times the rows), a libsvm stream, telemetry
+# memory check at twice the rows, cut from four times to hold the
+# wall), a libsvm
+# stream, telemetry
 WS_ROWS = 2_097_152
 WS_BIG_ROWS = 8_388_608
 WS_ITERS = 2
 WS_PEAK_SHARE = 0.05         # 8M peak within 5% of the 2M peak
-WS_LIBSVM_ROWS = 262_144
+WS_LIBSVM_ROWS = 131_072     # 262,144 cut to hold the wall
 WS_LIBSVM_ZERO = 0.25        # share of values zeroed and left out
-WS_LIBSVM_BLOCK = 131_072
+WS_LIBSVM_BLOCK = 65_536
 TELEMETRY_SPANS = ("engine.train", "gbdt.train", "gbdt.iteration",
                    "gbdt.eval", "tree.init", "tree.route", "tree.hist",
                    "tree.split_find", "tree.update")
@@ -2215,6 +2244,16 @@ def host_scores(trees, X, K: int = 1):
     return out if K > 1 else out[:, 0]
 
 
+def served_in_bucket(srv, X, bucket: int):
+    """Raw scores of ``X`` through the server, one request of ``bucket``
+    rows at a time (each its own batch, in that bucket; the tail in the
+    smallest bucket that holds it)."""
+    import numpy as np
+    return np.concatenate([
+        np.atleast_1d(srv.submit(X[o:o + bucket]).result(120))
+        for o in range(0, len(X), bucket)])
+
+
 def serve_phase(lgb, counters, card: str) -> dict:
     """Phase 12: the bench's serving legs through the port on the card.
     -> the training run's kernel launches."""
@@ -2312,6 +2351,19 @@ def serve_phase(lgb, counters, card: str) -> dict:
         f"{SERVE_FOREST_ROWS} rows: routing bit-exact, worst {fworst:.3f} "
         f"ulp")
 
+    # the same rows alone, inside the 1M-row batch, through prediction
+    # early stopping with a margin no row reaches and (below) through
+    # each bucket of the server: one score each, the host walk's f64 sum
+    # rounded once (ROADMAP C35)
+    R = SERVE_SAME_ROWS
+    t0 = time.time()
+    same = host_scores(models, Xq[:R]).astype(np.float32)
+    same_host_s = time.time() - t0
+    shapes = {"in_1m_batch": raw[:R], "alone": cm.predict_raw(Xq[:R]),
+              "binned_1m_batch": braw[:R],
+              "early_stop": cm.predict_raw_early_stop(
+                  Xq[:R], SURFACE_PES_FREQ, float("inf"))[0]}
+
     # the async server: 300 mixed requests, then the open-loop sweep
     t0 = time.time()
     srv = PredictionServer(cm, max_batch=max(SERVE_BUCKETS), max_wait_ms=1.0,
@@ -2333,6 +2385,8 @@ def serve_phase(lgb, counters, card: str) -> dict:
             ulp_check("server", np.atleast_1d(fu.result(120)),
                       host[off:off + k])
         st = srv.stats()
+        for b in SERVE_BUCKETS:
+            shapes[f"server_bucket_{b}"] = served_in_bucket(srv, Xq[:R], b)
         pool = rng.normal(size=(8192, F)).astype(np.float32)
         # a full collection walks this process's whole heap for tens of
         # ms and stalls the generator and the worker alike: frozen, the
@@ -2357,6 +2411,17 @@ def serve_phase(lgb, counters, card: str) -> dict:
         raise AssertionError(f"server left its warmed graphs: {after}")
     if any(r["failures"] for r in table):
         raise AssertionError(f"sweep failures: {table}")
+    for name, got in shapes.items():
+        if got.shape != same.shape or not np.array_equal(got, same):
+            raise AssertionError(
+                f"serve: {R} rows {name} differ from the host walk's f64 "
+                f"sum rounded once on {int(np.sum(got != same))} rows")
+    log(f"serve batch shapes ({card}): {R} rows bitwise alike alone, in "
+        f"the {SERVE_ROWS}-row batch (raw and binned), in server buckets "
+        f"{list(SERVE_BUCKETS)} and through early stopping with no stop, "
+        f"== the host walk's f64 sum rounded once ({same_host_s:.1f} s on "
+        f"the host); rows/s raw {raw_rate:.1f}, binned {bin_rate:.1f} "
+        f"(with a tree-axis reduction: 15.2-17.9 M raw)")
     lat = {b: (v["p50"], v["p99"]) for b, v in st["latency_ms"].items()}
     log(f"serve server ({card}): {SERVE_REQUESTS}/{SERVE_REQUESTS} resolved "
         f"exactly once in {st['batches']} batches, steady_captures "
@@ -2365,9 +2430,13 @@ def serve_phase(lgb, counters, card: str) -> dict:
         f"bucket {lat}")
     for r in table:
         log(f"serve sweep ({card}): {json.dumps(r)}")
+    log(f"serve sweep p99 ms at {[int(q) for q in SERVE_QPS]} QPS "
+        f"({card}): {[r.get('p99_ms') for r in table]} (with a tree-axis "
+        f"reduction: 4.407 / 6.764 / 54.847)")
     for r in alone:
         log(f"serve sweep, generator alone ({card}): {json.dumps(r)}")
-    SERVE_STATE.update(model=cm, pool=pool, table=table)
+    SERVE_STATE.update(model=cm, pool=pool, table=table, booster=bst,
+                       rows=Xq[:SHAP_ROWS])
     return launches
 
 
@@ -2585,23 +2654,25 @@ def cat_stream_phase(lgb, counters, X, y, tmp: str) -> dict:
     return launches
 
 
-def relabel_binned(ds, label):
+def relabel_binned(ds, label, weight=None):
     """A ``BinnedDataset`` over ``ds``'s bins and mappers with other
-    labels: the rows are binned once."""
+    labels (and weights): the rows are binned once."""
     import copy
     from lightgbm_tpu_torch.io.dataset import Metadata
     out = copy.copy(ds)
     out.metadata = Metadata()
     out.metadata.set_field("label", label)
+    if weight is not None:
+        out.metadata.set_field("weight", weight)
     return out
 
 
-def relabel(ds, label):
+def relabel(ds, label, weight=None):
     """The same for a user ``Dataset``."""
     import copy
     out = copy.copy(ds.construct())
-    out.label, out.weight, out.init_score = label, None, None
-    out._constructed = relabel_binned(ds._constructed, label)
+    out.label, out.weight, out.init_score = label, weight, None
+    out._constructed = relabel_binned(ds._constructed, label, weight)
     return out
 
 
@@ -2712,7 +2783,7 @@ def multiclass_small_phase(lgb, counters, ds_small, dv_small,
     evals = {}
     bst, seconds, launches = train_path(
         lgb, "multiclass small-data", counters, MC_TRAIN_CONF, ds,
-        SMALL_ITERS, valid_sets=[dv], valid_names=["valid"],
+        MC_SMALL_ITERS, valid_sets=[dv], valid_names=["valid"],
         early_stopping_rounds=SMALL_EARLY_STOP, evals_result=evals,
         verbose_eval=False)
     best = bst.best_iteration
@@ -2895,24 +2966,94 @@ def rank_phase(lgb, counters, card: str, entries) -> dict:
     return launches
 
 
-def host_percentile(values, row_leaf, num_leaves: int, alpha: float):
-    """Per-leaf percentile of f32 ``values`` on the host, in numpy f32
-    arithmetic: sorted within the leaf, read at ``alpha * (count - 1)``
-    with linear interpolation (the reference's PercentileFun)."""
+def host_prefix_sum(x, block: int):
+    """Inclusive f32 prefix sum in the port's fixed order
+    (``ops/split.py:prefix_sum``), in numpy: sequential within blocks of
+    ``block``, plus the recursively summed exclusive prefix of the block
+    totals."""
     import numpy as np
+    n = len(x)
+    if n <= block:
+        return np.cumsum(x, dtype=np.float32)
+    nb = -(-n // block)
+    xp = np.zeros(nb * block, np.float32)
+    xp[:n] = x
+    within = np.cumsum(xp.reshape(nb, block), axis=1, dtype=np.float32)
+    incl = host_prefix_sum(within[:, -1], block)
+    excl = np.concatenate([np.zeros(1, np.float32), incl[:-1]])
+    return (within + excl[:, None]).reshape(-1)[:n]
+
+
+def host_percentile(values, row_leaf, num_leaves: int, alpha: float,
+                    weight=None):
+    """Per-leaf percentile of f32 ``values`` on the host, in numpy f32
+    arithmetic, rows sorted by (leaf, value) and ties in row order.
+    Unweighted: read at ``alpha * (count - 1)`` with linear
+    interpolation (the reference's PercentileFun).  Weighted: the first
+    row of the leaf whose cumulative weight (an f32 prefix sum over the
+    sorted rows, :func:`host_prefix_sum`) reaches the leaf's first
+    cumulative weight before it plus ``alpha`` of its total (the JAX
+    package's rule for WeightedPercentileFun, which the port keeps)."""
+    import numpy as np
+    from lightgbm_tpu_torch.ops.split import PREFIX_BLOCK
     order = np.lexsort((values, row_leaf))
     sv, sl = values[order], row_leaf[order]
     lid = np.arange(num_leaves)
     start = np.searchsorted(sl, lid, side="left")
-    cnt = np.searchsorted(sl, lid, side="right") - start
-    pos = np.float32(alpha) * (cnt - 1).astype(np.float32)
-    lo, hi = np.floor(pos).astype(np.int64), np.ceil(pos).astype(np.int64)
-    frac = pos - lo.astype(np.float32)
+    end = np.searchsorted(sl, lid, side="right")
+    cnt = end - start
     n = len(sv)
-    vlo = sv[np.clip(start + lo, 0, n - 1)]
-    vhi = sv[np.clip(start + hi, 0, n - 1)]
-    out = vlo * (np.float32(1) - frac) + vhi * frac
+    if weight is None:
+        pos = np.float32(alpha) * (cnt - 1).astype(np.float32)
+        lo, hi = np.floor(pos).astype(np.int64), np.ceil(pos).astype(
+            np.int64)
+        frac = pos - lo.astype(np.float32)
+        vlo = sv[np.clip(start + lo, 0, n - 1)]
+        vhi = sv[np.clip(start + hi, 0, n - 1)]
+        out = vlo * (np.float32(1) - frac) + vhi * frac
+    else:
+        cum = host_prefix_sum(np.asarray(weight, np.float32)[order],
+                              PREFIX_BLOCK)
+        zero = np.float32(0)
+        base = np.where(start > 0, cum[np.maximum(start - 1, 0)], zero)
+        total = np.where(end > 0, cum[np.maximum(end - 1, 0)], zero) - base
+        target = base + np.float32(alpha) * total
+        pos = np.searchsorted(cum, target, side="left")
+        pos = np.minimum(np.maximum(pos, start), np.maximum(end - 1, start))
+        out = sv[np.clip(pos, 0, n - 1)]
     return np.where(cnt > 0, out, np.float32(0))
+
+
+def mape_weight(label, weight=None):
+    """MAPE's per-row percentile weight in numpy f32: ``1 / max(|label|,
+    1)``, times the row weight when there is one."""
+    import numpy as np
+    lw = np.float32(1) / np.maximum(np.abs(label), np.float32(1))
+    return lw if weight is None else lw * np.asarray(weight, np.float32)
+
+
+@contextlib.contextmanager
+def recorded_renewals(cls):
+    """Every ``renew_tree_output`` of the objective class ``cls`` inside
+    the block -> a list of ``(score, row_leaf, renewed leaves, label)``
+    host arrays, one a tree of this rank."""
+    had = "renew_tree_output" in cls.__dict__
+    plain = cls.renew_tree_output
+    seen = []
+
+    def record(self, score, row_leaf, num_leaves, gather_rows=None):
+        res = plain(self, score, row_leaf, num_leaves, gather_rows)
+        seen.append(tuple(t.cpu().numpy().copy() for t in (
+            score, row_leaf, res, self.label)))
+        return res
+    cls.renew_tree_output = record
+    try:
+        yield seen
+    finally:
+        if had:
+            cls.renew_tree_output = plain
+        else:
+            del cls.renew_tree_output
 
 
 def regression_phase(lgb, counters, ds, z, card: str) -> dict:
@@ -2930,30 +3071,15 @@ def regression_phase(lgb, counters, ds, z, card: str) -> dict:
         key = name + ("_sqrt" if extra.get("reg_sqrt") else "")
         y = labels[kind].astype(np.float32)
         dsr = relabel(ds, y)
-        params = {"objective": name, "num_leaves": 255, "max_bin": 63,
-                  "learning_rate": 0.1, "min_data_in_leaf": 20,
-                  "verbose": -1, **extra}
-        renewals = []
+        params = dict(REG_PARAMS, objective=name, **extra)
         cls = objs.OBJECTIVES[name]
-        plain = cls.renew_tree_output
-
-        def record(self, score, row_leaf, L, plain=plain):
-            res = plain(self, score, row_leaf, L)
-            renewals.append(tuple(t.cpu().numpy().copy() for t in (
-                score, row_leaf, res, self.label)))
-            return res
-        checked = name in ("regression_l1", "quantile")
-        if checked:
-            cls.renew_tree_output = record
+        checked = cls.need_renew_tree_output
         evals = {}
-        try:
+        with recorded_renewals(cls) as renewals:
             bst, seconds, launches = train_path(
                 lgb, f"regression family: {key}", counters, params, dsr,
                 REG_ITERS, valid_sets=[dsr], valid_names=["training"],
                 evals_result=evals, verbose_eval=False)
-        finally:
-            if checked:
-                cls.renew_tree_output = plain
         (metric, vals), = evals["training"].items()
         log(f"{key}: train {metric} {vals}; digest "
             f"{bst.digest(include_scores=False)}")
@@ -2963,11 +3089,12 @@ def regression_phase(lgb, counters, ds, z, card: str) -> dict:
             raise AssertionError(f"{key}: kernels not launched {launches}")
         worst = None
         if checked:
-            alpha = 0.5 if name == "regression_l1" else extra["alpha"]
+            alpha = extra.get("alpha", 0.5)
             worst = 0
             for score, row_leaf, res, label in renewals:
-                want = host_percentile(label - score, row_leaf, len(res),
-                                       alpha)
+                want = host_percentile(
+                    label - score, row_leaf, len(res), alpha,
+                    mape_weight(label) if name == "mape" else None)
                 worst = max(worst, int((want != res).sum()))
             log(f"{key}: {len(renewals)} renewed trees, leaves differing "
                 f"from the host percentile: {worst}")
@@ -3291,10 +3418,61 @@ def model_surface_phase(lgb, counters, ds, X, y, ds_small, dv_small,
 
         # 6. model IO
         out.update(model_io_check(lgb, bst, X2, tmp))
+
+        # 7. SHAP contributions of phase 12's model, natively
+        out.update(shap_check(card))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_line("model_surface", card, launches=launches, **out)
     return launches
+
+
+def shap_check(card: str) -> dict:
+    """``pred_contrib`` of phase 12's model (``SERVE_STATE``) on
+    ``SHAP_ROWS`` rows through the native TreeSHAP recursion: each row's
+    phis plus its expected value are the host walk's raw score within
+    ``f64_chain``; on ``SHAP_SMALL_ROWS`` rows of the first
+    ``SHAP_SMALL_ITERS`` trees the native phis are the Python
+    recursion's within the same tolerance."""
+    import numpy as np
+    from lightgbm_tpu_torch import native
+    from tools.numcheck.tolerance_registry import tol
+    if not native.available():
+        raise AssertionError("the native library (TreeSHAP) is not built")
+    bst, X = SERVE_STATE["booster"], SERVE_STATE["rows"][:SHAP_ROWS]
+    atol = tol("f64_chain")
+    t0 = time.time()
+    phis = bst.predict(X, pred_contrib=True)
+    native_s = time.time() - t0
+    raw = bst.predict(X, raw_score=True, device=False)
+    sum_err = float(np.max(np.abs(phis.sum(axis=1) - raw)))
+    if phis.shape != (len(X), X.shape[1] + 1) or not sum_err <= atol:
+        raise AssertionError(f"SHAP: phis {phis.shape} sum {sum_err} from "
+                             f"the raw score (tolerance {atol})")
+    Xs, k = X[:SHAP_SMALL_ROWS], SHAP_SMALL_ITERS
+    t0 = time.time()
+    small = bst.predict(Xs, pred_contrib=True, num_iteration=k)
+    small_native_s = time.time() - t0
+    treeshap, native.treeshap_patterns = (native.treeshap_patterns,
+                                          lambda *a, **kw: None)
+    try:
+        t0 = time.time()
+        python = bst.predict(Xs, pred_contrib=True, num_iteration=k)
+        small_python_s = time.time() - t0
+    finally:
+        native.treeshap_patterns = treeshap
+    py_err = float(np.max(np.abs(small - python)))
+    if not py_err <= atol:
+        raise AssertionError(f"SHAP: native phis {py_err} from the Python "
+                             f"recursion's (tolerance {atol})")
+    log(f"model surface SHAP ({card}): {len(X)} rows x {bst.num_trees()} "
+        f"trees native {native_s:.3f} s (phis + expected value within "
+        f"{sum_err:.3g} of the raw score); {len(Xs)} rows x {k} trees "
+        f"native {small_native_s:.4f} s, Python {small_python_s:.3f} s, "
+        f"{py_err:.3g} apart")
+    return {"shap_rows": len(X), "shap_native_s": native_s,
+            "shap_sum_err": sum_err, "shap_small_native_s": small_native_s,
+            "shap_small_python_s": small_python_s, "shap_python_err": py_err}
 
 
 def compile_model_abs(trees):
@@ -4957,6 +5135,10 @@ def _widest(entry: dict, by_width: list) -> dict:
 
 # phase 28: multiple GPUs
 MG_WORLD = 2
+MG_ITERS = 8                 # every world's (32, cut to hold the wall)
+MG_MESH = (2, 2)             # the 2-D (data x feature) mesh: four ranks
+MG_RENEWAL = (("regression_l1", {}), ("quantile", {"alpha": 0.9}),
+              ("mape", {}))  # phase 20's renewal objectives
 MG_TOP_K = 20
 MG_LOAD_ROWS = 200_000
 MG_LOAD_ITERS = 8
@@ -5030,6 +5212,7 @@ def mg_parts(lgb, counters, job, full, mine, rank: int, world: int,
     out["voting"] = mg_train(lgb, counters,
                              dict(params, tree_learner="voting",
                                   top_k=MG_TOP_K), mine, iters)
+    out["renewal"] = mg_renewal(lgb, counters, job, mine, rank)
     load = lgb.Dataset(job["csv"], params=dict(
         params, tree_learner="data", num_machines=world)).construct()
     b = load._constructed
@@ -5062,6 +5245,100 @@ def mg_parts(lgb, counters, job, full, mine, rank: int, world: int,
     obs.reset()
 
 
+def mg_mesh_parts(lgb, counters, job, full, mine, out: dict) -> None:
+    """Phase 28's [2, 2] mesh on one of four ranks: the data-, feature-
+    and voting-parallel headline with ``mesh_shape`` [2, 2], at the
+    parameters and iterations of the 1-D runs."""
+    params = dict(job["params"], mesh_shape=",".join(map(str, MG_MESH)))
+    for learner, extra, ds in (("data", {}, mine), ("feature", {}, full),
+                               ("voting", {"top_k": MG_TOP_K}, mine)):
+        out[learner] = mg_train(lgb, counters,
+                                dict(params, tree_learner=learner, **extra),
+                                ds, job["iters"])
+
+
+def mg_renewal(lgb, counters, job, mine, rank: int) -> dict:
+    """Phase 20's renewal objectives data-parallel on this rank's rows
+    (MAPE with the job's weights), and one voting-parallel L1 run: each
+    run's model, launches and, in ``<job dir>/renew_<run>.rank<r>.npz``,
+    this rank's scores and leaf ids and the renewed leaves of every
+    tree."""
+    import numpy as np
+    from lightgbm_tpu_torch.objective import objectives as objs
+    z = np.load(job["labels"])
+    lo = rank * (-(-len(z["z"]) // MG_WORLD))
+    rows = slice(lo, lo + mine.num_data())
+    out = {}
+    runs = [(name, "data", extra) for name, extra in MG_RENEWAL]
+    runs.append(("regression_l1", "voting", {"top_k": MG_TOP_K}))
+    for name, learner, extra in runs:
+        run = f"{name}_{learner}"
+        y = z["exp"] if name == "mape" else z["z"]
+        w = z["w"] if name == "mape" else None
+        ds = relabel(mine, y[rows], None if w is None else w[rows])
+        params = dict(REG_PARAMS, objective=name, tree_learner=learner,
+                      **extra)
+        with recorded_renewals(objs.OBJECTIVES[name]) as seen:
+            out[run] = mg_train(lgb, counters, params, ds, REG_ITERS)
+        np.savez(os.path.join(os.path.dirname(job["labels"]),
+                              f"renew_{run}.rank{rank}.npz"),
+                 **{f"{k}{i}": a for i, trio in enumerate(seen)
+                    for k, a in zip(("score", "leaf", "res"), trio)})
+    return out
+
+
+def mg_renewal_check(ranks, tmp: str, z, w) -> dict:
+    """Phase 28's renewal runs, in the parent: the ranks' models are
+    byte-identical, and every renewed leaf of each tree equals the
+    percentile over all rows of both ranks (rank-major), phase 20's host
+    percentile (weighted MAPE's weights :func:`mape_weight` of the
+    labels and row weights) -> per run its digest, steady ms/iter and
+    launches a tree a rank."""
+    import numpy as np
+    out = {}
+    for run in ranks[0]["renewal"]:
+        models = [r["renewal"][run]["model"] for r in ranks]
+        if any(m != models[0] for m in models):
+            raise AssertionError(f"multi-gpu renewal {run}: the ranks' "
+                                 f"models differ: "
+                                 f"{first_line_diff(*models[:2])}")
+        name = run.rsplit("_", 1)[0]
+        parts = [np.load(os.path.join(tmp, f"renew_{run}.rank{r}.npz"))
+                 for r in range(MG_WORLD)]
+        trees = len(parts[0].files) // 3
+        if trees != REG_ITERS:
+            raise AssertionError(f"multi-gpu renewal {run}: {trees} renewed "
+                                 f"trees")
+        label = np.exp(z / 2).astype(np.float32) if name == "mape" \
+            else z.astype(np.float32)
+        weight = mape_weight(label, w) if name == "mape" else None
+        alpha = dict(MG_RENEWAL)[name].get("alpha", 0.5)
+        worst = 0
+        for i in range(trees):
+            res = parts[0][f"res{i}"]
+            if not all(np.array_equal(res, p[f"res{i}"]) for p in parts):
+                raise AssertionError(f"multi-gpu renewal {run}: the ranks "
+                                     f"renewed tree {i} differently")
+            score = np.concatenate([p[f"score{i}"] for p in parts])
+            leaf = np.concatenate([p[f"leaf{i}"] for p in parts])
+            want = host_percentile(label - score, leaf, len(res), alpha,
+                                   weight)
+            worst = max(worst, int((want != res).sum()))
+        if worst:
+            raise AssertionError(f"multi-gpu renewal {run}: {worst} leaves "
+                                 f"differ from the percentile over all rows")
+        out[run] = {"digest": ranks[0]["renewal"][run]["digest"],
+                    "steady_ms_per_iter": [r["renewal"][run]["steady_ms"]
+                                           for r in ranks],
+                    "launches_per_tree": [
+                        per_tree(r["renewal"][run]["launches"], REG_ITERS)
+                        for r in ranks]}
+    log(f"multi-gpu renewal: {sorted(out)} byte-identical ranks, every "
+        f"renewed leaf == the percentile over both ranks' rows; steady "
+        f"ms/iter { {k: v['steady_ms_per_iter'] for k, v in out.items()} }")
+    return out
+
+
 def mg_rank(job_path: str, rank: int, world: int, port: int) -> int:
     """One rank of phase 28 (``chip_smoke.py --multi-gpu-rank JOB RANK
     WORLD PORT``): every part in order, its results into
@@ -5091,10 +5368,16 @@ def mg_rank(job_path: str, rank: int, world: int, port: int) -> int:
         full = lgb.Dataset(None)
         full._constructed = BinnedDataset.load_binary(job["bin"])
         n = full._constructed.num_data
-        per = -(-n // world)
-        mine = full.subset(np.arange(rank * per, min(n, (rank + 1) * per)))
+        # a 2-D mesh's rank holds the rows of its data index
+        d_rank, d_world = mesh.mesh_data_rank(job.get("mesh_shape", ()),
+                                              rank, world)
+        per = -(-n // d_world)
+        mine = full.subset(np.arange(d_rank * per,
+                                     min(n, (d_rank + 1) * per)))
         if job.get("barrier"):
             out["barrier"] = el_barrier_rank(lgb, job, mine)
+        elif job.get("mesh_shape"):
+            mg_mesh_parts(lgb, counters, job, full, mine, out)
         else:
             mg_parts(lgb, counters, job, full, mine, rank, world, out)
     except Exception:                 # noqa: BLE001 - the parent reports it
@@ -5107,6 +5390,47 @@ def mg_rank(job_path: str, rank: int, world: int, port: int) -> int:
     return 1 if "error" in out else 0
 
 
+def run_rank_world(job: str, world: int, timeout_s: float,
+                   what: str) -> list:
+    """``world`` rank processes of this script over ``job`` (one JSON
+    file; each rank writes ``rank<r>.json`` beside it), every one on
+    card ``local_rank % device_count``; waits for them, kills any left at
+    the deadline, and raises on a rank that failed -> the ranks'
+    results in rank order."""
+    from lightgbm_tpu_torch.parallel.mesh import free_port
+    port = free_port()
+    procs = []
+    try:
+        for r in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--multi-gpu-rank", job, str(r), str(world), str(port)],
+                env={**{k: v for k, v in os.environ.items()
+                        if not k.startswith("LGBM_TPU_")},
+                     "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(world)}))
+        deadline = time.time() + timeout_s
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = []
+    for r in range(world):
+        path = os.path.join(os.path.dirname(job), f"rank{r}.json")
+        if not os.path.exists(path):
+            raise AssertionError(f"{what} rank {r} wrote no result (exit "
+                                 f"{procs[r].returncode})")
+        with open(path) as f:
+            res = json.load(f)
+        if "error" in res or procs[r].returncode != 0:
+            raise AssertionError(f"{what} rank {r} failed:\n"
+                                 f"{res.get('error')}")
+        ranks.append(res)
+    return ranks
+
+
 def first_line_diff(a: str, b: str) -> str:
     for i, (x, y) in enumerate(zip(a.splitlines(), b.splitlines())):
         if x != y:
@@ -5114,16 +5438,14 @@ def first_line_diff(a: str, b: str) -> str:
     return "lengths differ"
 
 
-def multi_gpu_phase(lgb, ds, X, y, head_ref, head_ms: float, card: str
-                    ) -> dict:
-    """Phase 28 in the parent: the rank processes' inputs, the world,
-    the checks -> the data-parallel run's launches summed over ranks."""
+def multi_gpu_phase(lgb, ds, X, y, z, head_ms: float, card: str) -> dict:
+    """Phase 28 in the parent: the rank processes' inputs, the world of
+    two, the world of four on the [2, 2] mesh, the checks -> the
+    data-parallel run's launches summed over ranks."""
     import numpy as np
     import torch
     from lightgbm_tpu_torch.metric.metrics import binary_auc
-    from lightgbm_tpu_torch.parallel.mesh import free_port
     tmp = tempfile.mkdtemp(prefix="lgbm_multi_gpu_")
-    procs = []
     try:
         t0 = time.time()
         ds._constructed.save_binary(os.path.join(tmp, "headline"))
@@ -5131,46 +5453,34 @@ def multi_gpu_phase(lgb, ds, X, y, head_ref, head_ms: float, card: str
         np.savetxt(csv, np.column_stack([y[:MG_LOAD_ROWS],
                                          X[:MG_LOAD_ROWS]]),
                    fmt="%.9g", delimiter=",")
+        labels = os.path.join(tmp, "labels.npz")
+        w = np.random.RandomState(29).uniform(0.5, 2.0, len(z))
+        np.savez(labels, z=z.astype(np.float32),
+                 exp=np.exp(z / 2).astype(np.float32),
+                 w=w.astype(np.float32))
+        base = {"bin": os.path.join(tmp, "headline.npz"),
+                "params": HEADLINE_PARAMS, "iters": MG_ITERS}
         job = os.path.join(tmp, "job.json")
         with open(job, "w") as f:
-            json.dump({"bin": os.path.join(tmp, "headline.npz"), "csv": csv,
-                       "params": HEADLINE_PARAMS, "iters": HEADLINE_ITERS,
+            json.dump({**base, "csv": csv, "labels": labels,
                        "load_iters": MG_LOAD_ITERS,
                        "desync_iters": MG_DESYNC_ITERS}, f)
         log(f"multi-gpu inputs {time.time() - t0:.1f} s")
-        port = free_port()
-        for r in range(MG_WORLD):
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__),
-                 "--multi-gpu-rank", job, str(r), str(MG_WORLD), str(port)],
-                env={**{k: v for k, v in os.environ.items()
-                        if not k.startswith("LGBM_TPU_")},
-                     "LOCAL_RANK": str(r),
-                     "LOCAL_WORLD_SIZE": str(MG_WORLD)}))
-        deadline = time.time() + MG_TIMEOUT_S
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.time()))
-        ranks = []
-        for r in range(MG_WORLD):
-            path = os.path.join(tmp, f"rank{r}.json")
-            if not os.path.exists(path):
-                raise AssertionError(f"multi-gpu rank {r} wrote no result "
-                                     f"(exit {procs[r].returncode})")
-            with open(path) as f:
-                ranks.append(json.load(f))
-        for r, res in enumerate(ranks):
-            if "error" in res or procs[r].returncode != 0:
-                raise AssertionError(f"multi-gpu rank {r} failed:\n"
-                                     f"{res.get('error')}")
+        ranks = run_rank_world(job, MG_WORLD, MG_TIMEOUT_S, "multi-gpu")
         seconds = time.time() - t0
+        renewal = mg_renewal_check(ranks, tmp, z, w)
+        t1 = time.time()
+        os.makedirs(os.path.join(tmp, "mesh"))
+        mesh_job = os.path.join(tmp, "mesh", "job.json")
+        with open(mesh_job, "w") as f:
+            json.dump({**base, "mesh_shape": list(MG_MESH)}, f)
+        mranks = run_rank_world(mesh_job, MG_MESH[0] * MG_MESH[1],
+                                MG_TIMEOUT_S, "multi-gpu [2, 2]")
+        mesh_s = time.time() - t1
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
-    def same(part):
+    def same(part, ranks=ranks):
         models = [r[part]["model"] for r in ranks]
         if any(m != models[0] for m in models):
             raise AssertionError(f"multi-gpu {part}: the ranks' models "
@@ -5200,12 +5510,16 @@ def multi_gpu_phase(lgb, ds, X, y, head_ref, head_ms: float, card: str
         need(la, ("route", "hist_active", "hist_compact", "route_values"),
              f"the data-parallel headline, rank {r['rank']}",
              absent=("hist_route",))
+    # phase 4's configuration serially for as many iterations
+    serial = lgb.train(dict(HEADLINE_PARAMS), ds, num_boost_round=MG_ITERS,
+                       device="cuda")
     feat = same("feature")
-    if feat["digest"] != head_ref["digest_trees"]:
+    if feat["digest"] != serial.digest(include_scores=False):
         raise AssertionError(
-            f"multi-gpu feature-parallel digest {feat['digest']} != "
-            f"phase 4's {head_ref['digest_trees']}: "
-            f"{first_line_diff(feat['model'], head_ref['text'])}")
+            f"multi-gpu feature-parallel digest {feat['digest']} != the "
+            f"serial {MG_ITERS}-iteration run's "
+            f"{serial.digest(include_scores=False)}: "
+            f"{first_line_diff(feat['model'], serial.model_to_string())}")
     auc_voting = auc_of("voting")
     if not auc_voting >= AUC_GATE:
         raise AssertionError(f"multi-gpu voting auc {auc_voting} < "
@@ -5227,6 +5541,24 @@ def multi_gpu_phase(lgb, ds, X, y, head_ref, head_ms: float, card: str
                 or not d["skew"]):
             raise AssertionError(f"multi-gpu desync not localized on rank "
                                  f"{r['rank']}: {d}")
+    mesh = {}
+    for part in ("data", "feature", "voting"):
+        m = same(part, mranks)
+        if m["digest"] != same(part)["digest"]:
+            raise AssertionError(
+                f"multi-gpu [2, 2] {part}: digest {m['digest']} != the 1-D "
+                f"[2] run's {same(part)['digest']}: "
+                f"{first_line_diff(m['model'], same(part)['model'])}")
+        mesh[part] = {"digest": m["digest"], "equals_1d": True,
+                      "steady_ms_per_iter": [r[part]["steady_ms"]
+                                             for r in mranks],
+                      "launches_per_tree": [
+                          per_tree(r[part]["launches"], MG_ITERS)
+                          for r in mranks]}
+    log(f"multi-gpu [2, 2] ({card}): four ranks byte-identical, data / "
+        f"feature / voting digests == the [2] runs'; steady ms/iter "
+        f"{ {p: v['steady_ms_per_iter'] for p, v in mesh.items()} }; "
+        f"{mesh_s:.1f} s")
     launches = {}
     for r in ranks:
         add_launches(launches, r["data"]["launches"])
@@ -5240,7 +5572,7 @@ def multi_gpu_phase(lgb, ds, X, y, head_ref, head_ms: float, card: str
                  "steady_ms_per_iter": [r["data"]["steady_ms"]
                                         for r in ranks],
                  "ms_per_iter_with_setup": [
-                     1e3 * r["data"]["seconds"] / HEADLINE_ITERS
+                     1e3 * r["data"]["seconds"] / MG_ITERS
                      for r in ranks],
                  "overlap_steady_ms": [r["data_overlap"]["steady_ms"]
                                        for r in ranks],
@@ -5258,6 +5590,7 @@ def multi_gpu_phase(lgb, ds, X, y, head_ref, head_ms: float, card: str
         "desync": {"site": ranks[0]["desync"]["check"]["first_divergence"][
             "site"], "rank": 1,
             "skew_sites": sorted(ranks[0]["desync"]["skew"])},
+        "renewal": renewal, "mesh_2x2": mesh, "mesh_2x2_seconds": mesh_s,
         "seconds": seconds}
     print(json.dumps(out), flush=True)
     return launches
@@ -5277,7 +5610,7 @@ EL_PARAMS = dict(STREAM_PARAMS, num_iterations=EL_ITERS, snapshot_freq=1,
 # still trains; the sleep changes no byte
 EL_REGROW_SLEEP_S = "1.5"
 EL_TIMEOUT_S = 240
-EL_BARRIER_FREQ = 16
+EL_BARRIER_FREQ = MG_ITERS // 2   # the resume point of the barrier part
 EL_BARRIER_TIMEOUT_S = 300
 EL_DEVICE = "cuda"
 
@@ -5309,7 +5642,6 @@ def el_barrier_part(lgb, ds, tmp: str) -> dict:
     snapshots every 16 iterations and resume at W = 2 from iteration 16;
     this process (W = 1) must refuse that snapshot."""
     from lightgbm_tpu_torch.boosting import snapshot as snap
-    from lightgbm_tpu_torch.parallel.mesh import free_port
     prefix = os.path.join(tmp, "barrier", "headline.txt")
     os.makedirs(os.path.dirname(prefix))
     ds._constructed.save_binary(os.path.join(tmp, "headline"))
@@ -5317,36 +5649,11 @@ def el_barrier_part(lgb, ds, tmp: str) -> dict:
     job = os.path.join(tmp, "barrier-job.json")
     with open(job, "w") as f:
         json.dump({"bin": os.path.join(tmp, "headline.npz"), "barrier": True,
-                   "params": HEADLINE_PARAMS, "iters": HEADLINE_ITERS,
+                   "params": HEADLINE_PARAMS, "iters": MG_ITERS,
                    "prefix": prefix, "resume_from": manifest}, f)
-    port = free_port()
-    procs = []
     t0 = time.time()
-    try:
-        for r in range(MG_WORLD):
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__),
-                 "--multi-gpu-rank", job, str(r), str(MG_WORLD), str(port)],
-                env={**{k: v for k, v in os.environ.items()
-                        if not k.startswith("LGBM_TPU_")},
-                     "LOCAL_RANK": str(r),
-                     "LOCAL_WORLD_SIZE": str(MG_WORLD)}))
-        deadline = time.time() + EL_BARRIER_TIMEOUT_S
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.time()))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    ranks = []
-    for r in range(MG_WORLD):
-        with open(os.path.join(tmp, f"rank{r}.json")) as f:
-            res = json.load(f)
-        if "error" in res or procs[r].returncode != 0:
-            raise AssertionError(f"elastic barrier rank {r} failed:\n"
-                                 f"{res.get('error')}")
-        ranks.append(res["barrier"])
+    ranks = [r["barrier"] for r in run_rank_world(
+        job, MG_WORLD, EL_BARRIER_TIMEOUT_S, "elastic barrier")]
     want = PATH_DIGESTS.get("multi_gpu_data", ranks[0]["digest"])
     for r, b in enumerate(ranks):
         if b["digest"] != want or b["resumed_digest"] != want:
@@ -5364,7 +5671,7 @@ def el_barrier_part(lgb, ds, tmp: str) -> dict:
                              f"{MG_WORLD}-rank snapshot: {man}")
     try:
         lgb.train(dict(HEADLINE_PARAMS, output_model=prefix), ds,
-                  num_boost_round=HEADLINE_ITERS, device="cuda",
+                  num_boost_round=MG_ITERS, device="cuda",
                   resume_from=manifest)
     except ValueError as exc:
         refusal = str(exc)
@@ -5754,15 +6061,15 @@ def capi_part(X, y, head_ref: dict, tmp: str, exe: str) -> tuple:
     need(rep["launches"], ("route", "route_values", "hist_route",
                            "hist_compact"), "the C API headline",
          absent=("split_scan",))
+    # the same rows inside phase 4's 1M-row batch: a row's score does
+    # not depend on its batch (the compiled walk sums in tree order)
     pred = np.fromfile(preds, np.float64)
-    want = np.asarray(head_ref["pred_capi"], np.float64)
+    want = np.asarray(head_ref["pred"][:APP_PRED_ROWS], np.float64)
     if pred.shape != want.shape or not np.array_equal(pred, want):
-        raise AssertionError("LGBM_BoosterPredictForMat is not phase 4's "
-                             "Booster.predict bitwise")
-    # the same rows inside phase 4's 1M-row batch: another walk shape
-    whole = np.asarray(head_ref["pred"][:APP_PRED_ROWS], np.float64)
-    batch_diff = {"rows": int(np.sum(pred != whole)),
-                  "max_abs": float(np.max(np.abs(pred - whole)))}
+        raise AssertionError(
+            f"LGBM_BoosterPredictForMat of {APP_PRED_ROWS} rows is not "
+            f"phase 4's Booster.predict of {len(head_ref['pred'])} rows "
+            f"bitwise")
     out = {"digest": rep["digest"], "equals_phase4": True,
            "iterations": int(fields["iterations"]),
            "train_s": float(fields["train_s"]),
@@ -5770,7 +6077,7 @@ def capi_part(X, y, head_ref: dict, tmp: str, exe: str) -> tuple:
            "predict_rows": APP_PRED_ROWS,
            "predict_s": float(fields["predict_s"]),
            "shim_call_us": float(fields["call_us"]),
-           "host_wall_s": wall, "vs_1m_row_batch": batch_diff,
+           "host_wall_s": wall, "predict_equals_1m_row_batch": True,
            "launches": rep["launches"],
            "launches_per_tree": per_tree(rep["launches"], HEADLINE_ITERS)}
     log(f"phase 30 C API: {HEADLINE_ITERS} iterations in "
@@ -6048,10 +6355,6 @@ def main() -> int:
                 "digest": bst.digest(),
                 "digest_trees": bst.digest(include_scores=False)}
     pred = bst.predict(X)
-    # phase 30's C API predicts these rows: the compiled walk sums each
-    # row's trees in an order that follows the batch's shape, so it is
-    # compared with a prediction of the same batch
-    head_ref["pred_capi"] = bst.predict(X[:APP_PRED_ROWS])
     torch.cuda.synchronize()
     head_ref["pred"] = pred
     auc = binary_auc(y, pred)
@@ -6234,7 +6537,7 @@ def main() -> int:
     # 28. multiple GPUs: data-, feature- and voting-parallel, loading
     t0 = time.time()
     by_path["multi_gpu"] = multi_gpu_phase(
-        lgb, ds, X, y, head_ref, 1e3 * head_s / HEADLINE_ITERS, card)
+        lgb, ds, X, y, z, 1e3 * head_s / HEADLINE_ITERS, card)
     log(f"phase 28 {time.time() - t0:.1f} s")
 
     # 29. elastic training: the S-shard stream over a world of processes

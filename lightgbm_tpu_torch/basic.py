@@ -95,12 +95,10 @@ class Dataset:
             if (cfg.num_machines > 1 and ref is None
                     and cfg.tree_learner in ("data", "voting")):
                 # inside a process group, the row-splitting learners load
-                # their mod-rank rows with distributed bin finding;
-                # feature-parallel and serial keep every row
-                from .parallel.mesh import rank_world
-                rank, world = rank_world()
-                if world > 1:
-                    from .io.distributed import process_allgather as ag
+                # their data index's mod-rank rows with distributed bin
+                # finding; feature-parallel and serial keep every row
+                from .parallel.mesh import data_shard_loading
+                rank, world, ag = data_shard_loading(cfg.mesh_shape)
             self._constructed = load_file(self.data, cfg, reference=ref,
                                           rank=rank, num_machines=world,
                                           allgather=ag)

@@ -6,8 +6,9 @@ exact polynomial-time TreeSHAP algorithm (Lundberg et al.) over the flat
 tree arrays.  Output layout as the reference's ``pred_contrib=True``:
 ``[n, num_features + 1]`` with the expected value in the last column
 (per class for multiclass).  The recursion runs once per distinct
-pattern of node decisions, in Python: the JAX package's compiled
-recursion is not ported.
+pattern of node decisions, in C++ (``native.treeshap_patterns``, the
+JAX package's ``ltpu_treeshap``); the Python recursion here is the
+fallback of a host where the native library cannot be built.
 """
 from __future__ import annotations
 
@@ -185,6 +186,42 @@ def _expected(tree, node):
             + _node_count(tree, r) / w * _expected(tree, r))
 
 
+def _unique_rows(D: np.ndarray):
+    """``(patterns, inverse)``: the distinct rows of the bool matrix ``D``
+    and each row's index among them (``np.unique(D, axis=0,
+    return_inverse=True)`` up to the order of the patterns, which the
+    phis do not depend on).  The rows are packed to bits first, and to
+    one integer key a row when they fit in 64 bits: sorting keys is
+    many times faster than sorting rows of a structured view."""
+    packed = np.packbits(D, axis=1)
+    if packed.shape[1] <= 8:
+        keys = np.zeros((len(D), 8), np.uint8)
+        keys[:, :packed.shape[1]] = packed
+        _, first, inverse = np.unique(keys.view(np.uint64)[:, 0],
+                                      return_index=True, return_inverse=True)
+    else:
+        _, first, inverse = np.unique(packed, axis=0, return_index=True,
+                                      return_inverse=True)
+    return D[first], inverse.reshape(-1)
+
+
+def _pattern_phis(tree, patterns: np.ndarray, F: int) -> np.ndarray:
+    """``[P, F + 1]`` phis of the distinct decision patterns of one tree:
+    the native recursion, else the Python one."""
+    from .. import native
+    m = tree.num_leaves - 1
+    phis = native.treeshap_patterns(
+        patterns, tree.split_feature[:m], tree.left_child[:m],
+        tree.right_child[:m], tree.leaf_value[:tree.num_leaves],
+        np.asarray(tree.internal_count[:m], np.float64),
+        np.asarray(tree.leaf_count[:tree.num_leaves], np.float64), F)
+    if phis is None:
+        phis = np.zeros((len(patterns), F + 1))
+        for p in range(len(patterns)):
+            _tree_shap(tree, patterns[p], phis[p], 0, 0, [], 1.0, 1.0, -1)
+    return phis
+
+
 def predict_contrib(gbdt, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
     """[n, F+1] SHAP values (+ expected value last column)."""
     X = np.asarray(X, np.float64)
@@ -203,12 +240,9 @@ def predict_contrib(gbdt, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
             continue
         ev = _expected_value(t)
         out[:, k, F] += ev
-        D = _decision_matrix(t, X)
-        patterns, inverse = np.unique(D, axis=0, return_inverse=True)
-        phis = np.zeros((len(patterns), F + 1))
-        for p in range(len(patterns)):
-            _tree_shap(t, patterns[p], phis[p], 0, 0, [], 1.0, 1.0, -1)
-        out[:, k, :F] += phis[inverse.reshape(-1), :F]
+        patterns, inverse = _unique_rows(_decision_matrix(t, X))
+        phis = _pattern_phis(t, patterns, F)
+        out[:, k, :F] += phis[inverse, :F]
     if K == 1:
         return out[:, 0, :]
     return out.reshape(n, K * (F + 1))

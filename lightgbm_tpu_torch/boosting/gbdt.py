@@ -49,8 +49,8 @@ from ..metric.metrics import (Metric, create_metric,
                               default_metric_for_objective)
 from ..models.tree import (K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, Tree,
                            _construct_bitset, predict_leaf)
-from ..objective.objectives import (ObjectiveFunction, create_objective,
-                                    load_objective)
+from ..objective.objectives import (ObjectiveFunction, convert_rows,
+                                    create_objective, load_objective)
 from ..obs import span as obs_span
 from ..ops.split import SplitParams
 from ..utils import random as keyed
@@ -205,22 +205,6 @@ def feature_infos(mappers) -> List[str]:
     return infos
 
 
-def _check_supported(c: Config) -> None:
-    """Options outside the port raise instead of training something
-    else."""
-    check_unported_options(c)
-
-
-def check_unported_options(c: Config) -> None:
-    """Options the reference acts on and the port does not read yet
-    raise rather than train something else, in memory and streamed
-    alike."""
-    if len(tuple(c.mesh_shape)) > 1:
-        raise NotImplementedError(
-            f"mesh_shape={tuple(c.mesh_shape)}: a 2-D (data x feature) mesh "
-            f"is not ported (ROADMAP A11, remainder)")
-
-
 class GBDT:
     """Gradient Boosting Decision Tree booster.
 
@@ -285,7 +269,6 @@ class GBDT:
             raise ValueError(
                 f"boosting={c.boosting_type} on a {self.boosting_name} "
                 f"booster: make it with boosting.variants.create_boosting")
-        _check_supported(c)
         n = train_set.num_data
         self.num_data = n
         self._setup_mesh(n)
@@ -301,14 +284,7 @@ class GBDT:
                 self.objective.num_model_per_iteration
             if self._pr is not None:
                 # dataset-level statistics over every rank's rows
-                from ..io.distributed import process_allgather
-                self.objective.globalize_rows(process_allgather)
-                if self.objective.need_renew_tree_output:
-                    raise NotImplementedError(
-                        f"objective={c.objective} re-fits leaves from "
-                        f"percentiles over all rows, which a data- or "
-                        f"voting-parallel rank does not hold (ROADMAP A11, "
-                        f"remainder); use tree_learner=feature")
+                self.objective.globalize_rows(self.mesh_ctx.allgather_host)
         K = self.num_tree_per_iteration
         scores = np.zeros((n, K), np.float32)
         ms = train_set.metadata.init_score
@@ -322,8 +298,8 @@ class GBDT:
             if self._pr is not None:
                 # the init score from every rank's labels (ranks would
                 # diverge on their own shards')
-                from ..io.distributed import process_allgather
-                v = self.objective.boost_from_score_global(process_allgather)
+                v = self.objective.boost_from_score_global(
+                    self.mesh_ctx.allgather_host)
             else:
                 v = self.objective.boost_from_score()
             if v != 0.0:
@@ -612,12 +588,26 @@ class GBDT:
         """The objective's leaf re-fit (RenewTreeOutput,
         ``serial_tree_learner.cpp:592-622``): each leaf of the tree takes
         the objective's percentile of its rows' residuals against class
-        k's scores."""
+        k's scores; under data- or voting-parallel training, of every
+        rank's rows."""
         if not self._renews():
             return bt
         L = self.growth.num_leaves
+        gather = None
+        if self._pr is not None:
+            # each leaf's percentile over every rank's rows, rank-major
+            # (the JAX package's mesh order): every rank renews alike
+            from ..obs.flight_recorder import record as fr_record
+            ctx, counts = self.mesh_ctx, self._pr.counts
+
+            def gather(t):
+                # no operand: a rank's row count is its own
+                fr_record("boosting.gbdt.renew_gather", "all_gather",
+                          ctx.data_axis)
+                return ctx.all_gather_rows(t, counts)
         new = self.objective.renew_tree_output(self.scores[:, k],
-                                               bt.row_leaf, L)
+                                               bt.row_leaf, L,
+                                               gather_rows=gather)
         bt.leaf_value = torch.where(
             torch.arange(L, device=self.device) < bt.num_leaves,
             new.to(torch.float32), bt.leaf_value)
@@ -632,14 +622,20 @@ class GBDT:
         multiply-add per row, as the reference's compiled update.  A
         renewed tree's values are gathered per row and the product is
         rounded before the add, as the reference's per-iteration loop
-        (the only one renewal takes) does.  Valid scores add the shrunk
-        values of a device walk of the tree, ``depth`` levels deep (the
-        product rounded, then the add, as the reference's eager
-        update)."""
+        (the only one renewal takes) does; in a distributed run the add
+        is a fused multiply-add again, as the reference's jitted mesh
+        update (``_mesh_score_update``) compiles.  Valid scores add the
+        shrunk values of a device walk of the tree, ``depth`` levels
+        deep (the product rounded, then the add, as the reference's
+        eager update)."""
         lr = torch.tensor(self.shrinkage_rate, dtype=torch.float32,
                           device=self.device)
         if self._renews():
-            self.scores[:, k] += lr * bt.leaf_value[bt.row_leaf.long()]
+            vals = bt.leaf_value[bt.row_leaf.long()]
+            if self.mesh_ctx is not None:
+                self.scores[:, k].add_(vals, alpha=self.shrinkage_rate)
+            else:
+                self.scores[:, k] += lr * vals
         elif self.fused_update:
             self.scores[:, k].add_(bt.row_value, alpha=self.shrinkage_rate)
         else:
@@ -714,7 +710,6 @@ class GBDT:
         self.config.check()
         self.shrinkage_rate = self.config.learning_rate
         if self.train_set is not None:
-            _check_supported(self.config)
             self.growth = growth_params_from_config(self.config)
             self.hist_mode = self.config.hist_mode or None
             self._setup_metrics()
@@ -816,19 +811,25 @@ class GBDT:
         state file before the first gather."""
         it = self.iter if iteration is None else iteration
         if self.mesh_ctx is not None:
-            return self._snapshot_barrier(it, self.mesh_ctx.all_gather_object,
-                                          self.mesh_ctx.rank)
+            ctx = self.mesh_ctx
+            return self._snapshot_barrier(it, ctx.all_gather_object,
+                                          ctx.rank, ctx.feature_index == 0,
+                                          ctx.feature_shards)
         from .snapshot import write_snapshot
         return write_snapshot(self, it)
 
     def _snapshot_barrier(self, iteration: int, allgather,
-                          rank: int) -> Optional[str]:
+                          rank: int, writes: bool = True,
+                          replicas: int = 1) -> Optional[str]:
         """The commit barrier over ``allgather(obj) -> [obj of each
-        rank]``."""
+        rank]``.  Every rank's ack is compared.  Under a 2-D mesh the
+        ``replicas`` ranks of a data index ack in a row and the first
+        ``writes`` the data index's state; the others take part in the
+        gathers only."""
         from ..obs import event
         from .snapshot import write_rank_state, write_snapshot
         digest = self.digest(include_scores=False)
-        sha = write_rank_state(self, iteration, rank)
+        sha = write_rank_state(self, iteration, rank) if writes else ""
         acks = allgather({"iteration": int(iteration), "digest": digest,
                           "state_sha256": sha})
         heads = [(a["iteration"], a["digest"]) for a in acks]
@@ -839,10 +840,10 @@ class GBDT:
                 f"snapshot commit barrier at iteration {iteration} "
                 f"refused: ranks disagree on (iteration, digest): {heads}")
         path = None
-        if rank == 0:
+        if rank == 0 and writes:
             path = write_snapshot(self, iteration,
                                   rank_states=[a["state_sha256"]
-                                               for a in acks])
+                                               for a in acks[::replicas]])
         # commit confirmation: no rank goes on (or treats the snapshot as
         # durable) before rank 0's manifest is on disk
         allgather({"committed": int(iteration)})
@@ -1129,8 +1130,7 @@ class GBDT:
         if self.average_output:
             raw = raw / max(1, len(self.models)
                             // max(1, self.num_tree_per_iteration))
-        return self.objective.convert_output(
-            torch.as_tensor(raw, dtype=torch.float32)).numpy()
+        return convert_rows(self.objective, raw)
 
     def predict_leaf(self, X: np.ndarray,
                      num_iteration: int = -1) -> np.ndarray:

@@ -125,8 +125,7 @@ from ..ops.route import route_rows, route_rows_values
 from ..utils.faults import fault_point
 from ..utils.log import log_info, log_warning
 from ..utils.retry import retry_call
-from .gbdt import (GBDT, check_unported_options, feature_mask,
-                   growth_params_from_config)
+from .gbdt import GBDT, feature_mask, growth_params_from_config
 
 _SCALE_CHUNK = 1 << 24
 DEFAULT_BLOCK_ROWS = 1 << 20
@@ -243,7 +242,6 @@ class _Source:
 
 
 def _check_streamable(config: Config, objective, src: _Source) -> None:
-    check_unported_options(config)
     bad = None
     if config.boosting_type != "gbdt":
         bad = f"boosting={config.boosting_type} (host score patching)"

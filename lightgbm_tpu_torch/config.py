@@ -13,8 +13,8 @@ The JAX package's mesh extensions (`mesh_shape`, `data_axis_name`,
 `feature_axis_name`, `hist_dtype`) are kept as accepted keys so the two
 packages read the same parameter dictionaries.  This package runs one
 process per rank (`parallel/mesh.py`): a 1-D `mesh_shape` must equal the
-process group's world size, and a 2-D (data x feature) one raises
-(`boosting/gbdt.py:check_unported_options`, ROADMAP A11's remainder).
+process group's world size, and a 2-D (data x feature) one [d, f] needs
+d * f ranks, rank r holding data index r // f (`MeshContext`).
 """
 from __future__ import annotations
 

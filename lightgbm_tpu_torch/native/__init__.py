@@ -1,5 +1,5 @@
-"""The native text parser (``parser.cpp``, C++ through ctypes; a copy of
-the JAX package's ``native/``).
+"""The native text parser and TreeSHAP (``parser.cpp``, C++ through
+ctypes; a copy of the JAX package's ``native/``).
 
 ``parser.cpp`` is compiled at first use with ``g++ -O3 -shared -fPIC``
 (and ``-fopenmp`` where that links) into ``lightgbm_tpu_torch/_build/``,
@@ -10,8 +10,9 @@ built again.  Where no library can be built every entry point returns
 
 Entry points: :func:`parse_delimited` (a whole CSV/TSV file),
 :func:`parse_delimited_chunks` (bounded chunks), :func:`scan_libsvm`
-(rows and columns of a libsvm file), :func:`parse_libsvm_chunks` and
-:func:`parse_libsvm` (a whole libsvm file).  Every buffer the library
+(rows and columns of a libsvm file), :func:`parse_libsvm_chunks`,
+:func:`parse_libsvm` (a whole libsvm file) and :func:`treeshap_patterns`
+(the exact TreeSHAP recursion of ``boosting/contrib.py``).  Every buffer the library
 allocates is copied into numpy and released with ``ltpu_free``.
 """
 from __future__ import annotations
@@ -35,6 +36,7 @@ _tried = False
 _D = ctypes.c_double
 _PD = ctypes.POINTER(_D)
 _PPD = ctypes.POINTER(_PD)
+_PI = ctypes.POINTER(ctypes.c_int)
 _L, _LL = ctypes.c_long, ctypes.c_longlong
 _SIGNATURES = {
     "ltpu_parse_delimited": (_L, [ctypes.c_char_p, ctypes.c_char, _L, _PPD,
@@ -47,6 +49,8 @@ _SIGNATURES = {
     "ltpu_scan_libsvm": (_L, [ctypes.c_char_p, _L, ctypes.POINTER(_L)]),
     "ltpu_parse_libsvm_chunk": (_L, [ctypes.c_char_p, _LL, _L, _L, _L, _PPD,
                                      ctypes.POINTER(_LL)]),
+    "ltpu_treeshap": (_L, [_L, _L, _L, _L, ctypes.POINTER(ctypes.c_uint8),
+                           _PI, _PI, _PI, _PD, _PD, _PD, _PD]),
     "ltpu_free": (None, [_PD]),
 }
 
@@ -224,3 +228,32 @@ def parse_libsvm(path: str, skip: int
     Xa = _take(lib, X, (int(rows), int(cols.value)))
     ya = _take(lib, y, (int(rows),)).astype(np.float32)
     return Xa, ya
+
+
+def treeshap_patterns(D: np.ndarray, split_feature: np.ndarray,
+                      left_child: np.ndarray, right_child: np.ndarray,
+                      leaf_value: np.ndarray, internal_count: np.ndarray,
+                      leaf_count: np.ndarray,
+                      num_features: int) -> Optional[np.ndarray]:
+    """Exact TreeSHAP phis of ``P`` decision patterns of one tree
+    (``D``: ``[P, m]`` go-left decisions of its ``m`` internal nodes) ->
+    ``[P, F + 1]`` float64, or None when the library is unavailable or
+    the call fails.  The recursion of ``boosting/contrib.py``, in C++
+    with the patterns spread over OpenMP threads: the Python recursion
+    costs about a millisecond a (pattern, tree)."""
+    lib = _load()
+    if lib is None:
+        return None
+    P, m = D.shape
+    Du = np.ascontiguousarray(D, np.uint8)
+    ints = [np.ascontiguousarray(a, np.int32)
+            for a in (split_feature, left_child, right_child)]
+    lv, ic, lc = (np.ascontiguousarray(a, np.float64)
+                  for a in (leaf_value, internal_count, leaf_count))
+    phi = np.zeros((P, num_features + 1), np.float64)
+    code = lib.ltpu_treeshap(
+        P, m, len(lv), num_features,
+        Du.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        *(a.ctypes.data_as(_PI) for a in ints),
+        *(a.ctypes.data_as(_PD) for a in (lv, ic, lc, phi)))
+    return phi if code == 0 else None

@@ -27,6 +27,7 @@ the same classes, which write the line back as they read it.
 """
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional
 
@@ -76,6 +77,8 @@ class ObjectiveFunction:
         self.weight: Optional[torch.Tensor] = None
         self.query_boundaries: Optional[np.ndarray] = None
         self.num_data = 0
+        # the renewal's weights over every rank's rows (globalize_rows)
+        self.global_renew_weight: Optional[torch.Tensor] = None
 
     def init(self, metadata, num_data: int, device="cpu") -> None:
         self.num_data = num_data
@@ -107,10 +110,18 @@ class ObjectiveFunction:
     def globalize_rows(self, allgather) -> None:
         """Multi-process training (the JAX package's ``globalize_rows``):
         recompute dataset-level statistics over every rank's rows.  Each
-        rank's per-row state stays its own rows (the port's ranks hold
-        no global arrays).  ``allgather(obj) -> per-rank list``.
+        rank's per-row state for the gradients stays its own rows; an
+        objective that renews its leaves also lays the percentile's
+        per-row weights (:meth:`renew_weight`: MAPE's ``label_weight``)
+        over the global row axis (every rank's rows, rank-major: the JAX
+        package's mesh order), which :meth:`renew_tree_output` reads
+        under a process group.  ``allgather(obj) -> per-rank list``.
         Subclasses with dataset-level scalars override (and call
         super)."""
+        w = self.renew_weight() if self.need_renew_tree_output else None
+        if w is not None:
+            self.global_renew_weight = torch.as_tensor(
+                np.concatenate(allgather(w.cpu().numpy())), device=w.device)
 
     def boost_from_score_global(self, allgather) -> float:
         """Cross-process ``BoostFromScore``: the init score of every
@@ -152,9 +163,31 @@ class ObjectiveFunction:
     def convert_output(self, score: torch.Tensor) -> torch.Tensor:
         return score
 
-    def renew_tree_output(self, score, row_leaf, num_leaves):
-        """Per-leaf output of the renewed tree, or None."""
-        return None
+    # the percentile a renewing objective reads (need_renew_tree_output)
+    renew_alpha = 0.5
+
+    def renew_tree_output(self, score, row_leaf, num_leaves,
+                          gather_rows=None):
+        """Per-leaf output of the renewed tree, or None: the
+        :func:`leaf_percentile` at ``renew_alpha`` of ``label - score``
+        in each leaf, weighted by :meth:`renew_weight`.  Under a process
+        group ``gather_rows(t) -> t`` lays a per-row tensor of this rank
+        over the global row axis, and each leaf's percentile runs over
+        every rank's rows (the weights then the global ones
+        :meth:`globalize_rows` laid out)."""
+        if not self.need_renew_tree_output:
+            return None
+        resid, weight = self.label - score, self.renew_weight()
+        if gather_rows is not None:
+            resid, row_leaf = gather_rows(resid), gather_rows(row_leaf)
+            weight = self.global_renew_weight
+        return leaf_percentile(resid, row_leaf, num_leaves,
+                               self.renew_alpha, weight)
+
+    def renew_weight(self) -> Optional[torch.Tensor]:
+        """The per-row weights of the renewal's percentile (None: every
+        row weighs 1)."""
+        return self.weight
 
     def describe(self) -> str:
         return self.name
@@ -201,17 +234,11 @@ class RegressionL2(ObjectiveFunction):
 class RegressionL1(ObjectiveFunction):
     name = "regression_l1"
     need_renew_tree_output = True
-    _percentile = 0.5
 
     def get_gradients(self, score):
         grad = torch.sign(score - self.label)
         hess = torch.ones_like(score)
         return _apply_weight(grad, hess, self.weight)
-
-    def renew_tree_output(self, score, row_leaf, num_leaves):
-        # leaf output := percentile of (label - score) in the leaf
-        return leaf_percentile(self.label - score, row_leaf, num_leaves,
-                               self._percentile, self.weight)
 
 
 class Huber(ObjectiveFunction):
@@ -271,17 +298,13 @@ class Quantile(ObjectiveFunction):
 
     def __init__(self, config: Config):
         super().__init__(config)
-        self.alpha = float(config.alpha)
+        self.alpha = self.renew_alpha = float(config.alpha)
 
     def get_gradients(self, score):
         diff = score - self.label
         grad = torch.where(diff >= 0, 1.0 - self.alpha, -self.alpha)
         hess = torch.ones_like(score)
         return _apply_weight(grad, hess, self.weight)
-
-    def renew_tree_output(self, score, row_leaf, num_leaves):
-        return leaf_percentile(self.label - score, row_leaf, num_leaves,
-                               self.alpha, self.weight)
 
 
 class Mape(ObjectiveFunction):
@@ -299,9 +322,9 @@ class Mape(ObjectiveFunction):
             self.label_weight if self.weight is None else self.weight)
         return grad, hess
 
-    def renew_tree_output(self, score, row_leaf, num_leaves):
-        return leaf_percentile(self.label - score, row_leaf, num_leaves,
-                               0.5, self.label_weight)
+    def renew_weight(self):
+        # realigned over the global row axis by globalize_rows
+        return self.label_weight
 
 
 class Gamma(Poisson):
@@ -672,6 +695,38 @@ def fold_pair_grid(signed, hh, T: int, M: int):
          - signed.sum(dim=1))
     h = torch.nn.functional.pad(hh.sum(dim=2), pad) + hh.sum(dim=1)
     return g, h
+
+
+# torch's parallel grain: an elementwise call on at most this many
+# elements runs on one thread
+_CONVERT_ELEMS = 32768
+# a multiple of every vector loop's step: no element takes a scalar tail
+_CONVERT_STEP = 64
+
+
+def convert_rows(objective, raw) -> np.ndarray:
+    """``objective.convert_output`` of host scores (``[n]`` or ``[n, K]``)
+    as float32, in blocks of at most ``_CONVERT_ELEMS`` elements, the
+    last padded with zero rows to a multiple of ``_CONVERT_STEP``
+    elements: each block is one thread's call and a whole number of
+    vector steps, so every row takes the same code path in any batch.
+    On the CPU torch's transcendentals take a scalar path at the tail of
+    a thread's chunk, an ulp away from the vector one, and where the
+    tails fall follows the batch's length."""
+    raw = np.ascontiguousarray(raw, np.float32)
+    k = int(np.prod(raw.shape[1:], dtype=np.int64))
+    rows = max(32, _CONVERT_ELEMS // max(1, k) // 32 * 32)
+    step = _CONVERT_STEP // math.gcd(_CONVERT_STEP, max(1, k))
+    out = np.empty_like(raw)
+    for r0 in range(0, raw.shape[0], rows):
+        block = raw[r0:r0 + rows]
+        m = block.shape[0]
+        if m % step:
+            block = np.concatenate([block, np.zeros(
+                (step - m % step,) + raw.shape[1:], np.float32)])
+        out[r0:r0 + m] = objective.convert_output(
+            torch.from_numpy(block)).numpy()[:m]
+    return out
 
 
 def leaf_percentile(values: torch.Tensor, row_leaf: torch.Tensor,

@@ -402,9 +402,14 @@ class ElasticCoordinator:
                 log_info(f"elastic: member {member} joined as rank "
                          f"{rank} (world {len(self._members)}, "
                          f"generation {self._generation})")
-            # hold until the world is big enough (initial formation)
+            # hold until the world is big enough (initial formation); a
+            # member waiting here is alive, and its heartbeat starts only
+            # when the join returns, so the wait keeps it fresh (else a
+            # peer that starts a heartbeat timeout later evicts it;
+            # ROADMAP C36)
             while len(self._members) < min_world \
                     and member in self._members and not self._stop:
+                self._members[member].last = time.monotonic()
                 self._cv.wait(0.2)
             if member not in self._members:
                 return {"ok": False, "error": "evicted"}

@@ -14,13 +14,19 @@ over a device mesh; the port runs one process per rank, PyTorch's idiom:
 * the backend follows the cards: NCCL when every rank of the host has a
   card of its own, gloo when ranks share one (NCCL refuses two ranks on
   one device) and on the CPU.  Under gloo the compute stays on the card:
-  gloo takes CUDA tensors for ``all_reduce`` and ``broadcast``, and the
+  gloo takes CUDA tensors for ``all_reduce``, and the
   collective seam (:class:`MeshContext`) stages the operands of its
   gathers through the host, explicitly;
 * :class:`MeshContext` is the learner's view of the group (world, rank,
   device, backend, the partition rules of ``parallel/partition.py``) and
   its collective seam: ``all_reduce_sum`` (in place, optionally async),
-  ``all_gather``, ``all_gather_object`` and ``broadcast``;
+  ``all_gather``, ``all_gather_rows``, ``all_gather_object`` and the
+  host gather ``allgather_host``.  A 2-D ``mesh_shape`` [d, f] (data x
+  feature) puts ``d * f`` ranks in a row-major grid: rank ``r`` holds
+  data index ``r // f``, and the learner runs over the ``d`` ranks of
+  its feature index, one sub-group each, so each data shard counts
+  once (the JAX package's learners never read the feature axis, and
+  its [d, f] model is its [d] model);
 * :class:`ProcessRows` is a rank's block of the global row axis, and
   :func:`shard_row_ranges` the protocol shards of a stream.
 """
@@ -36,6 +42,8 @@ from ..utils.log import log_info
 
 # what init_distributed chose (read back by the learners and the smoke)
 _STATE = {"backend": None, "device": None, "local_rank": 0}
+# the sub-groups of a 2-D mesh, by (d, f): made once per process group
+_GROUPS = {}
 
 
 def _dist():
@@ -224,34 +232,124 @@ def destroy() -> None:
     """Leave the process group (every exit path of a rank calls this)."""
     if is_initialized():
         _dist().destroy_process_group()
+    _GROUPS.clear()
     _STATE["backend"] = None
     _STATE["device"] = None
 
 
+def mesh_data_rank(mesh_shape, rank: int, world: int) -> Tuple[int, int]:
+    """``(data index, data shards)`` of global ``rank``: under a 2-D
+    ``mesh_shape`` [d, f] rank ``r`` holds data index ``r // f`` of
+    ``d`` (the JAX package's row-major device grid,
+    ``parallel/mesh.py:214-221``); else ``(rank, world)``.  A rank of a
+    data- or voting-parallel run passes the rows of its data index."""
+    shape = tuple(int(v) for v in mesh_shape)
+    if len(shape) == 2:
+        return rank // shape[1], shape[0]
+    return rank, world
+
+
+def one_per_data_index(parts: List, replicas: int) -> List:
+    """``parts`` (one entry per global rank, in rank order) -> one entry
+    per data index of a [d, ``replicas``] mesh.  The ``replicas`` ranks
+    of a data index hold the same rows, so they must send the same
+    entry (compared pickled, without the arrival stamp ``_fleet_us``
+    that the bin finding's gathers carry): one that differs raises,
+    naming the ranks, rather than letting feature index 0 stand for
+    them all."""
+    if replicas == 1:
+        return parts
+    import pickle
+
+    def key(part):
+        if isinstance(part, dict) and "_fleet_us" in part:
+            part = {k: v for k, v in part.items() if k != "_fleet_us"}
+        return pickle.dumps(part)
+    out = []
+    for i in range(0, len(parts), replicas):
+        first = key(parts[i])
+        bad = [i + j for j in range(1, replicas)
+               if key(parts[i + j]) != first]
+        if bad:
+            raise ValueError(
+                f"mesh_shape [d, {replicas}]: ranks {bad} disagree with "
+                f"rank {i} on data index {i // replicas}, whose ranks must "
+                f"hold the same rows (a rank loads the rows of "
+                f"mesh_data_rank)")
+        out.append(parts[i])
+    return out
+
+
+def data_shard_loading(mesh_shape) -> Tuple[int, int, object]:
+    """``(data index, data shards, allgather)`` with which a rank of a
+    row-splitting learner loads a file in the process group: the rows of
+    its data index (:func:`mesh_data_rank`), and a host gather with one
+    entry per data index for the distributed bin finding (its replicas'
+    entries checked alike).  Under a 1-D mesh: ``(rank, world,
+    process_allgather)``; outside a process group ``(0, 1, None)``."""
+    from ..io.distributed import process_allgather
+    if not is_initialized():
+        return 0, 1, None
+    rank, world = rank_world()
+    d_rank, d_world = mesh_data_rank(mesh_shape, rank, world)
+    if world % d_world:
+        raise ValueError(f"mesh_shape {tuple(mesh_shape)} does not divide "
+                         f"the process group's {world} ranks")
+    replicas = world // d_world
+    return d_rank, d_world, (
+        lambda obj: one_per_data_index(process_allgather(obj), replicas))
+
+
+def _feature_groups(d: int, f: int):
+    """The ``f`` sub-groups of a [d, f] mesh, group ``j`` holding the
+    ranks ``j, f + j, ..., (d - 1) f + j`` (data indices 0..d-1 of
+    feature index ``j``); every rank makes all of them, in one order,
+    as ``new_group`` asks."""
+    if (d, f) not in _GROUPS:
+        _GROUPS[(d, f)] = [_dist().new_group([i * f + j for i in range(d)])
+                           for j in range(f)]
+    return _GROUPS[(d, f)]
+
+
 class MeshContext:
-    """The learner's view of the process group: a 1-D data axis over the
+    """The learner's view of the process group: a data axis over the
     ranks, this rank's device, the partition rules, and the collective
-    seam.  A 1-D ``mesh_shape`` must equal the world size; a 2-D one
-    (data x feature) is not ported (ROADMAP A11's remainder)."""
+    seam.  A 1-D ``mesh_shape`` must equal the world size.  A 2-D one
+    [d, f] must have ``d * f`` ranks: ``rank`` and ``world`` are then
+    this rank's data index and ``d``, and the tensor collectives run
+    over the sub-group of this rank's feature index (``group``), whose
+    ``d`` ranks hold one data shard each."""
 
     def __init__(self, config, device=None):
         self.config = config
-        self.rank, self.world = rank_world()
+        self.global_rank, self.global_world = rank_world()
+        self.rank, self.world = self.global_rank, self.global_world
         shape = tuple(config.mesh_shape)
-        if len(shape) > 1:
-            raise NotImplementedError(
-                f"mesh_shape={shape}: a 2-D (data x feature) mesh is not "
-                f"ported (ROADMAP A11, remainder)")
-        if shape and shape[0] != self.world:
+        if len(shape) > 2:
+            raise ValueError(f"mesh_shape {shape}: at most two axes "
+                             f"(data x feature)")
+        need = 1
+        for v in shape:
+            need *= int(v)
+        if shape and need != self.global_world:
             raise ValueError(
-                f"mesh_shape {shape} needs {shape[0]} ranks, the process "
-                f"group has {self.world}")
+                f"mesh_shape {shape} needs {need} ranks, the process "
+                f"group has {self.global_world}")
+        # the feature axis only replicates: f ranks hold each data shard
+        self.feature_shards = int(shape[1]) if len(shape) == 2 else 1
+        self.feature_index = self.global_rank % self.feature_shards
+        self.group = None
+        if self.feature_shards > 1:
+            self.rank, self.world = mesh_data_rank(
+                shape, self.global_rank, self.global_world)
+            self.group = _feature_groups(
+                self.world, self.feature_shards)[self.feature_index]
         self.data_axis = config.data_axis_name
         self.device = torch.device(device) if device is not None else (
             rank_device())
         self.backend = (str(_dist().get_backend()) if is_initialized()
                         else None)
-        # gloo moves CUDA tensors for all_reduce/broadcast only
+        # gloo moves CUDA tensors for all_reduce only
         self._stage = self.backend == "gloo" and self.device.type == "cuda"
 
     @property
@@ -279,7 +377,6 @@ class MeshContext:
         differently binned rows, so a difference raises, naming the
         tensor and the ranks.  Returns ``dd``."""
         import hashlib
-        from ..io.distributed import process_allgather
         from .partition import (PartitionRuleError, audit_rules,
                                 device_data_names, match_name)
         rules = self.partition_rules()
@@ -287,13 +384,18 @@ class MeshContext:
         findings = audit_rules(rules, [f"data/{n}" for n in named])
         if findings:
             raise PartitionRuleError("; ".join(findings))
+        replicated = [name for name in named
+                      if not match_name(rules, f"data/{name}")]
+        # a 2-D mesh's replicas of a data index also hold the same rows:
+        # allgather_host checks that they agree on every tensor's digest
+        keep = replicated if self.feature_shards == 1 else list(named)
         mine = {name: hashlib.sha256(
-                    t.detach().contiguous().cpu().numpy().tobytes()
-                ).hexdigest()
-                for name, t in named.items()
-                if not match_name(rules, f"data/{name}")}
-        every = process_allgather(mine)
-        for name, digest in mine.items():
+                    named[name].detach().contiguous().cpu().numpy()
+                    .tobytes()).hexdigest()
+                for name in keep}
+        every = self.allgather_host(mine)
+        for name in replicated:
+            digest = mine[name]
             differ = [r for r, d in enumerate(every) if d.get(name) != digest]
             if differ:
                 raise ValueError(
@@ -308,7 +410,8 @@ class MeshContext:
         """Sum ``t`` over the ranks in place; every rank gets the same
         bits.  ``async_op``: returns the work handle to ``wait()`` on."""
         dist = _dist()
-        return dist.all_reduce(t, op=dist.ReduceOp.SUM, async_op=async_op)
+        return dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group,
+                               async_op=async_op)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """``[world, *t.shape]``: every rank's ``t`` in rank order (staged
@@ -318,18 +421,35 @@ class MeshContext:
         if self._stage:
             src = src.cpu()
         out = [torch.empty_like(src) for _ in range(self.world)]
-        dist.all_gather(out, src)
+        dist.all_gather(out, src, group=self.group)
         return torch.stack(out).to(t.device)
 
+    def all_gather_rows(self, t: torch.Tensor, counts: List[int]
+                        ) -> torch.Tensor:
+        """A per-row tensor of this rank (``counts[rank]`` rows) laid over
+        the global row axis: every rank's rows, in rank order."""
+        per = max(counts)
+        block = t.new_zeros((per,) + tuple(t.shape[1:]))
+        block[:t.shape[0]] = t
+        g = self.all_gather(block)
+        return torch.cat([g[r, :c] for r, c in enumerate(counts)])
+
     def all_gather_object(self, obj) -> List:
-        """Every rank's picklable ``obj``, in rank order."""
-        out: List = [None] * self.world
+        """Every rank's picklable ``obj``, in global rank order (under a
+        2-D mesh ``feature_shards`` entries a data index)."""
+        out: List = [None] * self.global_world
         _dist().all_gather_object(out, obj)
         return out
 
-    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        _dist().broadcast(t, src=src)
-        return t
+    def allgather_host(self, obj) -> List:
+        """``io/distributed.py:process_allgather`` (its deadline, retry
+        and flight-recorder record) over every rank, one entry per data
+        index (:func:`one_per_data_index`: a replica that sends another
+        entry than its data index's first raises), so the dataset-level
+        statistics count each data shard once."""
+        from ..io.distributed import process_allgather
+        return one_per_data_index(process_allgather(obj),
+                                  self.feature_shards)
 
 
 class ProcessRows:
@@ -340,11 +460,10 @@ class ProcessRows:
     rows then padding.  The rank's own tensors hold its real rows only."""
 
     def __init__(self, mesh_ctx: MeshContext, n_local: int):
-        from ..io.distributed import process_allgather
         self.mesh_ctx = mesh_ctx
         self.world = mesh_ctx.world
         self.rank = mesh_ctx.rank
-        self.counts = [int(x) for x in process_allgather(int(n_local))]
+        self.counts = [int(x) for x in mesh_ctx.allgather_host(int(n_local))]
         self.n_local = int(n_local)
         self.n_global = sum(self.counts)
         self.per = max(self.counts)

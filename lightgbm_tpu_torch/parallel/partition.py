@@ -32,9 +32,13 @@ Name tree:
 Each rank of the port is one process that already holds its part (its
 own rows under a split rule, ``ProcessRows``), so nothing is laid out
 from one process as the JAX package's single-process mesh does; the
-rules decide what ``MeshContext.place_data`` checks on the training
-path: the ``data/<field>`` names resolve, and a replicated one holds the
-same bytes on every rank.
+rules decide what is checked instead.  On the training path
+``MeshContext.place_data`` checks that the ``data/<field>`` names
+resolve and that a replicated one holds the same bytes on every rank;
+on the serving path ``serve/compiler.py:build_pack`` passes every tensor
+field of the ``ServePack`` it built through :func:`match_partition_rules`
+(the JAX package's ``place_pack`` without a mesh), so a pack field that
+no rule names fails when the pack is built.
 """
 from __future__ import annotations
 
@@ -95,6 +99,54 @@ def device_data_names(dd) -> Dict[str, Any]:
             for name, field in DEVICE_DATA_NAMES.items()}
 
 
+def serve_pack_fields() -> List[str]:
+    """The tensor fields of the port's ``ServePack`` (its dataclass
+    fields but the three ints), in declaration order."""
+    import dataclasses
+    from ..serve.compiler import ServePack
+    return [f.name for f in dataclasses.fields(ServePack)
+            if f.name not in ("num_trees", "num_class", "max_depth")]
+
+
+def serve_pack_names(pack) -> Dict[str, Any]:
+    """``{"serve": {"pack": {field: tensor}}}`` of a ``ServePack``'s
+    tensors (an optional table the pack does not hold, None, is left
+    out: there is nothing to place)."""
+    return {"serve": {"pack": {f: getattr(pack, f)
+                               for f in serve_pack_fields()
+                               if getattr(pack, f) is not None}}}
+
+
+def flatten_names(tree: Any, sep: str = "/") -> List[Tuple[str, Any]]:
+    """A dict name tree flattened to ``[(joined_name, leaf), ...]``."""
+    out: List[Tuple[str, Any]] = []
+
+    def walk(prefix: str, node: Any) -> None:
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}{sep}{k}" if prefix else str(k), v)
+        else:
+            out.append((prefix, node))
+
+    walk("", tree)
+    return out
+
+
+def persistent_names(num_valid: int = 1) -> List[str]:
+    """The persistent names the rules must cover (the JAX package's
+    ``persistent_names``): the ``DeviceData`` fields, the booster's state,
+    each valid set's, early stopping's, and the port's own ``ServePack``
+    tensor fields."""
+    names = [f"data/{n}" for n in DEVICE_DATA_NAMES]
+    names += ["scores", "grad", "hess", "bag_mask", "feature_mask"]
+    for i in range(num_valid):
+        names += [f"valid/{i}/scores"]
+        names += [f"valid/{i}/data/{n}" for n in DEVICE_DATA_NAMES]
+    names += ["es/best_scores", "es/best_iter"]
+    names += [f"serve/pack/{f}" for f in serve_pack_fields()]
+    return names
+
+
 # ---------------------------------------------------------------------------
 # matching
 # ---------------------------------------------------------------------------
@@ -112,6 +164,18 @@ def match_name(rules: Sequence[Rule], name: str) -> Spec:
         f"no partition rule matches persistent tensor {name!r}; add a "
         f"rule to lightgbm_tpu_torch/parallel/partition.py (rules: "
         f"{[r[0] for r in rules]})")
+
+
+def match_partition_rules(rules: Sequence[Rule], tree: Any,
+                          sep: str = "/") -> Dict[str, Spec]:
+    """``{flat_name: spec}`` of a dict name tree: a scalar or 0-d leaf
+    replicates, every other leaf must match a rule (else
+    :class:`PartitionRuleError`)."""
+    specs: Dict[str, Spec] = {}
+    for name, leaf in flatten_names(tree, sep):
+        specs[name] = (() if getattr(leaf, "ndim", 0) == 0
+                       else match_name(rules, name))
+    return specs
 
 
 def audit_rules(rules: Sequence[Rule], names: Iterable[str]) -> List[str]:

@@ -19,12 +19,16 @@ Exactness contract (``tests/test_torch_serve.py``; on the card,
   (:func:`_f32_floor`): for any f32 ``x`` and f64 ``t``, ``x <= t``
   iff ``x <= floor_f32(t)``, the reference's f64 ``NumericalDecision``
   exactly.  float64 inputs are cast to f32 first (documented narrowing).
-* **Scores are within 1 ulp (f32)** of the f64 sequential host sum.  The
-  JAX package carries each leaf value as an f32 hi/lo pair and adds
-  them with Neumaier compensation in tree order, because the TPU has no
-  f64.  The card has: leaf values stay f64, each class's trees are
-  summed in f64 (a fixed-order reduction, no atomics) and the sum is
-  rounded to f32 once.
+* **Scores are the host walk's, bit for bit**, wherever the walk routes
+  a row to the same leaves: leaf values stay f64, each class's trees
+  are added one iteration at a time, in tree order, into an f64
+  accumulator that starts at zero (the order of ``GBDT.predict_raw``),
+  and the sum is rounded to f32 once.  The order depends on nothing
+  but the trees, so a row scores the same alone, inside any batch,
+  bucket or row chunk, and through prediction early stopping while it
+  has not stopped.  The JAX package carries each leaf value as an f32
+  hi/lo pair and adds them with Neumaier compensation in tree order,
+  because the TPU has no f64: within 1 ulp of the same sum.
 
 Node tables hold the internal nodes and then the leaves of each tree
 (``N = 2L - 1`` entries a tree, flattened over trees); a leaf entry
@@ -219,7 +223,7 @@ def build_pack(trees: Sequence[Tree], mappers=None,
     words = np.asarray(cat_words or [0], np.uint32).view(np.int32)
     bwords = np.asarray(catbin_words or [0], np.uint32).view(np.int32)
     bin_cat = binned and has_cat
-    return ServePack(
+    return _check_rules(ServePack(
         root=torch.as_tensor(root, device=device), child=dev(child),
         split_feature=dev(sf), threshold=dev(thr), default_left=dev(dl),
         miss_zero=dev(mz), nan_left=dev(nanl), leaf_value=dev(lv),
@@ -235,7 +239,18 @@ def build_pack(trees: Sequence[Tree], mappers=None,
         catbin_nwords=dev(bn) if bin_cat else None,
         catbin_words=(torch.as_tensor(bwords, device=device) if bin_cat
                       else None),
-        num_trees=T, num_class=K, max_depth=depth)
+        num_trees=T, num_class=K, max_depth=depth))
+
+
+def _check_rules(pack: ServePack) -> ServePack:
+    """Every tensor of the pack through the serve partition rules (the
+    JAX package's ``place_pack`` without a mesh: each rank of the port
+    builds its own pack, so nothing is placed): a field that no rule
+    names raises ``PartitionRuleError`` when the pack is built."""
+    from ..parallel import partition
+    partition.match_partition_rules(partition.serve_rules(),
+                                    partition.serve_pack_names(pack))
+    return pack
 
 
 # ---------------------------------------------------------------------------
@@ -296,20 +311,30 @@ def _leaf_entries_block(pack: ServePack, Xb: torch.Tensor, binned: bool,
 
 
 def _sum_block(pack: ServePack, Xb: torch.Tensor, binned: bool,
-               trees: slice = slice(None)) -> torch.Tensor:
-    """Each class's f64 leaf values summed over its trees (of the slice
-    ``trees``, whole iterations) for one row block -> ``[rows, K]``
-    f64."""
+               trees: slice = slice(None),
+               acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each class's f64 leaf values of the slice ``trees`` (whole
+    iterations) added to ``acc`` (``[K, rows]`` f64, in place; zeros
+    when None) one iteration at a time, in tree order -> ``[K, rows]``
+    f64.  The order is the host walk's and does not depend on the row
+    count (a reduction over the tree axis would follow the shape); it
+    costs one launch an iteration (ROADMAP C37)."""
     vals = pack.leaf_value[_leaf_entries_block(pack, Xb, binned, trees)]
     K = pack.num_class
-    return vals.view(-1, K, vals.shape[1]).sum(0).t()
+    vals = vals.view(-1, K, vals.shape[1])
+    if acc is None:
+        acc = torch.zeros(vals.shape[1:], dtype=torch.float64,
+                          device=vals.device)
+    for it in range(vals.shape[0]):
+        acc += vals[it]
+    return acc
 
 
 def _score_block(pack: ServePack, Xb: torch.Tensor,
                  binned: bool) -> torch.Tensor:
     """Raw scores of one row block -> ``[rows, K]`` f32: each class's
-    f64 leaf values summed over its trees, rounded once."""
-    return _sum_block(pack, Xb, binned).to(torch.float32)
+    f64 leaf values summed over its trees in tree order, rounded once."""
+    return _sum_block(pack, Xb, binned).t().to(torch.float32)
 
 
 def _row_chunks(n: int, rchunk: int):
@@ -504,9 +529,12 @@ class CompiledModel:
         rows gathered on the device and padded to :func:`next_bucket`
         (so that the walk meets a few row counts, not one a round);
         each class's leaf values accumulate in f64 on the device and
-        round to f32 once.  After a round a row whose margin (binary
-        2|s|, multiclass top1 - top2) exceeds ``margin`` stops.  ->
-        ``(raw [n] or [n, K] f32, rounds taken per row [n] int32)``."""
+        round to f32 once.  Each round continues its rows' sums tree by
+        tree (:func:`_sum_block` from their accumulators), so a row that
+        never stops scores as :meth:`predict_raw`, bit for bit.  After a
+        round a row whose margin (binary 2|s|, multiclass top1 - top2)
+        exceeds ``margin`` stops.  -> ``(raw [n] or [n, K] f32, rounds
+        taken per row [n] int32)``."""
         from ..boosting.gbdt import early_stop_mask
         X, n = self._prepare(X, binned, pad=False)
         K = self.num_class
@@ -528,11 +556,11 @@ class CompiledModel:
             rows_pad = torch.cat([rows, rows.new_zeros(bucket - m)])
             Xb = Xd[rows_pad]
             trees = slice(t0, min(T_pad, t0 + per_round))
-            part = torch.empty((bucket, K), dtype=torch.float64,
-                               device=self.device)
+            part = acc[rows_pad].t().contiguous()          # [K, bucket]
             for c0, c1 in _row_chunks(bucket, self.rchunk):
-                part[c0:c1] = _sum_block(self.pack, Xb[c0:c1], binned, trees)
-            acc[rows] += part[:m]
+                _sum_block(self.pack, Xb[c0:c1], binned, trees,
+                           part[:, c0:c1])
+            acc[rows] = part[:, :m].t()
             taken[rows] += 1
             active[rows[early_stop_mask(acc[rows], margin)]] = False
         raw = acc.to(torch.float32).cpu().numpy()
@@ -556,7 +584,8 @@ class CompiledModel:
             return raw
         if self.average_output:
             raw = raw / max(1, self.num_trees // self.num_class)
-        return self.objective.convert_output(torch.as_tensor(raw)).numpy()
+        from ..objective.objectives import convert_rows
+        return convert_rows(self.objective, raw)
 
     def leaf_indices(self, X: np.ndarray, *, binned: bool = False,
                      pad: bool = True) -> np.ndarray:

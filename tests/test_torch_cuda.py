@@ -638,6 +638,47 @@ def test_cuda_compiled_predictor_matches_host_oracle(cuda_device):
     assert st["steady_eager"] == 0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_class", [1, 3])
+def test_cuda_scores_do_not_depend_on_the_batch(cuda_device, num_class):
+    """ROADMAP C35: the same rows scored on the card alone, inside larger
+    batches, in row chunks of 64, through the warmed buckets of a server
+    (a graph each) and through prediction early stopping with a margin
+    no row reaches are bitwise alike, and equal the host walk's f64 sum
+    (tree order) rounded once."""
+    from chip_smoke import forest_rows, random_forest
+    from lightgbm_tpu_torch.serve import PredictionServer, compile_trees
+    trees = random_forest(5, num_class=num_class, iters=120 // num_class,
+                          num_leaves=31)
+    X = forest_rows(trees, 20000, 6)
+    want = np.zeros((len(X), num_class))
+    for i, t in enumerate(trees):
+        want[:, i % num_class] += t.predict_batch(X.astype(np.float64))
+    want = want.astype(np.float32)
+    want = want if num_class > 1 else want[:, 0]
+    R = 3000
+    cm = compile_trees(trees, num_class=num_class, device=cuda_device)
+    small = compile_trees(trees, num_class=num_class, device=cuda_device,
+                          rchunk=64)
+    got = {"alone": cm.predict_raw(X[:R]),
+           "in_20000": cm.predict_raw(X)[:R],
+           "unpadded": cm.predict_raw(X[:R], pad=False),
+           "chunks_of_64": small.predict_raw(X)[:R],
+           "early_stop": cm.predict_raw_early_stop(X[:R], 3, np.inf)[0]}
+    cm.warm([256, 1024, 4096])
+    with PredictionServer(cm, max_batch=4096, max_wait_ms=1.0,
+                          buckets=(256, 1024, 4096), min_bucket=256,
+                          raw_score=True) as srv:
+        for b in (256, 1024, 4096):
+            got[f"server_{b}"] = np.concatenate([
+                np.asarray(srv.submit(X[o:min(o + b, R)]).result(60))
+                .reshape(-1, *want.shape[1:]) for o in range(0, R, b)])
+        st = srv.stats()
+    assert st["steady_captures"] == 0 and st["steady_eager"] == 0
+    for name, v in got.items():
+        assert np.array_equal(v, want[:R]), name
+
+
 
 @pytest.mark.cuda
 def test_cuda_booster_predicts_on_card_by_default(cuda_device):

@@ -201,8 +201,10 @@ def test_rendezvous_retries_through_fault(monkeypatch, _clean_obs):
 
 def test_mesh_shape_rules():
     from lightgbm_tpu_torch.parallel.mesh import MeshContext
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match=r"needs 4 ranks"):
         MeshContext(Config.from_params({"mesh_shape": "2,2"}), "cpu")
+    with pytest.raises(ValueError, match="at most two axes"):
+        MeshContext(Config.from_params({"mesh_shape": "1,1,1"}), "cpu")
     with pytest.raises(ValueError, match="needs 2 ranks"):
         MeshContext(Config.from_params({"mesh_shape": "2"}), "cpu")
     ctx = MeshContext(Config.from_params({"tree_learner": "voting"}), "cpu")

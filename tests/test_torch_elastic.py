@@ -9,7 +9,8 @@ its fleet accounting (``obs/fleet.py``) and its barrier snapshots
   churn a heartbeat saw first; transport failures raising
   ``RankLostError``; abandoned rounds aging out; the hung-collective
   deadline; wedged against dead; the ``rendezvous.drop_rank`` fault; the
-  torn-barrier fallback;
+  torn-barrier fallback; a member waiting for the world to form is not
+  evicted while a slow peer starts (ROADMAP C36: the port's fix);
 * the wire: a JAX client and a port client join one port coordinator and
   gather each other's arrays bit for bit, and a port client works
   against a JAX coordinator;
@@ -100,6 +101,24 @@ def _pair(coord, **kw):
     tb, _ = _in_thread(b.join_world, 2)
     _joined(ta, tb)
     return a, b
+
+
+def test_member_waiting_for_the_world_is_not_evicted():
+    """A member blocked in ``join_world(min_world=2)`` sends no heartbeat
+    until the join returns; a peer that joins several heartbeat timeouts
+    later (a process slow to start) still finds it in the world."""
+    with _coord(heartbeat_timeout_s=0.3) as coord:
+        a, b = _client(coord, "a"), _client(coord, "b")
+        ta, box = _in_thread(a.join_world, 2)
+        time.sleep(1.2)
+        tb, _ = _in_thread(b.join_world, 2)
+        _joined(ta, tb)
+        try:
+            assert "error" not in box, box.get("error")
+            assert box["value"][:2] == (2, 0)
+        finally:
+            a.leave()
+            b.leave()
 
 
 def test_encode_decode_array_bitwise_roundtrip():

@@ -168,9 +168,9 @@ def test_refit_leaves_follow_host_walk():
 
 
 def test_pred_contrib_matches_reference(pair):
-    """TreeSHAP on the host: the JAX package's values (its compiled
-    recursion against the port's Python one: the same float64
-    algorithm), summing to the raw prediction."""
+    """TreeSHAP on the host: the JAX package's values (both packages
+    run the same compiled recursion, ``ltpu_treeshap``; the models are
+    each package's own training), summing to the raw prediction."""
     jb, tb, X, _ = pair
     tc = tb.predict(X[:300], pred_contrib=True)
     jc = jb.predict(X[:300], pred_contrib=True)

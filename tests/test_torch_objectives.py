@@ -152,6 +152,38 @@ def test_renew_tree_output_matches_reference(name):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+@pytest.mark.parametrize("n", [900, 70_000])
+def test_host_percentile_is_leaf_percentile(n, weighted):
+    """``chip_smoke.host_percentile``, the card's oracle of the renewed
+    leaves, is bitwise the port's ``leaf_percentile`` (70,000 rows: a
+    weighted prefix sum of five block levels)."""
+    from chip_smoke import host_percentile
+    values, row_leaf, weight, L = _percentile_inputs(11, n=n)
+    w = weight if weighted else None
+    want = host_percentile(values, row_leaf, L, 0.3, w)
+    got = tobj.leaf_percentile(
+        torch.from_numpy(values), torch.from_numpy(row_leaf), L, 0.3,
+        None if w is None else torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+def test_mape_renewal_is_host_percentile(weighted):
+    """MAPE's renewal is the host percentile at 0.5 weighted by
+    ``chip_smoke.mape_weight`` of the labels (and row weights)."""
+    from chip_smoke import host_percentile, mape_weight
+    _, to, score, _ = _pair("mape", weighted=weighted, seed=6)
+    row_leaf = np.random.RandomState(7).randint(0, 9, size=N).astype(np.int32)
+    label = to.label.numpy()
+    w = to.weight.numpy() if weighted else None
+    want = host_percentile(label - score, row_leaf, 10, 0.5,
+                           mape_weight(label, w))
+    got = to.renew_tree_output(torch.from_numpy(score),
+                               torch.from_numpy(row_leaf), 10).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.parametrize("line", [
     "regression_l1", "huber", "quantile", "lambdarank",
     "multiclass num_class:3", "multiclassova num_class:3 sigmoid:1.5",

@@ -1,9 +1,10 @@
 """Options of the JAX package in lightgbm_tpu_torch.
 
-A 2-D ``mesh_shape`` (the data x feature mesh, ROADMAP A11's remainder;
-a 1-D one trains, ``tests/test_torch_multiprocess.py``) raises, instead
-of training something else, in memory (``lgb.train``) and streamed
-(``StreamTrainer``).  ``input_model`` in ``lgb.train``'s parameters
+A 2-D ``mesh_shape`` [d, f] (the data x feature mesh) trains across
+d * f ranks (``tests/test_torch_mesh2d.py``); in a process of its own
+a data-parallel ``lgb.train`` raises, naming the ranks it needs,
+instead of training something else, and a stream takes ``d`` protocol
+shards, the model of ``mesh_shape`` [d].  ``input_model`` in ``lgb.train``'s parameters
 loads that model into the booster, as the JAX package's
 ``create_boosting`` does (its trees first, the training scores without
 them, ROADMAP C33), and ``valid_data`` files, which only the
@@ -47,16 +48,19 @@ def _stream(params, X, y):
 
 
 @pytest.mark.parametrize("option,match", [
-    ({"mesh_shape": "2,2"}, "A11"),
+    ({"mesh_shape": "2,2", "tree_learner": "data"}, "needs 4 ranks"),
 ], ids=["mesh_shape"])
 def test_unported_option_raises(option, match):
     X, y = _data()
     params = dict(BASE, **option)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         tlgb.train(dict(params), tlgb.Dataset(X, label=y),
                    num_boost_round=1, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        _stream(params, X, y)
+    # a stream takes the data axis as its protocol shards
+    st = _stream(params, X, y)
+    assert st.S == 2
+    one_d = _stream(dict(params, mesh_shape="2"), X, y)
+    assert st.train(3).digest() == one_d.train(3).digest()
     # the defaults stay accepted
     tlgb.train(dict(BASE), tlgb.Dataset(X, label=y), num_boost_round=1,
                device="cpu")

@@ -13,7 +13,8 @@ loaded-model prediction, against the JAX package on the CPU.
 * The binned path of a port-trained model routes and scores as its raw
   path, and ``bin_rows`` equals the JAX package's.
 * ``Booster.predict``: ``device=True`` / ``pred_leaf`` / truncation
-  against the host path; ``pred_contrib`` raises.
+  against the host path; ``pred_contrib`` on a loaded model takes the
+  host path and gives the JAX package's SHAP values.
 * The micro-batching ``PredictionServer``: mixed sizes with latency
   stats, a transient fault retried with no request dropped or resolved
   twice, a non-transient fault failing fast, exhausted retries
@@ -337,7 +338,7 @@ def test_booster_device_default(monkeypatch):
     assert asked == [-1, -1]
 
 
-def test_pred_contrib_raises():
+def test_pred_contrib_on_loaded_model_matches_jax():
     """``pred_contrib`` on a loaded model no longer raises: it takes the
     host path, as the JAX package's does, and gives its SHAP values."""
     jbst, tbst = _jax_train(n=600, num_iterations=2)

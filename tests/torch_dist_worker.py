@@ -14,9 +14,13 @@ Kinds:
   gradients of ``input`` (an ``.npz``): data/voting ranks take their
   contiguous row block, feature ranks every row (``int8_row_limit``
   stands in for the quantized modes' row bound);
-* ``train`` — ``lgb.train`` on ``X``/``y`` of ``input``, each rank its
-  contiguous row block of the binned set (every row for feature);
-* ``load`` — ``Dataset(path, num_machines=world)``: the mod-rank rows
+* ``train`` — ``lgb.train`` on ``X``/``y`` (and the weights ``w``, if
+  any) of ``input``, each rank its contiguous row block of the binned
+  set (every row for feature; the block of its data index under a 2-D
+  ``mesh_shape``, or with ``rows_by_global_rank`` the block of its global
+  rank);
+* ``load`` — ``Dataset(path)`` with the case's ``num_machines``: the
+  mod-rank rows (of the rank's data index under a 2-D ``mesh_shape``)
   with distributed bin finding, then ``lgb.train``;
 * ``desync`` — a train, then three host gathers with the
   ``spmd.skip_record`` fault on rank 1 at the middle one, and the merged
@@ -103,12 +107,22 @@ def run_learner(case, rank, world):
 def _train_set(case, rank, world):
     import numpy as np
     import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.parallel.mesh import mesh_data_rank
     z = np.load(case["input"])
     X, y = z["X"], z["y"]
     params = dict(case["params"])
-    full = lgb.Dataset(X, label=y, params=params)
+    label = {"label": y}
+    if "w" in z.files:
+        label["weight"] = z["w"]
+    full = lgb.Dataset(X, **label, params=params)
     if params.get("tree_learner", "serial") in ("data", "voting"):
-        lo, hi = _block(len(X), rank, world)
+        # a 2-D mesh's rank holds the rows of its data index (a case with
+        # ``rows_by_global_rank`` gives every rank rows of its own)
+        mesh = Config.from_params(dict(params)).mesh_shape
+        if case.get("rows_by_global_rank"):
+            mesh = ()
+        lo, hi = _block(len(X), *mesh_data_rank(mesh, rank, world))
         return full.subset(np.arange(lo, hi), params=params), params, z
     return full, params, z
 

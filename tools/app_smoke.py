@@ -42,8 +42,7 @@ def main() -> int:
     head_ref = {"params": params, "text": bst.model_to_string(),
                 "digest": bst.digest(),
                 "digest_trees": bst.digest(include_scores=False),
-                "pred": bst.predict(X),
-                "pred_capi": bst.predict(X[:cs.APP_PRED_ROWS])}
+                "pred": bst.predict(X)}
     small_rows = cs.small_data()
     Xs, ys, Xv, yv = small_rows
     ds_small = lgb.Dataset(Xs, label=ys,
@@ -59,7 +58,7 @@ def main() -> int:
                  "pred": bst.predict(Xv)}
     torch.cuda.synchronize()
     t0 = time.time()
-    cs.multi_gpu_phase(lgb, ds, X, y, head_ref,
+    cs.multi_gpu_phase(lgb, ds, X, y, z,
                        1e3 * head_s / cs.HEADLINE_ITERS, card)
     cs.log(f"phase 28 {time.time() - t0:.1f} s")
     t0 = time.time()

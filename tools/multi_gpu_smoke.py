@@ -4,9 +4,9 @@ headline it is held against.
     python3 tools/multi_gpu_smoke.py
 
 Builds the kernels, bins the headline set, trains the single-rank
-headline (its digest is what the feature-parallel ranks must give), then
-runs ``chip_smoke.multi_gpu_phase``: two rank processes, NCCL with a
-card a rank, gloo when they share one.  Prints phase 28's JSON line;
+headline (its ms/iter is printed beside the ranks'), then runs
+``chip_smoke.multi_gpu_phase``: two rank processes, NCCL with a card a
+rank, gloo when they share one, then four on the [2, 2] mesh.  Prints phase 28's JSON line;
 exits non-zero when a check fails.  Needs CUDA.
 """
 import os
@@ -39,11 +39,9 @@ def main() -> int:
     bst, head_s, _ = cs.train_path(lgb, "headline", cs.mg_counters(),
                                    dict(cs.HEADLINE_PARAMS), ds,
                                    cs.HEADLINE_ITERS)
-    head_ref = {"text": bst.model_to_string(),
-                "digest_trees": bst.digest(include_scores=False)}
-    cs.log(f"headline digest {head_ref['digest_trees']}")
+    cs.log(f"headline digest {bst.digest(include_scores=False)}")
     t0 = time.time()
-    launches = cs.multi_gpu_phase(lgb, ds, X, y, head_ref,
+    launches = cs.multi_gpu_phase(lgb, ds, X, y, z,
                                   1e3 * head_s / cs.HEADLINE_ITERS, card)
     cs.log(f"phase 28 {time.time() - t0:.1f} s; launches {launches}")
     return 0
