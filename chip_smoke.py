@@ -398,8 +398,30 @@ and the script exits non-zero):
    200,000-row CSV and parameters: byte-identical models, rank 0's
    saved file the same, K5 launched on each rank, the digest phase
    28's load's.  Every child is gone when the phase ends.
+31. full-size parity — the card's models held to models of the JAX
+   package recorded at the same full size on a CPU
+   (``tests/data/torch_fullsize/<cell>.json.gz``, written by
+   ``tools/torch_fullsize_ref.py``): phase 4's headline, phase 5's
+   small-data model and phase 12's serving model as they were trained,
+   and ``headline_l2`` (the headline's rows and parameters, objective
+   ``regression`` on the latent, 8 iterations), trained here.  For each
+   cell the data's sha256 and the parameters must be the record's; the
+   trees are compared digest by digest and by
+   ``parallel/envelope.py:model_flip_report`` (identical trees, the
+   first divergence, the leaf-value gap over the identical prefix); a
+   divergence must be a near-tie, ``headline_l2`` bitwise the record
+   (L2's gradient has no transcendental), the train or valid AUC within
+   ``FULLSIZE_AUC_TOL`` of the record's, and a whole identical model's
+   raw scores of the record's
+   4,096 sample rows (through ``Booster.predict`` on the card; for
+   ``serving`` the compiled model the server serves) the record's host
+   walk rounded once to f32.  Then each binary cell is trained again on
+   the card with its gradients taken on the CPU (torch's host sigmoid on
+   the card's scores, ROADMAP C6), every iteration counting the rows
+   whose int8h quanta the card's own gradients move: that model is held
+   to the record the same way.
 
-Each of phases 17-30 prints one ``{"phase": ...}`` JSON line.  A path's
+Each of phases 17-31 prints one ``{"phase": ...}`` JSON line.  A path's
 ms/iter is the wall of the whole ``lgb.train`` call, the
 Booster's setup (upload, objective init) and, on the small-data path,
 the per-iteration evaluation included.  The last lines are the kernel
@@ -622,6 +644,15 @@ INT32_ADDS_PER_CLOCK_PER_SM = 64
 # request pool and sweep
 PATH_DIGESTS = {}
 SERVE_STATE = {}
+# phase 31 (full-size parity): the L2 cell trained there, the tolerance
+# of a model's train or valid AUC past a near-tie flip (the registry's
+# metric_coarse: the serving model parts at tree 23 of 100 and its train
+# AUC lands 2.5e-4 from the record's, on the CPU as on the card), and
+# what phases 4, 5 and 12 trained (cell -> {"booster", ...})
+FULLSIZE_L2_PARAMS = dict(HEADLINE_PARAMS, objective="regression")
+FULLSIZE_L2_ITERS = 8
+FULLSIZE_AUC_TOL = 1e-3
+FULLSIZE = {}
 
 
 def log(msg: str) -> None:
@@ -2254,6 +2285,18 @@ def served_in_bucket(srv, X, bucket: int):
         for o in range(0, len(X), bucket)])
 
 
+def serve_train_data(rng):
+    """The serving legs' training rows ``(X, y)``, drawn first from
+    ``rng`` (seed 11)."""
+    import numpy as np
+    X = rng.normal(size=(SERVE_TRAIN_ROWS, HEADLINE_FEATURES)).astype(
+        np.float32)
+    y = (X[:, 0] * 2 + X[:, 1] - X[:, 2]
+         + rng.normal(scale=1.0, size=SERVE_TRAIN_ROWS) > 0).astype(
+             np.float32)
+    return X, y
+
+
 def serve_phase(lgb, counters, card: str) -> dict:
     """Phase 12: the bench's serving legs through the port on the card.
     -> the training run's kernel launches."""
@@ -2265,13 +2308,11 @@ def serve_phase(lgb, counters, card: str) -> dict:
     from tools.load_harness import sweep
     F = HEADLINE_FEATURES
     rng = np.random.RandomState(11)
-    X = rng.normal(size=(SERVE_TRAIN_ROWS, F)).astype(np.float32)
-    y = (X[:, 0] * 2 + X[:, 1] - X[:, 2]
-         + rng.normal(scale=1.0, size=SERVE_TRAIN_ROWS) > 0).astype(
-             np.float32)
+    X, y = serve_train_data(rng)
     ds = lgb.Dataset(X, label=y, params={"max_bin": SERVE_PARAMS["max_bin"]})
     bst, _, launches = train_path(lgb, "serve model", counters,
                                   SERVE_PARAMS, ds, SERVE_ITERS)
+    FULLSIZE["serving"] = {"booster": bst}
     del X, ds
     # 63 leaves: every wave has at most 32 slots, so the fused K1 builds
     # every histogram and K2 and K3 have no wave to run
@@ -4638,7 +4679,7 @@ OBS_FAULT_ITERS = 8
 OBS_STALL_S = "2"
 OBS_DART_DRIFT = {"boosting": "dart", "drop_rate": 0.5, "skip_drop": 0.0}
 OBS_QPS = 5_000.0
-OBS_COST_RUNS = 6            # plane-toggled headline runs: 90 pairs
+OBS_COST_RUNS = 32           # plane-toggled headline runs: 480 pairs
 OBS_COST_BOUND_MS = 2.0      # the held median of on - off, ms/iter
 # every switch of the contracts: unset before and after each run
 OBS_SWITCHES = ("LGBM_TPU_PROFILE", "LGBM_TPU_PROFILE_WINDOWS",
@@ -6256,6 +6297,256 @@ def app_phase(lgb, X, y, small_rows, head_ref: dict, small_ref: dict,
     return by_part
 
 
+def widest_leaf_gap(rec: dict, trees) -> dict:
+    """Over the leading trees whose structure is the record's, the leaf
+    whose value moved most: its tree, leaf, row count and both values."""
+    import numpy as np
+    from lightgbm_tpu_torch.basic import Booster
+    ref = Booster(model_str=rec["model"], device="cpu")._gbdt.models
+    out = None
+    for i, (a, b) in enumerate(zip(ref, trees)):
+        n = int(a.num_leaves)
+        if n != int(b.num_leaves) or any(
+                not np.array_equal(getattr(a, k)[:n - 1],
+                                   getattr(b, k)[:n - 1])
+                for k in ("split_feature", "threshold", "decision_type",
+                          "left_child", "right_child")):
+            break
+        gap = np.abs(np.asarray(a.leaf_value[:n], np.float64)
+                     - np.asarray(b.leaf_value[:n], np.float64))
+        j = int(np.argmax(gap))
+        if gap[j] > 0 and (out is None or gap[j] > out["gap"]):
+            out = {"tree": i, "leaf": j, "gap": float(gap[j]),
+                   "rows": int(a.leaf_count[j]),
+                   "record": float(a.leaf_value[j]),
+                   "card": float(b.leaf_value[j])}
+    return out
+
+
+def against_record(rec: dict, bst) -> dict:
+    """A Booster of the port against a record: identical trees (by
+    digest, from the first), the tree digest, and ``model_flip_report``'s
+    first divergence; raises where that divergence is not a near-tie."""
+    from lightgbm_tpu_torch.parallel.envelope import model_flip_report
+    from tools.torch_fullsize_ref import tree_digests
+    got, want = tree_digests(bst._gbdt.models), rec["tree_digests"]
+    same = 0
+    while same < min(len(got), len(want)) and got[same] == want[same]:
+        same += 1
+    rep = model_flip_report(rec["model"], bst.model_to_string())
+    if rep["flip_tree"] is not None:
+        first = {"tree": rep["flip_tree"], "node": rep["flip_node"],
+                 "kind": rep["flip_kind"], "gain_record": rep["gain_a"],
+                 "gain_card": rep["gain_b"],
+                 "abs_gain_gap": rep["abs_gain_gap"],
+                 "rel_gain_gap": rep["rel_gain_gap"]}
+    elif same < min(len(got), len(want)):
+        first = {"tree": same, "kind": "leaf_values"}   # same structure
+    elif len(got) != len(want):
+        first = {"tree": same, "kind": "tree_count"}
+    else:
+        first = None
+    if not rep["near_tie"]:
+        raise AssertionError(f"{rec['cell']}: the first divergence from the "
+                             f"JAX package's model is not a near-tie: {rep}")
+    return {"trees": len(got), "record_trees": len(want),
+            "identical_trees": same,
+            "identical": (first is None and bst.digest(include_scores=False)
+                          == rec["digest_trees"]),
+            "first_divergence": first, "near_tie": rep["near_tie"],
+            "max_leaf_value_gap": rep["max_leaf_value_gap"],
+            "widest_leaf_gap": widest_leaf_gap(rec, bst._gbdt.models)}
+
+
+def sample_raw_check(rec: dict, raw) -> dict:
+    """Raw scores of the record's sample rows against the record's host
+    walk (f64) rounded once to f32: rows bitwise that, the worst distance
+    in f32 ulp (raises past 1)."""
+    import numpy as np
+    from tools.torch_fullsize_ref import from_hex
+    host = from_hex(rec["sample"]["host_raw"])
+    got = np.asarray(raw, np.float64)
+    bitwise = int(np.sum(got.astype(np.float32) == host.astype(np.float32)))
+    worst = ulp_check(f"{rec['cell']} sample raw scores", got, host)
+    return {"rows": len(host), "bitwise_rows": bitwise, "worst_ulp": worst}
+
+
+@contextlib.contextmanager
+def host_gradients(moved: list):
+    """Every GBDT iteration on the card takes its gradients from the CPU:
+    the objective's ``get_gradients_k`` on a host copy of the card's
+    scores (torch's host sigmoid, ROADMAP C6), the result sent back.  For
+    each iteration ``moved`` gets the rows whose gradient or hessian
+    differs between the card's own gradients and the host's, and the rows
+    whose int8h quanta (each side quantized by its own absmax, on the
+    card) differ."""
+    import torch
+    from lightgbm_tpu_torch.boosting.gbdt import GBDT
+    from lightgbm_tpu_torch.ops.histogram import pack_values_q
+    on_card = GBDT.gradients
+
+    def on_host(self):
+        g_dev, h_dev = on_card(self)
+        obj = self.objective
+        kept = obj.label, obj.weight
+        obj.label = obj.label.cpu()
+        obj.weight = None if obj.weight is None else obj.weight.cpu()
+        try:
+            g, h = obj.get_gradients_k(self.scores.cpu())
+        finally:
+            obj.label, obj.weight = kept
+        g, h = g.to(g_dev.device), h.to(h_dev.device)
+        n = g.shape[0]
+        qd, _ = pack_values_q(g_dev[:, 0], h_dev[:, 0], "int8h", n)
+        qh, _ = pack_values_q(g[:, 0], h[:, 0], "int8h", n)
+        rows = torch.stack([((g_dev != g) | (h_dev != h)).any(1).sum(),
+                            (qd != qh).any(0).sum()]).tolist()
+        moved.append({"gradient_rows": rows[0], "quanta_rows": rows[1]})
+        return g, h
+
+    GBDT.gradients = on_host
+    try:
+        yield
+    finally:
+        GBDT.gradients = on_card
+
+
+def fullsize_binary(lgb, counters, cell: str, rec: dict, fs: dict, X, y,
+                    ds, rounds: int, card: str, Xv=None, yv=None,
+                    **kw) -> dict:
+    """One binary cell: its model from phases 4, 5 or 12 against the
+    record, the AUCs beside the record's, the sample rows' raw scores of
+    an identical model; then the same training with the CPU's gradients
+    against the record.  -> the host-gradient run's launches."""
+    import numpy as np
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    from lightgbm_tpu_torch.serve import compile_model
+    bst = fs["booster"]
+    res = against_record(rec, bst)
+    ref = rec["metrics"]
+    if Xv is None:
+        auc = fs.get("train_auc")
+        if auc is None:
+            auc = binary_auc(y, bst.predict(X))
+        res["train_auc"], res["record_train_auc"] = auc, ref["train_auc"]
+        gap = abs(auc - ref["train_auc"])
+    else:
+        # the train AUC of every tree, beside the record's (not held: the
+        # two models stop at other iterations)
+        res.update(valid_auc=fs["valid_auc"],
+                   record_valid_auc=ref["valid_auc"],
+                   best_iteration=bst.best_iteration,
+                   record_best_iteration=ref["best_iteration"],
+                   train_auc=binary_auc(y, bst.predict(
+                       X, num_iteration=bst.current_iteration())),
+                   record_train_auc=ref["train_auc"])
+        gap = abs(fs["valid_auc"] - ref["valid_auc"])
+    if not gap <= FULLSIZE_AUC_TOL:
+        raise AssertionError(f"{cell}: AUC {gap:.3g} from the record's "
+                             f"(tolerance {FULLSIZE_AUC_TOL})")
+    rows = np.asarray(rec["sample"]["rows"])
+    if res["identical"]:
+        if cell == "serving":
+            raw = compile_model(bst).predict_raw(X[rows])
+        else:
+            raw = bst.predict(X[rows], num_iteration=bst.current_iteration(),
+                              raw_score=True)
+        res["sample_raw"] = sample_raw_check(rec, raw)
+    moved = []
+    with host_gradients(moved):
+        hbst, seconds, launches = train_path(
+            lgb, f"full-size {cell}, gradients from the CPU", counters,
+            rec["params"], ds, rounds, **kw)
+    hres = against_record(rec, hbst)
+    flip = (res["first_divergence"] or {}).get("tree")
+    res["host_gradients"] = {
+        "identical_trees": hres["identical_trees"],
+        "identical": hres["identical"],
+        "first_divergence": hres["first_divergence"],
+        "widest_leaf_gap": hres["widest_leaf_gap"],
+        "seconds": round(seconds, 3),
+        "moved_iter0": moved[0],
+        "moved_at_card_flip": (moved[flip] if flip is not None
+                               and flip < len(moved) else None),
+        "iterations_with_moved_quanta": sum(m["quanta_rows"] > 0
+                                            for m in moved)}
+    if Xv is None:
+        res["host_gradients"]["train_auc"] = binary_auc(y, hbst.predict(X))
+    phase_line(f"fullsize_{cell}", card, **res)
+    return launches
+
+
+def fullsize_phase(lgb, counters, ds, X, z, small_xy, ds_small, dv_small,
+                   card: str) -> dict:
+    """Phase 31: the card's full-size models against the JAX package's
+    recorded models.  -> launches by path."""
+    import numpy as np
+    from tools.torch_fullsize_ref import data_sha256, load_record
+    recs = {c: load_record(c)
+            for c in ("headline", "headline_l2", "small_data", "serving")}
+    y = (z > 0).astype(np.float32)
+    z32 = z.astype(np.float32)
+    Xs, ys, Xv, yv = small_xy
+    Xsv, ysv = serve_train_data(np.random.RandomState(11))
+    data = {"headline": (X, y), "headline_l2": (X, z32),
+            "small_data": (Xs, ys, Xv, yv), "serving": (Xsv, ysv)}
+    params = {"headline": (HEADLINE_PARAMS, HEADLINE_ITERS, None),
+              "headline_l2": (FULLSIZE_L2_PARAMS, FULLSIZE_L2_ITERS, None),
+              "small_data": (TRAIN_CONF, SMALL_ITERS, SMALL_EARLY_STOP),
+              "serving": (SERVE_PARAMS, SERVE_ITERS, None)}
+    for cell, rec in recs.items():
+        if data_sha256(*data[cell]) != rec["data"]["sha256"]:
+            raise AssertionError(f"{cell}: the data's sha256 is not the "
+                                 f"record's")
+        p, rounds, stop = params[cell]
+        if (rec["params"], rec["rounds"], rec["early_stopping_rounds"]) \
+                != (p, rounds, stop):
+            raise AssertionError(f"{cell}: the record's parameters are not "
+                                 f"this script's")
+    out = {}
+
+    # headline_l2: trained here, bitwise the record
+    dsl = relabel(ds, z32)
+    bst, _, out["fullsize_l2"] = train_path(
+        lgb, "full-size headline_l2", counters, FULLSIZE_L2_PARAMS, dsl,
+        FULLSIZE_L2_ITERS)
+    need(out["fullsize_l2"], ("route", "route_values", "hist_route",
+                              "hist_compact"), "the full-size L2 path",
+         absent=("split_scan",))
+    rec = recs["headline_l2"]
+    res = against_record(rec, bst)
+    pred = bst.predict(X)
+    d = pred.astype(np.float64) - z32
+    res.update(train_l2=float(np.mean(d * d)),
+               record_train_l2=rec["metrics"]["train_l2"])
+    if not res["identical"]:
+        raise AssertionError(f"headline_l2: the card's L2 model is not the "
+                             f"JAX package's: {res}")
+    rows = np.asarray(rec["sample"]["rows"])
+    res["sample_raw"] = sample_raw_check(rec, bst.predict(
+        X[rows], raw_score=True))
+    phase_line("fullsize_headline_l2", card, **res)
+    del bst, dsl
+
+    # the binary cells: phases 4, 5 and 12's models, then the CPU's
+    # gradients on the card
+    out["fullsize_headline"] = fullsize_binary(
+        lgb, counters, "headline", recs["headline"], FULLSIZE["headline"],
+        X, y, ds, HEADLINE_ITERS, card)
+    out["fullsize_small_data"] = fullsize_binary(
+        lgb, counters, "small_data", recs["small_data"],
+        FULLSIZE["small_data"], Xs, ys, ds_small, SMALL_ITERS, card, Xv=Xv,
+        yv=yv, valid_sets=[dv_small], valid_names=["valid"],
+        early_stopping_rounds=SMALL_EARLY_STOP, verbose_eval=False)
+    dsv = lgb.Dataset(Xsv, label=ysv,
+                      params={"max_bin": SERVE_PARAMS["max_bin"]})
+    out["fullsize_serving"] = fullsize_binary(
+        lgb, counters, "serving", recs["serving"], FULLSIZE["serving"], Xsv,
+        ysv, dsv, SERVE_ITERS, card)
+    FULLSIZE.clear()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6358,6 +6649,7 @@ def main() -> int:
     torch.cuda.synchronize()
     head_ref["pred"] = pred
     auc = binary_auc(y, pred)
+    FULLSIZE["headline"] = {"booster": bst, "train_auc": auc}
     log(f"headline: train auc {auc:.5f}; digest "
         f"{bst.digest(include_scores=False)}")
     if pred.shape != (HEADLINE_ROWS,) or not np.isfinite(pred).all():
@@ -6390,6 +6682,7 @@ def main() -> int:
     small_ref = {"stop": bst.current_iteration(),
                  "best": bst.best_iteration, "digest": bst.digest(),
                  "pred": pred}
+    FULLSIZE["small_data"] = {"booster": bst, "valid_auc": vauc}
     if pred.shape != (SMALL_VALID,) or not np.isfinite(pred).all():
         raise AssertionError("valid predictions are not finite [n] values")
     if not vauc >= VALID_AUC_GATE:
@@ -6551,6 +6844,13 @@ def main() -> int:
     by_path.update(app_phase(lgb, X, y, (Xs, ys, Xv, yv), head_ref,
                              small_ref, card))
     log(f"phase 30 {time.time() - t0:.1f} s")
+
+    # 31. full-size parity: the card's models against the JAX package's
+    t0 = time.time()
+    by_path.update(fullsize_phase(lgb, counters, ds, X, z,
+                                  (Xs, ys, Xv, yv), ds_small, dv_small,
+                                  card))
+    log(f"phase 31 {time.time() - t0:.1f} s")
 
     for e in entries:
         # a categorical entry counts its kernel's launches on the

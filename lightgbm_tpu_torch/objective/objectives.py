@@ -42,6 +42,70 @@ from ..ops.split import prefix_sum, sort_key
 RANK_CHUNK_PAIRS = 8_000_000
 
 
+# numpy 2.0's float reduction order (``pairwise_sum`` of
+# numpy/_core/src/umath/loops_utils.h.src, called on 8,192-element
+# buffers): 8 running sums over blocks of up to 128 values, blocks halved
+# at multiples of 8, and the buffers' sums added in order from 0
+HOST_SUM_BUFFER = 8192
+HOST_SUM_BLOCK = 128
+HOST_SUM_UNROLL = 8
+
+
+def _pairwise_rows(a: np.ndarray) -> np.ndarray:
+    """numpy's ``pairwise_sum`` of each row of ``a`` ``[k, n]``, in
+    ``a``'s dtype."""
+    n = a.shape[1]
+    u = HOST_SUM_UNROLL
+    if n < u:
+        acc = np.zeros(a.shape[0], a.dtype)
+        for i in range(n):
+            acc = acc + a[:, i]
+        return acc
+    if n <= HOST_SUM_BLOCK:
+        m = n - n % u
+        r = a[:, :u].copy()
+        for i in range(u, m, u):
+            r += a[:, i:i + u]
+        acc = (((r[:, 0] + r[:, 1]) + (r[:, 2] + r[:, 3]))
+               + ((r[:, 4] + r[:, 5]) + (r[:, 6] + r[:, 7])))
+        for i in range(m, n):
+            acc = acc + a[:, i]
+        return acc
+    half = n // 2
+    half -= half % u
+    return _pairwise_rows(a[:, :half]) + _pairwise_rows(a[:, half:])
+
+
+def host_sum(a: np.ndarray):
+    """The sum of a host array in one fixed order, in its dtype: the order
+    numpy 2.0 sums in, whatever numpy this host has.
+
+    A label mean taken with ``ndarray.mean`` follows the installed
+    numpy's reduction, and that order changed between numpy builds (a
+    newer numpy on an AVX-512 host rounds the headline's f32 latent mean
+    an ulp away), so an init score, and every leaf value after it, would
+    depend on the host.  The JAX package's models were trained with
+    numpy 2.0's order."""
+    a = np.ascontiguousarray(a).ravel()
+    n, B = a.shape[0], HOST_SUM_BUFFER
+    full = n // B
+    parts = []
+    if full:
+        parts.extend(_pairwise_rows(a[:full * B].reshape(full, B)))
+    if n % B:
+        parts.extend(_pairwise_rows(a[full * B:][None, :]))
+    acc = a.dtype.type(0)
+    for p in parts:
+        acc = a.dtype.type(acc + p)
+    return acc
+
+
+def host_mean(a: np.ndarray):
+    """``a.mean()`` in :func:`host_sum`'s order."""
+    a = np.asarray(a)
+    return host_sum(a) / a.dtype.type(a.size)
+
+
 def _apply_weight(grad, hess, weight):
     if weight is None:
         return grad, hess
@@ -99,8 +163,8 @@ class ObjectiveFunction:
         y = self._label_np
         if self._weight_np is not None:
             w = self._weight_np
-            return float((y * w).sum() / w.sum())
-        return float(y.mean())
+            return float(host_sum(y * w) / host_sum(w))
+        return float(host_mean(y))
 
     # True when boost_from_score keys on the weighted label mean
     # (xentlambda uses the plain one): multi-process init picks the
@@ -132,7 +196,7 @@ class ObjectiveFunction:
         use_w = self.boost_mean_weighted and self._weight_np is not None
         w = (np.asarray(self._weight_np, np.float64) if use_w
              else np.ones_like(y))
-        sums = allgather([float((y * w).sum()), float(w.sum())])
+        sums = allgather([float(host_sum(y * w)), float(host_sum(w))])
         gmean = (sum(s[0] for s in sums)
                  / max(sum(s[1] for s in sums), 1e-30))
         saved = (self._label_np, self._weight_np)
@@ -534,7 +598,8 @@ class CrossEntropyLambda(ObjectiveFunction):
         return grad, torch.clamp(hess, min=1e-15)
 
     def boost_from_score(self):
-        pavg = min(max(float(self._label_np.mean()), 1e-15), 1.0 - 1e-15)
+        pavg = min(max(float(host_mean(self._label_np)), 1e-15),
+                   1.0 - 1e-15)
         return float(np.log(-np.log1p(-pavg)))
 
     def convert_output(self, score):

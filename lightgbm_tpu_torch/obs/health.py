@@ -32,6 +32,7 @@ iteration sleep past the deadline (:func:`stall_fault`),
 from __future__ import annotations
 
 import json
+import math
 import os
 import threading
 import time
@@ -368,13 +369,14 @@ def check_scores(scores, window: int) -> bool:
     """Non-finite detection over the score state at an iteration boundary
     (a NaN/inf gradient or hessian poisons the scores it folds into
     within one iteration): a host array, or a tensor checked on its own
-    device and copied to the host only when a value is not finite.
-    Returns True when clean."""
+    device by one sum (a non-finite element makes it non-finite) and
+    copied to the host only when the sum is not finite (a finite sum
+    that overflows lands in the exact check too).  Returns True when
+    clean."""
     from .telemetry import counter_add
     counter_add("health.sentinel_checks")
     if not isinstance(scores, np.ndarray):
-        import torch
-        if bool(torch.isfinite(scores).all()):
+        if math.isfinite(scores.sum().item()):
             return True
         scores = scores.cpu().numpy()
     finite = bool(np.isfinite(scores).all())

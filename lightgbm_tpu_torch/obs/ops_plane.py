@@ -141,7 +141,12 @@ class MetricsRegistry:
             sk = self.spans.get(name)
             if sk is None:
                 sk = self.spans[name] = RollingQuantiles()
-            sk.observe(dur_s)
+            # RollingQuantiles.observe, inline: this runs for every span
+            if len(sk._buf) < sk._cap:
+                sk._buf.append(float(dur_s))
+            else:
+                sk._buf[sk.count % sk._cap] = float(dur_s)
+            sk.count += 1
 
     def lock_wait(self, name: str, wait_s: float,
                   contended: bool = False) -> None:

@@ -79,6 +79,7 @@ def _named_rlock(name: str):
 
 _lock = _named_rlock("telemetry")
 _tls = threading.local()            # per-thread span stack
+_clock, _wall = time.perf_counter, time.time
 
 # -- state (module-level flags keep the disabled path one attribute read)
 _enabled = False
@@ -324,16 +325,18 @@ _NOOP_SPAN = _NoopSpan()
 
 
 class _Span:
-    __slots__ = ("name", "attrs", "t0", "ts", "depth", "ann")
+    __slots__ = ("name", "attrs", "t0", "ts", "depth", "ann", "stack")
 
     def __init__(self, name: str, attrs: Dict[str, Any]):
         self.name = name
         self.attrs = attrs
 
     def __enter__(self):
-        stack = getattr(_tls, "stack", None)
-        if stack is None:
+        try:
+            stack = _tls.stack
+        except AttributeError:
             stack = _tls.stack = []
+        self.stack = stack
         self.depth = len(stack)
         stack.append(self.name)
         ann = _annotator
@@ -345,39 +348,39 @@ class _Span:
                 self.ann = None         # hiccup must not stop the span
         else:
             self.ann = None
-        self.ts = time.time()
-        self.t0 = time.perf_counter()
+        self.ts = _wall()
+        self.t0 = _clock()
         return self.attrs
 
-    def __exit__(self, *exc):
-        dur = time.perf_counter() - self.t0
+    def __exit__(self, exc_type, exc, tb):
+        dur = _clock() - self.t0
         if self.ann is not None:
             try:
-                self.ann.__exit__(*exc)
+                self.ann.__exit__(exc_type, exc, tb)
             except Exception:           # noqa: BLE001 - best effort
                 pass
             self.ann = None
-        stack = _tls.stack
+        name, stack = self.name, self.stack
         parent = ""
-        if stack and stack[-1] is self.name:
+        if stack and stack[-1] is name:
             stack.pop()
-            parent = stack[-1] if stack else ""
-        rank, _ = _rank_world()
+            if stack:
+                parent = stack[-1]
         with _lock:
-            agg = _spans.get(self.name)
+            agg = _spans.get(name)
             if agg is None:
-                agg = _spans[self.name] = [0, 0.0, 0.0]
+                agg = _spans[name] = [0, 0.0, 0.0]
             agg[0] += 1
             agg[1] += dur
             if dur > agg[2]:
                 agg[2] = dur
             sink = _sink
             if sink is not None:
-                sink.span(self.name, dur)
+                sink.span(name, dur)
             if _trace_requested:
-                rec = {"ts": self.ts, "kind": "span", "name": self.name,
-                       "rank": rank, "dur_s": dur, "depth": self.depth,
-                       "parent": parent}
+                rec = {"ts": self.ts, "kind": "span", "name": name,
+                       "rank": _rank_world()[0], "dur_s": dur,
+                       "depth": self.depth, "parent": parent}
                 if self.attrs:
                     rec.update(self.attrs)
                 _trace_write(rec, flush=self.depth == 0)
@@ -399,7 +402,6 @@ def span(name: str, **attrs):
 def counter_add(name: str, n: float = 1) -> None:
     if not _enabled:
         return
-    rank, _ = _rank_world()
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
         sink = _sink
@@ -407,14 +409,13 @@ def counter_add(name: str, n: float = 1) -> None:
             sink.counter(name, n, _counters[name])
         if _trace_requested:
             _trace_write({"ts": time.time(), "kind": "counter",
-                          "name": name, "rank": rank, "add": n,
+                          "name": name, "rank": _rank_world()[0], "add": n,
                           "value": _counters[name]})
 
 
 def gauge_set(name: str, value: Any) -> None:
     if not _enabled:
         return
-    rank, _ = _rank_world()
     with _lock:
         _gauges[name] = value
         sink = _sink
@@ -422,7 +423,8 @@ def gauge_set(name: str, value: Any) -> None:
             sink.gauge(name, value)
         if _trace_requested:
             _trace_write({"ts": time.time(), "kind": "gauge",
-                          "name": name, "rank": rank, "value": value})
+                          "name": name, "rank": _rank_world()[0],
+                          "value": value})
 
 
 def event(kind: str, name: str, **fields) -> None:
@@ -431,7 +433,6 @@ def event(kind: str, name: str, **fields) -> None:
     ``"event"`` with the family under ``"family"``."""
     if not _enabled:
         return
-    rank, _ = _rank_world()
     with _lock:
         key = f"{kind}:{name}"
         _events[key] = _events.get(key, 0) + 1
@@ -440,7 +441,7 @@ def event(kind: str, name: str, **fields) -> None:
             sink.event(key, _events[key])
         if _trace_requested:
             rec = {"ts": time.time(), "kind": "event", "name": name,
-                   "rank": rank, "family": kind}
+                   "rank": _rank_world()[0], "family": kind}
             if fields:
                 rec.update(fields)
             _trace_write(rec)

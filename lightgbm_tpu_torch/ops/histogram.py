@@ -132,10 +132,10 @@ def pack_values_q(grad: torch.Tensor, hess: torch.Tensor, mode: str,
     """Quantized value rows: ``-> (vals int8 [C, n_pad], scales f32 [2])``.
 
     Port of the JAX package's ``pack_values_q`` in its exact operation
-    order: ``x * (127 / scale)`` in float32, round half to even, clip to
-    +-127; the ``hilo8`` step ``scale / 127`` is ``scale * (1 / 127)``
-    and the residual ``x - hi * step`` one fused multiply-add, as the
-    reference's tree build compiles them.
+    order: ``x * (127 / scale)`` in float32 (the quotient rounded once),
+    round half to even, clip to +-127; the ``hilo8`` step ``scale / 127``
+    is ``scale * (1 / 127)`` and the residual ``x - hi * step`` one fused
+    multiply-add, as the reference's tree build compiles them.
     mode="int8": C=3 ``(g, h, 1)``; "int8h": C=4 ``(g, h_hi, h_lo, 1)``;
     "int8hh": C=5 ``(g_hi, g_lo, h_hi, h_lo, 1)``.
     ``scales`` (``[2]`` f32 ``(sg, sh)``) replaces the scales derived
@@ -156,7 +156,11 @@ def pack_values_q(grad: torch.Tensor, hess: torch.Tensor, mode: str,
         sg, sh = scales[0], scales[1]
 
     def q(x, scale):
-        t = x * (127.0 / scale)
+        # 127 / scale rounded once: torch's ``float / tensor`` multiplies
+        # by the reciprocal, an ulp off, which moves the quantum of a row
+        # that lands within an ulp of a half (one row of the 1M-row L2
+        # headline's seventh tree)
+        t = x * torch.div(torch.full_like(scale, 127.0), scale)
         return torch.clamp(torch.round(t), -127, 127)
 
     def hilo8(x, scale):

@@ -146,6 +146,24 @@ def test_check_scores_on_a_tensor_is_the_array_check(as_tensor):
     assert thealth.state()["detail"]["bad_elements"] == 2
 
 
+@pytest.mark.parametrize("values,clean", [
+    ([3e38, 3e38, -1.0], True),         # finite, but the f32 sum overflows
+    ([np.inf, -np.inf, 1.0], False),    # the sum is NaN
+    ([1.0, -np.inf, 2.0], False),
+])
+def test_check_scores_on_a_tensor_by_its_sum(values, clean):
+    """The tensor check is one sum on the scores' device: a non-finite
+    element makes the sum non-finite, and a finite sum that overflows
+    goes to the exact check, so the result is the array check's."""
+    scores = np.array(values, np.float32).reshape(-1, 1)
+    for h in (jhealth, thealth):
+        h._set_active(True)
+        h.reset()
+    assert thealth.check_scores(torch.from_numpy(scores), window=1) is clean
+    assert jhealth.check_scores(scores, window=1) is clean
+    assert thealth.state()["detail"] == jhealth.state()["detail"]
+
+
 # ---------------------------------------------------------------------------
 # numerics sentinels in training
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 """What the live ops plane and the numerics sentinels cost the headline
 of ``chip_smoke.py`` on a GPU, and where that cost would come from.
 
-    python3 tools/plane_cost.py [--runs 6] [--piece-runs 3] [--turns 4]
-                                [--out FILE]
+    python3 tools/plane_cost.py [--runs 32] [--piece-runs 3] [--turns 4]
+                                [--situ-runs 3] [--out FILE]
+    python3 tools/plane_cost.py --summarize FILE ...
 
 Builds the kernels and the headline (1M x 28, ``max_bin`` 63, 255
 leaves, 32 iterations), then:
@@ -15,22 +16,32 @@ leaves, 32 iterations), then:
    shape (``[1M, 1]`` f32, a sync included);
 2. counts the sink calls of one plane-mounted headline run by kind, and
    multiplies them by (1)'s per-call times: the sink's own ms/iter;
-3. runs ``chip_smoke.plane_cost_path`` with ``--runs`` runs: the plane's
+3. times the plane's own calls from inside ``--situ-runs`` plane-on
+   headline runs (:class:`InSitu`): ms an iteration by call, with the
+   caches as training leaves them;
+4. runs ``chip_smoke.plane_cost_path`` with ``--runs`` runs: the plane's
    live work toggled by iteration inside each run, the median of the
-   pairs' on - off differences (what phase 27 holds);
-4. toggles each piece of that work alone (telemetry with its sink, the
+   pairs' on - off differences (what phase 27 holds), and the garbage
+   collector's passes meanwhile;
+5. toggles each piece of that work alone (telemetry with its sink, the
    sentinels, the health marks), all of them, and none (the pairs' null
    spread), ``--piece-runs`` runs each in turns, and keeps every
    iteration's milliseconds and flag;
-5. runs whole headline runs off and with the plane and sentinels on, in
+6. runs whole headline runs off and with the plane and sentinels on, in
    ``--turns`` pairs of alternating order (off-on, on-off, ...), and
    reports each pair's on - off steady ms/iter (``IterClock``).
+Stages 4-6 are left out when their count is 0.
 
 Prints one JSON object as its last line, and writes the whole result
 (every iteration's milliseconds included) to ``--out`` when given.
+``--summarize`` reads such files (or a smoke log's phase 27) and prints
+the toggled pairs' spread and what it means for the gate at 90 pairs
+and at its own count (:func:`spread`).
 """
 import argparse
+import gc
 import json
+import math
 import os
 import statistics
 import sys
@@ -85,6 +96,98 @@ def host_costs() -> dict:
     return out
 
 
+class GcPauses:
+    """Counts and times the garbage collector's passes by generation
+    while it is entered."""
+
+    def __init__(self):
+        self.passes = Counter()
+        self.seconds = Counter()
+        self._t0 = 0.0
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            gen = info["generation"]
+            self.passes[gen] += 1
+            self.seconds[gen] += time.perf_counter() - self._t0
+
+    def __enter__(self):
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+        return False
+
+    def report(self) -> dict:
+        return {f"gen{g}": {"passes": self.passes[g],
+                            "ms": 1e3 * self.seconds[g]}
+                for g in sorted(self.passes)}
+
+
+class InSitu:
+    """Times the plane's own calls from inside a plane-on run: every
+    span's enter and exit, the counters, the sentinels' checks and
+    switch reads, and the health marks (the wrapper's own overhead
+    included)."""
+
+    TARGETS = ((telemetry._Span, "__enter__"), (telemetry._Span, "__exit__"),
+               (obs, "counter_add"), (health, "check_scores"),
+               (health, "sentinels_enabled"), (health, "mark_ready"))
+
+    def __init__(self):
+        self.seconds = Counter()
+        self.calls = Counter()
+        self._saved = []
+
+    def _wrap(self, fn, key):
+        seconds, calls, clock = self.seconds, self.calls, time.perf_counter
+
+        def timed(*args, **kw):
+            t0 = clock()
+            try:
+                return fn(*args, **kw)
+            finally:
+                seconds[key] += clock() - t0
+                calls[key] += 1
+        return timed
+
+    def __enter__(self):
+        for owner, attr in self.TARGETS:
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+            setattr(owner, attr, self._wrap(fn, attr))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        self._saved = []
+        return False
+
+
+def in_situ(ds, counters, head_ref: dict, runs: int) -> dict:
+    """(3a): ms an iteration inside the plane's own calls, by call,
+    over ``runs`` whole headline runs with the plane and sentinels on."""
+    on_env = {"LGBM_TPU_OPS_PORT": "0", "LGBM_TPU_SENTINELS": "1"}
+    timer = InSitu()
+    for run in range(runs):
+        with cs.obs_env(**on_env), timer:
+            bst, _, _ = cs.train_path(
+                lgb, f"headline, plane on, timed inside ({run + 1})",
+                counters, cs.HEADLINE_PARAMS, ds, cs.HEADLINE_ITERS)
+        if bst.digest() != head_ref["digest"]:
+            raise AssertionError("plane timed inside: another model")
+    iters = runs * cs.HEADLINE_ITERS
+    out = {k: {"calls_per_iter": timer.calls[k] / iters,
+               "ms_per_iter": 1e3 * timer.seconds[k] / iters}
+           for k in timer.calls}
+    out["total_ms_per_iter"] = sum(v["ms_per_iter"] for v in out.values())
+    return out
+
+
 class CountingSink:
     """Stands in for the registry and counts its calls by kind."""
 
@@ -125,7 +228,7 @@ def sink_calls(ds, counters) -> dict:
 
 
 def pieces(ds, counters, runs: int, head_ref: dict) -> dict:
-    """(4): each piece toggled alone, all, none; every iteration kept."""
+    """(5): each piece toggled alone, all, none; every iteration kept."""
     sets = {"all": cs.PlaneToggle.PIECES, "none": ()}
     sets.update({p: (p,) for p in cs.PlaneToggle.PIECES})
     out = {k: {"diffs_ms": [], "iter_ms": [], "flags": []} for k in sets}
@@ -153,7 +256,7 @@ def pieces(ds, counters, runs: int, head_ref: dict) -> dict:
 
 
 def whole_runs(ds, counters, turns: int, head_ref: dict) -> dict:
-    """(5): paired whole runs, order alternating."""
+    """(6): paired whole runs, order alternating."""
     on_env = {"LGBM_TPU_OPS_PORT": "0", "LGBM_TPU_SENTINELS": "1"}
     pairs = []
     for turn in range(turns):
@@ -175,11 +278,60 @@ def whole_runs(ds, counters, turns: int, head_ref: dict) -> dict:
             "median_diff_ms": statistics.median(diffs)}
 
 
+# the pairs phase 27 holds: 15 a 32-iteration run (the first unpaired)
+GATE_PAIRS = cs.OBS_COST_RUNS * ((cs.HEADLINE_ITERS - 1) // 2)
+
+
+def spread(diffs: list, bound: float) -> dict:
+    """The pairs' median and interquartile range, the median's standard
+    error (1.2533 sigma / sqrt(n), sigma = IQR / 1.349) at the pairs'
+    own count, at 90 (the gate to PR 22) and at ``GATE_PAIRS``, and the
+    normal chance that a median of so many such pairs lands past
+    ``bound``."""
+    d = sorted(diffs)
+    q1, q3 = (statistics.quantiles(d, n=4) + [0.0])[0:3:2]
+    med, sigma = statistics.median(d), (q3 - q1) / 1.349
+    out = {"pairs": len(d), "median_ms": med, "iqr_ms": q3 - q1}
+    for n in (len(d), 90, GATE_PAIRS):
+        se = 1.2533 * sigma / math.sqrt(n)
+        out[f"se_{n}_ms"] = se
+        out[f"p_past_bound_{n}"] = 0.5 * math.erfc((bound - med)
+                                                   / (se * math.sqrt(2)))
+    return out
+
+
+def saved_cost(path: str) -> dict:
+    """The toggled stage of a result this tool saved, or of phase 27's
+    line in a log of ``chip_smoke.py``."""
+    with open(path) as f:
+        text = f.read()
+    if text.startswith("{"):
+        return json.loads(text)["in_run"]
+    for line in text.splitlines():
+        if line.startswith('{"phase": 27,'):
+            return json.loads(line)["cost"]
+    raise ValueError(f"{path}: no toggled plane cost")
+
+
+def summarize(paths: list) -> int:
+    """``--summarize FILE ...``: :func:`spread` of each saved result's
+    toggled stage (or a smoke log's phase 27), one JSON line a file (no
+    card needed)."""
+    for path in paths:
+        cost = saved_cost(path)
+        print(json.dumps({"file": path, **spread(cost["diffs_ms"],
+                                                 cost["bound_ms"])}))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--summarize"]:
+        return summarize(sys.argv[2:])
     ap = argparse.ArgumentParser()
-    ap.add_argument("--runs", type=int, default=6)
+    ap.add_argument("--runs", type=int, default=cs.OBS_COST_RUNS)
     ap.add_argument("--piece-runs", type=int, default=3)
     ap.add_argument("--turns", type=int, default=4)
+    ap.add_argument("--situ-runs", type=int, default=3)
     ap.add_argument("--out")
     args = ap.parse_args()
     card = cs.card_line()
@@ -209,15 +361,22 @@ def main() -> int:
         n * per.get(k, res["host_us"]["registry_span_us"])
         for k, n in calls.items())
     print(json.dumps(res), flush=True)
-    cost = cs.plane_cost_path(lgb, counters, ds, head_ref, {},
-                              runs=args.runs, hold=False)
-    per_run = [cost["diffs_ms"][i:i + len(cost["diffs_ms"]) // args.runs]
-               for i in range(0, len(cost["diffs_ms"]),
-                              len(cost["diffs_ms"]) // args.runs)]
-    cost["per_run_median_ms"] = [statistics.median(d) for d in per_run]
-    res["in_run"] = cost
-    res["pieces"] = pieces(ds, counters, args.piece_runs, head_ref)
-    res["whole_runs"] = whole_runs(ds, counters, args.turns, head_ref)
+    res["in_situ"] = in_situ(ds, counters, head_ref, args.situ_runs)
+    print(json.dumps({"in_situ": res["in_situ"]}), flush=True)
+    if args.runs:
+        pauses = GcPauses()
+        with pauses:
+            cost = cs.plane_cost_path(lgb, counters, ds, head_ref, {},
+                                      runs=args.runs, hold=False)
+        cost["gc"] = pauses.report()
+        d, n = cost["diffs_ms"], len(cost["diffs_ms"]) // args.runs
+        cost["per_run_median_ms"] = [statistics.median(d[i:i + n])
+                                     for i in range(0, len(d), n)]
+        res["in_run"] = cost
+    if args.piece_runs:
+        res["pieces"] = pieces(ds, counters, args.piece_runs, head_ref)
+    if args.turns:
+        res["whole_runs"] = whole_runs(ds, counters, args.turns, head_ref)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f)
