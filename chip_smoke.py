@@ -401,25 +401,34 @@ and the script exits non-zero):
 31. full-size parity — the card's models held to models of the JAX
    package recorded at the same full size on a CPU
    (``tests/data/torch_fullsize/<cell>.json.gz``, written by
-   ``tools/torch_fullsize_ref.py``): phase 4's headline, phase 5's
-   small-data model and phase 12's serving model as they were trained,
-   and ``headline_l2`` (the headline's rows and parameters, objective
-   ``regression`` on the latent, 8 iterations), trained here.  For each
-   cell the data's sha256 and the parameters must be the record's; the
-   trees are compared digest by digest and by
-   ``parallel/envelope.py:model_flip_report`` (identical trees, the
-   first divergence, the leaf-value gap over the identical prefix); a
-   divergence must be a near-tie, ``headline_l2`` bitwise the record
-   (L2's gradient has no transcendental), the train or valid AUC within
-   ``FULLSIZE_AUC_TOL`` of the record's, and a whole identical model's
-   raw scores of the record's
-   4,096 sample rows (through ``Booster.predict`` on the card; for
+   ``tools/torch_fullsize_ref.py``), nine cells: phase 4's headline,
+   phase 5's small-data model, phase 12's serving model, phase 6's float
+   headline, phase 8's identity stream, phase 17's multiclass model and
+   phase 19's ranking model as they were trained (the port's model does
+   not depend on the ``evals_result`` or ``callbacks`` those phases
+   pass), and, trained here, ``headline_l2`` (the headline's rows and
+   parameters, objective ``regression`` on the latent, 8 iterations) and
+   ``dp2_l2`` (the same with ``tree_learner=data`` from a zero init
+   score over a world of two ranks, gloo on one card and NCCL on two,
+   against the JAX package's 2-device mesh).  For each cell the data's
+   sha256 (the stream's: its store's bins and labels) and the
+   parameters must be the record's; the trees are compared digest by
+   digest and by ``parallel/envelope.py:model_flip_report`` (identical
+   trees, the first divergence, the leaf-value gap over the identical
+   prefix); a divergence must be a near-tie, ``headline_l2`` and both
+   ``dp2_l2`` ranks bitwise the record (L2's gradient has no
+   transcendental), each other cell's metric within its named tolerance
+   of the record's (train or valid AUC, ``multi_logloss``, NDCG@10),
+   and a whole identical model's raw scores of the record's 4,096
+   sample rows (through ``Booster.predict`` on the card; for
    ``serving`` the compiled model the server serves) the record's host
-   walk rounded once to f32.  Then each binary cell is trained again on
-   the card with its gradients taken on the CPU (torch's host sigmoid on
-   the card's scores, ROADMAP C6), every iteration counting the rows
-   whose int8h quanta the card's own gradients move: that model is held
-   to the record the same way.
+   walk rounded once to f32.  Then each cell that may part is trained
+   again on the card with its gradients taken on the CPU (the objective
+   on a host copy of its state and of the card's scores: torch's host
+   transcendentals, ROADMAP C6), every gradient call (an iteration's,
+   or a stream block's) counting the rows whose gradients and, on the
+   int8h cells, quanta the card's own gradients move: that model is
+   held to the record the same way.
 
 Each of phases 17-31 prints one ``{"phase": ...}`` JSON line.  A path's
 ms/iter is the wall of the whole ``lgb.train`` call, the
@@ -504,6 +513,9 @@ SERVE_SAME_ROWS = 100_000   # scored alike in every batch shape (ROADMAP C35)
 # train multi_logloss must end at most this share of ln 5 (uniform)
 MC_CLASSES = 5
 MC_ITERS = 8
+MC_PARAMS = {"objective": "multiclass", "num_class": MC_CLASSES,
+             "num_leaves": 255, "max_bin": 63, "learning_rate": 0.1,
+             "min_data_in_leaf": 20, "verbose": -1}
 MC_OVA_ITERS = 2
 MC_LOSS_SHARE = 0.85
 # sum of the served class probabilities: 1 within a few f32 ulps
@@ -653,6 +665,26 @@ FULLSIZE_L2_PARAMS = dict(HEADLINE_PARAMS, objective="regression")
 FULLSIZE_L2_ITERS = 8
 FULLSIZE_AUC_TOL = 1e-3
 FULLSIZE = {}
+# the two-rank data-parallel L2 headline against the JAX package's
+# 2-device mesh: from a zero init score (with boost_from_average the two
+# packages' init scores part in the last bits by design, ROADMAP C27),
+# phase 28's 8 iterations
+FULLSIZE_DP_PARAMS = dict(FULLSIZE_L2_PARAMS, tree_learner="data",
+                          boost_from_average=False)
+FULLSIZE_DP_ITERS = 8
+FULLSIZE_DP_WORLD = 2
+# the metric of each cell that may part from its record at a near-tie,
+# held to the record's within a tolerance set from the port-on-the-CPU's
+# own distance to it (tools/torch_fullsize_ref.py --check cpu; PERF.md
+# section 6): the float headline's train AUC 5.6e-9 and the stream's 0
+# (both without a structural divergence), so the registry's f32_tight;
+# multi_logloss 7.7e-5 (a structural near-tie at tree 16 of 40) and
+# NDCG@10 0 (the record's trees; the card parts at a near-tie flip in
+# tree 1, 9.8e-5 from the record), so metric_coarse
+FULLSIZE_FLOAT_AUC_TOL = 1e-6
+FULLSIZE_MC_LOSS_TOL = 1e-3
+FULLSIZE_NDCG_TOL = 1e-3
+FULLSIZE_STREAM_AUC_TOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -2168,6 +2200,7 @@ def stream_paths(lgb, counters, tmp: str) -> dict:
     if d_str != d_mem:
         raise AssertionError("streamed digest != in-memory digest")
     del mem
+    FULLSIZE["stream"] = {"booster": bst}
 
     # scale: past the int8 row bound the stream runs hhilo
     t0 = time.time()
@@ -2739,9 +2772,7 @@ def multiclass_phase(lgb, counters, ds, X, z, card: str) -> dict:
     from lightgbm_tpu_torch.serve import compile_model
     y = class_labels(z, MC_CLASSES)
     ds5 = relabel(ds, y)
-    params = {"objective": "multiclass", "num_class": MC_CLASSES,
-              "num_leaves": 255, "max_bin": 63, "learning_rate": 0.1,
-              "min_data_in_leaf": 20, "verbose": -1}
+    params = MC_PARAMS
     evals = {}
     bst, seconds, launches = train_path(
         lgb, "multiclass headline", counters, params, ds5, MC_ITERS,
@@ -2760,6 +2791,10 @@ def multiclass_phase(lgb, counters, ds, X, z, card: str) -> dict:
         raise AssertionError(f"multiclass headline: kernels not launched "
                              f"{missing}, split kernel "
                              f"{launches['split_scan']} times")
+    # phase 31 holds this model to the JAX package's record (the port's
+    # model is the same with and without evals_result:
+    # tests/test_torch_fullsize_float.py)
+    FULLSIZE["multiclass"] = {"booster": bst, "dataset": ds5}
     trees = bst._gbdt.models
     if len(trees) != MC_CLASSES * MC_ITERS:
         raise AssertionError(f"{len(trees)} trees, not "
@@ -2941,7 +2976,6 @@ def rank_phase(lgb, counters, card: str, entries) -> dict:
     ds = lgb.Dataset(X, label=rel, group=sizes,
                      params={"max_bin": RANK_PARAMS["max_bin"]}).construct()
     bin_s = time.time() - t0
-    del X
     log(f"rank: {len(sizes)} queries, {len(rel)} docs x {RANK_FEATURES}; "
         f"data {gen_s:.1f} s, binning {bin_s:.1f} s")
     rank_kernel_phase(ds, entries)
@@ -2996,6 +3030,10 @@ def rank_phase(lgb, counters, card: str, entries) -> dict:
     if missing or launches["split_scan"] != 0:
         raise AssertionError(f"rank: kernels not launched {missing}, split "
                              f"kernel {launches['split_scan']} times")
+    # phase 31 holds this model to the JAX package's record (the port's
+    # model is the same with and without callbacks)
+    FULLSIZE["rank"] = {"booster": bst, "data": (X, rel, sizes),
+                        "dataset": ds}
     phase_line("19_rank_mslr_shape", card, docs=len(rel),
                queries=len(sizes), features=RANK_FEATURES,
                binning_s=bin_s, seconds=seconds, iter_ms=iter_ms,
@@ -5417,6 +5455,9 @@ def mg_rank(job_path: str, rank: int, world: int, port: int) -> int:
                                      min(n, (d_rank + 1) * per)))
         if job.get("barrier"):
             out["barrier"] = el_barrier_rank(lgb, job, mine)
+        elif job.get("fullsize"):
+            out["fullsize"] = fullsize_dp_rank(lgb, counters, job, full,
+                                               rank, world)
         elif job.get("mesh_shape"):
             mg_mesh_parts(lgb, counters, job, full, mine, out)
         else:
@@ -6329,11 +6370,12 @@ def against_record(rec: dict, bst) -> dict:
     first divergence; raises where that divergence is not a near-tie."""
     from lightgbm_tpu_torch.parallel.envelope import model_flip_report
     from tools.torch_fullsize_ref import tree_digests
-    got, want = tree_digests(bst._gbdt.models), rec["tree_digests"]
+    g = getattr(bst, "_gbdt", bst)     # a Booster, or a stream's GBDT
+    got, want = tree_digests(g.models), rec["tree_digests"]
     same = 0
     while same < min(len(got), len(want)) and got[same] == want[same]:
         same += 1
-    rep = model_flip_report(rec["model"], bst.model_to_string())
+    rep = model_flip_report(rec["model"], g.save_model_to_string())
     if rep["flip_tree"] is not None:
         first = {"tree": rep["flip_tree"], "node": rep["flip_node"],
                  "kind": rep["flip_kind"], "gain_record": rep["gain_a"],
@@ -6351,11 +6393,11 @@ def against_record(rec: dict, bst) -> dict:
                              f"JAX package's model is not a near-tie: {rep}")
     return {"trees": len(got), "record_trees": len(want),
             "identical_trees": same,
-            "identical": (first is None and bst.digest(include_scores=False)
+            "identical": (first is None and g.digest(include_scores=False)
                           == rec["digest_trees"]),
             "first_divergence": first, "near_tie": rep["near_tie"],
             "max_leaf_value_gap": rep["max_leaf_value_gap"],
-            "widest_leaf_gap": widest_leaf_gap(rec, bst._gbdt.models)}
+            "widest_leaf_gap": widest_leaf_gap(rec, g.models)}
 
 
 def sample_raw_check(rec: dict, raw) -> dict:
@@ -6371,131 +6413,302 @@ def sample_raw_check(rec: dict, raw) -> dict:
     return {"rows": len(host), "bitwise_rows": bitwise, "worst_ulp": worst}
 
 
-@contextlib.contextmanager
-def host_gradients(moved: list):
-    """Every GBDT iteration on the card takes its gradients from the CPU:
-    the objective's ``get_gradients_k`` on a host copy of the card's
-    scores (torch's host sigmoid, ROADMAP C6), the result sent back.  For
-    each iteration ``moved`` gets the rows whose gradient or hessian
-    differs between the card's own gradients and the host's, and the rows
-    whose int8h quanta (each side quantized by its own absmax, on the
-    card) differ."""
+def host_twin(obj):
+    """A copy of an objective with every tensor it holds (labels,
+    weights, lambdarank's query buckets) on the host."""
+    import copy
     import torch
-    from lightgbm_tpu_torch.boosting.gbdt import GBDT
-    from lightgbm_tpu_torch.ops.histogram import pack_values_q
-    on_card = GBDT.gradients
 
-    def on_host(self):
-        g_dev, h_dev = on_card(self)
-        obj = self.objective
-        kept = obj.label, obj.weight
-        obj.label = obj.label.cpu()
-        obj.weight = None if obj.weight is None else obj.weight.cpu()
-        try:
-            g, h = obj.get_gradients_k(self.scores.cpu())
-        finally:
-            obj.label, obj.weight = kept
+    def cpu(v):
+        if torch.is_tensor(v):
+            return v.cpu()
+        if isinstance(v, list):
+            return [cpu(x) for x in v]
+        if isinstance(v, dict):
+            return {k: cpu(x) for k, x in v.items()}
+        return v
+    twin = copy.copy(obj)
+    for k, v in vars(obj).items():
+        setattr(twin, k, cpu(v))
+    return twin
+
+
+@contextlib.contextmanager
+def host_gradients(moved: list, quanta: bool = True):
+    """Every gradient call on the card (the objective's
+    ``get_gradients_k``: once an iteration in memory, once a block in a
+    stream) takes its gradients from the CPU: the same objective on a
+    host copy of its state and of the card's scores (torch's host
+    transcendentals, ROADMAP C6), the result sent back.  For each call
+    ``moved`` gets the rows whose gradient or hessian differs, in any
+    class, between the card's own gradients and the host's and, where
+    ``quanta``, the rows whose int8h quanta (each side quantized by its
+    own absmax per class, on the card) differ; a float mode has no
+    quanta (None)."""
+    import torch
+    from lightgbm_tpu_torch.objective.objectives import ObjectiveFunction
+    from lightgbm_tpu_torch.ops.histogram import pack_values_q
+    on_card = ObjectiveFunction.get_gradients_k
+
+    def on_host(self, score):
+        g_dev, h_dev = on_card(self, score)
+        if score.device.type == "cpu":
+            return g_dev, h_dev
+        g, h = on_card(host_twin(self), score.cpu())
         g, h = g.to(g_dev.device), h.to(h_dev.device)
         n = g.shape[0]
-        qd, _ = pack_values_q(g_dev[:, 0], h_dev[:, 0], "int8h", n)
-        qh, _ = pack_values_q(g[:, 0], h[:, 0], "int8h", n)
-        rows = torch.stack([((g_dev != g) | (h_dev != h)).any(1).sum(),
-                            (qd != qh).any(0).sum()]).tolist()
-        moved.append({"gradient_rows": rows[0], "quanta_rows": rows[1]})
+        rows = [((g_dev != g) | (h_dev != h)).any(1).sum()]
+        if quanta:
+            q = torch.zeros(n, dtype=torch.bool, device=g.device)
+            for k in range(g.shape[1]):
+                qd, _ = pack_values_q(g_dev[:, k], h_dev[:, k], "int8h", n)
+                qh, _ = pack_values_q(g[:, k], h[:, k], "int8h", n)
+                q |= (qd != qh).any(0)[:n]
+            rows.append(q.sum())
+        rows = torch.stack(rows).tolist()
+        moved.append({"gradient_rows": rows[0],
+                      "quanta_rows": rows[1] if quanta else None})
         return g, h
 
-    GBDT.gradients = on_host
+    ObjectiveFunction.get_gradients_k = on_host
     try:
         yield
     finally:
-        GBDT.gradients = on_card
+        ObjectiveFunction.get_gradients_k = on_card
 
 
-def fullsize_binary(lgb, counters, cell: str, rec: dict, fs: dict, X, y,
-                    ds, rounds: int, card: str, Xv=None, yv=None,
-                    **kw) -> dict:
-    """One binary cell: its model from phases 4, 5 or 12 against the
-    record, the AUCs beside the record's, the sample rows' raw scores of
-    an identical model; then the same training with the CPU's gradients
-    against the record.  -> the host-gradient run's launches."""
-    import numpy as np
-    from lightgbm_tpu_torch.metric.metrics import binary_auc
-    from lightgbm_tpu_torch.serve import compile_model
-    bst = fs["booster"]
-    res = against_record(rec, bst)
-    ref = rec["metrics"]
-    if Xv is None:
-        auc = fs.get("train_auc")
-        if auc is None:
-            auc = binary_auc(y, bst.predict(X))
-        res["train_auc"], res["record_train_auc"] = auc, ref["train_auc"]
-        gap = abs(auc - ref["train_auc"])
-    else:
-        # the train AUC of every tree, beside the record's (not held: the
-        # two models stop at other iterations)
-        res.update(valid_auc=fs["valid_auc"],
-                   record_valid_auc=ref["valid_auc"],
-                   best_iteration=bst.best_iteration,
-                   record_best_iteration=ref["best_iteration"],
-                   train_auc=binary_auc(y, bst.predict(
-                       X, num_iteration=bst.current_iteration())),
-                   record_train_auc=ref["train_auc"])
-        gap = abs(fs["valid_auc"] - ref["valid_auc"])
-    if not gap <= FULLSIZE_AUC_TOL:
-        raise AssertionError(f"{cell}: AUC {gap:.3g} from the record's "
-                             f"(tolerance {FULLSIZE_AUC_TOL})")
-    rows = np.asarray(rec["sample"]["rows"])
-    if res["identical"]:
-        if cell == "serving":
-            raw = compile_model(bst).predict_raw(X[rows])
-        else:
-            raw = bst.predict(X[rows], num_iteration=bst.current_iteration(),
-                              raw_score=True)
-        res["sample_raw"] = sample_raw_check(rec, raw)
+def moved_by_iteration(moved: list, calls: int) -> list:
+    """The per-call counts of :func:`host_gradients` summed over each
+    iteration's ``calls`` calls (a stream's blocks)."""
+    out = []
+    for i in range(0, len(moved), calls):
+        part = moved[i:i + calls]
+        q = [m["quanta_rows"] for m in part]
+        out.append({"gradient_rows": sum(m["gradient_rows"] for m in part),
+                    "quanta_rows": None if None in q else sum(q)})
+    return out
+
+
+def host_gradient_rerun(lgb, counters, cell: str, rec: dict, res: dict,
+                        rerun, quanta: bool = True, calls: int = 1,
+                        metric=None) -> dict:
+    """The cell trained again on the card with the CPU's gradients
+    (``rerun() -> (booster, seconds, launches)``), held to the record the
+    same way, into ``res["host_gradients"]``: where it parts, the rows
+    the card's own gradients moved at iteration 0 and at the card's
+    first divergence, and the iterations with moved quanta (``metric(
+    booster)``, if given, its metric).  -> its launches."""
+    from tools.torch_fullsize_ref import num_class
     moved = []
-    with host_gradients(moved):
-        hbst, seconds, launches = train_path(
-            lgb, f"full-size {cell}, gradients from the CPU", counters,
-            rec["params"], ds, rounds, **kw)
+    with host_gradients(moved, quanta):
+        hbst, seconds, launches = rerun()
     hres = against_record(rec, hbst)
+    per_iter = moved_by_iteration(moved, calls)
     flip = (res["first_divergence"] or {}).get("tree")
+    it = None if flip is None else flip // num_class(rec["cell"])
     res["host_gradients"] = {
         "identical_trees": hres["identical_trees"],
         "identical": hres["identical"],
         "first_divergence": hres["first_divergence"],
         "widest_leaf_gap": hres["widest_leaf_gap"],
         "seconds": round(seconds, 3),
-        "moved_iter0": moved[0],
-        "moved_at_card_flip": (moved[flip] if flip is not None
-                               and flip < len(moved) else None),
-        "iterations_with_moved_quanta": sum(m["quanta_rows"] > 0
-                                            for m in moved)}
-    if Xv is None:
-        res["host_gradients"]["train_auc"] = binary_auc(y, hbst.predict(X))
+        "moved_iter0": per_iter[0] if per_iter else None,
+        "moved_at_card_flip": (per_iter[it] if it is not None
+                               and it < len(per_iter) else None),
+        "iterations_with_moved_gradients": sum(
+            m["gradient_rows"] > 0 for m in per_iter),
+        "iterations_with_moved_quanta": (
+            sum(m["quanta_rows"] > 0 for m in per_iter) if quanta
+            else None)}
+    if metric is not None:
+        res["host_gradients"].update(metric(hbst))
+    return launches
+
+
+def fullsize_held(lgb, counters, cell: str, rec: dict, bst, got: dict,
+                  tol: float, rerun, card: str, quanta: bool = True,
+                  calls: int = 1, metric=None, raw_of=None,
+                  extra=None) -> dict:
+    """A cell that may part from its record at a near-tie (C6 on the
+    card, C8 and C10 on the CPU): its model against the record, its
+    metric (``got``, one name: value) within ``tol`` of the record's, an
+    identical model's raw scores of the sample rows (``raw_of(booster)``)
+    against the record's host walk, then :func:`host_gradient_rerun`
+    (``extra``: more fields of the phase's line).  -> the rerun's
+    launches."""
+    res = against_record(rec, bst)
+    res.update(extra or {})
+    (name, value), = got.items()
+    want = rec["metrics"][name]
+    res[name], res["record_" + name], res["tolerance"] = value, want, tol
+    gap = abs(value - want)
+    if not gap <= tol:
+        raise AssertionError(f"{cell}: {name} {value} is {gap:.3g} from "
+                             f"the record's {want} (tolerance {tol})")
+    if res["identical"] and raw_of is not None:
+        res["sample_raw"] = sample_raw_check(rec, raw_of(bst))
+    launches = host_gradient_rerun(lgb, counters, cell, rec, res, rerun,
+                                   quanta, calls, metric)
     phase_line(f"fullsize_{cell}", card, **res)
     return launches
 
 
-def fullsize_phase(lgb, counters, ds, X, z, small_xy, ds_small, dv_small,
-                   card: str) -> dict:
-    """Phase 31: the card's full-size models against the JAX package's
-    recorded models.  -> launches by path."""
+def fullsize_binary(lgb, counters, cell: str, rec: dict, fs: dict, X, y,
+                    ds, rounds: int, card: str, Xv=None, yv=None,
+                    **kw) -> dict:
+    """One binary cell: its model from phases 4, 5 or 12 against the
+    record, its train (or valid) AUC within ``FULLSIZE_AUC_TOL`` of the
+    record's, through :func:`fullsize_held`.  -> the host-gradient run's
+    launches."""
     import numpy as np
-    from tools.torch_fullsize_ref import data_sha256, load_record
-    recs = {c: load_record(c)
-            for c in ("headline", "headline_l2", "small_data", "serving")}
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    from lightgbm_tpu_torch.serve import compile_model
+    bst = fs["booster"]
+    rows = np.asarray(rec["sample"]["rows"])
+    if Xv is None:
+        auc = fs.get("train_auc")
+        got, extra = {"train_auc": binary_auc(y, bst.predict(X))
+                      if auc is None else auc}, {}
+    else:
+        # the train AUC of every tree, beside the record's (not held: the
+        # two models stop at other iterations)
+        got = {"valid_auc": fs["valid_auc"]}
+        extra = dict(best_iteration=bst.best_iteration,
+                     record_best_iteration=rec["metrics"]["best_iteration"],
+                     train_auc=binary_auc(y, bst.predict(
+                         X, num_iteration=bst.current_iteration())),
+                     record_train_auc=rec["metrics"]["train_auc"])
+
+    def raw_of(b):
+        if cell == "serving":
+            return compile_model(b).predict_raw(X[rows])
+        return b.predict(X[rows], num_iteration=b.current_iteration(),
+                         raw_score=True)
+    return fullsize_held(
+        lgb, counters, cell, rec, bst, got, FULLSIZE_AUC_TOL,
+        lambda: train_path(lgb, f"full-size {cell}, gradients from the "
+                           f"CPU", counters, rec["params"], ds, rounds,
+                           **kw), card, extra=extra, raw_of=raw_of,
+        metric=None if Xv is not None else (
+            lambda b: {"train_auc": binary_auc(y, b.predict(X))}))
+
+
+def fullsize_dp_rank(lgb, counters, job, full, rank: int,
+                     world: int) -> dict:
+    """One rank of phase 31's ``dp2_l2``: the headline's bins with the
+    latent as the label, this rank's contiguous half of the rows (the
+    JAX package's mesh order), ``lgb.train`` data-parallel."""
+    import numpy as np
+    z = np.load(job["labels"])["z"]
+    n = len(z)
+    per = -(-n // world)
+    mine = relabel(full, z).subset(np.arange(rank * per,
+                                             min(n, (rank + 1) * per)))
+    return mg_train(lgb, counters, job["params"], mine, job["iters"])
+
+
+def fullsize_dp(lgb, ds, X, z32, rec: dict, card: str) -> dict:
+    """``dp2_l2``: the L2 headline over a world of two ranks (gloo on one
+    card, NCCL on two) against the JAX package's 2-device mesh: both
+    ranks' models and the record bitwise, the sample rows' raw scores
+    the record's host walk rounded once.  -> launches summed over the
+    ranks."""
+    import numpy as np
+    tmp = tempfile.mkdtemp(prefix="lgbm_fullsize_dp_")
+    try:
+        t0 = time.time()
+        ds._constructed.save_binary(os.path.join(tmp, "headline"))
+        labels = os.path.join(tmp, "labels.npz")
+        np.savez(labels, z=z32)
+        job = os.path.join(tmp, "job.json")
+        with open(job, "w") as f:
+            json.dump({"bin": os.path.join(tmp, "headline.npz"),
+                       "labels": labels, "fullsize": True,
+                       "params": FULLSIZE_DP_PARAMS,
+                       "iters": FULLSIZE_DP_ITERS}, f)
+        ranks = run_rank_world(job, FULLSIZE_DP_WORLD, MG_TIMEOUT_S,
+                               "full-size dp2_l2")
+        seconds = time.time() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    models = [r["fullsize"]["model"] for r in ranks]
+    if any(m != models[0] for m in models):
+        raise AssertionError(f"dp2_l2: the ranks' models differ: "
+                             f"{first_line_diff(*models[:2])}")
+    bst = lgb.Booster(model_str=models[0], device="cuda")
+    res = against_record(rec, bst)
+    if not res["identical"]:
+        raise AssertionError(f"dp2_l2: the ranks' model is not the JAX "
+                             f"package's 2-device mesh model: {res}")
+    rows = np.asarray(rec["sample"]["rows"])
+    res["sample_raw"] = sample_raw_check(rec, bst.predict(X[rows],
+                                                          raw_score=True))
+    launches = {}
+    for r in ranks:
+        add_launches(launches, r["fullsize"]["launches"])
+        need(r["fullsize"]["launches"], ("route", "hist_active",
+                                         "hist_compact", "route_values"),
+             f"dp2_l2 rank {r['rank']}", absent=("hist_route",))
+    res.update(backend=ranks[0]["backend"],
+               devices=[r["device"] for r in ranks],
+               steady_ms_per_iter=[r["fullsize"]["steady_ms"]
+                                   for r in ranks],
+               seconds=round(seconds, 3),
+               launches_per_tree=[per_tree(r["fullsize"]["launches"],
+                                           FULLSIZE_DP_ITERS)
+                                  for r in ranks])
+    phase_line("fullsize_dp2_l2", card, **res)
+    return launches
+
+
+# phase 31's cells, in the order the phase runs them
+FULLSIZE_CELLS = ("headline_l2", "headline", "small_data", "serving",
+                  "dp2_l2", "headline_float", "multiclass", "rank",
+                  "stream")
+
+
+def fullsize_phase(lgb, counters, ds, X, z, small_xy, ds_small, dv_small,
+                   card: str, cells=FULLSIZE_CELLS) -> dict:
+    """Phase 31: the card's full-size models against the JAX package's
+    recorded models (``cells``, by default all nine).  A cell whose model
+    an earlier phase did not leave in ``FULLSIZE`` is trained here as its
+    record was.  -> launches by path."""
+    import numpy as np
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.metric.metrics import binary_auc
+    from tools.torch_fullsize_ref import (data_sha256, load_record,
+                                          multi_logloss, ndcg10,
+                                          store_sha256, stream_store)
+    recs = {c: load_record(c) for c in cells}
     y = (z > 0).astype(np.float32)
     z32 = z.astype(np.float32)
     Xs, ys, Xv, yv = small_xy
     Xsv, ysv = serve_train_data(np.random.RandomState(11))
+    y5 = class_labels(z, MC_CLASSES)
+    if "rank" in cells and "rank" not in FULLSIZE:
+        Xr, rel, sizes = rank_data()
+        FULLSIZE["rank"] = {"data": (Xr, rel, sizes), "dataset": lgb.Dataset(
+            Xr, label=rel, group=sizes,
+            params={"max_bin": RANK_PARAMS["max_bin"]}).construct()}
     data = {"headline": (X, y), "headline_l2": (X, z32),
-            "small_data": (Xs, ys, Xv, yv), "serving": (Xsv, ysv)}
+            "small_data": (Xs, ys, Xv, yv), "serving": (Xsv, ysv),
+            "headline_float": (X, y), "multiclass": (X, y5),
+            "dp2_l2": (X, z32)}
+    if "rank" in cells:
+        data["rank"] = FULLSIZE["rank"]["data"]
+    float_params = dict(HEADLINE_PARAMS, gpu_use_dp=True)
     params = {"headline": (HEADLINE_PARAMS, HEADLINE_ITERS, None),
               "headline_l2": (FULLSIZE_L2_PARAMS, FULLSIZE_L2_ITERS, None),
               "small_data": (TRAIN_CONF, SMALL_ITERS, SMALL_EARLY_STOP),
-              "serving": (SERVE_PARAMS, SERVE_ITERS, None)}
+              "serving": (SERVE_PARAMS, SERVE_ITERS, None),
+              "headline_float": (float_params, FLOAT_ITERS, None),
+              "multiclass": (MC_PARAMS, MC_ITERS, None),
+              "rank": (RANK_PARAMS, RANK_ITERS, None),
+              "dp2_l2": (FULLSIZE_DP_PARAMS, FULLSIZE_DP_ITERS, None),
+              "stream": (STREAM_PARAMS, STREAM_ITERS, None)}
     for cell, rec in recs.items():
-        if data_sha256(*data[cell]) != rec["data"]["sha256"]:
+        if cell in data and data_sha256(*data[cell]) \
+                != rec["data"]["sha256"]:
             raise AssertionError(f"{cell}: the data's sha256 is not the "
                                  f"record's")
         p, rounds, stop = params[cell]
@@ -6505,44 +6718,172 @@ def fullsize_phase(lgb, counters, ds, X, z, small_xy, ds_small, dv_small,
                                  f"this script's")
     out = {}
 
+    def timed(cell):
+        log(f"phase 31 through {cell}: {time.time() - t0:.1f} s")
+
     # headline_l2: trained here, bitwise the record
-    dsl = relabel(ds, z32)
-    bst, _, out["fullsize_l2"] = train_path(
-        lgb, "full-size headline_l2", counters, FULLSIZE_L2_PARAMS, dsl,
-        FULLSIZE_L2_ITERS)
-    need(out["fullsize_l2"], ("route", "route_values", "hist_route",
-                              "hist_compact"), "the full-size L2 path",
-         absent=("split_scan",))
-    rec = recs["headline_l2"]
-    res = against_record(rec, bst)
-    pred = bst.predict(X)
-    d = pred.astype(np.float64) - z32
-    res.update(train_l2=float(np.mean(d * d)),
-               record_train_l2=rec["metrics"]["train_l2"])
-    if not res["identical"]:
-        raise AssertionError(f"headline_l2: the card's L2 model is not the "
-                             f"JAX package's: {res}")
-    rows = np.asarray(rec["sample"]["rows"])
-    res["sample_raw"] = sample_raw_check(rec, bst.predict(
-        X[rows], raw_score=True))
-    phase_line("fullsize_headline_l2", card, **res)
-    del bst, dsl
+    t0 = time.time()
+    if "headline_l2" in cells:
+        dsl = relabel(ds, z32)
+        bst, _, out["fullsize_l2"] = train_path(
+            lgb, "full-size headline_l2", counters, FULLSIZE_L2_PARAMS, dsl,
+            FULLSIZE_L2_ITERS)
+        need(out["fullsize_l2"], ("route", "route_values", "hist_route",
+                                  "hist_compact"), "the full-size L2 path",
+             absent=("split_scan",))
+        rec = recs["headline_l2"]
+        res = against_record(rec, bst)
+        pred = bst.predict(X)
+        d = pred.astype(np.float64) - z32
+        res.update(train_l2=float(np.mean(d * d)),
+                   record_train_l2=rec["metrics"]["train_l2"])
+        if not res["identical"]:
+            raise AssertionError(f"headline_l2: the card's L2 model is not "
+                                 f"the JAX package's: {res}")
+        rows = np.asarray(rec["sample"]["rows"])
+        res["sample_raw"] = sample_raw_check(rec, bst.predict(
+            X[rows], raw_score=True))
+        phase_line("fullsize_headline_l2", card, **res)
+        del bst, dsl
+        timed("headline_l2")
 
     # the binary cells: phases 4, 5 and 12's models, then the CPU's
     # gradients on the card
-    out["fullsize_headline"] = fullsize_binary(
-        lgb, counters, "headline", recs["headline"], FULLSIZE["headline"],
-        X, y, ds, HEADLINE_ITERS, card)
-    out["fullsize_small_data"] = fullsize_binary(
-        lgb, counters, "small_data", recs["small_data"],
-        FULLSIZE["small_data"], Xs, ys, ds_small, SMALL_ITERS, card, Xv=Xv,
-        yv=yv, valid_sets=[dv_small], valid_names=["valid"],
-        early_stopping_rounds=SMALL_EARLY_STOP, verbose_eval=False)
-    dsv = lgb.Dataset(Xsv, label=ysv,
-                      params={"max_bin": SERVE_PARAMS["max_bin"]})
-    out["fullsize_serving"] = fullsize_binary(
-        lgb, counters, "serving", recs["serving"], FULLSIZE["serving"], Xsv,
-        ysv, dsv, SERVE_ITERS, card)
+    if "headline" in cells:
+        out["fullsize_headline"] = fullsize_binary(
+            lgb, counters, "headline", recs["headline"],
+            FULLSIZE["headline"], X, y, ds, HEADLINE_ITERS, card)
+    if "small_data" in cells:
+        out["fullsize_small_data"] = fullsize_binary(
+            lgb, counters, "small_data", recs["small_data"],
+            FULLSIZE["small_data"], Xs, ys, ds_small, SMALL_ITERS, card,
+            Xv=Xv, yv=yv, valid_sets=[dv_small], valid_names=["valid"],
+            early_stopping_rounds=SMALL_EARLY_STOP, verbose_eval=False)
+    if "serving" in cells:
+        dsv = lgb.Dataset(Xsv, label=ysv,
+                          params={"max_bin": SERVE_PARAMS["max_bin"]})
+        out["fullsize_serving"] = fullsize_binary(
+            lgb, counters, "serving", recs["serving"], FULLSIZE["serving"],
+            Xsv, ysv, dsv, SERVE_ITERS, card)
+    timed("binary cells")
+
+    # dp2_l2: two ranks, bitwise the JAX package's 2-device mesh
+    if "dp2_l2" in cells:
+        out["fullsize_dp2_l2"] = fullsize_dp(lgb, ds, X, z32,
+                                             recs["dp2_l2"], card)
+        timed("dp2_l2")
+
+    def kept(cell, train):
+        """The booster an earlier phase left for ``cell``, else one
+        trained here as the record was."""
+        if "booster" not in FULLSIZE.get(cell, {}):
+            FULLSIZE.setdefault(cell, {})["booster"] = train()[0]
+        return FULLSIZE[cell]["booster"]
+
+    # the float headline (phase 6): hilo through the float K1 and K3
+    if "headline_float" in cells:
+        def float_run():
+            return train_path(lgb, "full-size headline_float", counters,
+                              float_params, ds, FLOAT_ITERS)
+        bst = kept("headline_float", float_run)
+        auc = FULLSIZE["headline_float"].get("train_auc")
+        if auc is None:
+            auc = binary_auc(y, bst.predict(X))
+        rows = np.asarray(recs["headline_float"]["sample"]["rows"])
+        out["fullsize_headline_float"] = fullsize_held(
+            lgb, counters, "headline_float", recs["headline_float"], bst,
+            {"train_auc": float(auc)}, FULLSIZE_FLOAT_AUC_TOL, float_run,
+            card, quanta=False,
+            raw_of=lambda b: b.predict(X[rows], raw_score=True),
+            metric=lambda b: {"train_auc": float(binary_auc(
+                y, b.predict(X)))})
+        need(out["fullsize_headline_float"], (
+            "hist_route_float", "hist_compact_float", "route",
+            "route_values"), "the full-size float headline",
+            absent=("hist_route", "hist_compact", "hist_active"))
+        del bst
+        timed("headline_float")
+
+    # multiclass (phase 17): 5 trees an iteration, softmax
+    if "multiclass" in cells:
+        ds5 = FULLSIZE.get("multiclass", {}).get("dataset")
+        if ds5 is None:
+            ds5 = relabel(ds, y5)
+
+        def mc_run():
+            return train_path(lgb, "full-size multiclass", counters,
+                              MC_PARAMS, ds5, MC_ITERS)
+        bst = kept("multiclass", mc_run)
+        rows = np.asarray(recs["multiclass"]["sample"]["rows"])
+        out["fullsize_multiclass"] = fullsize_held(
+            lgb, counters, "multiclass", recs["multiclass"], bst,
+            {"train_multi_logloss": multi_logloss(y5, bst.predict(X))},
+            FULLSIZE_MC_LOSS_TOL, mc_run, card,
+            raw_of=lambda b: b.predict(X[rows], raw_score=True).ravel(),
+            metric=lambda b: {"train_multi_logloss": multi_logloss(
+                y5, b.predict(X))})
+        del bst, ds5
+        timed("multiclass")
+
+    # ranking (phase 19): lambdarank's buckets at 136 x 256 bins
+    if "rank" in cells:
+        Xr, rel, sizes = FULLSIZE["rank"]["data"]
+        dsr = FULLSIZE["rank"]["dataset"]
+
+        def rank_run():
+            return train_path(lgb, "full-size rank", counters, RANK_PARAMS,
+                              dsr, RANK_ITERS)
+        bst = kept("rank", rank_run)
+        rows = np.asarray(recs["rank"]["sample"]["rows"])
+        out["fullsize_rank"] = fullsize_held(
+            lgb, counters, "rank", recs["rank"], bst,
+            {"train_ndcg10": ndcg10(rel, sizes, bst.predict(
+                Xr, raw_score=True))},
+            FULLSIZE_NDCG_TOL, rank_run, card,
+            raw_of=lambda b: b.predict(Xr[rows], raw_score=True),
+            metric=lambda b: {"train_ndcg10": ndcg10(rel, sizes, b.predict(
+                Xr, raw_score=True))})
+        del bst, Xr, dsr
+        timed("rank")
+
+    # the 4,194,304-row stream (phase 8): K5's seeded carry, a block's
+    # gradients
+    if "stream" in cells:
+        rec = recs["stream"]
+        tmp = tempfile.mkdtemp(prefix="lgbm_fullsize_stream_")
+        try:
+            store = stream_store(lgb.outofcore, Config, tmp)
+            if store_sha256(store) != rec["data"]["sha256"]:
+                raise AssertionError("stream: the store's sha256 is not "
+                                     "the record's")
+            labels = store.labels_array()
+
+            def stream_run():
+                return counted(counters, lambda: lgb.train_streaming(
+                    dict(STREAM_PARAMS), store,
+                    num_boost_round=STREAM_ITERS, block_rows=STREAM_BLOCK,
+                    device="cuda"))
+
+            def stream_auc(g):
+                return {"train_auc": float(binary_auc(
+                    labels, g.scores.numpy()[:, 0]))}
+            g = kept("stream", stream_run)
+            rows = np.asarray(rec["sample"]["rows"])
+            want = np.array([float.fromhex(v)
+                             for v in rec["sample"]["scores"]], np.float32)
+            got = g.scores.numpy()[rows, 0]
+            out["fullsize_stream"] = fullsize_held(
+                lgb, counters, "stream", rec, g, stream_auc(g),
+                FULLSIZE_STREAM_AUC_TOL, stream_run, card, quanta=False,
+                calls=-(-store.n // STREAM_BLOCK), metric=stream_auc,
+                extra={"sample_scores_bitwise": int(np.sum(got == want)),
+                       "sample_rows": len(rows)})
+            need(out["fullsize_stream"], ("hist_active", "route",
+                                          "route_values"),
+                 "the full-size stream", absent=("hist_float",))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        timed("stream")
     FULLSIZE.clear()
     return out
 
@@ -6718,6 +7059,7 @@ def main() -> int:
            if hfloat[k] != 0]
     if ran:
         raise AssertionError(f"int8 kernels ran on the float path: {ran}")
+    FULLSIZE["headline_float"] = {"booster": bst, "train_auc": auc}
     del bst
 
     # 7.-11. the streamed out-of-core path

@@ -754,12 +754,54 @@ def lambdarank_bucket_grads(s, valid, label, gain, imd, disc, sigma: float,
 def fold_pair_grid(signed, hh, T: int, M: int):
     """Fold ``[C, T, M]`` pair grids to per-position rows ``[C, M]``: a
     row's pairs add to its position, a column's subtract (gradients) or
-    add (hessians)."""
+    add (hessians).  Every sum adds in the JAX package's compiled order
+    on the CPU, written out, so that each device gives the same bits
+    (``torch.sum`` adds in another order on each; ROADMAP C40): past
+    ``RANK_LANES`` documents a row in sequential blocks of 32
+    (``fixed_sum``) and a column in row order; at most ``RANK_LANES``
+    (a bucket of 16 or 32) a row folded into ``RANK_LANES`` lanes and
+    the lanes halved, a column's first ``RANK_LANES`` rows halved and
+    the rest added in order."""
+    from ..ops.histogram import fixed_sum
     pad = (0, M - T)
-    g = (torch.nn.functional.pad(signed.sum(dim=2), pad)
-         - signed.sum(dim=1))
-    h = torch.nn.functional.pad(hh.sum(dim=2), pad) + hh.sum(dim=1)
-    return g, h
+    if M <= 2 * RANK_LANES:
+        rows = _lane_sum
+        lanes = RANK_LANES if T >= RANK_LANES else 0
+    else:
+        rows, lanes = (lambda x: fixed_sum(x, 2)), 0
+
+    def cols(x):
+        acc = _halve(x[:, :lanes].movedim(1, -1)) if lanes else \
+            torch.zeros_like(x[:, 0])
+        for t in range(lanes, T):
+            acc = acc + x[:, t]
+        return acc
+    return (torch.nn.functional.pad(rows(signed), pad) - cols(signed),
+            torch.nn.functional.pad(rows(hh), pad) + cols(hh))
+
+
+# the JAX package's vector width in its compiled lambdarank folds on the
+# CPU (f32 lanes): buckets of at most 2 x this many documents fold by
+# lanes (:func:`fold_pair_grid`)
+RANK_LANES = 16
+
+
+def _halve(x):
+    """Sum over the last axis (a power of two) by halving: the first half
+    plus the second, until one is left."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _lane_sum(x):
+    """Sum over the last axis (a multiple of ``RANK_LANES``): its blocks of
+    ``RANK_LANES`` added in order into one, then halved."""
+    acc = x[..., :RANK_LANES]
+    for i in range(RANK_LANES, x.shape[-1], RANK_LANES):
+        acc = acc + x[..., i:i + RANK_LANES]
+    return _halve(acc)
 
 
 # torch's parallel grain: an elementwise call on at most this many

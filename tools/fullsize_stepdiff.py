@@ -11,11 +11,15 @@ printed.  ``--out`` writes a sha256 of every step's tensors, and
 host (the card's host against a CPU host, say)::
 
     python tools/fullsize_stepdiff.py --cell headline_l2 --devices cuda,cpu
+    python tools/fullsize_stepdiff.py --cell stream --devices cuda,cpu
     python tools/fullsize_stepdiff.py --devices cpu --out steps.json
     python tools/fullsize_stepdiff.py --devices cpu --against steps.json
 
 It also prints the numpy and torch versions and the cell's label mean as
 numpy's ``mean`` and as the port's fixed-order ``host_mean`` give it.
+Every cell of the tool but ``dp2_l2`` (a world of ranks) runs here: the
+stream through ``train_streaming`` on its store, whose per-block
+gradient calls (``get_gradients_k``) are recorded too.
 """
 from __future__ import annotations
 
@@ -62,6 +66,7 @@ def record_steps(log: list):
     appends ``(step, [(path, tensor)])`` to ``log``."""
     from lightgbm_tpu_torch.boosting.gbdt import GBDT
     from lightgbm_tpu_torch.learner import serial
+    from lightgbm_tpu_torch.objective.objectives import ObjectiveFunction
 
     def wrap(owner, name):
         f = getattr(owner, name)
@@ -82,6 +87,7 @@ def record_steps(log: list):
     for name in STEPS:
         wrap(serial, name)
     wrap(GBDT, "gradients")
+    wrap(ObjectiveFunction, "get_gradients_k")
 
 
 def same(a, b) -> bool:
@@ -139,28 +145,42 @@ def main(argv=None) -> int:
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.objective.objectives import host_mean
     from tools import torch_fullsize_ref as ref
-    X, y, _, _ = ref.cell_data(args.cell)
+    import tempfile
+    from lightgbm_tpu_torch.config import Config
+    if ref.CELLS[args.cell].get("mesh"):
+        raise SystemExit(f"{args.cell}: a world of ranks; see chip_smoke.py "
+                         f"phase 31")
+    stream = ref.CELLS[args.cell].get("stream")
+    tmp = tempfile.TemporaryDirectory()
+    if stream:
+        store = ref.stream_store(lgb.outofcore, Config, tmp.name)
+        y = store.labels_array()
+    else:
+        y = ref.cell_data(args.cell)[1]
     print(json.dumps({"numpy": np.__version__, "torch": torch.__version__,
                       "python": platform.python_version(),
                       "label_mean_numpy": float(y.mean()).hex(),
                       "label_mean_host_sum": float(host_mean(y)).hex()}),
           flush=True)
-    params = dict(ref.CELLS[args.cell]["params"])
-    ds = lgb.Dataset(X, label=y, params={"max_bin": params["max_bin"]})
     log, runs = [], {}
     record_steps(log)
     for dev in args.devices.split(","):
         log.clear()
         t0 = time.time()
-        bst = lgb.train(dict(params), ds, args.iters, device=dev)
-        runs[dev] = {"steps": list(log), "init": bst._gbdt.init_score_value,
-                     "trees": ref.tree_digests(bst._gbdt.models)}
+        if stream:
+            g, _ = ref.train_stream(lgb.train_streaming, store, args.iters,
+                                    device=dev)
+        else:
+            g = ref.train(lgb, args.cell, args.iters, device=dev)[0]._gbdt
+        runs[dev] = {"steps": list(log), "init": g.init_score_value,
+                     "trees": ref.tree_digests(g.models)}
         rec = ref.load_record(args.cell)["tree_digests"]
         print(json.dumps({"device": dev, "steps": len(log),
                           "seconds": round(time.time() - t0, 1),
                           "init_score": float(runs[dev]["init"]).hex(),
                           "trees_as_record": [a == b for a, b in zip(
                               runs[dev]["trees"], rec)]}), flush=True)
+    tmp.cleanup()
     devs = list(runs)
     if len(devs) >= 2:
         print(json.dumps({"first_differences": first_differences(
